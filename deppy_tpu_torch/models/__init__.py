@@ -1,0 +1,21 @@
+"""Workload generators (counterpart: ``deppy_tpu/models/__init__.py``)."""
+
+from .catalog import (
+    fleet_states,
+    giant_pinned_conflict,
+    gvk_conflict_catalog,
+    operatorhub_catalog,
+    pinned_tenant_catalog,
+    version_pinned_chains,
+)
+from .random_instance import random_instance
+
+__all__ = [
+    "fleet_states",
+    "giant_pinned_conflict",
+    "gvk_conflict_catalog",
+    "operatorhub_catalog",
+    "pinned_tenant_catalog",
+    "random_instance",
+    "version_pinned_chains",
+]

@@ -1,0 +1,95 @@
+"""The port stands alone: it imports nothing of JAX or of ``deppy_tpu``,
+never runs on the CPU unasked, and a CPU solve launches no kernel."""
+
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from deppy_tpu_torch import engine, sat
+from deppy_tpu_torch.resolution import BatchResolver
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "deppy_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "deppy_tpu")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_deppy_tpu_import(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert bad == []
+
+
+def test_fresh_process_cpu_solve_loads_no_jax():
+    code = textwrap.dedent("""
+        import sys
+        before = set(sys.modules)
+        from deppy_tpu_torch.models import pinned_tenant_catalog
+        from deppy_tpu_torch.resolution import BatchResolver
+        out = BatchResolver(device="cpu").solve(
+            [pinned_tenant_catalog(seed=s) for s in range(2)])
+        assert len(out) == 2
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new
+                     if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    problem = [sat.variable("a", sat.mandatory())]
+    with pytest.raises(RuntimeError, match="cuda"):
+        BatchResolver().solve([problem])
+    with pytest.raises(RuntimeError, match="cuda"):
+        sat.Solver(problem).solve()
+
+
+def test_unknown_device_raises():
+    with pytest.raises(ValueError):
+        sat.Solver([sat.variable("a")], device="meta").solve()
+
+
+def test_cpu_solve_launches_no_kernel():
+    from deppy_tpu_torch.models import pinned_tenant_catalog
+
+    engine.reset_launch_counts()
+    out = BatchResolver(device="cpu").solve(
+        [pinned_tenant_catalog(seed=s) for s in range(3)])
+    assert len(out) == 3
+    assert engine.launch_counts() == {k: 0 for k in engine.KERNELS}
+
+
+def test_build_happens_at_first_use_only():
+    """Importing the package builds nothing: the library is loaded (and
+    built) by the first CUDA launch."""
+    from deppy_tpu_torch.engine import _build
+
+    assert _build._LIB is None or torch.cuda.is_available()
+    assert set(_build.SOURCES) == {"bcp.cu", "search.cu", "minimize.cu",
+                                   "core.cu"}
+    for name in _build.SOURCES + _build.HEADERS:
+        assert (_build.CSRC / name).is_file()
