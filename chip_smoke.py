@@ -9,32 +9,45 @@ Run from the repository root, with one card visible::
 
 Phases, each fatal on failure:
 
-1. the card's name and power limit, and the build of the four kernels
+1. the card's name and power limit, and the build of the five kernels
    from ``deppy_tpu_torch/engine/csrc``;
-2. the main path at the sizes users run (the BASELINE.json configs on one
-   card): ``BatchResolver(device="cuda").solve`` over 10,000
-   ``gvk_conflict_catalog(20, 4, 10)`` cluster states, 1,000
-   ``pinned_tenant_catalog`` states (mostly UNSAT, so the unsat-core
-   phase runs at scale) and 1,000 ``version_pinned_chains(20, 3)``
-   catalogs, then one ``Solver(operatorhub_catalog(40, 5)).solve()``.
-   Each family prints its wall time, problems per second, outcome counts
-   and the launches of each kernel (counts set to 0 just before it runs
-   and read just after);
-3. the answers: every solution satisfies every constraint of its
-   problem, every unsat core is non-empty, no result is Incomplete, and
-   the first problems of each family give the same answers on
-   ``device="cpu"`` (the kernels' plain versions);
-4. one 512-problem chunk of the headline fleet under ``torch.profiler``:
-   device time by kernel and the card's busy share;
-5. each kernel against its plain version on the same CUDA tensors, 32
-   lanes of each family padded to the family's main-path dims, plus 32
-   lanes of a small family whose minimization probes do run: every
-   output must be equal (integers, tolerance 0).  Each kernel's time is
-   its own device time from ``torch.profiler``; the wrapper's time (CUDA
+2. the bits path (``set_bcp_impl("auto")``) at the sizes users run (the
+   BASELINE.json configs on one card): ``BatchResolver(device="cuda")
+   .solve`` over 10,000 ``gvk_conflict_catalog(20, 4, 10)`` cluster
+   states, 1,000 ``pinned_tenant_catalog`` states (mostly UNSAT, so the
+   unsat-core phase runs at scale) and 1,000 ``version_pinned_chains(20,
+   3)`` catalogs, then one ``Solver(operatorhub_catalog(40, 5)).solve()``;
+3. the blockwise path (``set_bcp_impl("blockwise")``): one
+   ``Solver(operatorhub_catalog(1000, 8)).solve()`` (the giant catalog,
+   48 MiB of full-space clause planes), ``BatchResolver`` over 64
+   ``operatorhub_catalog(250, 8)`` catalogs and 256 pinned-tenant states,
+   and one 803-constraint UNSAT problem whose core the host engine
+   extracts.  Each family of both paths prints its wall time, problems
+   per second, outcome counts and the launches of each kernel (counts set
+   to 0 just before it runs and read just after);
+4. the answers: every solution satisfies every constraint of its
+   problem, every unsat core is non-empty, no result is Incomplete; the
+   first problems of each bits family give the same answers on
+   ``device="cpu"`` (the kernels' plain versions), the blockwise answers
+   equal the bits path's on the same problems, and the 803-constraint
+   problem's core is its three conflicting constraints;
+5. one 512-problem chunk of the headline fleet, and the 64-catalog batch
+   under blockwise, under ``torch.profiler``: device time by kernel and
+   the card's busy share;
+6. each kernel against its plain version on the same inputs, 32 lanes of
+   each family padded to the family's main-path dims, plus 32 lanes of a
+   small family whose minimization probes do run: every output must be
+   equal (integers, tolerance 0).  Kernels 1, 3, 4 and 5 are timed on
+   the bits path's dims, the blockwise kernel on the giant catalog's
+   baseline fixpoint (and held against kernel 1 there).  The phase
+   kernels under blockwise are held against their plain versions at
+   tiles of 1 and 7 rows, the plain versions running on CPU copies of
+   the inputs in a pool of worker processes.  Each kernel's time is its
+   own device time from ``torch.profiler``; the wrapper's time (CUDA
    events, the host work that prepares a launch included) and the plain
    version's time stand beside it, with a bound from bytes and
    operations;
-6. the ``kernels:`` line and the JSON summary of every kernel.
+7. the ``kernels:`` line and the JSON summary of every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card,
 or without the package beside this script, it exits non-zero and prints
@@ -45,9 +58,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the 32-bit
 # non-tensor rate used for the kernels' integer bit operations.
@@ -57,6 +73,19 @@ OPS_PER_S = 67e12
 COMPARE_LANES = 32
 REFERENCE_LANES = 16
 TIMED_REPS = 5
+
+# The blockwise path: the repo's over-VMEM case, one giant catalog
+# (deppy_tpu/benchmarks/pallas_case.py:129-133), and a batch at that
+# benchmark's default size (:126-127).
+GIANT = (1000, 8)
+BATCH = (250, 8)
+BATCH_LANES = 64
+TENANT_LANES = 256
+# Tile heights the phase kernels are held at under blockwise, and the
+# lanes of gvk_fleet compared at 1-row tiles (its plain version at that
+# height is the slowest comparison of the run).
+SMALL_TILES = (1, 7)
+GVK_TILE1_LANES = 8
 
 
 def fail(msg: str) -> None:
@@ -130,6 +159,54 @@ def check_solution(variables, solution) -> None:
                 fail(f"solution violates {c.string(v.identifier)!r}")
 
 
+def operatorhub_batch(scale: float):
+    """The blockwise path's batch: 64 ``operatorhub_catalog(250, 8)``."""
+    from deppy_tpu_torch.models import operatorhub_catalog
+
+    return [operatorhub_catalog(*BATCH, seed=s)
+            for s in range(max(8, int(BATCH_LANES * scale)))]
+
+
+def giant_unsat(fillers: int = 800):
+    """``x0`` mandatory and conflicting with ``x1``, ``x1`` mandatory,
+    plus ``fillers`` mandatory fillers: 803 applied constraints whose core
+    is the first three, past the host-core threshold."""
+    from deppy_tpu_torch.sat import conflict, mandatory, variable
+
+    vs = [variable("x0", mandatory(), conflict("x1")),
+          variable("x1", mandatory())]
+    return vs + [variable(f"f{i}", mandatory()) for i in range(fillers)]
+
+
+def solve_one(variables):
+    """``Solver(variables, device="cuda").solve()`` as a solution dict, or
+    the NotSatisfiable it raised."""
+    from deppy_tpu_torch.sat import NotSatisfiable, Solver
+
+    try:
+        installed = Solver(variables, device="cuda").solve()
+    except NotSatisfiable as e:
+        return e
+    answer = {v.identifier: False for v in variables}
+    answer.update({v.identifier: True for v in installed})
+    return answer
+
+
+def check_answers(name: str, pool, results) -> None:
+    """Every solution satisfies its problem, every core is non-empty,
+    nothing is Incomplete."""
+    from deppy_tpu_torch.sat import NotSatisfiable
+
+    for variables, r in zip(pool, results):
+        if isinstance(r, dict):
+            check_solution(variables, r)
+        elif isinstance(r, NotSatisfiable):
+            if not r.constraints:
+                fail(f"{name}: empty unsat core")
+        else:
+            fail(f"{name}: unexpected result {r!r}")
+
+
 def render(result):
     from deppy_tpu_torch.sat.errors import NotSatisfiable
 
@@ -142,13 +219,14 @@ def render(result):
 
 
 def run_main_path(scale: float):
-    """Phase 2 and 3: resolve every family on the card and check it."""
+    """Phases 2 and 4: resolve every family of the bits path on the card
+    and check it."""
     import torch
 
     from deppy_tpu_torch import engine
     from deppy_tpu_torch.models import operatorhub_catalog
     from deppy_tpu_torch.resolution import BatchResolver
-    from deppy_tpu_torch.sat import Incomplete, NotSatisfiable, Solver
+    from deppy_tpu_torch.sat import Incomplete, NotSatisfiable
     from deppy_tpu_torch.sat.encode import encode
 
     launches = {k: 0 for k in engine.KERNELS}
@@ -183,25 +261,13 @@ def run_main_path(scale: float):
                                 launches=counts)
         if n_inc:
             fail(f"{name}: {n_inc} Incomplete results at the default budget")
-        for variables, r in zip(pool, results):
-            if isinstance(r, dict):
-                check_solution(variables, r)
-            elif isinstance(r, NotSatisfiable):
-                if not r.constraints:
-                    fail(f"{name}: empty unsat core")
-            else:
-                fail(f"{name}: unexpected result {r!r}")
+        check_answers(name, pool, results)
         samples[name] = (pool[:REFERENCE_LANES], results[:REFERENCE_LANES])
 
     variables = operatorhub_catalog(40, 5)
     engine.reset_launch_counts()
     t0 = time.perf_counter()
-    try:
-        installed = Solver(variables, device="cuda").solve()
-        answer = {v.identifier: False for v in variables}
-        answer.update({v.identifier: True for v in installed})
-    except NotSatisfiable as e:
-        answer = e
+    answer = solve_one(variables)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = engine.launch_counts()
@@ -234,40 +300,124 @@ def run_main_path(scale: float):
     return launches, per_family
 
 
-def profile_chunk(scale: float) -> dict:
-    """Device time by kernel over one main-path chunk (512 problems) of
-    the headline fleet, from ``torch.profiler``: where the time goes."""
+def run_blockwise_path(scale: float):
+    """Phases 3 and 4 under ``set_bcp_impl("blockwise")``: the giant
+    catalog, the 64-catalog batch, pinned tenants and the host-routed
+    giant core; then the same batches on the bits path, whose answers the
+    blockwise ones must equal."""
+    import torch
+
+    from deppy_tpu_torch import engine
+    from deppy_tpu_torch.engine import core
+    from deppy_tpu_torch.models import (operatorhub_catalog,
+                                        pinned_tenant_catalog)
+    from deppy_tpu_torch.resolution import BatchResolver
+    from deppy_tpu_torch.sat import NotSatisfiable
+    from deppy_tpu_torch.sat.encode import encode
+
+    giant = operatorhub_catalog(*GIANT, seed=0)
+    batch = operatorhub_batch(scale)
+    tenants = [pinned_tenant_catalog(seed=s)
+               for s in range(max(COMPARE_LANES, int(TENANT_LANES * scale)))]
+    unsat = giant_unsat()
+    work = [("giant", [giant], lambda: [solve_one(giant)]),
+            ("operatorhub_batch", batch,
+             lambda: BatchResolver(device="cuda").solve(batch)),
+            ("tenants", tenants,
+             lambda: BatchResolver(device="cuda").solve(tenants)),
+            ("host_core", [unsat], lambda: [solve_one(unsat)])]
+    launches = {k: 0 for k in engine.KERNELS}
+    per_family, answers = {}, {}
+    core.set_bcp_impl("blockwise")
+    try:
+        for name, pool, run in work:
+            torch.cuda.synchronize()
+            engine.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = engine.launch_counts()
+            for k in launches:
+                launches[k] += counts[k]
+            n_sat = sum(isinstance(r, dict) for r in results)
+            print(f"blockwise path {name}: {len(pool)} problems in "
+                  f"{wall:.3f} s ({len(pool) / wall:.2f} problems/s); sat "
+                  f"{n_sat} unsat {len(pool) - n_sat}; launches {counts}",
+                  flush=True)
+            per_family[name] = dict(problems=len(pool), wall_s=wall,
+                                    problems_per_s=len(pool) / wall,
+                                    sat=n_sat, launches=counts)
+            check_answers(name, pool, results)
+            answers[name] = results
+    finally:
+        core.set_bcp_impl("auto")
+
+    want = sorted(str(c) for c in encode(unsat).applied[:3])
+    got = answers["host_core"][0]
+    if (not isinstance(got, NotSatisfiable)
+            or sorted(str(c) for c in got.constraints) != want):
+        fail(f"host_core: expected the core {want}, got {got!r}")
+    print(f"blockwise path host_core: core {want}", flush=True)
+
+    # The same problems on the bits path: the answers must be equal.
+    for name, pool, run in work:
+        t0 = time.perf_counter()
+        ref = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [render(r) for r in answers[name]]
+        if got != [render(r) for r in ref]:
+            fail(f"{name}: blockwise answers differ from the bits path's")
+        per_family[name]["bits_wall_s"] = wall
+        print(f"bits path {name}: {len(pool)} answers equal to blockwise's "
+              f"in {wall:.3f} s", flush=True)
+    return launches, per_family
+
+
+def profile_solve(name: str, pool, impl: str = "auto") -> dict:
+    """Device time by kernel over one resolve of ``pool``, from
+    ``torch.profiler``: where the time goes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from deppy_tpu_torch.engine import core
     from deppy_tpu_torch.resolution import BatchResolver
 
-    name, count, make = families(scale)[0]
-    pool = [make(i) for i in range(min(count, 512))]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    BatchResolver(device="cuda").solve(pool)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    core.set_bcp_impl(impl)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         BatchResolver(device="cuda").solve(pool)
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            BatchResolver(device="cuda").solve(pool)
+            torch.cuda.synchronize()
+    finally:
+        core.set_bcp_impl("auto")
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.self_device_time_total > 0
                    and e.key != "Activity Buffer Request"),
                   key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    print(f"profile {name}, {len(pool)} problems: wall {wall_ms:.1f} ms "
-          f"(unprofiled), device {device_ms:.2f} ms, busy share "
-          f"{device_ms / wall_ms:.4f}", flush=True)
+    print(f"profile {name} ({impl}), {len(pool)} problems: wall "
+          f"{wall_ms:.1f} ms (unprofiled), device {device_ms:.2f} ms, busy "
+          f"share {device_ms / wall_ms:.4f}", flush=True)
     for key, ms, n in rows[:8]:
         print(f"  device {ms:9.3f} ms  x{n:<5d} {key[:90]}", flush=True)
-    return dict(family=name, problems=len(pool), wall_ms=wall_ms,
+    return dict(family=name, impl=impl, problems=len(pool), wall_ms=wall_ms,
                 device_ms=device_ms,
                 top=[dict(kernel=k[:90], ms=ms, calls=n)
                      for k, ms, n in rows[:8]])
+
+
+def profile_chunk(scale: float) -> dict:
+    """One main-path chunk (512 problems) of the headline fleet."""
+    name, count, make = families(scale)[0]
+    return profile_solve(name, [make(i) for i in range(min(count, 512))])
 
 
 # --------------------------------------------------------------------------
@@ -275,8 +425,10 @@ def profile_chunk(scale: float) -> dict:
 
 
 # Each kernel's symbol, as the profiler names its device activity.
-KERNEL_SYMBOLS = {"bcp_fixpoint": "bcp_kernel", "search": "search_kernel",
-                  "minimize": "minimize_kernel", "core": "core_kernel"}
+KERNEL_SYMBOLS = {"bcp_fixpoint": "bcp_kernel",
+                  "blockwise_fixpoint": "blockwise_kernel",
+                  "search": "search_kernel", "minimize": "minimize_kernel",
+                  "core": "core_kernel"}
 
 
 def _device_ms(prof, symbol: str) -> float:
@@ -496,23 +648,230 @@ def compare_kernels(scale: float, launches: dict):
     return rows
 
 
+def _plain_task(module: str, fn: str, args, kwargs):
+    """Run one plain version on CPU tensors in a worker process."""
+    import importlib
+
+    import torch
+
+    torch.set_num_threads(1)
+    mod = importlib.import_module(f"deppy_tpu_torch.engine.{module}")
+    return [x.numpy() for x in getattr(mod, fn)(*args, **kwargs)]
+
+
+def _lanes(x, lo: int, hi: int):
+    """Lanes [lo, hi) of an argument, on the CPU: tensors and
+    ProblemTensors are cut on their batch axis, anything else passes."""
+    import torch
+
+    from deppy_tpu_torch.engine import core
+
+    if isinstance(x, core.ProblemTensors):
+        return core.ProblemTensors(*[f[lo:hi].cpu() for f in x])
+    if isinstance(x, torch.Tensor) and x.dim() > 0:
+        return x[lo:hi].cpu()
+    return x
+
+
+class PlainPool:
+    """Plain versions run on CPU copies of the kernels' inputs, a few lanes
+    per task, in a pool of worker processes; :meth:`check` compares each
+    with the kernel's outputs once every task is in."""
+
+    def __init__(self):
+        workers = max(1, min(8, os.cpu_count() or 1))
+        self.pool = ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+        self.jobs = []
+
+    def submit(self, label, got, module, fn, args, kwargs, B, chunk=2):
+        futures = [self.pool.submit(
+            _plain_task, module, fn, [_lanes(a, lo, lo + chunk) for a in args],
+            {k: _lanes(v, lo, lo + chunk) for k, v in kwargs.items()})
+            for lo in range(0, B, chunk)]
+        self.jobs.append((label, [g.cpu() for g in got], futures))
+
+    def check(self) -> int:
+        """Compare every submitted job; returns the comparisons made."""
+        import numpy as np
+        import torch
+
+        for (kernel, family, what), got, futures in self.jobs:
+            parts = [f.result() for f in futures]
+            want = [torch.from_numpy(np.concatenate(o)) for o in zip(*parts)]
+            _same(kernel, family, what, got, want)
+        n = len(self.jobs)
+        self.jobs = []
+        return n
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _bound_blockwise(nbytes: int, rounds: int, sweeps: int, tile: int,
+                     NA: int, W: int):
+    """(bound ms, bound_by) of blockwise fixpoints: the bytes read and
+    written once, and the operations of ``rounds`` tile rounds plus the
+    AtMost rows of one tile-0 round per sweep."""
+    ops = rounds * (12 * tile * W + 8 * W) + sweeps * 7 * NA * W
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
+    """Phase 6 for the blockwise impl: the blockwise kernel against its
+    plain version on every family (timed at the natural tile, held at
+    tiles of 1 and 7 rows), and against kernel 1 on the giant catalog's
+    baseline fixpoint; the phase kernels under blockwise against their
+    plain versions at tiles of 1 and 7 rows."""
+    import torch
+
+    from deppy_tpu_torch.engine import (core, cuda_bcp, cuda_blockwise,
+                                        cuda_search, driver)
+    from deppy_tpu_torch.models import operatorhub_catalog
+    from deppy_tpu_torch.sat.encode import encode
+
+    dev = torch.device("cuda")
+    budget = driver.DEFAULT_MAX_STEPS
+    row = dict(max_abs_err=0, families={})
+    small = families(scale) + [("forced_extras", COMPARE_LANES,
+                                forced_extras)]
+    big = [("giant", 1, lambda i: operatorhub_catalog(*GIANT, seed=0)),
+           ("operatorhub_batch", COMPARE_LANES,
+            lambda i: operatorhub_catalog(*BATCH, seed=i))]
+    big_names = {name for name, _, _ in big}
+    for name, count, make in small + big:
+        probs = [encode(make(i)) for i in range(min(count, driver.MAX_LANES))]
+        d = driver._Dims(probs, len(probs))
+        lanes = probs[:COMPARE_LANES]
+        B = len(lanes)
+        pts = driver._upload(driver.pad_stack(lanes, d, B), dev)
+        full = core.with_planes(pts, Wv=d.Wv, Wr=d.Wr, red=False, full=True)
+        en = torch.ones(B, dtype=torch.bool, device=dev)
+        tile = cuda_blockwise.tile_rows(cuda_blockwise.BLOCK_ROWS, d.C, d.Wv,
+                                        d.NA)
+        print(f"compare blockwise {name}: {B} lanes, C {d.C} NA {d.NA} NV "
+              f"{d.NV} NCON {d.NCON} Wv {d.Wv}, tile rows {tile}", flush=True)
+
+        # Kernel 2: the baseline fixpoint of phase 1 under blockwise.
+        V = d.NV + d.NCON
+        base = core._apply_anchors(
+            full, core._base_assignment(full, V, d.NCON), V)
+        t_in = core.pack_mask(base == core.TRUE, d.Wv)
+        f_in = core.pack_mask(base == core.FALSE, d.Wv)
+        act = ((full.card_act_bits & t_in.unsqueeze(1)) != 0).any(-1)
+        fp_in = (full.pos_bits, full.neg_bits, full.card_member_bits,
+                 act.to(torch.int32), full.card_n,
+                 torch.zeros((B, d.Wv), dtype=torch.int32, device=dev),
+                 torch.zeros(B, dtype=torch.int32, device=dev), t_in, f_in,
+                 en.to(torch.int32))
+        got, *timing = _timed(
+            lambda: cuda_blockwise.bcp_fixpoint(*fp_in, block_rows=tile),
+            "blockwise_fixpoint", TIMED_REPS)
+        s0 = core.plain_sweeps
+        want, pms, rounds = _timed_plain(
+            lambda: cuda_blockwise.bcp_fixpoint_plain(*fp_in,
+                                                      block_rows=tile))
+        sweeps = core.plain_sweeps - s0
+        bad, err = _mismatch(got, want)
+        ms, wrapper_ms = timing
+        bound_ms, bound_by = _bound_blockwise(_nbytes(*fp_in, *got), rounds,
+                                              sweeps, tile, d.NA, d.Wv)
+        print(f"kernel blockwise_fixpoint on {name}: main-path launches "
+              f"{launches['blockwise_fixpoint']} ms {ms:.4f} wrapper_ms "
+              f"{wrapper_ms:.4f} plain_ms {pms:.3f} mismatches {bad} "
+              f"max_abs_err {err} tile rows {tile} sweeps per fixpoint "
+              f"{sweeps / B:.2f} rounds {rounds} bound_ms {bound_ms:.6f} "
+              f"({bound_by})", flush=True)
+        if bad:
+            fail(f"kernel blockwise_fixpoint disagrees with its plain "
+                 f"version on {name} ({bad} elements)")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        fam = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=pms,
+                   bound_ms=bound_ms, bound_by=bound_by, tile_rows=tile,
+                   sweeps_per_fixpoint=sweeps / B, rounds=rounds)
+        # Kernel 1 on the same inputs: the same conflict flags, and the
+        # same planes wherever there is no conflict.
+        bits, bcp_ms, _ = _timed(lambda: cuda_bcp.bcp_fixpoint(*fp_in),
+                                 "bcp_fixpoint", TIMED_REPS)
+        ok = got[0] == 0
+        bad = (int((bits[0] != got[0]).sum())
+               + int((bits[1] != got[1])[ok].sum())
+               + int((bits[2] != got[2])[ok].sum()))
+        print(f"kernel blockwise_fixpoint on {name}: against kernel 1 "
+              f"(bcp_fixpoint ms {bcp_ms:.4f}) mismatches {bad}", flush=True)
+        if bad:
+            fail(f"kernel blockwise_fixpoint disagrees with kernel 1 on "
+                 f"{name} ({bad} elements)")
+        fam["bcp_fixpoint_ms"] = bcp_ms
+        row["families"][name] = fam
+        if name in big_names:
+            continue
+
+        # Tiles of 1 and 7 rows: kernel 2 and the phase kernels, plain
+        # versions in the pool.
+        for br in SMALL_TILES:
+            nb = GVK_TILE1_LANES if (name == "gvk_fleet" and br == 1) else B
+            sub = core.ProblemTensors(*[f[:nb] for f in full])
+            en_b = en[:nb]
+            kw = dict(impl="blockwise", block_rows=br, NCON=d.NCON)
+            what = f"tile {br}, {nb} lanes"
+            got = cuda_blockwise.bcp_fixpoint(*[x[:nb] for x in fp_in],
+                                              block_rows=br)
+            plain.submit(("blockwise_fixpoint", name, what), got,
+                         "cuda_blockwise", "bcp_fixpoint_plain",
+                         [x[:nb] for x in fp_in],
+                         dict(block_rows=cuda_blockwise.tile_rows(
+                             br, d.C, d.Wv, d.NA)), nb)
+            s_args = (sub, budget, en_b)
+            got = cuda_search.batched_search_fused(*s_args, **kw)
+            plain.submit(("search", name, what), got, "cuda_search",
+                         "batched_search_plain", s_args, kw, nb)
+            result, guessed, model, steps = got[0], got[1], got[2], got[3]
+            m_args = (sub, result, model, guessed, budget, steps, en_b)
+            got = cuda_search.batched_minimize_fused(*m_args, **kw)
+            plain.submit(("minimize", name, what), got, "cuda_search",
+                         "batched_minimize_plain", m_args, kw, nb)
+            en_c = en_b & (result == core.UNSAT)
+            if bool(en_c.any()):
+                c_args = (sub, budget, steps, en_c)
+                got = cuda_search.batched_core_fused(*c_args, **kw)
+                plain.submit(("core", name, what), got, "cuda_search",
+                             "batched_core_plain", c_args, kw, nb)
+    torch.cuda.synchronize()
+    return row
+
+
 # --------------------------------------------------------------------------
 
 
 # The family whose numbers stand in the summary line for each kernel: the
 # headline fleet for kernels 1, 3 and 4, and the UNSAT-heavy fleet for the
 # core kernel (the only family where phase 3 carries the load).
-SUMMARY_FAMILY = {"bcp_fixpoint": "gvk_fleet", "search": "gvk_fleet",
+SUMMARY_FAMILY = {"bcp_fixpoint": "gvk_fleet",
+                  "blockwise_fixpoint": "giant", "search": "gvk_fleet",
                   "minimize": "gvk_fleet", "core": "pinned_tenant"}
 SOURCES = {
     "bcp_fixpoint": ("deppy_tpu_torch/engine/csrc/bcp.cu",
                      "deppy_tpu/engine/pallas_bcp.py:92"),
+    "blockwise_fixpoint": ("deppy_tpu_torch/engine/csrc/blockwise.cu",
+                           "deppy_tpu/engine/pallas_blockwise.py:127"),
     "search": ("deppy_tpu_torch/engine/csrc/search.cu",
                "deppy_tpu/engine/pallas_search.py:860"),
     "minimize": ("deppy_tpu_torch/engine/csrc/minimize.cu",
                  "deppy_tpu/engine/pallas_search.py:616"),
     "core": ("deppy_tpu_torch/engine/csrc/core.cu",
              "deppy_tpu/engine/pallas_search.py:785"),
+}
+
+
+# The kernels each path must launch (bcp_fixpoint is the bits path's
+# baseline fixpoint, blockwise_fixpoint the blockwise path's).
+PATH_KERNELS = {
+    "bits": ("bcp_fixpoint", "search", "minimize", "core"),
+    "blockwise": ("blockwise_fixpoint", "search", "minimize", "core"),
 }
 
 
@@ -535,21 +894,41 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
-    t0 = time.perf_counter()
-    _build.load()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds:.1f} s, 0 = reused) at "
-          f"{_build.library_path()}", flush=True)
+    plain = PlainPool()
+    try:
+        t0 = time.perf_counter()
+        _build.load()
+        print(f"kernels built in {time.perf_counter() - t0:.1f} s "
+              f"(nvcc {_build.build_seconds:.1f} s, 0 = reused) at "
+              f"{_build.library_path()}", flush=True)
 
-    launches, per_family = run_main_path(args.scale)
-    per_family["profile"] = profile_chunk(args.scale)
-    rows = compare_kernels(args.scale, launches)
+        by_path = {}
+        by_path["bits"], per_family = run_main_path(args.scale)
+        by_path["blockwise"], per_family_bw = run_blockwise_path(args.scale)
+        per_family["profile"] = profile_chunk(args.scale)
+        per_family["profile_blockwise"] = profile_solve(
+            "operatorhub_batch", operatorhub_batch(args.scale),
+            impl="blockwise")
+        rows = compare_kernels(args.scale, by_path["bits"])
+        rows["blockwise_fixpoint"] = compare_blockwise(
+            args.scale, by_path["blockwise"], plain)
+        t0 = time.perf_counter()
+        n = plain.check()
+        print(f"{n} comparisons at small tiles checked in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        plain.close()
 
+    launches = {k: sum(p[k] for p in by_path.values())
+                for k in engine.KERNELS}
+    for path, counts in by_path.items():
+        print(f"kernels ({path} path): " + " ".join(
+            f"{k}={counts[k]}" for k in engine.KERNELS), flush=True)
+        missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
+        if missing:
+            fail(f"the {path} path never launched {missing}")
     print("kernels: " + " ".join(f"{k}={launches[k]}"
                                  for k in engine.KERNELS), flush=True)
-    missing = [k for k in engine.KERNELS if launches[k] <= 0]
-    if missing:
-        fail(f"the main path never launched {missing}")
     missing = [k for k in engine.KERNELS if k not in rows]
     if missing:
         fail(f"kernels never compared with their plain versions: {missing}")
@@ -561,11 +940,14 @@ def main(argv=None) -> int:
         src, replaces = SOURCES[k]
         summary.append(dict(
             name=k, route="cuda", source=src, replaces=replaces,
-            launches=launches[k], max_abs_err=rows[k]["max_abs_err"],
+            launches=launches[k],
+            launches_by_path={p: c[k] for p, c in by_path.items()},
+            max_abs_err=rows[k]["max_abs_err"],
             ms=m["ms"], wrapper_ms=m["wrapper_ms"], plain_ms=m["plain_ms"],
             bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None, family=fam,
             by_family=rows[k]["families"]))
+    per_family.update({f"blockwise_{k}": v for k, v in per_family_bw.items()})
     print(f"total {time.perf_counter() - t_all:.1f} s; per family "
           f"{json.dumps(per_family)}", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -1,19 +1,22 @@
 """The tensor engine (counterpart: ``deppy_tpu/engine/__init__.py``).
 
-:mod:`.core` holds the data model and the plain versions of the kernels,
-:mod:`.cuda_bcp` and :mod:`.cuda_search` the kernel wrappers, and
-:mod:`.driver` the batched resolve path.
+:mod:`.core` holds the data model, the BCP impl selection and the plain
+versions of the kernels, :mod:`.cuda_bcp`, :mod:`.cuda_blockwise` and
+:mod:`.cuda_search` the kernel wrappers, and :mod:`.driver` the batched
+resolve path.
 """
 
-from . import cuda_bcp, cuda_search
+from . import cuda_bcp, cuda_blockwise, cuda_search
 
-KERNELS = ("bcp_fixpoint", "search", "minimize", "core")
+KERNELS = ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
+           "core")
 
 
 def launch_counts() -> dict:
     """Launches of each CUDA kernel since the counts were last reset."""
     return {
         "bcp_fixpoint": cuda_bcp.launches,
+        "blockwise_fixpoint": cuda_blockwise.launches,
         "search": cuda_search.search_launches,
         "minimize": cuda_search.minimize_launches,
         "core": cuda_search.core_launches,
@@ -23,6 +26,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     cuda_bcp.launches = 0
+    cuda_blockwise.launches = 0
     cuda_search.search_launches = 0
     cuda_search.minimize_launches = 0
     cuda_search.core_launches = 0

@@ -1,6 +1,6 @@
 """Build and load the CUDA kernels at first use (no counterpart: the JAX package's kernels compile through Pallas).
 
-The four kernel sources under ``csrc/`` compile with ``nvcc`` for
+The kernel sources under ``csrc/`` compile with ``nvcc`` for
 ``sm_90a``, one ``nvcc -c`` per source, all started together, and link
 into one shared library with a plain C interface that :mod:`ctypes`
 loads.  The library lands in ``build/torch_kernels/<hash>/`` at the
@@ -23,8 +23,8 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bcp.cu", "search.cu", "minimize.cu", "core.cu")
-HEADERS = ("fixpoint.cuh", "dpll.cuh")
+SOURCES = ("bcp.cu", "blockwise.cu", "search.cu", "minimize.cu", "core.cu")
+HEADERS = ("fixpoint.cuh", "blockwise.cuh", "dpll.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libdeppy_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,9 +39,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "deppy_bcp_fixpoint": [_P] * 13 + [_I] * 5 + [_P],
-    "deppy_search": [_P] * 13 + [_I] + [_P] * 7 + [_I] * 9 + [_P],
-    "deppy_minimize": [_P] * 13 + [_I] + [_P] * 4 + [_I] * 6 + [_P],
-    "deppy_core": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 8 + [_P],
+    "deppy_blockwise_fixpoint": [_P] * 13 + [_I] * 6 + [_P],
+    "deppy_search": [_P] * 14 + [_I] + [_P] * 7 + [_I] * 10 + [_P],
+    "deppy_minimize": [_P] * 14 + [_I] + [_P] * 4 + [_I] * 7 + [_P],
+    "deppy_core": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 9 + [_P],
     "deppy_search_scratch_words": [_I] * 3,
     "deppy_minimize_scratch_words": [_I] * 2,
     "deppy_core_scratch_words": [_I] * 2,

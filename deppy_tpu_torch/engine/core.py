@@ -7,14 +7,22 @@ Three layers, in the reference's order:
   :func:`unpack_mask`) — ``core.py:56-308``;
 * :func:`derive_planes`, which packs the compact clause and AtMost
   tensors into int32 bitplanes on the device — ``core.py:540-616``;
-* the plain versions of the four CUDA kernels: :func:`round_planes`,
-  :func:`planes_fixpoint`, :func:`dpll`, :func:`search`,
-  :func:`search_phase`, :func:`minimize_phase` and :func:`core_phase`
-  (``core.py:361-1621``).  They solve ONE problem with Python control
-  flow over torch tensors.  The CPU path and the tests run them; the
-  CUDA main path never does (the kernel wrappers in
-  :mod:`deppy_tpu_torch.engine.cuda_bcp` and
+* the plain versions of the CUDA kernels: :func:`round_planes`,
+  :func:`planes_fixpoint`, the blockwise fixpoint
+  (:func:`_fixpoint_blockwise_u`, ``pallas_blockwise.py:67-190``),
+  :func:`dpll`, :func:`search`, :func:`search_phase`,
+  :func:`minimize_phase` and :func:`core_phase` (``core.py:361-1621``).
+  They solve ONE problem with Python control flow over torch tensors.
+  The CPU path and the tests run them; the CUDA main path never does
+  (the kernel wrappers in :mod:`deppy_tpu_torch.engine.cuda_bcp`,
+  :mod:`deppy_tpu_torch.engine.cuda_blockwise` and
   :mod:`deppy_tpu_torch.engine.cuda_search` launch the kernels there).
+
+The BCP impl is selected as in the reference (``core.py:506-641``):
+:func:`set_bcp_impl` or the ``DEPPY_GPU_BCP`` knob.  ``bits`` (and
+``auto``) runs phases 1-2 in the reduced plane space with the plain
+fixpoint; ``blockwise`` runs them in the full space, and every fixpoint
+of every phase sweeps blocks of clause rows.
 
 Planes are packed int32 words as in the reference: variable ``v`` is bit
 ``v % 32`` of word ``v // 32``, so variable 31 of every word is the sign
@@ -25,6 +33,7 @@ shift is logical, and narrow back with :func:`_to_i32` at their edges.
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -45,9 +54,19 @@ WORD = 32
 # Deletion-probe chunk width of the unsat-core phase (core.py:1545).
 CORE_CHUNK = 8
 
-# Propagation rounds the plain versions have run (a kernel runs the same
-# rounds on the same inputs, so this counts a kernel's work too).
+# Propagation rounds, and blockwise sweeps, the plain versions have run (a
+# kernel runs the same rounds on the same inputs, so these count a
+# kernel's work too).
 plain_rounds = 0
+plain_sweeps = 0
+
+# BCP implementation (core.py:506-508).  The impls of the reference that
+# this package has not ported raise, naming the ROADMAP item that ports
+# them.
+_BCP_IMPLS = ("auto", "gather", "bits", "pallas", "blockwise", "watched")
+_NOT_PORTED = {"gather": "ROADMAP A8", "pallas": "ROADMAP A8",
+               "watched": "ROADMAP A3"}
+_BCP_IMPL = os.environ.get("DEPPY_GPU_BCP", "auto")
 
 _U32 = 0xFFFFFFFF
 _I32 = torch.int32
@@ -98,6 +117,39 @@ class SolveResult(NamedTuple):
 def lane(pts: ProblemTensors, b: int) -> ProblemTensors:
     """Lane ``b`` of a batch, without its batch axis."""
     return ProblemTensors(*[x[b] for x in pts])
+
+
+# --------------------------------------------------------------------------
+# BCP impl selection (core.py:634-641, 799-815, 1672-1675)
+
+
+def _check_impl(name: str) -> str:
+    if name not in _BCP_IMPLS:
+        raise ValueError(f"unknown BCP impl {name!r}")
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"BCP impl {name!r} is not ported to the GPU yet "
+            f"({_NOT_PORTED[name]})")
+    return name
+
+
+def set_bcp_impl(name: str) -> None:
+    """Select the BCP implementation: ``auto`` or ``bits`` (the reduced
+    plane space, plain fixpoints) or ``blockwise`` (the full plane space,
+    every fixpoint a sweep over blocks of clause rows)."""
+    global _BCP_IMPL
+    _BCP_IMPL = _check_impl(name)
+
+
+def resolved_impl() -> str:
+    """The impl a solve runs: ``auto`` resolves to ``bits``."""
+    impl = _check_impl(_BCP_IMPL)
+    return "bits" if impl == "auto" else impl
+
+
+def phases_reduced() -> bool:
+    """Whether phases 1-2 run in the reduced problem-var plane space."""
+    return resolved_impl() in ("bits", "watched")
 
 
 # --------------------------------------------------------------------------
@@ -362,7 +414,10 @@ class _Space(NamedTuple):
     """One problem's planes in one space, widened for the plain rounds.
     ``card_act_bits`` is set in the full space only: there AtMost-row
     activity follows the activation bits of each fixpoint's entry state
-    (core.py:900-902); the reduced space uses the static ``card_valid``."""
+    (core.py:900-902); the reduced space uses the static ``card_valid``.
+    ``block_rows`` selects the fixpoint: 0 runs the plain rounds (bits),
+    a positive count sweeps blocks of that many clause rows
+    (:func:`_fixpoint_blockwise_u`)."""
 
     pos: torch.Tensor
     neg: torch.Tensor
@@ -370,34 +425,43 @@ class _Space(NamedTuple):
     card_n: torch.Tensor
     card_valid: torch.Tensor
     card_act_bits: Optional[torch.Tensor]
+    block_rows: int = 0
 
 
-def _space(pt: ProblemTensors, red: bool) -> _Space:
+def _space(pt: ProblemTensors, red: bool, block_rows: int = 0) -> _Space:
     if red:
         return _Space(_to_u(pt.pos_bits_r), _to_u(pt.neg_bits_r),
                       _to_u(pt.card_member_bits_r), pt.card_n.to(_I64),
-                      pt.card_valid != 0, None)
+                      pt.card_valid != 0, None, block_rows)
     return _Space(_to_u(pt.pos_bits), _to_u(pt.neg_bits),
                   _to_u(pt.card_member_bits), pt.card_n.to(_I64),
-                  pt.card_valid != 0, _to_u(pt.card_act_bits))
+                  pt.card_valid != 0, _to_u(pt.card_act_bits), block_rows)
+
+
+def _row_activity(S: _Space, t) -> torch.Tensor:
+    """bool[NA]: the AtMost rows active for a fixpoint from ``t``."""
+    if S.card_act_bits is None:
+        return S.card_valid
+    return ((S.card_act_bits & t) != 0).any(-1)
 
 
 def _fixpoint_u(S: _Space, t, f, min_bits, min_w: int, run: bool,
                 pre_check: bool = True):
-    """Propagate to fixpoint from (t, f) (core.py:861-966, bits path).
-    A disabled run does zero rounds.  With ``pre_check`` an entry state
+    """Propagate to fixpoint from (t, f) (core.py:861-966), by the bits
+    rounds or, when ``S.block_rows`` is set, by blockwise sweeps.  A
+    disabled run does zero rounds.  With ``pre_check`` an entry state
     that already sets some variable both ways is the conflict (core.py:
-    877-883); the standalone BCP kernel (pallas_bcp.py) has no such check.
-    Returns (conflict: bool, t, f)."""
+    877-883); the standalone kernels (pallas_bcp.py, pallas_blockwise.py)
+    have no such check.  Returns (conflict: bool, t, f)."""
     if not run:
         return False, t, f
     if pre_check and bool(((t & f) != 0).any()):
         return True, t, f
+    if S.block_rows:
+        return _fixpoint_blockwise_u(S, t, f, min_bits, min_w, True,
+                                     S.block_rows)
     global plain_rounds
-    if S.card_act_bits is None:
-        active = S.card_valid
-    else:
-        active = ((S.card_act_bits & t) != 0).any(-1)
+    active = _row_activity(S, t)
     while True:
         plain_rounds += 1
         c, t, f, ch = _round_u(S.pos, S.neg, S.mem, active, S.card_n,
@@ -409,12 +473,51 @@ def _fixpoint_u(S: _Space, t, f, min_bits, min_w: int, run: bool,
             return False, t, f
 
 
+def _fixpoint_blockwise_u(S: _Space, t, f, min_bits, min_w: int, run: bool,
+                          block_rows: int):
+    """The blockwise fixpoint (pallas_blockwise.bcp_fixpoint, :147-190):
+    Gauss-Seidel sweeps over blocks of ``min(block_rows, C)`` clause rows,
+    a partial last block standing for the reference's zero-row padding
+    (:167-171).  Each block runs its local fixpoint of rounds until one
+    changes nothing; t/f carry from block to block; the AtMost rows are
+    active in block 0 only (:89); the extras row is evaluated in every
+    block; once a sweep has conflicted no later block runs a round (:91).
+    Sweeps repeat until one changes nothing or conflicts (:173-190).  No
+    entry-overlap check, as in the kernel.  Returns (conflict, t, f)."""
+    global plain_rounds, plain_sweeps
+    if not run:
+        return False, t, f
+    C = S.pos.shape[0]
+    br = min(block_rows, C)
+    active = _row_activity(S, t)
+    inactive = torch.zeros_like(active)
+    while True:
+        plain_sweeps += 1
+        changed = False
+        for lo in range(0, C, br):
+            act = active if lo == 0 else inactive
+            while True:
+                plain_rounds += 1
+                c, t, f, ch = _round_u(S.pos[lo:lo + br], S.neg[lo:lo + br],
+                                       S.mem, act, S.card_n, min_bits, min_w,
+                                       t, f)
+                c, ch = torch.stack([c, ch]).tolist()
+                if c:
+                    return True, t, f
+                if not ch:
+                    break
+                changed = True
+        if not changed:
+            return False, t, f
+
+
 def planes_fixpoint(pt: ProblemTensors, t: torch.Tensor, f: torch.Tensor,
                     min_bits: torch.Tensor, min_w: int, enabled: bool,
-                    red: bool = False):
-    """Fixpoint on one problem's int32 planes [W] (core.py:861-966, bits
-    path).  Returns (conflict, t, f)."""
-    c, t, f = _fixpoint_u(_space(pt, red), _to_u(t), _to_u(f),
+                    red: bool = False, block_rows: int = 0):
+    """Fixpoint on one problem's int32 planes [W] (core.py:861-966), with
+    the entry-overlap check; ``block_rows`` as in :class:`_Space`.
+    Returns (conflict, t, f)."""
+    c, t, f = _fixpoint_u(_space(pt, red, block_rows), _to_u(t), _to_u(f),
                           _to_u(min_bits), int(min_w), bool(enabled))
     return c, _to_i32(t), _to_i32(f)
 
@@ -637,19 +740,44 @@ def search(S: _Space, pvb, t0, f0, outcome0: int, budget: int, steps: int,
 # the three phases for one problem (core.py:1398-1621)
 
 
-def search_phase(pt: ProblemTensors, budget: int, en: bool = True):
-    """Phase 1 (core.py:1398-1444, reduced space): the baseline Test under
-    the anchors, then the guess search when it is undetermined.  Returns
-    (result, guessed bool[NV], model int32[NV], steps, backtracks).
-    A padding lane (``en`` false) reports RUNNING."""
+def _phase_space(pt: ProblemTensors, red: bool, NCON: Optional[int]):
+    """(V, W) of phases 1-2: the reduced space ``V = NV`` or the full
+    space ``V = NV + NCON``."""
     NV = pt.var_choices.shape[0]
-    W = pt.pos_bits_r.shape[-1]
-    S = _space(pt, red=True)
-    pv_mask = torch.arange(NV, device=pt.n_vars.device) < pt.n_vars
+    if red:
+        return NV, pt.pos_bits_r.shape[-1]
+    if NCON is None:
+        raise ValueError("the full plane space needs the batch's NCON")
+    return NV + NCON, pt.pos_bits.shape[-1]
+
+
+def _phase_base(pt: ProblemTensors, red: bool, V: int,
+                NCON: Optional[int]) -> torch.Tensor:
+    """Base assignment of phases 1-2 in their space (core.py:1419-1422)."""
+    if red:
+        return _base_assignment_red(pt, V)
+    return _base_assignment(pt, V, NCON)
+
+
+def search_phase(pt: ProblemTensors, budget: int, en: bool = True, *,
+                 red: bool = True, NCON: Optional[int] = None,
+                 block_rows: int = 0):
+    """Phase 1 (core.py:1398-1444): the baseline Test under the anchors,
+    then the guess search when it is undetermined.  ``red`` selects the
+    reduced space (``V = NV``) or the full one (``V = NV + NCON``, the
+    activation variables set true), ``block_rows`` the fixpoint (see
+    :class:`_Space`).  Returns (result, guessed bool[NV], model
+    int32[NV], steps, backtracks): the full space's outputs cut to the
+    first NV variables.  A padding lane (``en`` false) reports RUNNING."""
+    NV = pt.var_choices.shape[0]
+    V, W = _phase_space(pt, red, NCON)
+    S = _space(pt, red, block_rows)
+    pv_mask = torch.arange(V, device=pt.n_vars.device) < pt.n_vars
     pvb = _to_u(pack_mask(pv_mask, W))
-    anchors = _anchor_mask(pt, NV)
-    t0 = _to_u(pack_mask(anchors, W))
-    f0 = _to_u(pack_mask(~pv_mask, W))
+    anchors = _anchor_mask(pt, V)
+    base = _apply_anchors(pt, _phase_base(pt, red, V, NCON), V)
+    t0 = _to_u(pack_mask(base == TRUE, W))
+    f0 = _to_u(pack_mask(base == FALSE, W))
     zero = torch.zeros_like(t0)
     conflict0, t0, f0 = _fixpoint_u(S, t0, f0, zero, 0, en)
     outcome0 = test_outcome(conflict0, t0, f0, pvb)
@@ -663,28 +791,40 @@ def search_phase(pt: ProblemTensors, budget: int, en: bool = True):
         model = planes_to_assign(_to_i32(m_t), _to_i32(m_f), NV)
     else:
         result = outcome0
-        guessed = anchors
+        guessed = anchors[:NV]
         model = planes_to_assign(_to_i32(t0), _to_i32(f0), NV)
     if not en:
         result = RUNNING
     return result, guessed, model, steps, tr_n
 
 
+def _to_space(x: torch.Tensor, V: int) -> torch.Tensor:
+    """A [..., NV] phase-1 output widened to [..., V] with zeros: the
+    full space's tail past the problem variables is never guessed,
+    extra or excluded (core.py:1469-1477)."""
+    return torch.nn.functional.pad(x, (0, V - x.shape[-1]))
+
+
 def minimize_phase(pt: ProblemTensors, model: torch.Tensor,
                    guessed: torch.Tensor, budget: int, steps: int,
-                   en: bool = True):
-    """Phase 2 (core.py:1447-1535, reduced space): the least w such that at
-    most w extras (installed, not guessed) stay installed, by binary
-    search over [0, n_extras] with one DPLL per probe, then one more probe
-    at the minimal w when the last SAT probe was elsewhere.  Returns
-    (installed bool[NV], found, steps)."""
+                   en: bool = True, *, red: bool = True,
+                   NCON: Optional[int] = None, block_rows: int = 0):
+    """Phase 2 (core.py:1447-1535): the least w such that at most w
+    extras (installed, not guessed) stay installed, by binary search over
+    [0, n_extras] with one DPLL per probe, then one more probe at the
+    minimal w when the last SAT probe was elsewhere.  ``red``, ``NCON``
+    and ``block_rows`` as in :func:`search_phase`; ``model`` and
+    ``guessed`` are its [NV] outputs.  Returns (installed bool[NV], found,
+    steps)."""
     NV = pt.var_choices.shape[0]
-    W = pt.pos_bits_r.shape[-1]
-    S = _space(pt, red=True)
-    pv_mask = torch.arange(NV, device=model.device) < pt.n_vars
+    V, W = _phase_space(pt, red, NCON)
+    S = _space(pt, red, block_rows)
+    model = _to_space(model, V)
+    guessed = _to_space(guessed, V)
+    pv_mask = torch.arange(V, device=model.device) < pt.n_vars
     extras = (model == TRUE) & ~guessed & pv_mask
     excluded = (model != TRUE) & ~guessed & pv_mask
-    m_init = _apply_anchors(pt, _base_assignment_red(pt, NV), NV)
+    m_init = _apply_anchors(pt, _phase_base(pt, red, V, NCON), V)
     m_init = torch.where(guessed, TRUE, m_init)
     m_init = torch.where(excluded, FALSE, m_init)
     n_extras = int(extras.sum()) if en else 0
@@ -712,24 +852,25 @@ def minimize_phase(pt: ProblemTensors, model: torch.Tensor,
         if found:
             m2_t = f_t
     found = bool(found or (en and n_extras == 0))
-    installed = unpack_mask(_to_i32(m2_t), NV) & pv_mask
+    installed = unpack_mask(_to_i32(m2_t), NV) & pv_mask[:NV]
     if not (found and en):
         installed = torch.zeros_like(installed)
     return installed, found, steps
 
 
 def core_phase(pt: ProblemTensors, budget: int, steps: int,
-               en: bool = True, *, NCON: int):
+               en: bool = True, *, NCON: int, block_rows: int = 0):
     """Phase 3 (core.py:1548-1621, full space): the deletion unsat core.
     Starting from every applied constraint active, drop each whose removal
     keeps the rest UNSAT; chunks of :data:`CORE_CHUNK` are probed whole
     first and member by member only when the chunk probe is SAT.  Returns
     (core bool[NCON], steps).  ``NCON`` is the batch's padded constraint
-    count: the full space is ``V = NV + NCON`` variables."""
+    count: the full space is ``V = NV + NCON`` variables; ``block_rows``
+    as in :class:`_Space`."""
     NV = pt.var_choices.shape[0]
     V = NV + NCON
     W = pt.pos_bits.shape[-1]
-    S = _space(pt, red=False)
+    S = _space(pt, False, block_rows)
     n_cons = int(pt.n_cons)
     dev = pt.n_vars.device
     idx = torch.arange(NCON, device=dev)

@@ -46,6 +46,8 @@ __global__ void bcp_kernel(const uint32_t* __restrict__ pos,
   P.C = C;
   P.NA = NA;
   P.W = W;
+  P.tile_rows = 0;
+  P.tile = nullptr;
   if (threadIdx.x == 0) {
     copy_words(S.t, t0 + (size_t)b * W, W);
     copy_words(S.f, f0 + (size_t)b * W, W);

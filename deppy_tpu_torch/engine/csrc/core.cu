@@ -9,6 +9,9 @@
 // the dropped constraints, and AtMost-row activity follows the activation
 // bits of each fixpoint's entry state (Planes::card_act_bits).
 //
+// Every fixpoint is the bits rounds or, under the blockwise impl, a
+// blockwise sweep (Planes::tile_rows).
+//
 // Bound on the H100: ceil(n_cons / G) chunk probes plus G member probes per
 // SAT chunk, each a full block-wide DPLL over the full-space planes, which
 // re-read from L2 every round; latency per problem, one block per problem.
@@ -33,7 +36,7 @@ __global__ void core_kernel(
     const int* __restrict__ ncons_in, const int* __restrict__ nvars_in,
     const int* __restrict__ steps_in, int budget, uint32_t* scratch,
     size_t scratch_words, int* core_out, int* steps_out, int C, int NA, int W,
-    int NV, int NCON, int G) {
+    int NV, int NCON, int G, int tile_rows) {
   extern __shared__ uint32_t smem[];
   __shared__ CoreCtl ctl;
   __shared__ DpllCtl dctl;
@@ -51,11 +54,12 @@ __global__ void core_kernel(
   P.neg = neg + (size_t)b * C * W;
   P.mem = mem + (size_t)b * NA * W;
   P.card_n = card_n + (size_t)b * NA;
-  P.card_valid = nullptr;
-  P.card_act_bits = card_act_bits + (size_t)b * NA * W;
   P.C = C;
   P.NA = NA;
   P.W = W;
+  set_activity(P, nullptr, card_act_bits, b);
+  P.tile_rows = tile_rows;
+  P.tile = smem + tile_offset_words(W, NA);
   const uint32_t* pvb = pvb_all + (size_t)b * W;
   const uint32_t* bt = base_t + (size_t)b * W;
   const uint32_t* bf = base_f + (size_t)b * W;
@@ -132,6 +136,7 @@ extern "C" size_t deppy_core_scratch_words(int NV, int W) {
   return dpll_scratch_words(NV, W);
 }
 
+// ``tile_rows`` as for deppy_search.
 extern "C" int deppy_core(const void* pos, const void* neg, const void* mem,
                           const void* card_n, const void* card_act_bits,
                           const void* pvb, const void* base_t,
@@ -139,10 +144,12 @@ extern "C" int deppy_core(const void* pos, const void* neg, const void* mem,
                           const void* n_cons, const void* n_vars,
                           const void* steps, int budget, void* scratch,
                           void* core, void* steps_out, int B, int C, int NA,
-                          int W, int NV, int NCON, int G, int threads,
-                          void* stream) {
+                          int W, int NV, int NCON, int G, int tile_rows,
+                          int threads, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = (work_words(W, NA) + 5 * (size_t)W) * sizeof(uint32_t);
+  if (tile_rows > C || threads % 32 != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kernel_smem_bytes(work_words(W, NA) + 5 * (size_t)W, W, NA, tile_rows);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -157,6 +164,6 @@ extern "C" int deppy_core(const void* pos, const void* neg, const void* mem,
       static_cast<const int*>(n_cons), static_cast<const int*>(n_vars),
       static_cast<const int*>(steps), budget, static_cast<uint32_t*>(scratch),
       dpll_scratch_words(NV, W), static_cast<int*>(core),
-      static_cast<int*>(steps_out), C, NA, W, NV, NCON, G);
+      static_cast<int*>(steps_out), C, NA, W, NV, NCON, G, tile_rows);
   return (int)cudaGetLastError();
 }

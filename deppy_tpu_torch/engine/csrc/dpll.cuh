@@ -7,14 +7,15 @@
 //
 // Thread 0 runs the decision control (first unassigned variable, the
 // decision stack, chronological backtracking); the block runs every
-// propagation fixpoint together.  Control state lives in shared memory
-// (Ctl), the per-level plane snapshots and decision arrays in a per-problem
-// slice of a global scratch buffer the wrapper allocates, so no problem
-// size is too large for the kernel.  Each loop condition is read by every
-// thread between two barriers.
+// propagation fixpoint together, by the bits rounds or the blockwise
+// sweeps the planes select (blockwise.cuh, ``fixpoint``).  Control state
+// lives in shared memory (Ctl), the per-level plane snapshots and decision
+// arrays in a per-problem slice of a global scratch buffer the wrapper
+// allocates, so no problem size is too large for the kernel.  Each loop
+// condition is read by every thread between two barriers.
 #pragma once
 
-#include "fixpoint.cuh"
+#include "blockwise.cuh"
 
 namespace deppy {
 
@@ -68,7 +69,7 @@ static __device__ int block_dpll(const Planes& P, const Work& S, DpllCtl* ctl,
     copy_words(S.t, t_init, W);
     copy_words(S.f, f_init, W);
   }
-  const bool conflict0 = block_fixpoint(P, S, min_bits, min_w, enabled, true);
+  const bool conflict0 = fixpoint(P, S, min_bits, min_w, enabled, true);
   if (lead) {
     copy_words(D.snap_t, S.t, W);
     copy_words(D.snap_f, S.f, W);
@@ -122,7 +123,7 @@ static __device__ int block_dpll(const Planes& P, const Work& S, DpllCtl* ctl,
     }
     __syncthreads();
     const bool do_step = ctl->do_step != 0;
-    const bool conflict = block_fixpoint(P, S, min_bits, min_w, do_step, true);
+    const bool conflict = fixpoint(P, S, min_bits, min_w, do_step, true);
     if (lead && do_step) {
       *steps += 1;
       const int sp = ctl->sp;

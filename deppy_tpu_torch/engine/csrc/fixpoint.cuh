@@ -2,7 +2,7 @@
 //
 // Counterpart: deppy_tpu/engine/core.py:361 (round_planes) and
 // deppy_tpu/engine/pallas_search.py:153 (_fixpoint), the fixpoint every
-// TPU kernel of the resolve path runs.  All four CUDA kernels include it.
+// TPU kernel of the resolve path runs.  Every CUDA kernel includes it.
 //
 // One thread block owns one problem.  The assignment planes (t, f), the
 // round's forced-literal accumulators and the AtMost-row activity live in
@@ -43,7 +43,24 @@ struct Planes {
   const int* card_valid;          // [NA]
   const uint32_t* card_act_bits;  // [NA][W]
   int C, NA, W;
+  // The fixpoint: tile_rows 0 runs block_fixpoint below; a positive
+  // count runs the blockwise sweeps of blockwise.cuh over shared-memory
+  // tiles of that many clause rows, staged in ``tile`` (2 * tile_rows * W
+  // shared words).
+  int tile_rows;
+  uint32_t* tile;
 };
+
+// Row activity from the kernel arguments: one of the two pointers is
+// null (the reduced space passes card_valid, the full one card_act_bits).
+__device__ inline void set_activity(Planes& P, const int* card_valid,
+                                    const uint32_t* card_act_bits, int b) {
+  P.card_valid =
+      card_valid != nullptr ? card_valid + (size_t)b * P.NA : nullptr;
+  P.card_act_bits = card_act_bits != nullptr
+                        ? card_act_bits + (size_t)b * P.NA * P.W
+                        : nullptr;
+}
 
 // A block's shared working set.
 struct Work {
@@ -55,7 +72,9 @@ struct Work {
   int* flags;      // [4]
 };
 
-enum { kFlagPre = 0, kFlagConflict = 1, kFlagChanged = 2 };
+// kFlagMinTrues is the blockwise fixpoint's per-round count of true
+// extras (blockwise.cuh).
+enum { kFlagPre = 0, kFlagConflict = 1, kFlagChanged = 2, kFlagMinTrues = 3 };
 
 // Shared words the Work of one block needs (the flags included).
 __host__ __device__ inline size_t work_words(int W, int NA) {

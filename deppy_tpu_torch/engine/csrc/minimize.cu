@@ -7,9 +7,12 @@
 // the extras" row, then one last probe at the minimal w when the last SAT
 // probe was at another bound, so the model comes from that bound.
 //
+// Under bits it runs in the reduced plane space; under blockwise in the
+// full space, every fixpoint a blockwise sweep (Planes::tile_rows).
+//
 // Bound on the H100: log2(n_extras) + 1 DPLL probes per problem, each a
-// chain of fixpoints whose rounds re-read the problem's reduced planes
-// from L2; latency per problem, one block per problem across the batch.
+// chain of fixpoints whose rounds re-read the problem's planes from L2;
+// latency per problem, one block per problem across the batch.
 #include <cuda_runtime.h>
 
 #include "dpll.cuh"
@@ -25,13 +28,15 @@ struct MinCtl {
 __global__ void minimize_kernel(
     const uint32_t* __restrict__ pos, const uint32_t* __restrict__ neg,
     const uint32_t* __restrict__ mem, const int* __restrict__ card_n,
-    const int* __restrict__ card_valid, const uint32_t* __restrict__ m_init_t,
+    const int* __restrict__ card_valid,
+    const uint32_t* __restrict__ card_act_bits,
+    const uint32_t* __restrict__ m_init_t,
     const uint32_t* __restrict__ m_init_f, const uint32_t* __restrict__ extras,
     const uint32_t* __restrict__ m2t0, const uint32_t* __restrict__ pvb_all,
     const int* __restrict__ en_in, const int* __restrict__ n_extras_in,
     const int* __restrict__ steps_in, int budget, uint32_t* scratch,
     size_t scratch_words, int* found_out, int* steps_out, uint32_t* m2t_out,
-    int C, int NA, int W, int NV) {
+    int C, int NA, int W, int NV, int tile_rows) {
   extern __shared__ uint32_t smem[];
   __shared__ MinCtl ctl;
   __shared__ DpllCtl dctl;
@@ -47,11 +52,12 @@ __global__ void minimize_kernel(
   P.neg = neg + (size_t)b * C * W;
   P.mem = mem + (size_t)b * NA * W;
   P.card_n = card_n + (size_t)b * NA;
-  P.card_valid = card_valid + (size_t)b * NA;
-  P.card_act_bits = nullptr;
   P.C = C;
   P.NA = NA;
   P.W = W;
+  set_activity(P, card_valid, card_act_bits, b);
+  P.tile_rows = tile_rows;
+  P.tile = smem + tile_offset_words(W, NA);
   const uint32_t* it = m_init_t + (size_t)b * W;
   const uint32_t* iff = m_init_f + (size_t)b * W;
   const uint32_t* ext = extras + (size_t)b * W;
@@ -113,18 +119,23 @@ extern "C" size_t deppy_minimize_scratch_words(int NV, int W) {
   return dpll_scratch_words(NV, W);
 }
 
+// ``card_valid`` / ``card_act_bits`` and ``tile_rows`` as for
+// deppy_search.
 extern "C" int deppy_minimize(const void* pos, const void* neg,
                               const void* mem, const void* card_n,
-                              const void* card_valid, const void* m_init_t,
+                              const void* card_valid,
+                              const void* card_act_bits, const void* m_init_t,
                               const void* m_init_f, const void* extras,
                               const void* m2t0, const void* pvb,
                               const void* en, const void* n_extras,
                               const void* steps, int budget, void* scratch,
                               void* found, void* steps_out, void* m2_t, int B,
-                              int C, int NA, int W, int NV, int threads,
-                              void* stream) {
+                              int C, int NA, int W, int NV, int tile_rows,
+                              int threads, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = (work_words(W, NA) + 3 * (size_t)W) * sizeof(uint32_t);
+  if (tile_rows > C || threads % 32 != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kernel_smem_bytes(work_words(W, NA) + 3 * (size_t)W, W, NA, tile_rows);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         minimize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -135,6 +146,7 @@ extern "C" int deppy_minimize(const void* pos, const void* neg,
       static_cast<const uint32_t*>(pos), static_cast<const uint32_t*>(neg),
       static_cast<const uint32_t*>(mem), static_cast<const int*>(card_n),
       static_cast<const int*>(card_valid),
+      static_cast<const uint32_t*>(card_act_bits),
       static_cast<const uint32_t*>(m_init_t),
       static_cast<const uint32_t*>(m_init_f),
       static_cast<const uint32_t*>(extras), static_cast<const uint32_t*>(m2t0),
@@ -142,6 +154,6 @@ extern "C" int deppy_minimize(const void* pos, const void* neg,
       static_cast<const int*>(n_extras), static_cast<const int*>(steps),
       budget, static_cast<uint32_t*>(scratch), dpll_scratch_words(NV, W),
       static_cast<int*>(found), static_cast<int*>(steps_out),
-      static_cast<uint32_t*>(m2_t), C, NA, W, NV);
+      static_cast<uint32_t*>(m2_t), C, NA, W, NV, tile_rows);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,12 @@
 //
 // Replaces deppy_tpu/engine/pallas_search.py:_kernel (:300; entry
 // batched_search_fused :916, pallas_call :860).  The baseline fixpoint the
-// Pallas kernel runs first is kernel 1's launch (bcp.cu) in this port; this
-// kernel starts from its planes and outcome.  It then runs the guess search
+// Pallas kernel runs first is a launch of its own in this port (kernel 1,
+// bcp.cu, under the bits impl; kernel 2, blockwise.cu, under blockwise);
+// this kernel starts from its planes and outcome.  Under bits it runs in
+// the reduced plane space; under blockwise in the full space (activation
+// variables set true, AtMost activity from card_act_bits), every fixpoint
+// a blockwise sweep (Planes::tile_rows).  It then runs the guess search
 // of core.search (core.py:1143-1391, T = 0): a circular choice deque of
 // (choice row, candidate index) pairs, a guess stack, one plane snapshot and
 // Test outcome per guess level, and a block-wide DPLL leaf (dpll.cuh)
@@ -77,14 +81,16 @@ __device__ inline int mod(int x, int m) { return ((x % m) + m) % m; }
 __global__ void search_kernel(
     const uint32_t* __restrict__ pos, const uint32_t* __restrict__ neg,
     const uint32_t* __restrict__ mem, const int* __restrict__ card_n,
-    const int* __restrict__ card_valid, const int* __restrict__ choice_cand,
+    const int* __restrict__ card_valid,
+    const uint32_t* __restrict__ card_act_bits,
+    const int* __restrict__ choice_cand,
     const int* __restrict__ var_choices, const uint32_t* __restrict__ t0,
     const uint32_t* __restrict__ f0, const uint32_t* __restrict__ pvb_all,
     const int* __restrict__ outcome0, const int* __restrict__ enabled_in,
     const int* __restrict__ na_in, int budget, uint32_t* scratch,
     size_t scratch_words, int* result_out, int* steps_out, int* trn_out,
     uint32_t* assumed_out, uint32_t* mt_out, uint32_t* mf_out, int C, int NA,
-    int W, int NC, int Kc, int NV, int Wch) {
+    int W, int NC, int Kc, int NV, int Wch, int tile_rows) {
   extern __shared__ uint32_t smem[];
   __shared__ SearchCtl ctl;
   __shared__ DpllCtl dctl;
@@ -103,11 +109,12 @@ __global__ void search_kernel(
   P.neg = neg + (size_t)b * C * W;
   P.mem = mem + (size_t)b * NA * W;
   P.card_n = card_n + (size_t)b * NA;
-  P.card_valid = card_valid + (size_t)b * NA;
-  P.card_act_bits = nullptr;
   P.C = C;
   P.NA = NA;
   P.W = W;
+  set_activity(P, card_valid, card_act_bits, b);
+  P.tile_rows = tile_rows;
+  P.tile = smem + tile_offset_words(W, NA);
   const int* cand_tab = choice_cand + (size_t)b * NC * Kc;
   const int* vch_tab = var_choices + (size_t)b * NV * Wch;
   const uint32_t* pvb = pvb_all + (size_t)b * W;
@@ -245,7 +252,7 @@ __global__ void search_kernel(
       __syncthreads();
       const bool push_test = ctl.push_test != 0;
       // Propagate only the new literal from the level's fixpoint.
-      const bool conflict = block_fixpoint(P, S, nullptr, 0, push_test, true);
+      const bool conflict = fixpoint(P, S, nullptr, 0, push_test, true);
       if (lead && push_test) {
         const int out = test_outcome(conflict, S.t, S.f, pvb, W);
         const int sidx = ctl.sidx;
@@ -297,8 +304,12 @@ extern "C" size_t deppy_search_scratch_words(int NC, int NV, int W) {
   return search_scratch_words(NC, NV, W);
 }
 
+// ``card_valid`` (reduced space) or ``card_act_bits`` (full space) is
+// null; ``tile_rows`` 0 runs the bits fixpoint, a positive count the
+// blockwise one (cuda_blockwise.tile_rows).
 extern "C" int deppy_search(const void* pos, const void* neg, const void* mem,
                             const void* card_n, const void* card_valid,
+                            const void* card_act_bits,
                             const void* choice_cand, const void* var_choices,
                             const void* t0, const void* f0, const void* pvb,
                             const void* outcome0, const void* enabled,
@@ -306,9 +317,11 @@ extern "C" int deppy_search(const void* pos, const void* neg, const void* mem,
                             void* result, void* steps, void* tr_n,
                             void* assumed, void* m_t, void* m_f, int B, int C,
                             int NA, int W, int NC, int Kc, int NV, int Wch,
-                            int threads, void* stream) {
+                            int tile_rows, int threads, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = (work_words(W, NA) + 5 * (size_t)W) * sizeof(uint32_t);
+  if (tile_rows > C || threads % 32 != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kernel_smem_bytes(work_words(W, NA) + 5 * (size_t)W, W, NA, tile_rows);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -319,6 +332,7 @@ extern "C" int deppy_search(const void* pos, const void* neg, const void* mem,
       static_cast<const uint32_t*>(pos), static_cast<const uint32_t*>(neg),
       static_cast<const uint32_t*>(mem), static_cast<const int*>(card_n),
       static_cast<const int*>(card_valid),
+      static_cast<const uint32_t*>(card_act_bits),
       static_cast<const int*>(choice_cand),
       static_cast<const int*>(var_choices), static_cast<const uint32_t*>(t0),
       static_cast<const uint32_t*>(f0), static_cast<const uint32_t*>(pvb),
@@ -327,6 +341,6 @@ extern "C" int deppy_search(const void* pos, const void* neg, const void* mem,
       search_scratch_words(NC, NV, W), static_cast<int*>(result),
       static_cast<int*>(steps), static_cast<int*>(tr_n),
       static_cast<uint32_t*>(assumed), static_cast<uint32_t*>(m_t),
-      static_cast<uint32_t*>(m_f), C, NA, W, NC, Kc, NV, Wch);
+      static_cast<uint32_t*>(m_f), C, NA, W, NC, Kc, NV, Wch, tile_rows);
   return (int)cudaGetLastError();
 }

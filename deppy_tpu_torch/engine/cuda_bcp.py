@@ -5,8 +5,9 @@ propagation round to a fixpoint for each.  A CUDA tensor goes to the
 hand-written kernel ``csrc/bcp.cu`` (one thread block per problem); a CPU
 tensor goes to :func:`bcp_fixpoint_plain`, the same computation one
 problem at a time in PyTorch.  Like the Pallas kernel it has no
-entry-overlap check; :func:`planes_fixpoint` adds it, as
-``core.planes_fixpoint`` does around ``pallas_bcp.bcp_fixpoint``.
+entry-overlap check; its caller adds it (``cuda_search``'s baseline
+fixpoint), as ``core.planes_fixpoint`` does around
+``pallas_bcp.bcp_fixpoint``.
 """
 
 from __future__ import annotations
@@ -97,17 +98,3 @@ def bcp_fixpoint_plain(pos, neg, mem, card_active, card_n, min_bits, min_w,
         f[b] = core._to_i32(fb)
     return conflict, t, f
 
-
-def planes_fixpoint(pos, neg, mem, card_active, card_n, t0, f0, en):
-    """Batched ``core.planes_fixpoint`` with no extras bound: a lane whose
-    entry state sets a variable both ways is a conflict and runs no
-    round; every other enabled lane runs :func:`bcp_fixpoint`.  ``en`` is
-    bool[B].  Returns (conflict bool[B], t, f)."""
-    B, W = t0.shape
-    pre = en & ((t0 & f0) != 0).any(-1)
-    zeros_w = torch.zeros((B, W), dtype=torch.int32, device=t0.device)
-    zeros_b = torch.zeros(B, dtype=torch.int32, device=t0.device)
-    conflict, t, f = bcp_fixpoint(
-        pos, neg, mem, card_active, card_n, zeros_w, zeros_b, t0, f0,
-        (en & ~pre).to(torch.int32))
-    return (conflict != 0) | pre, t, f

@@ -1,9 +1,9 @@
 """The three phase kernels: CUDA wrappers and plain versions (port of ``deppy_tpu/engine/pallas_search.py:520-926``).
 
 * :func:`batched_search_fused` — phase 1 (``pallas_search._kernel``): the
-  baseline fixpoint under the anchors (kernel 1, ``csrc/bcp.cu``), then
-  the preference-ordered guess search with DPLL leaves
-  (``csrc/search.cu``);
+  baseline fixpoint under the anchors (kernel 1, ``csrc/bcp.cu``, or
+  kernel 2, ``csrc/blockwise.cu``), then the preference-ordered guess
+  search with DPLL leaves (``csrc/search.cu``);
 * :func:`batched_minimize_fused` — phase 2 (``_min_kernel``,
   ``csrc/minimize.cu``): extras-only cardinality minimization;
 * :func:`batched_core_fused` — phase 3 (``_core_kernel``,
@@ -15,13 +15,24 @@ runs the plain version (``batched_*_plain``), which loops the one-problem
 phases of :mod:`deppy_tpu_torch.engine.core` over the lanes.  The plain
 versions run on any device, which is how the kernels are held against them
 on the card.
+
+``impl`` picks the BCP impl (``core.set_bcp_impl``).  Under ``bits``
+phases 1-2 read the reduced planes (``*_bits_r``) and every fixpoint is
+the bits rounds.  Under ``blockwise`` phases 1-2 read the full-space
+planes (``V = NV + NCON``, so they take the batch's ``NCON``) and every
+fixpoint of every phase sweeps tiles of ``block_rows`` clause rows
+(default ``cuda_blockwise.BLOCK_ROWS``; ``cuda_blockwise.tile_rows``
+caps it to what shared memory holds, for the kernel and the plain
+version alike).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build, core, cuda_bcp
+from typing import Optional
+
+from . import _build, core, cuda_bcp, cuda_blockwise
 from .cuda_bcp import _check_args
 
 THREADS = 128
@@ -49,39 +60,123 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _reduced(impl: str) -> bool:
+    """Whether phases 1-2 of ``impl`` read the reduced planes."""
+    if impl not in ("bits", "blockwise"):
+        raise ValueError(f"the phase kernels run impl 'bits' or "
+                         f"'blockwise', not {impl!r}")
+    return impl == "bits"
+
+
+def _tile(impl: str, block_rows: Optional[int], C: int, W: int,
+          NA: int) -> int:
+    """Rows per blockwise tile, or 0 for the bits fixpoint."""
+    if impl == "bits":
+        return 0
+    return cuda_blockwise.tile_rows(block_rows or cuda_blockwise.BLOCK_ROWS,
+                                    C, W, NA)
+
+
+def _threads(impl: str) -> int:
+    return THREADS if impl == "bits" else cuda_blockwise.THREADS
+
+
+def _phase_planes(pts: core.ProblemTensors, red: bool, NCON: Optional[int]):
+    """(pos, neg, mem, V, W) of phases 1-2 in their plane space."""
+    NV = pts.var_choices.shape[1]
+    if red:
+        return (pts.pos_bits_r, pts.neg_bits_r, pts.card_member_bits_r, NV,
+                pts.pos_bits_r.shape[2])
+    if NCON is None:
+        raise ValueError("the full plane space needs the batch's NCON")
+    W = pts.pos_bits.shape[2]
+    if W * core.WORD < NV + NCON:
+        raise ValueError(f"full-space planes of {W} words cannot hold "
+                         f"NV + NCON = {NV + NCON} variables")
+    return pts.pos_bits, pts.neg_bits, pts.card_member_bits, NV + NCON, W
+
+
+def _phase_shapes(pts: core.ProblemTensors, red: bool) -> dict:
+    """The plane fields phases 1-2 read, with their shapes."""
+    B = pts.n_vars.shape[0]
+    if red:
+        C, W = pts.pos_bits_r.shape[1:]
+        NA = pts.card_member_bits_r.shape[1]
+        return dict(pos_bits_r=(B, C, W), neg_bits_r=(B, C, W),
+                    card_member_bits_r=(B, NA, W), card_valid=(B, NA))
+    C, W = pts.pos_bits.shape[1:]
+    NA = pts.card_member_bits.shape[1]
+    return dict(pos_bits=(B, C, W), neg_bits=(B, C, W),
+                card_member_bits=(B, NA, W), card_act_bits=(B, NA, W))
+
+
+def _activity_ptrs(pts: core.ProblemTensors, red: bool):
+    """(card_valid, card_act_bits) pointers; the unused one is null."""
+    if red:
+        return pts.card_valid.data_ptr(), None
+    return None, pts.card_act_bits.data_ptr()
+
+
 # --------------------------------------------------------------------------
 # phase 1
 
 
-def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor):
-    """Phase 1 over a batch in the reduced plane space.  ``en`` bool[B]
-    gates padding lanes.  Returns (result int32[B], guessed bool[B, NV],
-    model int32[B, NV], steps int32[B], tr_stack int32[B, 0, NC+1],
-    tr_n int32[B])."""
+def _baseline_fixpoint(pos, neg, mem, card_active, card_n, t0, f0, en,
+                       tile: int):
+    """Batched ``core.planes_fixpoint`` with no extras bound, as kernel 1
+    (``tile`` 0) or kernel 2: a lane whose entry state sets a variable
+    both ways is a conflict and runs no round.  ``en`` is bool[B].
+    Returns (conflict bool[B], t, f)."""
+    B, W = t0.shape
+    pre = en & ((t0 & f0) != 0).any(-1)
+    args = (pos, neg, mem, card_active, card_n,
+            torch.zeros((B, W), dtype=_I32, device=t0.device),
+            torch.zeros(B, dtype=_I32, device=t0.device), t0, f0,
+            (en & ~pre).to(_I32))
+    if tile:
+        conflict, t, f = cuda_blockwise.bcp_fixpoint(*args, block_rows=tile)
+    else:
+        conflict, t, f = cuda_bcp.bcp_fixpoint(*args)
+    return (conflict != 0) | pre, t, f
+
+
+def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
+                         *, impl: str = "bits",
+                         block_rows: Optional[int] = None,
+                         NCON: Optional[int] = None):
+    """Phase 1 over a batch.  ``en`` bool[B] gates padding lanes.
+    Returns (result int32[B], guessed bool[B, NV], model int32[B, NV],
+    steps int32[B], tr_stack int32[B, 0, NC+1], tr_n int32[B])."""
     global search_launches
+    red = _reduced(impl)
     B, NC, Kc = pts.choice_cand.shape
     NV, Wch = pts.var_choices.shape[1:]
-    C, W = pts.pos_bits_r.shape[1:]
-    NA = pts.card_member_bits_r.shape[1]
+    pos, neg, mem, V, W = _phase_planes(pts, red, NCON)
+    C, NA = pos.shape[1], mem.shape[1]
     A = pts.anchors.shape[1]
-    shapes = dict(pos_bits_r=(B, C, W), neg_bits_r=(B, C, W),
-                  card_member_bits_r=(B, NA, W), card_n=(B, NA),
-                  card_valid=(B, NA), choice_cand=(B, NC, Kc),
-                  var_choices=(B, NV, Wch), anchors=(B, A), n_vars=(B,))
+    shapes = dict(_phase_shapes(pts, red), card_n=(B, NA),
+                  choice_cand=(B, NC, Kc), var_choices=(B, NV, Wch),
+                  anchors=(B, A), n_vars=(B,), n_cons=(B,))
     dev = _check_pts(pts, shapes)
     _check_mask(en, (B,), dev, "en")
+    tile = _tile(impl, block_rows, C, W, NA)
     if dev.type == "cpu":
-        return batched_search_plain(pts, budget, en)
+        return batched_search_plain(pts, budget, en, impl=impl,
+                                    block_rows=tile, NCON=NCON)
     lib = _build.load()
-    idx = torch.arange(NV, device=dev)
-    pv_mask = idx < pts.n_vars.unsqueeze(-1)
-    anchor_mask = core._anchor_mask(pts, NV)
+    pv_mask = torch.arange(V, device=dev) < pts.n_vars.unsqueeze(-1)
+    anchor_mask = core._anchor_mask(pts, V)
+    base = core._apply_anchors(pts, core._phase_base(pts, red, V, NCON), V)
+    t_in = core.pack_mask(base == core.TRUE, W)
+    f_in = core.pack_mask(base == core.FALSE, W)
     pvb = core.pack_mask(pv_mask, W)
-    # Baseline Test under the anchors (solve.go:74-79): kernel 1.
-    conflict0, t0, f0 = cuda_bcp.planes_fixpoint(
-        pts.pos_bits_r, pts.neg_bits_r, pts.card_member_bits_r,
-        pts.card_valid, pts.card_n, core.pack_mask(anchor_mask, W),
-        core.pack_mask(~pv_mask, W), en)
+    # Baseline Test under the anchors (solve.go:74-79).
+    if red:
+        active = pts.card_valid
+    else:
+        active = ((pts.card_act_bits & t_in.unsqueeze(1)) != 0).any(-1)
+    conflict0, t0, f0 = _baseline_fixpoint(
+        pos, neg, mem, active.to(_I32), pts.card_n, t_in, f_in, en, tile)
     unassigned = (core._to_u(pvb) & ~(core._to_u(t0) | core._to_u(f0))) != 0
     outcome0 = torch.where(
         conflict0, core.UNSAT,
@@ -98,14 +193,14 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor):
     m_f = torch.empty((B, W), dtype=_I32, device=dev)
     ns = need_search.to(_I32)
     rc = lib.deppy_search(
-        pts.pos_bits_r.data_ptr(), pts.neg_bits_r.data_ptr(),
-        pts.card_member_bits_r.data_ptr(), pts.card_n.data_ptr(),
-        pts.card_valid.data_ptr(), pts.choice_cand.data_ptr(),
+        pos.data_ptr(), neg.data_ptr(), mem.data_ptr(), pts.card_n.data_ptr(),
+        *_activity_ptrs(pts, red), pts.choice_cand.data_ptr(),
         pts.var_choices.data_ptr(), t0.data_ptr(), f0.data_ptr(),
         pvb.data_ptr(), outcome0.data_ptr(), ns.data_ptr(), na.data_ptr(),
         int(budget), scratch.data_ptr(), result_s.data_ptr(),
         steps.data_ptr(), tr_n.data_ptr(), asm.data_ptr(), m_t.data_ptr(),
-        m_f.data_ptr(), B, C, NA, W, NC, Kc, NV, Wch, THREADS, _stream(dev))
+        m_f.data_ptr(), B, C, NA, W, NC, Kc, NV, Wch, tile, _threads(impl),
+        _stream(dev))
     search_launches += 1
     _build.check(rc, "search")
     a0 = core.planes_to_assign(t0, f0, NV)
@@ -114,16 +209,22 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor):
     ns2 = need_search.unsqueeze(-1)
     result = torch.where(need_search, result_s, outcome0)
     result = torch.where(en, result, core.RUNNING).to(_I32)
-    guessed = torch.where(ns2, s_guessed, anchor_mask)
+    guessed = torch.where(ns2, s_guessed, anchor_mask[:, :NV])
     model = torch.where(ns2, s_model, a0)
     tr_stack = torch.full((B, 0, NC + 1), -1, dtype=_I32, device=dev)
     return result, guessed, model, steps, tr_stack, tr_n
 
 
-def batched_search_plain(pts: core.ProblemTensors, budget, en: torch.Tensor):
+def batched_search_plain(pts: core.ProblemTensors, budget, en: torch.Tensor,
+                         *, impl: str = "bits",
+                         block_rows: Optional[int] = None,
+                         NCON: Optional[int] = None):
     """Plain version of :func:`batched_search_fused`, on any device."""
+    red = _reduced(impl)
     B, NC, _ = pts.choice_cand.shape
     NV = pts.var_choices.shape[1]
+    pos, _, mem, _, W = _phase_planes(pts, red, NCON)
+    tile = _tile(impl, block_rows, pos.shape[1], W, mem.shape[1])
     dev = pts.n_vars.device
     result = torch.zeros(B, dtype=_I32, device=dev)
     steps = torch.zeros(B, dtype=_I32, device=dev)
@@ -132,7 +233,8 @@ def batched_search_plain(pts: core.ProblemTensors, budget, en: torch.Tensor):
     model = torch.zeros((B, NV), dtype=_I32, device=dev)
     for b in range(B):
         r, g, m, s, t = core.search_phase(core.lane(pts, b), int(budget),
-                                          bool(en[b]))
+                                          bool(en[b]), red=red, NCON=NCON,
+                                          block_rows=tile)
         result[b], guessed[b], model[b], steps[b], tr_n[b] = r, g, m, s, t
     tr_stack = torch.full((B, 0, NC + 1), -1, dtype=_I32, device=dev)
     return result, guessed, model, steps, tr_stack, tr_n
@@ -142,14 +244,15 @@ def batched_search_plain(pts: core.ProblemTensors, budget, en: torch.Tensor):
 # phase 2
 
 
-def _minimize_inputs(pts, result, model, guessed, en_lanes):
-    NV = pts.var_choices.shape[1]
-    W = pts.pos_bits_r.shape[2]
+def _minimize_inputs(pts, result, model, guessed, en_lanes, red, NCON):
+    _, _, _, V, W = _phase_planes(pts, red, NCON)
     en = en_lanes & (result == core.SAT)
-    pv_mask = torch.arange(NV, device=model.device) < pts.n_vars.unsqueeze(-1)
+    model = core._to_space(model, V)
+    guessed = core._to_space(guessed, V)
+    pv_mask = torch.arange(V, device=model.device) < pts.n_vars.unsqueeze(-1)
     extras = (model == core.TRUE) & ~guessed & pv_mask
     excluded = (model != core.TRUE) & ~guessed & pv_mask
-    m_init = core._apply_anchors(pts, core._base_assignment_red(pts, NV), NV)
+    m_init = core._apply_anchors(pts, core._phase_base(pts, red, V, NCON), V)
     m_init = torch.where(guessed, core.TRUE, m_init)
     m_init = torch.where(excluded, core.FALSE, m_init)
     n_extras = torch.where(en, extras.sum(-1), 0).to(_I32)
@@ -163,28 +266,33 @@ def _minimize_inputs(pts, result, model, guessed, en_lanes):
 
 
 def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
-                           budget, steps, en_lanes):
+                           budget, steps, en_lanes, *, impl: str = "bits",
+                           block_rows: Optional[int] = None,
+                           NCON: Optional[int] = None):
     """Phase 2 over a batch, gated to SAT lanes (``en_lanes & result ==
-    SAT``).  Returns (installed bool[B, NV], min_found bool[B],
-    steps int32[B])."""
+    SAT``); ``model``/``guessed`` are phase 1's [B, NV] outputs.  Returns
+    (installed bool[B, NV], min_found bool[B], steps int32[B])."""
     global minimize_launches
-    B, C, W = pts.pos_bits_r.shape
+    red = _reduced(impl)
+    pos, neg, mem, _, W = _phase_planes(pts, red, NCON)
+    B, C = pos.shape[:2]
     NV = pts.var_choices.shape[1]
-    NA = pts.card_member_bits_r.shape[1]
-    shapes = dict(pos_bits_r=(B, C, W), neg_bits_r=(B, C, W),
-                  card_member_bits_r=(B, NA, W), card_n=(B, NA),
-                  card_valid=(B, NA), n_vars=(B,), anchors=pts.anchors.shape)
+    NA = mem.shape[1]
+    shapes = dict(_phase_shapes(pts, red), card_n=(B, NA), n_vars=(B,),
+                  n_cons=(B,), anchors=pts.anchors.shape)
     dev = _check_pts(pts, shapes)
     if _check_args(dict(result=result, model=model, steps=steps),
                    dict(result=(B,), model=(B, NV), steps=(B,))) != dev:
         raise ValueError("phase-1 outputs must lie on the batch's device")
     _check_mask(guessed, (B, NV), dev, "guessed")
     _check_mask(en_lanes, (B,), dev, "en")
+    tile = _tile(impl, block_rows, C, W, NA)
     if dev.type == "cpu":
         return batched_minimize_plain(pts, result, model, guessed, budget,
-                                      steps, en_lanes)
+                                      steps, en_lanes, impl=impl,
+                                      block_rows=tile, NCON=NCON)
     lib = _build.load()
-    x = _minimize_inputs(pts, result, model, guessed, en_lanes)
+    x = _minimize_inputs(pts, result, model, guessed, en_lanes, red, NCON)
     en = x["en"]
     words = lib.deppy_minimize_scratch_words(NV, W)
     scratch = torch.empty((B, words), dtype=_I32, device=dev)
@@ -193,25 +301,29 @@ def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
     m2_t = torch.empty((B, W), dtype=_I32, device=dev)
     en32 = en.to(_I32)
     rc = lib.deppy_minimize(
-        pts.pos_bits_r.data_ptr(), pts.neg_bits_r.data_ptr(),
-        pts.card_member_bits_r.data_ptr(), pts.card_n.data_ptr(),
-        pts.card_valid.data_ptr(), x["m_init_t"].data_ptr(),
+        pos.data_ptr(), neg.data_ptr(), mem.data_ptr(), pts.card_n.data_ptr(),
+        *_activity_ptrs(pts, red), x["m_init_t"].data_ptr(),
         x["m_init_f"].data_ptr(), x["extras"].data_ptr(),
         x["m2t0"].data_ptr(), x["pvb"].data_ptr(), en32.data_ptr(),
         x["n_extras"].data_ptr(), steps.data_ptr(), int(budget),
         scratch.data_ptr(), found.data_ptr(), steps_out.data_ptr(),
-        m2_t.data_ptr(), B, C, NA, W, NV, THREADS, _stream(dev))
+        m2_t.data_ptr(), B, C, NA, W, NV, tile, _threads(impl), _stream(dev))
     minimize_launches += 1
     _build.check(rc, "minimize")
     min_found = found != 0
-    installed = (core.unpack_mask(m2_t, NV) & x["pv_mask"]
+    installed = (core.unpack_mask(m2_t, NV) & x["pv_mask"][:, :NV]
                  & min_found.unsqueeze(-1) & en.unsqueeze(-1))
     return installed, min_found, steps_out
 
 
 def batched_minimize_plain(pts, result, model, guessed, budget, steps,
-                           en_lanes):
+                           en_lanes, *, impl: str = "bits",
+                           block_rows: Optional[int] = None,
+                           NCON: Optional[int] = None):
     """Plain version of :func:`batched_minimize_fused`, on any device."""
+    red = _reduced(impl)
+    pos, _, mem, _, W = _phase_planes(pts, red, NCON)
+    tile = _tile(impl, block_rows, pos.shape[1], W, mem.shape[1])
     B, NV = model.shape
     dev = model.device
     installed = torch.zeros((B, NV), dtype=torch.bool, device=dev)
@@ -219,9 +331,9 @@ def batched_minimize_plain(pts, result, model, guessed, budget, steps,
     steps_out = steps.clone()
     for b in range(B):
         en = bool(en_lanes[b]) and int(result[b]) == core.SAT
-        inst, fnd, s = core.minimize_phase(core.lane(pts, b), model[b],
-                                           guessed[b], int(budget),
-                                           int(steps[b]), en)
+        inst, fnd, s = core.minimize_phase(
+            core.lane(pts, b), model[b], guessed[b], int(budget),
+            int(steps[b]), en, red=red, NCON=NCON, block_rows=tile)
         installed[b], found[b], steps_out[b] = inst, fnd, s
     return installed, found, steps_out
 
@@ -242,11 +354,13 @@ def _core_inputs(pts, NCON):
 
 
 def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
-                       NCON: int):
+                       NCON: int, impl: str = "bits",
+                       block_rows: Optional[int] = None):
     """Phase 3 over a batch in the full plane space (``V = NV + NCON``).
     ``en`` bool[B]; ``steps`` int32[B] carries each lane's phase-1 count.
     Returns (core bool[B, NCON], steps int32[B])."""
     global core_launches
+    _reduced(impl)
     B, C, W = pts.pos_bits.shape
     NV = pts.var_choices.shape[1]
     NA = pts.card_member_bits.shape[1]
@@ -260,8 +374,10 @@ def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
     if _check_args(dict(steps=steps), dict(steps=(B,))) != dev:
         raise ValueError("steps must lie on the batch's device")
     _check_mask(en, (B,), dev, "en")
+    tile = _tile(impl, block_rows, C, W, NA)
     if dev.type == "cpu":
-        return batched_core_plain(pts, budget, steps, en, NCON=NCON)
+        return batched_core_plain(pts, budget, steps, en, NCON=NCON,
+                                  impl=impl, block_rows=tile)
     lib = _build.load()
     G = min(core.CORE_CHUNK, max(NCON, 1))
     x = _core_inputs(pts, NCON)
@@ -277,20 +393,25 @@ def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
         x["base_t"].data_ptr(), x["base_f"].data_ptr(), en32.data_ptr(),
         pts.n_cons.data_ptr(), pts.n_vars.data_ptr(), steps.data_ptr(),
         int(budget), scratch.data_ptr(), core_out.data_ptr(),
-        steps_out.data_ptr(), B, C, NA, W, NV, NCON, G, THREADS, _stream(dev))
+        steps_out.data_ptr(), B, C, NA, W, NV, NCON, G, tile, _threads(impl),
+        _stream(dev))
     core_launches += 1
     _build.check(rc, "core")
     return core_out != 0, steps_out
 
 
-def batched_core_plain(pts, budget, steps, en, *, NCON: int):
+def batched_core_plain(pts, budget, steps, en, *, NCON: int,
+                       impl: str = "bits", block_rows: Optional[int] = None):
     """Plain version of :func:`batched_core_fused`, on any device."""
+    _reduced(impl)
+    C, W = pts.pos_bits.shape[1:]
+    tile = _tile(impl, block_rows, C, W, pts.card_member_bits.shape[1])
     B = steps.shape[0]
     dev = steps.device
     cores = torch.zeros((B, NCON), dtype=torch.bool, device=dev)
     steps_out = steps.clone()
     for b in range(B):
         c, s = core.core_phase(core.lane(pts, b), int(budget), int(steps[b]),
-                               bool(en[b]), NCON=NCON)
+                               bool(en[b]), NCON=NCON, block_rows=tile)
         cores[b], steps_out[b] = c, s
     return cores, steps_out

@@ -7,22 +7,27 @@ without a mesh, tracing, faults or budget escalation:
    shared size-class ladder;
 2. :func:`pad_stack` pads each bucket to common power-of-two dims on the
    host and the compact tensors go to the device once;
-3. per chunk of at most :data:`MAX_LANES` lanes the reduced planes are
-   derived on the device, then phase 1 (search) and phase 2
-   (minimization, SAT lanes) run there;
-4. the UNSAT lanes are gathered into chunks of their own, their
-   full-space planes derived, and phase 3 (the unsat core) runs;
+3. per chunk of at most :data:`MAX_LANES` lanes the planes of phases
+   1-2 are derived on the device (the reduced space under the ``bits``
+   impl, the full space under ``blockwise``, as ``_derive_planes`` does),
+   then phase 1 (search) and phase 2 (minimization, SAT lanes) run there;
+4. the UNSAT lanes get their unsat core: the cores of giant problems
+   (more than :data:`HOST_CORE_NCONS` applied constraints) from the host
+   spec engine, the rest gathered into chunks of their own, their
+   full-space planes derived, and phase 3 run on the device — routed
+   exactly as the reference routes them (:func:`_core_routes`);
 5. :func:`decode_results` maps lanes back to variables.
 
-Every UNSAT lane goes to the core kernel: the reference's host-routed
-giant cores (``HOST_CORE_NCONS``) are not part of this package yet.
 ``device="cuda"`` (the default) runs the CUDA kernels and raises when
-there is no card; ``device="cpu"`` runs their plain versions.
+there is no card; ``device="cpu"`` runs their plain versions.  The BCP
+impl is ``core.resolved_impl()`` and the blockwise tile height
+``cuda_blockwise.BLOCK_ROWS``, both read when a solve starts.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+import os
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,7 +37,8 @@ from ..size_classes import bucket as _bucket
 from ..sat.constraints import Variable
 from ..sat.encode import Problem, encode
 from ..sat.errors import Incomplete, InternalSolverError, NotSatisfiable
-from . import core, cuda_search
+from ..sat.host import HostEngine
+from . import core, cuda_blockwise, cuda_search
 
 # Default step budget when the caller sets none (driver.py:55).
 DEFAULT_MAX_STEPS = 1 << 24
@@ -44,6 +50,12 @@ MAX_LANES = 512
 MAX_BUCKETS = 4
 MIN_BUCKET = 16
 SPLIT_RATIO = _size_classes.SPLIT_RATIO
+
+# Core extraction for UNSAT problems above this many applied constraints
+# routes to the host spec engine (driver.py:613-624): its single-drop
+# probes beat a device deletion loop on giant problems, and the answer is
+# the same core.
+HOST_CORE_NCONS = int(os.environ.get("DEPPY_GPU_HOST_CORE_NCONS", "768"))
 
 
 def resolve_device(device) -> torch.device:
@@ -193,27 +205,79 @@ def _rows(pts: core.ProblemTensors, sel) -> core.ProblemTensors:
     return core.ProblemTensors(*[x.index_select(0, sel) for x in pts])
 
 
+def _host_core_rows(problems: Sequence[Problem], idx: np.ndarray,
+                    NCON: int, budget: int,
+                    spent: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-engine cores for the lanes ``idx`` (driver.py:765-826, without
+    the speculative stage, which the reference leaves off unmeasured).
+    Returns (cores bool[len(idx), NCON], steps int64[len(idx)]): steps to
+    ADD to each lane's count.  Each lane's engine gets only the budget
+    left after its device search (``spent``); a lane with nothing left
+    takes one step, and an engine that runs out takes ``remaining + 1``,
+    so the caller's ``steps > budget`` check turns the lane Incomplete
+    exactly as the device core phase would."""
+    cores = np.zeros((len(idx), NCON), bool)
+    steps = np.zeros(len(idx), np.int64)
+    for r, i in enumerate(idx):
+        remaining = int(budget) - int(spent[r])
+        if remaining <= 0:
+            steps[r] = 1
+            continue
+        eng = HostEngine(problems[i], max_steps=remaining)
+        try:
+            cores[r, : problems[i].n_cons] = eng.unsat_core_mask()
+            steps[r] = eng.steps
+        except Incomplete:
+            steps[r] = remaining + 1
+    return cores, steps
+
+
+def _core_routes(problems: Sequence[Problem], unsat_idx: np.ndarray,
+                 total: int, monolith: bool
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """(device lanes, host lanes) of the UNSAT lanes, as the reference
+    routes them.  A call with one problem takes its monolith path
+    (driver.py:897, :939-942): every UNSAT lane goes to the host when any
+    problem has more than :data:`HOST_CORE_NCONS` constraints.  A batch
+    takes its split path (driver.py:1076-1105): when UNSAT lanes are more
+    than half of the ``total`` chunk-padded lanes, every one stays on the
+    device; otherwise the lanes past the threshold go to the host."""
+    if monolith:
+        if any(p.n_cons > HOST_CORE_NCONS for p in problems):
+            return unsat_idx[:0], unsat_idx
+        return unsat_idx, unsat_idx[:0]
+    if unsat_idx.size > total // 2:
+        return unsat_idx, unsat_idx[:0]
+    big = np.array([problems[i].n_cons > HOST_CORE_NCONS
+                    for i in unsat_idx], bool)
+    return unsat_idx[~big], unsat_idx[big]
+
+
 def _solve_split(problems: Sequence[Problem], budget: int,
-                 dev: torch.device) -> List[core.SolveResult]:
-    """The three-phase path over one bucket (driver.py:992-1191)."""
+                 dev: torch.device, monolith: bool) -> List[core.SolveResult]:
+    """The three-phase path over one bucket (driver.py:992-1191), with
+    the core routing of :func:`_core_routes`."""
     n = len(problems)
     d = _Dims(problems, min(max(n, 1), MAX_LANES))
     CH = d.B
     total = max(1, -(-n // CH)) * CH
+    impl = core.resolved_impl()
+    red = core.phases_reduced()
+    kw = dict(impl=impl, block_rows=cuda_blockwise.BLOCK_ROWS)
     pts_all = _upload(pad_stack(problems, d, total), dev)
     en_all = torch.arange(total, device=dev) < n
 
-    # Phases 1 and 2 on the same resident chunks, reduced plane space.
+    # Phases 1 and 2 on the same resident chunks.
     res1, st1, trn, inst, found, st2 = [], [], [], [], [], []
     for lo in range(0, total, CH):
         sl = slice(lo, lo + CH)
         pts = core.with_planes(_rows(pts_all, sl), Wv=d.Wv, Wr=d.Wr,
-                               red=True, full=False)
+                               red=red, full=not red)
         en = en_all[sl]
         r, guessed, model, steps, _, tr_n = cuda_search.batched_search_fused(
-            pts, budget, en)
+            pts, budget, en, NCON=d.NCON, **kw)
         i2, f2, s2 = cuda_search.batched_minimize_fused(
-            pts, r, model, guessed, budget, steps, en)
+            pts, r, model, guessed, budget, steps, en, NCON=d.NCON, **kw)
         res1.append(r)
         st1.append(steps)
         trn.append(tr_n)
@@ -232,19 +296,27 @@ def _solve_split(problems: Sequence[Problem], budget: int,
     min_found &= sat_mask
     steps[sat_mask] = st_min[sat_mask]
 
-    # Phase 3 on the UNSAT lanes, gathered, full plane space.
+    # Phase 3: device lanes gathered into chunks of their own, full plane
+    # space; host lanes through the spec engine.
     cores = np.zeros((total, d.NCON), bool)
     unsat_idx = np.nonzero(en_np & (result == core.UNSAT))[0]
-    for lo in range(0, unsat_idx.size, CH):
-        idx = unsat_idx[lo: lo + CH]
+    dev_idx, host_idx = _core_routes(problems, unsat_idx, total, monolith)
+    for lo in range(0, dev_idx.size, CH):
+        idx = dev_idx[lo: lo + CH]
         sel = torch.from_numpy(idx).to(dev)
         pts = core.with_planes(_rows(pts_all, sel), Wv=d.Wv, Wr=d.Wr,
                                red=False, full=True)
         c, s = cuda_search.batched_core_fused(
             pts, budget, torch.from_numpy(steps[idx].astype(np.int32)).to(dev),
-            torch.ones(idx.size, dtype=torch.bool, device=dev), NCON=d.NCON)
+            torch.ones(idx.size, dtype=torch.bool, device=dev), NCON=d.NCON,
+            **kw)
         cores[idx] = c.cpu().numpy()
         steps[idx] = s.cpu().numpy()
+    if host_idx.size:
+        hc, hs = _host_core_rows(problems, host_idx, d.NCON, budget,
+                                 steps[host_idx])
+        cores[host_idx] = hc
+        steps[host_idx] += hs
 
     incomplete = ((steps > budget) | (result == core.RUNNING)
                   | ((result == core.SAT) & ~min_found))
@@ -270,7 +342,8 @@ def solve_problems(problems: Sequence[Problem],
     n = len(problems)
     results: List[Optional[core.SolveResult]] = [None] * n
     for idxs in (partition_buckets(problems) if n > 1 else [list(range(n))]):
-        sub = _solve_split([problems[i] for i in idxs], budget, dev)
+        sub = _solve_split([problems[i] for i in idxs], budget, dev,
+                           monolith=n == 1)
         for i, r in zip(idxs, sub):
             results[i] = r
     return results  # type: ignore[return-value]

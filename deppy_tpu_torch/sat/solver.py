@@ -5,7 +5,8 @@ order, raises :class:`NotSatisfiable` with a minimal core of applied
 constraints, or :class:`Incomplete` when the step budget runs out.  The
 solve runs on ``device`` ("cuda" by default; "cpu" runs the kernels'
 plain versions).  Scopes (assume/test/untest), schedulers and the host
-engine belong to later slices of the port.
+engine's own solve belong to later slices of the port (the driver uses
+the host engine for giant unsat cores only).
 """
 
 from __future__ import annotations

@@ -89,7 +89,7 @@ def test_build_happens_at_first_use_only():
     from deppy_tpu_torch.engine import _build
 
     assert _build._LIB is None or torch.cuda.is_available()
-    assert set(_build.SOURCES) == {"bcp.cu", "search.cu", "minimize.cu",
-                                   "core.cu"}
+    assert set(_build.SOURCES) == {"bcp.cu", "blockwise.cu", "search.cu",
+                                   "minimize.cu", "core.cu"}
     for name in _build.SOURCES + _build.HEADERS:
         assert (_build.CSRC / name).is_file()

@@ -5,9 +5,9 @@ kernels' plain versions on the CPU) against ``deppy_tpu.engine.driver``'s
 ``solve_batch`` / ``solve_one`` / ``solve_problems``: outcome, installed
 set, unsat core, step count and backtrack count, with tolerance 0.  The
 data: the reference scenarios of ``tests/test_conformance.py`` and a mixed
-batch of the catalog families, every lane at or below the JAX driver's
-``HOST_CORE_NCONS`` (the port sends every UNSAT lane to its core kernel,
-the JAX driver routes larger cores to its host engine).
+batch of the catalog families, every lane at or below the drivers'
+``HOST_CORE_NCONS``, so every core comes from the core phase
+(``tests/test_torch_host_core.py`` covers the host-routed cores).
 """
 
 from __future__ import annotations
