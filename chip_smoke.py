@@ -18,13 +18,14 @@ Phases, each fatal on failure:
    unsat-core phase runs at scale) and 1,000 ``version_pinned_chains(20,
    3)`` catalogs, then one ``Solver(operatorhub_catalog(40, 5)).solve()``;
 3. the blockwise path (``set_bcp_impl("blockwise")``): one
-   ``Solver(operatorhub_catalog(1000, 8)).solve()`` (the giant catalog,
-   48 MiB of full-space clause planes), ``BatchResolver`` over 64
+   ``Solver(operatorhub_catalog(1000, 8)).solve()`` (the giant catalog:
+   8,192 clause rows over 24,576 variables), ``BatchResolver`` over 64
    ``operatorhub_catalog(250, 8)`` catalogs and 256 pinned-tenant states,
    and one 803-constraint UNSAT problem whose core the host engine
    extracts.  Each family of both paths prints its wall time, problems
    per second, outcome counts and the launches of each kernel (counts set
-   to 0 just before it runs and read just after);
+   to 0 just before it runs and read just after), and the giant its steps,
+   backtracks and ms per step;
 4. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -38,15 +39,20 @@ Phases, each fatal on failure:
    each family padded to the family's main-path dims, plus 32 lanes of a
    small family whose minimization probes do run: every output must be
    equal (integers, tolerance 0).  Kernels 1, 3, 4 and 5 are timed on
-   the bits path's dims, the blockwise kernel on the giant catalog's
-   baseline fixpoint (and held against kernel 1 there).  The phase
-   kernels under blockwise are held against their plain versions at
-   tiles of 1 and 7 rows, the plain versions running on CPU copies of
-   the inputs in a pool of worker processes.  Each kernel's time is its
-   own device time from ``torch.profiler``; the wrapper's time (CUDA
-   events, the host work that prepares a launch included) and the plain
-   version's time stand beside it, with a bound from bytes and
-   operations;
+   the bits path's dims, the blockwise kernel on every family's baseline
+   fixpoint in the full space (held against kernel 1 there too), and the
+   search kernel under blockwise on the giant catalog and the 64-catalog
+   batch.  The blockwise kernel is also held at tiles of 1 and 7 rows on
+   every family, one of them with repeated literals and rows holding x
+   and ~x, and the phase kernels under blockwise at tiles of 1 and 7 rows
+   and at the natural tile; the small-family plain versions run on CPU
+   copies of the inputs in a pool of worker processes.  Rows kept
+   resident and rows streamed must give the same outputs, and on the big
+   families both placements are timed at 128-1024 threads.  Each
+   kernel's time is its own device time from ``torch.profiler``; the
+   wrapper's time (CUDA events, the host work that prepares a launch
+   included) and the plain version's time stand beside it, with a bound
+   from bytes and operations;
 7. the ``kernels:`` line and the JSON summary of every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card,
@@ -81,11 +87,13 @@ GIANT = (1000, 8)
 BATCH = (250, 8)
 BATCH_LANES = 64
 TENANT_LANES = 256
-# Tile heights the phase kernels are held at under blockwise, and the
-# lanes of gvk_fleet compared at 1-row tiles (its plain version at that
-# height is the slowest comparison of the run).
+# Tile heights the kernels are held at under blockwise besides the natural
+# one, and the lanes compared where a plain version at that height is
+# slow (gvk_fleet's search at 1-row tiles; kernel 2 on the 64-catalog
+# batch's 2048 rows).
 SMALL_TILES = (1, 7)
-GVK_TILE1_LANES = 8
+SMALL_TILE_LANES = {("gvk_fleet", 1): 8, ("operatorhub_batch", 1): 8,
+                    ("operatorhub_batch", 7): 16}
 
 
 def fail(msg: str) -> None:
@@ -178,15 +186,20 @@ def giant_unsat(fillers: int = 800):
     return vs + [variable(f"f{i}", mandatory()) for i in range(fillers)]
 
 
-def solve_one(variables):
+def solve_one(variables, stats=None):
     """``Solver(variables, device="cuda").solve()`` as a solution dict, or
-    the NotSatisfiable it raised."""
+    the NotSatisfiable it raised; the solver's steps and backtracks land
+    in ``stats`` when given."""
     from deppy_tpu_torch.sat import NotSatisfiable, Solver
 
+    solver = Solver(variables, device="cuda")
     try:
-        installed = Solver(variables, device="cuda").solve()
+        installed = solver.solve()
     except NotSatisfiable as e:
         return e
+    finally:
+        if stats is not None:
+            stats.update(steps=solver.steps, backtracks=solver.backtracks)
     answer = {v.identifier: False for v in variables}
     answer.update({v.identifier: True for v in installed})
     return answer
@@ -320,7 +333,8 @@ def run_blockwise_path(scale: float):
     tenants = [pinned_tenant_catalog(seed=s)
                for s in range(max(COMPARE_LANES, int(TENANT_LANES * scale)))]
     unsat = giant_unsat()
-    work = [("giant", [giant], lambda: [solve_one(giant)]),
+    giant_stats = {}
+    work = [("giant", [giant], lambda: [solve_one(giant, giant_stats)]),
             ("operatorhub_batch", batch,
              lambda: BatchResolver(device="cuda").solve(batch)),
             ("tenants", tenants,
@@ -352,6 +366,13 @@ def run_blockwise_path(scale: float):
             answers[name] = results
     finally:
         core.set_bcp_impl("auto")
+
+    steps = giant_stats["steps"]
+    wall_ms = per_family["giant"]["wall_s"] * 1e3
+    per_family["giant"].update(giant_stats, ms_per_step=wall_ms / steps)
+    print(f"blockwise path giant: steps {steps} backtracks "
+          f"{giant_stats['backtracks']} ms per step {wall_ms / steps:.6f} "
+          f"(wall / steps)", flush=True)
 
     want = sorted(str(c) for c in encode(unsat).applied[:3])
     got = answers["host_core"][0]
@@ -708,24 +729,155 @@ class PlainPool:
         self.pool.shutdown(wait=True, cancel_futures=True)
 
 
-def _bound_blockwise(nbytes: int, rounds: int, sweeps: int, tile: int,
-                     NA: int, W: int):
-    """(bound ms, bound_by) of blockwise fixpoints: the bytes read and
-    written once, and the operations of ``rounds`` tile rounds plus the
-    AtMost rows of one tile-0 round per sweep."""
-    ops = rounds * (12 * tile * W + 8 * W) + sweeps * 7 * NA * W
+def _bound(nbytes: int, ops: int):
+    """(bound ms, bound_by): the larger of bytes over the HBM rate and
+    32-bit operations over the non-tensor rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
+def _ops_compact(rows, W: int, tiles: int, rounds: int, sweeps: int,
+                 steps: int = 0):
+    """32-bit operations of blockwise fixpoints on compact rows, per lane
+    summed: ~8 per literal test (load, sign, shift, mask, test, count) and
+    ~10 per assignment word (clear, apply, compare) in each tile round,
+    ~8 per AtMost member once per sweep.  ``rounds``/``sweeps`` are the
+    plain version's counts on the same inputs; where they are not known
+    (``steps`` given: a whole search), every step is taken to evaluate
+    every row once, the least a fixpoint can do."""
+    B = rows.lits.shape[0]
+    lits = int((rows.lits != 0).sum()) / B
+    members = int((rows.mlits != 0).sum()) / B
+    if steps:
+        return int(steps * (8 * lits + 10 * W + 8 * members))
+    return int(rounds * (8 * lits / tiles + 10 * W) + sweeps * 8 * members)
+
+
+def repeated_literals(i: int):
+    """``version_pinned_chains(6, 3)`` plus a self-dependent variable (a
+    clause row holding x and ~x); compare_blockwise also repeats a literal
+    of every clause row and a member of every AtMost row (with_repeats)."""
+    from deppy_tpu_torch.models import version_pinned_chains
+    from deppy_tpu_torch.sat import dependency, variable
+
+    return version_pinned_chains(6, 3, seed=i) + [
+        variable("self-dependent", dependency("self-dependent"))]
+
+
+def with_repeats(pts):
+    """``pts`` with the first entry of every clause row and AtMost row
+    written again into the row's first free slot."""
+    import torch
+
+    def rep(x, empty):
+        n = (x != empty).sum(-1, keepdim=True)
+        slot = n.clamp(max=x.shape[-1] - 1).long()
+        free = (n > 0) & (n < x.shape[-1])
+        return x.scatter(-1, slot, torch.where(free, x[..., :1],
+                                               x.gather(-1, slot)))
+
+    return pts._replace(clauses=rep(pts.clauses, 0),
+                        card_ids=rep(pts.card_ids, -1))
+
+
+def _placed(placement: str, fn):
+    """``fn()`` with the blockwise kernels' rows placed as asked."""
+    from deppy_tpu_torch.engine import cuda_blockwise
+
+    default = cuda_blockwise.PLACEMENT
+    cuda_blockwise.PLACEMENT = placement
+    try:
+        return fn()
+    finally:
+        cuda_blockwise.PLACEMENT = default
+
+
+def _timed_once(fn, kernel: str):
+    """(result, kernel ms, wrapper ms) of one call: a search too long to
+    repeat."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+    wrapper_ms = start.elapsed_time(stop)
+    ms = _device_ms(prof, KERNEL_SYMBOLS[kernel]) or wrapper_ms
+    return out, ms, wrapper_ms
+
+
+# Thread counts and row placements measured on the big families
+# (cuda_blockwise.THREADS and PLACEMENT pick among them), and the step
+# budget of the giant's search in that measurement.
+CHOICE_THREADS = (128, 256, 512, 1024)
+CHOICE_GIANT_BUDGET = 2000
+
+
+def measure_choices(name: str, kin, full, en, tile: int, NCON: int):
+    """Kernel 2 and the search kernel under each row placement (resident,
+    streamed) and thread count, on one big family: every configuration
+    must give the default one's outputs."""
+    import torch
+
+    from deppy_tpu_torch.engine import cuda_blockwise, cuda_search, driver
+
+    budget = (CHOICE_GIANT_BUDGET if name == "giant"
+              else driver.DEFAULT_MAX_STEPS)
+    kw = dict(impl="blockwise", NCON=NCON)
+    defaults = (cuda_blockwise.PLACEMENT, cuda_blockwise.THREADS)
+    out = {}
+    ref = None
+    try:
+        for placement in ("resident", "streamed"):
+            for threads in CHOICE_THREADS:
+                cuda_blockwise.PLACEMENT = placement
+                cuda_blockwise.THREADS = threads
+                fp, fp_ms, _ = _timed(
+                    lambda: cuda_blockwise.bcp_fixpoint(*kin,
+                                                        block_rows=tile),
+                    "blockwise_fixpoint", TIMED_REPS)
+                srch, s_ms, _ = _timed_once(
+                    lambda: cuda_search.batched_search_fused(
+                        full, budget, en, **kw), "search")
+                got = (*fp, *srch[:4])
+                if ref is None:
+                    ref = got
+                bad, _ = _mismatch(got, ref)
+                steps = int(srch[3].sum())
+                key = f"{placement}/{threads}"
+                out[key] = dict(blockwise_fixpoint_ms=fp_ms, search_ms=s_ms,
+                                search_steps=steps,
+                                search_ms_per_step=s_ms / max(steps, 1))
+                print(f"choice {name} {key}: blockwise_fixpoint ms "
+                      f"{fp_ms:.4f} search ms {s_ms:.3f} (budget {budget}, "
+                      f"{steps} steps) mismatches {bad}", flush=True)
+                if bad:
+                    fail(f"{name}: {key} disagrees with the first "
+                         f"configuration ({bad} elements)")
+    finally:
+        cuda_blockwise.PLACEMENT, cuda_blockwise.THREADS = defaults
+    torch.cuda.synchronize()
+    return out
+
+
 def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
     """Phase 6 for the blockwise impl: the blockwise kernel against its
-    plain version on every family (timed at the natural tile, held at
-    tiles of 1 and 7 rows), and against kernel 1 on the giant catalog's
-    baseline fixpoint; the phase kernels under blockwise against their
-    plain versions at tiles of 1 and 7 rows."""
+    plain version on every family at the natural tile (timed) and at
+    tiles of 1 and 7 rows, and against kernel 1 on the same inputs; the
+    phase kernels under blockwise against their plain versions at tiles
+    of 1 and 7 rows and at the natural tile, streamed rows against
+    resident ones at the small tiles; on the big families the search
+    kernel's time and the row placements and thread counts measured.
+    Returns (kernel 2's row, the search kernel's big-family rows, the
+    choices measured)."""
     import torch
 
     from deppy_tpu_torch.engine import (core, cuda_bcp, cuda_blockwise,
@@ -736,8 +888,10 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
     dev = torch.device("cuda")
     budget = driver.DEFAULT_MAX_STEPS
     row = dict(max_abs_err=0, families={})
-    small = families(scale) + [("forced_extras", COMPARE_LANES,
-                                forced_extras)]
+    search_rows, choices = {}, {}
+    small = families(scale) + [
+        ("forced_extras", COMPARE_LANES, forced_extras),
+        ("repeated", COMPARE_LANES, repeated_literals)]
     big = [("giant", 1, lambda i: operatorhub_catalog(*GIANT, seed=0)),
            ("operatorhub_batch", COMPARE_LANES,
             lambda i: operatorhub_catalog(*BATCH, seed=i))]
@@ -748,37 +902,51 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
         lanes = probs[:COMPARE_LANES]
         B = len(lanes)
         pts = driver._upload(driver.pad_stack(lanes, d, B), dev)
+        if name == "repeated":
+            pts = with_repeats(pts)
         full = core.with_planes(pts, Wv=d.Wv, Wr=d.Wr, red=False, full=True)
         en = torch.ones(B, dtype=torch.bool, device=dev)
-        tile = cuda_blockwise.tile_rows(cuda_blockwise.BLOCK_ROWS, d.C, d.Wv,
-                                        d.NA)
-        print(f"compare blockwise {name}: {B} lanes, C {d.C} NA {d.NA} NV "
-              f"{d.NV} NCON {d.NCON} Wv {d.Wv}, tile rows {tile}", flush=True)
+        tile = cuda_blockwise.tile_rows(cuda_blockwise.BLOCK_ROWS, d.C, d.K,
+                                        d.M, d.Wv, d.NA)
+        rows = cuda_blockwise.compact_rows(full.clauses, full.card_ids, d.Wv)
+        resident = cuda_blockwise.resident(rows, d.Wv, tile)
+        repeats = int((full.clauses != 0).sum()) - int((rows.lits != 0).sum())
+        print(f"compare blockwise {name}: {B} lanes, C {d.C} K {d.K} NA "
+              f"{d.NA} M {d.M} NV {d.NV} NCON {d.NCON} Wv {d.Wv}, tile rows "
+              f"{tile}, compact widths {rows.lits.shape[2]} and "
+              f"{rows.mlits.shape[2]} ({rows.lit_bytes}-byte literals, "
+              f"{'resident' if resident else 'streamed'}), repeated literals "
+              f"dropped {repeats}", flush=True)
+        if name == "repeated" and not repeats:
+            fail("the repeated family has no repeated literal")
 
-        # Kernel 2: the baseline fixpoint of phase 1 under blockwise.
+        # Kernel 2: the baseline fixpoint of phase 1 under blockwise, on
+        # the compact tensors; its plain version on the dense planes.
         V = d.NV + d.NCON
         base = core._apply_anchors(
             full, core._base_assignment(full, V, d.NCON), V)
         t_in = core.pack_mask(base == core.TRUE, d.Wv)
         f_in = core.pack_mask(base == core.FALSE, d.Wv)
         act = ((full.card_act_bits & t_in.unsqueeze(1)) != 0).any(-1)
-        fp_in = (full.pos_bits, full.neg_bits, full.card_member_bits,
-                 act.to(torch.int32), full.card_n,
-                 torch.zeros((B, d.Wv), dtype=torch.int32, device=dev),
-                 torch.zeros(B, dtype=torch.int32, device=dev), t_in, f_in,
-                 en.to(torch.int32))
+        args = (act.to(torch.int32), full.card_n,
+                torch.zeros((B, d.Wv), dtype=torch.int32, device=dev),
+                torch.zeros(B, dtype=torch.int32, device=dev), t_in, f_in,
+                en.to(torch.int32))
+        kin = (full.clauses, full.card_ids, *args)
+        pin = (full.pos_bits, full.neg_bits, full.card_member_bits, *args)
         got, *timing = _timed(
-            lambda: cuda_blockwise.bcp_fixpoint(*fp_in, block_rows=tile),
+            lambda: cuda_blockwise.bcp_fixpoint(*kin, block_rows=tile),
             "blockwise_fixpoint", TIMED_REPS)
         s0 = core.plain_sweeps
         want, pms, rounds = _timed_plain(
-            lambda: cuda_blockwise.bcp_fixpoint_plain(*fp_in,
-                                                      block_rows=tile))
+            lambda: cuda_blockwise.bcp_fixpoint_plain(*pin, block_rows=tile))
         sweeps = core.plain_sweeps - s0
         bad, err = _mismatch(got, want)
         ms, wrapper_ms = timing
-        bound_ms, bound_by = _bound_blockwise(_nbytes(*fp_in, *got), rounds,
-                                              sweeps, tile, d.NA, d.Wv)
+        tiles = -(-d.C // tile)
+        bound_ms, bound_by = _bound(
+            _nbytes(rows.lits, rows.mlits, *args, *got),
+            _ops_compact(rows, d.Wv, tiles, rounds, sweeps))
         print(f"kernel blockwise_fixpoint on {name}: main-path launches "
               f"{launches['blockwise_fixpoint']} ms {ms:.4f} wrapper_ms "
               f"{wrapper_ms:.4f} plain_ms {pms:.3f} mismatches {bad} "
@@ -791,10 +959,11 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
         row["max_abs_err"] = max(row["max_abs_err"], err)
         fam = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=pms,
                    bound_ms=bound_ms, bound_by=bound_by, tile_rows=tile,
-                   sweeps_per_fixpoint=sweeps / B, rounds=rounds)
+                   resident=resident, sweeps_per_fixpoint=sweeps / B,
+                   rounds=rounds)
         # Kernel 1 on the same inputs: the same conflict flags, and the
         # same planes wherever there is no conflict.
-        bits, bcp_ms, _ = _timed(lambda: cuda_bcp.bcp_fixpoint(*fp_in),
+        bits, bcp_ms, _ = _timed(lambda: cuda_bcp.bcp_fixpoint(*pin),
                                  "bcp_fixpoint", TIMED_REPS)
         ok = got[0] == 0
         bad = (int((bits[0] != got[0]).sum())
@@ -807,28 +976,76 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
                  f"{name} ({bad} elements)")
         fam["bcp_fixpoint_ms"] = bcp_ms
         row["families"][name] = fam
+
+        # Kernel 2 at tiles of 1 and 7 rows, plain versions in the pool,
+        # and streamed against resident rows.
+        for br in SMALL_TILES:
+            nb = min(B, SMALL_TILE_LANES.get((name, br), B))
+            what = f"tile {br}, {nb} lanes"
+            sub_k = [x[:nb] for x in kin]
+            sub_p = [x[:nb] for x in pin]
+            got = cuda_blockwise.bcp_fixpoint(*sub_k, block_rows=br)
+            kw = dict(block_rows=cuda_blockwise.tile_rows(
+                br, d.C, d.K, d.M, d.Wv, d.NA))
+            if name in big_names:
+                # Thousands of tiles of wide rows: the plain version runs
+                # on the card, where each round takes a fraction of the
+                # time it takes on one CPU core.
+                _same("blockwise_fixpoint", name, what, got,
+                      cuda_blockwise.bcp_fixpoint_plain(*sub_p, **kw))
+            else:
+                plain.submit(("blockwise_fixpoint", name, what), got,
+                             "cuda_blockwise", "bcp_fixpoint_plain", sub_p,
+                             kw, nb)
+            _same("blockwise_fixpoint", name, f"{what}, resident against "
+                  f"streamed rows", _placed(
+                      "resident", lambda: cuda_blockwise.bcp_fixpoint(
+                          *sub_k, block_rows=br)), got)
+
         if name in big_names:
+            # The search kernel on the big family: its time per path, and
+            # the row placements and thread counts measured.
+            kw = dict(impl="blockwise", NCON=d.NCON)
+            srch, s_ms, s_wrap = _timed_once(
+                lambda: cuda_search.batched_search_fused(full, budget, en,
+                                                         **kw), "search")
+            steps = int(srch[3].sum())
+            s_bound, s_by = _bound(
+                _nbytes(rows.lits, rows.mlits, full.card_n, full.card_act,
+                        full.choice_cand, full.var_choices, full.anchors,
+                        full.n_vars, *srch),
+                _ops_compact(rows, d.Wv, tiles, 0, 0, steps=steps))
+            print(f"kernel search on {name} (blockwise): main-path launches "
+                  f"{launches['search']} ms {s_ms:.3f} wrapper_ms "
+                  f"{s_wrap:.3f} steps {steps} ms per step "
+                  f"{s_ms / max(steps, 1):.6f} bound_ms {s_bound:.6f} "
+                  f"({s_by})", flush=True)
+            search_rows[name] = dict(ms=s_ms, wrapper_ms=s_wrap,
+                                     plain_ms=None, bound_ms=s_bound,
+                                     bound_by=s_by, steps=steps,
+                                     launches_blockwise=launches["search"])
+            choices[name] = measure_choices(name, kin, full, en, tile,
+                                            d.NCON)
             continue
 
-        # Tiles of 1 and 7 rows: kernel 2 and the phase kernels, plain
-        # versions in the pool.
-        for br in SMALL_TILES:
-            nb = GVK_TILE1_LANES if (name == "gvk_fleet" and br == 1) else B
+        # The phase kernels at tiles of 1 and 7 rows and at the natural
+        # tile, plain versions in the pool, and streamed against resident
+        # rows at the small tiles.
+        for br in SMALL_TILES + (tile,):
+            nb = min(B, SMALL_TILE_LANES.get((name, br), B))
             sub = core.ProblemTensors(*[f[:nb] for f in full])
             en_b = en[:nb]
             kw = dict(impl="blockwise", block_rows=br, NCON=d.NCON)
-            what = f"tile {br}, {nb} lanes"
-            got = cuda_blockwise.bcp_fixpoint(*[x[:nb] for x in fp_in],
-                                              block_rows=br)
-            plain.submit(("blockwise_fixpoint", name, what), got,
-                         "cuda_blockwise", "bcp_fixpoint_plain",
-                         [x[:nb] for x in fp_in],
-                         dict(block_rows=cuda_blockwise.tile_rows(
-                             br, d.C, d.Wv, d.NA)), nb)
+            what = f"tile {br}{' (natural)' if br == tile else ''}, {nb} lanes"
             s_args = (sub, budget, en_b)
             got = cuda_search.batched_search_fused(*s_args, **kw)
             plain.submit(("search", name, what), got, "cuda_search",
                          "batched_search_plain", s_args, kw, nb)
+            if br in SMALL_TILES:
+                _same("search", name, f"{what}, resident against streamed "
+                      f"rows", _placed(
+                          "resident", lambda: cuda_search.batched_search_fused(
+                              *s_args, **kw)), got)
             result, guessed, model, steps = got[0], got[1], got[2], got[3]
             m_args = (sub, result, model, guessed, budget, steps, en_b)
             got = cuda_search.batched_minimize_fused(*m_args, **kw)
@@ -841,7 +1058,7 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
                 plain.submit(("core", name, what), got, "cuda_search",
                              "batched_core_plain", c_args, kw, nb)
     torch.cuda.synchronize()
-    return row
+    return row, search_rows, choices
 
 
 # --------------------------------------------------------------------------
@@ -902,20 +1119,33 @@ def main(argv=None) -> int:
               f"(nvcc {_build.build_seconds:.1f} s, 0 = reused) at "
               f"{_build.library_path()}", flush=True)
 
+        def stamp(phase):
+            print(f"phase {phase} done at {time.perf_counter() - t_all:.1f} "
+                  f"s", flush=True)
+
         by_path = {}
         by_path["bits"], per_family = run_main_path(args.scale)
+        stamp("bits path")
         by_path["blockwise"], per_family_bw = run_blockwise_path(args.scale)
+        stamp("blockwise path")
         per_family["profile"] = profile_chunk(args.scale)
         per_family["profile_blockwise"] = profile_solve(
             "operatorhub_batch", operatorhub_batch(args.scale),
             impl="blockwise")
+        stamp("profiles")
         rows = compare_kernels(args.scale, by_path["bits"])
-        rows["blockwise_fixpoint"] = compare_blockwise(
+        stamp("bits kernels compared")
+        (rows["blockwise_fixpoint"], search_big,
+         per_family["choices"]) = compare_blockwise(
             args.scale, by_path["blockwise"], plain)
+        rows["search"]["families"].update(
+            {f"{k} (blockwise)": v for k, v in search_big.items()})
+        stamp("blockwise kernels compared")
         t0 = time.perf_counter()
         n = plain.check()
         print(f"{n} comparisons at small tiles checked in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        stamp("small tiles")
     finally:
         plain.close()
 

@@ -42,23 +42,18 @@ __global__ void bcp_kernel(const uint32_t* __restrict__ pos,
   P.mem = mem + (size_t)b * NA * W;
   P.card_n = card_n + (size_t)b * NA;
   P.card_valid = act + (size_t)b * NA;
-  P.card_act_bits = nullptr;
+  P.card_act = nullptr;
   P.C = C;
   P.NA = NA;
   P.W = W;
   P.tile_rows = 0;
-  P.tile = nullptr;
-  if (threadIdx.x == 0) {
-    copy_words(S.t, t0 + (size_t)b * W, W);
-    copy_words(S.f, f0 + (size_t)b * W, W);
-  }
+  block_copy(S.t, t0 + (size_t)b * W, W);
+  block_copy(S.f, f0 + (size_t)b * W, W);
   const bool c = block_fixpoint(P, S, min_bits + (size_t)b * W, min_w[b],
                                 en[b] != 0, false);
-  if (threadIdx.x == 0) {
-    conflict[b] = c ? 1 : 0;
-    copy_words(t_out + (size_t)b * W, S.t, W);
-    copy_words(f_out + (size_t)b * W, S.f, W);
-  }
+  if (threadIdx.x == 0) conflict[b] = c ? 1 : 0;
+  block_copy(t_out + (size_t)b * W, S.t, W);
+  block_copy(f_out + (size_t)b * W, S.f, W);
 }
 
 }  // namespace

@@ -7,10 +7,12 @@
 // only after a SAT chunk probe.  Probes run in the full plane space, where
 // activation literals are variables: a probe clears the activation bits of
 // the dropped constraints, and AtMost-row activity follows the activation
-// bits of each fixpoint's entry state (Planes::card_act_bits).
+// variable of each fixpoint's entry state (Planes::card_act).
 //
 // Every fixpoint is the bits rounds or, under the blockwise impl, a
-// blockwise sweep (Planes::tile_rows).
+// blockwise sweep over compact rows (Planes::tile_rows).  Plane copies and
+// the probe's entry planes are block-wide passes; thread 0 keeps the
+// chunk control.
 //
 // Bound on the H100: ceil(n_cons / G) chunk probes plus G member probes per
 // SAT chunk, each a full block-wide DPLL over the full-space planes, which
@@ -27,16 +29,16 @@ struct CoreCtl {
   int j, k, chunk_mode, steps;
 };
 
-__global__ void core_kernel(
+__global__ void __launch_bounds__(kMaxThreads) core_kernel(
     const uint32_t* __restrict__ pos, const uint32_t* __restrict__ neg,
     const uint32_t* __restrict__ mem, const int* __restrict__ card_n,
-    const uint32_t* __restrict__ card_act_bits,
+    const int* __restrict__ card_act, Planes L,
     const uint32_t* __restrict__ pvb_all, const uint32_t* __restrict__ base_t,
     const uint32_t* __restrict__ base_f, const int* __restrict__ en_in,
     const int* __restrict__ ncons_in, const int* __restrict__ nvars_in,
     const int* __restrict__ steps_in, int budget, uint32_t* scratch,
     size_t scratch_words, int* core_out, int* steps_out, int C, int NA, int W,
-    int NV, int NCON, int G, int tile_rows) {
+    int NV, int NCON, int G) {
   extern __shared__ uint32_t smem[];
   __shared__ CoreCtl ctl;
   __shared__ DpllCtl dctl;
@@ -57,9 +59,9 @@ __global__ void core_kernel(
   P.C = C;
   P.NA = NA;
   P.W = W;
-  set_activity(P, nullptr, card_act_bits, b);
-  P.tile_rows = tile_rows;
-  P.tile = smem + tile_offset_words(W, NA);
+  set_activity(P, nullptr, card_act, b);
+  set_compact(P, L, smem, b);
+  stage_compact(P);
   const uint32_t* pvb = pvb_all + (size_t)b * W;
   const uint32_t* bt = base_t + (size_t)b * W;
   const uint32_t* bf = base_f + (size_t)b * W;
@@ -69,9 +71,10 @@ __global__ void core_kernel(
   const int n_cons = ncons_in[b];
   const int n_vars = nvars_in[b];
 
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int j = tid; j < NCON; j += nt) active[j] = (j < n_cons && en) ? 1 : 0;
+  for (int w = tid; w < W; w += nt) dropped[w] = 0u;
   if (lead) {
-    for (int j = 0; j < NCON; ++j) active[j] = (j < n_cons && en) ? 1 : 0;
-    for (int w = 0; w < W; ++w) dropped[w] = 0u;
     ctl.j = 0;
     ctl.k = 0;
     ctl.chunk_mode = 1;
@@ -80,14 +83,16 @@ __global__ void core_kernel(
   while (true) {
     __syncthreads();
     const bool go = en && ctl.j < n_cons && ctl.steps <= budget;
+    const int j = ctl.j, k = ctl.k;
+    const bool chunk_mode = ctl.chunk_mode != 0;
     __syncthreads();
     if (!go) break;
+    // Trial: the dropped set plus this probe's candidates, cleared from
+    // the all-active activation bits.
+    block_copy(trial, dropped, W);
+    __syncthreads();
     if (lead) {
-      // Trial: the dropped set plus this probe's candidates, cleared from
-      // the all-active activation bits.
-      const int j = ctl.j, k = ctl.k;
-      copy_words(trial, dropped, W);
-      if (ctl.chunk_mode) {
+      if (chunk_mode) {
         for (int g = 0; g < G; ++g) {
           const int idx = j + g;
           if (idx < n_cons && active[idx]) {
@@ -99,22 +104,21 @@ __global__ void core_kernel(
         const int v = n_vars + j + k;
         trial[v >> 5] |= 1u << (v & 31);
       }
-      for (int w = 0; w < W; ++w) init_t[w] = bt[w] & ~trial[w];
     }
+    __syncthreads();
+    for (int w = tid; w < W; w += nt) init_t[w] = bt[w] & ~trial[w];
     const int status = block_dpll(P, S, &dctl, D, pvb, init_t, bf, nullptr,
                                   0, budget, &ctl.steps, NV, true, pm_t,
                                   pm_f);
+    const bool unsat = status == kUnsat;
+    if (unsat) block_copy(dropped, trial, W);
     if (lead) {
-      const int j = ctl.j, k = ctl.k;
-      const bool chunk_mode = ctl.chunk_mode != 0;
-      const bool unsat = status == kUnsat;
       if (unsat) {
         if (chunk_mode) {
           for (int g = 0; g < G && j + g < NCON; ++g) active[j + g] = 0;
         } else if (j + k < n_cons) {
           active[j + k] = 0;
         }
-        copy_words(dropped, trial, W);
       }
       int k2 = chunk_mode ? 0 : k + 1;
       const bool advance = (chunk_mode && unsat) ||
@@ -136,34 +140,32 @@ extern "C" size_t deppy_core_scratch_words(int NV, int W) {
   return dpll_scratch_words(NV, W);
 }
 
-// ``tile_rows`` as for deppy_search.
-extern "C" int deppy_core(const void* pos, const void* neg, const void* mem,
-                          const void* card_n, const void* card_act_bits,
-                          const void* pvb, const void* base_t,
-                          const void* base_f, const void* en,
-                          const void* n_cons, const void* n_vars,
-                          const void* steps, int budget, void* scratch,
-                          void* core, void* steps_out, int B, int C, int NA,
-                          int W, int NV, int NCON, int G, int tile_rows,
-                          int threads, void* stream) {
+// ``card_act``, the compact rows and ``tile_rows`` as for deppy_search.
+extern "C" int deppy_core(
+    const void* pos, const void* neg, const void* mem, const void* card_n,
+    const void* card_act, const void* lits, const void* mlits,
+    const void* pvb, const void* base_t, const void* base_f, const void* en,
+    const void* n_cons, const void* n_vars, const void* steps, int budget,
+    void* scratch, void* core, void* steps_out, int B, int C, int NA, int W,
+    int NV, int NCON, int G, int K, int M, int lit_bytes, int tile_rows,
+    int resident, int threads, void* stream) {
   if (B == 0) return 0;
-  if (tile_rows > C || threads % 32 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      kernel_smem_bytes(work_words(W, NA) + 5 * (size_t)W, W, NA, tile_rows);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (!launch_ok(C, tile_rows, threads)) return (int)cudaErrorInvalidValue;
+  const Planes L = compact_dims(C, NA, W, lits, mlits, K, M, lit_bytes,
+                                tile_rows, resident);
+  const size_t smem = kernel_smem_bytes(work_words(W, NA) + 5 * (size_t)W, L);
+  cudaError_t e = cudaFuncSetAttribute(
+      core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   core_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(pos), static_cast<const uint32_t*>(neg),
       static_cast<const uint32_t*>(mem), static_cast<const int*>(card_n),
-      static_cast<const uint32_t*>(card_act_bits),
+      static_cast<const int*>(card_act), L,
       static_cast<const uint32_t*>(pvb), static_cast<const uint32_t*>(base_t),
       static_cast<const uint32_t*>(base_f), static_cast<const int*>(en),
       static_cast<const int*>(n_cons), static_cast<const int*>(n_vars),
       static_cast<const int*>(steps), budget, static_cast<uint32_t*>(scratch),
       dpll_scratch_words(NV, W), static_cast<int*>(core),
-      static_cast<int*>(steps_out), C, NA, W, NV, NCON, G, tile_rows);
+      static_cast<int*>(steps_out), C, NA, W, NV, NCON, G);
   return (int)cudaGetLastError();
 }

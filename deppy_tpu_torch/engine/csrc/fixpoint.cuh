@@ -31,35 +31,53 @@ constexpr int kSat = 1;
 constexpr int kUnsat = -1;
 constexpr int kRunning = 0;
 
-// One problem's planes in one plane space.
+// One problem's rows in one plane space.
 struct Planes {
+  // The bits fixpoint (tile_rows 0) reads dense planes.
   const uint32_t* pos;            // [C][W] positive literals of each clause
   const uint32_t* neg;            // [C][W] negative literals
   const uint32_t* mem;            // [NA][W] AtMost members
   const int* card_n;              // [NA] AtMost bounds
-  // Row activity: static per row in the reduced space (card_valid), or,
-  // in the full space, "the row's activation bit is set in the entry t"
-  // (card_act_bits, core.py:900-902).  Exactly one is non-null.
+  // Row activity: static per row (card_valid, the reduced space and the
+  // standalone kernels), or, in the full space, "the row's activation
+  // variable card_act[r] is true in the entry t" (core.py:900-902).
+  // Exactly one is non-null.
   const int* card_valid;          // [NA]
-  const uint32_t* card_act_bits;  // [NA][W]
+  const int* card_act;            // [NA] activation variable, -1 for none
   int C, NA, W;
-  // The fixpoint: tile_rows 0 runs block_fixpoint below; a positive
-  // count runs the blockwise sweeps of blockwise.cuh over shared-memory
-  // tiles of that many clause rows, staged in ``tile`` (2 * tile_rows * W
-  // shared words).
+  // The blockwise fixpoint (tile_rows > 0, blockwise.cuh) reads compact
+  // rows instead: ``lits`` [C][K] signed 1-based literals and ``mlits``
+  // [NA][M] 1-based AtMost members, each row's distinct entries first and
+  // 0 after, in ``lit_bytes`` (2 or 4) bytes each.  ``region`` is the
+  // shared memory they are staged in (blockwise.cuh).
   int tile_rows;
-  uint32_t* tile;
+  const void* lits;
+  const void* mlits;
+  int K, M, lit_bytes, resident;
+  unsigned char* region;
 };
 
 // Row activity from the kernel arguments: one of the two pointers is
-// null (the reduced space passes card_valid, the full one card_act_bits).
+// null (the reduced space passes card_valid, the full one card_act).
 __device__ inline void set_activity(Planes& P, const int* card_valid,
-                                    const uint32_t* card_act_bits, int b) {
+                                    const int* card_act, int b) {
   P.card_valid =
       card_valid != nullptr ? card_valid + (size_t)b * P.NA : nullptr;
-  P.card_act_bits = card_act_bits != nullptr
-                        ? card_act_bits + (size_t)b * P.NA * P.W
-                        : nullptr;
+  P.card_act = card_act != nullptr ? card_act + (size_t)b * P.NA : nullptr;
+}
+
+__device__ inline bool get_bit(const uint32_t* plane, int var) {
+  return (plane[var >> 5] >> (var & 31)) & 1u;
+}
+
+// Whether AtMost row ``r`` is active for a fixpoint entered with ``t``.
+// An activation variable outside the planes has no bit, as in the dense
+// card_act_bits rows of core.derive_planes.
+__device__ inline bool row_active(const Planes& P, const uint32_t* t,
+                                  int r) {
+  if (P.card_act == nullptr) return P.card_valid[r] != 0;
+  const int v = P.card_act[r];
+  return v >= 0 && v < 32 * P.W && get_bit(t, v);
 }
 
 // A block's shared working set.
@@ -69,16 +87,20 @@ struct Work {
   uint32_t* wpos;  // [W] literals forced true this round
   uint32_t* wneg;  // [W] literals forced false this round
   int* act;        // [NA] row activity for the current fixpoint
-  int* flags;      // [4]
+  int* flags;      // [kFlagWords]
 };
 
-// kFlagMinTrues is the blockwise fixpoint's per-round count of true
-// extras (blockwise.cuh).
-enum { kFlagPre = 0, kFlagConflict = 1, kFlagChanged = 2, kFlagMinTrues = 3 };
+// The bits fixpoint's round flags, and the blockwise fixpoint's per-round
+// conflict, changed and true-extras slots, two of each so that one round
+// resets the next one's while its own are read (blockwise.cuh).
+enum {
+  kFlagPre = 0, kFlagConflict = 1, kFlagChanged = 2,
+  kSlotConflict = 3, kSlotChanged = 5, kSlotMinTrues = 7, kFlagWords = 9
+};
 
 // Shared words the Work of one block needs (the flags included).
 __host__ __device__ inline size_t work_words(int W, int NA) {
-  return 4 * (size_t)W + (size_t)NA + 4;
+  return 4 * (size_t)W + (size_t)NA + kFlagWords;
 }
 
 __device__ inline Work carve_work(uint32_t* base, int W, int NA) {
@@ -104,7 +126,7 @@ __device__ inline int clampi(int x, int lo, int hi) {
 // conflict (core.py:877-883); the standalone BCP kernel has no such check
 // (pallas_bcp.py:50-76).  A call with ``run`` false does zero rounds.
 // The call begins and ends with a barrier, so a caller may write S.t/S.f
-// from one thread right before it and read them right after.
+// right before it and read them right after.
 static __device__ bool block_fixpoint(const Planes& P, const Work& S,
                                const uint32_t* min_bits, int min_w, bool run,
                                bool pre_check) {
@@ -112,16 +134,7 @@ static __device__ bool block_fixpoint(const Planes& P, const Work& S,
   const int nt = blockDim.x;
   const int W = P.W;
   __syncthreads();
-  for (int r = tid; r < P.NA; r += nt) {
-    int a = 0;
-    if (P.card_act_bits != nullptr) {
-      const uint32_t* ab = P.card_act_bits + (size_t)r * W;
-      for (int w = 0; w < W; ++w) a |= (ab[w] & S.t[w]) != 0u;
-    } else {
-      a = P.card_valid[r] != 0;
-    }
-    S.act[r] = a;
-  }
+  for (int r = tid; r < P.NA; r += nt) S.act[r] = row_active(P, S.t, r);
   if (tid == 0) S.flags[kFlagPre] = 0;
   __syncthreads();
   if (run && pre_check) {
@@ -220,19 +233,22 @@ static __device__ bool block_fixpoint(const Planes& P, const Work& S,
   return conflict || pre;
 }
 
-// Outcome of a propagated state (core.py:991-1002): UNSAT on conflict,
-// SAT when every problem variable is assigned, else RUNNING.
-__device__ inline int test_outcome(bool conflict, const uint32_t* t,
-                                   const uint32_t* f, const uint32_t* pvb,
-                                   int W) {
-  if (conflict) return kUnsat;
-  for (int w = 0; w < W; ++w)
-    if (pvb[w] & ~(t[w] | f[w])) return kRunning;
-  return kSat;
+// Block-wide copy of ``W`` words: every thread copies its stride.
+__device__ inline void block_copy(uint32_t* dst, const uint32_t* src, int W) {
+  for (int w = threadIdx.x; w < W; w += blockDim.x) dst[w] = src[w];
 }
 
-__device__ inline void copy_words(uint32_t* dst, const uint32_t* src, int W) {
-  for (int w = 0; w < W; ++w) dst[w] = src[w];
+// Block-wide minimum of ``v``, returned in every thread.  Every thread
+// calls it; ``red`` is 32 shared ints.  Begins and ends with a barrier.
+__device__ inline int block_min(int v, int* red) {
+  v = __reduce_min_sync(0xffffffffu, v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int m = red[0];
+  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) m = red[i] < m ? red[i] : m;
+  __syncthreads();
+  return m;
 }
 
 }  // namespace deppy

@@ -8,7 +8,9 @@
 // probe was at another bound, so the model comes from that bound.
 //
 // Under bits it runs in the reduced plane space; under blockwise in the
-// full space, every fixpoint a blockwise sweep (Planes::tile_rows).
+// full space, every fixpoint a blockwise sweep over compact rows
+// (Planes::tile_rows).  Its plane copies are block-wide passes
+// (fixpoint.cuh block_copy).
 //
 // Bound on the H100: log2(n_extras) + 1 DPLL probes per problem, each a
 // chain of fixpoints whose rounds re-read the problem's planes from L2;
@@ -25,18 +27,17 @@ struct MinCtl {
   int lo, hi, best_w, found, steps;
 };
 
-__global__ void minimize_kernel(
+__global__ void __launch_bounds__(kMaxThreads) minimize_kernel(
     const uint32_t* __restrict__ pos, const uint32_t* __restrict__ neg,
     const uint32_t* __restrict__ mem, const int* __restrict__ card_n,
-    const int* __restrict__ card_valid,
-    const uint32_t* __restrict__ card_act_bits,
-    const uint32_t* __restrict__ m_init_t,
+    const int* __restrict__ card_valid, const int* __restrict__ card_act,
+    Planes L, const uint32_t* __restrict__ m_init_t,
     const uint32_t* __restrict__ m_init_f, const uint32_t* __restrict__ extras,
     const uint32_t* __restrict__ m2t0, const uint32_t* __restrict__ pvb_all,
     const int* __restrict__ en_in, const int* __restrict__ n_extras_in,
     const int* __restrict__ steps_in, int budget, uint32_t* scratch,
     size_t scratch_words, int* found_out, int* steps_out, uint32_t* m2t_out,
-    int C, int NA, int W, int NV, int tile_rows) {
+    int C, int NA, int W, int NV) {
   extern __shared__ uint32_t smem[];
   __shared__ MinCtl ctl;
   __shared__ DpllCtl dctl;
@@ -55,9 +56,9 @@ __global__ void minimize_kernel(
   P.C = C;
   P.NA = NA;
   P.W = W;
-  set_activity(P, card_valid, card_act_bits, b);
-  P.tile_rows = tile_rows;
-  P.tile = smem + tile_offset_words(W, NA);
+  set_activity(P, card_valid, card_act, b);
+  set_compact(P, L, smem, b);
+  stage_compact(P);
   const uint32_t* it = m_init_t + (size_t)b * W;
   const uint32_t* iff = m_init_f + (size_t)b * W;
   const uint32_t* ext = extras + (size_t)b * W;
@@ -66,13 +67,13 @@ __global__ void minimize_kernel(
   const bool en = en_in[b] != 0;
   const int n_extras = n_extras_in[b];
 
+  block_copy(m2_t, m2t0 + (size_t)b * W, W);
   if (lead) {
     ctl.lo = 0;
     ctl.hi = n_extras;
     ctl.best_w = -1;
     ctl.found = 0;
     ctl.steps = steps_in[b];
-    copy_words(m2_t, m2t0 + (size_t)b * W, W);
   }
   // Invariant: UNSAT strictly below lo, SAT at hi.
   while (true) {
@@ -84,10 +85,10 @@ __global__ void minimize_kernel(
     const int w = (lo + hi) / 2;
     const int status = block_dpll(P, S, &dctl, D, pvb, it, iff, ext, w,
                                   budget, &ctl.steps, NV, en, pm_t, pm_f);
+    if (status == kSat) block_copy(m2_t, pm_t, W);
     if (lead) {
       if (status == kSat) {
         ctl.best_w = w;
-        copy_words(m2_t, pm_t, W);
         ctl.found = 1;
         ctl.hi = w;
       } else if (status == kUnsat) {
@@ -103,14 +104,15 @@ __global__ void minimize_kernel(
   const int f_status = block_dpll(P, S, &dctl, D, pvb, it, iff, ext, m_hi,
                                   budget, &ctl.steps, NV, need_final, pm_t,
                                   pm_f);
+  if (need_final && f_status == kSat) block_copy(m2_t, pm_t, W);
   if (lead) {
-    if (need_final && f_status == kSat) copy_words(m2_t, pm_t, W);
     const bool found = (need_final ? f_status == kSat : ctl.found != 0) ||
                        (en && n_extras == 0);
     found_out[b] = found ? 1 : 0;
     steps_out[b] = ctl.steps;
-    copy_words(m2t_out + (size_t)b * W, m2_t, W);
   }
+  __syncthreads();
+  block_copy(m2t_out + (size_t)b * W, m2_t, W);
 }
 
 }  // namespace
@@ -119,41 +121,37 @@ extern "C" size_t deppy_minimize_scratch_words(int NV, int W) {
   return dpll_scratch_words(NV, W);
 }
 
-// ``card_valid`` / ``card_act_bits`` and ``tile_rows`` as for
-// deppy_search.
-extern "C" int deppy_minimize(const void* pos, const void* neg,
-                              const void* mem, const void* card_n,
-                              const void* card_valid,
-                              const void* card_act_bits, const void* m_init_t,
-                              const void* m_init_f, const void* extras,
-                              const void* m2t0, const void* pvb,
-                              const void* en, const void* n_extras,
-                              const void* steps, int budget, void* scratch,
-                              void* found, void* steps_out, void* m2_t, int B,
-                              int C, int NA, int W, int NV, int tile_rows,
-                              int threads, void* stream) {
+// ``card_valid`` / ``card_act``, the compact rows and ``tile_rows`` as
+// for deppy_search.
+extern "C" int deppy_minimize(
+    const void* pos, const void* neg, const void* mem, const void* card_n,
+    const void* card_valid, const void* card_act, const void* lits,
+    const void* mlits, const void* m_init_t, const void* m_init_f,
+    const void* extras, const void* m2t0, const void* pvb, const void* en,
+    const void* n_extras, const void* steps, int budget, void* scratch,
+    void* found, void* steps_out, void* m2_t, int B, int C, int NA, int W,
+    int NV, int K, int M, int lit_bytes, int tile_rows, int resident,
+    int threads, void* stream) {
   if (B == 0) return 0;
-  if (tile_rows > C || threads % 32 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      kernel_smem_bytes(work_words(W, NA) + 3 * (size_t)W, W, NA, tile_rows);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        minimize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (!launch_ok(C, tile_rows, threads)) return (int)cudaErrorInvalidValue;
+  const Planes L = compact_dims(C, NA, W, lits, mlits, K, M, lit_bytes,
+                                tile_rows, resident);
+  const size_t smem = kernel_smem_bytes(work_words(W, NA) + 3 * (size_t)W, L);
+  cudaError_t e = cudaFuncSetAttribute(
+      minimize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
   minimize_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(pos), static_cast<const uint32_t*>(neg),
       static_cast<const uint32_t*>(mem), static_cast<const int*>(card_n),
-      static_cast<const int*>(card_valid),
-      static_cast<const uint32_t*>(card_act_bits),
-      static_cast<const uint32_t*>(m_init_t),
+      static_cast<const int*>(card_valid), static_cast<const int*>(card_act),
+      L, static_cast<const uint32_t*>(m_init_t),
       static_cast<const uint32_t*>(m_init_f),
       static_cast<const uint32_t*>(extras), static_cast<const uint32_t*>(m2t0),
       static_cast<const uint32_t*>(pvb), static_cast<const int*>(en),
       static_cast<const int*>(n_extras), static_cast<const int*>(steps),
       budget, static_cast<uint32_t*>(scratch), dpll_scratch_words(NV, W),
       static_cast<int*>(found), static_cast<int*>(steps_out),
-      static_cast<uint32_t*>(m2_t), C, NA, W, NV, tile_rows);
+      static_cast<uint32_t*>(m2_t), C, NA, W, NV);
   return (int)cudaGetLastError();
 }

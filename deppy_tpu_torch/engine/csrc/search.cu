@@ -6,20 +6,24 @@
 // bcp.cu, under the bits impl; kernel 2, blockwise.cu, under blockwise);
 // this kernel starts from its planes and outcome.  Under bits it runs in
 // the reduced plane space; under blockwise in the full space (activation
-// variables set true, AtMost activity from card_act_bits), every fixpoint
-// a blockwise sweep (Planes::tile_rows).  It then runs the guess search
-// of core.search (core.py:1143-1391, T = 0): a circular choice deque of
-// (choice row, candidate index) pairs, a guess stack, one plane snapshot and
-// Test outcome per guess level, and a block-wide DPLL leaf (dpll.cuh)
-// whenever the deque empties with the outcome undetermined.
+// variables set true, AtMost activity from card_act), every fixpoint a
+// blockwise sweep over compact rows (Planes::tile_rows).  It then runs
+// the guess search of core.search (core.py:1143-1391, T = 0): a circular
+// choice deque of (choice row, candidate index) pairs, a guess stack, one
+// plane snapshot and Test outcome per guess level, and a block-wide DPLL
+// leaf (dpll.cuh) whenever the deque empties with the outcome
+// undetermined.
 //
 // Bound on the H100: the search is a chain of dependent propagation
-// fixpoints, each a few rounds of a row scan over the problem's planes
-// with three barriers per round; a problem's time is that latency chain,
-// and the batch (one block per problem) is what fills the card.  Thread 0
-// runs the control arms out of shared memory and a per-problem global
-// scratch (deque, stack, snapshot trails); the block runs every fixpoint.
-// Every control loop's condition is read by all threads between barriers.
+// fixpoints, each a few rounds of a row scan over the problem's rows with
+// two or three barriers per round; a problem's time is that latency
+// chain, and the batch (one block per problem) is what fills the card.
+// Thread 0 runs the control arms' scalar work (deque, guess stack,
+// outcomes) out of shared memory and a per-problem global scratch, and
+// leaves each arm's plane work to the block: every snapshot store,
+// restore and model copy is one coalesced pass over the W words, and the
+// Test after a push is folded into the pass that stores its level.  Every
+// control loop's condition is read by all threads between barriers.
 #include <cuda_runtime.h>
 
 #include "dpll.cuh"
@@ -28,11 +32,17 @@ namespace {
 
 using namespace deppy;
 
-// Search control of one problem (shared).
+// Search control of one problem (shared).  ``op`` is the plane work the
+// control arm leaves to the block: none, a push Test (``var`` assumed on
+// level ``lv``, its fixpoint to land on ``sidx``), a null guess (level
+// ``lv`` copied to ``sidx``), or a pop whose restored outcome is SAT
+// (level ``lv`` becomes the model).
 struct SearchCtl {
   int head, cnt, gsp, result, done, need_leaf, steps, tr_n;
-  int push_test, sidx;
+  int op, lv, var, sidx;
 };
+
+enum { kOpNone = 0, kOpPush = 1, kOpNull = 2, kOpPopSat = 3 };
 
 struct SearchScratch {
   uint32_t* snap_t;  // [GS+1][W]
@@ -72,30 +82,26 @@ __device__ SearchScratch carve_search(uint32_t* base, int NC, int W) {
   return X;
 }
 
-__device__ inline bool get_bit(const uint32_t* plane, int var) {
-  return (plane[var >> 5] >> (var & 31)) & 1u;
-}
-
 __device__ inline int mod(int x, int m) { return ((x % m) + m) % m; }
 
-__global__ void search_kernel(
+__global__ void __launch_bounds__(kMaxThreads) search_kernel(
     const uint32_t* __restrict__ pos, const uint32_t* __restrict__ neg,
     const uint32_t* __restrict__ mem, const int* __restrict__ card_n,
-    const int* __restrict__ card_valid,
-    const uint32_t* __restrict__ card_act_bits,
-    const int* __restrict__ choice_cand,
+    const int* __restrict__ card_valid, const int* __restrict__ card_act,
+    Planes L, const int* __restrict__ choice_cand,
     const int* __restrict__ var_choices, const uint32_t* __restrict__ t0,
     const uint32_t* __restrict__ f0, const uint32_t* __restrict__ pvb_all,
     const int* __restrict__ outcome0, const int* __restrict__ enabled_in,
     const int* __restrict__ na_in, int budget, uint32_t* scratch,
     size_t scratch_words, int* result_out, int* steps_out, int* trn_out,
     uint32_t* assumed_out, uint32_t* mt_out, uint32_t* mf_out, int C, int NA,
-    int W, int NC, int Kc, int NV, int Wch, int tile_rows) {
+    int W, int NC, int Kc, int NV, int Wch) {
   extern __shared__ uint32_t smem[];
   __shared__ SearchCtl ctl;
   __shared__ DpllCtl dctl;
   const int b = blockIdx.x;
-  const bool lead = threadIdx.x == 0;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bool lead = tid == 0;
   const int DQ = NC + 1, GS = NC + 1;
   const Work S = carve_work(smem, W, NA);
   uint32_t* assumed = smem + work_words(W, NA);
@@ -112,9 +118,9 @@ __global__ void search_kernel(
   P.C = C;
   P.NA = NA;
   P.W = W;
-  set_activity(P, card_valid, card_act_bits, b);
-  P.tile_rows = tile_rows;
-  P.tile = smem + tile_offset_words(W, NA);
+  set_activity(P, card_valid, card_act, b);
+  set_compact(P, L, smem, b);
+  stage_compact(P);
   const int* cand_tab = choice_cand + (size_t)b * NC * Kc;
   const int* vch_tab = var_choices + (size_t)b * NV * Wch;
   const uint32_t* pvb = pvb_all + (size_t)b * W;
@@ -122,18 +128,18 @@ __global__ void search_kernel(
   const DpllScratch D = carve_dpll(X.dpll, NV, W);
   const bool enabled = enabled_in[b] != 0;
 
+  // Set-up, across the block.
+  const int na = na_in[b];
+  for (int i = tid; i < DQ; i += nt) {
+    X.dq_c[i] = i < na ? i : 0;
+    X.dq_i[i] = 0;
+    X.g_c[i] = X.g_i[i] = X.g_v[i] = X.g_ch[i] = 0;
+  }
+  for (int i = tid; i <= GS; i += nt) X.out_st[i] = i == 0 ? outcome0[b] : 0;
+  block_copy(X.snap_t, t0 + (size_t)b * W, W);
+  block_copy(X.snap_f, f0 + (size_t)b * W, W);
+  for (int w = tid; w < W; w += nt) assumed[w] = m_t[w] = m_f[w] = 0u;
   if (lead) {
-    const int na = na_in[b];
-    for (int i = 0; i < DQ; ++i) {
-      X.dq_c[i] = i < na ? i : 0;
-      X.dq_i[i] = 0;
-      X.g_c[i] = X.g_i[i] = X.g_v[i] = X.g_ch[i] = 0;
-    }
-    for (int i = 0; i <= GS; ++i) X.out_st[i] = 0;
-    copy_words(X.snap_t, t0 + (size_t)b * W, W);
-    copy_words(X.snap_f, f0 + (size_t)b * W, W);
-    X.out_st[0] = outcome0[b];
-    for (int w = 0; w < W; ++w) assumed[w] = m_t[w] = m_f[w] = 0u;
     ctl.head = 0;
     ctl.cnt = na;
     ctl.gsp = 0;
@@ -142,6 +148,8 @@ __global__ void search_kernel(
     ctl.need_leaf = 0;
     ctl.steps = 1;
     ctl.tr_n = 0;
+    ctl.op = kOpNone;
+    ctl.lv = ctl.sidx = ctl.var = 0;
   }
 
   while (true) {  // episodes: drain control arms, then one DPLL leaf
@@ -155,15 +163,13 @@ __global__ void search_kernel(
       __syncthreads();
       if (!go) break;
       if (lead) {
-        ctl.push_test = 0;
+        ctl.op = kOpNone;
         const int gsp = ctl.gsp;
         const int cnt = ctl.cnt;
         const int result = ctl.result;
         const bool is_leaf = cnt == 0 && result == kRunning;
         const bool is_bt = !is_leaf && result == kUnsat;
         const bool is_done = !is_leaf && !is_bt && cnt == 0;
-        const uint32_t* cur_t = X.snap_t + (size_t)clampi(gsp, 0, GS) * W;
-        const uint32_t* cur_f = X.snap_f + (size_t)clampi(gsp, 0, GS) * W;
         if (is_leaf) {
           ctl.need_leaf = 1;
         } else if (is_bt) {
@@ -187,8 +193,8 @@ __global__ void search_kernel(
               const int lv = clampi(gsp2, 0, GS);
               ctl.result = X.out_st[lv];
               if (ctl.result == kSat) {
-                copy_words(m_t, X.snap_t + (size_t)lv * W, W);
-                copy_words(m_f, X.snap_f + (size_t)lv * W, W);
+                ctl.op = kOpPopSat;
+                ctl.lv = lv;
               }
             }
             ctl.gsp = gsp2;
@@ -232,17 +238,15 @@ __global__ void search_kernel(
           X.g_v[g] = var;
           X.g_ch[g] = nch;
           const int sidx = clampi(gsp + 1, 0, GS);
+          ctl.lv = clampi(gsp, 0, GS);
+          ctl.sidx = sidx;
           if (var >= 0) {
             assumed[var >> 5] |= 1u << (var & 31);
-            copy_words(S.t, cur_t, W);
-            copy_words(S.f, cur_f, W);
-            S.t[var >> 5] |= 1u << (var & 31);
-            ctl.push_test = 1;
-            ctl.sidx = sidx;
+            ctl.op = kOpPush;
+            ctl.var = var;
           } else {
             // A null guess copies the level and its outcome.
-            copy_words(X.snap_t + (size_t)sidx * W, cur_t, W);
-            copy_words(X.snap_f + (size_t)sidx * W, cur_f, W);
+            ctl.op = kOpNull;
             X.out_st[sidx] = X.out_st[clampi(gsp, 0, GS)];
             ctl.gsp = gsp + 1;
             ctl.steps += 1;
@@ -250,22 +254,49 @@ __global__ void search_kernel(
         }
       }
       __syncthreads();
-      const bool push_test = ctl.push_test != 0;
-      // Propagate only the new literal from the level's fixpoint.
-      const bool conflict = fixpoint(P, S, nullptr, 0, push_test, true);
-      if (lead && push_test) {
-        const int out = test_outcome(conflict, S.t, S.f, pvb, W);
-        const int sidx = ctl.sidx;
-        copy_words(X.snap_t + (size_t)sidx * W, S.t, W);
-        copy_words(X.snap_f + (size_t)sidx * W, S.f, W);
-        X.out_st[sidx] = out;
-        ctl.result = out;
-        if (out == kSat) {
-          copy_words(m_t, S.t, W);
-          copy_words(m_f, S.f, W);
+      // The arm's plane work, across the block.
+      const int op = ctl.op;
+      const uint32_t* lv_t = X.snap_t + (size_t)ctl.lv * W;
+      const uint32_t* lv_f = X.snap_f + (size_t)ctl.lv * W;
+      uint32_t* sidx_t = X.snap_t + (size_t)ctl.sidx * W;
+      uint32_t* sidx_f = X.snap_f + (size_t)ctl.sidx * W;
+      if (op == kOpPopSat) {
+        block_copy(m_t, lv_t, W);
+        block_copy(m_f, lv_f, W);
+      } else if (op == kOpNull) {
+        block_copy(sidx_t, lv_t, W);
+        block_copy(sidx_f, lv_f, W);
+      } else if (op == kOpPush) {
+        const int var = ctl.var;
+        for (int w = tid; w < W; w += nt) {
+          S.t[w] = lv_t[w] | (w == (var >> 5) ? 1u << (var & 31) : 0u);
+          S.f[w] = lv_f[w];
         }
-        ctl.gsp += 1;
-        ctl.steps += 1;
+      }
+      // Propagate only the new literal from the level's fixpoint.
+      const bool push_test = op == kOpPush;
+      const bool conflict = fixpoint(P, S, nullptr, 0, push_test, true);
+      if (push_test) {
+        // Test (core.py:991-1002) folded into the level's snapshot pass.
+        bool un = false;
+        for (int w = tid; w < W; w += nt) {
+          const uint32_t t = S.t[w], f = S.f[w];
+          sidx_t[w] = t;
+          sidx_f[w] = f;
+          un |= (pvb[w] & ~(t | f)) != 0u;
+        }
+        const bool any_un = __syncthreads_or(un) != 0;
+        const int out = conflict ? kUnsat : (any_un ? kRunning : kSat);
+        if (out == kSat) {
+          block_copy(m_t, S.t, W);
+          block_copy(m_f, S.f, W);
+        }
+        if (lead) {
+          X.out_st[ctl.sidx] = out;
+          ctl.result = out;
+          ctl.gsp += 1;
+          ctl.steps += 1;
+        }
       }
     }
     // Leaf: one full DPLL from the current level (search.go:167-169).
@@ -276,26 +307,25 @@ __global__ void search_kernel(
                                   X.snap_f + (size_t)lv * W, nullptr, 0,
                                   budget, &ctl.steps, NV, need_leaf, leaf_t,
                                   leaf_f);
+    if (need_leaf && status == kSat) {
+      block_copy(m_t, leaf_t, W);
+      block_copy(m_f, leaf_f, W);
+    }
     if (lead) {
-      if (need_leaf) {
-        ctl.result = status;
-        if (status == kSat) {
-          copy_words(m_t, leaf_t, W);
-          copy_words(m_f, leaf_f, W);
-        }
-      }
+      if (need_leaf) ctl.result = status;
       ctl.need_leaf = 0;
     }
   }
 
+  __syncthreads();
   if (lead) {
     result_out[b] = ctl.done ? ctl.result : kRunning;
     steps_out[b] = ctl.steps;
     trn_out[b] = ctl.tr_n;
-    copy_words(assumed_out + (size_t)b * W, assumed, W);
-    copy_words(mt_out + (size_t)b * W, m_t, W);
-    copy_words(mf_out + (size_t)b * W, m_f, W);
   }
+  block_copy(assumed_out + (size_t)b * W, assumed, W);
+  block_copy(mt_out + (size_t)b * W, m_t, W);
+  block_copy(mf_out + (size_t)b * W, m_f, W);
 }
 
 }  // namespace
@@ -304,36 +334,34 @@ extern "C" size_t deppy_search_scratch_words(int NC, int NV, int W) {
   return search_scratch_words(NC, NV, W);
 }
 
-// ``card_valid`` (reduced space) or ``card_act_bits`` (full space) is
-// null; ``tile_rows`` 0 runs the bits fixpoint, a positive count the
-// blockwise one (cuda_blockwise.tile_rows).
-extern "C" int deppy_search(const void* pos, const void* neg, const void* mem,
-                            const void* card_n, const void* card_valid,
-                            const void* card_act_bits,
-                            const void* choice_cand, const void* var_choices,
-                            const void* t0, const void* f0, const void* pvb,
-                            const void* outcome0, const void* enabled,
-                            const void* na, int budget, void* scratch,
-                            void* result, void* steps, void* tr_n,
-                            void* assumed, void* m_t, void* m_f, int B, int C,
-                            int NA, int W, int NC, int Kc, int NV, int Wch,
-                            int tile_rows, int threads, void* stream) {
+// ``card_valid`` (reduced space) or ``card_act`` (full space) is null.
+// ``tile_rows`` 0 runs the bits fixpoint on the dense planes; a positive
+// count runs the blockwise one on the compact rows ``lits`` [B][C][K] and
+// ``mlits`` [B][NA][M] of ``lit_bytes`` bytes each (cuda_blockwise), which
+// ``resident`` keeps in shared memory for the whole launch.
+extern "C" int deppy_search(
+    const void* pos, const void* neg, const void* mem, const void* card_n,
+    const void* card_valid, const void* card_act, const void* lits,
+    const void* mlits, const void* choice_cand, const void* var_choices,
+    const void* t0, const void* f0, const void* pvb, const void* outcome0,
+    const void* enabled, const void* na, int budget, void* scratch,
+    void* result, void* steps, void* tr_n, void* assumed, void* m_t,
+    void* m_f, int B, int C, int NA, int W, int NC, int Kc, int NV, int Wch,
+    int K, int M, int lit_bytes, int tile_rows, int resident, int threads,
+    void* stream) {
   if (B == 0) return 0;
-  if (tile_rows > C || threads % 32 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      kernel_smem_bytes(work_words(W, NA) + 5 * (size_t)W, W, NA, tile_rows);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (!launch_ok(C, tile_rows, threads)) return (int)cudaErrorInvalidValue;
+  const Planes L = compact_dims(C, NA, W, lits, mlits, K, M, lit_bytes,
+                                tile_rows, resident);
+  const size_t smem = kernel_smem_bytes(work_words(W, NA) + 5 * (size_t)W, L);
+  cudaError_t e = cudaFuncSetAttribute(
+      search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   search_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(pos), static_cast<const uint32_t*>(neg),
       static_cast<const uint32_t*>(mem), static_cast<const int*>(card_n),
-      static_cast<const int*>(card_valid),
-      static_cast<const uint32_t*>(card_act_bits),
-      static_cast<const int*>(choice_cand),
+      static_cast<const int*>(card_valid), static_cast<const int*>(card_act),
+      L, static_cast<const int*>(choice_cand),
       static_cast<const int*>(var_choices), static_cast<const uint32_t*>(t0),
       static_cast<const uint32_t*>(f0), static_cast<const uint32_t*>(pvb),
       static_cast<const int*>(outcome0), static_cast<const int*>(enabled),
@@ -341,6 +369,6 @@ extern "C" int deppy_search(const void* pos, const void* neg, const void* mem,
       search_scratch_words(NC, NV, W), static_cast<int*>(result),
       static_cast<int*>(steps), static_cast<int*>(tr_n),
       static_cast<uint32_t*>(assumed), static_cast<uint32_t*>(m_t),
-      static_cast<uint32_t*>(m_f), C, NA, W, NC, Kc, NV, Wch, tile_rows);
+      static_cast<uint32_t*>(m_f), C, NA, W, NC, Kc, NV, Wch);
   return (int)cudaGetLastError();
 }

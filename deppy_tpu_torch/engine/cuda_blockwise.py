@@ -7,21 +7,30 @@ ride tile 0, and sweeps repeat until one changes nothing.  A CUDA tensor
 goes to the hand-written kernel ``csrc/blockwise.cu`` (one thread block
 per problem, the sweep a loop inside the block over shared-memory tiles);
 a CPU tensor goes to :func:`bcp_fixpoint_plain`
-(``core._fixpoint_blockwise_u`` one problem at a time).  Like the Pallas
-kernel it has no entry-overlap check; its caller adds it.
+(``core._fixpoint_blockwise_u`` one problem at a time, on dense planes).
+Like the Pallas kernel it has no entry-overlap check; its caller adds it.
 
-Tile height: ``min(block_rows, C, rows that fit)``.  A row of pos and neg
-words costs ``8 * W`` bytes of shared memory, and a block may hold
-:data:`SMEM_BYTES` less the fixpoint's working words (``csrc/fixpoint.cuh``
-``work_words``), the phase kernels' extra planes and their control
-structs.  :func:`tile_rows` computes it the same way for the kernel and
-the plain version, so both run the same blocks.
+Compact rows.  The kernel reads no dense plane: :func:`compact_rows`
+turns ``ProblemTensors.clauses`` and ``card_ids`` into literal and member
+lists on the device, once per launch (every distinct signed literal of a
+row once, 0 after, in int16 where the planes hold fewer than 32,768
+variables).  A repeated literal would count twice among a row's
+unassigned literals where the dense planes merge it, so it is dropped; a
+row holding both x and ~x keeps both, as the planes do.
+
+Tile height: ``min(block_rows, C, rows whose compact literals fit)``
+(:func:`tile_rows`), the same for the kernel and the plain version, so
+both run the same blocks.  "Fit" is two tiles of ``K``-literal rows beside
+the fixpoint's working words, the phase kernels' extra planes and the
+AtMost lists in :data:`SMEM_BYTES`.  Where one tile holds every row the
+kernel keeps them resident instead, staged once per launch
+(:func:`resident`).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -34,69 +43,186 @@ BLOCK_ROWS = int(os.environ.get("DEPPY_GPU_BLOCK_ROWS", "2048"))
 # The opt-in shared memory of one thread block on the H100.
 SMEM_BYTES = 232448
 # Words kept free for the kernels' static shared control structs.
-STATIC_WORDS = 64
+STATIC_WORDS = 128
 
-THREADS = 256
+# Threads per block of the blockwise kernels, and where their compact rows
+# live: "auto" keeps them resident in shared memory when one tile holds
+# every row and streams the tiles otherwise, "resident" keeps them
+# resident wherever they fit, "streamed" always streams.  Both picked by
+# chip_smoke.py's measurement on the H100 (PERF.md §6): 512 threads
+# beat 256 by 1.4-1.6x and come within 15% of 1024 (faster on the
+# 64-catalog batch, slower on the giant); resident rows beat streamed
+# ones by 25% on one-tile problems and lose 3-7% on the giant's four
+# tiles.
+THREADS = 512
+PLACEMENT = "auto"
 
 # Kernel launches since the count was last reset (one per launch).
 launches = 0
 
 
+class Compact(NamedTuple):
+    """Compact rows of a batch: ``lits`` [B, C, K] signed 1-based literals
+    and ``mlits`` [B, NA, M] 1-based AtMost members, int16 or int32, each
+    row's distinct entries first and 0 after."""
+
+    lits: torch.Tensor
+    mlits: torch.Tensor
+
+    @property
+    def lit_bytes(self) -> int:
+        return self.lits.element_size()
+
+
+def lit_bytes(W: int) -> int:
+    """Bytes of one compact literal over planes of ``W`` words."""
+    return 2 if core.WORD * W < 1 << 15 else 4
+
+
+def _width(n: int, lb: int) -> int:
+    """A list width: int16 lists are padded to whole 32-bit words."""
+    n = max(n, 1)
+    return n + (n & 1) if lb == 2 else n
+
+
+def _list_bytes(rows: int, width: int, lb: int) -> int:
+    """``list_bytes`` of ``csrc/blockwise.cuh``."""
+    return (rows * width * lb + 15) & ~15
+
+
 def _work_words(W: int, NA: int) -> int:
     """``work_words`` of ``csrc/fixpoint.cuh``."""
-    return 4 * W + NA + 4
+    return 4 * W + NA + 9
 
 
 def tile_offset_words(W: int, NA: int) -> int:
-    """Shared words ahead of the tile (``csrc/blockwise.cuh``): the
-    fixpoint's working words and five extra planes, 16-byte aligned."""
+    """Shared words ahead of the compact rows (``csrc/blockwise.cuh``):
+    the fixpoint's working words and five extra planes, 16-byte aligned."""
     return (_work_words(W, NA) + 5 * W + 3) & ~3
 
 
-def tile_rows(block_rows: int, C: int, W: int, NA: int) -> int:
-    """Rows per tile: ``min(block_rows, C, rows that fit)``."""
-    free = SMEM_BYTES // 4 - STATIC_WORDS - tile_offset_words(W, NA)
-    fit = free // (2 * W)
+def _fixed_bytes(W: int, NA: int, M: int, lb: int) -> int:
+    """Shared bytes every blockwise launch holds: static structs, working
+    words, extra planes and the AtMost lists."""
+    return (4 * (STATIC_WORDS + tile_offset_words(W, NA))
+            + _list_bytes(NA, _width(M, lb), lb))
+
+
+def tile_rows(block_rows: int, C: int, K: int, M: int, W: int,
+              NA: int) -> int:
+    """Rows per tile: ``min(block_rows, C, rows whose compact literals
+    fit)``, from the padded clause width ``K`` and AtMost width ``M``."""
+    lb = lit_bytes(W)
+    free = SMEM_BYTES - _fixed_bytes(W, NA, M, lb)
+    fit = max(free // 2, 0) // 16 * 16 // (_width(K, lb) * lb)
     if fit < 1:
-        raise ValueError(f"one clause row of {W} words does not fit the "
-                         f"{SMEM_BYTES}-byte shared memory of a block "
-                         f"beside {NA} AtMost rows")
+        raise ValueError(f"one clause row of {K} literals does not fit the "
+                         f"{SMEM_BYTES}-byte shared memory of a block beside "
+                         f"{NA} AtMost rows of {M} members over {W} words")
     if block_rows < 1:
         raise ValueError(f"block_rows must be positive, got {block_rows}")
     return min(block_rows, C, fit)
 
 
-def bcp_fixpoint(pos, neg, mem, card_active, card_n, min_bits, min_w, t0,
-                 f0, en, block_rows: int
+def resident(rows: Compact, W: int, tile: int) -> bool:
+    """Whether a launch keeps every compact row resident in shared
+    memory (:data:`PLACEMENT`)."""
+    B, C, K = rows.lits.shape
+    NA, M = rows.mlits.shape[1:]
+    lb = rows.lit_bytes
+    if PLACEMENT == "streamed" or (PLACEMENT == "auto" and C > tile):
+        return False
+    return _fixed_bytes(W, NA, M, lb) + _list_bytes(C, K, lb) <= SMEM_BYTES
+
+
+def _lists(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, R, K] int32 (0 = empty) → (the same rows with each distinct
+    value once and 0 after, the longest row's length as a 0-d tensor)."""
+    s = torch.sort(x, dim=-1).values
+    dup = torch.zeros_like(s, dtype=torch.bool)
+    dup[..., 1:] = s[..., 1:] == s[..., :-1]
+    s = torch.where(dup, 0, s)
+    order = torch.sort((s == 0).to(torch.int8), dim=-1, stable=True).indices
+    s = torch.gather(s, -1, order)
+    n = (s != 0).sum(-1)
+    return s, (n.amax() if n.numel() else n.new_zeros(()))
+
+
+def _cut(x: torch.Tensor, width: int, dtype) -> torch.Tensor:
+    if width > x.shape[-1]:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    return x[..., :width].to(dtype).contiguous()
+
+
+def compact_rows(clauses: torch.Tensor, card_ids: torch.Tensor,
+                 W: int) -> Compact:
+    """The kernel's compact rows, on the tensors' device: ``clauses``
+    [B, C, K] (signed 1-based, 0 padded) and ``card_ids`` [B, NA, M]
+    (0-based, -1 padded) over planes of ``W`` words.  Each row keeps its
+    distinct entries, 0 after, cut to the batch's longest row (one host
+    sync)."""
+    lb = lit_bytes(W)
+    lits, k = _lists(clauses)
+    mlits, m = _lists(torch.where(card_ids >= 0, card_ids + 1, 0))
+    k, m = torch.stack([k, m]).tolist()
+    dtype = torch.int16 if lb == 2 else torch.int32
+    return Compact(_cut(lits, _width(k, lb), dtype),
+                   _cut(mlits, _width(m, lb), dtype))
+
+
+def launch_args(rows: Compact, W: int, tile: int):
+    """(lits, mlits, K, M, lit_bytes, tile_rows, resident) of a kernel
+    launch on ``rows``; raises when they do not fit shared memory."""
+    B, C, K = rows.lits.shape
+    NA, M = rows.mlits.shape[1:]
+    lb = rows.lit_bytes
+    keep = resident(rows, W, tile)
+    need = _fixed_bytes(W, NA, M, lb) + (
+        _list_bytes(C, K, lb) if keep else 2 * _list_bytes(tile, K, lb))
+    if need > SMEM_BYTES:
+        raise ValueError(f"compact rows need {need} bytes of shared memory, "
+                         f"more than {SMEM_BYTES}")
+    return (rows.lits.data_ptr(), rows.mlits.data_ptr(), K, M, lb, tile,
+            int(keep))
+
+
+def bcp_fixpoint(clauses, card_ids, card_active, card_n, min_bits, min_w,
+                 t0, f0, en, block_rows: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Batched blockwise fixpoint.  int32 inputs as
-    :func:`cuda_bcp.bcp_fixpoint`: pos/neg [B, C, W], mem [B, NA, W],
-    card_active/card_n [B, NA], min_bits/t0/f0 [B, W], min_w/en [B].
-    Returns (conflict int32[B], t, f int32[B, W])."""
+    """Batched blockwise fixpoint.  int32 inputs: clauses [B, C, K] and
+    card_ids [B, NA, M] as in ``core.ProblemTensors``, card_active/card_n
+    [B, NA], min_bits/t0/f0 [B, W], min_w/en [B].  Returns (conflict
+    int32[B], t, f int32[B, W])."""
     global launches
-    B, C, W = pos.shape
-    NA = mem.shape[1]
-    args = dict(pos=pos, neg=neg, mem=mem, card_active=card_active,
+    B, C, K = clauses.shape
+    NA, M = card_ids.shape[1:]
+    W = t0.shape[1]
+    args = dict(clauses=clauses, card_ids=card_ids, card_active=card_active,
                 card_n=card_n, min_bits=min_bits, min_w=min_w, t0=t0, f0=f0,
                 en=en)
-    shapes = dict(pos=(B, C, W), neg=(B, C, W), mem=(B, NA, W),
+    shapes = dict(clauses=(B, C, K), card_ids=(B, NA, M),
                   card_active=(B, NA), card_n=(B, NA), min_bits=(B, W),
                   min_w=(B,), t0=(B, W), f0=(B, W), en=(B,))
     dev = _check_args(args, shapes)
-    tile = tile_rows(block_rows, C, W, NA)
+    tile = tile_rows(block_rows, C, K, M, W, NA)
     if dev.type == "cpu":
-        return bcp_fixpoint_plain(**args, block_rows=tile)
+        pos, neg = core._batch_planes(clauses, W)
+        mem = core._batch_index_planes(card_ids, W)
+        return bcp_fixpoint_plain(pos, neg, mem, card_active, card_n,
+                                  min_bits, min_w, t0, f0, en,
+                                  block_rows=tile)
     lib = _build.load()
+    rows = compact_rows(clauses, card_ids, W)
     conflict = torch.empty(B, dtype=torch.int32, device=dev)
     t = torch.empty((B, W), dtype=torch.int32, device=dev)
     f = torch.empty((B, W), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    la = launch_args(rows, W, tile)
     rc = lib.deppy_blockwise_fixpoint(
-        pos.data_ptr(), neg.data_ptr(), mem.data_ptr(),
-        card_active.data_ptr(), card_n.data_ptr(), min_bits.data_ptr(),
-        min_w.data_ptr(), t0.data_ptr(), f0.data_ptr(), en.data_ptr(),
-        conflict.data_ptr(), t.data_ptr(), f.data_ptr(), B, C, NA, W, tile,
-        THREADS, stream)
+        *la[:2], card_active.data_ptr(), card_n.data_ptr(),
+        min_bits.data_ptr(), min_w.data_ptr(), t0.data_ptr(), f0.data_ptr(),
+        en.data_ptr(), conflict.data_ptr(), t.data_ptr(), f.data_ptr(), B, C,
+        NA, W, *la[2:], THREADS, stream)
     launches += 1
     _build.check(rc, "blockwise_fixpoint")
     return conflict, t, f
@@ -104,8 +230,9 @@ def bcp_fixpoint(pos, neg, mem, card_active, card_n, min_bits, min_w, t0,
 
 def bcp_fixpoint_plain(pos, neg, mem, card_active, card_n, min_bits, min_w,
                        t0, f0, en, block_rows: int):
-    """The plain version of :func:`bcp_fixpoint`, on any device, with
-    blocks of ``min(block_rows, C)`` rows."""
+    """The plain version of :func:`bcp_fixpoint`, on any device, on dense
+    planes (pos/neg [B, C, W], mem [B, NA, W]) with blocks of
+    ``min(block_rows, C)`` rows."""
     B, W = t0.shape
     conflict = torch.zeros(B, dtype=torch.int32, device=t0.device)
     t = t0.clone()
@@ -121,4 +248,3 @@ def bcp_fixpoint_plain(pos, neg, mem, card_active, card_n, min_bits, min_w,
         t[b] = core._to_i32(tb)
         f[b] = core._to_i32(fb)
     return conflict, t, f
-

@@ -68,13 +68,15 @@ def _reduced(impl: str) -> bool:
     return impl == "bits"
 
 
-def _tile(impl: str, block_rows: Optional[int], C: int, W: int,
-          NA: int) -> int:
+def _tile(impl: str, block_rows: Optional[int], pts: core.ProblemTensors,
+          W: int) -> int:
     """Rows per blockwise tile, or 0 for the bits fixpoint."""
     if impl == "bits":
         return 0
+    C, K = pts.clauses.shape[1:]
+    NA, M = pts.card_ids.shape[1:]
     return cuda_blockwise.tile_rows(block_rows or cuda_blockwise.BLOCK_ROWS,
-                                    C, W, NA)
+                                    C, K, M, W, NA)
 
 
 def _threads(impl: str) -> int:
@@ -97,46 +99,63 @@ def _phase_planes(pts: core.ProblemTensors, red: bool, NCON: Optional[int]):
 
 
 def _phase_shapes(pts: core.ProblemTensors, red: bool) -> dict:
-    """The plane fields phases 1-2 read, with their shapes."""
+    """The row fields phases 1-2 read (the plain versions and the bits
+    fixpoint the planes, the blockwise kernels the compact tensors), with
+    their shapes."""
     B = pts.n_vars.shape[0]
+    C, K = pts.clauses.shape[1:]
+    NA, M = pts.card_ids.shape[1:]
     if red:
-        C, W = pts.pos_bits_r.shape[1:]
-        NA = pts.card_member_bits_r.shape[1]
+        W = pts.pos_bits_r.shape[2]
         return dict(pos_bits_r=(B, C, W), neg_bits_r=(B, C, W),
                     card_member_bits_r=(B, NA, W), card_valid=(B, NA))
-    C, W = pts.pos_bits.shape[1:]
-    NA = pts.card_member_bits.shape[1]
+    W = pts.pos_bits.shape[2]
     return dict(pos_bits=(B, C, W), neg_bits=(B, C, W),
-                card_member_bits=(B, NA, W), card_act_bits=(B, NA, W))
+                card_member_bits=(B, NA, W), card_act_bits=(B, NA, W),
+                clauses=(B, C, K), card_ids=(B, NA, M), card_act=(B, NA))
 
 
-def _activity_ptrs(pts: core.ProblemTensors, red: bool):
-    """(card_valid, card_act_bits) pointers; the unused one is null."""
-    if red:
-        return pts.card_valid.data_ptr(), None
-    return None, pts.card_act_bits.data_ptr()
+def _row_args(pts: core.ProblemTensors, planes, red: bool, W: int,
+              tile: int):
+    """The row arguments of a phase-kernel launch: (pos, neg, mem,
+    card_valid, card_act, lits, mlits) pointers, then (K, M, lit_bytes,
+    tile_rows, resident), and the compact rows to keep alive until the
+    launch is queued.  The bits fixpoint reads the dense ``planes``; the
+    blockwise one reads compact rows and no plane (null pointers).  The
+    reduced space's AtMost activity is card_valid, the full space's
+    card_act."""
+    valid = pts.card_valid.data_ptr() if red else None
+    act = None if red else pts.card_act.data_ptr()
+    if not tile:
+        pos, neg, mem = planes
+        return ([pos.data_ptr(), neg.data_ptr(), mem.data_ptr(), valid, act,
+                 None, None], [1, 1, 4, 0, 0], None)
+    rows = cuda_blockwise.compact_rows(pts.clauses, pts.card_ids, W)
+    la = cuda_blockwise.launch_args(rows, W, tile)
+    return [None, None, None, valid, act, *la[:2]], list(la[2:]), rows
 
 
 # --------------------------------------------------------------------------
 # phase 1
 
 
-def _baseline_fixpoint(pos, neg, mem, card_active, card_n, t0, f0, en,
-                       tile: int):
+def _baseline_fixpoint(pts: core.ProblemTensors, planes, card_active,
+                       t0, f0, en, tile: int):
     """Batched ``core.planes_fixpoint`` with no extras bound, as kernel 1
-    (``tile`` 0) or kernel 2: a lane whose entry state sets a variable
-    both ways is a conflict and runs no round.  ``en`` is bool[B].
-    Returns (conflict bool[B], t, f)."""
+    on the ``planes`` (``tile`` 0) or kernel 2 on the compact rows: a lane
+    whose entry state sets a variable both ways is a conflict and runs no
+    round.  ``en`` is bool[B].  Returns (conflict bool[B], t, f)."""
     B, W = t0.shape
     pre = en & ((t0 & f0) != 0).any(-1)
-    args = (pos, neg, mem, card_active, card_n,
+    args = (card_active, pts.card_n,
             torch.zeros((B, W), dtype=_I32, device=t0.device),
             torch.zeros(B, dtype=_I32, device=t0.device), t0, f0,
             (en & ~pre).to(_I32))
     if tile:
-        conflict, t, f = cuda_blockwise.bcp_fixpoint(*args, block_rows=tile)
+        conflict, t, f = cuda_blockwise.bcp_fixpoint(
+            pts.clauses, pts.card_ids, *args, block_rows=tile)
     else:
-        conflict, t, f = cuda_bcp.bcp_fixpoint(*args)
+        conflict, t, f = cuda_bcp.bcp_fixpoint(*planes, *args)
     return (conflict != 0) | pre, t, f
 
 
@@ -159,7 +178,7 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
                   anchors=(B, A), n_vars=(B,), n_cons=(B,))
     dev = _check_pts(pts, shapes)
     _check_mask(en, (B,), dev, "en")
-    tile = _tile(impl, block_rows, C, W, NA)
+    tile = _tile(impl, block_rows, pts, W)
     if dev.type == "cpu":
         return batched_search_plain(pts, budget, en, impl=impl,
                                     block_rows=tile, NCON=NCON)
@@ -176,7 +195,7 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
     else:
         active = ((pts.card_act_bits & t_in.unsqueeze(1)) != 0).any(-1)
     conflict0, t0, f0 = _baseline_fixpoint(
-        pos, neg, mem, active.to(_I32), pts.card_n, t_in, f_in, en, tile)
+        pts, (pos, neg, mem), active.to(_I32), t_in, f_in, en, tile)
     unassigned = (core._to_u(pvb) & ~(core._to_u(t0) | core._to_u(f0))) != 0
     outcome0 = torch.where(
         conflict0, core.UNSAT,
@@ -192,15 +211,15 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
     m_t = torch.empty((B, W), dtype=_I32, device=dev)
     m_f = torch.empty((B, W), dtype=_I32, device=dev)
     ns = need_search.to(_I32)
+    ptrs, dims, _rows = _row_args(pts, (pos, neg, mem), red, W, tile)
     rc = lib.deppy_search(
-        pos.data_ptr(), neg.data_ptr(), mem.data_ptr(), pts.card_n.data_ptr(),
-        *_activity_ptrs(pts, red), pts.choice_cand.data_ptr(),
-        pts.var_choices.data_ptr(), t0.data_ptr(), f0.data_ptr(),
-        pvb.data_ptr(), outcome0.data_ptr(), ns.data_ptr(), na.data_ptr(),
-        int(budget), scratch.data_ptr(), result_s.data_ptr(),
-        steps.data_ptr(), tr_n.data_ptr(), asm.data_ptr(), m_t.data_ptr(),
-        m_f.data_ptr(), B, C, NA, W, NC, Kc, NV, Wch, tile, _threads(impl),
-        _stream(dev))
+        *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:],
+        pts.choice_cand.data_ptr(), pts.var_choices.data_ptr(),
+        t0.data_ptr(), f0.data_ptr(), pvb.data_ptr(), outcome0.data_ptr(),
+        ns.data_ptr(), na.data_ptr(), int(budget), scratch.data_ptr(),
+        result_s.data_ptr(), steps.data_ptr(), tr_n.data_ptr(),
+        asm.data_ptr(), m_t.data_ptr(), m_f.data_ptr(), B, C, NA, W, NC, Kc,
+        NV, Wch, *dims, _threads(impl), _stream(dev))
     search_launches += 1
     _build.check(rc, "search")
     a0 = core.planes_to_assign(t0, f0, NV)
@@ -223,8 +242,8 @@ def batched_search_plain(pts: core.ProblemTensors, budget, en: torch.Tensor,
     red = _reduced(impl)
     B, NC, _ = pts.choice_cand.shape
     NV = pts.var_choices.shape[1]
-    pos, _, mem, _, W = _phase_planes(pts, red, NCON)
-    tile = _tile(impl, block_rows, pos.shape[1], W, mem.shape[1])
+    W = _phase_planes(pts, red, NCON)[4]
+    tile = _tile(impl, block_rows, pts, W)
     dev = pts.n_vars.device
     result = torch.zeros(B, dtype=_I32, device=dev)
     steps = torch.zeros(B, dtype=_I32, device=dev)
@@ -286,7 +305,7 @@ def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
         raise ValueError("phase-1 outputs must lie on the batch's device")
     _check_mask(guessed, (B, NV), dev, "guessed")
     _check_mask(en_lanes, (B,), dev, "en")
-    tile = _tile(impl, block_rows, C, W, NA)
+    tile = _tile(impl, block_rows, pts, W)
     if dev.type == "cpu":
         return batched_minimize_plain(pts, result, model, guessed, budget,
                                       steps, en_lanes, impl=impl,
@@ -300,14 +319,15 @@ def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
     steps_out = torch.empty(B, dtype=_I32, device=dev)
     m2_t = torch.empty((B, W), dtype=_I32, device=dev)
     en32 = en.to(_I32)
+    ptrs, dims, _rows = _row_args(pts, (pos, neg, mem), red, W, tile)
     rc = lib.deppy_minimize(
-        pos.data_ptr(), neg.data_ptr(), mem.data_ptr(), pts.card_n.data_ptr(),
-        *_activity_ptrs(pts, red), x["m_init_t"].data_ptr(),
-        x["m_init_f"].data_ptr(), x["extras"].data_ptr(),
-        x["m2t0"].data_ptr(), x["pvb"].data_ptr(), en32.data_ptr(),
-        x["n_extras"].data_ptr(), steps.data_ptr(), int(budget),
-        scratch.data_ptr(), found.data_ptr(), steps_out.data_ptr(),
-        m2_t.data_ptr(), B, C, NA, W, NV, tile, _threads(impl), _stream(dev))
+        *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:],
+        x["m_init_t"].data_ptr(), x["m_init_f"].data_ptr(),
+        x["extras"].data_ptr(), x["m2t0"].data_ptr(), x["pvb"].data_ptr(),
+        en32.data_ptr(), x["n_extras"].data_ptr(), steps.data_ptr(),
+        int(budget), scratch.data_ptr(), found.data_ptr(),
+        steps_out.data_ptr(), m2_t.data_ptr(), B, C, NA, W, NV, *dims,
+        _threads(impl), _stream(dev))
     minimize_launches += 1
     _build.check(rc, "minimize")
     min_found = found != 0
@@ -322,8 +342,8 @@ def batched_minimize_plain(pts, result, model, guessed, budget, steps,
                            NCON: Optional[int] = None):
     """Plain version of :func:`batched_minimize_fused`, on any device."""
     red = _reduced(impl)
-    pos, _, mem, _, W = _phase_planes(pts, red, NCON)
-    tile = _tile(impl, block_rows, pos.shape[1], W, mem.shape[1])
+    W = _phase_planes(pts, red, NCON)[4]
+    tile = _tile(impl, block_rows, pts, W)
     B, NV = model.shape
     dev = model.device
     installed = torch.zeros((B, NV), dtype=torch.bool, device=dev)
@@ -367,14 +387,13 @@ def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
     if W * core.WORD < NV + NCON:
         raise ValueError(f"full-space planes of {W} words cannot hold "
                          f"NV + NCON = {NV + NCON} variables")
-    shapes = dict(pos_bits=(B, C, W), neg_bits=(B, C, W),
-                  card_member_bits=(B, NA, W), card_act_bits=(B, NA, W),
-                  card_n=(B, NA), n_vars=(B,), n_cons=(B,))
+    shapes = dict(_phase_shapes(pts, False), card_n=(B, NA), n_vars=(B,),
+                  n_cons=(B,))
     dev = _check_pts(pts, shapes)
     if _check_args(dict(steps=steps), dict(steps=(B,))) != dev:
         raise ValueError("steps must lie on the batch's device")
     _check_mask(en, (B,), dev, "en")
-    tile = _tile(impl, block_rows, C, W, NA)
+    tile = _tile(impl, block_rows, pts, W)
     if dev.type == "cpu":
         return batched_core_plain(pts, budget, steps, en, NCON=NCON,
                                   impl=impl, block_rows=tile)
@@ -386,15 +405,16 @@ def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
     core_out = torch.empty((B, NCON), dtype=_I32, device=dev)
     steps_out = torch.empty(B, dtype=_I32, device=dev)
     en32 = en.to(_I32)
+    ptrs, dims, _rows = _row_args(
+        pts, (pts.pos_bits, pts.neg_bits, pts.card_member_bits), False, W,
+        tile)
     rc = lib.deppy_core(
-        pts.pos_bits.data_ptr(), pts.neg_bits.data_ptr(),
-        pts.card_member_bits.data_ptr(), pts.card_n.data_ptr(),
-        pts.card_act_bits.data_ptr(), x["pvb"].data_ptr(),
+        *ptrs[:3], pts.card_n.data_ptr(), *ptrs[4:], x["pvb"].data_ptr(),
         x["base_t"].data_ptr(), x["base_f"].data_ptr(), en32.data_ptr(),
         pts.n_cons.data_ptr(), pts.n_vars.data_ptr(), steps.data_ptr(),
         int(budget), scratch.data_ptr(), core_out.data_ptr(),
-        steps_out.data_ptr(), B, C, NA, W, NV, NCON, G, tile, _threads(impl),
-        _stream(dev))
+        steps_out.data_ptr(), B, C, NA, W, NV, NCON, G, *dims,
+        _threads(impl), _stream(dev))
     core_launches += 1
     _build.check(rc, "core")
     return core_out != 0, steps_out
@@ -404,8 +424,7 @@ def batched_core_plain(pts, budget, steps, en, *, NCON: int,
                        impl: str = "bits", block_rows: Optional[int] = None):
     """Plain version of :func:`batched_core_fused`, on any device."""
     _reduced(impl)
-    C, W = pts.pos_bits.shape[1:]
-    tile = _tile(impl, block_rows, C, W, pts.card_member_bits.shape[1])
+    tile = _tile(impl, block_rows, pts, pts.pos_bits.shape[2])
     B = steps.shape[0]
     dev = steps.device
     cores = torch.zeros((B, NCON), dtype=torch.bool, device=dev)

@@ -30,8 +30,9 @@ class Solver:
         self.problem: Problem = encode(variables)
         self.device = device
         self.max_steps = max_steps
-        # Engine iterations consumed by the last solve.
+        # Engine iterations and search backtracks of the last solve.
         self.steps: int = 0
+        self.backtracks: int = 0
 
     def solve(self) -> List[Variable]:
         from ..engine.driver import solve_one
@@ -42,3 +43,4 @@ class Solver:
                              stats=stats, device=self.device)
         finally:
             self.steps = stats.get("steps", 0)
+            self.backtracks = stats.get("backtracks", 0)

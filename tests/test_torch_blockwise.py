@@ -1,12 +1,19 @@
 """The blockwise BCP impl of the port against the JAX package, on the CPU.
 
-* ``cuda_blockwise.bcp_fixpoint`` (its plain version here) against
-  ``pallas_blockwise.bcp_fixpoint`` in interpret mode, at block_rows 1, 2,
-  3 and 8, on the cases of ``tests/test_pallas_blockwise.py`` (a 24-link
-  cross-block chain, a conflict, row padding) and on lanes of
-  ``gvk_conflict_catalog`` and ``version_pinned_chains`` (AtMost rows,
-  which ride block 0) under an extras bound: the conflict flag always,
-  and t/f where there is no conflict;
+* ``cuda_blockwise.bcp_fixpoint_plain`` (dense planes) and the wrapper
+  ``cuda_blockwise.bcp_fixpoint`` (compact clause and AtMost tensors, its
+  plain version here) against ``pallas_blockwise.bcp_fixpoint`` in
+  interpret mode, at block_rows 1, 2, 3 and 8 and at the tile the
+  wrapper's ``tile_rows`` rule picks, on the cases of
+  ``tests/test_pallas_blockwise.py`` (a 24-link cross-block chain, a
+  conflict, row padding) and on lanes of ``gvk_conflict_catalog`` and
+  ``version_pinned_chains`` (AtMost rows, which ride block 0) under an
+  extras bound: the conflict flag always, and t/f where there is no
+  conflict;
+* the kernel's compact rows (``cuda_blockwise.compact_rows``) rebuilt
+  into planes against ``core.derive_planes`` on every family
+  ``chip_smoke.py`` runs, and on rows with a repeated literal and with
+  both x and ~x;
 * the phase wrappers under ``impl="blockwise"`` (full plane space) against
   ``core.batched_search`` / ``batched_minimize_gated`` / ``batched_core``
   under ``set_bcp_impl("blockwise")``;
@@ -86,8 +93,9 @@ CASES = {"chain": _chain, "conflict": _conflict, "padding": _padding,
 
 def _fixpoint_inputs(problems, with_extras: bool):
     """Per lane the full-space inputs of one fixpoint from the anchors:
-    (pos, neg, mem, card_active, card_n, min_bits, min_w, t0, f0) as
-    numpy, the extras bound over the first problem variables when asked."""
+    (pos, neg, mem, card_active, card_n, min_bits, min_w, t0, f0, clauses,
+    card_ids) as numpy, the extras bound over the first problem variables
+    when asked."""
     d = jdriver._Dims(problems, len(problems))
     pts = jdriver.pad_stack(problems, d, len(problems), pack=True)
     lanes = []
@@ -103,8 +111,40 @@ def _fixpoint_inputs(problems, with_extras: bool):
         mb = np.asarray(jcore.pack_mask(jnp.asarray(extras), d.Wv))[0]
         lanes.append((pts.pos_bits[b], pts.neg_bits[b],
                       pts.card_member_bits[b], act, pts.card_n[b], mb,
-                      np.int32(1 if with_extras else 0), t0, f0))
+                      np.int32(1 if with_extras else 0), t0, f0,
+                      pts.clauses[b], pts.card_ids[b]))
     return lanes
+
+
+def _pallas_fixpoints(lanes, block_rows):
+    """(conflict, t, f) per lane from the Pallas kernel in interpret mode."""
+    want = []
+    for pos, neg, mem, act, card_n, mb, mw, t0, f0, _, _ in lanes:
+        c, t, f = pallas_blockwise.bcp_fixpoint(
+            jnp.asarray(pos), jnp.asarray(neg), jnp.asarray(mem),
+            jnp.asarray(act != 0)[:, None], jnp.asarray(card_n)[:, None],
+            jnp.asarray(mb)[None], jnp.int32(mw), jnp.asarray(t0)[None],
+            jnp.asarray(f0)[None], enabled=True, block_rows=block_rows)
+        want.append((bool(c), np.asarray(t)[0], np.asarray(f)[0]))
+    return want
+
+
+def _assert_fixpoints(want, got):
+    for b, (c, t, f) in enumerate(want):
+        assert bool(got[0][b]) == c, b
+        if not c:
+            np.testing.assert_array_equal(got[1][b].numpy(), t)
+            np.testing.assert_array_equal(got[2][b].numpy(), f)
+
+
+def _columns(lanes):
+    """The lanes' inputs stacked into int32 tensors, then the wrapper's
+    compact argument list (clauses, card_ids, card_active, card_n,
+    min_bits, min_w, t0, f0, en)."""
+    cols = [torch.as_tensor(np.stack(x).astype(np.int32))
+            for x in zip(*lanes)]
+    en = torch.ones(len(lanes), dtype=torch.int32)
+    return cols, [cols[9], cols[10], *cols[3:9], en]
 
 
 @pytest.mark.parametrize("block_rows", [1, 2, 3, 8])
@@ -112,25 +152,16 @@ def _fixpoint_inputs(problems, with_extras: bool):
 def test_fixpoint_plain_matches_pallas_blockwise(case, block_rows):
     problems = [encode(vs) for vs in CASES[case]()]
     lanes = _fixpoint_inputs(problems, with_extras=case in ("gvk", "chains"))
-    want = []
-    for pos, neg, mem, act, card_n, mb, mw, t0, f0 in lanes:
-        c, t, f = pallas_blockwise.bcp_fixpoint(
-            jnp.asarray(pos), jnp.asarray(neg), jnp.asarray(mem),
-            jnp.asarray(act != 0)[:, None], jnp.asarray(card_n)[:, None],
-            jnp.asarray(mb)[None], jnp.int32(mw), jnp.asarray(t0)[None],
-            jnp.asarray(f0)[None], enabled=True, block_rows=block_rows)
-        want.append((bool(c), np.asarray(t)[0], np.asarray(f)[0]))
-    cols = [torch.as_tensor(np.stack(x).astype(np.int32))
-            for x in zip(*lanes)]
-    en = torch.ones(len(lanes), dtype=torch.int32)
+    want = _pallas_fixpoints(lanes, block_rows)
+    cols, compact = _columns(lanes)
     sweeps = tcore.plain_sweeps
-    got = cuda_blockwise.bcp_fixpoint(*cols, en, block_rows=block_rows)
+    got = cuda_blockwise.bcp_fixpoint_plain(*cols[:9], compact[-1],
+                                            block_rows=block_rows)
     sweeps = tcore.plain_sweeps - sweeps
-    for b, (c, t, f) in enumerate(want):
-        assert bool(got[0][b]) == c, b
-        if not c:
-            np.testing.assert_array_equal(got[1][b].numpy(), t)
-            np.testing.assert_array_equal(got[2][b].numpy(), f)
+    _assert_fixpoints(want, got)
+    # The wrapper on the compact tensors runs the same blocks.
+    _assert_fixpoints(want, cuda_blockwise.bcp_fixpoint(
+        *compact, block_rows=block_rows))
     if case == "conflict":
         assert want[0][0]
     if case == "chain" and block_rows < 8:
@@ -138,24 +169,141 @@ def test_fixpoint_plain_matches_pallas_blockwise(case, block_rows):
         assert sweeps > 1
 
 
+@pytest.mark.parametrize("block_rows", [2, 5])
+@pytest.mark.parametrize("case", ["chain", "gvk", "chains"])
+def test_fixpoint_tile_rule_matches_pallas_blockwise(case, block_rows):
+    """The wrapper's tile (``tile_rows`` of the compact widths) on problems
+    with more clause rows than a tile: the plain version at that tile
+    against the Pallas kernel at the same block height."""
+    problems = [encode(vs) for vs in CASES[case]()]
+    lanes = _fixpoint_inputs(problems, with_extras=case != "chain")
+    cols, compact = _columns(lanes)
+    B, C, K = compact[0].shape
+    NA, M = compact[1].shape[1:]
+    tile = cuda_blockwise.tile_rows(block_rows, C, K, M, cols[0].shape[2],
+                                    NA)
+    assert tile == block_rows < C
+    _assert_fixpoints(_pallas_fixpoints(lanes, tile),
+                      cuda_blockwise.bcp_fixpoint(*compact,
+                                                  block_rows=block_rows))
+
+
 def test_fixpoint_disabled_lane_runs_nothing():
     problems = [encode(vs) for vs in _chain()]
     lane = _fixpoint_inputs(problems, with_extras=False)[0]
-    cols = [torch.as_tensor(np.array(x, np.int32))[None] for x in lane]
+    _, compact = _columns([lane])
+    compact[-1] = torch.zeros(1, dtype=torch.int32)
     r0, s0 = tcore.plain_rounds, tcore.plain_sweeps
-    c, t, f = cuda_blockwise.bcp_fixpoint(
-        *cols, torch.zeros(1, dtype=torch.int32), block_rows=2)
+    c, t, f = cuda_blockwise.bcp_fixpoint(*compact, block_rows=2)
     assert (tcore.plain_rounds, tcore.plain_sweeps) == (r0, s0)
     assert int(c[0]) == 0
-    assert torch.equal(t, cols[7]) and torch.equal(f, cols[8])
+    assert torch.equal(t, compact[6]) and torch.equal(f, compact[7])
 
 
 def test_tile_rows_caps_to_shared_memory():
-    assert cuda_blockwise.tile_rows(2048, 8192, 768, 1024) == 32
-    assert cuda_blockwise.tile_rows(2048, 256, 12, 32) == 256
-    assert cuda_blockwise.tile_rows(7, 256, 12, 32) == 7
+    """``min(block_rows, C, rows whose compact literals fit)``: two tiles
+    of int16 rows beside the working words and the AtMost lists."""
+    tile_rows = cuda_blockwise.tile_rows
+    # The giant catalog's and the 64-catalog batch's dims: the
+    # reference's 2048 rows, so 4 tiles and 1.
+    assert tile_rows(2048, 8192, 16, 8, 768, 1024) == 2048
+    assert tile_rows(2048, 2048, 16, 8, 192, 256) == 2048
+    assert tile_rows(7, 256, 16, 8, 12, 32) == 7
+    assert tile_rows(2048, 64, 16, 8, 4, 1) == 64
+    # Wide rows: the largest tile whose two buffers fit.
+    W, NA, M, K = 768, 1024, 8, 256
+    cap = tile_rows(1 << 20, 1 << 20, K, M, W, NA)
+    fixed = cuda_blockwise._fixed_bytes(W, NA, M, 2)
+    assert cap < 2048
+    assert fixed + 2 * cap * K * 2 <= cuda_blockwise.SMEM_BYTES
+    assert fixed + 2 * (cap + 8) * K * 2 > cuda_blockwise.SMEM_BYTES
+    # int32 literals once the planes hold 32,768 variables or more.
+    assert cuda_blockwise.lit_bytes(1023) == 2
+    assert cuda_blockwise.lit_bytes(1024) == 4
+    with pytest.raises(ValueError):  # one row does not fit
+        tile_rows(1, 8, 1 << 16, 8, 12, 1)
+    with pytest.raises(ValueError):  # nor do the AtMost lists
+        tile_rows(1, 8, 16, 1 << 14, 12, 64)
     with pytest.raises(ValueError):
-        cuda_blockwise.tile_rows(1, 8, 1 << 15, 1)
+        tile_rows(0, 8, 16, 8, 12, 1)
+
+
+# --------------------------------------------------------------------------
+# compact rows
+
+
+def _planes_of(rows, card_act, W):
+    """Compact rows rebuilt into (pos, neg, mem, card_act_bits) planes."""
+    pos, neg = tcore._batch_planes(rows.lits.to(torch.int32), W)
+    members = rows.mlits.to(torch.int32) - 1
+    mem = tcore._batch_index_planes(members, W)
+    act = tcore._batch_index_planes(card_act.unsqueeze(-1), W)
+    return pos, neg, mem, act
+
+
+def _chip_smoke_families():
+    """Three lanes of each family chip_smoke.py runs, and one giant
+    catalog."""
+    import chip_smoke
+
+    fams = [(name, make) for name, _, make in chip_smoke.families(1.0)]
+    fams += [("forced_extras", chip_smoke.forced_extras),
+             ("repeated", chip_smoke.repeated_literals),
+             ("operatorhub", lambda i: tm.operatorhub_catalog(40, 5, seed=i)),
+             ("operatorhub_batch",
+              lambda i: tm.operatorhub_catalog(*chip_smoke.BATCH, seed=i))]
+    out = [(name, [tencode(make(i)) for i in range(3)]) for name, make in fams]
+    out.append(("giant", [tencode(tm.operatorhub_catalog(*chip_smoke.GIANT,
+                                                         seed=0))]))
+    return out
+
+
+def test_compact_rows_rebuild_the_planes_of_every_family():
+    import chip_smoke
+
+    for name, probs in _chip_smoke_families():
+        d = tdriver._Dims(probs, len(probs))
+        pts = convert.problem_tensors_from_numpy(
+            tdriver.pad_stack(probs, d, len(probs)))
+        if name == "repeated":
+            pts = chip_smoke.with_repeats(pts)
+            assert (cuda_blockwise.compact_rows(pts.clauses, pts.card_ids,
+                                                d.Wv).lits != 0).sum() < (
+                pts.clauses != 0).sum()
+        want = tcore.derive_planes(pts.clauses, pts.card_ids, pts.card_act,
+                                   pts.n_vars, Wv=d.Wv, Wr=d.Wr, red=False)
+        rows = cuda_blockwise.compact_rows(pts.clauses, pts.card_ids, d.Wv)
+        assert rows.lits.dtype == torch.int16, name
+        assert rows.lits.shape[2] <= d.K and rows.mlits.shape[2] <= d.M + 1
+        got = _planes_of(rows, pts.card_act, d.Wv)
+        for i, (a, b) in enumerate(zip(want[:4], got)):
+            assert torch.equal(a, b), (name, i)
+
+
+def test_compact_rows_drop_repeated_literals_and_keep_x_or_not_x():
+    # Rows: a repeated literal, x | ~x, a literal three times, padding.
+    clauses = torch.tensor([[[3, -2, 3, 0], [1, -1, 0, 0],
+                             [-4, 2, -4, -4], [0, 0, 0, 0]]], dtype=torch.int32)
+    # AtMost rows: a repeated member, and a padded row.
+    card_ids = torch.tensor([[[0, 2, 0], [-1, -1, -1]]], dtype=torch.int32)
+    card_act = torch.tensor([[5, -1]], dtype=torch.int32)
+    rows = cuda_blockwise.compact_rows(clauses, card_ids, 1)
+    assert rows.lits.tolist() == [[[-2, 3], [-1, 1], [-4, 2], [0, 0]]]
+    assert rows.mlits.tolist() == [[[1, 3], [0, 0]]]
+    pos, neg = tcore._batch_planes(clauses, 1)
+    mem = tcore._batch_index_planes(card_ids, 1)
+    act = tcore._batch_index_planes(card_act.unsqueeze(-1), 1)
+    got = _planes_of(rows, card_act, 1)
+    for a, b in zip((pos, neg, mem, act), got):
+        assert torch.equal(a, b)
+    # Each distinct literal counts once among a row's unassigned ones, as
+    # the planes' popcounts do: x | ~x has two, the others one and two.
+    n_un = (rows.lits != 0).sum(-1)
+    pops = (tcore.popcount32(pos) + tcore.popcount32(neg)).sum(-1)
+    assert torch.equal(n_un, pops.to(n_un.dtype))
+    # Planes of 32,768 variables or more take int32 literals.
+    assert cuda_blockwise.compact_rows(clauses, card_ids,
+                                       1024).lits.dtype == torch.int32
 
 
 # --------------------------------------------------------------------------
