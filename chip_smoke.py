@@ -46,10 +46,12 @@ Phases, each fatal on failure:
    every family, one of them with repeated literals and rows holding x
    and ~x, and the phase kernels under blockwise at tiles of 1 and 7 rows
    and at the natural tile; the small-family plain versions run on CPU
-   copies of the inputs in a pool of worker processes.  Rows kept
-   resident and rows streamed must give the same outputs, and on the big
-   families both placements are timed at 128-1024 threads.  Each
-   kernel's time is its own device time from ``torch.profiler``; the
+   copies of the inputs in a pool of worker processes.  On the big
+   families the phase kernels are held at the natural tile against plain
+   versions run on the card, at a cut step budget, and both row
+   placements are timed at 128-1024 threads (every configuration must
+   give the same outputs).  Each kernel's time is its own device time
+   from ``torch.profiler``; the
    wrapper's time (CUDA events, the host work that prepares a launch
    included) and the plain version's time stand beside it, with a bound
    from bytes and operations;
@@ -66,6 +68,7 @@ import argparse
 import json
 import multiprocessing
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -78,7 +81,10 @@ OPS_PER_S = 67e12
 
 COMPARE_LANES = 32
 REFERENCE_LANES = 16
+# A kernel's time: the median of TIMED_PASSES profiled passes of
+# TIMED_REPS calls each.
 TIMED_REPS = 5
+TIMED_PASSES = 3
 
 # The blockwise path: the repo's over-VMEM case, one giant catalog
 # (deppy_tpu/benchmarks/pallas_case.py:129-133), and a batch at that
@@ -106,6 +112,16 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def clock_line() -> str:
+    """The card's SM clock, its maximum and the power drawn, now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=False, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else (
+        f"not read ({out.stderr.strip()[:80]})")
 
 
 # --------------------------------------------------------------------------
@@ -459,8 +475,9 @@ def _device_ms(prof, symbol: str) -> float:
 
 def _timed(fn, kernel: str, reps: int):
     """(result, kernel ms, wrapper ms) per call: the kernel's own device
-    time from ``torch.profiler``, and the whole wrapper call (the host
-    work that prepares the launch included) by CUDA events."""
+    time from ``torch.profiler`` (the median of :data:`TIMED_PASSES`
+    passes), and the whole wrapper call (the host work that prepares the
+    launch included) by CUDA events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -474,16 +491,18 @@ def _timed(fn, kernel: str, reps: int):
     stop.record()
     torch.cuda.synchronize()
     wrapper_ms = start.elapsed_time(stop) / reps
-    ms = 0.0
-    for _ in range(3):  # the profiler now and then drops a short kernel
+    passes = []
+    for _ in range(TIMED_PASSES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         ms = _device_ms(prof, KERNEL_SYMBOLS[kernel]) / reps
-        if ms > 0:
-            break
+        if ms > 0:  # the profiler now and then drops a short kernel
+            passes.append(ms)
+    if passes:
+        ms = statistics.median(passes)
     else:
         print(f"kernel {kernel}: the profiler saw no device time; ms is "
               f"the wrapper's event time", flush=True)
@@ -553,6 +572,8 @@ def compare_kernels(scale: float, launches: dict):
     dev = torch.device("cuda")
     budget = driver.DEFAULT_MAX_STEPS
     rows = {}
+    print(f"clocks before the bits kernels' timings: {clock_line()}",
+          flush=True)
 
     def record(kernel, family, got, want, timing, plain_ms, rounds, nbytes,
                C, NA, W):
@@ -782,18 +803,6 @@ def with_repeats(pts):
                         card_ids=rep(pts.card_ids, -1))
 
 
-def _placed(placement: str, fn):
-    """``fn()`` with the blockwise kernels' rows placed as asked."""
-    from deppy_tpu_torch.engine import cuda_blockwise
-
-    default = cuda_blockwise.PLACEMENT
-    cuda_blockwise.PLACEMENT = placement
-    try:
-        return fn()
-    finally:
-        cuda_blockwise.PLACEMENT = default
-
-
 def _timed_once(fn, kernel: str):
     """(result, kernel ms, wrapper ms) of one call: a search too long to
     repeat."""
@@ -810,21 +819,26 @@ def _timed_once(fn, kernel: str):
         stop.record()
         torch.cuda.synchronize()
     wrapper_ms = start.elapsed_time(stop)
-    ms = _device_ms(prof, KERNEL_SYMBOLS[kernel]) or wrapper_ms
+    ms = _device_ms(prof, KERNEL_SYMBOLS[kernel])
+    if ms <= 0:
+        print(f"kernel {kernel}: the profiler saw no device time; ms is "
+              f"the wrapper's event time", flush=True)
+        ms = wrapper_ms
     return out, ms, wrapper_ms
 
 
 # Thread counts and row placements measured on the big families
-# (cuda_blockwise.THREADS and PLACEMENT pick among them), and the step
-# budget of the giant's search in that measurement.
+# (cuda_blockwise.THREADS and the "auto" placement of
+# cuda_blockwise.Compact are picked from them), and the step budget of
+# the giant's search in that measurement.
 CHOICE_THREADS = (128, 256, 512, 1024)
 CHOICE_GIANT_BUDGET = 2000
 
 
-def measure_choices(name: str, kin, full, en, tile: int, NCON: int):
+def measure_choices(name: str, kin, full, en, tile: int, NCON: int, W: int):
     """Kernel 2 and the search kernel under each row placement (resident,
     streamed) and thread count, on one big family: every configuration
-    must give the default one's outputs."""
+    must give the first one's outputs."""
     import torch
 
     from deppy_tpu_torch.engine import cuda_blockwise, cuda_search, driver
@@ -832,21 +846,22 @@ def measure_choices(name: str, kin, full, en, tile: int, NCON: int):
     budget = (CHOICE_GIANT_BUDGET if name == "giant"
               else driver.DEFAULT_MAX_STEPS)
     kw = dict(impl="blockwise", NCON=NCON)
-    defaults = (cuda_blockwise.PLACEMENT, cuda_blockwise.THREADS)
+    rows = cuda_blockwise.compact_rows(full.clauses, full.card_ids, W)
+    default = cuda_blockwise.THREADS
     out = {}
     ref = None
     try:
         for placement in ("resident", "streamed"):
+            placed = rows._replace(placement=placement)
             for threads in CHOICE_THREADS:
-                cuda_blockwise.PLACEMENT = placement
                 cuda_blockwise.THREADS = threads
                 fp, fp_ms, _ = _timed(
-                    lambda: cuda_blockwise.bcp_fixpoint(*kin,
-                                                        block_rows=tile),
+                    lambda: cuda_blockwise.bcp_fixpoint(
+                        *kin, block_rows=tile, rows=placed),
                     "blockwise_fixpoint", TIMED_REPS)
                 srch, s_ms, _ = _timed_once(
                     lambda: cuda_search.batched_search_fused(
-                        full, budget, en, **kw), "search")
+                        full, budget, en, rows=placed, **kw), "search")
                 got = (*fp, *srch[:4])
                 if ref is None:
                     ref = got
@@ -863,9 +878,57 @@ def measure_choices(name: str, kin, full, en, tile: int, NCON: int):
                     fail(f"{name}: {key} disagrees with the first "
                          f"configuration ({bad} elements)")
     finally:
-        cuda_blockwise.PLACEMENT, cuda_blockwise.THREADS = defaults
+        cuda_blockwise.THREADS = default
     torch.cuda.synchronize()
     return out
+
+
+# The step budget of the phase kernels' comparisons on the big families,
+# whose plain versions run on the card (some 20-40 ms a step on the
+# giant), and the lanes of the 64-catalog batch compared.
+BIG_PHASE_BUDGET = 200
+BIG_PHASE_LANES = 8
+
+
+def compare_big_phases(name: str, full, en, tile: int, NCON: int, searched):
+    """The phase kernels under blockwise at the natural tile on a big
+    family, every output held against the plain version run on the card
+    on the same inputs: the search at :data:`BIG_PHASE_BUDGET` steps, the
+    minimization of the full-budget search's outputs (``searched``) given
+    that many steps (and again with the guessed set cut to the anchors,
+    so that every other installed variable is an extra and the
+    minimization's DPLL probes run), and the core of any UNSAT lane."""
+    import torch
+
+    from deppy_tpu_torch.engine import core, cuda_search
+
+    nb = min(int(en.shape[0]), BIG_PHASE_LANES)
+    sub = core.ProblemTensors(*[f[:nb] for f in full])
+    en_b = en[:nb]
+    zero = torch.zeros(nb, dtype=torch.int32, device=en.device)
+    kw = dict(impl="blockwise", block_rows=tile, NCON=NCON)
+    what = (f"tile {tile} (natural), {nb} lanes, budget "
+            f"{BIG_PHASE_BUDGET}, plain on the card")
+    s_args = (sub, BIG_PHASE_BUDGET, en_b)
+    got = cuda_search.batched_search_fused(*s_args, **kw)
+    _same("search", name, f"{what}, steps {got[3].tolist()}", got,
+          cuda_search.batched_search_plain(*s_args, **kw))
+    result, guessed, model = (x[:nb] for x in searched[:3])
+    anchored = guessed & core._anchor_mask(sub, guessed.shape[1])
+    for label, g in (("", guessed), (", guessed cut to the anchors",
+                                     anchored)):
+        m_args = (sub, result, model, g, BIG_PHASE_BUDGET, zero, en_b)
+        got = cuda_search.batched_minimize_fused(*m_args, **kw)
+        _same("minimize", name, f"{what}{label}, steps {got[2].tolist()}",
+              got, cuda_search.batched_minimize_plain(*m_args, **kw))
+    en_c = en_b & (result == core.UNSAT)
+    if not bool(en_c.any()):
+        print(f"kernel core on {name}: no UNSAT lane, not compared",
+              flush=True)
+        return
+    c_args = (sub, BIG_PHASE_BUDGET, zero, en_c)
+    _same("core", name, what, cuda_search.batched_core_fused(*c_args, **kw),
+          cuda_search.batched_core_plain(*c_args, **kw))
 
 
 def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
@@ -873,9 +936,10 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
     plain version on every family at the natural tile (timed) and at
     tiles of 1 and 7 rows, and against kernel 1 on the same inputs; the
     phase kernels under blockwise against their plain versions at tiles
-    of 1 and 7 rows and at the natural tile, streamed rows against
-    resident ones at the small tiles; on the big families the search
-    kernel's time and the row placements and thread counts measured.
+    of 1 and 7 rows and at the natural tile (on the big families at the
+    natural tile and a cut budget, :func:`compare_big_phases`); on the
+    big families the search kernel's time and the row placements and
+    thread counts measured.
     Returns (kernel 2's row, the search kernel's big-family rows, the
     choices measured)."""
     import torch
@@ -888,6 +952,8 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
     dev = torch.device("cuda")
     budget = driver.DEFAULT_MAX_STEPS
     row = dict(max_abs_err=0, families={})
+    print(f"clocks before the blockwise kernels' timings: {clock_line()}",
+          flush=True)
     search_rows, choices = {}, {}
     small = families(scale) + [
         ("forced_extras", COMPARE_LANES, forced_extras),
@@ -970,15 +1036,15 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
                + int((bits[1] != got[1])[ok].sum())
                + int((bits[2] != got[2])[ok].sum()))
         print(f"kernel blockwise_fixpoint on {name}: against kernel 1 "
-              f"(bcp_fixpoint ms {bcp_ms:.4f}) mismatches {bad}", flush=True)
+              f"(bcp_fixpoint ms {bcp_ms:.4f}, kernel 2 / kernel 1 "
+              f"{ms / bcp_ms:.3f} in this run) mismatches {bad}", flush=True)
         if bad:
             fail(f"kernel blockwise_fixpoint disagrees with kernel 1 on "
                  f"{name} ({bad} elements)")
         fam["bcp_fixpoint_ms"] = bcp_ms
         row["families"][name] = fam
 
-        # Kernel 2 at tiles of 1 and 7 rows, plain versions in the pool,
-        # and streamed against resident rows.
+        # Kernel 2 at tiles of 1 and 7 rows, plain versions in the pool.
         for br in SMALL_TILES:
             nb = min(B, SMALL_TILE_LANES.get((name, br), B))
             what = f"tile {br}, {nb} lanes"
@@ -997,10 +1063,6 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
                 plain.submit(("blockwise_fixpoint", name, what), got,
                              "cuda_blockwise", "bcp_fixpoint_plain", sub_p,
                              kw, nb)
-            _same("blockwise_fixpoint", name, f"{what}, resident against "
-                  f"streamed rows", _placed(
-                      "resident", lambda: cuda_blockwise.bcp_fixpoint(
-                          *sub_k, block_rows=br)), got)
 
         if name in big_names:
             # The search kernel on the big family: its time per path, and
@@ -1025,12 +1087,12 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
                                      bound_by=s_by, steps=steps,
                                      launches_blockwise=launches["search"])
             choices[name] = measure_choices(name, kin, full, en, tile,
-                                            d.NCON)
+                                            d.NCON, d.Wv)
+            compare_big_phases(name, full, en, tile, d.NCON, srch)
             continue
 
         # The phase kernels at tiles of 1 and 7 rows and at the natural
-        # tile, plain versions in the pool, and streamed against resident
-        # rows at the small tiles.
+        # tile, plain versions in the pool.
         for br in SMALL_TILES + (tile,):
             nb = min(B, SMALL_TILE_LANES.get((name, br), B))
             sub = core.ProblemTensors(*[f[:nb] for f in full])
@@ -1041,11 +1103,6 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
             got = cuda_search.batched_search_fused(*s_args, **kw)
             plain.submit(("search", name, what), got, "cuda_search",
                          "batched_search_plain", s_args, kw, nb)
-            if br in SMALL_TILES:
-                _same("search", name, f"{what}, resident against streamed "
-                      f"rows", _placed(
-                          "resident", lambda: cuda_search.batched_search_fused(
-                              *s_args, **kw)), got)
             result, guessed, model, steps = got[0], got[1], got[2], got[3]
             m_args = (sub, result, model, guessed, budget, steps, en_b)
             got = cuda_search.batched_minimize_fused(*m_args, **kw)

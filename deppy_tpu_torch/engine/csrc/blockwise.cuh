@@ -26,7 +26,7 @@
 // either every clause row, staged once per launch too (resident), or two
 // tile buffers that each sweep refills from L2 with cp.async, the next
 // tile loading while the current one runs its local fixpoint (streaming).
-// The choice is by measurement (cuda_blockwise.PLACEMENT; PERF.md, Findings):
+// The choice is by measurement (cuda_blockwise.Compact; PERF.md, Findings):
 // where one tile holds every row they stay resident, 25% faster than
 // re-staging the one tile each sweep; where there are several tiles they
 // stream, 3-7% faster on the giant catalog than 160 KiB of resident rows,

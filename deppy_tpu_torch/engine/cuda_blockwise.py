@@ -25,12 +25,16 @@ the fixpoint's working words, the phase kernels' extra planes and the
 AtMost lists in :data:`SMEM_BYTES`.  Where one tile holds every row the
 kernel keeps them resident instead, staged once per launch
 (:func:`resident`).
+
+A solve builds its compact rows once (the driver) and hands them to every
+launch through the wrappers' ``rows`` argument; a wrapper given none
+builds them from ``clauses`` and ``card_ids``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,17 +49,11 @@ SMEM_BYTES = 232448
 # Words kept free for the kernels' static shared control structs.
 STATIC_WORDS = 128
 
-# Threads per block of the blockwise kernels, and where their compact rows
-# live: "auto" keeps them resident in shared memory when one tile holds
-# every row and streams the tiles otherwise, "resident" keeps them
-# resident wherever they fit, "streamed" always streams.  Both picked by
-# chip_smoke.py's measurement on the H100 (PERF.md §6): 512 threads
-# beat 256 by 1.4-1.6x and come within 15% of 1024 (faster on the
-# 64-catalog batch, slower on the giant); resident rows beat streamed
-# ones by 25% on one-tile problems and lose 3-7% on the giant's four
-# tiles.
+# Threads per block of the blockwise kernels, picked by chip_smoke.py's
+# measurement on the H100 (PERF.md §6): 512 threads beat 256 by 1.4-1.6x
+# and come within 15% of 1024 (faster on the 64-catalog batch, slower on
+# the giant).
 THREADS = 512
-PLACEMENT = "auto"
 
 # Kernel launches since the count was last reset (one per launch).
 launches = 0
@@ -64,14 +62,30 @@ launches = 0
 class Compact(NamedTuple):
     """Compact rows of a batch: ``lits`` [B, C, K] signed 1-based literals
     and ``mlits`` [B, NA, M] 1-based AtMost members, int16 or int32, each
-    row's distinct entries first and 0 after."""
+    row's distinct entries first and 0 after.
+
+    ``placement`` is where a launch keeps them: ``"auto"`` (every solve)
+    keeps them resident in shared memory when one tile holds every row
+    and streams the tiles otherwise.  That rule is chip_smoke.py's
+    measurement on the H100 (PERF.md §6): resident rows beat streamed
+    ones by 25% on one-tile problems and lose 3-7% on the giant's four
+    tiles.  ``"resident"`` (wherever they fit) and ``"streamed"`` force
+    one placement, for that measurement only."""
 
     lits: torch.Tensor
     mlits: torch.Tensor
+    placement: str = "auto"
 
     @property
     def lit_bytes(self) -> int:
         return self.lits.element_size()
+
+    def take(self, sel) -> "Compact":
+        """The lanes ``sel`` (a slice or an index tensor)."""
+        if isinstance(sel, slice):
+            return self._replace(lits=self.lits[sel], mlits=self.mlits[sel])
+        return self._replace(lits=self.lits.index_select(0, sel),
+                             mlits=self.mlits.index_select(0, sel))
 
 
 def lit_bytes(W: int) -> int:
@@ -126,11 +140,14 @@ def tile_rows(block_rows: int, C: int, K: int, M: int, W: int,
 
 def resident(rows: Compact, W: int, tile: int) -> bool:
     """Whether a launch keeps every compact row resident in shared
-    memory (:data:`PLACEMENT`)."""
+    memory (``rows.placement``)."""
     B, C, K = rows.lits.shape
     NA, M = rows.mlits.shape[1:]
     lb = rows.lit_bytes
-    if PLACEMENT == "streamed" or (PLACEMENT == "auto" and C > tile):
+    if rows.placement not in ("auto", "resident", "streamed"):
+        raise ValueError(f"unknown placement {rows.placement!r}")
+    if rows.placement == "streamed" or (rows.placement == "auto"
+                                        and C > tile):
         return False
     return _fixed_bytes(W, NA, M, lb) + _list_bytes(C, K, lb) <= SMEM_BYTES
 
@@ -170,6 +187,27 @@ def compact_rows(clauses: torch.Tensor, card_ids: torch.Tensor,
                    _cut(mlits, _width(m, lb), dtype))
 
 
+def rows_for(clauses: torch.Tensor, card_ids: torch.Tensor, W: int,
+             rows: Optional[Compact] = None) -> Compact:
+    """The compact rows a launch on ``clauses``/``card_ids`` reads:
+    ``rows`` when the caller built them, checked against the batch, else
+    built here."""
+    if rows is None:
+        return compact_rows(clauses, card_ids, W)
+    B, C = clauses.shape[:2]
+    NA = card_ids.shape[1]
+    if (tuple(rows.lits.shape[:2]) != (B, C)
+            or tuple(rows.mlits.shape[:2]) != (B, NA)
+            or rows.lits.device != clauses.device
+            or rows.mlits.device != clauses.device
+            or rows.lits.dtype != rows.mlits.dtype
+            or rows.lit_bytes != lit_bytes(W)):
+        raise ValueError(f"compact rows must be {lit_bytes(W)}-byte lists "
+                         f"[{B}, {C}, *] and [{B}, {NA}, *] on "
+                         f"{clauses.device}")
+    return rows
+
+
 def launch_args(rows: Compact, W: int, tile: int):
     """(lits, mlits, K, M, lit_bytes, tile_rows, resident) of a kernel
     launch on ``rows``; raises when they do not fit shared memory."""
@@ -187,11 +225,12 @@ def launch_args(rows: Compact, W: int, tile: int):
 
 
 def bcp_fixpoint(clauses, card_ids, card_active, card_n, min_bits, min_w,
-                 t0, f0, en, block_rows: int
+                 t0, f0, en, block_rows: int, rows: Optional[Compact] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched blockwise fixpoint.  int32 inputs: clauses [B, C, K] and
     card_ids [B, NA, M] as in ``core.ProblemTensors``, card_active/card_n
-    [B, NA], min_bits/t0/f0 [B, W], min_w/en [B].  Returns (conflict
+    [B, NA], min_bits/t0/f0 [B, W], min_w/en [B]; ``rows`` their compact
+    rows when the caller has them (:func:`rows_for`).  Returns (conflict
     int32[B], t, f int32[B, W])."""
     global launches
     B, C, K = clauses.shape
@@ -212,7 +251,7 @@ def bcp_fixpoint(clauses, card_ids, card_active, card_n, min_bits, min_w,
                                   min_bits, min_w, t0, f0, en,
                                   block_rows=tile)
     lib = _build.load()
-    rows = compact_rows(clauses, card_ids, W)
+    rows = rows_for(clauses, card_ids, W, rows)
     conflict = torch.empty(B, dtype=torch.int32, device=dev)
     t = torch.empty((B, W), dtype=torch.int32, device=dev)
     f = torch.empty((B, W), dtype=torch.int32, device=dev)

@@ -18,12 +18,16 @@ on the card.
 
 ``impl`` picks the BCP impl (``core.set_bcp_impl``).  Under ``bits``
 phases 1-2 read the reduced planes (``*_bits_r``) and every fixpoint is
-the bits rounds.  Under ``blockwise`` phases 1-2 read the full-space
-planes (``V = NV + NCON``, so they take the batch's ``NCON``) and every
+the bits rounds.  Under ``blockwise`` phases 1-2 run in the full space
+(``V = NV + NCON``, so they take the batch's ``NCON``) and every
 fixpoint of every phase sweeps tiles of ``block_rows`` clause rows
 (default ``cuda_blockwise.BLOCK_ROWS``; ``cuda_blockwise.tile_rows``
 caps it to what shared memory holds, for the kernel and the plain
-version alike).
+version alike).  There the kernels read the compact rows
+(``cuda_blockwise.Compact``: given as ``rows``, else built from
+``pts.clauses`` and ``pts.card_ids`` once per call) and no dense plane;
+the plain versions, and the core kernel under ``bits``, read the dense
+full-space planes ``pos_bits``/``neg_bits``/``card_member_bits``.
 """
 
 from __future__ import annotations
@@ -83,66 +87,93 @@ def _threads(impl: str) -> int:
     return THREADS if impl == "bits" else cuda_blockwise.THREADS
 
 
+def _full_words(pts: core.ProblemTensors, NCON: Optional[int]) -> int:
+    """Words of the full plane space ``V = NV + NCON``."""
+    if NCON is None:
+        raise ValueError("the full plane space needs the batch's NCON")
+    return -(-(pts.var_choices.shape[1] + NCON) // core.WORD)
+
+
 def _phase_planes(pts: core.ProblemTensors, red: bool, NCON: Optional[int]):
-    """(pos, neg, mem, V, W) of phases 1-2 in their plane space."""
+    """(pos, neg, mem, V, W) of phases 1-2 in their plane space; the full
+    space's dense planes may be ``[B, rows, 1]`` placeholders where only
+    the blockwise kernels read the rows."""
     NV = pts.var_choices.shape[1]
     if red:
         return (pts.pos_bits_r, pts.neg_bits_r, pts.card_member_bits_r, NV,
                 pts.pos_bits_r.shape[2])
-    if NCON is None:
-        raise ValueError("the full plane space needs the batch's NCON")
-    W = pts.pos_bits.shape[2]
-    if W * core.WORD < NV + NCON:
-        raise ValueError(f"full-space planes of {W} words cannot hold "
-                         f"NV + NCON = {NV + NCON} variables")
+    W = _full_words(pts, NCON)
     return pts.pos_bits, pts.neg_bits, pts.card_member_bits, NV + NCON, W
 
 
-def _phase_shapes(pts: core.ProblemTensors, red: bool) -> dict:
-    """The row fields phases 1-2 read (the plain versions and the bits
-    fixpoint the planes, the blockwise kernels the compact tensors), with
-    their shapes."""
+def _phase_shapes(pts: core.ProblemTensors, red: bool, W: int,
+                  dense: bool) -> dict:
+    """The row fields a phase reads, with their shapes: the reduced
+    planes under ``red``; else the compact tensors, and the full-space
+    dense planes when ``dense`` (a plain version, or the bits fixpoint of
+    the core kernel)."""
     B = pts.n_vars.shape[0]
     C, K = pts.clauses.shape[1:]
     NA, M = pts.card_ids.shape[1:]
     if red:
-        W = pts.pos_bits_r.shape[2]
         return dict(pos_bits_r=(B, C, W), neg_bits_r=(B, C, W),
                     card_member_bits_r=(B, NA, W), card_valid=(B, NA))
-    W = pts.pos_bits.shape[2]
-    return dict(pos_bits=(B, C, W), neg_bits=(B, C, W),
-                card_member_bits=(B, NA, W), card_act_bits=(B, NA, W),
-                clauses=(B, C, K), card_ids=(B, NA, M), card_act=(B, NA))
+    shapes = dict(clauses=(B, C, K), card_ids=(B, NA, M), card_act=(B, NA))
+    if dense:
+        shapes.update(pos_bits=(B, C, W), neg_bits=(B, C, W),
+                      card_member_bits=(B, NA, W), card_act_bits=(B, NA, W))
+    return shapes
+
+
+def _dense(pts: core.ProblemTensors, tile: int) -> bool:
+    """Whether a call reads the dense planes: on the CPU (the plain
+    versions) or with the bits fixpoint (``tile`` 0)."""
+    return pts.n_vars.device.type == "cpu" or not tile
 
 
 def _row_args(pts: core.ProblemTensors, planes, red: bool, W: int,
-              tile: int):
+              tile: int, rows: Optional[cuda_blockwise.Compact]):
     """The row arguments of a phase-kernel launch: (pos, neg, mem,
     card_valid, card_act, lits, mlits) pointers, then (K, M, lit_bytes,
-    tile_rows, resident), and the compact rows to keep alive until the
-    launch is queued.  The bits fixpoint reads the dense ``planes``; the
-    blockwise one reads compact rows and no plane (null pointers).  The
-    reduced space's AtMost activity is card_valid, the full space's
-    card_act."""
+    tile_rows, resident).  The bits fixpoint reads the dense ``planes``;
+    the blockwise one reads the compact ``rows`` and no plane (null
+    pointers).  The reduced space's AtMost activity is card_valid, the
+    full space's card_act."""
     valid = pts.card_valid.data_ptr() if red else None
     act = None if red else pts.card_act.data_ptr()
     if not tile:
         pos, neg, mem = planes
         return ([pos.data_ptr(), neg.data_ptr(), mem.data_ptr(), valid, act,
-                 None, None], [1, 1, 4, 0, 0], None)
-    rows = cuda_blockwise.compact_rows(pts.clauses, pts.card_ids, W)
+                 None, None], [1, 1, 4, 0, 0])
     la = cuda_blockwise.launch_args(rows, W, tile)
-    return [None, None, None, valid, act, *la[:2]], list(la[2:]), rows
+    return [None, None, None, valid, act, *la[:2]], list(la[2:])
+
+
+def _launch_rows(pts: core.ProblemTensors, W: int, tile: int,
+                 rows: Optional[cuda_blockwise.Compact]):
+    """The compact rows of a blockwise launch (None for the bits one)."""
+    if not tile:
+        return None
+    return cuda_blockwise.rows_for(pts.clauses, pts.card_ids, W, rows)
 
 
 # --------------------------------------------------------------------------
 # phase 1
 
 
+def full_activity(pts: core.ProblemTensors, assign: torch.Tensor):
+    """bool[B, NA]: the AtMost rows whose activation variable
+    (``card_act``, -1 on padded rows) is true in the full-space
+    ``assign`` [B, V]; what ``card_act_bits & t`` gives on dense planes."""
+    on = torch.gather(assign == core.TRUE, 1,
+                      pts.card_act.clamp(min=0).long())
+    return (pts.card_act >= 0) & on
+
+
 def _baseline_fixpoint(pts: core.ProblemTensors, planes, card_active,
-                       t0, f0, en, tile: int):
+                       t0, f0, en, tile: int, rows):
     """Batched ``core.planes_fixpoint`` with no extras bound, as kernel 1
-    on the ``planes`` (``tile`` 0) or kernel 2 on the compact rows: a lane
+    on the ``planes`` (``tile`` 0) or kernel 2 on the compact ``rows``: a lane
     whose entry state sets a variable both ways is a conflict and runs no
     round.  ``en`` is bool[B].  Returns (conflict bool[B], t, f)."""
     B, W = t0.shape
@@ -153,7 +184,7 @@ def _baseline_fixpoint(pts: core.ProblemTensors, planes, card_active,
             (en & ~pre).to(_I32))
     if tile:
         conflict, t, f = cuda_blockwise.bcp_fixpoint(
-            pts.clauses, pts.card_ids, *args, block_rows=tile)
+            pts.clauses, pts.card_ids, *args, block_rows=tile, rows=rows)
     else:
         conflict, t, f = cuda_bcp.bcp_fixpoint(*planes, *args)
     return (conflict != 0) | pre, t, f
@@ -162,7 +193,8 @@ def _baseline_fixpoint(pts: core.ProblemTensors, planes, card_active,
 def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
                          *, impl: str = "bits",
                          block_rows: Optional[int] = None,
-                         NCON: Optional[int] = None):
+                         NCON: Optional[int] = None,
+                         rows: Optional[cuda_blockwise.Compact] = None):
     """Phase 1 over a batch.  ``en`` bool[B] gates padding lanes.
     Returns (result int32[B], guessed bool[B, NV], model int32[B, NV],
     steps int32[B], tr_stack int32[B, 0, NC+1], tr_n int32[B])."""
@@ -171,18 +203,20 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
     B, NC, Kc = pts.choice_cand.shape
     NV, Wch = pts.var_choices.shape[1:]
     pos, neg, mem, V, W = _phase_planes(pts, red, NCON)
-    C, NA = pos.shape[1], mem.shape[1]
+    C, NA = pts.clauses.shape[1], pts.card_ids.shape[1]
     A = pts.anchors.shape[1]
-    shapes = dict(_phase_shapes(pts, red), card_n=(B, NA),
-                  choice_cand=(B, NC, Kc), var_choices=(B, NV, Wch),
-                  anchors=(B, A), n_vars=(B,), n_cons=(B,))
+    tile = _tile(impl, block_rows, pts, W)
+    shapes = dict(_phase_shapes(pts, red, W, _dense(pts, tile)),
+                  card_n=(B, NA), choice_cand=(B, NC, Kc),
+                  var_choices=(B, NV, Wch), anchors=(B, A), n_vars=(B,),
+                  n_cons=(B,))
     dev = _check_pts(pts, shapes)
     _check_mask(en, (B,), dev, "en")
-    tile = _tile(impl, block_rows, pts, W)
     if dev.type == "cpu":
         return batched_search_plain(pts, budget, en, impl=impl,
                                     block_rows=tile, NCON=NCON)
     lib = _build.load()
+    rows = _launch_rows(pts, W, tile, rows)
     pv_mask = torch.arange(V, device=dev) < pts.n_vars.unsqueeze(-1)
     anchor_mask = core._anchor_mask(pts, V)
     base = core._apply_anchors(pts, core._phase_base(pts, red, V, NCON), V)
@@ -190,12 +224,9 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
     f_in = core.pack_mask(base == core.FALSE, W)
     pvb = core.pack_mask(pv_mask, W)
     # Baseline Test under the anchors (solve.go:74-79).
-    if red:
-        active = pts.card_valid
-    else:
-        active = ((pts.card_act_bits & t_in.unsqueeze(1)) != 0).any(-1)
+    active = pts.card_valid if red else full_activity(pts, base)
     conflict0, t0, f0 = _baseline_fixpoint(
-        pts, (pos, neg, mem), active.to(_I32), t_in, f_in, en, tile)
+        pts, (pos, neg, mem), active.to(_I32), t_in, f_in, en, tile, rows)
     unassigned = (core._to_u(pvb) & ~(core._to_u(t0) | core._to_u(f0))) != 0
     outcome0 = torch.where(
         conflict0, core.UNSAT,
@@ -211,7 +242,7 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
     m_t = torch.empty((B, W), dtype=_I32, device=dev)
     m_f = torch.empty((B, W), dtype=_I32, device=dev)
     ns = need_search.to(_I32)
-    ptrs, dims, _rows = _row_args(pts, (pos, neg, mem), red, W, tile)
+    ptrs, dims = _row_args(pts, (pos, neg, mem), red, W, tile, rows)
     rc = lib.deppy_search(
         *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:],
         pts.choice_cand.data_ptr(), pts.var_choices.data_ptr(),
@@ -287,30 +318,33 @@ def _minimize_inputs(pts, result, model, guessed, en_lanes, red, NCON):
 def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
                            budget, steps, en_lanes, *, impl: str = "bits",
                            block_rows: Optional[int] = None,
-                           NCON: Optional[int] = None):
+                           NCON: Optional[int] = None,
+                           rows: Optional[cuda_blockwise.Compact] = None):
     """Phase 2 over a batch, gated to SAT lanes (``en_lanes & result ==
     SAT``); ``model``/``guessed`` are phase 1's [B, NV] outputs.  Returns
     (installed bool[B, NV], min_found bool[B], steps int32[B])."""
     global minimize_launches
     red = _reduced(impl)
     pos, neg, mem, _, W = _phase_planes(pts, red, NCON)
-    B, C = pos.shape[:2]
+    B, C = pts.clauses.shape[:2]
     NV = pts.var_choices.shape[1]
-    NA = mem.shape[1]
-    shapes = dict(_phase_shapes(pts, red), card_n=(B, NA), n_vars=(B,),
-                  n_cons=(B,), anchors=pts.anchors.shape)
+    NA = pts.card_ids.shape[1]
+    tile = _tile(impl, block_rows, pts, W)
+    shapes = dict(_phase_shapes(pts, red, W, _dense(pts, tile)),
+                  card_n=(B, NA), n_vars=(B,), n_cons=(B,),
+                  anchors=pts.anchors.shape)
     dev = _check_pts(pts, shapes)
     if _check_args(dict(result=result, model=model, steps=steps),
                    dict(result=(B,), model=(B, NV), steps=(B,))) != dev:
         raise ValueError("phase-1 outputs must lie on the batch's device")
     _check_mask(guessed, (B, NV), dev, "guessed")
     _check_mask(en_lanes, (B,), dev, "en")
-    tile = _tile(impl, block_rows, pts, W)
     if dev.type == "cpu":
         return batched_minimize_plain(pts, result, model, guessed, budget,
                                       steps, en_lanes, impl=impl,
                                       block_rows=tile, NCON=NCON)
     lib = _build.load()
+    rows = _launch_rows(pts, W, tile, rows)
     x = _minimize_inputs(pts, result, model, guessed, en_lanes, red, NCON)
     en = x["en"]
     words = lib.deppy_minimize_scratch_words(NV, W)
@@ -319,7 +353,7 @@ def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
     steps_out = torch.empty(B, dtype=_I32, device=dev)
     m2_t = torch.empty((B, W), dtype=_I32, device=dev)
     en32 = en.to(_I32)
-    ptrs, dims, _rows = _row_args(pts, (pos, neg, mem), red, W, tile)
+    ptrs, dims = _row_args(pts, (pos, neg, mem), red, W, tile, rows)
     rc = lib.deppy_minimize(
         *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:],
         x["m_init_t"].data_ptr(), x["m_init_f"].data_ptr(),
@@ -364,7 +398,7 @@ def batched_minimize_plain(pts, result, model, guessed, budget, steps,
 
 def _core_inputs(pts, NCON):
     NV = pts.var_choices.shape[1]
-    W = pts.pos_bits.shape[2]
+    W = _full_words(pts, NCON)
     V = NV + NCON
     init = core._base_assignment(pts, V, NCON)
     idx = torch.arange(V, device=init.device)
@@ -375,29 +409,29 @@ def _core_inputs(pts, NCON):
 
 def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
                        NCON: int, impl: str = "bits",
-                       block_rows: Optional[int] = None):
+                       block_rows: Optional[int] = None,
+                       rows: Optional[cuda_blockwise.Compact] = None):
     """Phase 3 over a batch in the full plane space (``V = NV + NCON``).
     ``en`` bool[B]; ``steps`` int32[B] carries each lane's phase-1 count.
     Returns (core bool[B, NCON], steps int32[B])."""
     global core_launches
     _reduced(impl)
-    B, C, W = pts.pos_bits.shape
+    B, C = pts.clauses.shape[:2]
     NV = pts.var_choices.shape[1]
-    NA = pts.card_member_bits.shape[1]
-    if W * core.WORD < NV + NCON:
-        raise ValueError(f"full-space planes of {W} words cannot hold "
-                         f"NV + NCON = {NV + NCON} variables")
-    shapes = dict(_phase_shapes(pts, False), card_n=(B, NA), n_vars=(B,),
-                  n_cons=(B,))
+    NA = pts.card_ids.shape[1]
+    W = _full_words(pts, NCON)
+    tile = _tile(impl, block_rows, pts, W)
+    shapes = dict(_phase_shapes(pts, False, W, _dense(pts, tile)),
+                  card_n=(B, NA), n_vars=(B,), n_cons=(B,))
     dev = _check_pts(pts, shapes)
     if _check_args(dict(steps=steps), dict(steps=(B,))) != dev:
         raise ValueError("steps must lie on the batch's device")
     _check_mask(en, (B,), dev, "en")
-    tile = _tile(impl, block_rows, pts, W)
     if dev.type == "cpu":
         return batched_core_plain(pts, budget, steps, en, NCON=NCON,
                                   impl=impl, block_rows=tile)
     lib = _build.load()
+    rows = _launch_rows(pts, W, tile, rows)
     G = min(core.CORE_CHUNK, max(NCON, 1))
     x = _core_inputs(pts, NCON)
     words = lib.deppy_core_scratch_words(NV, W)
@@ -405,9 +439,9 @@ def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
     core_out = torch.empty((B, NCON), dtype=_I32, device=dev)
     steps_out = torch.empty(B, dtype=_I32, device=dev)
     en32 = en.to(_I32)
-    ptrs, dims, _rows = _row_args(
+    ptrs, dims = _row_args(
         pts, (pts.pos_bits, pts.neg_bits, pts.card_member_bits), False, W,
-        tile)
+        tile, rows)
     rc = lib.deppy_core(
         *ptrs[:3], pts.card_n.data_ptr(), *ptrs[4:], x["pvb"].data_ptr(),
         x["base_t"].data_ptr(), x["base_f"].data_ptr(), en32.data_ptr(),
@@ -424,7 +458,7 @@ def batched_core_plain(pts, budget, steps, en, *, NCON: int,
                        impl: str = "bits", block_rows: Optional[int] = None):
     """Plain version of :func:`batched_core_fused`, on any device."""
     _reduced(impl)
-    tile = _tile(impl, block_rows, pts, pts.pos_bits.shape[2])
+    tile = _tile(impl, block_rows, pts, _full_words(pts, NCON))
     B = steps.shape[0]
     dev = steps.device
     cores = torch.zeros((B, NCON), dtype=torch.bool, device=dev)

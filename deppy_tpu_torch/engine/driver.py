@@ -18,6 +18,11 @@ without a mesh, tracing, faults or budget escalation:
    exactly as the reference routes them (:func:`_core_routes`);
 5. :func:`decode_results` maps lanes back to variables.
 
+Under ``blockwise`` on the card the kernels read compact rows, built once
+per bucket (``cuda_blockwise.compact_rows``) and cut per chunk, and no
+full-space plane is derived: only the plain versions (``device="cpu"``)
+read those.
+
 ``device="cuda"`` (the default) runs the CUDA kernels and raises when
 there is no card; ``device="cpu"`` runs their plain versions.  The BCP
 impl is ``core.resolved_impl()`` and the blockwise tile height
@@ -266,18 +271,27 @@ def _solve_split(problems: Sequence[Problem], budget: int,
     kw = dict(impl=impl, block_rows=cuda_blockwise.BLOCK_ROWS)
     pts_all = _upload(pad_stack(problems, d, total), dev)
     en_all = torch.arange(total, device=dev) < n
+    rows_all = None
+    if impl == "blockwise" and dev.type == "cuda":
+        rows_all = cuda_blockwise.compact_rows(pts_all.clauses,
+                                               pts_all.card_ids, d.Wv)
+    dense = rows_all is None
+
+    def rows(sel):
+        return None if rows_all is None else rows_all.take(sel)
 
     # Phases 1 and 2 on the same resident chunks.
     res1, st1, trn, inst, found, st2 = [], [], [], [], [], []
     for lo in range(0, total, CH):
         sl = slice(lo, lo + CH)
         pts = core.with_planes(_rows(pts_all, sl), Wv=d.Wv, Wr=d.Wr,
-                               red=red, full=not red)
+                               red=red, full=not red and dense)
         en = en_all[sl]
         r, guessed, model, steps, _, tr_n = cuda_search.batched_search_fused(
-            pts, budget, en, NCON=d.NCON, **kw)
+            pts, budget, en, NCON=d.NCON, rows=rows(sl), **kw)
         i2, f2, s2 = cuda_search.batched_minimize_fused(
-            pts, r, model, guessed, budget, steps, en, NCON=d.NCON, **kw)
+            pts, r, model, guessed, budget, steps, en, NCON=d.NCON,
+            rows=rows(sl), **kw)
         res1.append(r)
         st1.append(steps)
         trn.append(tr_n)
@@ -305,11 +319,11 @@ def _solve_split(problems: Sequence[Problem], budget: int,
         idx = dev_idx[lo: lo + CH]
         sel = torch.from_numpy(idx).to(dev)
         pts = core.with_planes(_rows(pts_all, sel), Wv=d.Wv, Wr=d.Wr,
-                               red=False, full=True)
+                               red=False, full=dense)
         c, s = cuda_search.batched_core_fused(
             pts, budget, torch.from_numpy(steps[idx].astype(np.int32)).to(dev),
             torch.ones(idx.size, dtype=torch.bool, device=dev), NCON=d.NCON,
-            **kw)
+            rows=rows(sel), **kw)
         cores[idx] = c.cpu().numpy()
         steps[idx] = s.cpu().numpy()
     if host_idx.size:

@@ -13,7 +13,9 @@
 * the kernel's compact rows (``cuda_blockwise.compact_rows``) rebuilt
   into planes against ``core.derive_planes`` on every family
   ``chip_smoke.py`` runs, and on rows with a repeated literal and with
-  both x and ~x;
+  both x and ~x; the rows a solve builds once, cut by lane and checked
+  against the batch they are given with; the placement rule; the search
+  wrapper's AtMost activity from ``card_act`` against ``card_act_bits``;
 * the phase wrappers under ``impl="blockwise"`` (full plane space) against
   ``core.batched_search`` / ``batched_minimize_gated`` / ``batched_core``
   under ``set_bcp_impl("blockwise")``;
@@ -304,6 +306,76 @@ def test_compact_rows_drop_repeated_literals_and_keep_x_or_not_x():
     # Planes of 32,768 variables or more take int32 literals.
     assert cuda_blockwise.compact_rows(clauses, card_ids,
                                        1024).lits.dtype == torch.int32
+
+
+def _family_batch(make, n=4):
+    probs = [tencode(make(i)) for i in range(n)]
+    d = tdriver._Dims(probs, n)
+    pts = convert.problem_tensors_from_numpy(tdriver.pad_stack(probs, d, n))
+    return d, pts
+
+
+def test_compact_rows_given_once_are_cut_and_checked():
+    """The rows a solve builds once: lanes cut by slice or index like the
+    batch's own, and rows that do not belong to a batch rejected."""
+    d, pts = _family_batch(lambda i: tm.version_pinned_chains(6, 3, seed=i))
+    rows = cuda_blockwise.compact_rows(pts.clauses, pts.card_ids, d.Wv)
+    sel = torch.tensor([3, 1])
+    for cut in (slice(1, 3), sel):
+        part = tdriver._rows(pts, cut)
+        want = cuda_blockwise.compact_rows(part.clauses, part.card_ids, d.Wv)
+        got = cuda_blockwise.rows_for(part.clauses, part.card_ids, d.Wv,
+                                      rows.take(cut))
+        n = want.lits.shape[2]
+        assert torch.equal(got.lits[..., :n], want.lits)
+        assert not got.lits[..., n:].any()
+        n = want.mlits.shape[2]
+        assert torch.equal(got.mlits[..., :n], want.mlits)
+        assert not got.mlits[..., n:].any()
+    assert cuda_blockwise.rows_for(pts.clauses, pts.card_ids, d.Wv,
+                                   rows) is rows
+    built = cuda_blockwise.rows_for(pts.clauses, pts.card_ids, d.Wv)
+    assert torch.equal(built.lits, rows.lits) and built.placement == "auto"
+    for bad in (rows.take(slice(0, 2)),  # another batch's lanes
+                rows._replace(lits=rows.lits.to(torch.int32))):  # width
+        with pytest.raises(ValueError):
+            cuda_blockwise.rows_for(pts.clauses, pts.card_ids, d.Wv, bad)
+    with pytest.raises(ValueError):  # int16 rows for int32 planes
+        cuda_blockwise.rows_for(pts.clauses, pts.card_ids, 1024, rows)
+
+
+def test_resident_follows_the_placement():
+    """``auto`` keeps the rows resident when one tile holds them all;
+    ``resident`` and ``streamed`` force a placement for measurement."""
+    d, pts = _family_batch(lambda i: tm.version_pinned_chains(6, 3, seed=i))
+    rows = cuda_blockwise.compact_rows(pts.clauses, pts.card_ids, d.Wv)
+    resident = cuda_blockwise.resident
+    C = d.C
+    assert resident(rows, d.Wv, C) and not resident(rows, d.Wv, C - 1)
+    forced = rows._replace(placement="resident")
+    assert resident(forced, d.Wv, 1)
+    assert not resident(rows._replace(placement="streamed"), d.Wv, C)
+    assert cuda_blockwise.launch_args(rows, d.Wv, 1)[-1] == 0
+    assert cuda_blockwise.launch_args(forced, d.Wv, 1)[-1] == 1
+    with pytest.raises(ValueError):
+        resident(rows._replace(placement="pinned"), d.Wv, C)
+
+
+def test_full_activity_matches_card_act_bits():
+    """The search wrapper's AtMost activity from ``card_act`` equals the
+    dense ``card_act_bits`` rows against the packed assignment."""
+    d, pts = _family_batch(lambda i: tm.version_pinned_chains(6, 3, seed=i))
+    pts = tcore.with_planes(pts, Wv=d.Wv, Wr=d.Wr, red=False, full=True)
+    base = tcore._base_assignment(pts, d.V, d.NCON)
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        flip = torch.as_tensor(rng.random(base.shape) < 0.5)
+        assign = torch.where(flip, tcore.FALSE, base).to(torch.int32)
+        t = tcore.pack_mask(assign == tcore.TRUE, d.Wv)
+        want = ((pts.card_act_bits & t.unsqueeze(1)) != 0).any(-1)
+        got = cuda_search.full_activity(pts, assign)
+        assert torch.equal(got, want)
+        assert got.any() and not got.all()
 
 
 # --------------------------------------------------------------------------
