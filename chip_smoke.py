@@ -50,7 +50,12 @@ Phases, each fatal on failure:
    families the phase kernels are held at the natural tile against plain
    versions run on the card, at a cut step budget, and both row
    placements are timed at 128-1024 threads (every configuration must
-   give the same outputs).  Each kernel's time is its own device time
+   give the same outputs).  Kernels 4 and 5 run on every bits family under
+   the team the shape rule picks (``cuda_search.team``) and forced to the
+   block team and to the warp team at 1, 2, 4 and 8 warps a block, each
+   held against the plain version (full budget, tight budgets, padding
+   lanes) on 32 lanes and timed there and on the family's 512-lane chunk
+   (``choice`` lines).  Each kernel's time is its own device time
    from ``torch.profiler``; the
    wrapper's time (CUDA events, the host work that prepares a launch
    included) and the plain version's time stand beside it, with a bound
@@ -247,6 +252,20 @@ def render(result):
     return ("incomplete",)
 
 
+def all_warp(name: str, counts: dict) -> dict:
+    """The warp-team launches of phases 2 and 3 since the counts were
+    reset; fails unless every launch of those kernels (``counts``) went to
+    the warp team, as the shape rule gives every bits-path shape."""
+    from deppy_tpu_torch import engine
+
+    warps = engine.warp_launch_counts()
+    for k, n in warps.items():
+        if n != counts[k]:
+            fail(f"{name}: {counts[k] - n} of {counts[k]} {k} launches of "
+                 f"the bits path went to the block team")
+    return warps
+
+
 def run_main_path(scale: float):
     """Phases 2 and 4: resolve every family of the bits path on the card
     and check it."""
@@ -274,13 +293,14 @@ def run_main_path(scale: float):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = engine.launch_counts()
+        warps = all_warp(name, counts)
         n_sat = sum(isinstance(r, dict) for r in results)
         n_unsat = sum(isinstance(r, NotSatisfiable) for r in results)
         n_inc = sum(isinstance(r, Incomplete) for r in results)
         print(f"main path {name}: {count} problems in {wall:.3f} s "
               f"({count / wall:.1f} problems/s); sat {n_sat} unsat "
-              f"{n_unsat} incomplete {n_inc}; launches {counts}; host "
-              f"encode alone {t_encode:.3f} s", flush=True)
+              f"{n_unsat} incomplete {n_inc}; launches {counts}, warp team "
+              f"{warps}; host encode alone {t_encode:.3f} s", flush=True)
         for k in launches:
             launches[k] += counts[k]
         per_family[name] = dict(problems=count, wall_s=wall,
@@ -300,10 +320,12 @@ def run_main_path(scale: float):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = engine.launch_counts()
+    warps = all_warp("operatorhub", counts)
     for k in launches:
         launches[k] += counts[k]
     print(f"main path operatorhub: 1 problem in {wall:.3f} s; "
-          f"{render(answer)[0]}; launches {counts}", flush=True)
+          f"{render(answer)[0]}; launches {counts}, warp team {warps}",
+          flush=True)
     per_family["operatorhub"] = dict(problems=1, wall_s=wall,
                                      launches=counts,
                                      outcome=render(answer)[0])
@@ -368,6 +390,8 @@ def run_blockwise_path(scale: float):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = engine.launch_counts()
+            if any(engine.warp_launch_counts().values()):
+                fail(f"{name}: a blockwise launch went to the warp team")
             for k in launches:
                 launches[k] += counts[k]
             n_sat = sum(isinstance(r, dict) for r in results)
@@ -461,16 +485,18 @@ def profile_chunk(scale: float) -> dict:
 # kernels against their plain versions
 
 
-# Each kernel's symbol, as the profiler names its device activity.
-KERNEL_SYMBOLS = {"bcp_fixpoint": "bcp_kernel",
-                  "blockwise_fixpoint": "blockwise_kernel",
-                  "search": "search_kernel", "minimize": "minimize_kernel",
-                  "core": "core_kernel"}
+# Each kernel's symbols (its teams), as the profiler names its device
+# activity.
+KERNEL_SYMBOLS = {"bcp_fixpoint": ("bcp_kernel",),
+                  "blockwise_fixpoint": ("blockwise_kernel",),
+                  "search": ("search_kernel",),
+                  "minimize": ("minimize_kernel", "minimize_warp_kernel"),
+                  "core": ("core_kernel", "core_warp_kernel")}
 
 
-def _device_ms(prof, symbol: str) -> float:
+def _device_ms(prof, symbols) -> float:
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if symbol in e.key) / 1e3
+               if any(s in e.key for s in symbols)) / 1e3
 
 
 def _timed(fn, kernel: str, reps: int):
@@ -571,7 +597,7 @@ def compare_kernels(scale: float, launches: dict):
 
     dev = torch.device("cuda")
     budget = driver.DEFAULT_MAX_STEPS
-    rows = {}
+    rows, teams = {}, {}
     print(f"clocks before the bits kernels' timings: {clock_line()}",
           flush=True)
 
@@ -639,7 +665,8 @@ def compare_kernels(scale: float, launches: dict):
                _nbytes(*search_in, *got), d.C, d.NA, d.Wr)
         result, guessed, model, steps = got[0], got[1], got[2], got[3]
 
-        # Kernel 4: phase 2 on the SAT lanes.
+        # Kernel 4: phase 2 on the SAT lanes, under the team the shape
+        # rule picks.
         min_args = (red, result, model, guessed, budget, steps, en)
         got, *timing = _timed(
             lambda: cuda_search.batched_minimize_fused(*min_args),
@@ -651,6 +678,7 @@ def compare_kernels(scale: float, launches: dict):
                        red.card_member_bits_r, red.card_n, red.card_valid,
                        red.anchors, red.n_vars, result, model, guessed,
                        steps, en, *got), d.C, d.NA, d.Wr)
+        min_cases = [("full budget", min_args, want)]
 
         # Tight budgets and padding lanes: the step accounting behind
         # Incomplete, and lanes that must run nothing.
@@ -662,9 +690,18 @@ def compare_kernels(scale: float, launches: dict):
                   cuda_search.batched_search_plain(red, tight, en_pad))
             tight_args = (red, result, model, guessed, tight + 2, steps,
                           en_pad)
-            _same("minimize", name, f"budget {tight + 2}, padding lanes",
-                  cuda_search.batched_minimize_fused(*tight_args),
-                  cuda_search.batched_minimize_plain(*tight_args))
+            min_cases.append((f"budget {tight + 2}, padding lanes",
+                              tight_args,
+                              cuda_search.batched_minimize_plain(*tight_args)))
+
+        # Both teams of kernel 4, here and on the family's chunk.
+        chunk = chunk_inputs(probs, d, B)
+        teams.setdefault("minimize", {})[name] = compare_teams(
+            "minimize", name,
+            lambda a, team: cuda_search.batched_minimize_fused(*a,
+                                                               _team=team),
+            min_cases, (d.C, d.NA, d.Wr, d.NV, 0),
+            chunk and chunk["minimize"])
 
         # Kernel 5: phase 3 on the UNSAT lanes, full plane space.
         en_c = en & (result == core.UNSAT)
@@ -673,9 +710,6 @@ def compare_kernels(scale: float, launches: dict):
                   flush=True)
             continue
         tight_args = (full, 25, steps, en_c & en_pad)
-        _same("core", name, "budget 25, padding lanes",
-              cuda_search.batched_core_fused(*tight_args, NCON=d.NCON),
-              cuda_search.batched_core_plain(*tight_args, NCON=d.NCON))
         core_args = (full, budget, steps, en_c)
         got, *timing = _timed(
             lambda: cuda_search.batched_core_fused(*core_args, NCON=d.NCON),
@@ -687,7 +721,109 @@ def compare_kernels(scale: float, launches: dict):
                        full.card_n, full.card_act_bits, full.n_vars,
                        full.n_cons, steps, en_c, *got),
                d.C, d.NA, d.Wv)
+        core_cases = [
+            ("full budget", core_args, want),
+            ("budget 25, padding lanes", tight_args,
+             cuda_search.batched_core_plain(*tight_args, NCON=d.NCON))]
+        teams.setdefault("core", {})[name] = compare_teams(
+            "core", name,
+            lambda a, team: cuda_search.batched_core_fused(
+                *a, NCON=d.NCON, _team=team),
+            core_cases, (d.C, d.NA, d.Wv, d.NV, d.NCON),
+            chunk and chunk["core"])
+    for k, by_family in teams.items():
+        rows[k]["teams"] = by_family
     return rows
+
+
+def chunk_inputs(probs, d, B: int):
+    """Kernels 4 and 5's arguments on the family's whole first chunk
+    (``probs``, up to 512 lanes, as the main path runs it): phase 1's
+    outputs from the search kernel, phase 3 on the UNSAT lanes.  None when
+    the chunk is the compared lanes."""
+    import torch
+
+    from deppy_tpu_torch.engine import core, cuda_search, driver
+
+    n = len(probs)
+    if n <= B:
+        return None
+    dev = torch.device("cuda")
+    budget = driver.DEFAULT_MAX_STEPS
+    pts = driver._upload(driver.pad_stack(probs, d, n), dev)
+    red = core.with_planes(pts, Wv=d.Wv, Wr=d.Wr, red=True, full=False)
+    full = core.with_planes(pts, Wv=d.Wv, Wr=d.Wr, red=False, full=True)
+    en = torch.ones(n, dtype=torch.bool, device=dev)
+    result, guessed, model, steps = cuda_search.batched_search_fused(
+        red, budget, en)[:4]
+    unsat = en & (result == core.UNSAT)
+    return dict(
+        minimize=(f"{n}-lane chunk",
+                  (red, result, model, guessed, budget, steps, en)),
+        core=(f"{n}-lane chunk, {int(unsat.sum())} UNSAT lanes",
+              (full, budget, steps, unsat)) if bool(unsat.any()) else None)
+
+
+# Problems a block of the warp team is timed at (cuda_search.WARPS is
+# picked from these times).
+CHOICE_WARPS = (1, 2, 4, 8)
+
+
+def compare_teams(kernel: str, family: str, run, cases, dims, chunk):
+    """Kernel 4 or 5 on one family under the block team and under the
+    warp team at each of :data:`CHOICE_WARPS` warps a block the shape rule
+    admits (``run(args, team)``): every case (label, args, the plain
+    version's outputs) must give the plain outputs, and the first is
+    timed; so is ``chunk`` (label, args), where every configuration must
+    give the block team's outputs.  Returns {configuration: times}."""
+    from deppy_tpu_torch.engine import cuda_search
+
+    C, NA, W, NV, NCON = dims
+    default = cuda_search.WARPS
+    out, ref = {}, None
+    print(f"clocks before choice {kernel} {family}: {clock_line()}",
+          flush=True)
+    try:
+        for team, warps in [("block", default)] + [("warp", w)
+                                                   for w in CHOICE_WARPS]:
+            cuda_search.WARPS = warps
+            key = team if team == "block" else f"warp/{warps}"
+            lean = cuda_search.warp_smem_bytes(kernel, C, NA, W, NV, NCON,
+                                               False)
+            if team == "warp" and cuda_search.team(0, W, lean) != "warp":
+                print(f"choice {kernel} {family} {key}: refused by the "
+                      f"shape rule ({lean} bytes a problem)", flush=True)
+                continue
+            for label, args, want in cases[1:]:
+                _same(kernel, family, f"{key}, {label}", run(args, team),
+                      want)
+            label, args, want = cases[0]
+            got, ms, wrapper_ms = _timed(lambda: run(args, team), kernel,
+                                         TIMED_REPS)
+            bad, _ = _mismatch(got, want)
+            row = dict(ms=ms, wrapper_ms=wrapper_ms)
+            line = (f"choice {kernel} {family} {key}: ms {ms:.7f} "
+                    f"wrapper_ms {wrapper_ms:.4f} ({label}, mismatches "
+                    f"{bad})")
+            if chunk is not None:
+                c_label, c_args = chunk
+                c_got, c_ms, c_wrap = _timed(lambda: run(c_args, team),
+                                             kernel, TIMED_REPS)
+                ref = c_got if ref is None else ref
+                c_bad, _ = _mismatch(c_got, ref)
+                bad += c_bad
+                row.update(chunk_ms=c_ms, chunk_wrapper_ms=c_wrap)
+                line += (f"; {c_label} ms {c_ms:.7f} wrapper_ms "
+                         f"{c_wrap:.4f} (mismatches against block "
+                         f"{c_bad})")
+            print(line, flush=True)
+            if bad:
+                fail(f"kernel {kernel} under the {key} team disagrees on "
+                     f"{family} ({bad} elements)")
+            out[key] = row
+    finally:
+        cuda_search.WARPS = default
+    return out
 
 
 def _plain_task(module: str, fn: str, args, kwargs):
@@ -1233,7 +1369,8 @@ def main(argv=None) -> int:
             ms=m["ms"], wrapper_ms=m["wrapper_ms"], plain_ms=m["plain_ms"],
             bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None, family=fam,
-            by_family=rows[k]["families"]))
+            by_family=rows[k]["families"],
+            **({"teams": rows[k]["teams"]} if "teams" in rows[k] else {})))
     per_family.update({f"blockwise_{k}": v for k, v in per_family_bw.items()})
     print(f"total {time.perf_counter() - t_all:.1f} s; per family "
           f"{json.dumps(per_family)}", flush=True)

@@ -23,6 +23,13 @@ def launch_counts() -> dict:
     }
 
 
+def warp_launch_counts() -> dict:
+    """Launches of phases 2 and 3 that went to the warp team, of those
+    :func:`launch_counts` counts."""
+    return {"minimize": cuda_search.minimize_warp_launches,
+            "core": cuda_search.core_warp_launches}
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     cuda_bcp.launches = 0
@@ -30,3 +37,5 @@ def reset_launch_counts() -> None:
     cuda_search.search_launches = 0
     cuda_search.minimize_launches = 0
     cuda_search.core_launches = 0
+    cuda_search.minimize_warp_launches = 0
+    cuda_search.core_warp_launches = 0

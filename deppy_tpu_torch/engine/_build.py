@@ -24,7 +24,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bcp.cu", "blockwise.cu", "search.cu", "minimize.cu", "core.cu")
-HEADERS = ("fixpoint.cuh", "blockwise.cuh", "dpll.cuh")
+HEADERS = ("fixpoint.cuh", "blockwise.cuh", "dpll.cuh", "warp.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libdeppy_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,9 +43,13 @@ _SIGNATURES = {
     "deppy_search": [_P] * 16 + [_I] + [_P] * 7 + [_I] * 14 + [_P],
     "deppy_minimize": [_P] * 16 + [_I] + [_P] * 4 + [_I] * 11 + [_P],
     "deppy_core": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 13 + [_P],
+    "deppy_minimize_warp": [_P] * 14 + [_I] + [_P] * 4 + [_I] * 7 + [_P],
+    "deppy_core_warp": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 9 + [_P],
     "deppy_search_scratch_words": [_I] * 3,
     "deppy_minimize_scratch_words": [_I] * 2,
     "deppy_core_scratch_words": [_I] * 2,
+    "deppy_minimize_warp_smem_bytes": [_I] * 5,
+    "deppy_core_warp_smem_bytes": [_I] * 6,
 }
 
 
@@ -123,7 +127,8 @@ def load() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = (ctypes.c_size_t if name.endswith("_words")
+            fn.restype = (ctypes.c_size_t
+                          if name.endswith(("_words", "_bytes"))
                           else ctypes.c_int)
         _LIB = lib
         return lib

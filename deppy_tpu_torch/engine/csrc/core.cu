@@ -9,17 +9,28 @@
 // the dropped constraints, and AtMost-row activity follows the activation
 // variable of each fixpoint's entry state (Planes::card_act).
 //
-// Every fixpoint is the bits rounds or, under the blockwise impl, a
-// blockwise sweep over compact rows (Planes::tile_rows).  Plane copies and
-// the probe's entry planes are block-wide passes; thread 0 keeps the
-// chunk control.
+// Two teams compute the same function (cuda_search.team picks one per
+// launch):
+//
+// * core_warp_kernel, the bits fixpoint at W <= 32 words when the planes
+//   fit the per-problem shared budget (every bits-path launch of the main
+//   path): one warp per problem, several per block, on warp.cuh.  The
+//   base planes, pvb, the dropped set and the probe's trial live in
+//   registers, one word per lane; the probe's candidates are set
+//   lane-parallel (lane g holds candidate g); ``active`` lives in the
+//   warp's slice and reaches core_out once, at the end; the chunk control
+//   is held uniformly by every lane.  No block barrier.
+// * core_kernel, one thread block per problem (fixpoint.cuh, dpll.cuh):
+//   every blockwise launch, and any shape the warp team refuses.  Plane
+//   copies and the probe's entry planes are block-wide passes; thread 0
+//   keeps the chunk control.
 //
 // Bound on the H100: ceil(n_cons / G) chunk probes plus G member probes per
-// SAT chunk, each a full block-wide DPLL over the full-space planes, which
-// re-read from L2 every round; latency per problem, one block per problem.
+// SAT chunk, each a full DPLL over the full-space planes; latency per
+// problem, a chain of dependent rounds on one SM.
 #include <cuda_runtime.h>
 
-#include "dpll.cuh"
+#include "warp.cuh"
 
 namespace {
 
@@ -134,6 +145,105 @@ __global__ void __launch_bounds__(kMaxThreads) core_kernel(
   if (lead) steps_out[b] = ctl.steps;
 }
 
+// The warp team: warp b % WARPS of block b / WARPS owns problem b.
+// ``slice_words`` per warp: warp_work_words, ``active`` [NCON], then the
+// DPLL snapshots when ``snapshots`` (else they sit in ``scratch``).
+// WMAX: warp_words_bound(W).
+template <int WMAX>
+__global__ void __launch_bounds__(32 * kMaxWarps) core_warp_kernel(
+    const uint32_t* __restrict__ pos, const uint32_t* __restrict__ neg,
+    const uint32_t* __restrict__ mem, const int* __restrict__ card_n,
+    const int* __restrict__ card_act, const uint32_t* __restrict__ pvb_all,
+    const uint32_t* __restrict__ base_t, const uint32_t* __restrict__ base_f,
+    const int* __restrict__ en_in, const int* __restrict__ ncons_in,
+    const int* __restrict__ nvars_in, const int* __restrict__ steps_in,
+    int budget, uint32_t* scratch, size_t scratch_words, int* core_out,
+    int* steps_out, int B, int C, int NA, int W, int NV, int NCON, int G,
+    size_t slice_words, int snapshots) {
+  extern __shared__ uint32_t smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // the whole warp: no block barrier follows
+  const bool en = en_in[b] != 0;
+  const int n_cons = ncons_in[b];
+  const int n_vars = nvars_in[b];
+  int steps = steps_in[b];
+  if (!(en && n_cons > 0 && steps <= budget)) {
+    // No probe runs: the initial core, and no plane is staged.
+    for (int i = lane; i < NCON; i += 32)
+      core_out[(size_t)b * NCON + i] = (i < n_cons && en) ? 1 : 0;
+    if (lane == 0) steps_out[b] = steps;
+    return;
+  }
+  uint32_t* slice = smem + (size_t)warp * slice_words;
+  const WarpPlanes P = warp_stage(slice, pos, neg, mem, card_n, nullptr,
+                                  card_act, C, NA, W, b, lane);
+  int* active = reinterpret_cast<int*>(slice + warp_work_words(C, NA, W));
+  const DpllScratch D = carve_dpll(
+      snapshots ? reinterpret_cast<uint32_t*>(active + NCON)
+                : scratch + (size_t)b * scratch_words,
+      NV, W);
+  const bool own = lane < W;
+  const size_t row = (size_t)b * W + lane;
+  const uint32_t bt = own ? base_t[row] : 0u;
+  const uint32_t bf = own ? base_f[row] : 0u;
+  const uint32_t pvb = own ? pvb_all[row] : 0u;
+
+  for (int i = lane; i < NCON; i += 32) active[i] = i < n_cons ? 1 : 0;
+  __syncwarp();
+  uint32_t dropped = 0u;
+  int j = 0, k = 0;
+  bool chunk_mode = true;
+  while (en && j < n_cons && steps <= budget) {
+    // Trial: the dropped set plus this probe's candidates (lane g < G
+    // holds candidate g), cleared from the all-active activation bits.
+    // The candidates' variables are consecutive, G <= 32 of them from
+    // n_vars + j, so they span the words w0 and w0 + 1.
+    int idx = -1;
+    if (chunk_mode) {
+      if (lane < G && j + lane < n_cons && active[j + lane]) idx = j + lane;
+    } else if (lane == 0 && j + k < n_cons) {
+      idx = j + k;
+    }
+    const int w0 = (n_vars + j) >> 5;
+    const int v = n_vars + idx;
+    const uint32_t bit = idx >= 0 ? 1u << (v & 31) : 0u;
+    const bool upper = idx >= 0 && (v >> 5) != w0;
+    const uint32_t x0 = __reduce_or_sync(kFullMask, upper ? 0u : bit);
+    const uint32_t x1 = __reduce_or_sync(kFullMask, upper ? bit : 0u);
+    uint32_t trial = dropped;
+    if (lane == w0) trial |= x0;
+    if (lane == w0 + 1) trial |= x1;
+    uint32_t pm_t, pm_f;
+    const int status =
+        warp_dpll<WMAX, false>(P, D, pvb, bt & ~trial, bf, 0u, 0, budget,
+                               steps, NV, true, pm_t, pm_f, lane);
+    const bool unsat = status == kUnsat;
+    if (unsat) {
+      dropped = trial;
+      if (chunk_mode) {
+        if (lane < G && j + lane < NCON) active[j + lane] = 0;
+      } else if (lane == 0 && j + k < n_cons) {
+        active[j + k] = 0;
+      }
+    }
+    int k2 = chunk_mode ? 0 : k + 1;
+    const bool advance = (chunk_mode && unsat) ||
+                         (!chunk_mode && (k2 >= G || j + k2 >= n_cons));
+    if (advance) {
+      j += G;
+      k2 = 0;
+    }
+    k = k2;
+    chunk_mode = advance;
+  }
+  __syncwarp();
+  for (int i = lane; i < NCON; i += 32)
+    core_out[(size_t)b * NCON + i] = active[i];
+  if (lane == 0) steps_out[b] = steps;
+}
+
 }  // namespace
 
 extern "C" size_t deppy_core_scratch_words(int NV, int W) {
@@ -167,5 +277,57 @@ extern "C" int deppy_core(
       static_cast<const int*>(steps), budget, static_cast<uint32_t*>(scratch),
       dpll_scratch_words(NV, W), static_cast<int*>(core),
       static_cast<int*>(steps_out), C, NA, W, NV, NCON, G);
+  return (int)cudaGetLastError();
+}
+
+// Shared bytes of one problem's slice under the warp team: the warp's work
+// words and ``active`` [NCON], plus the DPLL snapshots when ``snapshots``.
+extern "C" size_t deppy_core_warp_smem_bytes(int C, int NA, int W, int NV,
+                                             int NCON, int snapshots) {
+  return warp_slice_bytes(warp_work_words(C, NA, W) + (size_t)NCON +
+                          (snapshots ? dpll_scratch_words(NV, W) : 0));
+}
+
+// The warp team on the bits fixpoint's dense planes: ``warps`` problems per
+// block, the snapshots in each warp's slice when ``snapshots``, else in
+// ``scratch`` [B][deppy_core_scratch_words].
+extern "C" int deppy_core_warp(
+    const void* pos, const void* neg, const void* mem, const void* card_n,
+    const void* card_act, const void* pvb, const void* base_t,
+    const void* base_f, const void* en, const void* n_cons,
+    const void* n_vars, const void* steps, int budget, void* scratch,
+    void* core, void* steps_out, int B, int C, int NA, int W, int NV, int NCON,
+    int G, int warps, int snapshots, void* stream) {
+  if (B == 0) return 0;
+  const size_t slice =
+      deppy_core_warp_smem_bytes(C, NA, W, NV, NCON, snapshots);
+  const size_t smem = slice * (size_t)warps;
+  if (W < 1 || W > 32 || G < 1 || G > 32 || warps < 1 ||
+      warps > kMaxWarps || smem > (size_t)kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  decltype(&core_warp_kernel<1>) kernel;
+  switch (warp_words_bound(W)) {
+    case 1: kernel = core_warp_kernel<1>; break;
+    case 2: kernel = core_warp_kernel<2>; break;
+    case 4: kernel = core_warp_kernel<4>; break;
+    case 8: kernel = core_warp_kernel<8>; break;
+    case 16: kernel = core_warp_kernel<16>; break;
+    default: kernel = core_warp_kernel<32>; break;
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (B + warps - 1) / warps;
+  kernel<<<blocks, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pos), static_cast<const uint32_t*>(neg),
+      static_cast<const uint32_t*>(mem), static_cast<const int*>(card_n),
+      static_cast<const int*>(card_act), static_cast<const uint32_t*>(pvb),
+      static_cast<const uint32_t*>(base_t),
+      static_cast<const uint32_t*>(base_f), static_cast<const int*>(en),
+      static_cast<const int*>(n_cons), static_cast<const int*>(n_vars),
+      static_cast<const int*>(steps), budget, static_cast<uint32_t*>(scratch),
+      snapshots ? 0 : dpll_scratch_words(NV, W), static_cast<int*>(core),
+      static_cast<int*>(steps_out), B, C, NA, W, NV, NCON, G,
+      slice / sizeof(uint32_t), snapshots);
   return (int)cudaGetLastError();
 }

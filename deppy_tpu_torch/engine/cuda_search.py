@@ -16,6 +16,20 @@ phases of :mod:`deppy_tpu_torch.engine.core` over the lanes.  The plain
 versions run on any device, which is how the kernels are held against them
 on the card.
 
+Teams.  Phases 2 and 3 have two kernels each: the block team (one thread
+block per problem, ``minimize_kernel`` / ``core_kernel``) and the warp
+team (one warp per problem, :data:`WARPS` problems per block, the
+problem's planes, working words and, where they fit, DPLL snapshots in the
+warp's slice of shared memory: ``minimize_warp_kernel`` /
+``core_warp_kernel`` on ``csrc/warp.cuh``).  Both compute the same
+function.  :func:`team` picks one per launch from the shape alone: the
+warp team for the bits fixpoint at ``W <= 32`` words whose slice fits the
+per-problem budget (:func:`problem_budget`), which is every bits-path
+launch of the main path's families, the block team otherwise (every
+blockwise launch).  ``_team="block"|"warp"`` forces one, for
+``chip_smoke.py``'s measurement only; a forced warp team on a shape the
+rule refuses raises.
+
 ``impl`` picks the BCP impl (``core.set_bcp_impl``).  Under ``bits``
 phases 1-2 read the reduced planes (``*_bits_r``) and every fixpoint is
 the bits rounds.  Under ``blockwise`` phases 1-2 run in the full space
@@ -41,10 +55,17 @@ from .cuda_bcp import _check_args
 
 THREADS = 128
 
-# Kernel launches since the counts were last reset (one per launch).
+# Problems (warps) per thread block of the warp team, picked by
+# chip_smoke.py's measurement on the H100 (PERF.md §6).
+WARPS = 4
+
+# Kernel launches since the counts were last reset (one per launch), and
+# those of phases 2 and 3 that went to the warp team.
 search_launches = 0
 minimize_launches = 0
 core_launches = 0
+minimize_warp_launches = 0
+core_warp_launches = 0
 
 _I32 = torch.int32
 
@@ -155,6 +176,78 @@ def _launch_rows(pts: core.ProblemTensors, W: int, tile: int,
     if not tile:
         return None
     return cuda_blockwise.rows_for(pts.clauses, pts.card_ids, W, rows)
+
+
+# --------------------------------------------------------------------------
+# the warp team's shape rule
+
+
+def warp_smem_bytes(kernel: str, C: int, NA: int, W: int, NV: int,
+                    NCON: int, snapshots: bool) -> int:
+    """Shared bytes of one problem's warp slice (``deppy_minimize_warp_smem_
+    bytes`` / ``deppy_core_warp_smem_bytes`` of the kernel library, which
+    the wrappers check this against): the pos/neg/AtMost planes and the
+    AtMost bounds, activity source and activity (``warp_work_words``),
+    the core kernel's ``active`` [NCON], and the DPLL snapshots and
+    decision arrays when ``snapshots``; 16-byte aligned."""
+    if kernel not in ("minimize", "core"):
+        raise ValueError(f"no warp team for kernel {kernel!r}")
+    words = (2 * C + NA) * W + 3 * NA
+    if kernel == "core":
+        words += NCON
+    if snapshots:
+        words += 2 * (NV + 1) * W + 2 * NV
+    return (4 * words + 15) & ~15
+
+
+def problem_budget() -> int:
+    """Shared bytes one problem's slice may take: a block's opt-in shared
+    memory split over :data:`WARPS` problems."""
+    return cuda_blockwise.SMEM_BYTES // WARPS // 16 * 16
+
+
+def team(tile: int, W: int, smem: int) -> str:
+    """The team of a phase-2/3 launch: ``"warp"`` for the bits fixpoint
+    (``tile`` 0) over at most 32 plane words (one a lane) whose warp slice
+    without snapshots, ``smem`` bytes (:func:`warp_smem_bytes`), fits
+    :func:`problem_budget`; ``"block"`` otherwise."""
+    if tile == 0 and W <= core.WORD and smem <= problem_budget():
+        return "warp"
+    return "block"
+
+
+def _plan(kernel: str, tile: int, C: int, NA: int, W: int, NV: int,
+          NCON: int, forced: Optional[str]):
+    """(team, snapshots in the slice) of one launch: :func:`team`, or the
+    measurement's ``forced`` team, which raises where the rule refuses
+    the warp team.  The warp team keeps the DPLL snapshots in each warp's
+    slice where they fit the budget too, else in global scratch."""
+    lean = warp_smem_bytes(kernel, C, NA, W, NV, NCON, False)
+    picked = team(tile, W, lean)
+    if forced not in (None, "block", "warp"):
+        raise ValueError(f"unknown team {forced!r}")
+    if forced == "warp" and picked != "warp":
+        raise ValueError(
+            f"the warp team does not take this {kernel} launch: tile "
+            f"{tile}, W {W}, {lean} shared bytes a problem against a "
+            f"budget of {problem_budget()} ({WARPS} warps a block)")
+    chosen = forced or picked
+    snaps = (chosen == "warp" and warp_smem_bytes(
+        kernel, C, NA, W, NV, NCON, True) <= problem_budget())
+    return chosen, snaps
+
+
+def _warp_slice(lib, kernel: str, C: int, NA: int, W: int, NV: int,
+                NCON: int, snaps: bool) -> None:
+    """Raise unless the kernel library's slice size is :func:`warp_smem_bytes`."""
+    if kernel == "core":
+        got = lib.deppy_core_warp_smem_bytes(C, NA, W, NV, NCON, int(snaps))
+    else:
+        got = lib.deppy_minimize_warp_smem_bytes(C, NA, W, NV, int(snaps))
+    want = warp_smem_bytes(kernel, C, NA, W, NV, NCON, snaps)
+    if got != want:
+        raise RuntimeError(f"{kernel} warp slice: the kernel library counts "
+                           f"{got} bytes, warp_smem_bytes {want}")
 
 
 # --------------------------------------------------------------------------
@@ -319,17 +412,20 @@ def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
                            budget, steps, en_lanes, *, impl: str = "bits",
                            block_rows: Optional[int] = None,
                            NCON: Optional[int] = None,
-                           rows: Optional[cuda_blockwise.Compact] = None):
+                           rows: Optional[cuda_blockwise.Compact] = None,
+                           _team: Optional[str] = None):
     """Phase 2 over a batch, gated to SAT lanes (``en_lanes & result ==
     SAT``); ``model``/``guessed`` are phase 1's [B, NV] outputs.  Returns
-    (installed bool[B, NV], min_found bool[B], steps int32[B])."""
-    global minimize_launches
+    (installed bool[B, NV], min_found bool[B], steps int32[B]).  ``_team``
+    forces a team (measurement only, see :func:`team`)."""
+    global minimize_launches, minimize_warp_launches
     red = _reduced(impl)
     pos, neg, mem, _, W = _phase_planes(pts, red, NCON)
     B, C = pts.clauses.shape[:2]
     NV = pts.var_choices.shape[1]
     NA = pts.card_ids.shape[1]
     tile = _tile(impl, block_rows, pts, W)
+    chosen, snaps = _plan("minimize", tile, C, NA, W, NV, 0, _team)
     shapes = dict(_phase_shapes(pts, red, W, _dense(pts, tile)),
                   card_n=(B, NA), n_vars=(B,), n_cons=(B,),
                   anchors=pts.anchors.shape)
@@ -347,23 +443,30 @@ def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
     rows = _launch_rows(pts, W, tile, rows)
     x = _minimize_inputs(pts, result, model, guessed, en_lanes, red, NCON)
     en = x["en"]
-    words = lib.deppy_minimize_scratch_words(NV, W)
+    words = 1 if snaps else lib.deppy_minimize_scratch_words(NV, W)
     scratch = torch.empty((B, words), dtype=_I32, device=dev)
     found = torch.empty(B, dtype=_I32, device=dev)
     steps_out = torch.empty(B, dtype=_I32, device=dev)
     m2_t = torch.empty((B, W), dtype=_I32, device=dev)
     en32 = en.to(_I32)
     ptrs, dims = _row_args(pts, (pos, neg, mem), red, W, tile, rows)
-    rc = lib.deppy_minimize(
-        *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:],
-        x["m_init_t"].data_ptr(), x["m_init_f"].data_ptr(),
-        x["extras"].data_ptr(), x["m2t0"].data_ptr(), x["pvb"].data_ptr(),
-        en32.data_ptr(), x["n_extras"].data_ptr(), steps.data_ptr(),
-        int(budget), scratch.data_ptr(), found.data_ptr(),
-        steps_out.data_ptr(), m2_t.data_ptr(), B, C, NA, W, NV, *dims,
-        _threads(impl), _stream(dev))
+    ins = (x["m_init_t"].data_ptr(), x["m_init_f"].data_ptr(),
+           x["extras"].data_ptr(), x["m2t0"].data_ptr(), x["pvb"].data_ptr(),
+           en32.data_ptr(), x["n_extras"].data_ptr(), steps.data_ptr(),
+           int(budget), scratch.data_ptr(), found.data_ptr(),
+           steps_out.data_ptr(), m2_t.data_ptr(), B, C, NA, W, NV)
+    if chosen == "warp":
+        _warp_slice(lib, "minimize", C, NA, W, NV, 0, snaps)
+        rc = lib.deppy_minimize_warp(
+            *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:5], *ins, WARPS,
+            int(snaps), _stream(dev))
+        minimize_warp_launches += 1
+    else:
+        rc = lib.deppy_minimize(
+            *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:], *ins, *dims,
+            _threads(impl), _stream(dev))
     minimize_launches += 1
-    _build.check(rc, "minimize")
+    _build.check(rc, f"minimize ({chosen} team)")
     min_found = found != 0
     installed = (core.unpack_mask(m2_t, NV) & x["pv_mask"][:, :NV]
                  & min_found.unsqueeze(-1) & en.unsqueeze(-1))
@@ -410,17 +513,20 @@ def _core_inputs(pts, NCON):
 def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
                        NCON: int, impl: str = "bits",
                        block_rows: Optional[int] = None,
-                       rows: Optional[cuda_blockwise.Compact] = None):
+                       rows: Optional[cuda_blockwise.Compact] = None,
+                       _team: Optional[str] = None):
     """Phase 3 over a batch in the full plane space (``V = NV + NCON``).
     ``en`` bool[B]; ``steps`` int32[B] carries each lane's phase-1 count.
-    Returns (core bool[B, NCON], steps int32[B])."""
-    global core_launches
+    Returns (core bool[B, NCON], steps int32[B]).  ``_team`` forces a team
+    (measurement only, see :func:`team`)."""
+    global core_launches, core_warp_launches
     _reduced(impl)
     B, C = pts.clauses.shape[:2]
     NV = pts.var_choices.shape[1]
     NA = pts.card_ids.shape[1]
     W = _full_words(pts, NCON)
     tile = _tile(impl, block_rows, pts, W)
+    chosen, snaps = _plan("core", tile, C, NA, W, NV, NCON, _team)
     shapes = dict(_phase_shapes(pts, False, W, _dense(pts, tile)),
                   card_n=(B, NA), n_vars=(B,), n_cons=(B,))
     dev = _check_pts(pts, shapes)
@@ -434,7 +540,7 @@ def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
     rows = _launch_rows(pts, W, tile, rows)
     G = min(core.CORE_CHUNK, max(NCON, 1))
     x = _core_inputs(pts, NCON)
-    words = lib.deppy_core_scratch_words(NV, W)
+    words = 1 if snaps else lib.deppy_core_scratch_words(NV, W)
     scratch = torch.empty((B, words), dtype=_I32, device=dev)
     core_out = torch.empty((B, NCON), dtype=_I32, device=dev)
     steps_out = torch.empty(B, dtype=_I32, device=dev)
@@ -442,15 +548,21 @@ def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
     ptrs, dims = _row_args(
         pts, (pts.pos_bits, pts.neg_bits, pts.card_member_bits), False, W,
         tile, rows)
-    rc = lib.deppy_core(
-        *ptrs[:3], pts.card_n.data_ptr(), *ptrs[4:], x["pvb"].data_ptr(),
-        x["base_t"].data_ptr(), x["base_f"].data_ptr(), en32.data_ptr(),
-        pts.n_cons.data_ptr(), pts.n_vars.data_ptr(), steps.data_ptr(),
-        int(budget), scratch.data_ptr(), core_out.data_ptr(),
-        steps_out.data_ptr(), B, C, NA, W, NV, NCON, G, *dims,
-        _threads(impl), _stream(dev))
+    ins = (x["pvb"].data_ptr(), x["base_t"].data_ptr(),
+           x["base_f"].data_ptr(), en32.data_ptr(), pts.n_cons.data_ptr(),
+           pts.n_vars.data_ptr(), steps.data_ptr(), int(budget),
+           scratch.data_ptr(), core_out.data_ptr(), steps_out.data_ptr(), B,
+           C, NA, W, NV, NCON, G)
+    if chosen == "warp":
+        _warp_slice(lib, "core", C, NA, W, NV, NCON, snaps)
+        rc = lib.deppy_core_warp(*ptrs[:3], pts.card_n.data_ptr(), ptrs[4],
+                                 *ins, WARPS, int(snaps), _stream(dev))
+        core_warp_launches += 1
+    else:
+        rc = lib.deppy_core(*ptrs[:3], pts.card_n.data_ptr(), *ptrs[4:],
+                            *ins, *dims, _threads(impl), _stream(dev))
     core_launches += 1
-    _build.check(rc, "core")
+    _build.check(rc, f"core ({chosen} team)")
     return core_out != 0, steps_out
 
 
