@@ -50,12 +50,21 @@ Phases, each fatal on failure:
    families the phase kernels are held at the natural tile against plain
    versions run on the card, at a cut step budget, and both row
    placements are timed at 128-1024 threads (every configuration must
-   give the same outputs).  Kernels 4 and 5 run on every bits family under
-   the team the shape rule picks (``cuda_search.team``) and forced to the
-   block team and to the warp team at 1, 2, 4 and 8 warps a block, each
-   held against the plain version (full budget, tight budgets, padding
-   lanes) on 32 lanes and timed there and on the family's 512-lane chunk
-   (``choice`` lines).  Each kernel's time is its own device time
+   give the same outputs).  Kernels 1, 4 and 5 run on every bits family
+   (and on 32 lanes of the ``operatorhub`` problem's shape) under the
+   team the shape rule picks (``teams.team``) and forced to the block
+   team and to the warp team at 1, 2, 4 and 8 warps a block, each held
+   against the plain version on 32 lanes (kernel 1:
+   disabled lanes, entry overlaps, extras bounds, and the zero extras row
+   against a bound that cannot bind; kernels 4-5: full budget, tight
+   budgets, padding lanes) and timed there and on the family's 512-lane
+   chunk, where every configuration must give the block team's outputs
+   (kernel 1 also on an odd number of the chunk's lanes, and on
+   ``operatorhub`` on the one lane the main path launches, its bound
+   reported there too; ``choice`` lines).  Kernel 1 on the
+   blockwise comparison's full-space planes runs the block team on the
+   big families and is held against kernel 2 under both teams on the
+   others.  Each kernel's time is its own device time
    from ``torch.profiler``; the
    wrapper's time (CUDA events, the host work that prepares a launch
    included) and the plain version's time stand beside it, with a bound
@@ -161,6 +170,15 @@ def forced_extras(i: int):
     return vs + [variable(f"a{n}"), variable("x", conflict("root"))]
 
 
+def operatorhub_lanes(i: int):
+    """The main path's one class-m problem (``i`` 0) and seeded siblings
+    of the same shape (C 256, NA 64, Wr 8): the kernels are compared and
+    timed at the shape of its launch."""
+    from deppy_tpu_torch.models import operatorhub_catalog
+
+    return operatorhub_catalog(40, 5, seed=i)
+
+
 def check_solution(variables, solution) -> None:
     """Every constraint of the problem holds under ``solution``."""
     from deppy_tpu_torch.sat.constraints import (AtMost, Conflict,
@@ -253,9 +271,10 @@ def render(result):
 
 
 def all_warp(name: str, counts: dict) -> dict:
-    """The warp-team launches of phases 2 and 3 since the counts were
-    reset; fails unless every launch of those kernels (``counts``) went to
-    the warp team, as the shape rule gives every bits-path shape."""
+    """The warp-team launches of kernels 1, 4 and 5 (the baseline fixpoint
+    and phases 2 and 3) since the counts were reset; fails unless every
+    launch of those kernels (``counts``) went to the warp team, as the
+    shape rule gives every bits-path shape."""
     from deppy_tpu_torch import engine
 
     warps = engine.warp_launch_counts()
@@ -487,23 +506,29 @@ def profile_chunk(scale: float) -> dict:
 
 # Each kernel's symbols (its teams), as the profiler names its device
 # activity.
-KERNEL_SYMBOLS = {"bcp_fixpoint": ("bcp_kernel",),
+KERNEL_SYMBOLS = {"bcp_fixpoint": ("bcp_kernel", "bcp_warp_kernel"),
                   "blockwise_fixpoint": ("blockwise_kernel",),
                   "search": ("search_kernel",),
                   "minimize": ("minimize_kernel", "minimize_warp_kernel"),
                   "core": ("core_kernel", "core_warp_kernel")}
 
 
-def _device_ms(prof, symbols) -> float:
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if any(s in e.key for s in symbols)) / 1e3
+def _device_ms(prof, symbols):
+    """(device ms, launches) the profiler recorded of a kernel's symbols."""
+    rows = [e for e in prof.key_averages()
+            if any(s in e.key for s in symbols)]
+    return (sum(e.self_device_time_total for e in rows) / 1e3,
+            sum(e.count for e in rows))
 
 
 def _timed(fn, kernel: str, reps: int):
     """(result, kernel ms, wrapper ms) per call: the kernel's own device
-    time from ``torch.profiler`` (the median of :data:`TIMED_PASSES`
-    passes), and the whole wrapper call (the host work that prepares the
-    launch included) by CUDA events."""
+    time from ``torch.profiler`` per launch it recorded (the median of
+    :data:`TIMED_PASSES` passes; the profiler now and then drops a short
+    kernel's launches, so a pass's time is over the launches it kept),
+    and the whole wrapper call (the host work that prepares the launch
+    included) by CUDA events.  Every wrapper timed here launches its
+    kernel once a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -517,16 +542,20 @@ def _timed(fn, kernel: str, reps: int):
     stop.record()
     torch.cuda.synchronize()
     wrapper_ms = start.elapsed_time(stop) / reps
-    passes = []
+    passes, kept = [], []
     for _ in range(TIMED_PASSES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ms = _device_ms(prof, KERNEL_SYMBOLS[kernel]) / reps
-        if ms > 0:  # the profiler now and then drops a short kernel
-            passes.append(ms)
+        ms, seen = _device_ms(prof, KERNEL_SYMBOLS[kernel])
+        kept.append(seen)
+        if seen:
+            passes.append(ms / seen)
+    if sum(kept) != reps * TIMED_PASSES:
+        print(f"kernel {kernel}: the profiler kept {kept} of {reps} "
+              f"launches a pass", flush=True)
     if passes:
         ms = statistics.median(passes)
     else:
@@ -593,6 +622,7 @@ def compare_kernels(scale: float, launches: dict):
     import torch
 
     from deppy_tpu_torch.engine import core, cuda_bcp, cuda_search, driver
+    from deppy_tpu_torch.engine import teams as rule
     from deppy_tpu_torch.sat.encode import encode
 
     dev = torch.device("cuda")
@@ -602,17 +632,24 @@ def compare_kernels(scale: float, launches: dict):
           flush=True)
 
     def record(kernel, family, got, want, timing, plain_ms, rounds, nbytes,
-               C, NA, W):
+               C, NA, W, chunk=None):
+        """One kernel's 32-lane comparison and time, with its bound; and
+        ``chunk``, the bound at the family's chunk (the shape the main
+        path launches) where given."""
         ms, wrapper_ms = timing
         bad, err = _mismatch(got, want)
-        ops = rounds * _ops_per_round(C, NA, W)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / OPS_PER_S * 1e3
-        print(f"kernel {kernel} on {family}: main-path launches "
-              f"{launches[kernel]} ms {ms:.4f} wrapper_ms "
-              f"{wrapper_ms:.4f} plain_ms "
-              f"{plain_ms:.3f} mismatches {bad} max_abs_err {err} "
-              f"rounds {rounds} bytes {nbytes}", flush=True)
+        bound_ms, bound_by = _bound(nbytes, rounds * _ops_per_round(C, NA, W))
+        line = (f"kernel {kernel} on {family}: main-path launches "
+                f"{launches[kernel]} ms {ms:.4f} wrapper_ms "
+                f"{wrapper_ms:.4f} plain_ms "
+                f"{plain_ms:.3f} mismatches {bad} max_abs_err {err} "
+                f"rounds {rounds} bytes {nbytes} bound_ms {bound_ms:.8f} "
+                f"({bound_by})")
+        if chunk is not None:
+            line += (f"; {chunk['lanes']}-lane chunk: rounds "
+                     f"{chunk['rounds']} bytes {chunk['bytes']} bound_ms "
+                     f"{chunk['bound_ms']:.8f} ({chunk['bound_by']})")
+        print(line, flush=True)
         if bad:
             fail(f"kernel {kernel} disagrees with its plain version on "
                  f"{family} ({bad} elements)")
@@ -620,11 +657,12 @@ def compare_kernels(scale: float, launches: dict):
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["families"][family] = dict(
             ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
+            bound_ms=bound_ms, bound_by=bound_by,
+            **({"chunk": chunk} if chunk is not None else {}))
 
     for name, count, make in families(scale) + [
-            ("forced_extras", COMPARE_LANES, forced_extras)]:
+            ("forced_extras", COMPARE_LANES, forced_extras),
+            ("operatorhub", COMPARE_LANES, operatorhub_lanes)]:
         probs = [encode(make(i)) for i in range(min(count, driver.MAX_LANES))]
         d = driver._Dims(probs, len(probs))
         lanes = probs[:COMPARE_LANES]
@@ -637,20 +675,58 @@ def compare_kernels(scale: float, launches: dict):
               f"NCON {d.NCON} NC {d.NC} Kc {d.Kc} Wr {d.Wr} Wv {d.Wv}",
               flush=True)
 
-        # Kernel 1: the baseline fixpoint under the anchors.
-        pv = torch.arange(d.NV, device=dev) < red.n_vars.unsqueeze(-1)
-        bcp_in = (red.pos_bits_r, red.neg_bits_r, red.card_member_bits_r,
-                  red.card_valid, red.card_n,
-                  torch.zeros((B, d.Wr), dtype=torch.int32, device=dev),
-                  torch.zeros(B, dtype=torch.int32, device=dev),
-                  core.pack_mask(core._anchor_mask(red, d.NV), d.Wr),
-                  core.pack_mask(~pv, d.Wr), en.to(torch.int32))
+        chunk = chunk_inputs(probs, d, B)
+        bcp_in = bcp_inputs(red, d.NV, d.Wr, en)
+        if name == "operatorhub":
+            # The main path launches kernel 1 on its one problem alone.
+            chunk = dict(bcp_fixpoint=[("1-lane launch",
+                                        [x[:1] for x in bcp_in])])
+
+        # Kernel 1: the baseline fixpoint under the anchors, under the team
+        # the shape rule picks; the bound also at the launch the main path
+        # makes (the family's chunk), whose plain version is held against
+        # the block team there.
         got, *timing = _timed(lambda: cuda_bcp.bcp_fixpoint(*bcp_in),
                               "bcp_fixpoint", TIMED_REPS)
         want, pms, rounds = _timed_plain(
             lambda: cuda_bcp.bcp_fixpoint_plain(*bcp_in))
+        c_row = None
+        if chunk:
+            c_label, c_in = chunk["bcp_fixpoint"][0]
+            c_want, c_pms, c_rounds = _timed_plain(
+                lambda: cuda_bcp.bcp_fixpoint_plain(*c_in))
+            _same("bcp_fixpoint", name, f"{c_label}, block team",
+                  cuda_bcp.bcp_fixpoint(*c_in, _team="block"), c_want)
+            c_bytes = _nbytes(*c_in, *c_want)
+            c_bound, c_by = _bound(
+                c_bytes, c_rounds * _ops_per_round(d.C, d.NA, d.Wr))
+            c_row = dict(lanes=int(c_in[0].shape[0]), plain_ms=c_pms,
+                         rounds=c_rounds, bytes=c_bytes, bound_ms=c_bound,
+                         bound_by=c_by)
         record("bcp_fixpoint", name, got, want, timing, pms, rounds,
-               _nbytes(*bcp_in, *got), d.C, d.NA, d.Wr)
+               _nbytes(*bcp_in, *got), d.C, d.NA, d.Wr, chunk=c_row)
+
+        # Both teams of kernel 1 on the main path's inputs, on lanes of
+        # five kinds (disabled, entry overlap, two extras bounds), and with
+        # the zero extras row against a bound that cannot bind; here and
+        # on the family's chunk.
+        unbound = list(bcp_in)
+        unbound[5] = torch.full_like(bcp_in[5], -1)
+        unbound[6] = torch.full_like(bcp_in[6], 32 * d.Wr + 1)
+        mixed = mixed_lanes(bcp_in)
+        bcp_cases = [
+            ("anchors", bcp_in, want),
+            ("disabled, overlap and bounded lanes", mixed,
+             cuda_bcp.bcp_fixpoint_plain(*mixed)),
+            ("zero extras row against a bound that cannot bind", bcp_in,
+             cuda_bcp.bcp_fixpoint_plain(*unbound))]
+        teams.setdefault("bcp_fixpoint", {})[name] = by_team = compare_teams(
+            "bcp_fixpoint", name,
+            lambda a, team: cuda_bcp.bcp_fixpoint(*a, _team=team),
+            bcp_cases, (d.C, d.NA, d.Wr, d.NV, 0),
+            chunk.get("bcp_fixpoint", []))
+        if c_row is not None:
+            c_row["ms"] = by_team[f"warp/{rule.WARPS}"]["chunk_ms"]
 
         # Kernel 3: phase 1 (its wrapper also launches kernel 1).
         search_in = (red.pos_bits_r, red.neg_bits_r, red.card_member_bits_r,
@@ -695,13 +771,12 @@ def compare_kernels(scale: float, launches: dict):
                               cuda_search.batched_minimize_plain(*tight_args)))
 
         # Both teams of kernel 4, here and on the family's chunk.
-        chunk = chunk_inputs(probs, d, B)
         teams.setdefault("minimize", {})[name] = compare_teams(
             "minimize", name,
             lambda a, team: cuda_search.batched_minimize_fused(*a,
                                                                _team=team),
             min_cases, (d.C, d.NA, d.Wr, d.NV, 0),
-            chunk and chunk["minimize"])
+            chunk.get("minimize", []))
 
         # Kernel 5: phase 3 on the UNSAT lanes, full plane space.
         en_c = en & (result == core.UNSAT)
@@ -730,24 +805,70 @@ def compare_kernels(scale: float, launches: dict):
             lambda a, team: cuda_search.batched_core_fused(
                 *a, NCON=d.NCON, _team=team),
             core_cases, (d.C, d.NA, d.Wv, d.NV, d.NCON),
-            chunk and chunk["core"])
+            chunk.get("core", []))
     for k, by_family in teams.items():
         rows[k]["teams"] = by_family
     return rows
 
 
-def chunk_inputs(probs, d, B: int):
-    """Kernels 4 and 5's arguments on the family's whole first chunk
-    (``probs``, up to 512 lanes, as the main path runs it): phase 1's
-    outputs from the search kernel, phase 3 on the UNSAT lanes.  None when
-    the chunk is the compared lanes."""
+def bcp_inputs(red, NV: int, W: int, en):
+    """Kernel 1's arguments as phase 1's baseline fixpoint gives them on
+    the bits path: the reduced planes, the anchors true and the padding
+    past ``n_vars`` false, a zero extras row with ``min_w`` 0."""
+    import torch
+
+    from deppy_tpu_torch.engine import core
+
+    B = en.shape[0]
+    pv = torch.arange(NV, device=en.device) < red.n_vars.unsqueeze(-1)
+    zero = torch.zeros((B, W), dtype=torch.int32, device=en.device)
+    return (red.pos_bits_r, red.neg_bits_r, red.card_member_bits_r,
+            red.card_valid, red.card_n, zero, zero[:, 0].contiguous(),
+            core.pack_mask(core._anchor_mask(red, NV), W),
+            core.pack_mask(~pv, W), en.to(torch.int32))
+
+
+def mixed_lanes(x):
+    """Kernel 1's arguments ``x`` with lane b of kind b % 5: as given;
+    disabled; every anchor also set false (an entry overlap, which the
+    kernel does not check); the extras row of every problem variable with
+    ``min_w`` the anchors' count, which the anchors saturate, so the first
+    round forces every other variable false; the extras row of the
+    unassigned variables with ``min_w`` 1."""
+    import torch
+
+    from deppy_tpu_torch.engine import core
+
+    pos, neg, mem, act, card_n, min_bits, min_w, t0, f0, en = x
+    kind = torch.arange(en.shape[0], device=en.device) % 5
+    col = kind.unsqueeze(-1)
+    anchors = core._popcount_u(core._to_u(t0)).sum(-1).to(torch.int32)
+    min_bits = torch.where(col == 3, ~f0,
+                           torch.where(col == 4, ~(t0 | f0), min_bits))
+    min_w = torch.where(kind == 3, anchors,
+                        torch.where(kind == 4, 1, min_w))
+    f0 = torch.where(col == 2, f0 | t0, f0)
+    en = torch.where(kind == 1, 0, en)
+    return (pos, neg, mem, act, card_n, min_bits.to(torch.int32),
+            min_w.to(torch.int32), t0, f0.to(torch.int32),
+            en.to(torch.int32))
+
+
+def chunk_inputs(probs, d, B: int) -> dict:
+    """Each kernel's chunk cases on the family's whole first chunk
+    (``probs``, up to 512 lanes, as the main path runs it), a list of
+    (label, arguments) each: kernel 1 at phase 1's baseline, and on an odd
+    number of lanes (no whole count of warp-team blocks) of
+    :func:`mixed_lanes`; kernel 4 on phase 1's outputs from the search
+    kernel; kernel 5 on the UNSAT lanes.  Empty when the chunk is the
+    compared lanes."""
     import torch
 
     from deppy_tpu_torch.engine import core, cuda_search, driver
 
     n = len(probs)
     if n <= B:
-        return None
+        return {}
     dev = torch.device("cuda")
     budget = driver.DEFAULT_MAX_STEPS
     pts = driver._upload(driver.pad_stack(probs, d, n), dev)
@@ -757,40 +878,51 @@ def chunk_inputs(probs, d, B: int):
     result, guessed, model, steps = cuda_search.batched_search_fused(
         red, budget, en)[:4]
     unsat = en & (result == core.UNSAT)
+    bcp_in = bcp_inputs(red, d.NV, d.Wr, en)
+    odd = n - 1 if n % 2 == 0 else n - 2
     return dict(
-        minimize=(f"{n}-lane chunk",
-                  (red, result, model, guessed, budget, steps, en)),
-        core=(f"{n}-lane chunk, {int(unsat.sum())} UNSAT lanes",
-              (full, budget, steps, unsat)) if bool(unsat.any()) else None)
+        bcp_fixpoint=[(f"{n}-lane chunk", bcp_in),
+                      (f"{odd} lanes of the chunk, disabled, overlap and "
+                       f"bounded lanes",
+                       [x[:odd] for x in mixed_lanes(bcp_in)])],
+        minimize=[(f"{n}-lane chunk",
+                   (red, result, model, guessed, budget, steps, en))],
+        core=[(f"{n}-lane chunk, {int(unsat.sum())} UNSAT lanes",
+               (full, budget, steps, unsat))] if bool(unsat.any()) else [])
 
 
-# Problems a block of the warp team is timed at (cuda_search.WARPS is
+# Problems a block of the warp team is timed at (teams.WARPS is
 # picked from these times).
 CHOICE_WARPS = (1, 2, 4, 8)
 
 
-def compare_teams(kernel: str, family: str, run, cases, dims, chunk):
-    """Kernel 4 or 5 on one family under the block team and under the
+# The shape rule's name of each kernel with two teams.
+RULE_NAMES = {"bcp_fixpoint": "bcp", "minimize": "minimize", "core": "core"}
+
+
+def compare_teams(kernel: str, family: str, run, cases, dims, chunks):
+    """Kernel 1, 4 or 5 on one family under the block team and under the
     warp team at each of :data:`CHOICE_WARPS` warps a block the shape rule
     admits (``run(args, team)``): every case (label, args, the plain
     version's outputs) must give the plain outputs, and the first is
-    timed; so is ``chunk`` (label, args), where every configuration must
-    give the block team's outputs.  Returns {configuration: times}."""
-    from deppy_tpu_torch.engine import cuda_search
+    timed; so is the first of ``chunks`` (label, args), and on every chunk
+    every configuration must give the block team's outputs.  Returns
+    {configuration: times}."""
+    from deppy_tpu_torch.engine import teams
 
     C, NA, W, NV, NCON = dims
-    default = cuda_search.WARPS
-    out, ref = {}, None
+    default = teams.WARPS
+    out, refs = {}, {}
     print(f"clocks before choice {kernel} {family}: {clock_line()}",
           flush=True)
     try:
         for team, warps in [("block", default)] + [("warp", w)
                                                    for w in CHOICE_WARPS]:
-            cuda_search.WARPS = warps
+            teams.WARPS = warps
             key = team if team == "block" else f"warp/{warps}"
-            lean = cuda_search.warp_smem_bytes(kernel, C, NA, W, NV, NCON,
-                                               False)
-            if team == "warp" and cuda_search.team(0, W, lean) != "warp":
+            lean = teams.warp_smem_bytes(RULE_NAMES[kernel], C, NA, W, NV,
+                                         NCON, False)
+            if team == "warp" and teams.team(0, W, lean) != "warp":
                 print(f"choice {kernel} {family} {key}: refused by the "
                       f"shape rule ({lean} bytes a problem)", flush=True)
                 continue
@@ -805,24 +937,26 @@ def compare_teams(kernel: str, family: str, run, cases, dims, chunk):
             line = (f"choice {kernel} {family} {key}: ms {ms:.7f} "
                     f"wrapper_ms {wrapper_ms:.4f} ({label}, mismatches "
                     f"{bad})")
-            if chunk is not None:
-                c_label, c_args = chunk
-                c_got, c_ms, c_wrap = _timed(lambda: run(c_args, team),
-                                             kernel, TIMED_REPS)
-                ref = c_got if ref is None else ref
-                c_bad, _ = _mismatch(c_got, ref)
+            for i, (c_label, c_args) in enumerate(chunks):
+                if i == 0:
+                    c_got, c_ms, c_wrap = _timed(lambda: run(c_args, team),
+                                                 kernel, TIMED_REPS)
+                    row.update(chunk_ms=c_ms, chunk_wrapper_ms=c_wrap)
+                    line += (f"; {c_label} ms {c_ms:.7f} wrapper_ms "
+                             f"{c_wrap:.4f}")
+                else:
+                    c_got = run(c_args, team)
+                    line += f"; {c_label}"
+                c_bad, _ = _mismatch(c_got, refs.setdefault(c_label, c_got))
                 bad += c_bad
-                row.update(chunk_ms=c_ms, chunk_wrapper_ms=c_wrap)
-                line += (f"; {c_label} ms {c_ms:.7f} wrapper_ms "
-                         f"{c_wrap:.4f} (mismatches against block "
-                         f"{c_bad})")
+                line += f" (mismatches against block {c_bad})"
             print(line, flush=True)
             if bad:
                 fail(f"kernel {kernel} under the {key} team disagrees on "
                      f"{family} ({bad} elements)")
             out[key] = row
     finally:
-        cuda_search.WARPS = default
+        teams.WARPS = default
     return out
 
 
@@ -955,7 +1089,7 @@ def _timed_once(fn, kernel: str):
         stop.record()
         torch.cuda.synchronize()
     wrapper_ms = start.elapsed_time(stop)
-    ms = _device_ms(prof, KERNEL_SYMBOLS[kernel])
+    ms = _device_ms(prof, KERNEL_SYMBOLS[kernel])[0]
     if ms <= 0:
         print(f"kernel {kernel}: the profiler saw no device time; ms is "
               f"the wrapper's event time", flush=True)
@@ -1081,7 +1215,7 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
     import torch
 
     from deppy_tpu_torch.engine import (core, cuda_bcp, cuda_blockwise,
-                                        cuda_search, driver)
+                                        cuda_search, driver, teams)
     from deppy_tpu_torch.models import operatorhub_catalog
     from deppy_tpu_torch.sat.encode import encode
 
@@ -1163,21 +1297,32 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
                    bound_ms=bound_ms, bound_by=bound_by, tile_rows=tile,
                    resident=resident, sweeps_per_fixpoint=sweeps / B,
                    rounds=rounds)
-        # Kernel 1 on the same inputs: the same conflict flags, and the
-        # same planes wherever there is no conflict.
+        # Kernel 1 on the same inputs, under the team the shape rule picks
+        # (the block team on the big families' wide planes) and under the
+        # block team: the same conflict flags, and the same planes
+        # wherever there is no conflict.
+        bcp_team = teams.plan("bcp", 0, d.C, d.NA, d.Wv, 0, 0, None)[0]
+        if name in big_names and bcp_team != "block":
+            fail(f"kernel 1 on {name}'s full-space planes left the block "
+                 f"team")
         bits, bcp_ms, _ = _timed(lambda: cuda_bcp.bcp_fixpoint(*pin),
                                  "bcp_fixpoint", TIMED_REPS)
+        outs = {bcp_team: bits}
+        if bcp_team != "block":
+            outs["block"] = cuda_bcp.bcp_fixpoint(*pin, _team="block")
         ok = got[0] == 0
-        bad = (int((bits[0] != got[0]).sum())
-               + int((bits[1] != got[1])[ok].sum())
-               + int((bits[2] != got[2])[ok].sum()))
-        print(f"kernel blockwise_fixpoint on {name}: against kernel 1 "
-              f"(bcp_fixpoint ms {bcp_ms:.4f}, kernel 2 / kernel 1 "
-              f"{ms / bcp_ms:.3f} in this run) mismatches {bad}", flush=True)
-        if bad:
-            fail(f"kernel blockwise_fixpoint disagrees with kernel 1 on "
-                 f"{name} ({bad} elements)")
-        fam["bcp_fixpoint_ms"] = bcp_ms
+        for team, out in outs.items():
+            bad = (int((out[0] != got[0]).sum())
+                   + int((out[1] != got[1])[ok].sum())
+                   + int((out[2] != got[2])[ok].sum()))
+            print(f"kernel blockwise_fixpoint on {name}: against kernel 1, "
+                  f"{team} team (bcp_fixpoint ms {bcp_ms:.4f} under "
+                  f"{bcp_team}, kernel 2 / kernel 1 {ms / bcp_ms:.3f} in "
+                  f"this run) mismatches {bad}", flush=True)
+            if bad:
+                fail(f"kernel blockwise_fixpoint disagrees with kernel 1's "
+                     f"{team} team on {name} ({bad} elements)")
+        fam.update(bcp_fixpoint_ms=bcp_ms, bcp_fixpoint_team=bcp_team)
         row["families"][name] = fam
 
         # Kernel 2 at tiles of 1 and 7 rows, plain versions in the pool.

@@ -39,6 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "deppy_bcp_fixpoint": [_P] * 13 + [_I] * 5 + [_P],
+    "deppy_bcp_warp": [_P] * 13 + [_I] * 5 + [_P],
     "deppy_blockwise_fixpoint": [_P] * 12 + [_I] * 10 + [_P],
     "deppy_search": [_P] * 16 + [_I] + [_P] * 7 + [_I] * 14 + [_P],
     "deppy_minimize": [_P] * 16 + [_I] + [_P] * 4 + [_I] * 11 + [_P],
@@ -48,6 +49,7 @@ _SIGNATURES = {
     "deppy_search_scratch_words": [_I] * 3,
     "deppy_minimize_scratch_words": [_I] * 2,
     "deppy_core_scratch_words": [_I] * 2,
+    "deppy_bcp_warp_smem_bytes": [_I] * 3,
     "deppy_minimize_warp_smem_bytes": [_I] * 5,
     "deppy_core_warp_smem_bytes": [_I] * 6,
 }

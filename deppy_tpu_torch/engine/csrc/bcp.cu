@@ -5,17 +5,29 @@
 // or a conflict appears.  No entry-overlap check, as in the Pallas kernel;
 // the caller folds that in (core.planes_fixpoint).
 //
-// Bound on the H100: per problem the block re-reads its clause planes
-// (2*C*W words) once per round, so a fixpoint moves rounds x planes bytes
-// through L2/L1, while the bytes it must move at least once are the planes
-// plus the two assignment planes.  Rounds are a chain (each depends on the
-// last), so a problem's latency is rounds x (row scan + three barriers);
-// the batch fills the card with one block per problem.  The design keeps
-// the assignment and accumulators in shared memory and streams the planes
-// from L2; keeping planes resident in shared memory is later speed work.
+// Two teams compute the same function; cuda_search.team picks one per
+// launch from the shape (cuda_bcp.bcp_fixpoint):
+//
+// * the warp team (bcp_warp_kernel), every launch of the bits path: one
+//   warp owns one problem and several problems share a block.  The warp
+//   stages the problem's planes, bounds and activity once into its slice
+//   of shared memory (warp_stage) and runs warp.cuh's warp_fixpoint with
+//   one assignment word a lane in registers, no block barrier and no
+//   shared write inside a round;
+// * the block team (bcp_kernel), shapes the rule refuses (planes past 32
+//   words, or a slice past the per-problem budget): one thread block per
+//   problem, the assignment and accumulators in shared memory and the
+//   planes re-read from L2 every round (fixpoint.cuh).
+//
+// Bound on the H100: the bytes it must move once are the planes, the two
+// assignment planes and the extras row.  Rounds are a chain (each depends
+// on the last), so a problem's latency is rounds x (row scan + the round's
+// synchronisation), and a launch of few problems is latency-bound: the
+// warp team cuts the synchronisation to warp shuffles and votes and keeps
+// the staged planes in shared memory.
 #include <cuda_runtime.h>
 
-#include "fixpoint.cuh"
+#include "warp.cuh"
 
 namespace {
 
@@ -56,6 +68,47 @@ __global__ void bcp_kernel(const uint32_t* __restrict__ pos,
   block_copy(f_out + (size_t)b * W, S.f, W);
 }
 
+// The warp team: warp b % warps of block b / warps owns problem b, with
+// ``slice_words`` of shared memory (warp_work_words).  Kernel 1's row
+// activity is its ``act`` argument, staged in warp_stage's card_valid
+// slot: a row is active where act != 0.  Lane w holds words w of t, f and
+// min_bits; lanes >= W hold zeros.  The extras row is always present: a
+// zero row with min_w 0 forces nothing and adds no conflict.  A disabled
+// problem runs zero rounds; its planes are staged all the same, so that
+// every load of the problem goes out before ``en`` comes back.  WMAX:
+// warp_words_bound(W).
+template <int WMAX>
+__global__ void __launch_bounds__(32 * kMaxWarps) bcp_warp_kernel(
+    const uint32_t* __restrict__ pos, const uint32_t* __restrict__ neg,
+    const uint32_t* __restrict__ mem, const int* __restrict__ act,
+    const int* __restrict__ card_n, const uint32_t* __restrict__ min_bits,
+    const int* __restrict__ min_w, const uint32_t* __restrict__ t0,
+    const uint32_t* __restrict__ f0, const int* __restrict__ en,
+    int* conflict, uint32_t* t_out, uint32_t* f_out, int B, int C, int NA,
+    int W, size_t slice_words) {
+  extern __shared__ uint32_t smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // the whole warp: no block barrier follows
+  const bool own = lane < W;
+  const size_t row = (size_t)b * W + lane;
+  const bool run = en[b] != 0;
+  const int mw = min_w[b];
+  const uint32_t mb = own ? min_bits[row] : 0u;
+  uint32_t t = own ? t0[row] : 0u;
+  uint32_t f = own ? f0[row] : 0u;
+  const WarpPlanes P =
+      warp_stage(smem + (size_t)warp * slice_words, pos, neg, mem, card_n,
+                 act, nullptr, C, NA, W, b, lane);
+  const bool c = warp_fixpoint<WMAX, true>(P, t, f, mb, mw, run, false, lane);
+  if (lane == 0) conflict[b] = c ? 1 : 0;
+  if (own) {
+    t_out[row] = t;
+    f_out[row] = f;
+  }
+}
+
 }  // namespace
 
 extern "C" int deppy_bcp_fixpoint(const void* pos, const void* neg,
@@ -81,5 +134,53 @@ extern "C" int deppy_bcp_fixpoint(const void* pos, const void* neg,
       static_cast<const uint32_t*>(t0), static_cast<const uint32_t*>(f0),
       static_cast<const int*>(en), static_cast<int*>(conflict),
       static_cast<uint32_t*>(t_out), static_cast<uint32_t*>(f_out), C, NA, W);
+  return (int)cudaGetLastError();
+}
+
+// Shared bytes of one problem's slice under the warp team
+// (cuda_search.warp_smem_bytes("bcp", ...)).
+extern "C" size_t deppy_bcp_warp_smem_bytes(int C, int NA, int W) {
+  return warp_slice_bytes(warp_work_words(C, NA, W));
+}
+
+// The warp team: ``warps`` problems per block, arguments as for
+// deppy_bcp_fixpoint.
+extern "C" int deppy_bcp_warp(const void* pos, const void* neg,
+                              const void* mem, const void* act,
+                              const void* card_n, const void* min_bits,
+                              const void* min_w, const void* t0,
+                              const void* f0, const void* en, void* conflict,
+                              void* t_out, void* f_out, int B, int C, int NA,
+                              int W, int warps, void* stream) {
+  if (B == 0) return 0;
+  const size_t slice = deppy_bcp_warp_smem_bytes(C, NA, W);
+  const size_t smem = slice * (size_t)warps;
+  if (W < 1 || W > 32 || warps < 1 || warps > kMaxWarps ||
+      smem > (size_t)kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  decltype(&bcp_warp_kernel<1>) kernel;
+  switch (warp_words_bound(W)) {
+    case 1: kernel = bcp_warp_kernel<1>; break;
+    case 2: kernel = bcp_warp_kernel<2>; break;
+    case 4: kernel = bcp_warp_kernel<4>; break;
+    case 8: kernel = bcp_warp_kernel<8>; break;
+    case 16: kernel = bcp_warp_kernel<16>; break;
+    default: kernel = bcp_warp_kernel<32>; break;
+  }
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (B + warps - 1) / warps;
+  kernel<<<blocks, warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pos), static_cast<const uint32_t*>(neg),
+      static_cast<const uint32_t*>(mem), static_cast<const int*>(act),
+      static_cast<const int*>(card_n),
+      static_cast<const uint32_t*>(min_bits), static_cast<const int*>(min_w),
+      static_cast<const uint32_t*>(t0), static_cast<const uint32_t*>(f0),
+      static_cast<const int*>(en), static_cast<int*>(conflict),
+      static_cast<uint32_t*>(t_out), static_cast<uint32_t*>(f_out), B, C, NA,
+      W, slice / sizeof(uint32_t));
   return (int)cudaGetLastError();
 }

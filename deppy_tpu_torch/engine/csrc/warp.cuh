@@ -3,26 +3,28 @@
 // Counterpart: the same functions as fixpoint.cuh's block_fixpoint and
 // dpll.cuh's block_dpll (deppy_tpu/engine/core.py:361 round_planes,
 // deppy_tpu/engine/pallas_search.py:153 _fixpoint and :203 _dpll), for the
-// phase kernels' warp team (core.cu core_warp_kernel, minimize.cu
-// minimize_warp_kernel): one warp owns one problem, several problems share
-// a thread block, and no block barrier is taken.
+// warp team of kernels 1, 4 and 5 (bcp.cu bcp_warp_kernel, minimize.cu
+// minimize_warp_kernel, core.cu core_warp_kernel): one warp owns one
+// problem, several problems share a thread block, and no block barrier is
+// taken.
 //
-// Why.  On the bits path the core and minimize kernels run problems of
-// W = 2-16 plane words and 64-256 clause rows, latency-bound on one SM:
-// their time is probes x decisions x rounds, each round of the block
-// fixpoint four block barriers, shared atomics and clause planes re-read
-// from L1/L2.  With one warp a problem, a round keeps its data in
-// registers and its only synchronisation is the warp's own shuffles and
-// reductions.
+// Why.  On the bits path these kernels run problems of W = 2-16 plane
+// words and 64-256 clause rows, latency-bound on one SM: their time is
+// probes x decisions x rounds, each round of the block fixpoint four block
+// barriers, shared atomics and clause planes re-read from L1/L2.  With one
+// warp a problem, a round keeps its data in registers and its only
+// synchronisation is the warp's own shuffles and reductions.
 //
 // Layout.  Each warp has its own slice of the block's dynamic shared
 // memory (warp_work_words, then the kernel's own words, then the DPLL
 // snapshots where they fit the per-problem budget; cuda_search.team):
 // the problem's pos/neg clause planes and AtMost member planes, staged
-// once per launch word-major ([W][C], [W][NA]: lanes reading neighbouring
-// rows of one word hit neighbouring banks), the AtMost bounds, the
+// once per launch as they lie in device memory ([C][W], [NA][W]: one
+// contiguous 16-byte cp.async stream, where a transposed layout costs a
+// 4-byte copy a word, with bank conflicts), the AtMost bounds, the
 // activity source (card_valid or card_act) and the row activity of the
-// current fixpoint.  Lane w holds assignment words t[w] and f[w], the
+// current fixpoint.  A lane reads a row's words with 16- or 8-byte loads
+// where W allows (load_row).  Lane w holds assignment words t[w] and f[w], the
 // extras row's word and every other per-word plane of the kernel in
 // registers (W <= 32); lanes >= W hold zeros.  A round:
 //
@@ -75,7 +77,7 @@ constexpr int kMaxSmemBytes = 232448;
 constexpr int kMaxWarps = 8;
 
 // Shared words of a warp's slice ahead of the kernel's own words: the
-// planes word-major, and the AtMost bounds, activity source and activity.
+// planes, and the AtMost bounds, activity source and activity.
 __host__ __device__ inline size_t warp_work_words(int C, int NA, int W) {
   return (2 * (size_t)C + NA) * W + 3 * (size_t)NA;
 }
@@ -95,9 +97,9 @@ __host__ __device__ inline size_t warp_slice_bytes(size_t words) {
 
 // One problem's rows in its warp's slice.
 struct WarpPlanes {
-  const uint32_t* pos;     // [W][C] positive literals, word-major
-  const uint32_t* neg;     // [W][C]
-  const uint32_t* mem;     // [W][NA] AtMost members
+  const uint32_t* pos;     // [C][W] positive literals
+  const uint32_t* neg;     // [C][W]
+  const uint32_t* mem;     // [NA][W] AtMost members
   const int* card_n;       // [NA] AtMost bounds
   // Row activity as in Planes: card_valid (reduced space) or, when
   // ``by_act``, card_act (full space), staged.
@@ -107,16 +109,57 @@ struct WarpPlanes {
   int C, NA, W;
 };
 
-// Start copying ``rows`` rows of ``W`` words from device memory
-// ([rows][W], read coalesced) into the slice word-major ([W][rows]): one
-// 4-byte cp.async a word, every lane its stride, all in flight together.
-__device__ inline void warp_stage_planes(uint32_t* dst, const uint32_t* src,
-                                         int rows, int W, int lane) {
-  const int n = rows * W;
-  for (int e = lane; e < n; e += 32) {
-    const int r = e / W;
-    cp_async4(dst + (e - r * W) * rows + r, src + e);
+// Start copying ``n`` words from device memory into the slice: 16 bytes
+// a cp.async where both sides are 16-byte aligned, else 4, every lane its
+// stride, all in flight together.
+__device__ inline void warp_copy_async(uint32_t* dst, const uint32_t* src,
+                                       int n, int lane) {
+  int done = 0;
+  if (((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) &
+       15) == 0) {
+    const int n4 = n / 4;
+    for (int i = lane; i < n4; i += 32) cp_async16(dst + 4 * i, src + 4 * i);
+    done = 4 * n4;
   }
+  for (int i = done + lane; i < n; i += 32) cp_async4(dst + i, src + i);
+}
+
+// Row ``r`` of a [rows][W] plane of the slice into x (words >= W zero):
+// 16-byte loads where W is a multiple of 4 (the row and the plane then
+// start 16-byte aligned in the slice), 8-byte where it is even, else one
+// word at a time.
+template <int WMAX>
+__device__ __forceinline__ void load_row(const uint32_t* plane, int r, int W,
+                                         uint32_t (&x)[WMAX]) {
+  const uint32_t* row = plane + (size_t)r * W;
+  if constexpr (WMAX >= 4) {
+    if (W % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < WMAX / 4; ++q) {
+        const uint4 v = 4 * q < W ? reinterpret_cast<const uint4*>(row)[q]
+                                  : make_uint4(0u, 0u, 0u, 0u);
+        x[4 * q] = v.x;
+        x[4 * q + 1] = v.y;
+        x[4 * q + 2] = v.z;
+        x[4 * q + 3] = v.w;
+      }
+      return;
+    }
+  }
+  if constexpr (WMAX >= 2) {
+    if (W % 2 == 0) {
+#pragma unroll
+      for (int q = 0; q < WMAX / 2; ++q) {
+        const uint2 v = 2 * q < W ? reinterpret_cast<const uint2*>(row)[q]
+                                  : make_uint2(0u, 0u);
+        x[2 * q] = v.x;
+        x[2 * q + 1] = v.y;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < WMAX; ++w) x[w] = w < W ? row[w] : 0u;
 }
 
 // Carve lane b's slice and stage its planes and bounds, once per launch,
@@ -131,9 +174,9 @@ __device__ inline WarpPlanes warp_stage(
   uint32_t* smem_rows = sneg + (size_t)C * W;
   int* scard_n = reinterpret_cast<int*>(smem_rows + (size_t)NA * W);
   int* sact_src = scard_n + NA;
-  warp_stage_planes(spos, pos + (size_t)b * C * W, C, W, lane);
-  warp_stage_planes(sneg, neg + (size_t)b * C * W, C, W, lane);
-  warp_stage_planes(smem_rows, mem + (size_t)b * NA * W, NA, W, lane);
+  warp_copy_async(spos, pos + (size_t)b * C * W, C * W, lane);
+  warp_copy_async(sneg, neg + (size_t)b * C * W, C * W, lane);
+  warp_copy_async(smem_rows, mem + (size_t)b * NA * W, NA * W, lane);
   const int* act_src = card_act != nullptr ? card_act : card_valid;
   for (int r = lane; r < NA; r += 32) {
     cp_async4(scard_n + r, card_n + (size_t)b * NA + r);
@@ -206,11 +249,8 @@ __device__ __forceinline__ bool warp_fixpoint(const WarpPlanes& P,
     // Clause rows: satisfied, unit (one unassigned literal) or dead.
     for (int r = lane; r < C; r += 32) {
       uint32_t p[WMAX], n[WMAX];
-#pragma unroll
-      for (int w = 0; w < WMAX; ++w) {
-        p[w] = w < W ? P.pos[w * C + r] : 0u;
-        n[w] = w < W ? P.neg[w * C + r] : 0u;
-      }
+      load_row<WMAX>(P.pos, r, W, p);
+      load_row<WMAX>(P.neg, r, W, n);
       uint32_t any = 0u, sat = 0u;
       int n_un = 0;
 #pragma unroll
@@ -236,10 +276,10 @@ __device__ __forceinline__ bool warp_fixpoint(const WarpPlanes& P,
     for (int r = lane; r < NA; r += 32) {
       if (!P.act[r]) continue;
       uint32_t m[WMAX];
+      load_row<WMAX>(P.mem, r, W, m);
       int trues = 0, unk = 0;
 #pragma unroll
       for (int w = 0; w < WMAX; ++w) {
-        m[w] = w < W ? P.mem[w * NA + r] : 0u;
         trues += __popc(m[w] & tr[w]);
         unk += __popc(m[w] & ur[w]);
       }

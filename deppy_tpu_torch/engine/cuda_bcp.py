@@ -2,27 +2,37 @@
 
 :func:`bcp_fixpoint` takes a batch of problems' planes and runs the
 propagation round to a fixpoint for each.  A CUDA tensor goes to the
-hand-written kernel ``csrc/bcp.cu`` (one thread block per problem); a CPU
-tensor goes to :func:`bcp_fixpoint_plain`, the same computation one
-problem at a time in PyTorch.  Like the Pallas kernel it has no
-entry-overlap check; its caller adds it (``cuda_search``'s baseline
-fixpoint), as ``core.planes_fixpoint`` does around
-``pallas_bcp.bcp_fixpoint``.
+hand-written kernel ``csrc/bcp.cu``; a CPU tensor goes to
+:func:`bcp_fixpoint_plain`, the same computation one problem at a time in
+PyTorch.  Like the Pallas kernel it has no entry-overlap check; its caller
+adds it (``cuda_search``'s baseline fixpoint), as ``core.planes_fixpoint``
+does around ``pallas_bcp.bcp_fixpoint``.
+
+The kernel has two teams, picked per launch from the shape by the shape
+rule it shares with kernels 4 and 5 (:mod:`.teams`): the warp team
+(``bcp_warp_kernel``, one warp per problem, ``teams.WARPS`` problems a
+block) for planes of at most 32 words whose slice fits the
+per-problem budget, which is every launch of the bits path; the block
+team (``bcp_kernel``, one thread block per problem) for the shapes the
+rule refuses, such as the full-space planes of a big catalog.  Both
+compute the same function.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from . import core
+from . import core, teams
 
 THREADS = 128
 
-# Kernel launches since the count was last reset (one per launch).
+# Kernel launches since the count was last reset (one per launch), and
+# those that went to the warp team.
 launches = 0
+warp_launches = 0
 
 
 def _check_args(tensors: dict, shapes: dict) -> torch.device:
@@ -47,13 +57,16 @@ def _check_args(tensors: dict, shapes: dict) -> torch.device:
 
 
 def bcp_fixpoint(pos, neg, mem, card_active, card_n, min_bits, min_w, t0,
-                 f0, en) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                 f0, en, *, _team: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched fixpoint.  int32 inputs: pos/neg [B, C, W], mem [B, NA, W],
     card_active/card_n [B, NA], min_bits/t0/f0 [B, W], min_w/en [B].
-    Returns (conflict int32[B], t, f int32[B, W])."""
-    global launches
+    Returns (conflict int32[B], t, f int32[B, W]).  ``_team`` forces a
+    team (measurement only, see :mod:`.teams`)."""
+    global launches, warp_launches
     B, C, W = pos.shape
     NA = mem.shape[1]
+    chosen, _ = teams.plan("bcp", 0, C, NA, W, 0, 0, _team)
     args = dict(pos=pos, neg=neg, mem=mem, card_active=card_active,
                 card_n=card_n, min_bits=min_bits, min_w=min_w, t0=t0, f0=f0,
                 en=en)
@@ -68,14 +81,18 @@ def bcp_fixpoint(pos, neg, mem, card_active, card_n, min_bits, min_w, t0,
     t = torch.empty((B, W), dtype=torch.int32, device=dev)
     f = torch.empty((B, W), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.deppy_bcp_fixpoint(
-        pos.data_ptr(), neg.data_ptr(), mem.data_ptr(),
-        card_active.data_ptr(), card_n.data_ptr(), min_bits.data_ptr(),
-        min_w.data_ptr(), t0.data_ptr(), f0.data_ptr(), en.data_ptr(),
-        conflict.data_ptr(), t.data_ptr(), f.data_ptr(), B, C, NA, W,
-        THREADS, stream)
+    ptrs = (pos.data_ptr(), neg.data_ptr(), mem.data_ptr(),
+            card_active.data_ptr(), card_n.data_ptr(), min_bits.data_ptr(),
+            min_w.data_ptr(), t0.data_ptr(), f0.data_ptr(), en.data_ptr(),
+            conflict.data_ptr(), t.data_ptr(), f.data_ptr(), B, C, NA, W)
+    if chosen == "warp":
+        teams.check_slice(lib, "bcp", C, NA, W, 0, 0, False)
+        rc = lib.deppy_bcp_warp(*ptrs, teams.WARPS, stream)
+        warp_launches += 1
+    else:
+        rc = lib.deppy_bcp_fixpoint(*ptrs, THREADS, stream)
     launches += 1
-    _build.check(rc, "bcp_fixpoint")
+    _build.check(rc, f"bcp_fixpoint ({chosen} team)")
     return conflict, t, f
 
 

@@ -40,12 +40,11 @@ import torch
 
 from . import _build, core
 from .cuda_bcp import _check_args
+from .teams import SMEM_BYTES
 
 # Clause rows per block (pallas_blockwise.py:64).
 BLOCK_ROWS = int(os.environ.get("DEPPY_GPU_BLOCK_ROWS", "2048"))
 
-# The opt-in shared memory of one thread block on the H100.
-SMEM_BYTES = 232448
 # Words kept free for the kernels' static shared control structs.
 STATIC_WORDS = 128
 

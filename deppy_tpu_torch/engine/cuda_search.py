@@ -16,19 +16,14 @@ phases of :mod:`deppy_tpu_torch.engine.core` over the lanes.  The plain
 versions run on any device, which is how the kernels are held against them
 on the card.
 
-Teams.  Phases 2 and 3 have two kernels each: the block team (one thread
-block per problem, ``minimize_kernel`` / ``core_kernel``) and the warp
-team (one warp per problem, :data:`WARPS` problems per block, the
-problem's planes, working words and, where they fit, DPLL snapshots in the
-warp's slice of shared memory: ``minimize_warp_kernel`` /
-``core_warp_kernel`` on ``csrc/warp.cuh``).  Both compute the same
-function.  :func:`team` picks one per launch from the shape alone: the
-warp team for the bits fixpoint at ``W <= 32`` words whose slice fits the
-per-problem budget (:func:`problem_budget`), which is every bits-path
-launch of the main path's families, the block team otherwise (every
-blockwise launch).  ``_team="block"|"warp"`` forces one, for
-``chip_smoke.py``'s measurement only; a forced warp team on a shape the
-rule refuses raises.
+Teams.  Kernel 1 (phase 1's baseline fixpoint on the bits path,
+``cuda_bcp.bcp_fixpoint``) and phases 2 and 3 have a block team (one
+thread block per problem) and a warp team (one warp per problem), picked
+per launch by the shape rule of :mod:`.teams`; ``_team="block"|"warp"``
+forces one, for ``chip_smoke.py``'s measurement only.  The rule's names
+stay here too (:data:`WARPS`, :func:`team`, :func:`problem_budget`,
+:func:`warp_smem_bytes`, ``_plan``), and setting ``WARPS`` here sets
+``teams.WARPS``.
 
 ``impl`` picks the BCP impl (``core.set_bcp_impl``).  Under ``bits``
 phases 1-2 read the reduced planes (``*_bits_r``) and every fixpoint is
@@ -46,18 +41,18 @@ full-space planes ``pos_bits``/``neg_bits``/``card_member_bits``.
 
 from __future__ import annotations
 
-import torch
-
+import sys
+import types
 from typing import Optional
 
-from . import _build, core, cuda_bcp, cuda_blockwise
+import torch
+
+from . import _build, core, cuda_bcp, cuda_blockwise, teams
 from .cuda_bcp import _check_args
+from .teams import plan as _plan
+from .teams import problem_budget, team, warp_smem_bytes  # noqa: F401
 
 THREADS = 128
-
-# Problems (warps) per thread block of the warp team, picked by
-# chip_smoke.py's measurement on the H100 (PERF.md §6).
-WARPS = 4
 
 # Kernel launches since the counts were last reset (one per launch), and
 # those of phases 2 and 3 that went to the warp team.
@@ -176,78 +171,6 @@ def _launch_rows(pts: core.ProblemTensors, W: int, tile: int,
     if not tile:
         return None
     return cuda_blockwise.rows_for(pts.clauses, pts.card_ids, W, rows)
-
-
-# --------------------------------------------------------------------------
-# the warp team's shape rule
-
-
-def warp_smem_bytes(kernel: str, C: int, NA: int, W: int, NV: int,
-                    NCON: int, snapshots: bool) -> int:
-    """Shared bytes of one problem's warp slice (``deppy_minimize_warp_smem_
-    bytes`` / ``deppy_core_warp_smem_bytes`` of the kernel library, which
-    the wrappers check this against): the pos/neg/AtMost planes and the
-    AtMost bounds, activity source and activity (``warp_work_words``),
-    the core kernel's ``active`` [NCON], and the DPLL snapshots and
-    decision arrays when ``snapshots``; 16-byte aligned."""
-    if kernel not in ("minimize", "core"):
-        raise ValueError(f"no warp team for kernel {kernel!r}")
-    words = (2 * C + NA) * W + 3 * NA
-    if kernel == "core":
-        words += NCON
-    if snapshots:
-        words += 2 * (NV + 1) * W + 2 * NV
-    return (4 * words + 15) & ~15
-
-
-def problem_budget() -> int:
-    """Shared bytes one problem's slice may take: a block's opt-in shared
-    memory split over :data:`WARPS` problems."""
-    return cuda_blockwise.SMEM_BYTES // WARPS // 16 * 16
-
-
-def team(tile: int, W: int, smem: int) -> str:
-    """The team of a phase-2/3 launch: ``"warp"`` for the bits fixpoint
-    (``tile`` 0) over at most 32 plane words (one a lane) whose warp slice
-    without snapshots, ``smem`` bytes (:func:`warp_smem_bytes`), fits
-    :func:`problem_budget`; ``"block"`` otherwise."""
-    if tile == 0 and W <= core.WORD and smem <= problem_budget():
-        return "warp"
-    return "block"
-
-
-def _plan(kernel: str, tile: int, C: int, NA: int, W: int, NV: int,
-          NCON: int, forced: Optional[str]):
-    """(team, snapshots in the slice) of one launch: :func:`team`, or the
-    measurement's ``forced`` team, which raises where the rule refuses
-    the warp team.  The warp team keeps the DPLL snapshots in each warp's
-    slice where they fit the budget too, else in global scratch."""
-    lean = warp_smem_bytes(kernel, C, NA, W, NV, NCON, False)
-    picked = team(tile, W, lean)
-    if forced not in (None, "block", "warp"):
-        raise ValueError(f"unknown team {forced!r}")
-    if forced == "warp" and picked != "warp":
-        raise ValueError(
-            f"the warp team does not take this {kernel} launch: tile "
-            f"{tile}, W {W}, {lean} shared bytes a problem against a "
-            f"budget of {problem_budget()} ({WARPS} warps a block)")
-    chosen = forced or picked
-    snaps = (chosen == "warp" and warp_smem_bytes(
-        kernel, C, NA, W, NV, NCON, True) <= problem_budget())
-    return chosen, snaps
-
-
-def _warp_slice(lib, kernel: str, C: int, NA: int, W: int, NV: int,
-                NCON: int, snaps: bool) -> None:
-    """Raise unless the kernel library's slice size is :func:`warp_smem_bytes`."""
-    if kernel == "core":
-        got = lib.deppy_core_warp_smem_bytes(C, NA, W, NV, NCON, int(snaps))
-    else:
-        got = lib.deppy_minimize_warp_smem_bytes(C, NA, W, NV, int(snaps))
-    want = warp_smem_bytes(kernel, C, NA, W, NV, NCON, snaps)
-    if got != want:
-        raise RuntimeError(f"{kernel} warp slice: the kernel library counts "
-                           f"{got} bytes, warp_smem_bytes {want}")
 
 
 # --------------------------------------------------------------------------
@@ -456,9 +379,9 @@ def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
            int(budget), scratch.data_ptr(), found.data_ptr(),
            steps_out.data_ptr(), m2_t.data_ptr(), B, C, NA, W, NV)
     if chosen == "warp":
-        _warp_slice(lib, "minimize", C, NA, W, NV, 0, snaps)
+        teams.check_slice(lib, "minimize", C, NA, W, NV, 0, snaps)
         rc = lib.deppy_minimize_warp(
-            *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:5], *ins, WARPS,
+            *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:5], *ins, teams.WARPS,
             int(snaps), _stream(dev))
         minimize_warp_launches += 1
     else:
@@ -554,9 +477,9 @@ def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
            scratch.data_ptr(), core_out.data_ptr(), steps_out.data_ptr(), B,
            C, NA, W, NV, NCON, G)
     if chosen == "warp":
-        _warp_slice(lib, "core", C, NA, W, NV, NCON, snaps)
+        teams.check_slice(lib, "core", C, NA, W, NV, NCON, snaps)
         rc = lib.deppy_core_warp(*ptrs[:3], pts.card_n.data_ptr(), ptrs[4],
-                                 *ins, WARPS, int(snaps), _stream(dev))
+                                 *ins, teams.WARPS, int(snaps), _stream(dev))
         core_warp_launches += 1
     else:
         rc = lib.deppy_core(*ptrs[:3], pts.card_n.data_ptr(), *ptrs[4:],
@@ -580,3 +503,18 @@ def batched_core_plain(pts, budget, steps, en, *, NCON: int,
                                bool(en[b]), NCON=NCON, block_rows=tile)
         cores[b], steps_out[b] = c, s
     return cores, steps_out
+
+
+class _Module(types.ModuleType):
+    """This module, with ``WARPS`` read from and set on :mod:`.teams`."""
+
+    @property
+    def WARPS(self) -> int:
+        return teams.WARPS
+
+    @WARPS.setter
+    def WARPS(self, warps: int) -> None:
+        teams.WARPS = warps
+
+
+sys.modules[__name__].__class__ = _Module
