@@ -26,16 +26,25 @@ Phases, each fatal on failure:
    per second, outcome counts and the launches of each kernel (counts set
    to 0 just before it runs and read just after), and the giant its steps,
    backtracks and ms per step;
-4. the answers: every solution satisfies every constraint of its
+4. the deppy surface (the ``surface`` path): ``Resolver`` over entity
+   catalogs whose generators give ``operatorhub_catalog(40, 5)`` and
+   ``operatorhub_catalog(250, 8)`` exactly (the latter under both impls),
+   the 1,000 pinned-tenant states of phase 2 as a JSON document through
+   the codec and ``BatchResolver``, and assume/test/untest scopes on
+   ``Solver(operatorhub_catalog(40, 5))`` (a SAT and an UNSAT
+   assumption); every answer must equal the host backend's and the main
+   paths' for the same problem, and each card solve's wall is printed
+   beside the host backend's;
+5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
    ``device="cpu"`` (the kernels' plain versions), the blockwise answers
    equal the bits path's on the same problems, and the 803-constraint
    problem's core is its three conflicting constraints;
-5. one 512-problem chunk of the headline fleet, and the 64-catalog batch
+6. one 512-problem chunk of the headline fleet, and the 64-catalog batch
    under blockwise, under ``torch.profiler``: device time by kernel and
    the card's busy share;
-6. each kernel against its plain version on the same inputs, 32 lanes of
+7. each kernel against its plain version on the same inputs, 32 lanes of
    each family padded to the family's main-path dims, plus 32 lanes of a
    small family whose minimization probes do run: every output must be
    equal (integers, tolerance 0).  Kernels 1, 3, 4 and 5 are timed on
@@ -69,7 +78,7 @@ Phases, each fatal on failure:
    wrapper's time (CUDA events, the host work that prepares a launch
    included) and the plain version's time stand beside it, with a bound
    from bytes and operations;
-7. the ``kernels:`` line and the JSON summary of every kernel.
+8. the ``kernels:`` line and the JSON summary of every kernel.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card,
 or without the package beside this script, it exits non-zero and prints
@@ -299,6 +308,7 @@ def run_main_path(scale: float):
     launches = {k: 0 for k in engine.KERNELS}
     per_family = {}
     samples = {}
+    kept = {}
     for name, count, make in families(scale):
         pool = [make(i) for i in range(count)]
         t0 = time.perf_counter()
@@ -331,6 +341,8 @@ def run_main_path(scale: float):
             fail(f"{name}: {n_inc} Incomplete results at the default budget")
         check_answers(name, pool, results)
         samples[name] = (pool[:REFERENCE_LANES], results[:REFERENCE_LANES])
+        if name == "pinned_tenant":
+            kept[name] = (pool, results)
 
     variables = operatorhub_catalog(40, 5)
     engine.reset_launch_counts()
@@ -353,6 +365,7 @@ def run_main_path(scale: float):
     elif not answer.constraints:
         fail("operatorhub: empty unsat core")
     samples["operatorhub"] = ([variables], [answer])
+    kept["operatorhub"] = answer
     print("answers checked: every solution satisfies its constraints, "
           "every core is non-empty, none incomplete", flush=True)
 
@@ -367,7 +380,7 @@ def run_main_path(scale: float):
                  f"device='cpu' reference")
         print(f"reference {name}: {len(pool)} answers equal to "
               f"device='cpu'", flush=True)
-    return launches, per_family
+    return launches, per_family, kept
 
 
 def run_blockwise_path(scale: float):
@@ -452,7 +465,232 @@ def run_blockwise_path(scale: float):
         per_family[name]["bits_wall_s"] = wall
         print(f"bits path {name}: {len(pool)} answers equal to blockwise's "
               f"in {wall:.3f} s", flush=True)
-    return launches, per_family
+    return launches, per_family, answers
+
+
+# The surface phase: the entity catalogs at BASELINE.json config 1's size
+# and at the blockwise batch's (pallas_case.py:126-127), and the first
+# lanes of the JSON tenant batch that the host backend also solves.
+SURFACE_CATALOGS = ((40, 5), BATCH)
+SURFACE_HOST_LANES = 64
+
+
+class SurfaceRun:
+    """The surface path's card solves: each one's launches are counted
+    (counts set to 0 just before it, read just after) and its wall is
+    printed beside the host backend's wall for the same call."""
+
+    def __init__(self):
+        from deppy_tpu_torch import engine
+
+        self.launches = {k: 0 for k in engine.KERNELS}
+        self.walls = {}
+
+    def card(self, label: str, fn):
+        import torch
+
+        from deppy_tpu_torch import engine
+
+        torch.cuda.synchronize()
+        engine.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = engine.launch_counts()
+        for k in self.launches:
+            self.launches[k] += counts[k]
+        self.walls[label] = dict(card_s=wall, launches=counts)
+        return out, counts
+
+    def host(self, label: str, fn):
+        from deppy_tpu_torch import engine
+
+        engine.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        if any(engine.launch_counts().values()):
+            fail(f"surface {label}: the host backend launched a kernel")
+        w = self.walls[label]
+        w["host_s"] = wall
+        print(f"surface {label}: card {w['card_s']:.4f} s, host backend "
+              f"{wall:.4f} s; launches {w['launches']}", flush=True)
+        return out
+
+
+def _solved(solve):
+    """``solve()``'s answer, or the NotSatisfiable it raised."""
+    from deppy_tpu_torch.sat import NotSatisfiable
+
+    try:
+        return solve()
+    except NotSatisfiable as e:
+        return e
+
+
+def _view(variables, result):
+    """:func:`render` of a ``Solver.solve`` answer (installed variables,
+    mapped with the facade's ``_to_solution``) or of the error it gave."""
+    from deppy_tpu_torch.resolution.facade import _to_solution
+
+    if isinstance(result, list):
+        result = _to_solution(variables, result)
+    return render(result)
+
+
+def surface_catalogs(run: SurfaceRun, main_answer, batch_answer) -> None:
+    """Step 1: ``Resolver`` over the operatorhub entity catalogs, on the
+    card (the bits path and, at (250, 8), blockwise too) and on the host
+    backend, against the main paths' answers for the same catalogs."""
+    from deppy_tpu_torch.engine import core
+    from deppy_tpu_torch.entity import CacheQuerier
+    from deppy_tpu_torch.models import (operatorhub_catalog,
+                                        operatorhub_entities,
+                                        operatorhub_generators)
+    from deppy_tpu_torch.resolution import ConstraintAggregator, Resolver
+
+    for size, main in zip(SURFACE_CATALOGS, (main_answer, batch_answer)):
+        name = f"catalog{size}".replace(" ", "")
+        source = CacheQuerier.from_entities(operatorhub_entities(*size,
+                                                                 seed=0))
+        gens = operatorhub_generators(source)
+        variables = ConstraintAggregator(*gens).get_variables(source)
+        if variables != operatorhub_catalog(*size, seed=0):
+            fail(f"surface {name}: the generators' variables differ from "
+                 f"operatorhub_catalog{size}")
+        card, counts = run.card(name, Resolver(source, *gens).solve)
+        host = run.host(name, Resolver(source, *gens, backend="host").solve)
+        check_solution(variables, card)
+        if render(card) != render(host):
+            fail(f"surface {name}: the card's answer differs from the host "
+                 f"backend's")
+        if render(card) != render(main):
+            fail(f"surface {name}: the card's answer differs from the main "
+                 f"path's for the same catalog")
+        print(f"surface {name}: {len(variables)} variables from "
+              f"{len(gens)} generators; card, host backend and main path "
+              f"agree: {render(card)[1]}", flush=True)
+        if size != BATCH:
+            continue
+        core.set_bcp_impl("blockwise")
+        try:
+            bw, counts = run.card(f"{name} blockwise",
+                                  Resolver(source, *gens).solve)
+        finally:
+            core.set_bcp_impl("auto")
+        run.host(f"{name} blockwise",
+                 Resolver(source, *gens, backend="host").solve)
+        if counts["blockwise_fixpoint"] <= 0:
+            fail(f"surface {name}: no blockwise_fixpoint launch under "
+                 f"blockwise")
+        if render(bw) != render(card):
+            fail(f"surface {name}: the blockwise answer differs from the "
+                 f"bits path's")
+        print(f"surface {name}: the blockwise answer equals the bits "
+              f"path's", flush=True)
+
+
+def surface_codec(run: SurfaceRun, pool, results) -> None:
+    """Step 2: the main path's tenant states through the JSON codec and
+    ``BatchResolver`` on the card; each result document must equal the
+    main path's, and the first lanes the host backend's."""
+    import json
+
+    from deppy_tpu_torch import io
+    from deppy_tpu_torch.resolution import BatchResolver
+
+    doc = {"problems": [{"variables": [io.variable_to_dict(v) for v in vs]}
+                        for vs in pool]}
+    problems = io.problems_from_document(json.loads(json.dumps(doc)))
+    card, counts = run.card("tenant batch",
+                            lambda: BatchResolver().solve(problems))
+    if counts["core"] <= 0:
+        fail("surface tenant batch: no core launch")
+    want = [io.result_to_dict(r) for r in results]
+    got = [io.result_to_dict(r) for r in card]
+    bad = sum(a != b for a, b in zip(got, want))
+    if bad or len(got) != len(want):
+        fail(f"surface tenant batch: {bad} of {len(want)} result documents "
+             f"differ from the main path's")
+    head = problems[:SURFACE_HOST_LANES]
+    label = f"tenant batch, first {len(head)}"
+    card_head, _ = run.card(label, lambda: BatchResolver().solve(head))
+    host = run.host(label,
+                    lambda: BatchResolver(backend="host").solve(head))
+    docs = [io.result_to_dict(r) for r in host]
+    if docs != got[:len(head)] or docs != [io.result_to_dict(r)
+                                           for r in card_head]:
+        fail(f"surface {label}: the host backend's documents differ")
+    n_unsat = sum(d["status"] == "unsat" for d in got)
+    print(f"surface tenant batch: {len(got)} documents in "
+          f"{run.walls['tenant batch']['card_s']:.4f} s on the card, equal "
+          f"to the main path's ({n_unsat} unsat); the first {len(head)} "
+          f"equal to the host backend's, cores included; launches {counts}",
+          flush=True)
+
+
+def surface_scopes(run: SurfaceRun, main_answer) -> None:
+    """Step 3: assume/test/untest on ``Solver(operatorhub_catalog(40, 5))``
+    on the card, against a host-backend solver and a plain card solve of
+    the derived problem."""
+    from deppy_tpu_torch.models import operatorhub_catalog
+    from deppy_tpu_torch.sat import NotSatisfiable, Solver, assumed_variables
+
+    variables = operatorhub_catalog(40, 5, seed=0)
+    pick = next(f"p{p}.v1" for p in range(1, 40)
+                if not main_answer[f"p{p}.v1"])
+    cases = (("sat", [pick]), ("unsat", ["p0.v0", "p0.v1"]))
+    for kind, assumed in cases:
+        card = Solver(variables)
+        host = Solver(variables, backend="host")
+        for s in (card, host):
+            s.assume(*assumed)
+            s.test()
+        label = f"scope {kind} {'+'.join(assumed)}"
+        got, _ = run.card(label, lambda: _solved(card.solve))
+        want = run.host(label, lambda: _solved(host.solve))
+        derived = assumed_variables(variables, card.assumptions())
+        plain, _ = run.card(f"{label}, derived problem",
+                            lambda: _solved(Solver(derived).solve))
+        run.host(f"{label}, derived problem",
+                 lambda: _solved(Solver(derived, backend="host").solve))
+        views = [_view(variables, r) for r in (got, want, plain)]
+        if views[0] != views[1] or views[0] != views[2]:
+            fail(f"surface {label}: card {views[0]}, host {views[1]}, "
+                 f"derived {views[2]}")
+        if kind == "sat" and (not isinstance(got, list)
+                              or pick not in {v.identifier for v in got}):
+            fail(f"surface {label}: the assumed version is not installed")
+        if kind == "unsat":
+            names = ([str(c) for c in got.constraints]
+                     if isinstance(got, NotSatisfiable) else [])
+            if not all(f"{a} is mandatory" in names for a in assumed):
+                fail(f"surface {label}: the core {names} does not name the "
+                     f"assumptions")
+        card.untest()
+        after, _ = run.card(f"{label}, after untest",
+                            lambda: _solved(card.solve))
+        if _view(variables, after) != render(main_answer):
+            fail(f"surface {label}: the solve after untest differs from "
+                 f"the unscoped answer")
+        print(f"surface {label}: card, host backend and the derived "
+              f"problem agree ({views[0][0]}); after untest the unscoped "
+              f"answer", flush=True)
+
+
+def run_surface_path(main_answers, blockwise_answers):
+    """The deppy surface on the card: entity catalogs through
+    ``Resolver``, the JSON tenant batch through ``BatchResolver`` and
+    scoped solves, each against the host backend and the main paths'
+    answers.  Returns the surface path's launches and walls."""
+    run = SurfaceRun()
+    print(f"surface timings on {card_line()}", flush=True)
+    surface_catalogs(run, main_answers["operatorhub"],
+                     blockwise_answers["operatorhub_batch"][0])
+    surface_codec(run, *main_answers["pinned_tenant"])
+    surface_scopes(run, main_answers["operatorhub"])
+    return run.launches, run.walls
 
 
 def profile_solve(name: str, pool, impl: str = "auto") -> dict:
@@ -1423,10 +1661,13 @@ SOURCES = {
 
 
 # The kernels each path must launch (bcp_fixpoint is the bits path's
-# baseline fixpoint, blockwise_fixpoint the blockwise path's).
+# baseline fixpoint, blockwise_fixpoint the blockwise path's; the surface
+# path runs both impls).
 PATH_KERNELS = {
     "bits": ("bcp_fixpoint", "search", "minimize", "core"),
     "blockwise": ("blockwise_fixpoint", "search", "minimize", "core"),
+    "surface": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
+                "core"),
 }
 
 
@@ -1462,10 +1703,15 @@ def main(argv=None) -> int:
                   f"s", flush=True)
 
         by_path = {}
-        by_path["bits"], per_family = run_main_path(args.scale)
+        by_path["bits"], per_family, main_answers = run_main_path(args.scale)
         stamp("bits path")
-        by_path["blockwise"], per_family_bw = run_blockwise_path(args.scale)
+        (by_path["blockwise"], per_family_bw,
+         bw_answers) = run_blockwise_path(args.scale)
         stamp("blockwise path")
+        by_path["surface"], per_family["surface"] = run_surface_path(
+            main_answers, bw_answers)
+        del main_answers, bw_answers
+        stamp("surface path")
         per_family["profile"] = profile_chunk(args.scale)
         per_family["profile_blockwise"] = profile_solve(
             "operatorhub_batch", operatorhub_batch(args.scale),

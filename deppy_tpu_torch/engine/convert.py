@@ -1,6 +1,9 @@
-"""Carry problem batches and phase outputs across from the JAX package (no counterpart).
+"""Carry problems, entities, batches and phase outputs across from the JAX package (no counterpart).
 
-The tests feed one phase's inputs to both implementations.  The JAX
+The tests feed the same inputs to both implementations.
+:func:`variables_from_objects` and :func:`entities_from_objects` rebuild
+variables and entities in this package's vocabulary from any objects
+with the JAX package's field and class names, read by duck typing.  The JAX
 package's ``driver.pad_stack`` returns its ``ProblemTensors`` as numpy
 arrays; :func:`problem_tensors_from_numpy` turns any object with this
 package's field names (that one included; its watched clause-bank fields
@@ -12,12 +15,45 @@ bool arrays bool and turning integers into int32.
 
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple
+from typing import Any, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..entity.entity import Entity
+from ..sat import constraints as _c
+from ..sat.constraints import Variable
 from .core import ProblemTensors
+
+
+def _constraint(c: Any) -> _c.Constraint:
+    kind = type(c).__name__
+    if kind == "Mandatory":
+        return _c.mandatory()
+    if kind == "Prohibited":
+        return _c.prohibited()
+    if kind == "Dependency":
+        return _c.dependency(*c.ids)
+    if kind == "Conflict":
+        return _c.conflict(c.id)
+    if kind == "AtMost":
+        return _c.at_most(c.n, *c.ids)
+    raise TypeError(f"unknown constraint class {kind!r}")
+
+
+def variables_from_objects(variables: Sequence[Any]) -> List[Variable]:
+    """The same problem in this package's constraint vocabulary: each
+    object's ``identifier`` and ``constraints`` (``Mandatory``,
+    ``Prohibited``, ``Dependency.ids``, ``Conflict.id``, ``AtMost.n`` and
+    ``.ids``, told apart by class name), in order."""
+    return [_c.variable(v.identifier, *map(_constraint, v.constraints))
+            for v in variables]
+
+
+def entities_from_objects(entities: Sequence[Any]) -> List[Entity]:
+    """The same entities in this package: each object's ``id`` and a copy
+    of its ``properties``, in order."""
+    return [Entity(e.id, dict(e.properties)) for e in entities]
 
 
 def _tensor(a: Any, device) -> torch.Tensor:

@@ -8,6 +8,7 @@ from .catalog import (
     pinned_tenant_catalog,
     version_pinned_chains,
 )
+from .entity_catalog import operatorhub_entities, operatorhub_generators
 from .random_instance import random_instance
 
 __all__ = [
@@ -15,6 +16,8 @@ __all__ = [
     "giant_pinned_conflict",
     "gvk_conflict_catalog",
     "operatorhub_catalog",
+    "operatorhub_entities",
+    "operatorhub_generators",
     "pinned_tenant_catalog",
     "random_instance",
     "version_pinned_chains",

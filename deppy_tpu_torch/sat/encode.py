@@ -1,4 +1,4 @@
-"""Lowering to dense problem tensors (copy of ``deppy_tpu/sat/encode.py:1-237``).
+"""Lowering to dense problem tensors (copy of ``deppy_tpu/sat/encode.py:1-388``).
 
 This is the tensor-engine equivalent of upstream deppy's ``LitMapping``
 (``pkg/sat/lit_mapping.go:40-77``): a two-pass construction that
@@ -32,7 +32,7 @@ Index conventions used throughout the framework:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -45,6 +45,8 @@ from .constraints import (
     Mandatory,
     Prohibited,
     Variable,
+    mandatory,
+    prohibited,
 )
 from .errors import DuplicateIdentifier
 
@@ -232,4 +234,155 @@ def encode(variables: Sequence[Variable]) -> Problem:
         anchors=np.asarray(anchors, dtype=np.int32),
         choice_cand=_pad2d(choice_rows, pad=-1) if choice_rows else np.zeros((0, 1), np.int32),
         var_choices=_pad2d(var_choices, pad=-1) if var_choices else np.zeros((0, 1), np.int32),
+    )
+
+
+def encode_assumed(problem: Problem,
+                   assumptions: Sequence[Tuple[Identifier, bool]]) -> Problem:
+    """O(delta) relowering of an already-encoded ``problem`` under an
+    assumption stack: each ``(identifier, installed)`` pair becomes a
+    ``Mandatory`` (installed) or ``Prohibited`` constraint on its
+    subject variable — exactly ``encode(assumed_variables(...))``, built
+    by splicing the assumption unit clauses into the retained tensors
+    instead of re-walking the whole catalog (a session's per-step
+    cost must scale with the CHANGE, not the catalog).
+
+    The dense tensors are byte-identical to the full relowering's —
+    pinned by the differential test — because an assumption constraint
+    lowers to one unit clause inserted at the end of its subject
+    variable's applied block: every later applied index (and therefore
+    every later activation literal) shifts by the insertion count before
+    it, Mandatory subjects join ``anchors`` in variable order, and the
+    anchor-singleton head of the choice table regrows around the
+    untouched dependency rows.  Unknown identifiers are dropped, exactly
+    as :func:`deppy_tpu_torch.sat.solver.assumed_variables` drops them.
+
+    Tensors the delta cannot touch (``card_ids``/``card_n``, and the
+    choice tables when no new anchor appears) are SHARED with the base
+    problem, not copied — every consumer treats problem tensors as
+    read-only (the driver pads into fresh arrays, ``driver.pad_stack``)."""
+    if not assumptions:
+        return problem
+    n = problem.n_vars
+    by_var: Dict[int, List[bool]] = {}
+    for ident, installed in assumptions:
+        idx = problem.id_to_index.get(ident)
+        if idx is not None:
+            by_var.setdefault(idx, []).append(bool(installed))
+    if not by_var:
+        return problem
+    # Cumulative applied-constraint count per variable: cum[i + 1] is
+    # the applied index where variable i's block ends — the insertion
+    # point for its assumption constraints.  Memoized: the facade calls
+    # this per step against ONE retained base problem.
+    cum = problem.__dict__.get("_assume_cum")
+    if cum is None:
+        cum = np.concatenate([
+            np.zeros(1, np.int64),
+            np.cumsum(np.fromiter((len(v.constraints)
+                                   for v in problem.variables),
+                                  np.int64, count=n))])
+        problem.__dict__["_assume_cum"] = cum
+    ins_vars: List[int] = []
+    ins_installed: List[bool] = []
+    ins_pos: List[int] = []
+    for i in sorted(by_var):
+        for flag in by_var[i]:
+            ins_vars.append(i)
+            ins_installed.append(flag)
+            ins_pos.append(int(cum[i + 1]))
+    k = len(ins_pos)
+    pos = np.asarray(ins_pos, dtype=np.int64)
+
+    def remap(j) -> np.ndarray:
+        """Old applied index -> new: shifted past every insertion at or
+        before it."""
+        j = np.asarray(j, dtype=np.int64)
+        return j + np.searchsorted(pos, j, side="right")
+
+    new_j = pos + np.arange(k, dtype=np.int64)   # inserted applied idx
+    acts = n + new_j                             # their activation vars
+
+    # Clause matrix: renumber activation literals, splice unit rows in
+    # applied order (clause rows ARE in applied order — AtMost rows
+    # live in the cardinality tensors).
+    c = problem.clauses
+    if c.size:
+        cc = c.astype(np.int64)
+        m = np.abs(cc) > n
+        vals = np.abs(cc[m]) - 1 - n
+        cc[m] = np.sign(cc[m]) * (n + remap(vals) + 1)
+    else:
+        cc = np.zeros((0, 2), np.int64)
+    rows = np.zeros((k, cc.shape[1]), dtype=np.int64)
+    rows[:, 0] = -(acts + 1)
+    subj = np.asarray(ins_vars, dtype=np.int64) + 1
+    rows[:, 1] = np.where(np.asarray(ins_installed, dtype=bool),
+                          subj, -subj)
+    r_ins = np.searchsorted(problem.clause_con, pos, side="left")
+    clauses_new = np.insert(cc, r_ins, rows, axis=0).astype(np.int32)
+    clause_con_new = np.insert(remap(problem.clause_con), r_ins,
+                               new_j).astype(np.int32)
+
+    if problem.card_act.size:
+        card_act_new = (n + remap(problem.card_act.astype(np.int64) - n)
+                        ).astype(np.int32)
+        card_con_new = remap(problem.card_con).astype(np.int32)
+    else:
+        card_act_new = problem.card_act
+        card_con_new = problem.card_con
+
+    # Anchors: Mandatory assumptions promote their subjects.  encode()
+    # appends anchors in variable order, so the merged list is the
+    # sorted union.
+    mand = {v for v, flag in zip(ins_vars, ins_installed) if flag}
+    base_anchor = set(problem.anchors.tolist())
+    anchors_new = problem.anchors
+    choice_cand_new = problem.choice_cand
+    var_choices_new = problem.var_choices
+    if mand - base_anchor:
+        anchors_new = np.asarray(sorted(base_anchor | mand),
+                                 dtype=np.int32)
+        a_old = problem.anchors.size
+        a_new = anchors_new.size
+        dep = (problem.choice_cand[a_old:] if problem.choice_cand.size
+               else np.zeros((0, 1), np.int32))
+        head = np.full((a_new, dep.shape[1]), -1, dtype=np.int32)
+        head[:, 0] = anchors_new
+        choice_cand_new = np.concatenate([head, dep], axis=0)
+        vc = problem.var_choices
+        var_choices_new = np.where(vc >= 0, vc + (a_new - a_old),
+                                   vc).astype(np.int32)
+
+    # Host metadata: extended Variable objects for assumed subjects,
+    # fresh AppliedConstraint entries spliced into the applied order.
+    variables_new = list(problem.variables)
+    applied_new: List[AppliedConstraint] = []
+    prev = 0
+    for i in sorted(by_var):
+        end = int(cum[i + 1])
+        applied_new.extend(problem.applied[prev:end])
+        prev = end
+        v = problem.variables[i]
+        cons = tuple(mandatory() if flag else prohibited()
+                     for flag in by_var[i])
+        nv = Variable(v.identifier, tuple(v.constraints) + cons)
+        variables_new[i] = nv
+        applied_new.extend(AppliedConstraint(nv, con) for con in cons)
+    applied_new.extend(problem.applied[prev:])
+
+    return Problem(
+        variables=variables_new,
+        applied=applied_new,
+        id_to_index=problem.id_to_index,
+        errors=list(problem.errors),
+        clauses=clauses_new,
+        clause_con=clause_con_new,
+        card_ids=problem.card_ids,
+        card_n=problem.card_n,
+        card_act=card_act_new,
+        card_con=card_con_new,
+        anchors=anchors_new,
+        choice_cand=choice_cand_new,
+        var_choices=var_choices_new,
     )

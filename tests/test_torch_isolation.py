@@ -59,13 +59,57 @@ def test_fresh_process_cpu_solve_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_fresh_process_surface_loads_no_jax():
+    """A Resolver solve over entities and generators on the CPU, the host
+    backend and an io round trip import nothing of JAX or deppy_tpu."""
+    code = textwrap.dedent("""
+        import json, sys
+        before = set(sys.modules)
+        from deppy_tpu_torch import io
+        from deppy_tpu_torch.entity import CacheQuerier
+        from deppy_tpu_torch.models import (operatorhub_entities,
+                                            operatorhub_generators)
+        from deppy_tpu_torch.resolution import BatchResolver, Resolver
+        q = CacheQuerier.from_entities(operatorhub_entities(6, 2))
+        gens = operatorhub_generators(q)
+        assert Resolver(q, *gens, device="cpu").solve() == Resolver(
+            q, *gens, backend="host").solve()
+        doc = json.loads(json.dumps({"problems": [
+            {"variables": [io.variable_to_dict(v)
+                           for v in gens[0](q) + gens[1](q)]}]}))
+        out = BatchResolver(device="cpu").solve(
+            io.problems_from_document(doc))
+        assert io.result_to_dict(out[0])["status"] == "sat"
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new
+                     if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_cuda_without_a_card_raises(monkeypatch):
+    from deppy_tpu_torch.entity import CacheQuerier
+    from deppy_tpu_torch.resolution import Resolver
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     problem = [sat.variable("a", sat.mandatory())]
     with pytest.raises(RuntimeError, match="cuda"):
         BatchResolver().solve([problem])
     with pytest.raises(RuntimeError, match="cuda"):
         sat.Solver(problem).solve()
+    with pytest.raises(RuntimeError, match="cuda"):
+        sat.Solver(problem, backend="device").solve()
+    with pytest.raises(RuntimeError, match="cuda"):
+        Resolver(CacheQuerier({}), lambda q: problem).solve()
+    scoped = sat.Solver(problem)
+    scoped.assume("a")
+    scoped.test()
+    with pytest.raises(RuntimeError, match="cuda"):
+        scoped.solve()
 
 
 def test_unknown_device_raises():

@@ -23,31 +23,9 @@ from deppy_tpu.models import (gvk_conflict_catalog, pinned_tenant_catalog,
 from deppy_tpu.sat.encode import encode as jencode
 from deppy_tpu_torch import sat as tsat
 from deppy_tpu_torch.engine import driver as tdriver
+from deppy_tpu_torch.engine.convert import variables_from_objects
 from deppy_tpu_torch.resolution import BatchResolver
 from deppy_tpu_torch.sat.encode import encode as tencode
-
-
-def _port_variables(variables):
-    """The same problem in the port's constraint vocabulary."""
-    out = []
-    for v in variables:
-        cons = []
-        for c in v.constraints:
-            kind = type(c).__name__
-            if kind == "Mandatory":
-                cons.append(tsat.mandatory())
-            elif kind == "Prohibited":
-                cons.append(tsat.prohibited())
-            elif kind == "Dependency":
-                cons.append(tsat.dependency(*c.ids))
-            elif kind == "Conflict":
-                cons.append(tsat.conflict(c.id))
-            elif kind == "AtMost":
-                cons.append(tsat.at_most(c.n, *c.ids))
-            else:
-                raise TypeError(kind)
-        out.append(tsat.variable(v.identifier, *cons))
-    return out
 
 
 def _render(result):
@@ -78,11 +56,11 @@ def test_solver_matches_jax_solve_one(case):
     stats = {}
     want = _solve_one(lambda: jdriver.solve_one(jencode(case.variables),
                                                 stats=stats))
-    solver = tsat.Solver(_port_variables(case.variables), device="cpu")
+    solver = tsat.Solver(variables_from_objects(case.variables), device="cpu")
     got = _solve_one(solver.solve)
     assert got == want
     assert solver.steps == stats["steps"]
-    (res,) = tdriver.solve_problems([tencode(_port_variables(
+    (res,) = tdriver.solve_problems([tencode(variables_from_objects(
         case.variables))], device="cpu")
     assert res.trace_n == stats["backtracks"]
 
@@ -141,7 +119,7 @@ def test_batch_budget_parity(max_steps):
                                                     max_steps=max_steps)]
     got = [_render(r) for r in BatchResolver(
         device="cpu", max_steps=max_steps).solve(
-            [_port_variables(v) for v in jvars])]
+            [variables_from_objects(v) for v in jvars])]
     assert got == want
 
 
