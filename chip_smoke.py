@@ -35,15 +35,24 @@ Phases, each fatal on failure:
    assumption); every answer must equal the host backend's and the main
    paths' for the same problem, and each card solve's wall is printed
    beside the host backend's;
+4b. the impls path: the reference's other BCP impls, ``watched``,
+   ``gather`` and ``pallas`` (``set_bcp_impl``), on the bits path's
+   batches at their full sizes and one ``Solver`` each on
+   ``operatorhub_catalog(40, 5)``, ``operatorhub_catalog(250, 8)`` and
+   the giant (not under pallas); each prints its wall, problems/s, the
+   launches of each kernel, its real-bank and dummy-bank launches and,
+   for one problem, its steps; every result (outcome, installed, core,
+   steps, backtracks) must equal the bits path's, every watched launch
+   must read a real bank, and no plain version may run;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
    ``device="cpu"`` (the kernels' plain versions), the blockwise answers
    equal the bits path's on the same problems, and the 803-constraint
    problem's core is its three conflicting constraints;
-6. one 512-problem chunk of the headline fleet, and the 64-catalog batch
-   under blockwise, under ``torch.profiler``: device time by kernel and
-   the card's busy share;
+6. one 512-problem chunk of the headline fleet (under bits and under
+   watched), and the 64-catalog batch under blockwise, under
+   ``torch.profiler``: device time by kernel and the card's busy share;
 7. each kernel against its plain version on the same inputs, 32 lanes of
    each family padded to the family's main-path dims, plus 32 lanes of a
    small family whose minimization probes do run: every output must be
@@ -78,7 +87,14 @@ Phases, each fatal on failure:
    wrapper's time (CUDA events, the host work that prepares a launch
    included) and the plain version's time stand beside it, with a bound
    from bytes and operations;
-8. the ``kernels:`` line and the JSON summary of every kernel.
+7b. kernels 1, 3, 4 and 5 under each arm of the impls path (the
+   watched arm and the gather rounds of ``csrc/watched.cuh``, the pallas
+   impl's dense rounds in the full space) against their plain versions:
+   32 lanes of each small family, 8 of the 64-catalog batch and the giant
+   (not under pallas) with the phases at a cut step budget; kernel 1's
+   plain version on the card, the phases' in the pool; each arm timed by
+   the profiler, with its bound from the plain version's rounds and pops;
+8. the ``kernels:`` lines and the JSON summary of every kernel and arm.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card,
 or without the package beside this script, it exits non-zero and prints
@@ -294,9 +310,44 @@ def all_warp(name: str, counts: dict) -> dict:
     return warps
 
 
-def run_main_path(scale: float):
+class Recorder:
+    """While on, every ``core.SolveResult`` the driver returns, as a key
+    per problem: (outcome, installed variables, core constraints, steps,
+    backtracks), which the facade's answers do not all carry.  The impls
+    path holds each impl's keys against the bits path's."""
+
+    def __init__(self):
+        self.keys = []
+
+    def __enter__(self):
+        from deppy_tpu_torch.engine import driver
+
+        self._solve = driver.solve_problems
+
+        def solve_problems(*args, **kwargs):
+            out = self._solve(*args, **kwargs)
+            self.keys += [solve_key(r) for r in out]
+            return out
+
+        driver.solve_problems = solve_problems
+        return self
+
+    def __exit__(self, *exc):
+        from deppy_tpu_torch.engine import driver
+
+        driver.solve_problems = self._solve
+
+
+def solve_key(r):
+    """One problem's result as a comparable key."""
+    return (int(r.outcome), tuple(r.installed.nonzero()[:, 0].tolist()),
+            tuple(r.core.nonzero()[:, 0].tolist()), int(r.steps),
+            int(r.trace_n))
+
+
+def run_main_path(scale: float, bits_keys: dict):
     """Phases 2 and 4: resolve every family of the bits path on the card
-    and check it."""
+    and check it; each family's result keys land in ``bits_keys``."""
     import torch
 
     from deppy_tpu_torch import engine
@@ -318,9 +369,11 @@ def run_main_path(scale: float):
         torch.cuda.synchronize()
         engine.reset_launch_counts()
         t0 = time.perf_counter()
-        results = BatchResolver(device="cuda").solve(pool)
-        torch.cuda.synchronize()
+        with Recorder() as rec:
+            results = BatchResolver(device="cuda").solve(pool)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        bits_keys[name] = rec.keys
         counts = engine.launch_counts()
         warps = all_warp(name, counts)
         n_sat = sum(isinstance(r, dict) for r in results)
@@ -347,9 +400,11 @@ def run_main_path(scale: float):
     variables = operatorhub_catalog(40, 5)
     engine.reset_launch_counts()
     t0 = time.perf_counter()
-    answer = solve_one(variables)
-    torch.cuda.synchronize()
+    with Recorder() as rec:
+        answer = solve_one(variables)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    bits_keys["operatorhub"] = rec.keys
     counts = engine.launch_counts()
     warps = all_warp("operatorhub", counts)
     for k in launches:
@@ -383,11 +438,12 @@ def run_main_path(scale: float):
     return launches, per_family, kept
 
 
-def run_blockwise_path(scale: float):
+def run_blockwise_path(scale: float, bits_keys: dict):
     """Phases 3 and 4 under ``set_bcp_impl("blockwise")``: the giant
     catalog, the 64-catalog batch, pinned tenants and the host-routed
     giant core; then the same batches on the bits path, whose answers the
-    blockwise ones must equal."""
+    blockwise ones must equal (the giant's result key lands in
+    ``bits_keys``)."""
     import torch
 
     from deppy_tpu_torch import engine
@@ -456,9 +512,12 @@ def run_blockwise_path(scale: float):
     # The same problems on the bits path: the answers must be equal.
     for name, pool, run in work:
         t0 = time.perf_counter()
-        ref = run()
-        torch.cuda.synchronize()
+        with Recorder() as rec:
+            ref = run()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if name == "giant":
+            bits_keys[name] = rec.keys
         got = [render(r) for r in answers[name]]
         if got != [render(r) for r in ref]:
             fail(f"{name}: blockwise answers differ from the bits path's")
@@ -693,6 +752,131 @@ def run_surface_path(main_answers, blockwise_answers):
     return run.launches, run.walls
 
 
+# The impls path: the reference's other BCP impls, each on the main
+# path's families at their full sizes.  The giant is not run under pallas:
+# every fixpoint there is the dense rounds on its full-space planes
+# (8,192 rows x 768 words), which took 54.1 s in the port's first
+# full-space kernel (PERF.md).
+IMPL_ARMS = ("watched", "gather", "pallas")
+
+# The gvk_fleet states run under gather and pallas: the depth cut that
+# keeps the whole run near 600 s (the full 10,000 run under watched).
+CUT_FLEET = 2000
+
+
+def impl_families(scale: float):
+    """(name, problems, batched) of the impls path: the bits path's
+    batches, then one ``Solver`` each on ``operatorhub_catalog(40, 5)``,
+    ``operatorhub_catalog(250, 8)`` and the giant."""
+    from deppy_tpu_torch.models import operatorhub_catalog
+
+    out = [(name, [make(i) for i in range(count)], True)
+           for name, count, make in families(scale)]
+    out += [("operatorhub", [operatorhub_catalog(40, 5)], False),
+            ("operatorhub_250", [operatorhub_catalog(*BATCH, seed=0)], False),
+            ("giant", [operatorhub_catalog(*GIANT, seed=0)], False)]
+    return out
+
+
+def run_impls_path(scale: float, bits_keys: dict):
+    """Every family of :func:`impl_families` under each impl of
+    :data:`IMPL_ARMS` on the card (``gvk_fleet`` cut to its first
+    :data:`CUT_FLEET` states under gather and pallas): wall, problems/s,
+    the launches of each kernel and arm, and those that read a real bank
+    or fell through on a dummy one; every result key (outcome, installed,
+    core, steps, backtracks) must equal the bits path's (``bits_keys``,
+    recorded by the earlier paths; ``operatorhub_250``'s is recorded
+    here).  No plain version may run: the plain rounds and pops stay as
+    they were.
+    Returns ({impl: launches}, {impl: {family: numbers}})."""
+    import torch
+
+    from deppy_tpu_torch import engine
+    from deppy_tpu_torch.engine import core
+    from deppy_tpu_torch.resolution import BatchResolver
+
+    fams = impl_families(scale)
+    stats = {}
+
+    def solve(pool, batched):
+        if batched:
+            return BatchResolver(device="cuda").solve(pool)
+        return [solve_one(pool[0], stats)]
+
+    print(f"impls path on {card_line()}", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        solve(*[(p, b) for n, p, b in fams if n == "operatorhub_250"][0])
+        torch.cuda.synchronize()
+    bits_keys["operatorhub_250"] = rec.keys
+    print(f"impls path bits operatorhub_250 (the reference): 1 problem in "
+          f"{time.perf_counter() - t0:.4f} s; steps {rec.keys[0][3]}",
+          flush=True)
+    launches, per_impl = {}, {}
+    for impl in IMPL_ARMS:
+        launches[impl] = {k: 0 for k in engine.KERNELS}
+        per_impl[impl] = {}
+        core.set_bcp_impl(impl)
+        try:
+            for name, pool, batched in fams:
+                if impl != "watched" and name == "gvk_fleet":
+                    pool = pool[:CUT_FLEET]
+                if impl == "pallas" and name == "giant":
+                    print("impls path pallas giant: not run (every fixpoint "
+                          "the dense rounds on 8,192 x 768-word planes; the "
+                          "port's first full-space kernel took 54.1 s on "
+                          "it)", flush=True)
+                    continue
+                plain = _plain_work()
+                torch.cuda.synchronize()
+                engine.reset_launch_counts()
+                t0 = time.perf_counter()
+                with Recorder() as rec:
+                    results = solve(pool, batched)
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = engine.launch_counts()
+                arms = engine.impl_launch_counts()
+                banks = engine.bank_launch_counts()
+                if _plain_work() != plain:
+                    fail(f"impls path {impl} {name}: a plain version ran")
+                if any(set(a) - {impl} for a in arms.values()):
+                    fail(f"impls path {impl} {name}: launches under another "
+                         f"impl: {arms}")
+                dummy = sum(b["dummy"] for b in banks.values())
+                if dummy:
+                    fail(f"impls path {impl} {name}: {dummy} watched "
+                         f"launches on dummy banks")
+                want = bits_keys[name][:len(pool)]
+                bad = sum(a != b for a, b in zip(rec.keys, want))
+                if bad or len(rec.keys) != len(want):
+                    fail(f"impls path {impl} {name}: {bad} of {len(pool)} "
+                         f"results differ from the bits path's")
+                check_answers(f"{impl} {name}", pool, results)
+                for k in launches[impl]:
+                    launches[impl][k] += counts[k]
+                row = dict(problems=len(pool), wall_s=wall,
+                           problems_per_s=len(pool) / wall, launches=counts,
+                           real_bank={k: b["real"] for k, b in banks.items()})
+                line = (f"impls path {impl} {name}: {len(pool)} problems in "
+                        f"{wall:.4f} s ({len(pool) / wall:.2f} problems/s); "
+                        f"launches {counts}, real-bank launches "
+                        f"{row['real_bank']}, dummy-bank launches {dummy}; "
+                        f"results equal to the bits path's")
+                if not batched:
+                    steps = rec.keys[0][3]
+                    row.update(steps=steps, backtracks=rec.keys[0][4],
+                               ms_per_step=wall * 1e3 / max(steps, 1))
+                    line += (f"; steps {steps} backtracks {rec.keys[0][4]} "
+                             f"ms per step {row['ms_per_step']:.6f}")
+                print(line, flush=True)
+                per_impl[impl][name] = row
+        finally:
+            core.set_bcp_impl("auto")
+    return launches, per_impl
+
+
 def profile_solve(name: str, pool, impl: str = "auto") -> dict:
     """Device time by kernel over one resolve of ``pool``, from
     ``torch.profiler``: where the time goes."""
@@ -732,10 +916,11 @@ def profile_solve(name: str, pool, impl: str = "auto") -> dict:
                      for k, ms, n in rows[:8]])
 
 
-def profile_chunk(scale: float) -> dict:
+def profile_chunk(scale: float, impl: str = "auto") -> dict:
     """One main-path chunk (512 problems) of the headline fleet."""
     name, count, make = families(scale)[0]
-    return profile_solve(name, [make(i) for i in range(min(count, 512))])
+    return profile_solve(name, [make(i) for i in range(min(count, 512))],
+                         impl=impl)
 
 
 # --------------------------------------------------------------------------
@@ -763,8 +948,9 @@ def _timed(fn, kernel: str, reps: int):
     """(result, kernel ms, wrapper ms) per call: the kernel's own device
     time from ``torch.profiler`` per launch it recorded (the median of
     :data:`TIMED_PASSES` passes; the profiler now and then drops a short
-    kernel's launches, so a pass's time is over the launches it kept),
-    and the whole wrapper call (the host work that prepares the launch
+    kernel's launches, so a pass's time is over the launches it kept,
+    and passes are added, up to three times as many, while it has kept
+    none), and the whole wrapper call (the host work that prepares the launch
     included) by CUDA events.  Every wrapper timed here launches its
     kernel once a call."""
     import torch
@@ -781,7 +967,9 @@ def _timed(fn, kernel: str, reps: int):
     torch.cuda.synchronize()
     wrapper_ms = start.elapsed_time(stop) / reps
     passes, kept = [], []
-    for _ in range(TIMED_PASSES):
+    # Up to 3x the passes while the profiler has kept no launch at all.
+    while len(kept) < TIMED_PASSES or (not passes
+                                       and len(kept) < 3 * TIMED_PASSES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1198,15 +1386,34 @@ def compare_teams(kernel: str, family: str, run, cases, dims, chunks):
     return out
 
 
+def _plain_work() -> dict:
+    """The plain versions' work so far in this process: propagation
+    rounds (``core.plain_rounds``) and the watched fixpoint's pops, the
+    live rows they visited, those rows' live literals and the AtMost
+    entries of its true pops (``clause_bank.plain_work``)."""
+    from deppy_tpu_torch.engine import clause_bank, core
+
+    return dict(rounds=core.plain_rounds, **clause_bank.plain_work)
+
+
+def _work_since(w0: dict) -> dict:
+    return {k: v - w0[k] for k, v in _plain_work().items()}
+
+
 def _plain_task(module: str, fn: str, args, kwargs):
-    """Run one plain version on CPU tensors in a worker process."""
+    """Run one plain version on CPU tensors in a worker process: its
+    outputs, the work it did (:func:`_plain_work`) and the seconds it
+    took."""
     import importlib
 
     import torch
 
     torch.set_num_threads(1)
     mod = importlib.import_module(f"deppy_tpu_torch.engine.{module}")
-    return [x.numpy() for x in getattr(mod, fn)(*args, **kwargs)]
+    w0 = _plain_work()
+    t0 = time.perf_counter()
+    out = [x.numpy() for x in getattr(mod, fn)(*args, **kwargs)]
+    return out, _work_since(w0), time.perf_counter() - t0
 
 
 def _lanes(x, lo: int, hi: int):
@@ -1233,6 +1440,9 @@ class PlainPool:
         self.pool = ProcessPoolExecutor(
             workers, mp_context=multiprocessing.get_context("spawn"))
         self.jobs = []
+        # Per checked job: the plain version's work (:func:`_plain_work`)
+        # and ms, summed over its tasks, each on one CPU core.
+        self.stats = {}
 
     def submit(self, label, got, module, fn, args, kwargs, B, chunk=2):
         futures = [self.pool.submit(
@@ -1246,10 +1456,14 @@ class PlainPool:
         import numpy as np
         import torch
 
-        for (kernel, family, what), got, futures in self.jobs:
+        for label, got, futures in self.jobs:
             parts = [f.result() for f in futures]
-            want = [torch.from_numpy(np.concatenate(o)) for o in zip(*parts)]
-            _same(kernel, family, what, got, want)
+            want = [torch.from_numpy(np.concatenate(o))
+                    for o in zip(*[p[0] for p in parts])]
+            _same(*label, got, want)
+            self.stats[label] = dict(
+                {k: sum(p[1][k] for p in parts) for k in parts[0][1]},
+                plain_ms=sum(p[2] for p in parts) * 1e3)
         n = len(self.jobs)
         self.jobs = []
         return n
@@ -1637,6 +1851,333 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
     return row, search_rows, choices
 
 
+# The lanes of a big family the arms are compared on, and the step budget
+# of its phases there (their plain versions run in the pool, one CPU core
+# a task: some 0.3-1 s a dense entry round on the giant).
+ARM_BIG_LANES = 8
+ARM_BIG_BUDGET = 12
+
+# The kernels whose block kernels carry the arms, and the phase wrappers'
+# names.
+ARM_KERNELS = ("bcp_fixpoint", "search", "minimize", "core")
+
+
+def arm_batch(probs, d, B: int, impl: str):
+    """``B`` lanes of a family on the card, padded to its main-path dims
+    ``d``, with what both sides of a comparison read under ``impl``: the
+    dense planes of both spaces (the plain versions' entry rounds) and,
+    under watched, the banks of both spaces as the driver derives them
+    (every family of the path gets real banks, or this fails)."""
+    import torch
+
+    from deppy_tpu_torch.engine import core, driver
+
+    pts = driver._upload(driver.pad_stack(probs[:B], d, B),
+                         torch.device("cuda"))
+    pts = core.with_planes(pts, Wv=d.Wv, Wr=d.Wr, red=True, full=True)
+    if impl == "watched":
+        if d.Ob > driver._bank_cap(d):
+            fail(f"a bank of width {d.Ob} passes its cap "
+                 f"{driver._bank_cap(d)}")
+        pts = driver._derive_banks(pts, d, red=True, full=True)
+    return pts
+
+
+def arm_bcp_inputs(pts, d, impl: str, en):
+    """Kernel 1's arguments as phase 1's baseline gives them under
+    ``impl`` (the reduced space under watched, else the full one), and
+    the arm it runs."""
+    import torch
+
+    from deppy_tpu_torch.engine import core, cuda_search
+
+    if impl == "watched":
+        return (bcp_inputs(pts, d.NV, d.Wr, en),
+                cuda_search.launch_arm(pts, impl, True, d.Wr))
+    B = en.shape[0]
+    V = d.NV + d.NCON
+    base = core._apply_anchors(pts, core._base_assignment(pts, V, d.NCON), V)
+    zero = torch.zeros((B, d.Wv), dtype=torch.int32, device=en.device)
+    args = (pts.pos_bits, pts.neg_bits, pts.card_member_bits,
+            cuda_search.full_activity(pts, base).to(torch.int32),
+            pts.card_n, zero, zero[:, 0].contiguous(),
+            core.pack_mask(base == core.TRUE, d.Wv),
+            core.pack_mask(base == core.FALSE, d.Wv), en.to(torch.int32))
+    return args, cuda_search.launch_arm(pts, impl, False, d.Wv)
+
+
+def _arm_rows(arm, W: int):
+    """The compact rows of an arm's space: the entry round's (watched, on
+    the card) or built here (the gather rounds' full space)."""
+    from deppy_tpu_torch.engine import cuda_blockwise
+
+    return arm.rows or cuda_blockwise.compact_rows(
+        arm.clauses, arm.card_ids, W, arm.n_vars if arm.red else None)
+
+
+def _arm_bytes(arm, dense, W: int, work: dict) -> int:
+    """Bytes of its clause set that a launch under ``arm`` must move: the
+    dense planes ``dense`` without an arm; with one, the clause set of its
+    space once in its smaller form (the planes or the compact rows and
+    members) and ``n_vars``, and under watched the bank entries its pops
+    visited (``work``, the plain version's count over every lane: each
+    live occurrence row and AtMost entry once), at most the whole bank."""
+    if arm is None:
+        return _nbytes(*dense)
+    rows = _arm_rows(arm, W)
+    need = (min(_nbytes(*dense), _nbytes(rows.lits, rows.mlits))
+            + _nbytes(arm.n_vars))
+    if arm.impl == "watched":
+        need += min(_nbytes(arm.occ_pos, arm.occ_neg, arm.card_occ),
+                    4 * (work["rows"] + work["cards"]))
+    return need
+
+
+def _arm_ops(arm, C: int, NA: int, W: int, work: dict) -> int:
+    """32-bit operations of the fixpoints the plain version counted
+    (``work``, over every lane): a dense round as :func:`_ops_per_round`;
+    a gather round ~8 per live raw literal and AtMost member and ~10 per
+    assignment word; a watched entry round ~8 per live compact literal and
+    member and ~10 per word, and a pop ~8 per live literal of the rows it
+    visited, ~4 per AtMost entry it counted and ~2 per word (the
+    find-first over the pending planes)."""
+    rounds = work["rounds"]
+    if arm is None:
+        return rounds * _ops_per_round(C, NA, W)
+    B = arm.n_vars.shape[0]
+    if arm.impl == "gather":
+        slots = (int((arm.clauses != 0).sum())
+                 + int((arm.card_ids >= 0).sum())) / B
+        return int(rounds * (8 * slots + 10 * W))
+    rows = _arm_rows(arm, W)
+    lits = (int((rows.lits != 0).sum()) + int((rows.mlits != 0).sum())) / B
+    return int(rounds * (8 * lits + 10 * W) + 8 * work["lits"]
+               + 4 * work["cards"] + 2 * W * work["pops"])
+
+
+def _need(arm, dense, W: int, C: int, NA: int, *tensors):
+    """The function (plain version's work) -> (bytes, operations) of a
+    launch under ``arm``: :func:`_arm_bytes` plus the bytes of
+    ``tensors`` (its other inputs and its outputs), and
+    :func:`_arm_ops`."""
+    fixed = _nbytes(*tensors)
+    return lambda work: (_arm_bytes(arm, dense, W, work) + fixed,
+                         _arm_ops(arm, C, NA, W, work))
+
+
+def compare_impls(scale: float, launches: dict, plain: PlainPool):
+    """Each of kernels 1, 3, 4 and 5 under each arm of :data:`IMPL_ARMS`
+    against its plain version on the same inputs, on 32 lanes of the
+    small families (kernel 1's plain version on the card, the phases' in
+    the pool) and :data:`ARM_BIG_LANES` of the big ones (the phases at
+    :data:`ARM_BIG_BUDGET` steps, their plain versions in the pool; the
+    giant not under pallas); each timed by the profiler.  Returns
+    ({(kernel, impl): row}, the pool labels whose plain numbers complete
+    the rows, see :func:`finish_impl_rows`)."""
+    import torch
+
+    from deppy_tpu_torch.engine import core, cuda_bcp, cuda_search, driver
+    from deppy_tpu_torch.models import operatorhub_catalog
+    from deppy_tpu_torch.sat.encode import encode
+
+    dev = torch.device("cuda")
+    budget = driver.DEFAULT_MAX_STEPS
+    rows, pending, jobs = {}, {}, []
+    t_all = time.perf_counter()
+
+    def submit(*args, **kwargs):
+        jobs.append((args, kwargs))
+    print(f"clocks before the arms' timings: {clock_line()}", flush=True)
+    small = families(scale) + [
+        ("forced_extras", COMPARE_LANES, forced_extras),
+        ("operatorhub", COMPARE_LANES, operatorhub_lanes)]
+    big = [("operatorhub_batch", ARM_BIG_LANES,
+            lambda i: operatorhub_catalog(*BATCH, seed=i)),
+           ("giant", 1, lambda i: operatorhub_catalog(*GIANT, seed=0))]
+    for name, count, make in small + big:
+        is_big = name in {n for n, _, _ in big}
+        probs = [encode(make(i)) for i in range(min(count, driver.MAX_LANES))]
+        d = driver._Dims(probs, len(probs))
+        B = min(len(probs), ARM_BIG_LANES if is_big else COMPARE_LANES)
+        en = torch.ones(B, dtype=torch.bool, device=dev)
+        for impl in IMPL_ARMS:
+            if impl == "pallas" and name == "giant":
+                print("kernels under pallas on giant: not compared (the "
+                      "dense rounds on 8,192 x 768-word planes)", flush=True)
+                continue
+            pts = arm_batch(probs, d, B, impl)
+            red = impl == "watched"
+            W = d.Wr if red else d.Wv
+            kw = dict(impl=impl, NCON=d.NCON)
+            print(f"compare {impl} {name}: {B} lanes, C {d.C} K {d.K} NA "
+                  f"{d.NA} NV {d.NV} NCON {d.NCON} W {W} Ob {d.Ob} Oc "
+                  f"{d.Oc}", flush=True)
+
+            def record(kernel, got, timing, pl, need):
+                """One arm's time and comparison; ``pl`` (plain ms, its
+                work, its outputs) or None when the pool's numbers
+                complete it (:func:`finish_impl_rows`); ``need`` as
+                :func:`_need` gives it."""
+                row = rows.setdefault((kernel, impl),
+                                      dict(max_abs_err=0, families={}))
+                fam = dict(ms=timing[0], wrapper_ms=timing[1],
+                           launches=launches[impl][kernel], need=need)
+                row["families"][name] = fam
+                print(f"kernel {kernel} under {impl} on {name}: timed at "
+                      f"{time.perf_counter() - t_all:.1f} s", flush=True)
+                if pl is not None:
+                    pms, work, want = pl
+                    bad, err = _mismatch(got, want)
+                    if bad:
+                        fail(f"kernel {kernel} under {impl} disagrees with "
+                             f"its plain version on {name} ({bad} elements)")
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                    _arm_bound(fam, work, pms, "cuda")
+                    print(f"kernel {kernel} under {impl} on {name}: "
+                          f"launches {fam['launches']} ms {fam['ms']:.4f} "
+                          f"wrapper_ms {fam['wrapper_ms']:.4f} plain_ms "
+                          f"{pms:.3f} mismatches {bad} max_abs_err {err} "
+                          f"{_work_line(fam)}", flush=True)
+                return fam
+
+            # Kernel 1: phase 1's baseline fixpoint, plain on the card.
+            k1, arm = arm_bcp_inputs(pts, d, impl, en)
+            C, NA = d.C, d.NA
+            got, *timing = _timed(
+                lambda: cuda_bcp.bcp_fixpoint(*k1, impl=impl, arm=arm),
+                "bcp_fixpoint", TIMED_REPS)
+            w0 = _plain_work()
+            want, pms, _ = _timed_plain(
+                lambda: cuda_bcp.bcp_fixpoint_plain(*k1, arm=arm))
+            record("bcp_fixpoint", got, timing,
+                   (pms, _work_since(w0), want),
+                   _need(arm, k1[:3], W, C, NA, *k1[3:], *got))
+
+            # Kernels 3-5: full budget on the small families (timed, the
+            # plain versions in the pool); on the big ones the search timed
+            # once at the full budget, then every phase at a cut budget
+            # against the pool.
+            arm3 = cuda_search.launch_arm(pts, impl, red, W)
+            arm5 = cuda_search.launch_arm(pts, impl, False, d.Wv)
+            dense = ((pts.pos_bits_r, pts.neg_bits_r,
+                      pts.card_member_bits_r) if red else
+                     (pts.pos_bits, pts.neg_bits, pts.card_member_bits))
+            dense5 = (pts.pos_bits, pts.neg_bits, pts.card_member_bits)
+            ins3 = (pts.card_n, pts.choice_cand, pts.var_choices,
+                    pts.anchors)
+            ins5 = (pts.card_n, pts.card_act, pts.n_cons)
+            if is_big:
+                srch, ms, wrap = _timed_once(
+                    lambda: cuda_search.batched_search_fused(pts, budget, en,
+                                                             **kw), "search")
+                steps = int(srch[3].sum())
+                rows.setdefault(("search", impl), dict(
+                    max_abs_err=0, families={}))["families"][name] = dict(
+                        ms=ms, wrapper_ms=wrap, steps=steps,
+                        ms_per_step=ms / max(steps, 1),
+                        launches=launches[impl]["search"])
+                print(f"kernel search under {impl} on {name}: ms {ms:.3f} "
+                      f"wrapper_ms {wrap:.3f} steps {steps} ms per step "
+                      f"{ms / max(steps, 1):.6f} (at "
+                      f"{time.perf_counter() - t_all:.1f} s)", flush=True)
+                what = f"{impl}, {B} lanes, budget {ARM_BIG_BUDGET}"
+                s_args = (pts, ARM_BIG_BUDGET, en)
+                got = cuda_search.batched_search_fused(*s_args, **kw)
+                submit(("search", name, what), got, "cuda_search",
+                             "batched_search_plain", s_args, kw, B, chunk=1)
+                result, guessed, model = srch[:3]
+                zero = torch.zeros(B, dtype=torch.int32, device=dev)
+                m_args = (pts, result, model, guessed, ARM_BIG_BUDGET,
+                          zero, en)
+                got = cuda_search.batched_minimize_fused(*m_args, **kw)
+                submit(("minimize", name, what), got, "cuda_search",
+                             "batched_minimize_plain", m_args, kw, B, chunk=1)
+                en_c = en & (result == core.UNSAT)
+                if bool(en_c.any()):
+                    c_args = (pts, ARM_BIG_BUDGET, zero, en_c)
+                    got = cuda_search.batched_core_fused(*c_args, **kw)
+                    submit(("core", name, what), got, "cuda_search",
+                                 "batched_core_plain", c_args, kw, B, chunk=1)
+                continue
+            what = f"{impl}, {B} lanes, full budget"
+            s_args = (pts, budget, en)
+            got, *timing = _timed(
+                lambda: cuda_search.batched_search_fused(*s_args, **kw),
+                "search", TIMED_REPS)
+            label = ("search", name, what)
+            submit(label, got, "cuda_search", "batched_search_plain",
+                         s_args, kw, B)
+            pending[label] = record("search", got, timing, None,
+                                    _need(arm3, dense, W, C, NA, *ins3, *got))
+            result, guessed, model, steps = got[:4]
+            m_args = (pts, result, model, guessed, budget, steps, en)
+            got, *timing = _timed(
+                lambda: cuda_search.batched_minimize_fused(*m_args, **kw),
+                "minimize", TIMED_REPS)
+            label = ("minimize", name, what)
+            submit(label, got, "cuda_search", "batched_minimize_plain",
+                         m_args, kw, B)
+            pending[label] = record("minimize", got, timing, None, _need(
+                arm3, dense, W, C, NA, *ins3, result, model, guessed, steps,
+                *got))
+            en_pad = en.clone()
+            en_pad[-max(1, B // 4):] = False
+            tight = (pts, 17, en_pad)
+            submit(("search", name, f"{impl}, budget 17, padding "
+                          f"lanes"), cuda_search.batched_search_fused(
+                              *tight, **kw), "cuda_search",
+                         "batched_search_plain", tight, kw, B)
+            en_c = en & (result == core.UNSAT)
+            if not bool(en_c.any()):
+                print(f"kernel core under {impl} on {name}: no UNSAT lane",
+                      flush=True)
+                continue
+            c_args = (pts, budget, steps, en_c)
+            got, *timing = _timed(
+                lambda: cuda_search.batched_core_fused(*c_args, **kw),
+                "core", TIMED_REPS)
+            label = ("core", name, what)
+            submit(label, got, "cuda_search", "batched_core_plain",
+                         c_args, kw, B)
+            pending[label] = record("core", got, timing, None, _need(
+                arm5, dense5, d.Wv, C, NA, *ins5, steps, en_c, *got))
+    torch.cuda.synchronize()
+    for args, kwargs in jobs:
+        plain.submit(*args, **kwargs)
+    print(f"arms on the card done in {time.perf_counter() - t_all:.1f} s; "
+          f"{len(jobs)} plain jobs to the pool", flush=True)
+    return rows, pending
+
+
+def _arm_bound(fam: dict, work: dict, plain_ms: float, plain_on: str):
+    """Complete an arm's row ``fam`` with its plain version's ms and work
+    and the bound of the work it counted (``fam``'s ``need``)."""
+    fam.update(plain_ms=plain_ms, plain_on=plain_on, **{
+        k: work[k] for k in ("rounds", "pops", "rows", "lits", "cards")})
+    fam["bytes"], ops = fam.pop("need")(work)
+    fam["bound_ms"], fam["bound_by"] = _bound(fam["bytes"], ops)
+
+
+def _work_line(fam: dict) -> str:
+    return (f"rounds {fam['rounds']} pops {fam['pops']} visited rows "
+            f"{fam['rows']} lits {fam['lits']} cards {fam['cards']} bytes "
+            f"{fam['bytes']} bound_ms {fam['bound_ms']:.8f} "
+            f"({fam['bound_by']})")
+
+
+def finish_impl_rows(rows: dict, pending: dict, plain: PlainPool) -> None:
+    """Complete the phase kernels' rows with their plain versions'
+    numbers from the pool (checked by ``plain.check``): plain ms (CPU
+    seconds summed over the tasks), the work and the bound."""
+    for (kernel, family, what), fam in pending.items():
+        st = plain.stats[(kernel, family, what)]
+        _arm_bound(fam, st, st["plain_ms"], "cpu")
+        print(f"kernel {kernel} ({what.split(',')[0]}) on {family}: "
+              f"launches {fam['launches']} ms {fam['ms']:.4f} wrapper_ms "
+              f"{fam['wrapper_ms']:.4f} plain_ms {st['plain_ms']:.1f} (cpu) "
+              f"{_work_line(fam)}", flush=True)
+
+
 # --------------------------------------------------------------------------
 
 
@@ -1668,6 +2209,7 @@ PATH_KERNELS = {
     "blockwise": ("blockwise_fixpoint", "search", "minimize", "core"),
     "surface": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
                 "core"),
+    **{impl: ARM_KERNELS for impl in IMPL_ARMS},
 }
 
 
@@ -1702,17 +2244,28 @@ def main(argv=None) -> int:
             print(f"phase {phase} done at {time.perf_counter() - t_all:.1f} "
                   f"s", flush=True)
 
-        by_path = {}
-        by_path["bits"], per_family, main_answers = run_main_path(args.scale)
+        by_path, bits_keys = {}, {}
+        by_path["bits"], per_family, main_answers = run_main_path(
+            args.scale, bits_keys)
         stamp("bits path")
         (by_path["blockwise"], per_family_bw,
-         bw_answers) = run_blockwise_path(args.scale)
+         bw_answers) = run_blockwise_path(args.scale, bits_keys)
         stamp("blockwise path")
         by_path["surface"], per_family["surface"] = run_surface_path(
             main_answers, bw_answers)
         del main_answers, bw_answers
         stamp("surface path")
-        per_family["profile"] = profile_chunk(args.scale)
+        by_impl, per_family["impls"] = run_impls_path(args.scale, bits_keys)
+        by_path.update(by_impl)
+        del bits_keys
+        stamp("impls path")
+        per_family["profile"] = bits = profile_chunk(args.scale)
+        per_family["profile_watched"] = watched = profile_chunk(
+            args.scale, impl="watched")
+        print(f"busy share of the {bits['problems']}-problem gvk_fleet "
+              f"chunk: bits {bits['device_ms'] / bits['wall_ms']:.4f}, "
+              f"watched {watched['device_ms'] / watched['wall_ms']:.4f}",
+              flush=True)
         per_family["profile_blockwise"] = profile_solve(
             "operatorhub_batch", operatorhub_batch(args.scale),
             impl="blockwise")
@@ -1725,11 +2278,14 @@ def main(argv=None) -> int:
         rows["search"]["families"].update(
             {f"{k} (blockwise)": v for k, v in search_big.items()})
         stamp("blockwise kernels compared")
+        arm_rows, pending = compare_impls(args.scale, by_impl, plain)
+        stamp("arms compared")
         t0 = time.perf_counter()
         n = plain.check()
-        print(f"{n} comparisons at small tiles checked in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        stamp("small tiles")
+        print(f"{n} comparisons against plain versions in the pool checked "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        finish_impl_rows(arm_rows, pending, plain)
+        stamp("pool comparisons")
     finally:
         plain.close()
 
@@ -1747,6 +2303,14 @@ def main(argv=None) -> int:
     if missing:
         fail(f"kernels never compared with their plain versions: {missing}")
 
+    for impl in IMPL_ARMS:
+        missing = [k for k in ARM_KERNELS if (k, impl) not in arm_rows]
+        if missing:
+            fail(f"arms never compared under {impl}: {missing}")
+    print("kernels (arms): " + " ".join(
+        f"{k}/{impl}={by_path[impl][k]}" for impl in IMPL_ARMS
+        for k in ARM_KERNELS), flush=True)
+
     summary = []
     for k in engine.KERNELS:
         fam = SUMMARY_FAMILY[k]
@@ -1762,6 +2326,21 @@ def main(argv=None) -> int:
             bound_by=m["bound_by"], library_ms=None, family=fam,
             by_family=rows[k]["families"],
             **({"teams": rows[k]["teams"]} if "teams" in rows[k] else {})))
+    for impl in IMPL_ARMS:
+        for k in ARM_KERNELS:
+            row = arm_rows[(k, impl)]
+            m = row["families"][SUMMARY_FAMILY[k]]
+            src, replaces = SOURCES[k]
+            summary.append(dict(
+                name=f"{k} ({impl})", route="cuda",
+                source=(src if impl == "pallas"
+                        else "deppy_tpu_torch/engine/csrc/watched.cuh"),
+                replaces=replaces, launches=by_path[impl][k],
+                max_abs_err=row["max_abs_err"], ms=m["ms"],
+                wrapper_ms=m["wrapper_ms"], plain_ms=m["plain_ms"],
+                plain_on=m.get("plain_on", "cuda"), bound_ms=m["bound_ms"],
+                bound_by=m["bound_by"], library_ms=None,
+                family=SUMMARY_FAMILY[k], by_family=row["families"]))
     per_family.update({f"blockwise_{k}": v for k, v in per_family_bw.items()})
     print(f"total {time.perf_counter() - t_all:.1f} s; per family "
           f"{json.dumps(per_family)}", flush=True)

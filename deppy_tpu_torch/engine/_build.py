@@ -24,7 +24,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bcp.cu", "blockwise.cu", "search.cu", "minimize.cu", "core.cu")
-HEADERS = ("fixpoint.cuh", "blockwise.cuh", "dpll.cuh", "warp.cuh")
+HEADERS = ("fixpoint.cuh", "watched.cuh", "blockwise.cuh", "dpll.cuh",
+           "warp.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libdeppy_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,12 +39,12 @@ build_seconds = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "deppy_bcp_fixpoint": [_P] * 13 + [_I] * 5 + [_P],
+    "deppy_bcp_fixpoint": [_P] * 13 + [_I] * 5 + [_P] * 2,
     "deppy_bcp_warp": [_P] * 13 + [_I] * 5 + [_P],
     "deppy_blockwise_fixpoint": [_P] * 12 + [_I] * 10 + [_P],
-    "deppy_search": [_P] * 16 + [_I] + [_P] * 7 + [_I] * 14 + [_P],
-    "deppy_minimize": [_P] * 16 + [_I] + [_P] * 4 + [_I] * 11 + [_P],
-    "deppy_core": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 13 + [_P],
+    "deppy_search": [_P] * 16 + [_I] + [_P] * 7 + [_I] * 14 + [_P] * 2,
+    "deppy_minimize": [_P] * 16 + [_I] + [_P] * 4 + [_I] * 11 + [_P] * 2,
+    "deppy_core": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 13 + [_P] * 2,
     "deppy_minimize_warp": [_P] * 14 + [_I] + [_P] * 4 + [_I] * 7 + [_P],
     "deppy_core_warp": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 9 + [_P],
     "deppy_search_scratch_words": [_I] * 3,

@@ -6,9 +6,10 @@ variables and entities in this package's vocabulary from any objects
 with the JAX package's field and class names, read by duck typing.  The JAX
 package's ``driver.pad_stack`` returns its ``ProblemTensors`` as numpy
 arrays; :func:`problem_tensors_from_numpy` turns any object with this
-package's field names (that one included; its watched clause-bank fields
-are ignored) into a :class:`~deppy_tpu_torch.engine.core.ProblemTensors`
-of int32 tensors on ``device``.  :func:`phase_outputs_from_numpy` does the
+package's field names (that one included, its watched clause-bank fields
+too, so both packages read the same banks) into a
+:class:`~deppy_tpu_torch.engine.core.ProblemTensors` of int32 tensors on
+``device``.  :func:`phase_outputs_from_numpy` does the
 same for a phase's outputs (results, models, guessed sets, steps), keeping
 bool arrays bool and turning integers into int32.
 """

@@ -8,21 +8,29 @@ Three layers, in the reference's order:
 * :func:`derive_planes`, which packs the compact clause and AtMost
   tensors into int32 bitplanes on the device — ``core.py:540-616``;
 * the plain versions of the CUDA kernels: :func:`round_planes`,
-  :func:`planes_fixpoint`, the blockwise fixpoint
-  (:func:`_fixpoint_blockwise_u`, ``pallas_blockwise.py:67-190``),
-  :func:`dpll`, :func:`search`, :func:`search_phase`,
-  :func:`minimize_phase` and :func:`core_phase` (``core.py:361-1621``).
-  They solve ONE problem with Python control flow over torch tensors.
-  The CPU path and the tests run them; the CUDA main path never does
-  (the kernel wrappers in :mod:`deppy_tpu_torch.engine.cuda_bcp`,
+  :func:`planes_fixpoint` and its arms (the bits rounds, the blockwise
+  sweeps :func:`_fixpoint_blockwise_u` of ``pallas_blockwise.py:67-190``,
+  the gather rounds :func:`bcp_round` of ``core.py:428-486`` and the
+  watched fixpoint of :mod:`.clause_bank`), :func:`dpll`, :func:`search`,
+  :func:`search_phase`, :func:`minimize_phase` and :func:`core_phase`
+  (``core.py:361-1621``).  They solve ONE problem with Python control
+  flow over torch tensors.  The CPU path and the tests run them; the
+  CUDA main path never does (the kernel wrappers in
+  :mod:`deppy_tpu_torch.engine.cuda_bcp`,
   :mod:`deppy_tpu_torch.engine.cuda_blockwise` and
   :mod:`deppy_tpu_torch.engine.cuda_search` launch the kernels there).
 
-The BCP impl is selected as in the reference (``core.py:506-641``):
-:func:`set_bcp_impl` or the ``DEPPY_GPU_BCP`` knob.  ``bits`` (and
-``auto``) runs phases 1-2 in the reduced plane space with the plain
-fixpoint; ``blockwise`` runs them in the full space, and every fixpoint
-of every phase sweeps blocks of clause rows.
+The BCP impl is selected as in the reference (``core.py:488-508,
+634-641``): :func:`set_bcp_impl` or the ``DEPPY_GPU_BCP`` knob, one of
+the reference's six names.  ``bits`` (and ``auto``) runs phases 1-2 in
+the reduced plane space with the dense rounds; ``watched`` runs them in
+the reduced space too, every fixpoint implication-driven over the
+problem's clause bank (the dense rounds where the batch got dummy
+banks); ``blockwise``, ``pallas`` and ``gather`` run them in the full
+space, every fixpoint a sweep over blocks of clause rows, the dense
+rounds (the reference's ``pallas`` impl is its kernel 1), or Jacobi
+rounds over the raw clause rows, counting per occurrence.  Phase 3 runs
+in the full space under every impl, each with its own fixpoint.
 
 Planes are packed int32 words as in the reference: variable ``v`` is bit
 ``v % 32`` of word ``v // 32``, so variable 31 of every word is the sign
@@ -60,12 +68,8 @@ CORE_CHUNK = 8
 plain_rounds = 0
 plain_sweeps = 0
 
-# BCP implementation (core.py:506-508).  The impls of the reference that
-# this package has not ported raise, naming the ROADMAP item that ports
-# them.
+# BCP implementation (core.py:506-508).
 _BCP_IMPLS = ("auto", "gather", "bits", "pallas", "blockwise", "watched")
-_NOT_PORTED = {"gather": "ROADMAP A8", "pallas": "ROADMAP A8",
-               "watched": "ROADMAP A3"}
 _BCP_IMPL = os.environ.get("DEPPY_GPU_BCP", "auto")
 
 _U32 = 0xFFFFFFFF
@@ -76,13 +80,16 @@ _I64 = torch.int64
 class ProblemTensors(NamedTuple):
     """A batch of lowered problems padded to common shapes.
 
-    Field for field the reference's ``ProblemTensors`` (core.py:72-122)
-    without the watched clause-bank fields.  Every tensor is int32 with a
-    leading batch axis ``[B, ...]``; clause literals are signed 1-based
-    with 0 padding, every other index tensor 0-based with -1 padding.
-    Plane fields hold packed words (``Wv = ceil(V/32)`` over the full
-    space ``V = NV + NCON``, ``Wr = ceil(NV/32)`` over the problem
-    variables), or ``[B, rows, 1]`` zero placeholders when not derived."""
+    Field for field the reference's ``ProblemTensors`` (core.py:72-122).
+    Every tensor is int32 with a leading batch axis ``[B, ...]``; clause
+    literals are signed 1-based with 0 padding, every other index tensor
+    0-based with -1 padding.  Plane fields hold packed words (``Wv =
+    ceil(V/32)`` over the full space ``V = NV + NCON``, ``Wr =
+    ceil(NV/32)`` over the problem variables), or ``[B, rows, 1]`` zero
+    placeholders when not derived.  The clause-bank fields
+    (:mod:`.clause_bank`) hold the watched impl's adjacency, ``Ob`` and
+    ``Oc`` entries a row, or ``[B, 1, 1]`` dummies of -1 when not
+    derived."""
 
     clauses: torch.Tensor          # [B, C, K]
     card_ids: torch.Tensor         # [B, NA, M]
@@ -101,6 +108,11 @@ class ProblemTensors(NamedTuple):
     neg_bits_r: torch.Tensor       # [B, C, Wr]
     card_member_bits_r: torch.Tensor  # [B, NA, Wr]
     card_valid: torch.Tensor       # [B, NA]  1 on real AtMost rows
+    occ_pos: torch.Tensor          # [B, V, Ob]  clause rows holding +v
+    occ_neg: torch.Tensor          # [B, V, Ob]  clause rows holding -v
+    occ_pos_r: torch.Tensor        # [B, NV, Ob] the same, reduced space
+    occ_neg_r: torch.Tensor        # [B, NV, Ob]
+    card_occ: torch.Tensor         # [B, NV, Oc] AtMost rows of each member
 
 
 class SolveResult(NamedTuple):
@@ -126,17 +138,13 @@ def lane(pts: ProblemTensors, b: int) -> ProblemTensors:
 def _check_impl(name: str) -> str:
     if name not in _BCP_IMPLS:
         raise ValueError(f"unknown BCP impl {name!r}")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"BCP impl {name!r} is not ported to the GPU yet "
-            f"({_NOT_PORTED[name]})")
     return name
 
 
 def set_bcp_impl(name: str) -> None:
-    """Select the BCP implementation: ``auto`` or ``bits`` (the reduced
-    plane space, plain fixpoints) or ``blockwise`` (the full plane space,
-    every fixpoint a sweep over blocks of clause rows)."""
+    """Select the BCP implementation: ``auto`` (= ``bits``), ``bits``,
+    ``watched``, ``blockwise``, ``pallas`` or ``gather`` (see the module
+    docstring)."""
     global _BCP_IMPL
     _BCP_IMPL = _check_impl(name)
 
@@ -217,10 +225,15 @@ def unpack_mask(words: torch.Tensor, V: int) -> torch.Tensor:
 
 
 def _or_rows(x: torch.Tensor) -> torch.Tensor:
-    """Bitwise OR over the rows of unsigned words [R, W] → [W]."""
-    sh = _shifts(x.device)
-    bits = (x.unsqueeze(-1) >> sh) & 1
-    return (bits.amax(0) << sh).sum(-1)
+    """Bitwise OR over the rows of unsigned words [R, W] → [W], folding
+    the rows in halves (log2(R) ORs of shrinking halves)."""
+    if x.shape[0] == 0:
+        return x.new_zeros(x.shape[1:])
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
+        x = x[0::2] | x[1::2]
+    return x[0]
 
 
 def planes_to_assign(t: torch.Tensor, f: torch.Tensor, V: int) -> torch.Tensor:
@@ -410,14 +423,34 @@ def round_planes(pos, neg, mem, card_active, card_n2, min_bits, min_w, t, f):
     return bool(c), _to_i32(nt), _to_i32(nf), bool(ch)
 
 
+class Arm(NamedTuple):
+    """What the watched and gather fixpoints read besides the planes, for
+    one problem.  ``impl`` is ``"watched"`` (the implication-driven
+    fixpoint over the bank ``occ_pos``/``occ_neg`` [Vb, Ob] and
+    ``card_occ`` [NVb, Oc], its visits dropping literals past ``n_vars``
+    under ``red``) or ``"gather"`` (Jacobi rounds over the raw rows,
+    AtMost activity from ``card_act`` and each round's assignment, or
+    the static ``card_valid`` of the space when ``card_act`` is None)."""
+
+    impl: str
+    clauses: torch.Tensor             # [C, K] raw signed literals
+    card_ids: torch.Tensor            # [NA, M] raw members, -1 pad
+    card_act: Optional[torch.Tensor]  # [NA] activation variable, -1 pad
+    n_vars: int
+    occ_pos: Optional[torch.Tensor] = None
+    occ_neg: Optional[torch.Tensor] = None
+    card_occ: Optional[torch.Tensor] = None
+    red: bool = False
+
+
 class _Space(NamedTuple):
     """One problem's planes in one space, widened for the plain rounds.
     ``card_act_bits`` is set in the full space only: there AtMost-row
     activity follows the activation bits of each fixpoint's entry state
     (core.py:900-902); the reduced space uses the static ``card_valid``.
-    ``block_rows`` selects the fixpoint: 0 runs the plain rounds (bits),
-    a positive count sweeps blocks of that many clause rows
-    (:func:`_fixpoint_blockwise_u`)."""
+    The fixpoint: ``arm`` when set (:class:`Arm`), else blockwise sweeps
+    over blocks of ``block_rows`` clause rows when that is positive
+    (:func:`_fixpoint_blockwise_u`), else the dense rounds."""
 
     pos: torch.Tensor
     neg: torch.Tensor
@@ -426,16 +459,41 @@ class _Space(NamedTuple):
     card_valid: torch.Tensor
     card_act_bits: Optional[torch.Tensor]
     block_rows: int = 0
+    arm: Optional[Arm] = None
 
 
-def _space(pt: ProblemTensors, red: bool, block_rows: int = 0) -> _Space:
+def _arm(pt: ProblemTensors, red: bool, impl: str) -> Optional[Arm]:
+    """The fixpoint arm of ``impl`` for one problem: the watched arm when
+    its bank in the space is real (a dummy bank falls through to the
+    dense rounds, core.py:903-920), the gather arm, or None."""
+    if impl == "watched":
+        from . import clause_bank
+
+        occ_p = pt.occ_pos_r if red else pt.occ_pos
+        occ_n = pt.occ_neg_r if red else pt.occ_neg
+        if not clause_bank.bank_ready(occ_p):
+            return None
+        return Arm("watched", pt.clauses, pt.card_ids, None, int(pt.n_vars),
+                   occ_p, occ_n, pt.card_occ, red)
+    if impl == "gather":
+        if red:
+            raise ValueError("the gather impl runs in the full plane space")
+        return Arm("gather", pt.clauses, pt.card_ids, pt.card_act,
+                   int(pt.n_vars))
+    return None
+
+
+def _space(pt: ProblemTensors, red: bool, block_rows: int = 0,
+           impl: str = "bits") -> _Space:
+    arm = _arm(pt, red, impl)
     if red:
         return _Space(_to_u(pt.pos_bits_r), _to_u(pt.neg_bits_r),
                       _to_u(pt.card_member_bits_r), pt.card_n.to(_I64),
-                      pt.card_valid != 0, None, block_rows)
+                      pt.card_valid != 0, None, block_rows, arm)
     return _Space(_to_u(pt.pos_bits), _to_u(pt.neg_bits),
                   _to_u(pt.card_member_bits), pt.card_n.to(_I64),
-                  pt.card_valid != 0, _to_u(pt.card_act_bits), block_rows)
+                  pt.card_valid != 0, _to_u(pt.card_act_bits), block_rows,
+                  arm)
 
 
 def _row_activity(S: _Space, t) -> torch.Tensor:
@@ -447,16 +505,26 @@ def _row_activity(S: _Space, t) -> torch.Tensor:
 
 def _fixpoint_u(S: _Space, t, f, min_bits, min_w: int, run: bool,
                 pre_check: bool = True):
-    """Propagate to fixpoint from (t, f) (core.py:861-966), by the bits
-    rounds or, when ``S.block_rows`` is set, by blockwise sweeps.  A
-    disabled run does zero rounds.  With ``pre_check`` an entry state
-    that already sets some variable both ways is the conflict (core.py:
-    877-883); the standalone kernels (pallas_bcp.py, pallas_blockwise.py)
-    have no such check.  Returns (conflict: bool, t, f)."""
+    """Propagate to fixpoint from (t, f) (core.py:861-966) by the space's
+    fixpoint (:class:`_Space`).  A disabled run does zero rounds.  With
+    ``pre_check`` an entry state that already sets some variable both
+    ways is the conflict (core.py:877-883); the standalone kernels
+    (pallas_bcp.py, pallas_blockwise.py) have no such check.  Returns
+    (conflict: bool, t, f)."""
     if not run:
         return False, t, f
     if pre_check and bool(((t & f) != 0).any()):
         return True, t, f
+    if S.arm is not None and S.arm.impl == "watched":
+        from . import clause_bank
+
+        A = S.arm
+        return clause_bank._watched_u(
+            A.clauses, A.n_vars, A.occ_pos, A.occ_neg, A.card_occ, S.pos,
+            S.neg, S.mem, _row_activity(S, t), S.card_n, min_bits, min_w, t,
+            f, True, A.red)
+    if S.arm is not None:
+        return _gather_u(S, t, f, min_bits, min_w)
     if S.block_rows:
         return _fixpoint_blockwise_u(S, t, f, min_bits, min_w, True,
                                      S.block_rows)
@@ -471,6 +539,87 @@ def _fixpoint_u(S: _Space, t, f, min_bits, min_w: int, run: bool,
             return True, t, f
         if not ch:
             return False, t, f
+
+
+def bcp_round(clauses, card_ids, card_n, active, assign, min_mask,
+              min_w: int):
+    """One gather round on an assignment (core.py:428-486): every raw
+    clause row and AtMost row evaluated per occurrence.  ``clauses``
+    [C, K], ``card_ids`` [NA, M], ``card_n`` [NA], ``active`` bool[NA],
+    ``assign`` int32[V], ``min_mask`` bool[V].  Returns (conflict, new
+    assignment, changed) with the flags as 0-d bool tensors.  A variable
+    forced both ways is the conflict and comes out true."""
+    V = assign.shape[0]
+    cls_mask = clauses != 0
+    cls_var = torch.where(cls_mask, clauses.abs() - 1, 0).long()
+    cls_sign = torch.sign(clauses)
+    vals = torch.where(cls_mask, assign[cls_var] * cls_sign, FALSE)
+    satc = (vals == TRUE).any(1)
+    n_un = (vals == UNASSIGNED).sum(1)
+    valid = cls_mask.any(1)
+    dead = valid & ~satc & (n_un == 0)
+    unit = valid & ~satc & (n_un == 1)
+    ucol = torch.argmax((vals == UNASSIGNED).to(torch.int8), 1, keepdim=True)
+    uvar = cls_var.gather(1, ucol)[:, 0]
+    usign = cls_sign.gather(1, ucol)[:, 0]
+    wpos = torch.zeros(V, dtype=torch.bool, device=assign.device)
+    wneg = torch.zeros_like(wpos)
+    wpos[uvar[unit & (usign > 0)]] = True
+    wneg[uvar[unit & (usign < 0)]] = True
+
+    # AtMost rows: > n true members conflicts, == n forces the rest false.
+    card_mask = card_ids >= 0
+    card_var = torch.where(card_mask, card_ids, 0).long()
+    mvals = assign[card_var]
+    trues = ((mvals == TRUE) & card_mask).sum(1)
+    unk = ((mvals == UNASSIGNED) & card_mask).sum(1)
+    over = active & (trues > card_n)
+    full = active & (trues == card_n) & (unk > 0)
+    force = full.unsqueeze(1) & card_mask & (mvals == UNASSIGNED)
+    wneg[card_var[force]] = True
+
+    # Dynamic "at most min_w of the extras" bound.
+    mtrues = ((assign == TRUE) & min_mask).sum()
+    min_over = mtrues > min_w
+    if int(mtrues) == min_w:
+        wneg = wneg | ((assign == UNASSIGNED) & min_mask)
+
+    conflict = dead.any() | over.any() | min_over | (wpos & wneg).any()
+    unas = assign == UNASSIGNED
+    new = torch.where(unas & wpos, TRUE,
+                      torch.where(unas & wneg, FALSE, assign)).to(_I32)
+    changed = (new != assign).any() & ~conflict
+    return conflict, new, changed
+
+
+def _gather_u(S: _Space, t, f, min_bits, min_w: int):
+    """The gather fixpoint (core.py:818-832) of ``S.arm`` from unsigned
+    planes: rounds of :func:`bcp_round` over the assignment until one
+    conflicts or changes nothing.  AtMost activity is re-read every round
+    from ``card_act`` (static ``card_valid`` when it is None).  Returns
+    (conflict: bool, t, f)."""
+    global plain_rounds
+    A = S.arm
+    W = t.shape[0]
+    V = W * WORD
+    assign = planes_to_assign(_to_i32(t), _to_i32(f), V)
+    min_mask = unpack_mask(_to_i32(min_bits), V)
+    if A.card_act is not None:
+        valid = A.card_act >= 0
+        act_idx = torch.where(valid, A.card_act, 0).long()
+    while True:
+        plain_rounds += 1
+        if A.card_act is None:
+            active = S.card_valid
+        else:
+            active = valid & (assign[act_idx] == TRUE)
+        c, assign, ch = bcp_round(A.clauses, A.card_ids, S.card_n, active,
+                                  assign, min_mask, min_w)
+        c, ch = torch.stack([c, ch]).tolist()
+        if c or not ch:
+            break
+    return (bool(c), _to_u(pack_mask(assign == TRUE, W)),
+            _to_u(pack_mask(assign == FALSE, W)))
 
 
 def _fixpoint_blockwise_u(S: _Space, t, f, min_bits, min_w: int, run: bool,
@@ -513,12 +662,16 @@ def _fixpoint_blockwise_u(S: _Space, t, f, min_bits, min_w: int, run: bool,
 
 def planes_fixpoint(pt: ProblemTensors, t: torch.Tensor, f: torch.Tensor,
                     min_bits: torch.Tensor, min_w: int, enabled: bool,
-                    red: bool = False, block_rows: int = 0):
+                    red: bool = False, block_rows: int = 0,
+                    impl: str = "bits"):
     """Fixpoint on one problem's int32 planes [W] (core.py:861-966), with
-    the entry-overlap check; ``block_rows`` as in :class:`_Space`.
-    Returns (conflict, t, f)."""
-    c, t, f = _fixpoint_u(_space(pt, red, block_rows), _to_u(t), _to_u(f),
-                          _to_u(min_bits), int(min_w), bool(enabled))
+    the entry-overlap check, by ``impl``'s fixpoint: the watched arm on a
+    real bank, the gather rounds, blockwise sweeps when ``block_rows`` is
+    positive, else the dense rounds (see :class:`_Space`).  Returns
+    (conflict, t, f)."""
+    c, t, f = _fixpoint_u(_space(pt, red, block_rows, impl), _to_u(t),
+                          _to_u(f), _to_u(min_bits), int(min_w),
+                          bool(enabled))
     return c, _to_i32(t), _to_i32(f)
 
 
@@ -742,13 +895,13 @@ def search(S: _Space, pvb, t0, f0, outcome0: int, budget: int, steps: int,
 
 def _phase_space(pt: ProblemTensors, red: bool, NCON: Optional[int]):
     """(V, W) of phases 1-2: the reduced space ``V = NV`` or the full
-    space ``V = NV + NCON``."""
+    space ``V = NV + NCON``, ``W = ceil(V / 32)``."""
     NV = pt.var_choices.shape[0]
     if red:
-        return NV, pt.pos_bits_r.shape[-1]
+        return NV, -(-NV // WORD)
     if NCON is None:
         raise ValueError("the full plane space needs the batch's NCON")
-    return NV + NCON, pt.pos_bits.shape[-1]
+    return NV + NCON, -(-(NV + NCON) // WORD)
 
 
 def _phase_base(pt: ProblemTensors, red: bool, V: int,
@@ -761,17 +914,17 @@ def _phase_base(pt: ProblemTensors, red: bool, V: int,
 
 def search_phase(pt: ProblemTensors, budget: int, en: bool = True, *,
                  red: bool = True, NCON: Optional[int] = None,
-                 block_rows: int = 0):
+                 block_rows: int = 0, impl: str = "bits"):
     """Phase 1 (core.py:1398-1444): the baseline Test under the anchors,
     then the guess search when it is undetermined.  ``red`` selects the
     reduced space (``V = NV``) or the full one (``V = NV + NCON``, the
-    activation variables set true), ``block_rows`` the fixpoint (see
-    :class:`_Space`).  Returns (result, guessed bool[NV], model
+    activation variables set true), ``block_rows`` and ``impl`` the
+    fixpoint (see :class:`_Space`).  Returns (result, guessed bool[NV], model
     int32[NV], steps, backtracks): the full space's outputs cut to the
     first NV variables.  A padding lane (``en`` false) reports RUNNING."""
     NV = pt.var_choices.shape[0]
     V, W = _phase_space(pt, red, NCON)
-    S = _space(pt, red, block_rows)
+    S = _space(pt, red, block_rows, impl)
     pv_mask = torch.arange(V, device=pt.n_vars.device) < pt.n_vars
     pvb = _to_u(pack_mask(pv_mask, W))
     anchors = _anchor_mask(pt, V)
@@ -808,17 +961,18 @@ def _to_space(x: torch.Tensor, V: int) -> torch.Tensor:
 def minimize_phase(pt: ProblemTensors, model: torch.Tensor,
                    guessed: torch.Tensor, budget: int, steps: int,
                    en: bool = True, *, red: bool = True,
-                   NCON: Optional[int] = None, block_rows: int = 0):
+                   NCON: Optional[int] = None, block_rows: int = 0,
+                   impl: str = "bits"):
     """Phase 2 (core.py:1447-1535): the least w such that at most w
     extras (installed, not guessed) stay installed, by binary search over
     [0, n_extras] with one DPLL per probe, then one more probe at the
-    minimal w when the last SAT probe was elsewhere.  ``red``, ``NCON``
-    and ``block_rows`` as in :func:`search_phase`; ``model`` and
+    minimal w when the last SAT probe was elsewhere.  ``red``, ``NCON``,
+    ``block_rows`` and ``impl`` as in :func:`search_phase`; ``model`` and
     ``guessed`` are its [NV] outputs.  Returns (installed bool[NV], found,
     steps)."""
     NV = pt.var_choices.shape[0]
     V, W = _phase_space(pt, red, NCON)
-    S = _space(pt, red, block_rows)
+    S = _space(pt, red, block_rows, impl)
     model = _to_space(model, V)
     guessed = _to_space(guessed, V)
     pv_mask = torch.arange(V, device=model.device) < pt.n_vars
@@ -859,18 +1013,18 @@ def minimize_phase(pt: ProblemTensors, model: torch.Tensor,
 
 
 def core_phase(pt: ProblemTensors, budget: int, steps: int,
-               en: bool = True, *, NCON: int, block_rows: int = 0):
+               en: bool = True, *, NCON: int, block_rows: int = 0,
+               impl: str = "bits"):
     """Phase 3 (core.py:1548-1621, full space): the deletion unsat core.
     Starting from every applied constraint active, drop each whose removal
     keeps the rest UNSAT; chunks of :data:`CORE_CHUNK` are probed whole
     first and member by member only when the chunk probe is SAT.  Returns
     (core bool[NCON], steps).  ``NCON`` is the batch's padded constraint
     count: the full space is ``V = NV + NCON`` variables; ``block_rows``
-    as in :class:`_Space`."""
+    and ``impl`` as in :class:`_Space`."""
     NV = pt.var_choices.shape[0]
-    V = NV + NCON
-    W = pt.pos_bits.shape[-1]
-    S = _space(pt, False, block_rows)
+    V, W = _phase_space(pt, False, NCON)
+    S = _space(pt, False, block_rows, impl)
     n_cons = int(pt.n_cons)
     dev = pt.n_vars.device
     idx = torch.arange(NCON, device=dev)

@@ -5,8 +5,8 @@
 // or a conflict appears.  No entry-overlap check, as in the Pallas kernel;
 // the caller folds that in (core.planes_fixpoint).
 //
-// Two teams compute the same function; cuda_search.team picks one per
-// launch from the shape (cuda_bcp.bcp_fixpoint):
+// Two teams compute the same function; teams.team picks one per launch
+// from the impl and the shape (cuda_bcp.bcp_fixpoint):
 //
 // * the warp team (bcp_warp_kernel), every launch of the bits path: one
 //   warp owns one problem and several problems share a block.  The warp
@@ -17,7 +17,10 @@
 // * the block team (bcp_kernel), shapes the rule refuses (planes past 32
 //   words, or a slice past the per-problem budget): one thread block per
 //   problem, the assignment and accumulators in shared memory and the
-//   planes re-read from L2 every round (fixpoint.cuh).
+//   planes re-read from L2 every round (fixpoint.cuh); and every launch
+//   under the watched and gather impls, whose arms (watched.cuh, selected
+//   by an ArmArgs) read the raw rows, the clause bank and compact rows
+//   instead of the planes.
 //
 // Bound on the H100: the bytes it must move once are the planes, the two
 // assignment planes and the extras row.  Rounds are a chain (each depends
@@ -44,14 +47,16 @@ __global__ void bcp_kernel(const uint32_t* __restrict__ pos,
                            const uint32_t* __restrict__ f0,
                            const int* __restrict__ en, int* conflict,
                            uint32_t* t_out, uint32_t* f_out, int C, int NA,
-                           int W) {
+                           int W, ArmArgs A) {
   extern __shared__ uint32_t smem[];
   const int b = blockIdx.x;
   const Work S = carve_work(smem, W, NA);
-  Planes P;
-  P.pos = pos + (size_t)b * C * W;
-  P.neg = neg + (size_t)b * C * W;
-  P.mem = mem + (size_t)b * NA * W;
+  Planes P{};
+  if (pos != nullptr) {
+    P.pos = pos + (size_t)b * C * W;
+    P.neg = neg + (size_t)b * C * W;
+    P.mem = mem + (size_t)b * NA * W;
+  }
   P.card_n = card_n + (size_t)b * NA;
   P.card_valid = act + (size_t)b * NA;
   P.card_act = nullptr;
@@ -59,10 +64,11 @@ __global__ void bcp_kernel(const uint32_t* __restrict__ pos,
   P.NA = NA;
   P.W = W;
   P.tile_rows = 0;
+  set_arm(P, A, smem, b);
   block_copy(S.t, t0 + (size_t)b * W, W);
   block_copy(S.f, f0 + (size_t)b * W, W);
-  const bool c = block_fixpoint(P, S, min_bits + (size_t)b * W, min_w[b],
-                                en[b] != 0, false);
+  const bool c = fixpoint(P, S, min_bits + (size_t)b * W, min_w[b],
+                          en[b] != 0, false);
   if (threadIdx.x == 0) conflict[b] = c ? 1 : 0;
   block_copy(t_out + (size_t)b * W, S.t, W);
   block_copy(f_out + (size_t)b * W, S.f, W);
@@ -111,6 +117,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps) bcp_warp_kernel(
 
 }  // namespace
 
+// ``arm`` (an ArmArgs, or null for the bits rounds on the dense planes)
+// selects the watched arm or the gather rounds; the dense planes are not
+// read under an arm and may be null.
 extern "C" int deppy_bcp_fixpoint(const void* pos, const void* neg,
                                   const void* mem, const void* act,
                                   const void* card_n, const void* min_bits,
@@ -118,9 +127,12 @@ extern "C" int deppy_bcp_fixpoint(const void* pos, const void* neg,
                                   const void* f0, const void* en,
                                   void* conflict, void* t_out, void* f_out,
                                   int B, int C, int NA, int W, int threads,
-                                  void* stream) {
+                                  const void* arm, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = work_words(W, NA) * sizeof(uint32_t);
+  if (!launch_ok(C, 0, threads)) return (int)cudaErrorInvalidValue;
+  const ArmArgs A = arm_args(arm);
+  const size_t smem =
+      arm_smem_bytes(work_words(W, NA) * sizeof(uint32_t), W, NA, A);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         bcp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -133,7 +145,8 @@ extern "C" int deppy_bcp_fixpoint(const void* pos, const void* neg,
       static_cast<const uint32_t*>(min_bits), static_cast<const int*>(min_w),
       static_cast<const uint32_t*>(t0), static_cast<const uint32_t*>(f0),
       static_cast<const int*>(en), static_cast<int*>(conflict),
-      static_cast<uint32_t*>(t_out), static_cast<uint32_t*>(f_out), C, NA, W);
+      static_cast<uint32_t*>(t_out), static_cast<uint32_t*>(f_out), C, NA, W,
+      A);
   return (int)cudaGetLastError();
 }
 

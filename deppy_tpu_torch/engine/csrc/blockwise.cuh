@@ -41,7 +41,7 @@
 
 #include <climits>
 
-#include "fixpoint.cuh"
+#include "watched.cuh"
 
 namespace deppy {
 
@@ -52,13 +52,6 @@ constexpr int kMaxThreads = 1024;
 inline bool launch_ok(int C, int tile_rows, int threads) {
   return tile_rows <= C && threads > 0 && threads % 32 == 0 &&
          threads <= kMaxThreads;
-}
-
-// Shared words ahead of the compact-row region: the Work and five extra
-// planes of the phase kernels, 16-byte aligned
-// (cuda_blockwise.tile_offset_words).
-__host__ __device__ inline size_t tile_offset_words(int W, int NA) {
-  return (work_words(W, NA) + 5 * (size_t)W + 3) & ~(size_t)3;
 }
 
 // Bytes of ``rows`` lists of ``width`` entries, 16-byte aligned.
@@ -378,11 +371,19 @@ static __device__ __noinline__ bool blockwise_sweeps(
   return conflict || pre;
 }
 
-// The fixpoint the planes select: blockwise sweeps when a tile is set,
-// else the bits rounds.
+// The fixpoint the planes select: the watched arm or the gather rounds
+// (set_arm), blockwise sweeps when a tile is set, else the bits rounds.
 static __device__ bool fixpoint(const Planes& P, const Work& S,
                                 const uint32_t* min_bits, int min_w, bool run,
                                 bool pre_check) {
+  if (P.arm == kArmWatched)
+    return P.lit_bytes == 2
+               ? watched_fixpoint<int16_t>(P, S, min_bits, min_w, run,
+                                           pre_check)
+               : watched_fixpoint<int32_t>(P, S, min_bits, min_w, run,
+                                           pre_check);
+  if (P.arm == kArmGather)
+    return gather_fixpoint(P, S, min_bits, min_w, run, pre_check);
   if (P.tile_rows > 0)
     return P.lit_bytes == 2
                ? blockwise_sweeps<int16_t>(P, S, min_bits, min_w, run,

@@ -21,9 +21,10 @@
 //   warp's slice and reaches core_out once, at the end; the chunk control
 //   is held uniformly by every lane.  No block barrier.
 // * core_kernel, one thread block per problem (fixpoint.cuh, dpll.cuh):
-//   every blockwise launch, and any shape the warp team refuses.  Plane
-//   copies and the probe's entry planes are block-wide passes; thread 0
-//   keeps the chunk control.
+//   every blockwise, watched and gather launch (the full-space bank under
+//   watched), and any shape the warp team refuses.  Plane copies and the
+//   probe's entry planes are block-wide passes; thread 0 keeps the chunk
+//   control.
 //
 // Bound on the H100: ceil(n_cons / G) chunk probes plus G member probes per
 // SAT chunk, each a full DPLL over the full-space planes; latency per
@@ -49,7 +50,7 @@ __global__ void __launch_bounds__(kMaxThreads) core_kernel(
     const int* __restrict__ ncons_in, const int* __restrict__ nvars_in,
     const int* __restrict__ steps_in, int budget, uint32_t* scratch,
     size_t scratch_words, int* core_out, int* steps_out, int C, int NA, int W,
-    int NV, int NCON, int G) {
+    int NV, int NCON, int G, ArmArgs A) {
   extern __shared__ uint32_t smem[];
   __shared__ CoreCtl ctl;
   __shared__ DpllCtl dctl;
@@ -62,7 +63,7 @@ __global__ void __launch_bounds__(kMaxThreads) core_kernel(
   uint32_t* pm_t = init_t + W;
   uint32_t* pm_f = pm_t + W;
 
-  Planes P;
+  Planes P{};
   P.pos = pos + (size_t)b * C * W;
   P.neg = neg + (size_t)b * C * W;
   P.mem = mem + (size_t)b * NA * W;
@@ -72,6 +73,7 @@ __global__ void __launch_bounds__(kMaxThreads) core_kernel(
   P.W = W;
   set_activity(P, nullptr, card_act, b);
   set_compact(P, L, smem, b);
+  set_arm(P, A, smem, b);
   stage_compact(P);
   const uint32_t* pvb = pvb_all + (size_t)b * W;
   const uint32_t* bt = base_t + (size_t)b * W;
@@ -250,7 +252,8 @@ extern "C" size_t deppy_core_scratch_words(int NV, int W) {
   return dpll_scratch_words(NV, W);
 }
 
-// ``card_act``, the compact rows and ``tile_rows`` as for deppy_search.
+// ``card_act``, the compact rows, ``tile_rows`` and ``arm`` as for
+// deppy_search.
 extern "C" int deppy_core(
     const void* pos, const void* neg, const void* mem, const void* card_n,
     const void* card_act, const void* lits, const void* mlits,
@@ -258,12 +261,14 @@ extern "C" int deppy_core(
     const void* n_cons, const void* n_vars, const void* steps, int budget,
     void* scratch, void* core, void* steps_out, int B, int C, int NA, int W,
     int NV, int NCON, int G, int K, int M, int lit_bytes, int tile_rows,
-    int resident, int threads, void* stream) {
+    int resident, int threads, const void* arm, void* stream) {
   if (B == 0) return 0;
   if (!launch_ok(C, tile_rows, threads)) return (int)cudaErrorInvalidValue;
   const Planes L = compact_dims(C, NA, W, lits, mlits, K, M, lit_bytes,
                                 tile_rows, resident);
-  const size_t smem = kernel_smem_bytes(work_words(W, NA) + 5 * (size_t)W, L);
+  const ArmArgs A = arm_args(arm);
+  const size_t smem = arm_smem_bytes(
+      kernel_smem_bytes(work_words(W, NA) + 5 * (size_t)W, L), W, NA, A);
   cudaError_t e = cudaFuncSetAttribute(
       core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -276,7 +281,7 @@ extern "C" int deppy_core(
       static_cast<const int*>(n_cons), static_cast<const int*>(n_vars),
       static_cast<const int*>(steps), budget, static_cast<uint32_t*>(scratch),
       dpll_scratch_words(NV, W), static_cast<int*>(core),
-      static_cast<int*>(steps_out), C, NA, W, NV, NCON, G);
+      static_cast<int*>(steps_out), C, NA, W, NV, NCON, G, A);
   return (int)cudaGetLastError();
 }
 

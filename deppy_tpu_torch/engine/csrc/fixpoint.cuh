@@ -17,6 +17,10 @@
 // Words are handled as uint32_t, so every shift is logical and variable 31
 // of a word is just bit 31 (the reference keeps int32 words and logical
 // shifts for the same reason).
+//
+// The other fixpoints of a block (the blockwise sweeps, blockwise.cuh; the
+// watched arm and the gather rounds, watched.cuh) share the Work and the
+// Planes; blockwise.cuh ``fixpoint`` dispatches among them.
 #pragma once
 
 #include <cstddef>
@@ -30,6 +34,11 @@ constexpr int kFalse = -1;
 constexpr int kSat = 1;
 constexpr int kUnsat = -1;
 constexpr int kRunning = 0;
+
+// The fixpoint a Planes selects besides the bits rounds and the blockwise
+// sweeps (tile_rows > 0): the watched arm and the gather rounds
+// (watched.cuh).
+enum { kArmRounds = 0, kArmWatched = 1, kArmGather = 2 };
 
 // One problem's rows in one plane space.
 struct Planes {
@@ -55,7 +64,43 @@ struct Planes {
   const void* mlits;
   int K, M, lit_bytes, resident;
   unsigned char* region;
+  // The watched and gather arms (``arm``, set by set_arm): the raw rows
+  // ``clauses`` [C][Kr] (signed 1-based, 0 padded) and ``card_ids``
+  // [NA][Mr] (0-based, -1 padded); the watched arm's bank, ``occ_pos`` /
+  // ``occ_neg`` [Vb][Ob] (the clause rows holding +v / -v, -1 padded) and
+  // ``card_occ`` [NVb][Oc] (the AtMost rows of member v), its entry round
+  // on the compact rows ``lits`` / ``mlits`` read from device memory
+  // (tile_rows 0), and ``red``: its visits drop literals past n_vars.
+  int arm;
+  const int* clauses;
+  const int* card_ids;
+  const int* occ_pos;
+  const int* occ_neg;
+  const int* card_occ;
+  int Kr, Mr, Vb, Ob, NVb, Oc, n_vars, red;
 };
+
+// The launch-wide arguments of the watched and gather arms
+// (cuda_bcp.ArmArgs, whose fields mirror these), lane 0's pointers.  A
+// launch function given none passes an ArmArgs of zeros: kArmRounds.
+struct ArmArgs {
+  const int* clauses;   // [B][C][Kr]
+  const int* card_ids;  // [B][NA][Mr]
+  const int* n_vars;    // [B]
+  const int* occ_pos;   // [B][Vb][Ob]
+  const int* occ_neg;   // [B][Vb][Ob]
+  const int* card_occ;  // [B][NVb][Oc]
+  const void* lits;     // [B][C][K] compact rows of the entry round
+  const void* mlits;    // [B][NA][M] compact AtMost members
+  int arm, red, Kr, Mr, Vb, Ob, NVb, Oc, K, M, lit_bytes;
+};
+
+// The host copy of a launch's ArmArgs: ``*arm``, or zeros for none.
+inline ArmArgs arm_args(const void* arm) {
+  ArmArgs A{};
+  if (arm != nullptr) A = *static_cast<const ArmArgs*>(arm);
+  return A;
+}
 
 // Row activity from the kernel arguments: one of the two pointers is
 // null (the reduced space passes card_valid, the full one card_act).
@@ -103,6 +148,15 @@ __host__ __device__ inline size_t work_words(int W, int NA) {
   return 4 * (size_t)W + (size_t)NA + kFlagWords;
 }
 
+// Shared words ahead of a kernel's region past its own words: the Work
+// and five extra planes of the phase kernels, 16-byte aligned
+// (cuda_blockwise.tile_offset_words).  The blockwise fixpoint keeps its
+// compact rows there (blockwise.cuh), the watched arm its pending planes
+// and counters (watched.cuh).
+__host__ __device__ inline size_t tile_offset_words(int W, int NA) {
+  return (work_words(W, NA) + 5 * (size_t)W + 3) & ~(size_t)3;
+}
+
 __device__ inline Work carve_work(uint32_t* base, int W, int NA) {
   Work S;
   S.t = base;
@@ -112,6 +166,38 @@ __device__ inline Work carve_work(uint32_t* base, int W, int NA) {
   S.act = reinterpret_cast<int*>(base + 4 * W);
   S.flags = reinterpret_cast<int*>(base + 4 * W + NA);
   return S;
+}
+
+// Point P (C, NA and W set) at lane b's rows of the watched or gather arm
+// and, for the watched arm, at the shared region past the kernel's own
+// words; the other impls leave ``arm`` kArmRounds.
+__device__ inline void set_arm(Planes& P, const ArmArgs& A, uint32_t* smem,
+                               int b) {
+  P.arm = A.arm;
+  if (A.arm == kArmRounds) return;
+  P.clauses = A.clauses + (size_t)b * P.C * A.Kr;
+  P.card_ids = A.card_ids + (size_t)b * P.NA * A.Mr;
+  P.Kr = A.Kr;
+  P.Mr = A.Mr;
+  P.n_vars = A.n_vars[b];
+  P.red = A.red;
+  if (A.arm != kArmWatched) return;
+  P.occ_pos = A.occ_pos + (size_t)b * A.Vb * A.Ob;
+  P.occ_neg = A.occ_neg + (size_t)b * A.Vb * A.Ob;
+  P.card_occ = A.card_occ + (size_t)b * A.NVb * A.Oc;
+  P.Vb = A.Vb;
+  P.Ob = A.Ob;
+  P.NVb = A.NVb;
+  P.Oc = A.Oc;
+  P.K = A.K;
+  P.M = A.M;
+  P.lit_bytes = A.lit_bytes;
+  P.lits = static_cast<const unsigned char*>(A.lits) +
+           (size_t)b * P.C * A.K * A.lit_bytes;
+  P.mlits = static_cast<const unsigned char*>(A.mlits) +
+            (size_t)b * P.NA * A.M * A.lit_bytes;
+  P.region = reinterpret_cast<unsigned char*>(
+      smem + tile_offset_words(P.W, P.NA));
 }
 
 __device__ inline int clampi(int x, int lo, int hi) {

@@ -19,8 +19,10 @@
 //   best_w, found and steps are held uniformly by every lane.
 // * minimize_kernel, one thread block per problem (dpll.cuh): every
 //   blockwise launch (full space, every fixpoint a blockwise sweep over
-//   compact rows, Planes::tile_rows), and any shape the warp team refuses.
-//   Its plane copies are block-wide passes (fixpoint.cuh block_copy).
+//   compact rows, Planes::tile_rows), every watched and gather launch
+//   (their arms, watched.cuh, Planes::arm), and any shape the warp team
+//   refuses.  Its plane copies are block-wide passes (fixpoint.cuh
+//   block_copy).
 //
 // Bound on the H100: log2(n_extras) + 1 DPLL probes per problem, each a
 // chain of dependent fixpoint rounds; latency per problem.
@@ -46,7 +48,7 @@ __global__ void __launch_bounds__(kMaxThreads) minimize_kernel(
     const int* __restrict__ en_in, const int* __restrict__ n_extras_in,
     const int* __restrict__ steps_in, int budget, uint32_t* scratch,
     size_t scratch_words, int* found_out, int* steps_out, uint32_t* m2t_out,
-    int C, int NA, int W, int NV) {
+    int C, int NA, int W, int NV, ArmArgs A) {
   extern __shared__ uint32_t smem[];
   __shared__ MinCtl ctl;
   __shared__ DpllCtl dctl;
@@ -57,7 +59,7 @@ __global__ void __launch_bounds__(kMaxThreads) minimize_kernel(
   uint32_t* pm_t = m2_t + W;
   uint32_t* pm_f = pm_t + W;
 
-  Planes P;
+  Planes P{};
   P.pos = pos + (size_t)b * C * W;
   P.neg = neg + (size_t)b * C * W;
   P.mem = mem + (size_t)b * NA * W;
@@ -67,6 +69,7 @@ __global__ void __launch_bounds__(kMaxThreads) minimize_kernel(
   P.W = W;
   set_activity(P, card_valid, card_act, b);
   set_compact(P, L, smem, b);
+  set_arm(P, A, smem, b);
   stage_compact(P);
   const uint32_t* it = m_init_t + (size_t)b * W;
   const uint32_t* iff = m_init_f + (size_t)b * W;
@@ -217,8 +220,8 @@ extern "C" size_t deppy_minimize_scratch_words(int NV, int W) {
   return dpll_scratch_words(NV, W);
 }
 
-// ``card_valid`` / ``card_act``, the compact rows and ``tile_rows`` as
-// for deppy_search.
+// ``card_valid`` / ``card_act``, the compact rows, ``tile_rows`` and
+// ``arm`` as for deppy_search.
 extern "C" int deppy_minimize(
     const void* pos, const void* neg, const void* mem, const void* card_n,
     const void* card_valid, const void* card_act, const void* lits,
@@ -227,12 +230,14 @@ extern "C" int deppy_minimize(
     const void* n_extras, const void* steps, int budget, void* scratch,
     void* found, void* steps_out, void* m2_t, int B, int C, int NA, int W,
     int NV, int K, int M, int lit_bytes, int tile_rows, int resident,
-    int threads, void* stream) {
+    int threads, const void* arm, void* stream) {
   if (B == 0) return 0;
   if (!launch_ok(C, tile_rows, threads)) return (int)cudaErrorInvalidValue;
   const Planes L = compact_dims(C, NA, W, lits, mlits, K, M, lit_bytes,
                                 tile_rows, resident);
-  const size_t smem = kernel_smem_bytes(work_words(W, NA) + 3 * (size_t)W, L);
+  const ArmArgs A = arm_args(arm);
+  const size_t smem = arm_smem_bytes(
+      kernel_smem_bytes(work_words(W, NA) + 3 * (size_t)W, L), W, NA, A);
   cudaError_t e = cudaFuncSetAttribute(
       minimize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -248,7 +253,7 @@ extern "C" int deppy_minimize(
       static_cast<const int*>(n_extras), static_cast<const int*>(steps),
       budget, static_cast<uint32_t*>(scratch), dpll_scratch_words(NV, W),
       static_cast<int*>(found), static_cast<int*>(steps_out),
-      static_cast<uint32_t*>(m2_t), C, NA, W, NV);
+      static_cast<uint32_t*>(m2_t), C, NA, W, NV, A);
   return (int)cudaGetLastError();
 }
 

@@ -4,10 +4,12 @@
 // batched_search_fused :916, pallas_call :860).  The baseline fixpoint the
 // Pallas kernel runs first is a launch of its own in this port (kernel 1,
 // bcp.cu, under the bits impl; kernel 2, blockwise.cu, under blockwise);
-// this kernel starts from its planes and outcome.  Under bits it runs in
-// the reduced plane space; under blockwise in the full space (activation
-// variables set true, AtMost activity from card_act), every fixpoint a
-// blockwise sweep over compact rows (Planes::tile_rows).  It then runs
+// this kernel starts from its planes and outcome.  Under bits and watched
+// it runs in the reduced plane space; under blockwise, pallas and gather
+// in the full space (activation variables set true, AtMost activity from
+// card_act), every fixpoint a blockwise sweep over compact rows
+// (Planes::tile_rows), the dense rounds, or the watched arm or gather
+// rounds of watched.cuh (Planes::arm).  It then runs
 // the guess search of core.search (core.py:1143-1391, T = 0): a circular
 // choice deque of (choice row, candidate index) pairs, a guess stack, one
 // plane snapshot and Test outcome per guess level, and a block-wide DPLL
@@ -95,7 +97,7 @@ __global__ void __launch_bounds__(kMaxThreads) search_kernel(
     const int* __restrict__ na_in, int budget, uint32_t* scratch,
     size_t scratch_words, int* result_out, int* steps_out, int* trn_out,
     uint32_t* assumed_out, uint32_t* mt_out, uint32_t* mf_out, int C, int NA,
-    int W, int NC, int Kc, int NV, int Wch) {
+    int W, int NC, int Kc, int NV, int Wch, ArmArgs A) {
   extern __shared__ uint32_t smem[];
   __shared__ SearchCtl ctl;
   __shared__ DpllCtl dctl;
@@ -110,7 +112,7 @@ __global__ void __launch_bounds__(kMaxThreads) search_kernel(
   uint32_t* leaf_t = m_f + W;
   uint32_t* leaf_f = leaf_t + W;
 
-  Planes P;
+  Planes P{};
   P.pos = pos + (size_t)b * C * W;
   P.neg = neg + (size_t)b * C * W;
   P.mem = mem + (size_t)b * NA * W;
@@ -120,6 +122,7 @@ __global__ void __launch_bounds__(kMaxThreads) search_kernel(
   P.W = W;
   set_activity(P, card_valid, card_act, b);
   set_compact(P, L, smem, b);
+  set_arm(P, A, smem, b);
   stage_compact(P);
   const int* cand_tab = choice_cand + (size_t)b * NC * Kc;
   const int* vch_tab = var_choices + (size_t)b * NV * Wch;
@@ -338,7 +341,9 @@ extern "C" size_t deppy_search_scratch_words(int NC, int NV, int W) {
 // ``tile_rows`` 0 runs the bits fixpoint on the dense planes; a positive
 // count runs the blockwise one on the compact rows ``lits`` [B][C][K] and
 // ``mlits`` [B][NA][M] of ``lit_bytes`` bytes each (cuda_blockwise), which
-// ``resident`` keeps in shared memory for the whole launch.
+// ``resident`` keeps in shared memory for the whole launch.  ``arm`` (an
+// ArmArgs, or null) selects the watched arm or the gather rounds instead,
+// at tile_rows 0; the dense planes are not read then and may be null.
 extern "C" int deppy_search(
     const void* pos, const void* neg, const void* mem, const void* card_n,
     const void* card_valid, const void* card_act, const void* lits,
@@ -348,12 +353,14 @@ extern "C" int deppy_search(
     void* result, void* steps, void* tr_n, void* assumed, void* m_t,
     void* m_f, int B, int C, int NA, int W, int NC, int Kc, int NV, int Wch,
     int K, int M, int lit_bytes, int tile_rows, int resident, int threads,
-    void* stream) {
+    const void* arm, void* stream) {
   if (B == 0) return 0;
   if (!launch_ok(C, tile_rows, threads)) return (int)cudaErrorInvalidValue;
   const Planes L = compact_dims(C, NA, W, lits, mlits, K, M, lit_bytes,
                                 tile_rows, resident);
-  const size_t smem = kernel_smem_bytes(work_words(W, NA) + 5 * (size_t)W, L);
+  const ArmArgs A = arm_args(arm);
+  const size_t smem = arm_smem_bytes(
+      kernel_smem_bytes(work_words(W, NA) + 5 * (size_t)W, L), W, NA, A);
   cudaError_t e = cudaFuncSetAttribute(
       search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -369,6 +376,6 @@ extern "C" int deppy_search(
       search_scratch_words(NC, NV, W), static_cast<int*>(result),
       static_cast<int*>(steps), static_cast<int*>(tr_n),
       static_cast<uint32_t*>(assumed), static_cast<uint32_t*>(m_t),
-      static_cast<uint32_t*>(m_f), C, NA, W, NC, Kc, NV, Wch);
+      static_cast<uint32_t*>(m_f), C, NA, W, NC, Kc, NV, Wch, A);
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _build, core
+from . import _build, core, counts
 from .cuda_bcp import _check_args
 from .teams import SMEM_BYTES
 
@@ -53,10 +53,6 @@ STATIC_WORDS = 128
 # and come within 15% of 1024 (faster on the 64-catalog batch, slower on
 # the giant).
 THREADS = 512
-
-# Kernel launches since the count was last reset (one per launch).
-launches = 0
-
 
 class Compact(NamedTuple):
     """Compact rows of a batch: ``lits`` [B, C, K] signed 1-based literals
@@ -109,7 +105,7 @@ def _work_words(W: int, NA: int) -> int:
 
 
 def tile_offset_words(W: int, NA: int) -> int:
-    """Shared words ahead of the compact rows (``csrc/blockwise.cuh``):
+    """Shared words ahead of the compact rows (``csrc/fixpoint.cuh``):
     the fixpoint's working words and five extra planes, 16-byte aligned."""
     return (_work_words(W, NA) + 5 * W + 3) & ~3
 
@@ -170,14 +166,19 @@ def _cut(x: torch.Tensor, width: int, dtype) -> torch.Tensor:
     return x[..., :width].to(dtype).contiguous()
 
 
-def compact_rows(clauses: torch.Tensor, card_ids: torch.Tensor,
-                 W: int) -> Compact:
+def compact_rows(clauses: torch.Tensor, card_ids: torch.Tensor, W: int,
+                 n_vars: Optional[torch.Tensor] = None) -> Compact:
     """The kernel's compact rows, on the tensors' device: ``clauses``
     [B, C, K] (signed 1-based, 0 padded) and ``card_ids`` [B, NA, M]
     (0-based, -1 padded) over planes of ``W`` words.  Each row keeps its
     distinct entries, 0 after, cut to the batch's longest row (one host
-    sync)."""
+    sync).  ``n_vars`` [B] drops the literals past each lane's problem
+    variables: the reduced space's rows (the watched arm's entry round),
+    as ``core.derive_planes`` drops them from the reduced planes."""
     lb = lit_bytes(W)
+    if n_vars is not None:
+        keep = clauses.abs() <= n_vars.view(-1, 1, 1)
+        clauses = torch.where(keep, clauses, 0)
     lits, k = _lists(clauses)
     mlits, m = _lists(torch.where(card_ids >= 0, card_ids + 1, 0))
     k, m = torch.stack([k, m]).tolist()
@@ -187,12 +188,13 @@ def compact_rows(clauses: torch.Tensor, card_ids: torch.Tensor,
 
 
 def rows_for(clauses: torch.Tensor, card_ids: torch.Tensor, W: int,
-             rows: Optional[Compact] = None) -> Compact:
+             rows: Optional[Compact] = None,
+             n_vars: Optional[torch.Tensor] = None) -> Compact:
     """The compact rows a launch on ``clauses``/``card_ids`` reads:
     ``rows`` when the caller built them, checked against the batch, else
-    built here."""
+    built here (``n_vars`` as for :func:`compact_rows`)."""
     if rows is None:
-        return compact_rows(clauses, card_ids, W)
+        return compact_rows(clauses, card_ids, W, n_vars)
     B, C = clauses.shape[:2]
     NA = card_ids.shape[1]
     if (tuple(rows.lits.shape[:2]) != (B, C)
@@ -231,7 +233,6 @@ def bcp_fixpoint(clauses, card_ids, card_active, card_n, min_bits, min_w,
     [B, NA], min_bits/t0/f0 [B, W], min_w/en [B]; ``rows`` their compact
     rows when the caller has them (:func:`rows_for`).  Returns (conflict
     int32[B], t, f int32[B, W])."""
-    global launches
     B, C, K = clauses.shape
     NA, M = card_ids.shape[1:]
     W = t0.shape[1]
@@ -261,7 +262,7 @@ def bcp_fixpoint(clauses, card_ids, card_active, card_n, min_bits, min_w,
         min_bits.data_ptr(), min_w.data_ptr(), t0.data_ptr(), f0.data_ptr(),
         en.data_ptr(), conflict.data_ptr(), t.data_ptr(), f.data_ptr(), B, C,
         NA, W, *la[2:], THREADS, stream)
-    launches += 1
+    counts.count("blockwise_fixpoint", "blockwise", "block", None)
     _build.check(rc, "blockwise_fixpoint")
     return conflict, t, f
 

@@ -25,42 +25,47 @@ stay here too (:data:`WARPS`, :func:`team`, :func:`problem_budget`,
 :func:`warp_smem_bytes`, ``_plan``), and setting ``WARPS`` here sets
 ``teams.WARPS``.
 
-``impl`` picks the BCP impl (``core.set_bcp_impl``).  Under ``bits``
-phases 1-2 read the reduced planes (``*_bits_r``) and every fixpoint is
-the bits rounds.  Under ``blockwise`` phases 1-2 run in the full space
-(``V = NV + NCON``, so they take the batch's ``NCON``) and every
-fixpoint of every phase sweeps tiles of ``block_rows`` clause rows
-(default ``cuda_blockwise.BLOCK_ROWS``; ``cuda_blockwise.tile_rows``
-caps it to what shared memory holds, for the kernel and the plain
-version alike).  There the kernels read the compact rows
-(``cuda_blockwise.Compact``: given as ``rows``, else built from
-``pts.clauses`` and ``pts.card_ids`` once per call) and no dense plane;
-the plain versions, and the core kernel under ``bits``, read the dense
-full-space planes ``pos_bits``/``neg_bits``/``card_member_bits``.
+``impl`` picks the BCP impl (``core.set_bcp_impl``), and with it the
+space of phases 1-2 and the fixpoint of every phase:
+
+* ``bits``: the reduced planes (``*_bits_r``), the dense rounds;
+* ``watched``: the reduced space, every fixpoint the watched arm on the
+  batch's clause bank (``occ_pos_r``/``occ_neg_r``/``card_occ``; phase 3
+  the full-space ``occ_pos``/``occ_neg``), its entry round on compact rows
+  (``rows``, else built here: in the reduced space without the literals
+  past ``n_vars``); on dummy banks the dense rounds, as in the reference;
+* ``blockwise``: the full space (``V = NV + NCON``, so they take the
+  batch's ``NCON``), every fixpoint a sweep over tiles of ``block_rows``
+  clause rows (default ``cuda_blockwise.BLOCK_ROWS``;
+  ``cuda_blockwise.tile_rows`` caps it to what shared memory holds, for
+  the kernel and the plain version alike) of the compact rows (``rows``,
+  else built from ``pts.clauses`` and ``pts.card_ids`` once per call);
+* ``pallas``: the full space, the dense rounds (kernel 1's fixpoint);
+* ``gather``: the full space, Jacobi rounds over the raw rows.
+
+On the card the watched, blockwise and gather kernels read no dense
+plane; the plain versions read the dense planes of their space (gather
+none), and so do the bits and pallas kernels.  :func:`launch_arm` gives
+the :class:`cuda_bcp.Arm` a launch runs.  Every launch counts under its
+impl and team (:mod:`.counts`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import sys
 import types
 from typing import Optional
 
 import torch
 
-from . import _build, core, cuda_bcp, cuda_blockwise, teams
+from . import _build, clause_bank, core, counts, cuda_bcp, cuda_blockwise
+from . import teams
 from .cuda_bcp import _check_args
 from .teams import plan as _plan
 from .teams import problem_budget, team, warp_smem_bytes  # noqa: F401
 
 THREADS = 128
-
-# Kernel launches since the counts were last reset (one per launch), and
-# those of phases 2 and 3 that went to the warp team.
-search_launches = 0
-minimize_launches = 0
-core_launches = 0
-minimize_warp_launches = 0
-core_warp_launches = 0
 
 _I32 = torch.int32
 
@@ -81,17 +86,19 @@ def _stream(dev):
 
 
 def _reduced(impl: str) -> bool:
-    """Whether phases 1-2 of ``impl`` read the reduced planes."""
-    if impl not in ("bits", "blockwise"):
-        raise ValueError(f"the phase kernels run impl 'bits' or "
-                         f"'blockwise', not {impl!r}")
-    return impl == "bits"
+    """Whether phases 1-2 of ``impl`` run in the reduced plane space."""
+    if impl in ("bits", "watched"):
+        return True
+    if impl in ("blockwise", "pallas", "gather"):
+        return False
+    raise ValueError(f"the phase kernels run impl 'bits', 'watched', "
+                     f"'blockwise', 'pallas' or 'gather', not {impl!r}")
 
 
 def _tile(impl: str, block_rows: Optional[int], pts: core.ProblemTensors,
           W: int) -> int:
-    """Rows per blockwise tile, or 0 for the bits fixpoint."""
-    if impl == "bits":
+    """Rows per blockwise tile, or 0 for the other fixpoints."""
+    if impl != "blockwise":
         return 0
     C, K = pts.clauses.shape[1:]
     NA, M = pts.card_ids.shape[1:]
@@ -99,8 +106,10 @@ def _tile(impl: str, block_rows: Optional[int], pts: core.ProblemTensors,
                                     C, K, M, W, NA)
 
 
-def _threads(impl: str) -> int:
-    return THREADS if impl == "bits" else cuda_blockwise.THREADS
+def _threads(impl: str, arm: Optional[cuda_bcp.Arm]) -> int:
+    if arm is not None:
+        return cuda_bcp.ARM_THREADS
+    return cuda_blockwise.THREADS if impl == "blockwise" else THREADS
 
 
 def _full_words(pts: core.ProblemTensors, NCON: Optional[int]) -> int:
@@ -111,63 +120,116 @@ def _full_words(pts: core.ProblemTensors, NCON: Optional[int]) -> int:
 
 
 def _phase_planes(pts: core.ProblemTensors, red: bool, NCON: Optional[int]):
-    """(pos, neg, mem, V, W) of phases 1-2 in their plane space; the full
-    space's dense planes may be ``[B, rows, 1]`` placeholders where only
-    the blockwise kernels read the rows."""
+    """(pos, neg, mem, V, W) of phases 1-2 in their plane space; the dense
+    planes may be ``[B, rows, 1]`` placeholders where the kernels read
+    none (:func:`_dense`)."""
     NV = pts.var_choices.shape[1]
     if red:
         return (pts.pos_bits_r, pts.neg_bits_r, pts.card_member_bits_r, NV,
-                pts.pos_bits_r.shape[2])
+                -(-NV // core.WORD))
     W = _full_words(pts, NCON)
     return pts.pos_bits, pts.neg_bits, pts.card_member_bits, NV + NCON, W
 
 
+def launch_arm(pts: core.ProblemTensors, impl: str, red: bool, W: int,
+               rows: Optional[cuda_blockwise.Compact] = None
+               ) -> Optional[cuda_bcp.Arm]:
+    """The arm a launch of ``impl`` runs on the batch ``pts`` in its space
+    (``red``, ``W`` words): the gather rounds; the watched arm when the
+    space's bank is real, its entry round on ``rows`` (on the card: built
+    here when not given, checked against the batch when given); or None
+    (the dense rounds, also those of a watched launch on dummy banks, or
+    the blockwise sweeps)."""
+    if impl == "gather":
+        return cuda_bcp.Arm("gather", pts.clauses, pts.card_ids, pts.n_vars)
+    if impl != "watched":
+        return None
+    occ_p, occ_n = ((pts.occ_pos_r, pts.occ_neg_r) if red
+                    else (pts.occ_pos, pts.occ_neg))
+    if not clause_bank.bank_ready(occ_p):
+        return None
+    if pts.n_vars.device.type == "cuda":
+        rows = cuda_blockwise.rows_for(pts.clauses, pts.card_ids, W, rows,
+                                       n_vars=pts.n_vars if red else None)
+    return cuda_bcp.Arm("watched", pts.clauses, pts.card_ids, pts.n_vars,
+                        occ_p, occ_n, pts.card_occ, rows, red)
+
+
 def _phase_shapes(pts: core.ProblemTensors, red: bool, W: int,
                   dense: bool) -> dict:
-    """The row fields a phase reads, with their shapes: the reduced
-    planes under ``red``; else the compact tensors, and the full-space
-    dense planes when ``dense`` (a plain version, or the bits fixpoint of
-    the core kernel)."""
+    """The row fields a phase reads, with their shapes: the compact
+    tensors and the AtMost activity sources, and the dense planes of the
+    space when ``dense``."""
     B = pts.n_vars.shape[0]
     C, K = pts.clauses.shape[1:]
     NA, M = pts.card_ids.shape[1:]
-    if red:
-        return dict(pos_bits_r=(B, C, W), neg_bits_r=(B, C, W),
-                    card_member_bits_r=(B, NA, W), card_valid=(B, NA))
-    shapes = dict(clauses=(B, C, K), card_ids=(B, NA, M), card_act=(B, NA))
-    if dense:
+    shapes = dict(clauses=(B, C, K), card_ids=(B, NA, M), card_act=(B, NA),
+                  card_valid=(B, NA))
+    if dense and red:
+        shapes.update(pos_bits_r=(B, C, W), neg_bits_r=(B, C, W),
+                      card_member_bits_r=(B, NA, W))
+    elif dense:
         shapes.update(pos_bits=(B, C, W), neg_bits=(B, C, W),
                       card_member_bits=(B, NA, W), card_act_bits=(B, NA, W))
     return shapes
 
 
-def _dense(pts: core.ProblemTensors, tile: int) -> bool:
-    """Whether a call reads the dense planes: on the CPU (the plain
-    versions) or with the bits fixpoint (``tile`` 0)."""
-    return pts.n_vars.device.type == "cpu" or not tile
+def reads_planes(impl: str, device_type: str, real_bank: bool) -> bool:
+    """Whether a call under ``impl`` reads the dense planes of its space:
+    the plain versions (on the CPU) of every impl but gather, and on the
+    card the dense rounds (bits, pallas, and watched on dummy banks)."""
+    if impl == "gather":
+        return False
+    return device_type == "cpu" or impl in ("bits", "pallas") or (
+        impl == "watched" and not real_bank)
+
+
+def _dense(pts: core.ProblemTensors, impl: str,
+           arm: Optional[cuda_bcp.Arm]) -> bool:
+    return reads_planes(impl, pts.n_vars.device.type, arm is not None)
+
+
+def _check_phase(pts: core.ProblemTensors, shapes: dict,
+                 arm: Optional[cuda_bcp.Arm], C: int, NA: int,
+                 W: int) -> torch.device:
+    """Check the named fields of ``pts`` (see :func:`_check_args`), and
+    the arm's tensors (the bank's shapes among them)."""
+    dev = _check_pts(pts, shapes)
+    if arm is not None and arm.check(pts.n_vars.shape[0], C, NA, W) != dev:
+        raise ValueError("the arm's tensors must lie on the batch's device")
+    return dev
 
 
 def _row_args(pts: core.ProblemTensors, planes, red: bool, W: int,
-              tile: int, rows: Optional[cuda_blockwise.Compact]):
+              tile: int, rows: Optional[cuda_blockwise.Compact],
+              arm: Optional[cuda_bcp.Arm]):
     """The row arguments of a phase-kernel launch: (pos, neg, mem,
     card_valid, card_act, lits, mlits) pointers, then (K, M, lit_bytes,
-    tile_rows, resident).  The bits fixpoint reads the dense ``planes``;
-    the blockwise one reads the compact ``rows`` and no plane (null
+    tile_rows, resident), then the :class:`cuda_bcp.ArmArgs` (or None).
+    The dense rounds read the dense ``planes``; the blockwise sweeps the
+    compact ``rows``; the arms their own tensors (no plane: null
     pointers).  The reduced space's AtMost activity is card_valid, the
     full space's card_act."""
     valid = pts.card_valid.data_ptr() if red else None
     act = None if red else pts.card_act.data_ptr()
+    if arm is not None:
+        return ([None, None, None, valid, act, None, None], [1, 1, 4, 0, 0],
+                arm.args())
     if not tile:
         pos, neg, mem = planes
         return ([pos.data_ptr(), neg.data_ptr(), mem.data_ptr(), valid, act,
-                 None, None], [1, 1, 4, 0, 0])
+                 None, None], [1, 1, 4, 0, 0], None)
     la = cuda_blockwise.launch_args(rows, W, tile)
-    return [None, None, None, valid, act, *la[:2]], list(la[2:])
+    return [None, None, None, valid, act, *la[:2]], list(la[2:]), None
+
+
+def _arm_ptr(a: Optional[cuda_bcp.ArmArgs]) -> Optional[int]:
+    return None if a is None else ctypes.addressof(a)
 
 
 def _launch_rows(pts: core.ProblemTensors, W: int, tile: int,
                  rows: Optional[cuda_blockwise.Compact]):
-    """The compact rows of a blockwise launch (None for the bits one)."""
+    """The compact rows of a blockwise launch (None for the others)."""
     if not tile:
         return None
     return cuda_blockwise.rows_for(pts.clauses, pts.card_ids, W, rows)
@@ -187,11 +249,13 @@ def full_activity(pts: core.ProblemTensors, assign: torch.Tensor):
 
 
 def _baseline_fixpoint(pts: core.ProblemTensors, planes, card_active,
-                       t0, f0, en, tile: int, rows):
+                       t0, f0, en, tile: int, rows, impl: str,
+                       arm: Optional[cuda_bcp.Arm]):
     """Batched ``core.planes_fixpoint`` with no extras bound, as kernel 1
-    on the ``planes`` (``tile`` 0) or kernel 2 on the compact ``rows``: a lane
-    whose entry state sets a variable both ways is a conflict and runs no
-    round.  ``en`` is bool[B].  Returns (conflict bool[B], t, f)."""
+    (the dense rounds on the ``planes``, or ``arm``) or kernel 2 on the
+    compact ``rows`` (``tile`` > 0): a lane whose entry state sets a
+    variable both ways is a conflict and runs no round.  ``en`` is
+    bool[B].  Returns (conflict bool[B], t, f)."""
     B, W = t0.shape
     pre = en & ((t0 & f0) != 0).any(-1)
     args = (card_active, pts.card_n,
@@ -202,7 +266,8 @@ def _baseline_fixpoint(pts: core.ProblemTensors, planes, card_active,
         conflict, t, f = cuda_blockwise.bcp_fixpoint(
             pts.clauses, pts.card_ids, *args, block_rows=tile, rows=rows)
     else:
-        conflict, t, f = cuda_bcp.bcp_fixpoint(*planes, *args)
+        conflict, t, f = cuda_bcp.bcp_fixpoint(*planes, *args, impl=impl,
+                                               arm=arm)
     return (conflict != 0) | pre, t, f
 
 
@@ -214,7 +279,6 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
     """Phase 1 over a batch.  ``en`` bool[B] gates padding lanes.
     Returns (result int32[B], guessed bool[B, NV], model int32[B, NV],
     steps int32[B], tr_stack int32[B, 0, NC+1], tr_n int32[B])."""
-    global search_launches
     red = _reduced(impl)
     B, NC, Kc = pts.choice_cand.shape
     NV, Wch = pts.var_choices.shape[1:]
@@ -222,11 +286,12 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
     C, NA = pts.clauses.shape[1], pts.card_ids.shape[1]
     A = pts.anchors.shape[1]
     tile = _tile(impl, block_rows, pts, W)
-    shapes = dict(_phase_shapes(pts, red, W, _dense(pts, tile)),
+    arm = launch_arm(pts, impl, red, W, rows)
+    shapes = dict(_phase_shapes(pts, red, W, _dense(pts, impl, arm)),
                   card_n=(B, NA), choice_cand=(B, NC, Kc),
                   var_choices=(B, NV, Wch), anchors=(B, A), n_vars=(B,),
                   n_cons=(B,))
-    dev = _check_pts(pts, shapes)
+    dev = _check_phase(pts, shapes, arm, C, NA, W)
     _check_mask(en, (B,), dev, "en")
     if dev.type == "cpu":
         return batched_search_plain(pts, budget, en, impl=impl,
@@ -242,7 +307,8 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
     # Baseline Test under the anchors (solve.go:74-79).
     active = pts.card_valid if red else full_activity(pts, base)
     conflict0, t0, f0 = _baseline_fixpoint(
-        pts, (pos, neg, mem), active.to(_I32), t_in, f_in, en, tile, rows)
+        pts, (pos, neg, mem), active.to(_I32), t_in, f_in, en, tile, rows,
+        impl, arm)
     unassigned = (core._to_u(pvb) & ~(core._to_u(t0) | core._to_u(f0))) != 0
     outcome0 = torch.where(
         conflict0, core.UNSAT,
@@ -258,7 +324,7 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
     m_t = torch.empty((B, W), dtype=_I32, device=dev)
     m_f = torch.empty((B, W), dtype=_I32, device=dev)
     ns = need_search.to(_I32)
-    ptrs, dims = _row_args(pts, (pos, neg, mem), red, W, tile, rows)
+    ptrs, dims, a = _row_args(pts, (pos, neg, mem), red, W, tile, rows, arm)
     rc = lib.deppy_search(
         *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:],
         pts.choice_cand.data_ptr(), pts.var_choices.data_ptr(),
@@ -266,9 +332,9 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
         ns.data_ptr(), na.data_ptr(), int(budget), scratch.data_ptr(),
         result_s.data_ptr(), steps.data_ptr(), tr_n.data_ptr(),
         asm.data_ptr(), m_t.data_ptr(), m_f.data_ptr(), B, C, NA, W, NC, Kc,
-        NV, Wch, *dims, _threads(impl), _stream(dev))
-    search_launches += 1
-    _build.check(rc, "search")
+        NV, Wch, *dims, _threads(impl, arm), _arm_ptr(a), _stream(dev))
+    counts.count("search", impl, "block", arm)
+    _build.check(rc, f"search ({impl})")
     a0 = core.planes_to_assign(t0, f0, NV)
     s_model = core.planes_to_assign(m_t, m_f, NV)
     s_guessed = core.unpack_mask(asm, NV)
@@ -300,7 +366,7 @@ def batched_search_plain(pts: core.ProblemTensors, budget, en: torch.Tensor,
     for b in range(B):
         r, g, m, s, t = core.search_phase(core.lane(pts, b), int(budget),
                                           bool(en[b]), red=red, NCON=NCON,
-                                          block_rows=tile)
+                                          block_rows=tile, impl=impl)
         result[b], guessed[b], model[b], steps[b], tr_n[b] = r, g, m, s, t
     tr_stack = torch.full((B, 0, NC + 1), -1, dtype=_I32, device=dev)
     return result, guessed, model, steps, tr_stack, tr_n
@@ -341,18 +407,18 @@ def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
     SAT``); ``model``/``guessed`` are phase 1's [B, NV] outputs.  Returns
     (installed bool[B, NV], min_found bool[B], steps int32[B]).  ``_team``
     forces a team (measurement only, see :func:`team`)."""
-    global minimize_launches, minimize_warp_launches
     red = _reduced(impl)
     pos, neg, mem, _, W = _phase_planes(pts, red, NCON)
     B, C = pts.clauses.shape[:2]
     NV = pts.var_choices.shape[1]
     NA = pts.card_ids.shape[1]
     tile = _tile(impl, block_rows, pts, W)
-    chosen, snaps = _plan("minimize", tile, C, NA, W, NV, 0, _team)
-    shapes = dict(_phase_shapes(pts, red, W, _dense(pts, tile)),
+    arm = launch_arm(pts, impl, red, W, rows)
+    chosen, snaps = _plan("minimize", tile, C, NA, W, NV, 0, _team, impl)
+    shapes = dict(_phase_shapes(pts, red, W, _dense(pts, impl, arm)),
                   card_n=(B, NA), n_vars=(B,), n_cons=(B,),
                   anchors=pts.anchors.shape)
-    dev = _check_pts(pts, shapes)
+    dev = _check_phase(pts, shapes, arm, C, NA, W)
     if _check_args(dict(result=result, model=model, steps=steps),
                    dict(result=(B,), model=(B, NV), steps=(B,))) != dev:
         raise ValueError("phase-1 outputs must lie on the batch's device")
@@ -372,7 +438,7 @@ def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
     steps_out = torch.empty(B, dtype=_I32, device=dev)
     m2_t = torch.empty((B, W), dtype=_I32, device=dev)
     en32 = en.to(_I32)
-    ptrs, dims = _row_args(pts, (pos, neg, mem), red, W, tile, rows)
+    ptrs, dims, a = _row_args(pts, (pos, neg, mem), red, W, tile, rows, arm)
     ins = (x["m_init_t"].data_ptr(), x["m_init_f"].data_ptr(),
            x["extras"].data_ptr(), x["m2t0"].data_ptr(), x["pvb"].data_ptr(),
            en32.data_ptr(), x["n_extras"].data_ptr(), steps.data_ptr(),
@@ -383,13 +449,12 @@ def batched_minimize_fused(pts: core.ProblemTensors, result, model, guessed,
         rc = lib.deppy_minimize_warp(
             *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:5], *ins, teams.WARPS,
             int(snaps), _stream(dev))
-        minimize_warp_launches += 1
     else:
         rc = lib.deppy_minimize(
             *ptrs[:3], pts.card_n.data_ptr(), *ptrs[3:], *ins, *dims,
-            _threads(impl), _stream(dev))
-    minimize_launches += 1
-    _build.check(rc, f"minimize ({chosen} team)")
+            _threads(impl, arm), _arm_ptr(a), _stream(dev))
+    counts.count("minimize", impl, chosen, arm)
+    _build.check(rc, f"minimize ({chosen} team, {impl})")
     min_found = found != 0
     installed = (core.unpack_mask(m2_t, NV) & x["pv_mask"][:, :NV]
                  & min_found.unsqueeze(-1) & en.unsqueeze(-1))
@@ -413,7 +478,8 @@ def batched_minimize_plain(pts, result, model, guessed, budget, steps,
         en = bool(en_lanes[b]) and int(result[b]) == core.SAT
         inst, fnd, s = core.minimize_phase(
             core.lane(pts, b), model[b], guessed[b], int(budget),
-            int(steps[b]), en, red=red, NCON=NCON, block_rows=tile)
+            int(steps[b]), en, red=red, NCON=NCON, block_rows=tile,
+            impl=impl)
         installed[b], found[b], steps_out[b] = inst, fnd, s
     return installed, found, steps_out
 
@@ -439,20 +505,21 @@ def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
                        rows: Optional[cuda_blockwise.Compact] = None,
                        _team: Optional[str] = None):
     """Phase 3 over a batch in the full plane space (``V = NV + NCON``).
-    ``en`` bool[B]; ``steps`` int32[B] carries each lane's phase-1 count.
-    Returns (core bool[B, NCON], steps int32[B]).  ``_team`` forces a team
-    (measurement only, see :func:`team`)."""
-    global core_launches, core_warp_launches
+    ``en`` bool[B]; ``steps`` int32[B] carries each lane's phase-1 count;
+    ``rows`` the full-space compact rows.  Returns (core bool[B, NCON],
+    steps int32[B]).  ``_team`` forces a team (measurement only, see
+    :func:`team`)."""
     _reduced(impl)
     B, C = pts.clauses.shape[:2]
     NV = pts.var_choices.shape[1]
     NA = pts.card_ids.shape[1]
     W = _full_words(pts, NCON)
     tile = _tile(impl, block_rows, pts, W)
-    chosen, snaps = _plan("core", tile, C, NA, W, NV, NCON, _team)
-    shapes = dict(_phase_shapes(pts, False, W, _dense(pts, tile)),
+    arm = launch_arm(pts, impl, False, W, rows)
+    chosen, snaps = _plan("core", tile, C, NA, W, NV, NCON, _team, impl)
+    shapes = dict(_phase_shapes(pts, False, W, _dense(pts, impl, arm)),
                   card_n=(B, NA), n_vars=(B,), n_cons=(B,))
-    dev = _check_pts(pts, shapes)
+    dev = _check_phase(pts, shapes, arm, C, NA, W)
     if _check_args(dict(steps=steps), dict(steps=(B,))) != dev:
         raise ValueError("steps must lie on the batch's device")
     _check_mask(en, (B,), dev, "en")
@@ -468,9 +535,9 @@ def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
     core_out = torch.empty((B, NCON), dtype=_I32, device=dev)
     steps_out = torch.empty(B, dtype=_I32, device=dev)
     en32 = en.to(_I32)
-    ptrs, dims = _row_args(
+    ptrs, dims, a = _row_args(
         pts, (pts.pos_bits, pts.neg_bits, pts.card_member_bits), False, W,
-        tile, rows)
+        tile, rows, arm)
     ins = (x["pvb"].data_ptr(), x["base_t"].data_ptr(),
            x["base_f"].data_ptr(), en32.data_ptr(), pts.n_cons.data_ptr(),
            pts.n_vars.data_ptr(), steps.data_ptr(), int(budget),
@@ -480,12 +547,12 @@ def batched_core_fused(pts: core.ProblemTensors, budget, steps, en, *,
         teams.check_slice(lib, "core", C, NA, W, NV, NCON, snaps)
         rc = lib.deppy_core_warp(*ptrs[:3], pts.card_n.data_ptr(), ptrs[4],
                                  *ins, teams.WARPS, int(snaps), _stream(dev))
-        core_warp_launches += 1
     else:
         rc = lib.deppy_core(*ptrs[:3], pts.card_n.data_ptr(), *ptrs[4:],
-                            *ins, *dims, _threads(impl), _stream(dev))
-    core_launches += 1
-    _build.check(rc, f"core ({chosen} team)")
+                            *ins, *dims, _threads(impl, arm), _arm_ptr(a),
+                            _stream(dev))
+    counts.count("core", impl, chosen, arm)
+    _build.check(rc, f"core ({chosen} team, {impl})")
     return core_out != 0, steps_out
 
 
@@ -500,7 +567,8 @@ def batched_core_plain(pts, budget, steps, en, *, NCON: int,
     steps_out = steps.clone()
     for b in range(B):
         c, s = core.core_phase(core.lane(pts, b), int(budget), int(steps[b]),
-                               bool(en[b]), NCON=NCON, block_rows=tile)
+                               bool(en[b]), NCON=NCON, block_rows=tile,
+                               impl=impl)
         cores[b], steps_out[b] = c, s
     return cores, steps_out
 

@@ -8,8 +8,9 @@ without a mesh, tracing, faults or budget escalation:
 2. :func:`pad_stack` pads each bucket to common power-of-two dims on the
    host and the compact tensors go to the device once;
 3. per chunk of at most :data:`MAX_LANES` lanes the planes of phases
-   1-2 are derived on the device (the reduced space under the ``bits``
-   impl, the full space under ``blockwise``, as ``_derive_planes`` does),
+   1-2 are derived on the device where the kernels read them (the
+   reduced space under ``bits`` and ``watched``, the full space under
+   ``pallas``, ``blockwise`` and ``gather``, as ``_derive_planes`` does),
    then phase 1 (search) and phase 2 (minimization, SAT lanes) run there;
 4. the UNSAT lanes get their unsat core: the cores of giant problems
    (more than :data:`HOST_CORE_NCONS` applied constraints) from the host
@@ -21,16 +22,26 @@ without a mesh, tracing, faults or budget escalation:
 Under ``blockwise`` on the card the kernels read compact rows, built once
 per bucket (``cuda_blockwise.compact_rows``) and cut per chunk, and no
 full-space plane is derived: only the plain versions (``device="cpu"``)
-read those.
+read those.  Under ``watched`` the bucket's clause banks are derived on
+the device once (``clause_bank.derive_banks``; the full-space ones only
+when phase 3 runs there) and cut per chunk, unless the bucket's largest
+literal occurrence ``Ob`` passes its cap (:func:`_bank_cap`): then it keeps
+dummy banks and every fixpoint runs the dense rounds, as in the
+reference.  On the card a real bank's kernels read compact rows (the
+entry round's, reduced for phases 1-2), the raw rows and the banks, and
+no dense plane; under ``gather`` the raw rows alone, there and in the
+plain versions.
 
 ``device="cuda"`` (the default) runs the CUDA kernels and raises when
 there is no card; ``device="cpu"`` runs their plain versions.  The BCP
-impl is ``core.resolved_impl()`` and the blockwise tile height
-``cuda_blockwise.BLOCK_ROWS``, both read when a solve starts.
+impl is ``core.resolved_impl()``, the blockwise tile height
+``cuda_blockwise.BLOCK_ROWS`` and the bank cap :data:`BANK_OCC_CAP`, all
+read when a solve starts.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -43,7 +54,7 @@ from ..sat.constraints import Variable
 from ..sat.encode import Problem, encode
 from ..sat.errors import Incomplete, InternalSolverError, NotSatisfiable
 from ..sat.host import HostEngine
-from . import core, cuda_blockwise, cuda_search
+from . import clause_bank, core, cuda_blockwise, cuda_search
 
 # Default step budget when the caller sets none (driver.py:55).
 DEFAULT_MAX_STEPS = 1 << 24
@@ -61,6 +72,12 @@ SPLIT_RATIO = _size_classes.SPLIT_RATIO
 # probes beat a device deletion loop on giant problems, and the answer is
 # the same core.
 HOST_CORE_NCONS = int(os.environ.get("DEPPY_GPU_HOST_CORE_NCONS", "768"))
+
+# Watched-bank occurrence-width cap (driver.py:425-430; 0 = the bucket's
+# size-class OCC cap): a bucket whose largest per-literal clause count
+# passes it would pay a V x Ob bank mostly for one popular literal, so it
+# keeps dummy banks and runs the dense rounds.
+BANK_OCC_CAP = int(os.environ.get("DEPPY_GPU_BANK_OCC_CAP", "0"))
 
 
 def resolve_device(device) -> torch.device:
@@ -98,6 +115,46 @@ class _Dims:
         if b % batch_multiple:
             b *= batch_multiple // np.gcd(b, batch_multiple)
         self.B = b
+        # The clause bank's widths (driver.py:140-169) are data-dependent
+        # and only the watched impl reads them: computed on first use.
+        self._problems = list(problems)
+
+    @functools.cached_property
+    def Ob(self) -> int:
+        """Bucketed literal-occurrence width of the watched clause bank."""
+        return _bucket(max((clause_bank.max_occurrence(p.clauses)
+                            for p in self._problems), default=0))
+
+    @functools.cached_property
+    def Oc(self) -> int:
+        """Bucketed member→AtMost-row width of the watched bank."""
+        return _bucket(max((clause_bank.max_card_membership(p.card_ids)
+                            for p in self._problems), default=0))
+
+
+def _bank_cap(d: _Dims) -> int:
+    """The bucket's occurrence-width cap (driver.py:445-449)."""
+    if BANK_OCC_CAP > 0:
+        return BANK_OCC_CAP
+    name = _size_classes.class_of_cost((d.C + 2 * d.NV) * d.Wv)
+    return _size_classes.occ_cap(name)
+
+
+def _derive_banks(pts: core.ProblemTensors, d: _Dims, red: bool,
+                  full: bool) -> core.ProblemTensors:
+    """``pts`` with the banks of the spaces asked for, and ``card_occ``,
+    derived on its device (driver.py:452-462, 506-524); the others are
+    kept."""
+    occ_pos, occ_neg, occ_pos_r, occ_neg_r, card_occ = \
+        clause_bank.derive_banks(pts.clauses, pts.card_ids, pts.n_vars,
+                                 V=d.V, NV=d.NV, Ob=d.Ob, Oc=d.Oc, red=red,
+                                 full=full)
+    pts = pts._replace(card_occ=card_occ)
+    if full:
+        pts = pts._replace(occ_pos=occ_pos, occ_neg=occ_neg)
+    if red:
+        pts = pts._replace(occ_pos_r=occ_pos_r, occ_neg_r=occ_neg_r)
+    return pts
 
 
 def pad_stack(problems: Sequence[Problem], d: _Dims,
@@ -105,7 +162,8 @@ def pad_stack(problems: Sequence[Problem], d: _Dims,
     """Pad and stack problems to [total, ...] host numpy arrays
     (driver.py:308, ``pack=False``): lanes past ``len(problems)`` are
     empty problems and every plane field is a ``[total, rows, 1]`` zero
-    placeholder — the device derives the planes."""
+    placeholder and every bank field a ``[total, 1, 1]`` dummy of -1 —
+    the device derives the planes and the banks."""
     clauses = np.zeros((total, d.C, d.K), np.int32)
     card_ids = np.full((total, d.NA, d.M), -1, np.int32)
     card_n = np.zeros((total, d.NA), np.int32)
@@ -131,6 +189,7 @@ def pad_stack(problems: Sequence[Problem], d: _Dims,
         n_cons[i] = p.n_cons
     rows_c = np.zeros((total, d.C, 1), np.int32)
     rows_a = np.zeros((total, d.NA, 1), np.int32)
+    bank = np.full((total, 1, 1), -1, np.int32)
     return core.ProblemTensors(
         clauses=clauses, card_ids=card_ids, card_n=card_n, card_act=card_act,
         anchors=anchors, choice_cand=choice_cand, var_choices=var_choices,
@@ -139,6 +198,8 @@ def pad_stack(problems: Sequence[Problem], d: _Dims,
         card_act_bits=rows_a, pos_bits_r=rows_c, neg_bits_r=rows_c,
         card_member_bits_r=rows_a,
         card_valid=(card_act >= 0).astype(np.int32),
+        occ_pos=bank, occ_neg=bank, occ_pos_r=bank, occ_neg_r=bank,
+        card_occ=bank,
     )
 
 
@@ -268,24 +329,36 @@ def _solve_split(problems: Sequence[Problem], budget: int,
     total = max(1, -(-n // CH)) * CH
     impl = core.resolved_impl()
     red = core.phases_reduced()
+    cuda = dev.type == "cuda"
     kw = dict(impl=impl, block_rows=cuda_blockwise.BLOCK_ROWS)
     pts_all = _upload(pad_stack(problems, d, total), dev)
     en_all = torch.arange(total, device=dev) < n
-    rows_all = None
-    if impl == "blockwise" and dev.type == "cuda":
-        rows_all = cuda_blockwise.compact_rows(pts_all.clauses,
-                                               pts_all.card_ids, d.Wv)
-    dense = rows_all is None
+    banks = impl == "watched" and d.Ob <= _bank_cap(d)
+    if banks:
+        pts_all = _derive_banks(pts_all, d, red=True, full=False)
+    # The compact rows the kernels read, once per bucket: the blockwise
+    # tiles, or the watched entry round's (reduced for phases 1-2).
+    rows_all = core_rows_all = None
+    if cuda and impl == "blockwise":
+        rows_all = core_rows_all = cuda_blockwise.compact_rows(
+            pts_all.clauses, pts_all.card_ids, d.Wv)
+    elif cuda and banks:
+        rows_all = cuda_blockwise.compact_rows(
+            pts_all.clauses, pts_all.card_ids, d.Wr, n_vars=pts_all.n_vars)
+    dense = cuda_search.reads_planes(impl, dev.type, banks)
 
     def rows(sel):
         return None if rows_all is None else rows_all.take(sel)
+
+    def core_rows(sel):
+        return None if core_rows_all is None else core_rows_all.take(sel)
 
     # Phases 1 and 2 on the same resident chunks.
     res1, st1, trn, inst, found, st2 = [], [], [], [], [], []
     for lo in range(0, total, CH):
         sl = slice(lo, lo + CH)
         pts = core.with_planes(_rows(pts_all, sl), Wv=d.Wv, Wr=d.Wr,
-                               red=red, full=not red and dense)
+                               red=red and dense, full=not red and dense)
         en = en_all[sl]
         r, guessed, model, steps, _, tr_n = cuda_search.batched_search_fused(
             pts, budget, en, NCON=d.NCON, rows=rows(sl), **kw)
@@ -315,6 +388,13 @@ def _solve_split(problems: Sequence[Problem], budget: int,
     cores = np.zeros((total, d.NCON), bool)
     unsat_idx = np.nonzero(en_np & (result == core.UNSAT))[0]
     dev_idx, host_idx = _core_routes(problems, unsat_idx, total, monolith)
+    if dev_idx.size and banks:
+        # Full-space banks and entry rows for the core phase; the reduced
+        # banks stay.
+        pts_all = _derive_banks(pts_all, d, red=False, full=True)
+        if cuda:
+            core_rows_all = cuda_blockwise.compact_rows(
+                pts_all.clauses, pts_all.card_ids, d.Wv)
     for lo in range(0, dev_idx.size, CH):
         idx = dev_idx[lo: lo + CH]
         sel = torch.from_numpy(idx).to(dev)
@@ -323,7 +403,7 @@ def _solve_split(problems: Sequence[Problem], budget: int,
         c, s = cuda_search.batched_core_fused(
             pts, budget, torch.from_numpy(steps[idx].astype(np.int32)).to(dev),
             torch.ones(idx.size, dtype=torch.bool, device=dev), NCON=d.NCON,
-            rows=rows(sel), **kw)
+            rows=core_rows(sel), **kw)
         cores[idx] = c.cpu().numpy()
         steps[idx] = s.cpu().numpy()
     if host_idx.size:

@@ -1,21 +1,24 @@
 """The shape rule that picks the team of kernels 1, 4 and 5.
 
-Kernel 1 (the bits path's baseline fixpoint, ``cuda_bcp.bcp_fixpoint``)
-and phases 2 and 3 (``cuda_search.batched_minimize_fused`` and
-``batched_core_fused``) have two kernels each: the block team (one thread
-block per problem, ``bcp_kernel`` / ``minimize_kernel`` / ``core_kernel``)
-and the warp team (one warp per problem, :data:`WARPS` problems per
-block, the problem's planes, working words and, where they fit, DPLL
-snapshots in the warp's slice of shared memory: ``bcp_warp_kernel`` /
-``minimize_warp_kernel`` / ``core_warp_kernel`` on ``csrc/warp.cuh``).
-Both compute the same function.  :func:`team` picks one per launch from
-the shape alone: the warp team for the bits fixpoint at ``W <= 32`` words
-whose slice fits the per-problem budget (:func:`problem_budget`), which
-is every bits-path launch of the main path's families, the block team
-otherwise (every blockwise launch, and kernel 1 on the full-space planes
-of a big catalog).  ``_team="block"|"warp"`` on the wrappers forces one,
-for ``chip_smoke.py``'s measurement only; a forced warp team on a shape
-the rule refuses raises (:func:`plan`).
+Kernel 1 (the baseline fixpoint, ``cuda_bcp.bcp_fixpoint``) and phases 2
+and 3 (``cuda_search.batched_minimize_fused`` and ``batched_core_fused``)
+have two kernels each: the block team (one thread block per problem,
+``bcp_kernel`` / ``minimize_kernel`` / ``core_kernel``) and the warp team
+(one warp per problem, :data:`WARPS` problems per block, the problem's
+planes, working words and, where they fit, DPLL snapshots in the warp's
+slice of shared memory: ``bcp_warp_kernel`` / ``minimize_warp_kernel`` /
+``core_warp_kernel`` on ``csrc/warp.cuh``).  Both compute the same
+function.  :func:`team` picks one per launch from the impl and the shape
+alone: the warp team for the dense rounds (the ``bits`` and ``pallas``
+impls, tile 0) at ``W <= 32`` words whose slice fits the per-problem
+budget (:func:`problem_budget`), which is every bits-path launch of the
+main path's families; the block team otherwise: every ``blockwise``
+launch, every ``watched`` and ``gather`` launch (their arms,
+``csrc/watched.cuh``, are block-wide; a watched launch on dummy banks
+too), and kernel 1 on the full-space planes of a big catalog.
+``_team="block"|"warp"`` on the wrappers forces one, for
+``chip_smoke.py``'s measurement only; a forced warp team on a launch the
+rule refuses raises (:func:`plan`).
 
 ``cuda_search.WARPS`` reads and sets :data:`WARPS`, so either name
 governs every team.
@@ -63,31 +66,38 @@ def problem_budget() -> int:
     return SMEM_BYTES // WARPS // 16 * 16
 
 
-def team(tile: int, W: int, smem: int) -> str:
-    """The team of a launch of kernel 1, 4 or 5: ``"warp"`` for the bits
-    fixpoint (``tile`` 0) over at most 32 plane words (one a lane) whose
-    warp slice without snapshots, ``smem`` bytes (:func:`warp_smem_bytes`),
-    fits :func:`problem_budget`; ``"block"`` otherwise."""
-    if tile == 0 and W <= core.WORD and smem <= problem_budget():
+# The impls whose fixpoint is the dense rounds, which the warp team runs.
+WARP_IMPLS = ("bits", "pallas")
+
+
+def team(tile: int, W: int, smem: int, impl: str = "bits") -> str:
+    """The team of a launch of kernel 1, 4 or 5: ``"warp"`` for the dense
+    rounds (``impl`` in :data:`WARP_IMPLS`, ``tile`` 0) over at most 32
+    plane words (one a lane) whose warp slice without snapshots, ``smem``
+    bytes (:func:`warp_smem_bytes`), fits :func:`problem_budget`;
+    ``"block"`` otherwise."""
+    if (impl in WARP_IMPLS and tile == 0 and W <= core.WORD
+            and smem <= problem_budget()):
         return "warp"
     return "block"
 
 
 def plan(kernel: str, tile: int, C: int, NA: int, W: int, NV: int,
-         NCON: int, forced: Optional[str]):
+         NCON: int, forced: Optional[str], impl: str = "bits"):
     """(team, snapshots in the slice) of one launch: :func:`team`, or the
     measurement's ``forced`` team, which raises where the rule refuses
     the warp team.  The warp team keeps the DPLL snapshots in each warp's
     slice where they fit the budget too, else in global scratch."""
     lean = warp_smem_bytes(kernel, C, NA, W, NV, NCON, False)
-    picked = team(tile, W, lean)
+    picked = team(tile, W, lean, impl)
     if forced not in (None, "block", "warp"):
         raise ValueError(f"unknown team {forced!r}")
     if forced == "warp" and picked != "warp":
         raise ValueError(
-            f"the warp team does not take this {kernel} launch: tile "
-            f"{tile}, W {W}, {lean} shared bytes a problem against a "
-            f"budget of {problem_budget()} ({WARPS} warps a block)")
+            f"the warp team does not take this {kernel} launch: impl "
+            f"{impl!r}, tile {tile}, W {W}, {lean} shared bytes a problem "
+            f"against a budget of {problem_budget()} ({WARPS} warps a "
+            f"block)")
     chosen = forced or picked
     snaps = (chosen == "warp" and kernel != "bcp" and warp_smem_bytes(
         kernel, C, NA, W, NV, NCON, True) <= problem_budget())

@@ -4,10 +4,10 @@ The padded shape ladder the driver partitions a heterogeneous batch by:
 each class declares the padded dims a problem assigned to it can pay at
 most (``C`` clause rows, ``NV`` problem vars, ``NCON`` applied
 constraints; ``V = NV + NCON`` variables, ``Wv = ceil(V/32)`` bitplane
-words).  ``OCC`` is carried for parity with the reference table; the
-watched clause bank that reads it is not part of this package yet.
-Classes are ordered by :func:`class_cost`; adjacent classes differ by at
-least :data:`SPLIT_RATIO` in padded cost.
+words).  ``OCC`` caps the watched clause bank's occurrence width
+(:func:`occ_cap`; ``engine/clause_bank.py``).  Classes are ordered by
+:func:`class_cost`; adjacent classes differ by at least
+:data:`SPLIT_RATIO` in padded cost.
 """
 
 from __future__ import annotations
@@ -90,3 +90,8 @@ def class_of_cost(cost: int) -> str:
         if cost <= bound:
             return name
     return _LADDER[-1][1]
+
+
+def occ_cap(name: str) -> int:
+    """The class's watched-bank occurrence-width cap."""
+    return SIZE_CLASSES[name]["OCC"]

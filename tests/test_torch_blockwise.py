@@ -446,7 +446,7 @@ def test_phase_wrappers_reject_other_impls():
     d, _, tpts, en = _batch(problems)
     with pytest.raises(ValueError):
         cuda_search.batched_search_fused(tpts, BUDGET, torch.as_tensor(en),
-                                         impl="watched", NCON=d.NCON)
+                                         impl="nope", NCON=d.NCON)
     with pytest.raises(ValueError):  # the full space needs NCON
         cuda_search.batched_search_fused(tpts, BUDGET, torch.as_tensor(en),
                                          impl="blockwise")
@@ -520,8 +520,10 @@ def test_impl_selection():
     tcore.set_bcp_impl("bits")
     assert tcore.phases_reduced()
     for name in ("gather", "pallas", "watched"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcore.set_bcp_impl(name)
+        tcore.set_bcp_impl(name)
+        assert tcore.resolved_impl() == name
+        assert tcore.phases_reduced() == (name == "watched")
+    tcore.set_bcp_impl("bits")
     with pytest.raises(ValueError):
         tcore.set_bcp_impl("nope")
     assert tcore.resolved_impl() == "bits"
