@@ -44,6 +44,20 @@ Phases, each fatal on failure:
    for one problem, its steps; every result (outcome, installed, core,
    steps, backtracks) must equal the bits path's, every watched launch
    must read a real bank, and no plain version may run;
+4c. the tracing path: ``Solver(vars, tracer=..., trace_cap=T,
+   device="cuda")`` under bits, blockwise and watched on the two
+   instances of ``tests/test_tracer_backends.py`` and on each put ahead
+   of ``operatorhub_catalog(40, 5)`` (thousands of backtracks), each held
+   against ``backend="host"`` with the same tracer: the same outcome and
+   backtrack count, every assumption stack equal event for event, the
+   conflicts equal wherever the card's replay reports any; the doomed
+   catalogs at the default depth (the truncation warning must fire) and
+   at their backtrack count (every event); no plain version may run.
+   Then one batch with ``DEPPY_GPU_TELEMETRY_FILE`` set, whose JSONL must
+   hold the four driver spans and one report event.  Every family of the
+   bits path, and each profiled solve, prints its ``driver split`` (the
+   ``SolveReport`` walls and the ``driver.decode`` span) beside its
+   encode time and the profiler's device-busy ms;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -94,6 +108,10 @@ Phases, each fatal on failure:
    (not under pallas) with the phases at a cut step budget; kernel 1's
    plain version on the card, the phases' in the pool; each arm timed by
    the profiler, with its bound from the plain version's rounds and pops;
+7c. kernel 3 with a trace buffer (T 4 and 64) against its plain version
+   on 64 lanes of small backtracking problems (decided, disabled and
+   truncated lanes among them): every output bit-equal; and kernel 3
+   timed at T 0 and T 64, in turns, on the 32 gvk_fleet lanes;
 8. the ``kernels:`` lines and the JSON summary of every kernel and arm.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card,
@@ -252,8 +270,8 @@ def giant_unsat(fillers: int = 800):
 
 def solve_one(variables, stats=None):
     """``Solver(variables, device="cuda").solve()`` as a solution dict, or
-    the NotSatisfiable it raised; the solver's steps and backtracks land
-    in ``stats`` when given."""
+    the NotSatisfiable it raised; the solver's steps, backtracks and
+    report land in ``stats`` when given."""
     from deppy_tpu_torch.sat import NotSatisfiable, Solver
 
     solver = Solver(variables, device="cuda")
@@ -263,7 +281,8 @@ def solve_one(variables, stats=None):
         return e
     finally:
         if stats is not None:
-            stats.update(steps=solver.steps, backtracks=solver.backtracks)
+            stats.update(steps=solver.steps, backtracks=solver.backtracks,
+                         report=solver.report)
     answer = {v.identifier: False for v in variables}
     answer.update({v.identifier: True for v in installed})
     return answer
@@ -369,10 +388,12 @@ def run_main_path(scale: float, bits_keys: dict):
         torch.cuda.synchronize()
         engine.reset_launch_counts()
         t0 = time.perf_counter()
+        resolver = BatchResolver(device="cuda")
         with Recorder() as rec:
-            results = BatchResolver(device="cuda").solve(pool)
+            results = resolver.solve(pool)
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        split = driver_split(resolver.last_report)
         bits_keys[name] = rec.keys
         counts = engine.launch_counts()
         warps = all_warp(name, counts)
@@ -383,13 +404,17 @@ def run_main_path(scale: float, bits_keys: dict):
               f"({count / wall:.1f} problems/s); sat {n_sat} unsat "
               f"{n_unsat} incomplete {n_inc}; launches {counts}, warp team "
               f"{warps}; host encode alone {t_encode:.3f} s", flush=True)
+        rest = wall * 1e3 - split["encode"] - split["solve"] - split["decode"]
+        print(f"driver split {name}: {_split_text(split)}; encode alone "
+              f"{t_encode * 1e3:.3f} ms; wall {wall * 1e3:.3f} ms, of which "
+              f"{rest:.3f} ms outside encode, solve and decode", flush=True)
         for k in launches:
             launches[k] += counts[k]
         per_family[name] = dict(problems=count, wall_s=wall,
                                 problems_per_s=count / wall,
                                 encode_s=t_encode, sat=n_sat,
                                 unsat=n_unsat, incomplete=n_inc,
-                                launches=counts)
+                                launches=counts, split_ms=split)
         if n_inc:
             fail(f"{name}: {n_inc} Incomplete results at the default budget")
         check_answers(name, pool, results)
@@ -399,11 +424,14 @@ def run_main_path(scale: float, bits_keys: dict):
 
     variables = operatorhub_catalog(40, 5)
     engine.reset_launch_counts()
+    one = {}
     t0 = time.perf_counter()
     with Recorder() as rec:
-        answer = solve_one(variables)
+        answer = solve_one(variables, one)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    split = driver_split(one["report"])
+    split["decode"] = None
     bits_keys["operatorhub"] = rec.keys
     counts = engine.launch_counts()
     warps = all_warp("operatorhub", counts)
@@ -412,9 +440,12 @@ def run_main_path(scale: float, bits_keys: dict):
     print(f"main path operatorhub: 1 problem in {wall:.3f} s; "
           f"{render(answer)[0]}; launches {counts}, warp team {warps}",
           flush=True)
+    print(f"driver split operatorhub: {_split_text(split)}; wall "
+          f"{wall * 1e3:.3f} ms", flush=True)
     per_family["operatorhub"] = dict(problems=1, wall_s=wall,
                                      launches=counts,
-                                     outcome=render(answer)[0])
+                                     outcome=render(answer)[0],
+                                     split_ms=split)
     if isinstance(answer, dict):
         check_solution(variables, answer)
     elif not answer.constraints:
@@ -495,9 +526,14 @@ def run_blockwise_path(scale: float, bits_keys: dict):
     finally:
         core.set_bcp_impl("auto")
 
+    split = driver_split(giant_stats.pop("report"))
+    split["decode"] = None
+    print(f"driver split giant (blockwise): {_split_text(split)}",
+          flush=True)
     steps = giant_stats["steps"]
     wall_ms = per_family["giant"]["wall_s"] * 1e3
-    per_family["giant"].update(giant_stats, ms_per_step=wall_ms / steps)
+    per_family["giant"].update(giant_stats, ms_per_step=wall_ms / steps,
+                               split_ms=split)
     print(f"blockwise path giant: steps {steps} backtracks "
           f"{giant_stats['backtracks']} ms per step {wall_ms / steps:.6f} "
           f"(wall / steps)", flush=True)
@@ -877,6 +913,337 @@ def run_impls_path(scale: float, bits_keys: dict):
     return launches, per_impl
 
 
+# --------------------------------------------------------------------------
+# the tracing path
+
+# The impls the card's traces are held against the host backend's under.
+TRACE_IMPLS = ("bits", "blockwise", "watched")
+# The driver's default trace depth (driver.DEFAULT_TRACE_CAP), which the
+# doomed catalogs overflow.
+TRACE_DEFAULT = 256
+# Kernel 3 against its plain version at T > 0: lanes and depths.
+TRACE_LANES = 64
+TRACE_DEPTHS = (4, 64)
+# The depth kernel 3 is timed at beside T = 0 on the gvk_fleet lanes.
+TRACE_TIMED_T = 64
+
+
+def _doomed(b: str):
+    """``b`` needs one of {x, y} and one of {w, z}, and every cross pair
+    conflicts: doomed one guess deeper than propagation sees
+    (tests/test_tracer_backends.py:22-33)."""
+    from deppy_tpu_torch.sat import conflict, dependency, variable
+
+    return [variable(b, dependency("x", "y"), dependency("w", "z")),
+            variable("x", conflict("w"), conflict("z")),
+            variable("y", conflict("w"), conflict("z")),
+            variable("w"), variable("z")]
+
+
+def backtracking_instance():
+    """The preferred candidate ``b`` is doomed: the search backtracks out
+    of it and falls back to ``c`` (tests/test_tracer_backends.py:36-43)."""
+    from deppy_tpu_torch.sat import dependency, mandatory, variable
+
+    return [variable("a", mandatory(), dependency("b", "c")),
+            variable("c")] + _doomed("b")
+
+
+def unsat_instance():
+    """The only candidate is doomed: the search exhausts every guess
+    (tests/test_tracer_backends.py:46-52)."""
+    from deppy_tpu_torch.sat import dependency, mandatory, variable
+
+    return [variable("a", mandatory(), dependency("b"))] + _doomed("b")
+
+
+def tracing_instances():
+    """The two reference instances, and each ahead of
+    ``operatorhub_catalog(40, 5)``: a preferred bundle whose dependencies
+    clash, which the search only learns after walking the catalog's
+    choices under it (thousands of backtracks)."""
+    from deppy_tpu_torch.models import operatorhub_catalog
+
+    return [("backtrack_sat", backtracking_instance()),
+            ("exhaust_unsat", unsat_instance()),
+            ("doomed_catalog_sat",
+             backtracking_instance() + operatorhub_catalog(40, 5)),
+            ("doomed_catalog_unsat",
+             unsat_instance() + operatorhub_catalog(40, 5))]
+
+
+class RecordingTracer:
+    """Every position a solve's tracer receives: (assumption stack,
+    conflicts), both as identifiers and strings."""
+
+    def __init__(self):
+        self.positions = []
+
+    def trace(self, position) -> None:
+        self.positions.append((
+            [v.identifier for v in position.variables()],
+            [str(c) for c in position.conflicts()]))
+
+
+def traced_solve(variables, backend: str, T=None):
+    """(outcome, positions, backtracks, truncation warnings, wall s) of
+    one ``Solver(variables, tracer=...)`` solve on ``backend`` (the
+    device backend on the card)."""
+    import warnings
+
+    import torch
+
+    from deppy_tpu_torch.sat import NotSatisfiable, Solver
+
+    rec = RecordingTracer()
+    solver = Solver(variables, tracer=rec, backend=backend, device="cuda",
+                    trace_cap=T)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        try:
+            out = ("sat", sorted(v.identifier for v in solver.solve()))
+        except NotSatisfiable as e:
+            out = ("unsat", sorted(str(c) for c in e.constraints))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    warned = [w for w in caught if issubclass(w.category, RuntimeWarning)
+              and "trace buffer holds" in str(w.message)]
+    return out, rec.positions, solver.backtracks, warned, wall
+
+
+def run_tracing_path():
+    """Phase 4c: ``Solver(vars, tracer=rec, trace_cap=T, device="cuda")``
+    under each impl of :data:`TRACE_IMPLS` on :func:`tracing_instances`,
+    each held against ``backend="host"`` with the same tracer: the same
+    outcome, the card's backtrack count equal to the host's, every
+    assumption stack equal event for event, conflicts equal wherever the
+    card's replay reports any.  The doomed catalogs run twice: at the
+    default depth, where the truncation warning must fire and the first
+    :data:`TRACE_DEFAULT` events match, and at the host's backtrack
+    count, where every event matches.  No plain version may run.
+    Returns (launches, {instance: numbers})."""
+    from deppy_tpu_torch import engine
+    from deppy_tpu_torch.engine import core
+
+    launches = {k: 0 for k in engine.KERNELS}
+    per_instance = {}
+    work0 = _plain_work()
+    for name, variables in tracing_instances():
+        h_out, h_pos, h_bt, _, h_wall = traced_solve(variables, "host")
+        if h_bt != len(h_pos) or h_bt == 0:
+            fail(f"tracing {name}: the host engine traced {len(h_pos)} of "
+                 f"{h_bt} backtracks")
+        depths = [None] if h_bt <= TRACE_DEFAULT else [None, h_bt]
+        row = per_instance[name] = dict(host_backtracks=h_bt,
+                                        host_wall_s=h_wall, runs={})
+        for impl in TRACE_IMPLS:
+            for T in depths:
+                core.set_bcp_impl(impl)
+                try:
+                    engine.reset_launch_counts()
+                    out, pos, bt, warned, wall = traced_solve(
+                        variables, "device", T)
+                    counts = engine.launch_counts()
+                finally:
+                    core.set_bcp_impl("auto")
+                depth = TRACE_DEFAULT if T is None else T
+                label = f"tracing {name} under {impl} at T {depth}"
+                if out != h_out:
+                    fail(f"{label}: outcome {out[0]} against the host's "
+                         f"{h_out[0]}")
+                if bt != h_bt:
+                    fail(f"{label}: {bt} backtracks against the host's "
+                         f"{h_bt}")
+                if counts["search"] <= 0:
+                    fail(f"{label}: the search kernel was not launched")
+                if len(pos) != min(depth, h_bt):
+                    fail(f"{label}: {len(pos)} events, expected "
+                         f"{min(depth, h_bt)}")
+                if bool(warned) != (h_bt > depth):
+                    fail(f"{label}: truncation warning "
+                         f"{'fired' if warned else 'missing'}")
+                stacks = sum(p[0] != q[0] for p, q in zip(pos, h_pos))
+                conflicts = sum(bool(p[1]) and p[1] != q[1]
+                                for p, q in zip(pos, h_pos))
+                replayed = sum(bool(p[1]) for p in pos)
+                print(f"{label}: {out[0]}, backtracks {bt} (host {h_bt}), "
+                      f"events {len(pos)}, stack mismatches {stacks}, "
+                      f"conflict mismatches {conflicts} of {replayed} "
+                      f"replayed, warning {bool(warned)}; wall {wall:.3f} s "
+                      f"(host backend {h_wall:.3f} s); launches {counts}",
+                      flush=True)
+                if stacks or conflicts:
+                    fail(f"{label}: {stacks} stacks and {conflicts} "
+                         f"conflict sets differ from the host backend's")
+                for k in launches:
+                    launches[k] += counts[k]
+                row["runs"][f"{impl}/T{depth}"] = dict(
+                    wall_s=wall, events=len(pos), replayed=replayed,
+                    warned=bool(warned), launches=counts)
+    if _plain_work() != work0:
+        fail("tracing path: a plain version ran during a card solve")
+    return launches, per_instance
+
+
+def trace_batch(n: int):
+    """Kernel 3's comparison batch at T > 0: ``n`` lanes of small
+    backtracking problems (the doomed package ahead of seeded
+    ``operatorhub_catalog(4, 3)`` catalogs, and the two reference
+    instances), with every eighth lane a problem whose baseline decides
+    (no search) and the last quarter disabled."""
+    import torch
+
+    from deppy_tpu_torch.engine import core, driver
+    from deppy_tpu_torch.models import operatorhub_catalog
+    from deppy_tpu_torch.sat import mandatory, variable
+    from deppy_tpu_torch.sat.encode import encode
+
+    def make(i):
+        if i % 8 == 7:
+            return [variable("s", mandatory())]
+        if i % 8 == 6:
+            return unsat_instance()
+        head = unsat_instance() if i % 2 else backtracking_instance()
+        return head + operatorhub_catalog(4, 3, seed=i)
+
+    probs = [encode(make(i)) for i in range(n)]
+    d = driver._Dims(probs, n)
+    dev = torch.device("cuda")
+    pts = driver._upload(driver.pad_stack(probs, d, n), dev)
+    red = core.with_planes(pts, Wv=d.Wv, Wr=d.Wr, red=True, full=False)
+    en = torch.arange(n, device=dev) < n - n // 4
+    return red, en, d
+
+
+def compare_trace_kernel(plain) -> dict:
+    """Kernel 3 at each depth of :data:`TRACE_DEPTHS` against its plain
+    version (run in the pool on CPU copies) on :func:`trace_batch`:
+    tr_stack, tr_n, result and steps bit-equal; and kernel 3 timed at
+    T = 0 and at :data:`TRACE_TIMED_T` on the first 32 lanes of the
+    gvk_fleet chunk (the ``kernel search`` row's lanes), in turns."""
+    import torch
+
+    from deppy_tpu_torch.engine import core, cuda_search, driver
+    from deppy_tpu_torch.sat.encode import encode
+
+    budget = driver.DEFAULT_MAX_STEPS
+    red, en, d = trace_batch(TRACE_LANES)
+    for T in TRACE_DEPTHS:
+        got = cuda_search.batched_search_fused(red, budget, en, T=T)
+        torch.cuda.synchronize()
+        tr, trn = got[4], got[5]
+        print(f"kernel search at T {T} on {TRACE_LANES} backtracking lanes: "
+              f"tr_stack {list(tr.shape)}, backtracks per lane max "
+              f"{int(trn.max())} sum {int(trn.sum())}, lanes past T "
+              f"{int((trn > T).sum())}; held against the plain version in "
+              f"the pool", flush=True)
+        if int(trn.min()) != 0 or (T == TRACE_DEPTHS[0]
+                                   and int((trn > T).sum()) == 0):
+            fail(f"trace batch at T {T}: expected lanes without "
+                 f"backtracks, and lanes past the smallest depth")
+        plain.submit(("search", f"trace batch T {T}", "tr"), got,
+                     "cuda_search", "batched_search_plain",
+                     (red, budget, en), dict(T=T), TRACE_LANES, chunk=8)
+
+    name, count, make = families(1.0)[0]
+    probs = [encode(make(i)) for i in range(min(count, driver.MAX_LANES))]
+    d = driver._Dims(probs, len(probs))
+    lanes = probs[:COMPARE_LANES]
+    dev = torch.device("cuda")
+    pts = driver._upload(driver.pad_stack(lanes, d, len(lanes)), dev)
+    red = core.with_planes(pts, Wv=d.Wv, Wr=d.Wr, red=True, full=False)
+    en = torch.ones(len(lanes), dtype=torch.bool, device=dev)
+    times = {0: [], TRACE_TIMED_T: []}
+    outs = {}
+    for T in (0, TRACE_TIMED_T, TRACE_TIMED_T, 0):
+        out, ms, wrapper_ms = _timed(
+            lambda: cuda_search.batched_search_fused(red, budget, en, T=T),
+            "search", TIMED_REPS)
+        times[T].append((ms, wrapper_ms))
+        outs[T] = out
+    _same("search", name, f"T {TRACE_TIMED_T} against T 0",
+          [outs[TRACE_TIMED_T][i] for i in (0, 1, 2, 3, 5)],
+          [outs[0][i] for i in (0, 1, 2, 3, 5)])
+    row = {f"T{T}": dict(ms=statistics.mean(m for m, _ in v),
+                         wrapper_ms=statistics.mean(w for _, w in v),
+                         ms_runs=[m for m, _ in v])
+           for T, v in times.items()}
+    print(f"kernel search on {name} ({len(lanes)} lanes): T 0 ms "
+          f"{row['T0']['ms']:.4f} (runs {row['T0']['ms_runs']}), T "
+          f"{TRACE_TIMED_T} ms {row[f'T{TRACE_TIMED_T}']['ms']:.4f} (runs "
+          f"{row[f'T{TRACE_TIMED_T}']['ms_runs']}); wrapper ms "
+          f"{row['T0']['wrapper_ms']:.4f} and "
+          f"{row[f'T{TRACE_TIMED_T}']['wrapper_ms']:.4f}", flush=True)
+    return row
+
+
+def driver_split(report) -> dict:
+    """A solve's driver split in ms: the ``SolveReport`` walls
+    (``pad_pack``, ``device_put``, ``solve`` = the whole driver call) and
+    the last ``driver.decode`` span (absent where nothing decoded)."""
+    from deppy_tpu_torch import telemetry
+
+    if report is None:
+        fail("a card solve left no SolveReport")
+    split = {k: report.wall.get(k, 0.0) * 1e3
+             for k in ("encode", "pad_pack", "device_put", "solve")}
+    decode = [e for e in telemetry.default_registry().recent_spans()
+              if e["name"] == "driver.decode"]
+    split["decode"] = decode[-1]["dur_s"] * 1e3 if decode else None
+    return split
+
+
+def _split_text(split: dict) -> str:
+    dec = split["decode"]
+    return (f"encode {split['encode']:.3f} ms (in the call; 0 for "
+            f"Solver), pad_pack {split['pad_pack']:.3f} ms, device_put "
+            f"{split['device_put']:.3f} ms, solve {split['solve']:.3f} ms "
+            f"(the driver call), decode "
+            f"{'not spanned' if dec is None else f'{dec:.3f} ms'}")
+
+
+TELEMETRY_SPANS = ("driver.pad_pack", "driver.device_put", "driver.solve",
+                   "driver.decode")
+
+
+def check_telemetry_sink(scale: float) -> dict:
+    """One card batch with ``DEPPY_GPU_TELEMETRY_FILE`` set: the JSONL it
+    writes must hold the four driver spans and exactly one report
+    event."""
+    from deppy_tpu_torch import telemetry
+    from deppy_tpu_torch.resolution import BatchResolver
+
+    path = os.path.join("build", "telemetry", "sink.jsonl")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    name, count, make = families(scale)[0]
+    pool = [make(i) for i in range(COMPARE_LANES)]
+    os.environ["DEPPY_GPU_TELEMETRY_FILE"] = path
+    prev = telemetry.set_default_registry(None)
+    try:
+        resolver = BatchResolver(device="cuda")
+        resolver.solve(pool)
+        telemetry.default_registry().configure_sink(None)
+    finally:
+        telemetry.set_default_registry(prev)
+        del os.environ["DEPPY_GPU_TELEMETRY_FILE"]
+    events = [e for e in telemetry.iter_sink_events(path) if e is not None]
+    names = {e.get("name") for e in events if e.get("kind") == "span"}
+    reports = [e["report"] for e in events if e.get("kind") == "report"]
+    missing = [s for s in TELEMETRY_SPANS if s not in names]
+    if missing or len(reports) != 1:
+        fail(f"telemetry sink: spans missing {missing}, {len(reports)} "
+             f"report events")
+    if reports[0] != resolver.last_report.to_dict():
+        fail("telemetry sink: the report event is not the batch's report")
+    print(f"telemetry sink ({path}): {len(events)} events, spans "
+          f"{sorted(names)}, one report event of {reports[0]['n_problems']} "
+          f"problems", flush=True)
+    return dict(events=len(events), spans=sorted(names))
+
+
 def profile_solve(name: str, pool, impl: str = "auto") -> dict:
     """Device time by kernel over one resolve of ``pool``, from
     ``torch.profiler``: where the time goes."""
@@ -890,9 +1257,11 @@ def profile_solve(name: str, pool, impl: str = "auto") -> dict:
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        BatchResolver(device="cuda").solve(pool)
+        resolver = BatchResolver(device="cuda")
+        resolver.solve(pool)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        split = driver_split(resolver.last_report)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             BatchResolver(device="cuda").solve(pool)
@@ -908,10 +1277,12 @@ def profile_solve(name: str, pool, impl: str = "auto") -> dict:
     print(f"profile {name} ({impl}), {len(pool)} problems: wall "
           f"{wall_ms:.1f} ms (unprofiled), device {device_ms:.2f} ms, busy "
           f"share {device_ms / wall_ms:.4f}", flush=True)
+    print(f"  driver split (unprofiled run): {_split_text(split)}; device "
+          f"busy {device_ms:.3f} ms (profiled run)", flush=True)
     for key, ms, n in rows[:8]:
         print(f"  device {ms:9.3f} ms  x{n:<5d} {key[:90]}", flush=True)
     return dict(family=name, impl=impl, problems=len(pool), wall_ms=wall_ms,
-                device_ms=device_ms,
+                device_ms=device_ms, split_ms=split,
                 top=[dict(kernel=k[:90], ms=ms, calls=n)
                      for k, ms, n in rows[:8]])
 
@@ -2210,6 +2581,8 @@ PATH_KERNELS = {
     "surface": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
                 "core"),
     **{impl: ARM_KERNELS for impl in IMPL_ARMS},
+    "tracing": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
+                "core"),
 }
 
 
@@ -2259,6 +2632,9 @@ def main(argv=None) -> int:
         by_path.update(by_impl)
         del bits_keys
         stamp("impls path")
+        by_path["tracing"], per_family["tracing"] = run_tracing_path()
+        per_family["telemetry_sink"] = check_telemetry_sink(args.scale)
+        stamp("tracing path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")
@@ -2280,6 +2656,8 @@ def main(argv=None) -> int:
         stamp("blockwise kernels compared")
         arm_rows, pending = compare_impls(args.scale, by_impl, plain)
         stamp("arms compared")
+        trace_times = compare_trace_kernel(plain)
+        stamp("trace kernel compared")
         t0 = time.perf_counter()
         n = plain.check()
         print(f"{n} comparisons against plain versions in the pool checked "
@@ -2325,7 +2703,8 @@ def main(argv=None) -> int:
             bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None, family=fam,
             by_family=rows[k]["families"],
-            **({"teams": rows[k]["teams"]} if "teams" in rows[k] else {})))
+            **({"teams": rows[k]["teams"]} if "teams" in rows[k] else {}),
+            **({"trace_ms": trace_times} if k == "search" else {})))
     for impl in IMPL_ARMS:
         for k in ARM_KERNELS:
             row = arm_rows[(k, impl)]

@@ -13,7 +13,9 @@ Layers, bottom-up:
   * :mod:`deppy_tpu_torch.resolution` — constraint generators, the
     ``Resolver`` and the ``BatchResolver``;
   * :mod:`deppy_tpu_torch.io` — the JSON problem codec;
-  * :mod:`deppy_tpu_torch.models` — the workload families.
+  * :mod:`deppy_tpu_torch.models` — the workload families;
+  * :mod:`deppy_tpu_torch.telemetry` — the span/counter/histogram
+    registry and the per-batch ``SolveReport`` the driver fills.
 
 Entry points default to ``backend="device"`` on ``device="cuda"`` and
 raise when no card is present; ``device="cpu"`` runs each kernel's plain
@@ -21,6 +23,6 @@ PyTorch version, ``backend="host"`` the host engine.  Nothing here imports
 JAX or any module of ``deppy_tpu``.
 """
 
-from . import entity, models, resolution, sat
+from . import entity, models, resolution, sat, telemetry
 
-__all__ = ["entity", "models", "resolution", "sat"]
+__all__ = ["entity", "models", "resolution", "sat", "telemetry"]

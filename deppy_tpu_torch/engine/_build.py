@@ -42,7 +42,8 @@ _SIGNATURES = {
     "deppy_bcp_fixpoint": [_P] * 13 + [_I] * 5 + [_P] * 2,
     "deppy_bcp_warp": [_P] * 13 + [_I] * 5 + [_P],
     "deppy_blockwise_fixpoint": [_P] * 12 + [_I] * 10 + [_P],
-    "deppy_search": [_P] * 16 + [_I] + [_P] * 7 + [_I] * 14 + [_P] * 2,
+    "deppy_search": ([_P] * 16 + [_I] + [_P] * 5 + [_I] + [_P] * 3
+                     + [_I] * 14 + [_P] * 2),
     "deppy_minimize": [_P] * 16 + [_I] + [_P] * 4 + [_I] * 11 + [_P] * 2,
     "deppy_core": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 13 + [_P] * 2,
     "deppy_minimize_warp": [_P] * 14 + [_I] + [_P] * 4 + [_I] * 7 + [_P],

@@ -116,13 +116,18 @@ class ProblemTensors(NamedTuple):
 
 
 class SolveResult(NamedTuple):
-    """One problem's result (core.py:125-135, without the trace buffer:
-    this package runs with tracing off, T = 0)."""
+    """One problem's result (core.py:125-135).  ``trace_stack`` is the
+    backtrack trace (tracer.go:13-15): row ``i`` is the guess-variable
+    stack, -1 padded, at the ``i``-th search backtrack, ``[T, GS]`` for
+    a trace capacity ``T`` (0 = tracing off) and ``GS = NC + 1``.
+    ``trace_n`` counts every backtrack, so ``trace_n > T`` means the
+    buffer truncated."""
 
     outcome: int            # SAT / UNSAT / RUNNING (= incomplete)
     installed: torch.Tensor  # bool[NV]
     core: torch.Tensor      # bool[NCON]
     steps: int
+    trace_stack: torch.Tensor  # int32[T, GS]
     trace_n: int            # search backtracks
 
 
@@ -764,19 +769,24 @@ def dpll(S: _Space, pvb, t_init, f_init, min_bits, min_w: int, budget: int,
 
 
 # --------------------------------------------------------------------------
-# preference-ordered guess search (core.py:1143-1391, T = 0)
+# preference-ordered guess search (core.py:1143-1391)
 
 
 def search(S: _Space, pvb, t0, f0, outcome0: int, budget: int, steps: int,
            choice_cand: List[List[int]], var_choices: List[List[int]],
-           na: int, NV: int, enabled: bool):
+           na: int, NV: int, enabled: bool, T: int = 0):
     """The reference guess search for one problem: a circular choice deque
     of (choice row, candidate index) pairs, a guess stack, one plane
     snapshot and Test outcome per guess level, and a DPLL leaf whenever
     the deque empties with the outcome undetermined.  One control step
     takes exactly one arm, in the reference's precedence: leaf, backtrack,
-    done, push.  Returns (result, assumed, m_t, m_f, steps, backtracks)
-    with planes as unsigned words."""
+    done, push.  ``T`` is the trace capacity: each of the first ``T``
+    backtrack entries (where the reference calls ``Tracer.Trace``,
+    search.go:172-173) records the guess-variable stack before the pop,
+    -1 padded to ``GS`` (a null guess stays -1), as ``core.py:1225-1233``
+    does; later ones are counted, not stored.  Returns (result, assumed,
+    m_t, m_f, steps, trace_stack int32[T, GS], backtracks) with planes as
+    unsigned words."""
     NC = len(choice_cand)
     Kc = len(choice_cand[0])
     DQ = GS = NC + 1
@@ -794,6 +804,7 @@ def search(S: _Space, pvb, t0, f0, outcome0: int, budget: int, steps: int,
     m_t, m_f = zero, zero
     assumed = [False] * (W * WORD)
     done = need_leaf = False
+    tr_rows: List[List[int]] = []
     tr_n = 0
 
     def clip(x, lo, hi):
@@ -813,7 +824,9 @@ def search(S: _Space, pvb, t0, f0, outcome0: int, budget: int, steps: int,
                 continue
             cur_t, cur_f = snap_t[clip(gsp, 0, GS)], snap_f[clip(gsp, 0, GS)]
             if is_bt:
-                # PopGuess (search.go:79-98).
+                # PopGuess (search.go:79-98), traced before the pop.
+                if tr_n < T:
+                    tr_rows.append(g_v[:gsp] + [-1] * (GS - gsp))
                 tr_n += 1
                 if gsp == 0:
                     done = True
@@ -886,7 +899,10 @@ def search(S: _Space, pvb, t0, f0, outcome0: int, budget: int, steps: int,
         result = RUNNING
     assumed_plane = pack_mask(
         torch.tensor(assumed, dtype=torch.bool, device=t0.device), W)
-    return result, _to_u(assumed_plane), m_t, m_f, steps, tr_n
+    tr_stack = torch.full((T, GS), -1, dtype=_I32, device=t0.device)
+    if tr_rows:
+        tr_stack[: len(tr_rows)] = torch.tensor(tr_rows, dtype=_I32)
+    return result, _to_u(assumed_plane), m_t, m_f, steps, tr_stack, tr_n
 
 
 # --------------------------------------------------------------------------
@@ -914,14 +930,17 @@ def _phase_base(pt: ProblemTensors, red: bool, V: int,
 
 def search_phase(pt: ProblemTensors, budget: int, en: bool = True, *,
                  red: bool = True, NCON: Optional[int] = None,
-                 block_rows: int = 0, impl: str = "bits"):
+                 block_rows: int = 0, impl: str = "bits", T: int = 0):
     """Phase 1 (core.py:1398-1444): the baseline Test under the anchors,
     then the guess search when it is undetermined.  ``red`` selects the
     reduced space (``V = NV``) or the full one (``V = NV + NCON``, the
     activation variables set true), ``block_rows`` and ``impl`` the
-    fixpoint (see :class:`_Space`).  Returns (result, guessed bool[NV], model
-    int32[NV], steps, backtracks): the full space's outputs cut to the
-    first NV variables.  A padding lane (``en`` false) reports RUNNING."""
+    fixpoint (see :class:`_Space`), ``T`` the trace capacity (see
+    :func:`search`).  Returns (result, guessed bool[NV], model int32[NV],
+    steps, trace_stack int32[T, NC + 1], backtracks): the full space's
+    outputs cut to the first NV variables.  A padding lane (``en``
+    false) reports RUNNING; a lane that does not search keeps an all -1
+    trace and 0 backtracks."""
     NV = pt.var_choices.shape[0]
     V, W = _phase_space(pt, red, NCON)
     S = _space(pt, red, block_rows, impl)
@@ -936,9 +955,9 @@ def search_phase(pt: ProblemTensors, budget: int, en: bool = True, *,
     outcome0 = test_outcome(conflict0, t0, f0, pvb)
     need_search = en and outcome0 == RUNNING
     na = int((pt.anchors >= 0).sum())
-    result, assumed, m_t, m_f, steps, tr_n = search(
+    result, assumed, m_t, m_f, steps, tr_stack, tr_n = search(
         S, pvb, t0, f0, outcome0, budget, 1, pt.choice_cand.tolist(),
-        pt.var_choices.tolist(), na, NV, need_search)
+        pt.var_choices.tolist(), na, NV, need_search, T)
     if need_search:
         guessed = unpack_mask(_to_i32(assumed), NV)
         model = planes_to_assign(_to_i32(m_t), _to_i32(m_f), NV)
@@ -948,7 +967,7 @@ def search_phase(pt: ProblemTensors, budget: int, en: bool = True, *,
         model = planes_to_assign(_to_i32(t0), _to_i32(f0), NV)
     if not en:
         result = RUNNING
-    return result, guessed, model, steps, tr_n
+    return result, guessed, model, steps, tr_stack, tr_n
 
 
 def _to_space(x: torch.Tensor, V: int) -> torch.Tensor:

@@ -10,11 +10,15 @@
 // card_act), every fixpoint a blockwise sweep over compact rows
 // (Planes::tile_rows), the dense rounds, or the watched arm or gather
 // rounds of watched.cuh (Planes::arm).  It then runs
-// the guess search of core.search (core.py:1143-1391, T = 0): a circular
-// choice deque of (choice row, candidate index) pairs, a guess stack, one
-// plane snapshot and Test outcome per guess level, and a block-wide DPLL
-// leaf (dpll.cuh) whenever the deque empties with the outcome
-// undetermined.
+// the guess search of core.search (core.py:1143-1391): a circular choice
+// deque of (choice row, candidate index) pairs, a guess stack, one plane
+// snapshot and Test outcome per guess level, and a block-wide DPLL leaf
+// (dpll.cuh) whenever the deque empties with the outcome undetermined.
+// With a trace buffer (``T`` > 0; the Pallas kernel keeps none, its
+// tracing stays on the XLA path, core.py:1225-1233), each of the lane's
+// first T backtrack entries writes the guess-variable stack before the
+// pop, -1 padded, to its row of the lane's [T][GS] slice; ``tr_n``
+// counts every backtrack either way.
 //
 // Bound on the H100: the search is a chain of dependent propagation
 // fixpoints, each a few rounds of a row scan over the problem's rows with
@@ -86,6 +90,13 @@ __device__ SearchScratch carve_search(uint32_t* base, int NC, int W) {
 
 __device__ inline int mod(int x, int m) { return ((x % m) + m) % m; }
 
+// One trace row: the guess stack g_v[0..gsp), then -1 up to GS.  Out of
+// line, so the control loop is compiled as without tracing.
+__device__ __noinline__ void trace_row(int* row, const int* g_v, int gsp,
+                                       int GS) {
+  for (int k = 0; k < GS; ++k) row[k] = k < gsp ? g_v[k] : -1;
+}
+
 __global__ void __launch_bounds__(kMaxThreads) search_kernel(
     const uint32_t* __restrict__ pos, const uint32_t* __restrict__ neg,
     const uint32_t* __restrict__ mem, const int* __restrict__ card_n,
@@ -96,8 +107,9 @@ __global__ void __launch_bounds__(kMaxThreads) search_kernel(
     const int* __restrict__ outcome0, const int* __restrict__ enabled_in,
     const int* __restrict__ na_in, int budget, uint32_t* scratch,
     size_t scratch_words, int* result_out, int* steps_out, int* trn_out,
-    uint32_t* assumed_out, uint32_t* mt_out, uint32_t* mf_out, int C, int NA,
-    int W, int NC, int Kc, int NV, int Wch, ArmArgs A) {
+    int* tr_stack, int T, uint32_t* assumed_out, uint32_t* mt_out,
+    uint32_t* mf_out, int C, int NA, int W, int NC, int Kc, int NV, int Wch,
+    ArmArgs A) {
   extern __shared__ uint32_t smem[];
   __shared__ SearchCtl ctl;
   __shared__ DpllCtl dctl;
@@ -176,6 +188,12 @@ __global__ void __launch_bounds__(kMaxThreads) search_kernel(
         if (is_leaf) {
           ctl.need_leaf = 1;
         } else if (is_bt) {
+          // The trace row (search.go:172-173), before the pop changes
+          // gsp and g_v.  The lead thread writes it alone, as it runs
+          // every control arm: at most T rows of GS words a launch.
+          if (tr_stack != nullptr && ctl.tr_n < T)
+            trace_row(tr_stack + ((size_t)b * T + ctl.tr_n) * GS, X.g_v, gsp,
+                      GS);
           // PopGuess (search.go:79-98).
           ctl.tr_n += 1;
           if (gsp == 0) {
@@ -344,18 +362,23 @@ extern "C" size_t deppy_search_scratch_words(int NC, int NV, int W) {
 // ``resident`` keeps in shared memory for the whole launch.  ``arm`` (an
 // ArmArgs, or null) selects the watched arm or the gather rounds instead,
 // at tile_rows 0; the dense planes are not read then and may be null.
+// ``tr_stack`` is the [B][T][NC + 1] trace buffer, or null with T = 0; it
+// is not part of the scratch.
 extern "C" int deppy_search(
     const void* pos, const void* neg, const void* mem, const void* card_n,
     const void* card_valid, const void* card_act, const void* lits,
     const void* mlits, const void* choice_cand, const void* var_choices,
     const void* t0, const void* f0, const void* pvb, const void* outcome0,
     const void* enabled, const void* na, int budget, void* scratch,
-    void* result, void* steps, void* tr_n, void* assumed, void* m_t,
-    void* m_f, int B, int C, int NA, int W, int NC, int Kc, int NV, int Wch,
+    void* result, void* steps, void* tr_n, void* tr_stack, int T,
+    void* assumed, void* m_t, void* m_f, int B, int C, int NA, int W, int NC,
+    int Kc, int NV, int Wch,
     int K, int M, int lit_bytes, int tile_rows, int resident, int threads,
     const void* arm, void* stream) {
   if (B == 0) return 0;
-  if (!launch_ok(C, tile_rows, threads)) return (int)cudaErrorInvalidValue;
+  if (!launch_ok(C, tile_rows, threads) || T < 0 ||
+      (T > 0) != (tr_stack != nullptr))
+    return (int)cudaErrorInvalidValue;
   const Planes L = compact_dims(C, NA, W, lits, mlits, K, M, lit_bytes,
                                 tile_rows, resident);
   const ArmArgs A = arm_args(arm);
@@ -375,7 +398,8 @@ extern "C" int deppy_search(
       static_cast<const int*>(na), budget, static_cast<uint32_t*>(scratch),
       search_scratch_words(NC, NV, W), static_cast<int*>(result),
       static_cast<int*>(steps), static_cast<int*>(tr_n),
-      static_cast<uint32_t*>(assumed), static_cast<uint32_t*>(m_t),
-      static_cast<uint32_t*>(m_f), C, NA, W, NC, Kc, NV, Wch, A);
+      static_cast<int*>(tr_stack), T, static_cast<uint32_t*>(assumed),
+      static_cast<uint32_t*>(m_t), static_cast<uint32_t*>(m_f), C, NA, W, NC,
+      Kc, NV, Wch, A);
   return (int)cudaGetLastError();
 }

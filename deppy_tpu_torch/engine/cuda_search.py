@@ -275,10 +275,15 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
                          *, impl: str = "bits",
                          block_rows: Optional[int] = None,
                          NCON: Optional[int] = None,
-                         rows: Optional[cuda_blockwise.Compact] = None):
-    """Phase 1 over a batch.  ``en`` bool[B] gates padding lanes.
-    Returns (result int32[B], guessed bool[B, NV], model int32[B, NV],
-    steps int32[B], tr_stack int32[B, 0, NC+1], tr_n int32[B])."""
+                         rows: Optional[cuda_blockwise.Compact] = None,
+                         T: int = 0):
+    """Phase 1 over a batch.  ``en`` bool[B] gates padding lanes; ``T``
+    is the trace capacity (``core.search``).  Returns (result int32[B],
+    guessed bool[B, NV], model int32[B, NV], steps int32[B], tr_stack
+    int32[B, T, NC+1], tr_n int32[B]).  The trace buffer is allocated,
+    filled with -1, only when ``T`` > 0; kernel 3 writes a lane's rows
+    at its backtracks, and a lane that never searches keeps -1 rows and
+    ``tr_n`` 0."""
     red = _reduced(impl)
     B, NC, Kc = pts.choice_cand.shape
     NV, Wch = pts.var_choices.shape[1:]
@@ -293,9 +298,11 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
                   n_cons=(B,))
     dev = _check_phase(pts, shapes, arm, C, NA, W)
     _check_mask(en, (B,), dev, "en")
+    if T < 0:
+        raise ValueError(f"trace capacity T must be >= 0, not {T}")
     if dev.type == "cpu":
         return batched_search_plain(pts, budget, en, impl=impl,
-                                    block_rows=tile, NCON=NCON)
+                                    block_rows=tile, NCON=NCON, T=T)
     lib = _build.load()
     rows = _launch_rows(pts, W, tile, rows)
     pv_mask = torch.arange(V, device=dev) < pts.n_vars.unsqueeze(-1)
@@ -320,6 +327,8 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
     result_s = torch.empty(B, dtype=_I32, device=dev)
     steps = torch.empty(B, dtype=_I32, device=dev)
     tr_n = torch.empty(B, dtype=_I32, device=dev)
+    # The trace buffer (empty, nothing filled, at T = 0).
+    tr_stack = torch.full((B, T, NC + 1), -1, dtype=_I32, device=dev)
     asm = torch.empty((B, W), dtype=_I32, device=dev)
     m_t = torch.empty((B, W), dtype=_I32, device=dev)
     m_f = torch.empty((B, W), dtype=_I32, device=dev)
@@ -331,8 +340,8 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
         t0.data_ptr(), f0.data_ptr(), pvb.data_ptr(), outcome0.data_ptr(),
         ns.data_ptr(), na.data_ptr(), int(budget), scratch.data_ptr(),
         result_s.data_ptr(), steps.data_ptr(), tr_n.data_ptr(),
-        asm.data_ptr(), m_t.data_ptr(), m_f.data_ptr(), B, C, NA, W, NC, Kc,
-        NV, Wch, *dims, _threads(impl, arm), _arm_ptr(a), _stream(dev))
+        tr_stack.data_ptr() if T else None, T, asm.data_ptr(),
+        m_t.data_ptr(), m_f.data_ptr(), B, C, NA, W, NC, Kc, NV, Wch, *dims, _threads(impl, arm), _arm_ptr(a), _stream(dev))
     counts.count("search", impl, "block", arm)
     _build.check(rc, f"search ({impl})")
     a0 = core.planes_to_assign(t0, f0, NV)
@@ -343,14 +352,13 @@ def batched_search_fused(pts: core.ProblemTensors, budget, en: torch.Tensor,
     result = torch.where(en, result, core.RUNNING).to(_I32)
     guessed = torch.where(ns2, s_guessed, anchor_mask[:, :NV])
     model = torch.where(ns2, s_model, a0)
-    tr_stack = torch.full((B, 0, NC + 1), -1, dtype=_I32, device=dev)
     return result, guessed, model, steps, tr_stack, tr_n
 
 
 def batched_search_plain(pts: core.ProblemTensors, budget, en: torch.Tensor,
                          *, impl: str = "bits",
                          block_rows: Optional[int] = None,
-                         NCON: Optional[int] = None):
+                         NCON: Optional[int] = None, T: int = 0):
     """Plain version of :func:`batched_search_fused`, on any device."""
     red = _reduced(impl)
     B, NC, _ = pts.choice_cand.shape
@@ -363,12 +371,13 @@ def batched_search_plain(pts: core.ProblemTensors, budget, en: torch.Tensor,
     tr_n = torch.zeros(B, dtype=_I32, device=dev)
     guessed = torch.zeros((B, NV), dtype=torch.bool, device=dev)
     model = torch.zeros((B, NV), dtype=_I32, device=dev)
+    tr_stack = torch.full((B, T, NC + 1), -1, dtype=_I32, device=dev)
     for b in range(B):
-        r, g, m, s, t = core.search_phase(core.lane(pts, b), int(budget),
-                                          bool(en[b]), red=red, NCON=NCON,
-                                          block_rows=tile, impl=impl)
+        r, g, m, s, ts, t = core.search_phase(
+            core.lane(pts, b), int(budget), bool(en[b]), red=red, NCON=NCON,
+            block_rows=tile, impl=impl, T=T)
         result[b], guessed[b], model[b], steps[b], tr_n[b] = r, g, m, s, t
-    tr_stack = torch.full((B, 0, NC + 1), -1, dtype=_I32, device=dev)
+        tr_stack[b] = ts
     return result, guessed, model, steps, tr_stack, tr_n
 
 

@@ -1,7 +1,7 @@
-"""Pad, batch, dispatch and decode (port of ``deppy_tpu/engine/driver.py:117-2152``, the three-phase split path).
+"""Pad, batch, dispatch and decode (port of ``deppy_tpu/engine/driver.py:58-2152``, the three-phase split path).
 
 One batched resolve, as the reference's ``solve_problems`` runs it
-without a mesh, tracing, faults or budget escalation:
+without a mesh, faults or budget escalation:
 
 1. :func:`partition_buckets` splits a heterogeneous batch along the
    shared size-class ladder;
@@ -18,6 +18,23 @@ without a mesh, tracing, faults or budget escalation:
    full-space planes derived, and phase 3 run on the device — routed
    exactly as the reference routes them (:func:`_core_routes`);
 5. :func:`decode_results` maps lanes back to variables.
+
+Tracing: ``trace_cap`` > 0 gives phase 1 a backtrack trace buffer of that
+depth (kernel 3 writes it on the card); :func:`solve_one` with a
+``tracer`` replays its rows into ``Tracer.trace`` calls
+(:func:`_replay_trace`).
+
+Telemetry (:mod:`deppy_tpu_torch.telemetry`): every call runs under a
+``driver.solve`` span and fills the thread's :class:`SolveReport`
+(``begin_report``/``end_report``; ``stats["report"]``): the spans
+``driver.pad_pack``, ``driver.device_put`` and ``driver.decode`` (and
+``driver.encode`` in :func:`solve_batch`), the padding counters of
+:func:`_telem_record_pad`, the host-core routing counter, and the
+``deppy_solve_seconds`` histogram.  The spans time the
+host wall and synchronize nothing: the driver's ``.cpu()`` fetches are
+where the card's work lands, inside ``driver.solve``.  The port has no
+escalation ladder, so no ``driver.escalation`` span is emitted (the
+reference's default ``STAGE1_STEPS = 0`` runs its ladder at stage 0).
 
 Under ``blockwise`` on the card the kernels read compact rows, built once
 per bucket (``cuda_blockwise.compact_rows``) and cut per chunk, and no
@@ -43,12 +60,15 @@ from __future__ import annotations
 
 import functools
 import os
+import time
+import warnings
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import size_classes as _size_classes
+from .. import telemetry
 from ..size_classes import bucket as _bucket
 from ..sat.constraints import Variable
 from ..sat.encode import Problem, encode
@@ -78,6 +98,12 @@ HOST_CORE_NCONS = int(os.environ.get("DEPPY_GPU_HOST_CORE_NCONS", "768"))
 # passes it would pay a V x Ob bank mostly for one popular literal, so it
 # keeps dummy banks and runs the dense rounds.
 BANK_OCC_CAP = int(os.environ.get("DEPPY_GPU_BANK_OCC_CAP", "0"))
+
+
+# Trace-buffer depth when a tracer is attached and the caller sets none
+# (driver.py:1974-1978): truncation warns, and shows as
+# stats["backtracks"] > trace calls.
+DEFAULT_TRACE_CAP = 256
 
 
 def resolve_device(device) -> torch.device:
@@ -130,6 +156,35 @@ class _Dims:
         """Bucketed member→AtMost-row width of the watched bank."""
         return _bucket(max((clause_bank.max_card_membership(p.card_ids)
                             for p in self._problems), default=0))
+
+
+def _telem_record_pad(problems: Sequence[Problem], total: int, d: _Dims,
+                      n_chunks: int, dur_s: float) -> None:
+    """One bucket's padding economics (driver.py:68-94): live vs padded
+    lanes, and live vs padded clause-matrix cells."""
+    reg = telemetry.default_registry()
+    n = len(problems)
+    live_cells = int(sum(p.clauses.size for p in problems))
+    pad_cells = int(total) * d.C * d.K
+    reg.histogram(
+        "deppy_batch_fill_ratio",
+        "Live problems per dispatched batch lane (1.0 = no lane padding).",
+        buckets=telemetry.RATIO_BUCKETS,
+    ).observe(n / total if total else 1.0)
+    reg.counter("deppy_pad_cells_total",
+                "Clause-matrix cells dispatched, including padding."
+                ).inc(pad_cells)
+    reg.counter("deppy_live_cells_total",
+                "Clause-matrix cells carrying live problem data."
+                ).inc(live_cells)
+    reg.counter("deppy_chunks_total",
+                "Device dispatch chunks issued.").inc(n_chunks)
+    rep = telemetry.current_report()
+    if rep is not None:
+        rep.record_batch(live_lanes=n, batch_lanes=int(total),
+                         live_cells=live_cells, pad_cells=pad_cells,
+                         n_chunks=n_chunks)
+        rep.add_wall("pad_pack", dur_s)
 
 
 def _bank_cap(d: _Dims) -> int:
@@ -281,7 +336,15 @@ def _host_core_rows(problems: Sequence[Problem], idx: np.ndarray,
     left after its device search (``spent``); a lane with nothing left
     takes one step, and an engine that runs out takes ``remaining + 1``,
     so the caller's ``steps > budget`` check turns the lane Incomplete
-    exactly as the device core phase would."""
+    exactly as the device core phase would.  Every lane routed here counts
+    (driver.py:793-799)."""
+    telemetry.default_registry().counter(
+        "deppy_host_fallback_rows_total",
+        "UNSAT rows whose core extraction routed to the host spec engine.",
+    ).inc(len(idx))
+    rep = telemetry.current_report()
+    if rep is not None:
+        rep.host_fallback_rows += len(idx)
     cores = np.zeros((len(idx), NCON), bool)
     steps = np.zeros(len(idx), np.int64)
     for r, i in enumerate(idx):
@@ -320,31 +383,47 @@ def _core_routes(problems: Sequence[Problem], unsat_idx: np.ndarray,
 
 
 def _solve_split(problems: Sequence[Problem], budget: int,
-                 dev: torch.device, monolith: bool) -> List[core.SolveResult]:
+                 dev: torch.device, monolith: bool,
+                 trace_cap: int = 0) -> List[core.SolveResult]:
     """The three-phase path over one bucket (driver.py:992-1191), with
-    the core routing of :func:`_core_routes`."""
+    the core routing of :func:`_core_routes`; ``trace_cap`` is phase 1's
+    trace depth ``T``."""
     n = len(problems)
     d = _Dims(problems, min(max(n, 1), MAX_LANES))
     CH = d.B
-    total = max(1, -(-n // CH)) * CH
+    n_chunks = max(1, -(-n // CH))
+    total = n_chunks * CH
     impl = core.resolved_impl()
     red = core.phases_reduced()
     cuda = dev.type == "cuda"
     kw = dict(impl=impl, block_rows=cuda_blockwise.BLOCK_ROWS)
-    pts_all = _upload(pad_stack(problems, d, total), dev)
-    en_all = torch.arange(total, device=dev) < n
-    banks = impl == "watched" and d.Ob <= _bank_cap(d)
-    if banks:
-        pts_all = _derive_banks(pts_all, d, red=True, full=False)
-    # The compact rows the kernels read, once per bucket: the blockwise
-    # tiles, or the watched entry round's (reduced for phases 1-2).
-    rows_all = core_rows_all = None
-    if cuda and impl == "blockwise":
-        rows_all = core_rows_all = cuda_blockwise.compact_rows(
-            pts_all.clauses, pts_all.card_ids, d.Wv)
-    elif cuda and banks:
-        rows_all = cuda_blockwise.compact_rows(
-            pts_all.clauses, pts_all.card_ids, d.Wr, n_vars=pts_all.n_vars)
+    reg = telemetry.default_registry()
+    rep = telemetry.current_report()
+    with reg.span("driver.pad_pack", problems=n, lanes=total,
+                  chunks=n_chunks) as sp:
+        pts_np = pad_stack(problems, d, total)
+    _telem_record_pad(problems, total, d, n_chunks=n_chunks, dur_s=sp.dur_s)
+    # The compact tensors cross to the device once, and the bucket's
+    # clause banks and compact rows are derived there.
+    with reg.span("driver.device_put", lanes=total, chunks=n_chunks) as sp:
+        pts_all = _upload(pts_np, dev)
+        en_all = torch.arange(total, device=dev) < n
+        banks = impl == "watched" and d.Ob <= _bank_cap(d)
+        if banks:
+            pts_all = _derive_banks(pts_all, d, red=True, full=False)
+        # The compact rows the kernels read, once per bucket: the
+        # blockwise tiles, or the watched entry round's (reduced for
+        # phases 1-2).
+        rows_all = core_rows_all = None
+        if cuda and impl == "blockwise":
+            rows_all = core_rows_all = cuda_blockwise.compact_rows(
+                pts_all.clauses, pts_all.card_ids, d.Wv)
+        elif cuda and banks:
+            rows_all = cuda_blockwise.compact_rows(
+                pts_all.clauses, pts_all.card_ids, d.Wr,
+                n_vars=pts_all.n_vars)
+    if rep is not None:
+        rep.add_wall("device_put", sp.dur_s)
     dense = cuda_search.reads_planes(impl, dev.type, banks)
 
     def rows(sel):
@@ -354,19 +433,20 @@ def _solve_split(problems: Sequence[Problem], budget: int,
         return None if core_rows_all is None else core_rows_all.take(sel)
 
     # Phases 1 and 2 on the same resident chunks.
-    res1, st1, trn, inst, found, st2 = [], [], [], [], [], []
+    res1, st1, trs, trn, inst, found, st2 = [], [], [], [], [], [], []
     for lo in range(0, total, CH):
         sl = slice(lo, lo + CH)
         pts = core.with_planes(_rows(pts_all, sl), Wv=d.Wv, Wr=d.Wr,
                                red=red and dense, full=not red and dense)
         en = en_all[sl]
-        r, guessed, model, steps, _, tr_n = cuda_search.batched_search_fused(
-            pts, budget, en, NCON=d.NCON, rows=rows(sl), **kw)
+        r, guessed, model, steps, tr, tr_n = cuda_search.batched_search_fused(
+            pts, budget, en, NCON=d.NCON, rows=rows(sl), T=trace_cap, **kw)
         i2, f2, s2 = cuda_search.batched_minimize_fused(
             pts, r, model, guessed, budget, steps, en, NCON=d.NCON,
             rows=rows(sl), **kw)
         res1.append(r)
         st1.append(steps)
+        trs.append(tr)
         trn.append(tr_n)
         inst.append(i2)
         found.append(f2)
@@ -374,6 +454,8 @@ def _solve_split(problems: Sequence[Problem], budget: int,
     result = torch.cat(res1).cpu().numpy()
     steps = torch.cat(st1).cpu().numpy().astype(np.int64)
     trace_n = torch.cat(trn).cpu().numpy()
+    trace_stack = (torch.cat(trs).cpu().numpy() if trace_cap > 0
+                   else np.zeros((total, 0, d.NC + 1), np.int32))
     installed = torch.cat(inst).cpu().numpy()
     min_found = torch.cat(found).cpu().numpy()
     st_min = torch.cat(st2).cpu().numpy()
@@ -418,28 +500,57 @@ def _solve_split(problems: Sequence[Problem], budget: int,
     return [
         core.SolveResult(int(outcome[i]), torch.from_numpy(installed[i]),
                          torch.from_numpy(cores[i]), int(steps[i]),
-                         int(trace_n[i]))
+                         torch.from_numpy(trace_stack[i]), int(trace_n[i]))
         for i in range(n)
     ]
 
 
 def solve_problems(problems: Sequence[Problem],
                    max_steps: Optional[int] = None,
-                   device="cuda") -> List[core.SolveResult]:
+                   device="cuda", trace_cap: int = 0
+                   ) -> List[core.SolveResult]:
     """Solve lowered problems as device batches; one
-    :class:`core.SolveResult` per problem, on the host."""
+    :class:`core.SolveResult` per problem, on the host.  ``trace_cap`` >
+    0 keeps a backtrack trace of that depth per problem
+    (``SolveResult.trace_stack``).
+
+    The call runs under a ``driver.solve`` span and fills the thread's
+    active :class:`telemetry.SolveReport`, made here when none is active
+    (a nested call merges into the enclosing one; driver.py:1872-1926);
+    read it afterwards with :func:`telemetry.last_report`."""
     for p in problems:
         if p.errors:
             raise InternalSolverError(p.errors)
     dev = resolve_device(device)
     budget = _budget(max_steps)
     n = len(problems)
-    results: List[Optional[core.SolveResult]] = [None] * n
-    for idxs in (partition_buckets(problems) if n > 1 else [list(range(n))]):
-        sub = _solve_split([problems[i] for i in idxs], budget, dev,
-                           monolith=n == 1)
-        for i, r in zip(idxs, sub):
-            results[i] = r
+    rep, owns = telemetry.begin_report(backend="device", n_problems=n)
+    reg = telemetry.default_registry()
+    t0 = time.perf_counter()
+    try:
+        with reg.span("driver.solve", problems=n):
+            results: List[Optional[core.SolveResult]] = [None] * n
+            for idxs in (partition_buckets(problems) if n > 1
+                         else [list(range(n))]):
+                sub = _solve_split([problems[i] for i in idxs], budget, dev,
+                                   monolith=n == 1, trace_cap=trace_cap)
+                for i, r in zip(idxs, sub):
+                    results[i] = r
+        for r in results:
+            rep.count_outcome("sat" if r.outcome == core.SAT
+                              else "unsat" if r.outcome == core.UNSAT
+                              else "incomplete")
+            rep.steps += r.steps
+            rep.backtracks += r.trace_n
+        reg.histogram(
+            "deppy_solve_seconds",
+            "Wall-clock seconds per driver solve call (pad through "
+            "decode).",
+        ).observe(time.perf_counter() - t0)
+    finally:
+        rep.add_wall("solve", time.perf_counter() - t0)
+        if owns:
+            telemetry.end_report(rep, owns)
     return results  # type: ignore[return-value]
 
 
@@ -453,15 +564,89 @@ def _decode_core(p: Problem, active) -> NotSatisfiable:
     return NotSatisfiable([c for c, on in zip(p.applied, flags) if on])
 
 
+class _LazyReplayPosition:
+    """``SearchPosition`` whose conflict set is rebuilt on demand
+    (driver.py:1981-2002).  The assumption stack comes off the trace
+    buffer; the conflicts need a host-engine replay, run only when a
+    tracer calls ``conflicts()``, so a stats-only tracer costs no host
+    solve."""
+
+    def __init__(self, variables, compute_conflicts):
+        self._variables = variables
+        self._compute = compute_conflicts
+        self._conflicts = None
+
+    def variables(self):
+        return self._variables
+
+    def conflicts(self):
+        if self._conflicts is None:
+            self._conflicts = self._compute()
+        return self._conflicts
+
+
+def _replay_trace(problem: Problem, res: core.SolveResult, tracer) -> None:
+    """The trace buffer's rows as ``Tracer.trace`` calls
+    (driver.py:2005-2056).  Each row is the guess-variable stack at one
+    backtrack; its conflicts come, lazily, from one host-engine Test
+    under those guesses (``HostEngine._test``, ``last_conflicts``).  BCP
+    is confluent, so a backtrack from a propagation conflict replays to
+    the same conflicts; one from an exhausted leaf DPLL replays to none,
+    and reports an empty list.  A buffer that overflowed warns
+    (``RuntimeWarning``) and replays the rows it holds."""
+    total = int(res.trace_n)
+    rows = min(total, res.trace_stack.shape[0])
+    if rows == 0:
+        return
+    if total > rows:
+        warnings.warn(
+            f"search backtracked {total} times but the trace buffer holds "
+            f"{rows}; trailing events are dropped — raise trace_cap "
+            f"(solve_one) to capture them",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+    eng_box: list = []
+
+    def _conflicts_for(gv):
+        def compute():
+            from ..sat.host import UNSAT as HOST_UNSAT
+
+            if not eng_box:
+                eng_box.append(HostEngine(problem))
+            eng = eng_box[0]
+            outcome, _ = eng._test(guessed=tuple(gv))
+            return list(eng.last_conflicts) if outcome == HOST_UNSAT else []
+
+        return compute
+
+    stack = res.trace_stack[:rows].tolist()
+    for row in stack:
+        gv = [v for v in row if v >= 0]
+        tracer.trace(_LazyReplayPosition(
+            [problem.variables[v] for v in gv], _conflicts_for(gv)))
+
+
 def solve_one(problem: Problem, max_steps: Optional[int] = None,
-              stats: Optional[dict] = None, device="cuda") -> List[Variable]:
+              stats: Optional[dict] = None, device="cuda", tracer=None,
+              trace_cap: Optional[int] = None) -> List[Variable]:
     """Single-problem entry used by :class:`deppy_tpu_torch.sat.Solver`
-    (driver.py:2057): the installed variables, or raises
-    :class:`NotSatisfiable` / :class:`Incomplete`."""
-    (res,) = solve_problems([problem], max_steps=max_steps, device=device)
+    (driver.py:2059-2085): the installed variables, or raises
+    :class:`NotSatisfiable` / :class:`Incomplete`.  ``stats`` receives
+    ``steps``, ``backtracks`` and the call's ``report``.  A ``tracer``
+    receives one ``trace`` call per search backtrack, like the host
+    engine (tracer.go:13-15); ``trace_cap`` sizes the trace buffer
+    (default :data:`DEFAULT_TRACE_CAP` with a tracer, else 0)."""
+    if trace_cap is None:
+        trace_cap = DEFAULT_TRACE_CAP if tracer is not None else 0
+    (res,) = solve_problems([problem], max_steps=max_steps, device=device,
+                            trace_cap=trace_cap)
     if stats is not None:
         stats["steps"] = res.steps
         stats["backtracks"] = res.trace_n
+        stats["report"] = telemetry.last_report()
+    if tracer is not None:
+        _replay_trace(problem, res, tracer)
     if res.outcome == core.SAT:
         return _decode_installed(problem, res.installed)
     if res.outcome == core.UNSAT:
@@ -473,28 +658,43 @@ def solve_batch(problem_vars: Sequence[Sequence[Variable]],
                 max_steps: Optional[int] = None,
                 stats: Optional[dict] = None, device="cuda"):
     """Batch entry used by :class:`deppy_tpu_torch.resolution.BatchResolver`
-    (driver.py:2088): per problem a solution dict, its
-    :class:`NotSatisfiable`, or an :class:`Incomplete` marker."""
-    problems = [encode(vs) for vs in problem_vars]
-    results = solve_problems(problems, max_steps=max_steps, device=device)
+    (driver.py:2088-2123): per problem a solution dict, its
+    :class:`NotSatisfiable`, or an :class:`Incomplete` marker.  ``stats``
+    receives the summed ``steps`` and the batch's ``report``.  The encode
+    runs under a ``driver.encode`` span, its wall the report's
+    ``encode`` (the reference times no encode)."""
+    rep, owns = telemetry.begin_report(backend="device")
+    try:
+        with telemetry.default_registry().span(
+                "driver.encode", problems=len(problem_vars)) as sp:
+            problems = [encode(vs) for vs in problem_vars]
+        rep.add_wall("encode", sp.dur_s)
+        results = solve_problems(problems, max_steps=max_steps,
+                                 device=device)
+    finally:
+        telemetry.end_report(rep, owns)
     if stats is not None:
         stats["steps"] = int(sum(r.steps for r in results))
+        stats["report"] = telemetry.last_report()
     return decode_results(problems, results)
 
 
 def decode_results(problems: Sequence[Problem],
                    results: Sequence[core.SolveResult]
                    ) -> List[Union[dict, NotSatisfiable, Incomplete]]:
-    """Lanes back to the facade vocabulary (driver.py:2126-2152)."""
+    """Lanes back to the facade vocabulary (driver.py:2126-2152), under
+    a ``driver.decode`` span."""
     out: List[Union[dict, NotSatisfiable, Incomplete]] = []
-    for p, res in zip(problems, results):
-        if res.outcome == core.SAT:
-            solution = {v.identifier: False for v in p.variables}
-            for v in _decode_installed(p, res.installed):
-                solution[v.identifier] = True
-            out.append(solution)
-        elif res.outcome == core.UNSAT:
-            out.append(_decode_core(p, res.core))
-        else:
-            out.append(Incomplete())
+    with telemetry.default_registry().span("driver.decode",
+                                           problems=len(problems)):
+        for p, res in zip(problems, results):
+            if res.outcome == core.SAT:
+                solution = {v.identifier: False for v in p.variables}
+                for v in _decode_installed(p, res.installed):
+                    solution[v.identifier] = True
+                out.append(solution)
+            elif res.outcome == core.UNSAT:
+                out.append(_decode_core(p, res.core))
+            else:
+                out.append(Incomplete())
     return out

@@ -12,15 +12,20 @@ states over a shared catalog): encoded once and resolved together on
 lane on the inline host engine by the ``"host"`` backend.  Each comes
 back as a ``Solution``, the :class:`NotSatisfiable` error carrying its
 minimal core, or an :class:`Incomplete` marker when it ran out of steps.
+``BatchResolver.last_report`` is the last batch's
+:class:`telemetry.SolveReport` on either backend.  ``Resolver(tracer=)``
+traces on either backend (see :class:`Solver`).
 
 Left out (later slices): the scheduler, mesh, checkpoint and deadline
-arguments, the host worker pool and the telemetry report.
+arguments, and the host worker pool.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Union
 
+from .. import telemetry
 from ..entity.entity import EntityID
 from ..entity.source import EntityQuerier
 from ..sat.constraints import Variable
@@ -94,10 +99,14 @@ class BatchResolver:
         self.max_steps = max_steps
         # Engine iterations consumed by the last solve, summed over the batch.
         self.last_steps: int = 0
+        # The last solve's telemetry: outcomes, engine counters and, on
+        # the device backend, the driver's padding data and stage walls.
+        self.last_report: Optional[telemetry.SolveReport] = None
 
     def solve(self, problems: Sequence[Sequence[Variable]]
               ) -> List[Union[Solution, NotSatisfiable, Incomplete]]:
         self.last_steps = 0
+        self.last_report = None
         if self.backend == "host":
             return self._solve_host_batch(problems)
         from ..engine.driver import solve_batch
@@ -108,23 +117,47 @@ class BatchResolver:
                                stats=stats, device=self.device)
         finally:
             self.last_steps = stats.get("steps", 0)
+            self.last_report = stats.get("report")
 
     def _solve_host_batch(
         self, problems: Sequence[Sequence[Variable]]
     ) -> List[Union[Solution, NotSatisfiable, Incomplete]]:
         """Every problem encoded first (a ``DuplicateIdentifier`` raises
         before any solve), then solved lane by lane on an inline
-        :class:`HostEngine`: the reference's host batch run inline.  A
-        core carries the very objects of its problem's ``applied``."""
-        encoded = [encode(vs) for vs in problems]
+        :class:`HostEngine`: the reference's host batch run inline
+        (``resolution/facade.py:193-250``, without the worker pool and
+        deadlines), under a ``facade.host_solve`` span and a batch
+        report.  A core carries the very objects of its problem's
+        ``applied``."""
+        batch_rep, owns_rep = telemetry.begin_report(
+            backend="host", n_problems=len(problems))
+        reg = telemetry.default_registry()
         out: List[Union[Solution, NotSatisfiable, Incomplete]] = []
-        for variables, p in zip(problems, encoded):
-            engine = HostEngine(p, max_steps=self.max_steps)
-            try:
-                installed, _ = engine.solve()
-                out.append(_to_solution(variables, installed))
-            except (NotSatisfiable, Incomplete) as e:
-                out.append(e)
-            finally:
-                self.last_steps += engine.steps
+        try:
+            with reg.span("facade.host_solve", problems=len(problems)):
+                encoded = [encode(vs) for vs in problems]
+                for variables, p in zip(problems, encoded):
+                    engine = HostEngine(p, max_steps=self.max_steps)
+                    t0 = time.perf_counter()
+                    try:
+                        installed, _ = engine.solve()
+                        out.append(_to_solution(variables, installed))
+                        batch_rep.count_outcome("sat")
+                    except NotSatisfiable as e:
+                        out.append(e)
+                        batch_rep.count_outcome("unsat")
+                    except Incomplete as e:
+                        out.append(e)
+                        batch_rep.count_outcome("incomplete")
+                    finally:
+                        batch_rep.steps += engine.steps
+                        batch_rep.decisions += engine.decisions
+                        batch_rep.propagation_rounds += \
+                            engine.propagation_rounds
+                        batch_rep.backtracks += engine.backtracks
+                        batch_rep.add_wall("solve", time.perf_counter() - t0)
+                        self.last_steps += engine.steps
+        finally:
+            telemetry.end_report(batch_rep, owns_rep)
+        self.last_report = batch_rep
         return out

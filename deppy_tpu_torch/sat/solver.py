@@ -12,6 +12,13 @@ returns the installed variables in input order, raises
     the kernels' plain versions;
   * ``"host"`` — the NumPy spec engine (:class:`HostEngine`), inline.
 
+A ``tracer`` receives one ``trace`` call per search backtrack on either
+backend: the host engine calls it as it searches, the device backend
+replays the search kernel's trace buffer (``trace_cap`` rows, default
+``driver.DEFAULT_TRACE_CAP``; a search that overflows it warns).
+:attr:`Solver.report` is the last solve's :class:`SolveReport`: the
+driver's on the device backend, one built here on the host backend.
+
 Any other name raises :class:`InternalSolverError`, the reference's
 ``"auto"`` and ``"tpu"`` included: ``auto`` picks the host engine for a
 single problem, which would hide the card.
@@ -24,14 +31,15 @@ the assumed problem (:func:`assumed_variables`), lowered by
 :func:`encode_assumed` and solved on the configured backend.
 
 Left out (later slices): the scheduler branch of ``solve_scoped``, the
-host worker pool, ``SolveReport`` telemetry, deadlines, the ``auto``
-probe and the breaker, and tracing on the device backend.
+host worker pool, deadlines, the ``auto`` probe and the breaker.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence
 
+from .. import telemetry
 from .constraints import Variable, mandatory, prohibited
 from .encode import Problem, encode, encode_assumed
 from .errors import Incomplete, InternalSolverError, NotSatisfiable
@@ -84,22 +92,23 @@ class Solver:
 
     def __init__(self, variables: Sequence[Variable],
                  tracer: Optional[Tracer] = None, backend: str = "device",
-                 device="cuda", max_steps: Optional[int] = None):
+                 device="cuda", max_steps: Optional[int] = None,
+                 trace_cap: Optional[int] = None):
         check_backend(backend)
-        if tracer is not None and backend == "device":
-            raise NotImplementedError(
-                "search tracing on the device backend (a backtrack trace "
-                "buffer, T > 0) is ROADMAP item A4; the fused search "
-                "kernels keep no trace buffer, as in deppy_tpu's fused "
-                "path.  backend='host' traces")
         self.problem: Problem = encode(variables)
         self.tracer = tracer
         self.backend = backend
         self.device = device
         self.max_steps = max_steps
+        # Trace-buffer depth on the device backend (None: the driver's
+        # default); the host engine traces unbuffered.
+        self.trace_cap = trace_cap
         # Engine iterations and search backtracks of the last solve.
         self.steps: int = 0
         self.backtracks: int = 0
+        # The last solve's telemetry (outcome, counters and, on the
+        # device backend, the driver's padding data and stage walls).
+        self.report: Optional[telemetry.SolveReport] = None
         self._inc_engine: Optional[HostEngine] = None
 
     # ------------------------------------------------------------ scopes
@@ -213,21 +222,41 @@ class Solver:
         stats: dict = {}
         try:
             return solve_one(problem, max_steps=self.max_steps,
-                             stats=stats, device=self.device)
+                             stats=stats, device=self.device, tracer=tracer,
+                             trace_cap=self.trace_cap)
         finally:
             self.steps = stats.get("steps", 0)
             self.backtracks = stats.get("backtracks", 0)
+            self.report = stats.get("report")
 
     def _solve_host(self, problem: Problem,
                     tracer: Optional[Tracer]) -> List[Variable]:
         """One inline host-engine solve (the reference's ``_solve_host``
-        and ``_solve_host_traced``, without the worker pool and the
-        report: the answer, its core objects and its counts are the
-        same)."""
+        and ``_solve_host_traced``, without the worker pool: the answer,
+        its core objects, its counts and its ``SolveReport``,
+        ``solver.py:350-376``, are the same)."""
         engine = HostEngine(problem, tracer=tracer, max_steps=self.max_steps)
+        t0 = time.perf_counter()
+        outcome: Optional[str] = None
         try:
             installed, _ = engine.solve()
+            outcome = "sat"
             return installed
+        except NotSatisfiable:
+            outcome = "unsat"
+            raise
+        except Incomplete:
+            outcome = "incomplete"
+            raise
         finally:
             self.steps = engine.steps
             self.backtracks = engine.backtracks
+            rep = telemetry.SolveReport(backend="host", n_problems=1)
+            if outcome is not None:
+                rep.count_outcome(outcome)
+            rep.steps = engine.steps
+            rep.decisions = engine.decisions
+            rep.propagation_rounds = engine.propagation_rounds
+            rep.backtracks = engine.backtracks
+            rep.add_wall("solve", time.perf_counter() - t0)
+            self.report = rep

@@ -17,7 +17,7 @@ from deppy_tpu_torch.resolution import BatchResolver
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "deppy_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -39,15 +39,37 @@ def test_no_jax_or_deppy_tpu_import(path):
     assert bad == []
 
 
+def test_scan_covers_telemetry():
+    """The telemetry package is pure Python the port keeps its own copy
+    of: the AST scan reads each of its modules."""
+    names = {p.name for p in PORT_FILES
+             if p.parent.name == "telemetry"}
+    assert names == {"__init__.py", "registry.py", "report.py", "trace.py"}
+
+
 def test_fresh_process_cpu_solve_loads_no_jax():
+    """A CPU batch, and a traced Solver whose report is read, import
+    nothing of JAX or deppy_tpu."""
     code = textwrap.dedent("""
         import sys
         before = set(sys.modules)
+        from deppy_tpu_torch import sat, telemetry
         from deppy_tpu_torch.models import pinned_tenant_catalog
         from deppy_tpu_torch.resolution import BatchResolver
         out = BatchResolver(device="cpu").solve(
             [pinned_tenant_catalog(seed=s) for s in range(2)])
         assert len(out) == 2
+        tracer = sat.StatsTracer()
+        solver = sat.Solver([
+            sat.variable("a", sat.mandatory(), sat.dependency("b", "c")),
+            sat.variable("c"),
+            sat.variable("b", sat.dependency("x"), sat.dependency("w")),
+            sat.variable("x", sat.conflict("w")), sat.variable("w"),
+        ], tracer=tracer, device="cpu", trace_cap=4)
+        assert [v.identifier for v in solver.solve()] == ["a", "c"]
+        assert tracer.backtracks == solver.backtracks > 0
+        assert isinstance(solver.report, telemetry.SolveReport)
+        assert solver.report.backtracks == solver.backtracks
         new = set(sys.modules) - before
         bad = sorted(m for m in new
                      if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))

@@ -132,5 +132,10 @@ def test_solve_problems_rejects_encoding_errors():
 
 
 def test_tracer_is_a_later_slice():
-    with pytest.raises(NotImplementedError):
-        tsat.Solver([tsat.variable("a")], tracer=object(), device="cpu")
+    """Tracing on the device backend has landed: a tracer is accepted,
+    and a search without backtracks calls it no time."""
+    tracer = tsat.StatsTracer()
+    solver = tsat.Solver([tsat.variable("a", tsat.mandatory())],
+                         tracer=tracer, device="cpu")
+    assert [v.identifier for v in solver.solve()] == ["a"]
+    assert tracer.backtracks == solver.backtracks == 0

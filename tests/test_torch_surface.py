@@ -315,12 +315,18 @@ def test_pinned_tenant_catalog_unsat_core_shape():
 
 
 def test_tracer_needs_the_host_backend(catalog):
-    with pytest.raises(NotImplementedError, match="A4"):
-        tsat.Solver([variable("a")], tracer=tsat.DefaultTracer())
+    """Both backends trace now: the device backend replays the search
+    kernel's trace buffer, so its backtrack count is the host's."""
+    tsat.Solver([variable("a")], tracer=tsat.DefaultTracer())
     tracer = tsat.StatsTracer()
-    Resolver(catalog, *_generators(tsat), backend="host",
-             tracer=tracer).solve()
+    want = Resolver(catalog, *_generators(tsat), backend="host",
+                    tracer=tracer).solve()
     assert tracer.decisions > 0
+    dev_tracer = tsat.StatsTracer()
+    got = Resolver(catalog, *_generators(tsat), device="cpu",
+                   tracer=dev_tracer).solve()
+    assert got == want
+    assert dev_tracer.backtracks == tracer.backtracks
 
 
 # ------------------------------------------------- against the reference
