@@ -58,6 +58,27 @@ Phases, each fatal on failure:
    bits path, and each profiled solve, prints its ``driver split`` (the
    ``SolveReport`` walls and the ``driver.decode`` span) beside its
    encode time and the profiler's device-busy ms;
+4d. the sched path: the port's request scheduler
+   (``deppy_tpu_torch.sched.Scheduler``, its default 5 ms wait and
+   256-lane fill) serving concurrent clients on the card: (A) 32 client
+   threads submit 128 requests of 16 ``gvk_conflict_catalog(20, 4, 10)``
+   states, beside (B) 32 requests of 8 distinct ``pinned_tenant_catalog``
+   states and (C) one ``operatorhub_catalog(250, 8)``; (D) 32 of A's
+   requests again through ``BatchResolver(scheduler=)``, each a cache
+   hit with 0 steps and no dispatch; (E) on a second scheduler (50 ms
+   wait, no cache) 4 requests with a 1 ms deadline, queued first, among
+   4 live ones: the expired lanes Incomplete, the live ones answered;
+   (F) after the others drained, under ``set_bcp_impl("blockwise")``, 8
+   clients with 8 ``operatorhub_catalog(250, 8)`` each.  Every answer
+   and step count must equal the unscheduled port's on the card
+   (``BatchResolver(device="cuda").solve`` of the same request), A must
+   coalesce (fewer dispatches than requests), no dispatch may mix size
+   classes, C must flush alone, and every dispatch and every launch must
+   come from the dispatch-loop thread (kernels 1, 3, 4 and 5 in A+B+C,
+   kernel 2 in F).  Each part prints its dispatches, lanes per dispatch,
+   p50/p99 request latency, queue-wait share and one dispatch's driver
+   split; A+B+C's scheduled wall stands beside the unscheduled calls'
+   summed walls;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -1242,6 +1263,436 @@ def check_telemetry_sink(scale: float) -> dict:
           f"{sorted(names)}, one report event of {reports[0]['n_problems']} "
           f"problems", flush=True)
     return dict(events=len(events), spans=sorted(names))
+
+
+# The sched path: the port's request scheduler (deppy_tpu_torch.sched)
+# serving concurrent clients on the card at the families' real widths;
+# only the request counts are cut, so that the phase stays near a minute.
+SCHED_CLIENTS = 32
+SCHED_FLEET = (128, 16)   # part A: requests x gvk_fleet states each
+SCHED_TENANTS = (32, 8)   # part B: requests x pinned_tenant states each
+SCHED_REPEATS = 32        # part D: the first of A's requests again
+SCHED_DEADLINES = (4, 8)  # part E: expired (and as many live) requests x states
+SCHED_BATCH = (8, 8)      # part F: clients x operatorhub_catalog(250, 8)
+SCHED_CACHE = 4096        # A's repeats (part D) are not evicted
+SCHED_LOOP = "deppy-sched"
+
+
+def _pct(vals, q: float) -> float:
+    """The ``q``-quantile of ``vals`` (nearest rank)."""
+    s = sorted(vals)
+    return s[min(len(s) - 1, max(0, int(round(q * len(s) + 0.5)) - 1))]
+
+
+def distinct_tenant_states(n: int):
+    """The first ``n`` pinned_tenant states in seed order whose encoded
+    problems differ (by fingerprint): a repeat inside part B's burst
+    would be served from the cache with 0 steps, which part D tests on
+    its own."""
+    from deppy_tpu_torch.models import pinned_tenant_catalog
+    from deppy_tpu_torch.sat.encode import encode
+    from deppy_tpu_torch.sched import fingerprint
+
+    out, seen, seed = [], set(), 0
+    while len(out) < n:
+        vs = pinned_tenant_catalog(seed=seed)
+        key = fingerprint(encode(vs))
+        if key not in seen:
+            seen.add(key)
+            out.append(vs)
+        seed += 1
+    return out
+
+
+class DispatchLog:
+    """While on, every ``driver.solve_problems`` call: the thread that
+    made it, its problems' fingerprints (one per lane), its wall and the
+    kernel launches counted while it ran."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import threading
+
+        from deppy_tpu_torch import engine
+        from deppy_tpu_torch.engine import driver
+        from deppy_tpu_torch.sched import fingerprint
+
+        self._solve = driver.solve_problems
+
+        def solve_problems(problems, *args, **kwargs):
+            before = engine.launch_counts()
+            t0 = time.perf_counter()
+            out = self._solve(problems, *args, **kwargs)
+            wall = time.perf_counter() - t0
+            after = engine.launch_counts()
+            self.calls.append(dict(
+                thread=threading.current_thread().name,
+                keys=[fingerprint(p) for p in problems],
+                wall_s=wall,
+                launches={k: after[k] - before[k] for k in after}))
+            return out
+
+        driver.solve_problems = solve_problems
+        return self
+
+    def __exit__(self, *exc):
+        from deppy_tpu_torch.engine import driver
+
+        driver.solve_problems = self._solve
+
+
+def run_clients(clients: int, jobs, submit):
+    """``jobs`` (label, request) shared round-robin among ``clients``
+    threads, each running its jobs in turn, all released at once.
+    ``submit(request, stats)`` returns the answers.  Returns the wall
+    from release to the last answer and, per job, a dict with its
+    answers (or the error raised), stats and latency."""
+    import threading
+
+    records = [None] * len(jobs)
+    gate = threading.Barrier(clients + 1)
+
+    def client(c: int) -> None:
+        gate.wait()
+        for k in range(c, len(jobs), clients):
+            st: dict = {}
+            t0 = time.perf_counter()
+            try:
+                out = submit(jobs[k][1], st)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                out = e
+            records[k] = dict(answers=out, stats=st,
+                              latency_s=time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client, args=(c,), name=f"client-{c}")
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail("sched: a client thread never returned")
+    for (label, _), rec in zip(jobs, records):
+        if isinstance(rec["answers"], BaseException):
+            raise RuntimeError(f"chip_smoke: sched {label} raised") \
+                from rec["answers"]
+    return wall, records
+
+
+def unscheduled(jobs):
+    """Each job's request through ``BatchResolver(device="cuda").solve``,
+    one call each: (answers rendered, steps, wall) per job."""
+    import torch
+
+    from deppy_tpu_torch.resolution import BatchResolver
+
+    out = []
+    for _, request in jobs:
+        resolver = BatchResolver(device="cuda")
+        t0 = time.perf_counter()
+        answers = resolver.solve(request)
+        torch.cuda.synchronize()
+        out.append(([render(r) for r in answers], resolver.last_steps,
+                    time.perf_counter() - t0))
+    return out
+
+
+def sched_mismatches(name: str, records, want) -> int:
+    """Requests whose scheduled answers or steps differ from the
+    unscheduled solve's."""
+    bad = 0
+    for rec, (answers, steps, _) in zip(records, want):
+        got = [render(r) for r in rec["answers"]]
+        if got != answers or rec["stats"]["steps"] != steps:
+            bad += 1
+    print(f"sched {name}: {len(records)} requests, mismatches {bad} "
+          f"against the unscheduled solves", flush=True)
+    if bad:
+        fail(f"sched {name}: {bad} requests differ from the unscheduled "
+             f"solve of the same request")
+    return bad
+
+
+def sched_split(stats: dict) -> dict:
+    """The driver split of the dispatch that served a request: its
+    report's walls and the scheduler's decode time."""
+    rep = stats["report"]
+    if rep is None:
+        fail("sched: a dispatched request carries no SolveReport")
+    split = {k: rep.wall.get(k, 0.0) * 1e3
+             for k in ("encode", "pad_pack", "device_put", "solve")}
+    split["decode"] = stats["timings"].get("decode_s", 0.0) * 1e3
+    return split
+
+
+def part_numbers(name: str, records, calls, keys: set) -> dict:
+    """Print and return one part's requests, dispatches, lanes per
+    dispatch, latency percentiles, queue-wait share and driver split."""
+    mine = [c for c in calls if keys & set(c["keys"])]
+    lanes = [len(c["keys"]) for c in mine]
+    lat = [r["latency_s"] for r in records]
+    waits = [r["stats"]["timings"].get("queue_wait_s", 0.0)
+             for r in records]
+    share = sum(waits) / sum(lat)
+    split = sched_split(records[0]["stats"])
+    row = dict(requests=len(records), dispatches=len(mine),
+               lanes_per_dispatch=lanes,
+               p50_ms=_pct(lat, 0.5) * 1e3, p99_ms=_pct(lat, 0.99) * 1e3,
+               queue_wait_share=share,
+               queue_wait_share_median=statistics.median(
+                   w / t for w, t in zip(waits, lat)),
+               split_ms=split)
+    print(f"sched {name}: {len(records)} requests in {len(mine)} "
+          f"dispatches, lanes per dispatch {lanes}; latency p50 "
+          f"{row['p50_ms']:.3f} ms p99 {row['p99_ms']:.3f} ms; queue wait "
+          f"{share:.4f} of the latency (median per request "
+          f"{row['queue_wait_share_median']:.4f})", flush=True)
+    print(f"driver split sched {name} (its first request's dispatch): "
+          f"{_split_text(split)}", flush=True)
+    return row
+
+
+def _loop_only(label: str, calls, counts: dict) -> None:
+    """Every dispatch since the counts were reset came from the
+    dispatch-loop thread, and every launch since then was counted while
+    one of those dispatches ran (the launches of the window equal the
+    sum of the dispatches' own)."""
+    others = sorted({c["thread"] for c in calls} - {SCHED_LOOP})
+    if others:
+        fail(f"sched {label}: dispatches on threads {others}")
+    inside = {k: sum(c["launches"][k] for c in calls) for k in counts}
+    if inside != counts:
+        fail(f"sched {label}: {counts} launched, {inside} of them inside "
+             f"the loop's dispatches")
+
+
+def run_sched_path(scale: float):
+    """The port's request scheduler on the card (parts A-F of the
+    module docstring); every answer and step count is held against the
+    unscheduled port on the card, one ``BatchResolver(device="cuda")
+    .solve`` per request.  Returns the path's launches and numbers."""
+    import torch
+
+    from deppy_tpu_torch import engine, telemetry
+    from deppy_tpu_torch.engine import core
+    from deppy_tpu_torch.models import gvk_conflict_catalog, operatorhub_catalog
+    from deppy_tpu_torch.resolution import BatchResolver
+    from deppy_tpu_torch.sat import Incomplete
+    from deppy_tpu_torch.sat.encode import encode
+    from deppy_tpu_torch.sched import Scheduler, fingerprint
+
+    print(f"sched timings on {card_line()}", flush=True)
+    n_fleet = max(8, int(SCHED_FLEET[0] * scale))
+    n_tenant = max(4, int(SCHED_TENANTS[0] * scale))
+    fleet = [("A", [gvk_conflict_catalog(20, 4, 10, seed=SCHED_FLEET[1] * i + j)
+                    for j in range(SCHED_FLEET[1])]) for i in range(n_fleet)]
+    states = distinct_tenant_states(n_tenant * SCHED_TENANTS[1])
+    tenants = [("B", states[SCHED_TENANTS[1] * i:SCHED_TENANTS[1] * (i + 1)])
+               for i in range(n_tenant)]
+    big = [("C", [operatorhub_catalog(*BATCH, seed=0)])]
+    # C's and B's requests in flight among A's: every fifth job, C first.
+    jobs = list(fleet)
+    for i, job in enumerate(big + tenants):
+        jobs.insert(min(len(jobs), 5 * i + 3), job)
+    keys = {p: {fingerprint(encode(vs)) for lab, req in jobs if lab == p
+                for vs in req} for p in "ABC"}
+    launches = {k: 0 for k in engine.KERNELS}
+    numbers = {}
+    work0 = _plain_work()
+
+    def scheduled(label, sched, clients, jobs, submit):
+        torch.cuda.synchronize()
+        engine.reset_launch_counts()
+        with DispatchLog() as log:
+            wall, records = run_clients(clients, jobs, submit)
+        torch.cuda.synchronize()
+        counts = engine.launch_counts()
+        _loop_only(label, log.calls, counts)
+        for k in launches:
+            launches[k] += counts[k]
+        print(f"sched {label}: {len(jobs)} requests from {clients} clients "
+              f"in {wall:.3f} s; launches {counts} (all from the dispatch "
+              f"loop)", flush=True)
+        return wall, records, log.calls, counts
+
+    def submit_to(sched):
+        return lambda request, st: sched.submit(request, stats=st)
+
+    # Parts A, B and C: one burst through one scheduler.
+    reg = telemetry.Registry()
+    sched = Scheduler(cache_size=SCHED_CACHE, registry=reg)
+    sched.start()
+    try:
+        wall, records, calls, counts = scheduled(
+            "A+B+C", sched, SCHED_CLIENTS, jobs, submit_to(sched))
+        missing = [k for k in ("bcp_fixpoint", "search", "minimize", "core")
+                   if counts[k] <= 0]
+        if missing:
+            fail(f"sched A+B+C: {missing} never launched")
+        snap = reg.snapshot()
+        flushes = snap["deppy_sched_flushes_total"]
+        print(f"sched A+B+C: {snap['deppy_sched_dispatches_total']} "
+              f"dispatches for {len(jobs)} requests, flushes {flushes}, "
+              f"cache misses {snap['deppy_cache_misses_total']} hits "
+              f"{snap.get('deppy_cache_hits_total', 0)}", flush=True)
+        for c in calls:
+            parts = {p for p in "ABC" if keys[p] & set(c["keys"])}
+            if len(parts) != 1:
+                fail(f"sched: one dispatch mixed the size classes of {parts}")
+        by_part = {p: [r for (lab, _), r in zip(jobs, records) if lab == p]
+                   for p in "ABC"}
+        want = unscheduled(jobs)
+        plain_wall = sum(w for _, _, w in want)
+        wants = {p: [w for (lab, _), w in zip(jobs, want) if lab == p]
+                 for p in "ABC"}
+        names = {"A": "A gvk_fleet", "B": "B pinned_tenant",
+                 "C": "C operatorhub_catalog(250, 8)"}
+        for p in "ABC":
+            sched_mismatches(names[p], by_part[p], wants[p])
+            numbers[p] = part_numbers(names[p], by_part[p], calls, keys[p])
+        if numbers["A"]["dispatches"] >= len(by_part["A"]):
+            fail(f"sched A: {numbers['A']['dispatches']} dispatches for "
+                 f"{len(by_part['A'])} requests: nothing coalesced")
+        if numbers["C"]["lanes_per_dispatch"] != [1]:
+            fail(f"sched C: lanes per dispatch "
+                 f"{numbers['C']['lanes_per_dispatch']}, not one of its own")
+        if counts["core"] <= 0:
+            fail("sched B: the core kernel was not launched")
+        print(f"sched A+B+C: scheduled wall {wall:.3f} s against "
+              f"{plain_wall:.3f} s for the {len(jobs)} unscheduled calls "
+              f"one by one (ratio {wall / plain_wall:.4f})", flush=True)
+        numbers["ABC"] = dict(wall_s=wall, unscheduled_wall_s=plain_wall,
+                              dispatches=snap["deppy_sched_dispatches_total"],
+                              flushes=flushes, launches=counts)
+
+        # Part D: repeats of A's requests through BatchResolver: every
+        # one a cache hit, no dispatch, 0 steps.
+        repeats = fleet[:min(SCHED_REPEATS, len(fleet))]
+        before = reg.snapshot()["deppy_sched_dispatches_total"]
+
+        def resolve(request, st):
+            resolver = BatchResolver(scheduler=sched)
+            out = resolver.solve(request)
+            st.update(steps=resolver.last_steps,
+                      report=resolver.last_report)
+            return out
+
+        wall_d, rec_d, _, counts_d = scheduled(
+            "D repeats", sched, SCHED_CLIENTS, repeats, resolve)
+        after = reg.snapshot()["deppy_sched_dispatches_total"]
+        bad = sum(r["stats"]["steps"] != 0 or r["stats"]["report"] is not None
+                  or [render(a) for a in r["answers"]] != w[0]
+                  for r, w in zip(rec_d, wants["A"]))
+        if after != before or any(counts_d.values()) or bad:
+            fail(f"sched D: {after - before} new dispatches, launches "
+                 f"{counts_d}, {bad} requests not served from the cache")
+        lat = [r["latency_s"] for r in rec_d]
+        print(f"sched D repeats: {len(rec_d)} requests, 0 new dispatches, "
+              f"last_steps 0 on each, answers equal to A's; latency p50 "
+              f"{_pct(lat, 0.5) * 1e3:.3f} ms p99 {_pct(lat, 0.99) * 1e3:.3f} "
+              f"ms", flush=True)
+        numbers["D"] = dict(requests=len(rec_d), wall_s=wall_d,
+                            p50_ms=_pct(lat, 0.5) * 1e3,
+                            p99_ms=_pct(lat, 0.99) * 1e3)
+    finally:
+        sched.stop()
+
+    # Part E: expired lanes beside live batchmates, on a second
+    # scheduler; the expired requests queue first, the live ones join
+    # them inside the 50 ms window.
+    n_dead, width = SCHED_DEADLINES
+    e_jobs = [("E", [vs for vs in req[:width]])
+              for _, req in fleet[:2 * n_dead]]
+    reg_e = telemetry.Registry()
+    sched_e = Scheduler(max_wait_ms=50, cache_size=0, registry=reg_e)
+    missed0 = telemetry.default_registry().snapshot().get(
+        "deppy_deadline_exceeded", 0)
+    sched_e.start()
+    try:
+        import threading
+
+        dead_in = threading.Event()
+
+        def submit_e(request, st):
+            live = any(request is req for _, req in e_jobs[n_dead:])
+            if live:
+                dead_in.wait(30)
+            return sched_e.submit(request, stats=st,
+                                  deadline_s=None if live else 0.001)
+
+        def watch():
+            t_end = time.monotonic() + 30
+            while (sched_e.queue_depth() < n_dead * width
+                   and time.monotonic() < t_end):
+                time.sleep(0.0005)
+            dead_in.set()
+
+        threading.Thread(target=watch, daemon=True).start()
+        wall_e, rec_e, calls_e, counts_e = scheduled(
+            "E deadlines", sched_e, len(e_jobs), e_jobs, submit_e)
+    finally:
+        sched_e.stop()
+    missed = telemetry.default_registry().snapshot().get(
+        "deppy_deadline_exceeded", 0) - missed0
+    want_e = unscheduled(e_jobs[n_dead:])
+    for r in rec_e[:n_dead]:
+        if (not all(isinstance(a, Incomplete) for a in r["answers"])
+                or r["stats"]["deadline_misses"] != width
+                or r["stats"]["steps"] != 0):
+            fail(f"sched E: an expired request came back "
+                 f"{[render(a)[0] for a in r['answers']]}, deadline misses "
+                 f"{r['stats']['deadline_misses']}")
+    sched_mismatches("E live batchmates", rec_e[n_dead:], want_e)
+    if missed < n_dead:
+        fail(f"sched E: deppy_deadline_exceeded moved by {missed}")
+    print(f"sched E deadlines: {n_dead} expired requests ({n_dead * width} "
+          f"lanes Incomplete, degraded) among {len(e_jobs) - n_dead} live "
+          f"ones in {len(calls_e)} dispatches "
+          f"({reg_e.snapshot()['deppy_sched_flushes_total']}); "
+          f"deppy_deadline_exceeded +{missed}", flush=True)
+    numbers["E"] = dict(requests=len(e_jobs), dispatches=len(calls_e),
+                        deadline_exceeded=missed, launches=counts_e)
+
+    # Part F: the blockwise impl through a scheduler, after the others
+    # drained (the impl is process-wide).
+    n_clients, width = SCHED_BATCH
+    f_jobs = [("F", [operatorhub_catalog(*BATCH, seed=width * i + j)
+                     for j in range(width)]) for i in range(n_clients)]
+    core.set_bcp_impl("blockwise")
+    try:
+        sched_f = Scheduler(registry=telemetry.Registry())
+        sched_f.start()
+        try:
+            wall_f, rec_f, calls_f, counts_f = scheduled(
+                "F blockwise", sched_f, n_clients, f_jobs,
+                submit_to(sched_f))
+        finally:
+            sched_f.stop()
+        want_f = unscheduled(f_jobs)
+    finally:
+        core.set_bcp_impl("auto")
+    if counts_f["blockwise_fixpoint"] <= 0:
+        fail("sched F: the blockwise kernel was not launched")
+    sched_mismatches("F blockwise", rec_f, want_f)
+    numbers["F"] = part_numbers("F blockwise", rec_f, calls_f,
+                                {fingerprint(encode(vs))
+                                 for _, req in f_jobs for vs in req})
+    numbers["F"].update(wall_s=wall_f, launches=counts_f,
+                        unscheduled_wall_s=sum(w for _, _, w in want_f))
+    print(f"sched F blockwise: scheduled wall {wall_f:.3f} s against "
+          f"{numbers['F']['unscheduled_wall_s']:.3f} s unscheduled; "
+          f"launches {counts_f}", flush=True)
+
+    if _plain_work() != work0:
+        fail("sched path: a plain version ran during a card solve")
+    print(f"sched path launches (all from the dispatch loop): {launches}",
+          flush=True)
+    return launches, numbers
 
 
 def profile_solve(name: str, pool, impl: str = "auto") -> dict:
@@ -2583,6 +3034,8 @@ PATH_KERNELS = {
     **{impl: ARM_KERNELS for impl in IMPL_ARMS},
     "tracing": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
                 "core"),
+    "sched": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
+              "core"),
 }
 
 
@@ -2635,6 +3088,8 @@ def main(argv=None) -> int:
         by_path["tracing"], per_family["tracing"] = run_tracing_path()
         per_family["telemetry_sink"] = check_telemetry_sink(args.scale)
         stamp("tracing path")
+        by_path["sched"], per_family["sched"] = run_sched_path(args.scale)
+        stamp("sched path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")

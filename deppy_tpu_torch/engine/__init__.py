@@ -32,7 +32,8 @@ def impl_launch_counts() -> dict:
     fixpoint arm: ``bits`` and ``pallas`` the dense rounds, ``blockwise``
     the sweeps, ``watched`` and ``gather`` theirs), since the counts were
     last reset: {kernel: {impl: launches}}, impls with none left out."""
-    impls = sorted({i for _, i, _, _ in counts.launches})
+    with counts._LOCK:
+        impls = sorted({i for _, i, _, _ in counts.launches})
     return {k: {i: n for i in impls if (n := counts.total(k, impl=i))}
             for k in KERNELS}
 
@@ -47,4 +48,4 @@ def bank_launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    counts.launches.clear()
+    counts.reset()

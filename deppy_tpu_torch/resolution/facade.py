@@ -16,22 +16,27 @@ minimal core, or an :class:`Incomplete` marker when it ran out of steps.
 :class:`telemetry.SolveReport` on either backend.  ``Resolver(tracer=)``
 traces on either backend (see :class:`Solver`).
 
-Left out (later slices): the scheduler, mesh, checkpoint and deadline
-arguments, and the host worker pool.
+``BatchResolver(scheduler=)`` routes each solve through a
+:class:`deppy_tpu_torch.sched.Scheduler`: concurrent resolvers coalesce
+into shared dispatches and repeats are served from its result cache;
+``deadline_s`` then bounds each solve (expired lanes come back
+Incomplete).
+
+Left out (later slices): the mesh and checkpoint arguments, deadlines
+without a scheduler (ROADMAP A7, the driver's recovery wrapper), and the
+host worker pool.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Sequence, Union
 
-from .. import telemetry
+from .. import hostpool, telemetry
 from ..entity.entity import EntityID
 from ..entity.source import EntityQuerier
 from ..sat.constraints import Variable
 from ..sat.encode import encode
 from ..sat.errors import Incomplete, NotSatisfiable
-from ..sat.host import HostEngine
 from ..sat.solver import Solver, check_backend
 from ..sat.tracer import Tracer
 from .generator import ConstraintAggregator, GeneratorLike
@@ -93,10 +98,24 @@ class BatchResolver:
     """Resolve many independent problems in one batched solve."""
 
     def __init__(self, backend: str = "device", device="cuda",
-                 max_steps: Optional[int] = None):
+                 max_steps: Optional[int] = None, scheduler=None,
+                 deadline_s: Optional[float] = None):
         self.backend = check_backend(backend)
         self.device = device
         self.max_steps = max_steps
+        # Cross-request continuous batching: with a Scheduler, solve()
+        # routes through its shared queue and result cache instead of
+        # dispatching privately.  The scheduler owns backend and device
+        # routing then (it was built with its own).
+        self.scheduler = scheduler
+        if deadline_s is not None and scheduler is None:
+            raise NotImplementedError(
+                "BatchResolver(deadline_s=) without a scheduler needs the "
+                "driver's recovery wrapper (ROADMAP A7); pass "
+                "scheduler=Scheduler(...) to bound a solve")
+        # Wall-clock budget for one solve call: problems not dispatched
+        # before it expires come back Incomplete.
+        self.deadline_s = deadline_s
         # Engine iterations consumed by the last solve, summed over the batch.
         self.last_steps: int = 0
         # The last solve's telemetry: outcomes, engine counters and, on
@@ -107,11 +126,20 @@ class BatchResolver:
               ) -> List[Union[Solution, NotSatisfiable, Incomplete]]:
         self.last_steps = 0
         self.last_report = None
+        if self.scheduler is not None:
+            stats: dict = {}
+            try:
+                return self.scheduler.submit(
+                    problems, deadline_s=self.deadline_s,
+                    max_steps=self.max_steps, stats=stats)
+            finally:
+                self.last_steps = stats.get("steps", 0)
+                self.last_report = stats.get("report")
         if self.backend == "host":
             return self._solve_host_batch(problems)
         from ..engine.driver import solve_batch
 
-        stats: dict = {}
+        stats = {}
         try:
             return solve_batch(problems, max_steps=self.max_steps,
                                stats=stats, device=self.device)
@@ -123,40 +151,27 @@ class BatchResolver:
         self, problems: Sequence[Sequence[Variable]]
     ) -> List[Union[Solution, NotSatisfiable, Incomplete]]:
         """Every problem encoded first (a ``DuplicateIdentifier`` raises
-        before any solve), then solved lane by lane on an inline
-        :class:`HostEngine`: the reference's host batch run inline
-        (``resolution/facade.py:193-250``, without the worker pool and
-        deadlines), under a ``facade.host_solve`` span and a batch
-        report.  A core carries the very objects of its problem's
-        ``applied``."""
+        before any solve), then solved through the host path's lanes
+        (:func:`deppy_tpu_torch.hostpool.solve_inline`), accounted and
+        decoded with the scheduler's host drain's helpers: the
+        reference's host batch (``resolution/facade.py:180-250``)
+        without the worker pool and deadlines (ROADMAP A5.3), under a
+        ``facade.host_solve`` span and a batch report.  A core carries
+        the very objects of its problem's ``applied``."""
         batch_rep, owns_rep = telemetry.begin_report(
             backend="host", n_problems=len(problems))
         reg = telemetry.default_registry()
-        out: List[Union[Solution, NotSatisfiable, Incomplete]] = []
         try:
             with reg.span("facade.host_solve", problems=len(problems)):
                 encoded = [encode(vs) for vs in problems]
-                for variables, p in zip(problems, encoded):
-                    engine = HostEngine(p, max_steps=self.max_steps)
-                    t0 = time.perf_counter()
-                    try:
-                        installed, _ = engine.solve()
-                        out.append(_to_solution(variables, installed))
-                        batch_rep.count_outcome("sat")
-                    except NotSatisfiable as e:
-                        out.append(e)
-                        batch_rep.count_outcome("unsat")
-                    except Incomplete as e:
-                        out.append(e)
-                        batch_rep.count_outcome("incomplete")
-                    finally:
-                        batch_rep.steps += engine.steps
-                        batch_rep.decisions += engine.decisions
-                        batch_rep.propagation_rounds += \
-                            engine.propagation_rounds
-                        batch_rep.backtracks += engine.backtracks
-                        batch_rep.add_wall("solve", time.perf_counter() - t0)
-                        self.last_steps += engine.steps
+                lanes = hostpool.solve_inline(encoded,
+                                              max_steps=self.max_steps)
+                out = []
+                for p, lane in zip(encoded, lanes):
+                    hostpool.count_lane(batch_rep, lane)
+                    batch_rep.add_wall("solve", lane.wall_s)
+                    self.last_steps += lane.steps
+                    out.append(hostpool.lane_answer(p, lane))
         finally:
             telemetry.end_report(batch_rep, owns_rep)
         self.last_report = batch_rep

@@ -47,9 +47,24 @@ def test_scan_covers_telemetry():
     assert names == {"__init__.py", "registry.py", "report.py", "trace.py"}
 
 
+def test_scan_covers_sched_faults_hostpool():
+    """The scheduler and the fault and host-lane packages it stands on
+    are the port's own copies: the AST scan reads each of their
+    modules."""
+    names = {(p.parent.name, p.name) for p in PORT_FILES
+             if p.parent.name in ("sched", "faults", "hostpool")}
+    assert names == {
+        ("sched", "__init__.py"), ("sched", "cache.py"),
+        ("sched", "fair.py"), ("sched", "scheduler.py"),
+        ("faults", "__init__.py"), ("faults", "inject.py"),
+        ("faults", "metrics.py"), ("faults", "policy.py"),
+        ("hostpool", "__init__.py"), ("hostpool", "pool.py"),
+        ("hostpool", "worker.py")}
+
+
 def test_fresh_process_cpu_solve_loads_no_jax():
-    """A CPU batch, and a traced Solver whose report is read, import
-    nothing of JAX or deppy_tpu."""
+    """A CPU batch, a traced Solver whose report is read, and a batch
+    through the request scheduler import nothing of JAX or deppy_tpu."""
     code = textwrap.dedent("""
         import sys
         before = set(sys.modules)
@@ -70,6 +85,17 @@ def test_fresh_process_cpu_solve_loads_no_jax():
         assert tracer.backtracks == solver.backtracks > 0
         assert isinstance(solver.report, telemetry.SolveReport)
         assert solver.report.backtracks == solver.backtracks
+        from deppy_tpu_torch.sched import Scheduler
+        sched = Scheduler(device="cpu", max_wait_ms=0.0)
+        sched.start()
+        try:
+            resolver = BatchResolver(scheduler=sched)
+            states = [pinned_tenant_catalog(seed=s) for s in range(2)]
+            assert [type(r) for r in resolver.solve(states)] == \
+                [type(r) for r in out]
+            assert resolver.last_steps > 0
+        finally:
+            sched.stop()
         new = set(sys.modules) - before
         bad = sorted(m for m in new
                      if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))
