@@ -79,6 +79,20 @@ Phases, each fatal on failure:
    p50/p99 request latency, queue-wait share and one dispatch's driver
    split; A+B+C's scheduled wall stands beside the unscheduled calls'
    summed walls;
+4e. the race path: the port's portfolio racing (``Scheduler(portfolio=
+   ...)``, the engine registry, the host worker pool and the grad_relax
+   entrant) on the card, :func:`run_race_path`'s parts 1-7: the deep
+   chains of ``deppy_tpu/benchmarks/hard.py`` raced top-3 (device, host,
+   grad_relax; under bits, then top-2 under blockwise), the ``sched``
+   burst raced top-2 beside it unraced, the ``auto`` mode with and
+   without a measured row, the host pool against the inline engine on
+   the 1,000 pinned-tenant states (and after a scripted worker crash),
+   straggler triage, the grad_relax descent twice on the card and once
+   on the CPU, and the registry's per-class costs (``race cost`` lines).
+   Every answer equals the unraced scheduler's, no sampled cross-check
+   disagrees, no device entrant raises, every launch of a race window
+   comes from the race's device thread (losers included), and the first
+   race-thread launch of each kernel is held against its plain version;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -143,6 +157,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import multiprocessing
 import os
@@ -1695,6 +1710,650 @@ def run_sched_path(scale: float):
     return launches, numbers
 
 
+RACE_LANES = 8             # part 1: hard.py's lanes per depth (192/384/768)
+RACE_THREAD = "deppy-race-device"
+RACE_COMPARE_LANES = 8     # lanes of each race-thread launch held against plain
+RACE_STRAGGLERS = (4, 8)   # part 5: tight-deadline (and as many live) requests x states
+RACE_POOL_STATES = 1000    # part 4: the bits path's pinned_tenant states
+RACE_GRAD_CHAINS = 1000    # part 6: version_pinned_chains(20, 3)
+RACE_COST_DEPTHS = {"m": 192, "l": 768}   # part 7: chain depth per class
+RACE_COST_CALLS = 5        # part 7: timed calls per backend and class (median)
+RACE_COST_CALLS_HOST_M = 3  # the host engine's m calls take seconds each
+# The descents' logits on the card and the CPU agree within this, and
+# their rounding agrees wherever |sigmoid(x) - 0.5| passes the margin
+# (the CPU tests' tolerances against JAX).
+GRAD_ATOL = 1e-4
+GRAD_MARGIN = 1e-3
+# The race-thread launches compared with their plain versions: the
+# wrapper module and function of each kernel.
+RACE_WRAPPERS = {"bcp_fixpoint": ("cuda_bcp", "bcp_fixpoint"),
+                 "blockwise_fixpoint": ("cuda_blockwise", "bcp_fixpoint"),
+                 "search": ("cuda_search", "batched_search_fused"),
+                 "minimize": ("cuda_search", "batched_minimize_fused"),
+                 "core": ("cuda_search", "batched_core_fused")}
+
+
+class ThreadLaunches:
+    """While on, every kernel launch the wrappers count
+    (``engine.counts.count``), by the thread that made it."""
+
+    def __init__(self):
+        import collections
+
+        self.by_thread = collections.Counter()
+
+    def __enter__(self):
+        import threading
+
+        from deppy_tpu_torch.engine import counts
+
+        self._count = counts.count
+        lock = threading.Lock()
+
+        def count(kernel, *args, **kwargs):
+            self._count(kernel, *args, **kwargs)
+            with lock:
+                self.by_thread[threading.current_thread().name, kernel] += 1
+
+        counts.count = count
+        return self
+
+    def __exit__(self, *exc):
+        from deppy_tpu_torch.engine import counts
+
+        counts.count = self._count
+
+    def threads(self) -> dict:
+        """{thread: {kernel: launches}}."""
+        out: dict = {}
+        for (thread, kernel), n in sorted(self.by_thread.items()):
+            out.setdefault(thread, {})[kernel] = n
+        return out
+
+
+class RaceCapture:
+    """While on, the first launch of each of ``kernels`` made on the race's
+    device thread: the wrapper's inputs and outputs, cloned (compact rows
+    dropped: the plain versions read the planes)."""
+
+    def __init__(self, kernels):
+        self.kernels = tuple(kernels)
+        self.calls = {}
+
+    def __enter__(self):
+        import importlib
+        import threading
+
+        import torch
+
+        from deppy_tpu_torch.engine import core
+
+        def clone(x):
+            if isinstance(x, core.ProblemTensors):
+                return core.ProblemTensors(*[f.clone() for f in x])
+            return x.clone() if isinstance(x, torch.Tensor) else x
+
+        lock = threading.Lock()
+        self._saved = []
+        for kernel in self.kernels:
+            mod_name, fn_name = RACE_WRAPPERS[kernel]
+            mod = importlib.import_module(f"deppy_tpu_torch.engine.{mod_name}")
+            orig = getattr(mod, fn_name)
+            self._saved.append((mod, fn_name, orig))
+
+            def wrapped(*args, _k=kernel, _orig=orig, **kwargs):
+                mine = threading.current_thread().name == RACE_THREAD
+                if mine:
+                    ins = ([clone(a) for a in args],
+                           {k: (None if k == "rows" else clone(v))
+                            for k, v in kwargs.items()})
+                out = _orig(*args, **kwargs)
+                if mine:
+                    with lock:
+                        if _k not in self.calls:
+                            self.calls[_k] = (ins, [o.clone() for o in out])
+                return out
+
+            setattr(mod, fn_name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, orig in self._saved:
+            setattr(mod, fn_name, orig)
+
+    def submit(self, plain: "PlainPool", family: str) -> None:
+        """Hold the first :data:`RACE_COMPARE_LANES` lanes of each captured
+        launch against its plain version (the same wrapper on CPU copies,
+        in the pool); fails when a kernel was never captured."""
+        missing = [k for k in self.kernels if k not in self.calls]
+        if missing:
+            fail(f"race: no launch of {missing} on {RACE_THREAD} was seen")
+        for kernel, ((args, kwargs), out) in sorted(self.calls.items()):
+            n = min(RACE_COMPARE_LANES, out[0].shape[0])
+            mod_name, fn_name = RACE_WRAPPERS[kernel]
+            plain.submit((kernel, family, f"{n} lanes of a {RACE_THREAD} "
+                          f"launch ({out[0].shape[0]} lanes)"),
+                         [o[:n] for o in out], mod_name, fn_name,
+                         [_lanes(a, 0, n) for a in args],
+                         {k: _lanes(v, 0, n) for k, v in kwargs.items()}, n)
+
+
+class RaceEvents:
+    """While on, the ``race`` and ``fault`` events of the default
+    registry."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        from deppy_tpu_torch import telemetry
+
+        self._reg = telemetry.default_registry()
+        self._fn = lambda e: (self.events.append(e)
+                              if e.get("kind") in ("race", "fault") else None)
+        self._reg.add_forwarder(self._fn)
+        return self
+
+    def __exit__(self, *exc):
+        self._reg.remove_forwarder(self._fn)
+
+    def races(self):
+        return [e for e in self.events
+                if e["kind"] == "race" and "winner" in e]
+
+
+def race_numbers(label: str, reg, events, card: str) -> dict:
+    """Wins per backend, the race spans' walls, the win margins, cancels
+    and sampled checks of one part; fails on a ``race_mismatch``."""
+    snap = reg.snapshot()
+    spans = [s["dur_s"] for s in reg.recent_spans() if s["name"] == "race"]
+    margins = [e["win_margin_s"] for e in events.races()
+               if e.get("win_margin_s") is not None]
+    checks = [e["checked"] for e in events.races() if e.get("checked")]
+    mismatches = snap.get("deppy_race_check_mismatch_total", 0) + sum(
+        1 for e in events.events if e.get("fault") == "race_mismatch")
+    by_class: dict = {}
+    for e in events.races():
+        cls = by_class.setdefault(e["size_class_name"], {})
+        cls[e["winner"]] = cls.get(e["winner"], 0) + 1
+    row = dict(races=len(spans), wins=snap.get("deppy_race_wins_total", {}),
+               wins_by_class=by_class,
+               cancels=snap.get("deppy_race_cancels_total", {}),
+               race_wall_s=sum(spans),
+               race_wall_p50_ms=_pct(spans, 0.5) * 1e3 if spans else None,
+               race_wall_max_ms=max(spans) * 1e3 if spans else None,
+               win_margin_min_ms=min(margins) * 1e3 if margins else None,
+               win_margin_p50_ms=_pct(margins, 0.5) * 1e3 if margins
+               else None, checks=checks, race_mismatch=mismatches)
+    print(f"race {label}: {row['races']} races, wins {row['wins']} (by "
+          f"class {by_class}), cancels {row['cancels']}, race span wall "
+          f"{row['race_wall_s']:.4f} "
+          f"s (p50 {row['race_wall_p50_ms']} ms, max "
+          f"{row['race_wall_max_ms']} ms), win margin min "
+          f"{row['win_margin_min_ms']} ms p50 {row['win_margin_p50_ms']} "
+          f"ms, sampled checks {checks}, race_mismatch {mismatches} "
+          f"[{card}]", flush=True)
+    if mismatches:
+        fail(f"race {label}: {mismatches} race_mismatch")
+    return row
+
+
+def _entrant_failures(label: str, reg, events: "RaceEvents") -> None:
+    """Fails when any race entrant raised: a device entrant's error also
+    fails its dispatch (or the next), but one that lands after the last
+    race of a part is only counted and evented."""
+    errors = reg.snapshot().get("deppy_race_entrant_errors_total") or {}
+    if errors:
+        said = [e.get("error") for e in events.events
+                if e.get("fault") == "race_entrant_error"]
+        fail(f"race {label}: race entrants raised: {errors} {said[:3]}")
+
+
+def _device_entrants(reg) -> int:
+    return (reg.snapshot().get("deppy_race_starts_total") or {}).get(
+        "device", 0)
+
+
+def _race_threads_only(label: str, launches: ThreadLaunches,
+                       counts: dict) -> dict:
+    """Every launch of the window came from the race's device thread (a
+    loser's included); returns the launches by thread."""
+    threads = launches.threads()
+    others = sorted(set(threads) - {RACE_THREAD})
+    if others:
+        fail(f"race {label}: launches from threads {others}: {threads}")
+    mine = threads.get(RACE_THREAD, {})
+    if {k: mine.get(k, 0) for k in counts} != counts:
+        fail(f"race {label}: {counts} launched, {mine} of them on "
+             f"{RACE_THREAD}")
+    return threads
+
+
+def race_costs(card: str) -> dict:
+    """Per-lane µs of the device, host and hostpool backends on batches of
+    each size class the phase reaches (the registry's ``cost_us``): xs 64
+    distinct pinned_tenant states, s 64 gvk_fleet states, m 8 chains of
+    depth 192, l 8 of depth 768 (the device only: the host engine takes
+    tens of seconds a lane there).  Each cost is the median of
+    :data:`RACE_COST_CALLS` timed calls (:data:`RACE_COST_CALLS_HOST_M`
+    for the host engine on m) after one untimed call on the same batch
+    (the device's first call on a shape allocates; the pool's starts its
+    workers); the calls' spread is printed beside it."""
+    import torch
+
+    from deppy_tpu_torch import hostpool
+    from deppy_tpu_torch.engine import driver
+    from deppy_tpu_torch.models import chain_requests, gvk_conflict_catalog
+    from deppy_tpu_torch.sat.encode import encode
+
+    sets = {"xs": ("pinned_tenant", distinct_tenant_states(64), True),
+            "s": ("gvk_fleet", [gvk_conflict_catalog(20, 4, 10, seed=s)
+                                for s in range(64)], True)}
+    for cls, depth in RACE_COST_DEPTHS.items():
+        sets[cls] = (f"chain({depth})", chain_requests((depth,), 8),
+                     cls != "l")
+    out = {}
+    for cls, (name, vss, host_too) in sets.items():
+        problems = [encode(vs) for vs in vss]
+        got = driver.padded_class(problems)
+        if got != cls:
+            fail(f"race cost: {name} is class {got}, not {cls}")
+        walls, spread = {}, {}
+        runs = [("device", lambda: driver.solve_problems(problems,
+                                                         device="cuda"))]
+        if host_too:
+            runs += [("host", lambda: hostpool.solve_inline(problems)),
+                     ("hostpool",
+                      lambda: hostpool.solve_host_problems(problems))]
+        for backend, fn in runs:
+            fn()
+            calls = (RACE_COST_CALLS_HOST_M if (backend, cls) == ("host", "m")
+                     else RACE_COST_CALLS)
+            samples = []
+            for _ in range(calls):
+                if backend == "device":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                samples.append((time.perf_counter() - t0) / len(problems)
+                               * 1e6)
+            walls[backend] = statistics.median(samples)
+            spread[backend] = (min(samples), max(samples), calls)
+        out[cls] = dict(family=name, lanes=len(problems), us=walls,
+                        spread=spread)
+        print(f"race cost {cls} ({name}, {len(problems)} lanes): " + ", ".join(
+            f"{b} {us:.1f} us/lane (median of {spread[b][2]}, "
+            f"{spread[b][0]:.1f}-{spread[b][1]:.1f})"
+            for b, us in walls.items()) + f" [{card}]", flush=True)
+    return out
+
+
+def run_race_path(scale: float, plain: "PlainPool"):
+    """Portfolio racing on the card (ROADMAP A5.2, A5.3, A9): racing
+    ``Scheduler``s whose device entrants launch every kernel from their
+    race threads.  Parts:
+
+    1. ``chain_requests`` (192/384/768 x 8 lanes, ``deppy_tpu/benchmarks/
+       hard.py:46-63``) through ``Scheduler(portfolio="on", portfolio_k=3,
+       portfolio_sample_check=1.0, cache_size=0)``: device, host and
+       grad_relax race; then with ``portfolio="off"``.  Every answer
+       equal to the unraced device's; then the same under
+       ``set_bcp_impl("blockwise")``, top-2 (kernel 2 from a race thread);
+    2. the ``sched`` phase's burst (128 requests x 16 ``gvk_fleet`` states
+       and 32 x 8 distinct ``pinned_tenant`` states from 32 clients)
+       unraced, then raced top-2 (device, host): wins, the two walls, the
+       device entrants' launches by thread, answers equal;
+    3. ``portfolio="auto"``: the gvk burst with a temporary
+       ``DEPPY_GPU_MEASURED_DEFAULTS`` row ``{"gpu": {"portfolio.s":
+       "device,host"}}`` races; with none it does not (0 race spans) and
+       its answers and steps equal part 2's unraced ones;
+    4. ``hostpool.solve_host_problems`` against ``solve_inline`` on the
+       1,000 ``pinned_tenant`` states (lane keys identical), then once
+       under a ``hostpool.worker_crash`` fault plan;
+    5. straggler triage: requests whose deadline is under the device
+       estimate go to the pool, their batchmates to the device entrant;
+    6. ``grad_relax.candidate_logits`` twice on the card (bit-equal) and on
+       the CPU (within :data:`GRAD_ATOL`, rounding equal past
+       :data:`GRAD_MARGIN`) on the deep chains and 1,000
+       ``version_pinned_chains(20, 3)``, and its certified lanes;
+    7. the per-class costs of :func:`race_costs`.
+
+    Each kernel's first race-thread launch (parts 1b and 2) is held
+    against its plain version in ``plain``'s pool.  Returns the launches
+    of the race windows (losers' included) and the numbers."""
+    import tempfile
+
+    import torch
+
+    from deppy_tpu_torch import engine, faults, hostpool, telemetry
+    from deppy_tpu_torch.engine import core, defaults, grad_relax, registry
+    from deppy_tpu_torch.models import (chain_requests, gvk_conflict_catalog,
+                                        pinned_tenant_catalog,
+                                        version_pinned_chains)
+    from deppy_tpu_torch.sat.encode import encode
+    from deppy_tpu_torch.sched import Scheduler, fingerprint
+    from deppy_tpu_torch.sched import scheduler as sched_mod
+
+    card = card_line()
+    print(f"race timings on {card}; host pool workers "
+          f"{hostpool.effective_workers()}", flush=True)
+    launches = {k: 0 for k in engine.KERNELS}
+    numbers = {}
+    work0 = _plain_work()
+
+    def raced(label, sched, clients, jobs, reg, capture=None):
+        """Run ``jobs`` through a started ``sched``; (wall, records,
+        launches by thread, numbers)."""
+        torch.cuda.synchronize()
+        sched_mod._join_race_threads()
+        engine.reset_launch_counts()
+        with ThreadLaunches() as tl, \
+                RaceEvents() as ev, DispatchLog() as dl, \
+                (capture or contextlib.nullcontext()):
+            wall, records = run_clients(clients, jobs, lambda r, st:
+                                        sched.submit(r, stats=st))
+            # Losers run on after their race is decided: wait for them so
+            # every launch of the window is counted.
+            sched_mod._join_race_threads()
+            torch.cuda.synchronize()
+        counts = engine.launch_counts()
+        _entrant_failures(label, reg, ev)
+        threads = _race_threads_only(label, tl, counts)
+        for k in launches:
+            launches[k] += counts[k]
+        row = race_numbers(label, reg, ev, card)
+        row.update(wall_s=wall, launches_by_thread=threads,
+                   device_entrants=_device_entrants(reg),
+                   device_calls=len(dl.calls))
+        print(f"race {label}: {len(jobs)} requests from {clients} clients in "
+              f"{wall:.3f} s; {row['device_entrants']} device entrants for "
+              f"{row['races']} races; launches by thread {threads} "
+              f"[{card}]", flush=True)
+        return wall, records, dl.calls, row
+
+    def unraced(label, jobs, clients, **kw):
+        sched = Scheduler(portfolio="off", cache_size=0,
+                          registry=telemetry.Registry(), **kw)
+        sched.start()
+        try:
+            torch.cuda.synchronize()
+            wall, records = run_clients(clients, jobs, lambda r, st:
+                                        sched.submit(r, stats=st))
+        finally:
+            sched.stop()
+        print(f"race {label} unraced: {len(jobs)} requests from {clients} "
+              f"clients in {wall:.3f} s [{card}]", flush=True)
+        return wall, records
+
+    def same(label, records, want, steps=True) -> int:
+        bad = 0
+        for rec, w in zip(records, want):
+            if [render(r) for r in rec["answers"]] != \
+                    [render(r) for r in w["answers"]] or (
+                    steps and rec["stats"]["steps"] != w["stats"]["steps"]):
+                bad += 1
+        print(f"race {label}: {len(records)} requests, mismatches {bad} "
+              f"against the unraced answers{' and steps' if steps else ''}",
+              flush=True)
+        if bad:
+            fail(f"race {label}: {bad} requests differ from the unraced "
+                 f"scheduler's")
+        return bad
+
+    # Part 1: the deep chains, top-3, every non-canonical win checked.
+    depths = (192, 384, 768)
+    chains = [("chains", chain_requests(depths, RACE_LANES))]
+    for impl, k in (("bits", 3), ("blockwise", 2)):
+        core.set_bcp_impl("auto" if impl == "bits" else impl)
+        try:
+            wall_off, off = unraced(f"1 chains ({impl})", chains, 1)
+            reg = telemetry.Registry()
+            sched = Scheduler(portfolio="on", portfolio_k=k,
+                              portfolio_sample_check=1.0, cache_size=0,
+                              registry=reg)
+            sched.start()
+            try:
+                cap = (RaceCapture(["blockwise_fixpoint"])
+                       if impl == "blockwise" else None)
+                wall, rec, _, row = raced(f"1 chains ({impl}, top-{k})",
+                                          sched, 1, chains, reg, cap)
+            finally:
+                sched.stop()
+            if cap is not None:
+                cap.submit(plain, "chains (blockwise race)")
+        finally:
+            core.set_bcp_impl("auto")
+        same(f"1 chains ({impl})", rec, off,
+             steps=set(row["wins"]) == {"device"})
+        if row["races"] != 1:
+            fail(f"race 1 chains ({impl}): {row['races']} races, not 1")
+        row.update(unraced_wall_s=wall_off)
+        numbers[f"chains_{impl}"] = row
+
+    # Part 2: the sched phase's burst, unraced then raced top-2.
+    n_fleet = max(8, int(SCHED_FLEET[0] * scale))
+    n_tenant = max(4, int(SCHED_TENANTS[0] * scale))
+    fleet = [("A", [gvk_conflict_catalog(20, 4, 10, seed=SCHED_FLEET[1] * i + j)
+                    for j in range(SCHED_FLEET[1])]) for i in range(n_fleet)]
+    states = distinct_tenant_states(n_tenant * SCHED_TENANTS[1])
+    tenants = [("B", states[SCHED_TENANTS[1] * i:SCHED_TENANTS[1] * (i + 1)])
+               for i in range(n_tenant)]
+    jobs = list(fleet)
+    for i, job in enumerate(tenants):
+        jobs.insert(min(len(jobs), 5 * i + 3), job)
+    wall_off, off = unraced("2 burst", jobs, SCHED_CLIENTS)
+    reg = telemetry.Registry()
+    sched = Scheduler(portfolio="on", portfolio_k=2, cache_size=0,
+                      registry=reg)
+    sched.start()
+    cap = RaceCapture(["bcp_fixpoint", "search", "minimize", "core"])
+    try:
+        wall, rec, _, row = raced("2 burst (top-2)", sched, SCHED_CLIENTS,
+                                  jobs, reg, cap)
+    finally:
+        sched.stop()
+    cap.submit(plain, "race burst")
+    same("2 burst", rec, off, steps=set(row["wins"]) == {"device"})
+    row.update(unraced_wall_s=wall_off)
+    print(f"race 2 burst: raced wall {wall:.3f} s against {wall_off:.3f} s "
+          f"unraced (ratio {wall / wall_off:.4f}) [{card}]", flush=True)
+    numbers["burst"] = row
+
+    # Part 3: the auto mode, with a measured row and without one.
+    fleet_off = [r for (lab, _), r in zip(jobs, off) if lab == "A"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "measured_defaults.json")
+        with open(path, "w") as f:
+            json.dump({"gpu": {"portfolio.s": "device,host"}}, f)
+        prev = os.environ.get("DEPPY_GPU_MEASURED_DEFAULTS")
+        for with_row in (True, False):
+            os.environ["DEPPY_GPU_MEASURED_DEFAULTS"] = (
+                path if with_row else os.path.join(tmp, "none.json"))
+            defaults.reload_measured_defaults()
+            label = f"3 auto ({'row' if with_row else 'no row'})"
+            reg = telemetry.Registry()
+            sched = Scheduler(cache_size=0, registry=reg)
+            sched.start()
+            try:
+                if with_row:
+                    wall, rec, _, row = raced(label, sched, SCHED_CLIENTS,
+                                              fleet, reg)
+                else:
+                    torch.cuda.synchronize()
+                    wall, rec = run_clients(SCHED_CLIENTS, fleet,
+                                            lambda r, st: sched.submit(
+                                                r, stats=st))
+                    spans = [s for s in reg.recent_spans()
+                             if s["name"] == "race"]
+                    row = dict(races=len(spans), wall_s=wall)
+                    print(f"race {label}: {len(fleet)} requests in "
+                          f"{wall:.3f} s, {len(spans)} race spans "
+                          f"[{card}]", flush=True)
+            finally:
+                sched.stop()
+            if with_row and row["races"] == 0:
+                fail("race 3 auto: a measured portfolio row raced nothing")
+            if not with_row and row["races"] != 0:
+                fail(f"race 3 auto: {row['races']} races without a row")
+            same(label, rec, fleet_off, steps=not with_row
+                 or set(row["wins"]) == {"device"})
+            numbers[f"auto_{'row' if with_row else 'none'}"] = row
+        if prev is None:
+            os.environ.pop("DEPPY_GPU_MEASURED_DEFAULTS", None)
+        else:
+            os.environ["DEPPY_GPU_MEASURED_DEFAULTS"] = prev
+        defaults.reload_measured_defaults()
+
+    # Part 4: the host pool against the inline engine.
+    problems = [encode(pinned_tenant_catalog(seed=s))
+                for s in range(RACE_POOL_STATES)]
+    t0 = time.perf_counter()
+    inline = hostpool.solve_inline(problems)
+    inline_s = time.perf_counter() - t0
+    # The pool's start (forkserver and workers) is timed apart: a
+    # server pays it once.
+    t0 = time.perf_counter()
+    hostpool.solve_host_problems(problems[:2 * hostpool.effective_workers()])
+    start_s = time.perf_counter() - t0
+    snap0 = telemetry.default_registry().snapshot()
+    t0 = time.perf_counter()
+    pooled = hostpool.solve_host_problems(problems)
+    pool_s = time.perf_counter() - t0
+    faults.configure_plan(faults.plan_from_spec(json.dumps(
+        [{"point": "hostpool.worker_crash", "kind": "error", "times": 1}])))
+    try:
+        crashed = hostpool.solve_host_problems(problems)
+    finally:
+        faults.configure_plan(None)
+    snap = telemetry.default_registry().snapshot()
+    keys = [r.key() for r in inline]
+    crashes = (snap.get("deppy_hostpool_worker_crashes_total", 0)
+               - snap0.get("deppy_hostpool_worker_crashes_total", 0))
+    fallbacks = (snap.get("deppy_hostpool_inline_fallback_total", 0)
+                 - snap0.get("deppy_hostpool_inline_fallback_total", 0))
+    workers = hostpool.effective_workers()
+    print(f"race 4 hostpool: {len(problems)} pinned_tenant states, inline "
+          f"{inline_s:.3f} s, pool {pool_s:.3f} s on {workers} workers "
+          f"(started in {start_s:.3f} s before) "
+          f"(ratio {pool_s / inline_s:.4f}); identical "
+          f"{[r.key() for r in pooled] == keys}, after a worker crash "
+          f"{[r.key() for r in crashed] == keys} (crashes {crashes}, "
+          f"inline fallbacks {fallbacks}) [{card}]", flush=True)
+    if workers < 2 or fallbacks:
+        fail(f"race 4 hostpool: {workers} workers, {fallbacks} inline "
+             f"fallbacks: the pool did not serve")
+    if [r.key() for r in pooled] != keys or \
+            [r.key() for r in crashed] != keys:
+        fail("race 4 hostpool: the pool's lanes differ from inline")
+    if crashes != 1:
+        fail(f"race 4 hostpool: {crashes} worker crashes under the plan")
+    numbers["hostpool"] = dict(states=len(problems), inline_s=inline_s,
+                               pool_s=pool_s, start_s=start_s,
+                               workers=workers,
+                               crashes=crashes)
+
+    # Part 5: straggler triage.  The device estimate is the dispatch EWMA
+    # (set to 30 s here, as the reference's test does), so a 20 s deadline
+    # is a straggler; the batchmates carry none.
+    n_tight, width = RACE_STRAGGLERS
+    s_jobs = [("S", req[:width]) for _, req in fleet[:2 * n_tight]]
+    tight = {id(req) for _, req in s_jobs[:n_tight]}
+    reg = telemetry.Registry()
+    sched = Scheduler(portfolio="on", portfolio_k=2, cache_size=0,
+                      max_wait_ms=200.0, registry=reg)
+    sched._dispatch_ewma_s = 30.0
+    sched.start()
+    try:
+        with DispatchLog() as dl, RaceEvents() as ev:
+            wall, rec = run_clients(
+                len(s_jobs), s_jobs, lambda r, st: sched.submit(
+                    r, stats=st, deadline_s=20.0 if id(r) in tight else None))
+            sched_mod._join_race_threads()
+    finally:
+        sched.stop()
+    _entrant_failures("5 stragglers", reg, ev)
+    resub = reg.snapshot().get("deppy_race_straggler_resubmits_total", 0)
+    device_keys = {k for c in dl.calls if c["thread"] == RACE_THREAD
+                   for k in c["keys"]}
+    tight_keys = {fingerprint(encode(vs)) for _, req in s_jobs[:n_tight]
+                  for vs in req}
+    mate_keys = {fingerprint(encode(vs)) for _, req in s_jobs[n_tight:]
+                 for vs in req}
+    want_s = [r for (lab, req), r in zip(jobs, off)
+              if any(req is q for _, q in fleet[:2 * n_tight])]
+    bad = sum([render(a) for a in r["answers"]]
+              != [render(a) for a in w["answers"][:width]]
+              for r, w in zip(rec, want_s))
+    print(f"race 5 stragglers: {n_tight} requests x {width} states with a "
+          f"20 s deadline under a 30 s estimate among {n_tight} without: "
+          f"resubmitted {resub} lanes; device entrant lanes {len(device_keys)}"
+          f" (batchmates {len(mate_keys & device_keys)} of {len(mate_keys)}, "
+          f"stragglers {len(tight_keys & device_keys)}); wins "
+          f"{reg.snapshot().get('deppy_race_wins_total', {})}; mismatches "
+          f"{bad}; wall {wall:.3f} s [{card}]", flush=True)
+    if resub != n_tight * width or tight_keys & device_keys or \
+            mate_keys - device_keys or bad:
+        fail("race 5 stragglers: triage did not split the flush as due")
+    numbers["stragglers"] = dict(resubmitted=resub, wall_s=wall,
+                                 wins=reg.snapshot().get(
+                                     "deppy_race_wins_total", {}))
+
+    # Part 6: grad_relax on the card.
+    grad = {}
+    for name, vss in (("chains", chain_requests(depths, RACE_LANES)),
+                      ("version_pinned_chains",
+                       [version_pinned_chains(20, 3, seed=s)
+                        for s in range(RACE_GRAD_CHAINS)])):
+        problems = [encode(vs) for vs in vss]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = grad_relax.candidate_logits(problems, device="cuda")
+        torch.cuda.synchronize()
+        descent_s = time.perf_counter() - t0
+        b = grad_relax.candidate_logits(problems, device="cuda")
+        cpu = grad_relax.candidate_logits(problems, device="cpu")
+        a, b = a.cpu(), b.cpu()
+        same_bits = torch.equal(a, b)
+        err = float((a - cpu).abs().max())
+        far = (torch.sigmoid(a) - 0.5).abs() > GRAD_MARGIN
+        rounded = bool(((torch.sigmoid(a) > 0.5) == (torch.sigmoid(cpu) > 0.5))
+                       [far].all())
+        t0 = time.perf_counter()
+        lanes = grad_relax.solve_lanes(problems, device="cuda")
+        certify_s = time.perf_counter() - t0
+        # The canonical answers: the device's (bit-identical to the host
+        # engine's, which takes tens of seconds a lane on the deepest
+        # chains).
+        canon = registry.solve_via("device", problems, device="cuda")
+        served = [(c, r) for c, r in zip(canon, lanes) if r is not None]
+        wrong = sum((r.outcome, r.installed_idx) != (c.outcome,
+                                                     c.installed_idx)
+                    for c, r in served)
+        print(f"race 6 grad_relax {name}: {len(problems)} lanes, descent "
+              f"{descent_s * 1e3:.3f} ms on the card, two runs bit-equal "
+              f"{same_bits}, max |logit - CPU| {err:.3g} (atol {GRAD_ATOL}), "
+              f"rounding equal past {GRAD_MARGIN} {rounded}; certified "
+              f"{len(served)} lanes in {certify_s:.3f} s, "
+              f"{wrong} differ from the canonical answer [{card}]",
+              flush=True)
+        if not same_bits or err > GRAD_ATOL or not rounded or wrong:
+            fail(f"race 6 grad_relax {name}: not reproducible or off the "
+                 f"CPU descent")
+        grad[name] = dict(lanes=len(problems), descent_ms=descent_s * 1e3,
+                          certified=len(served), certify_s=certify_s,
+                          max_abs_logit_err=err)
+    numbers["grad_relax"] = grad
+
+    # Part 7: the per-class costs of the registry.
+    numbers["cost_us"] = race_costs(card)
+
+    if _plain_work() != work0:
+        fail("race path: a plain version ran during a card solve")
+    print(f"race path launches (from {RACE_THREAD}, losers included): "
+          f"{launches}", flush=True)
+    return launches, numbers
+
+
 def profile_solve(name: str, pool, impl: str = "auto") -> dict:
     """Device time by kernel over one resolve of ``pool``, from
     ``torch.profiler``: where the time goes."""
@@ -3036,6 +3695,8 @@ PATH_KERNELS = {
                 "core"),
     "sched": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
               "core"),
+    "race": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
+             "core"),
 }
 
 
@@ -3090,6 +3751,9 @@ def main(argv=None) -> int:
         stamp("tracing path")
         by_path["sched"], per_family["sched"] = run_sched_path(args.scale)
         stamp("sched path")
+        by_path["race"], per_family["race"] = run_race_path(args.scale,
+                                                            plain)
+        stamp("race path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")
@@ -3121,6 +3785,11 @@ def main(argv=None) -> int:
         stamp("pool comparisons")
     finally:
         plain.close()
+        from deppy_tpu_torch import hostpool
+        from deppy_tpu_torch.sched import scheduler as sched_mod
+
+        sched_mod._join_race_threads()
+        hostpool.shutdown_default_pool()
 
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in engine.KERNELS}

@@ -267,6 +267,19 @@ def _cost_proxy(p: Problem) -> int:
     return _size_classes.cost_proxy(p.clauses.shape[0], p.n_vars, p.n_cons)
 
 
+def padded_class(problems: Sequence[Problem]) -> str:
+    """The ladder class of a dispatch group's PADDED batch dims
+    (driver.py:845-860): cost over the bucketed C/NV/NCON maxima, the
+    classification :func:`_bank_cap` applies to the same dispatch.  The
+    max of per-problem cost proxies is not such a function (a
+    wide-clause problem and a wide-var problem can trade maxima)."""
+    C = _bucket(max((p.clauses.shape[0] for p in problems), default=1))
+    NV = _bucket(max((p.n_vars for p in problems), default=1))
+    NCON = _bucket(max((p.n_cons for p in problems), default=1))
+    Wv = -(-(NV + NCON) // _size_classes.WORD)
+    return _size_classes.class_of_cost((C + 2 * NV) * Wv)
+
+
 def _merge_small(buckets: List[List[int]]) -> List[List[int]]:
     merged: List[List[int]] = []
     for idxs in buckets:

@@ -4,7 +4,7 @@ Every recovery path must be exercisable on the CPU, where the card never
 actually fails.  This harness scripts the failures: a **fault plan** —
 JSON from ``DEPPY_GPU_FAULT_PLAN`` or :func:`configure_plan` — lists
 rules matched against named **fault points** the pipeline calls
-:func:`inject` at.  The port calls one so far:
+:func:`inject` at.  The port calls these so far:
 
   ==========================  ================================================
   point                       where
@@ -12,6 +12,14 @@ rules matched against named **fault points** the pipeline calls
   ``sched.dispatch``          entry of one coalesced scheduler dispatch
                               (an error here fails every coalesced request,
                               and latency stalls the whole flush)
+  ``sched.race.<backend>``    entry of one portfolio race entrant (an error
+                              loses that entrant the race; every entrant
+                              failing falls back to the canonical path)
+  ``hostpool.dispatch``       entry of one host-pool dispatch (an error
+                              degrades the batch to the inline engine)
+  ``hostpool.worker_crash``   each chunk sent to a pool worker (an error
+                              makes that worker exit mid-task; its lanes
+                              retry on a fresh worker)
   ==========================  ================================================
 
 The rest of the reference's points (:data:`KNOWN_POINTS`) parse the
@@ -81,9 +89,6 @@ NOT_YET_CALLED = {
     "driver.shard_dispatch.*": "A6",
     "checkpoint.save_group": "A7",
     "service.resolve": "A5.6",
-    "sched.race.*": "A5.2",
-    "hostpool.dispatch": "A5.3",
-    "hostpool.worker_crash": "A5.3",
     "fleet.forward": "A5.6",
     "fleet.join_stream": "A5.6",
     "fleet.arc_flip": "A5.6",

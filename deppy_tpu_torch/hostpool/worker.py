@@ -1,17 +1,26 @@
-"""The one lane-solve routine of the host path (copy of ``deppy_tpu/hostpool/worker.py:31-147``).
+"""Host-pool worker process: the loop, and the one lane-solve routine (copy of ``deppy_tpu/hostpool/worker.py``).
 
 :func:`solve_lane` is the single implementation of "solve one lane on
-the host engine and report the observables".  The reference's worker
-processes run it over a pipe and its inline path runs the very same
-function in-process; the port has the inline path only
-(:func:`deppy_tpu_torch.hostpool.pool.solve_inline`) until the process
-pool is ported.  :func:`count_lane` and :func:`lane_answer` are the one
-accounting and the one decode of a lane, shared by the scheduler's host
-drain and ``BatchResolver``'s host batch.
+the host engine and report the observables": the pool's worker processes
+(:func:`worker_main`, served by :class:`deppy_tpu_torch.hostpool.pool.HostPool`)
+run it over a pipe and the inline path
+(:func:`deppy_tpu_torch.hostpool.pool.solve_inline`) runs the very same
+function in-process, so pool-against-inline identity (models, unsat
+cores, step counts) holds by construction.  :func:`count_lane` and
+:func:`lane_answer` are the one accounting and the one decode of a lane,
+shared by the scheduler's host drain, its racer and ``BatchResolver``'s
+host batch.
+
+The worker imports neither ``torch`` nor ``jax``: the host engine is
+pure numpy, so a worker forked from the pool's forkserver (whose preload
+is this module) never holds a CUDA context.  The reference's
+``JAX_PLATFORMS`` pin has nothing to pin here.
 """
 
 from __future__ import annotations
 
+import os
+import signal
 import time
 from typing import List, Optional, Sequence
 
@@ -138,3 +147,75 @@ def solve_lane(problem, max_steps: Optional[int] = None,
         eng.propagation_rounds, eng.backtracks,
         time.perf_counter() - t0,
     )
+
+
+class _WireDeadline:
+    """Deadline reconstructed from remaining-seconds at send time.
+
+    Monotonic clocks don't transfer between processes; the remaining
+    budget does.  Pipe latency slightly loosens the budget — the safe
+    direction (a lane is never degraded earlier than inline would)."""
+
+    __slots__ = ("_expires",)
+
+    def __init__(self, remaining_s: float):
+        self._expires = time.monotonic() + remaining_s
+
+    def expired(self) -> bool:
+        return time.monotonic() >= self._expires
+
+
+# Exit code a worker uses for a scripted crash (the parent's
+# ``hostpool.worker_crash`` fault point): distinguishable in logs from a
+# real segfault, handled identically by the crash-retry path.
+CRASH_EXIT_CODE = 70
+
+
+def worker_main(conn, worker_id: int) -> None:
+    """The worker process body: serve lane tasks off the duplex pipe
+    until told to exit (or the pipe closes).
+
+    Protocol (parent → worker): ``("task", seq, lanes, crash)`` where
+    ``lanes`` is a CHUNK — a list of payload dicts with keys ``problem``
+    / ``max_steps`` / ``deadline_s`` (remaining seconds or None) — and
+    ``crash`` scripts a mid-task death (the ``hostpool.worker_crash``
+    fault point); ``("exit",)``.  Chunking amortizes the pipe round trip
+    over several ~ms solves.  Worker → parent: ``("ready", pid)`` once
+    at startup, then ``("result", seq, out)`` with one entry per lane —
+    a :class:`HostLaneResult`, or ``("err", messages)`` when the engine
+    itself failed on that lane (the parent re-solves it inline so the
+    real exception surfaces loud and typed).  Deadlines are re-checked
+    per lane just before each solve, so an expiry mid-chunk degrades
+    only the lanes not yet started."""
+    # The parent owns interrupt handling; a Ctrl-C must drain through
+    # the pool's graceful shutdown, not kill workers mid-solve.
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    conn.send(("ready", os.getpid()))
+    while True:
+        try:
+            msg = conn.recv()
+        except (EOFError, OSError):
+            return  # parent died or closed the pipe: exit quietly
+        if msg[0] == "exit":
+            return
+        _, seq, lanes, crash = msg
+        if crash:
+            # Scripted worker death (fault injection), mid-task so the
+            # parent sees a busy worker's sentinel fire — the exact
+            # shape of a real crash.
+            os._exit(CRASH_EXIT_CODE)
+        out = []
+        for payload in lanes:
+            deadline = None
+            if payload.get("deadline_s") is not None:
+                deadline = _WireDeadline(payload["deadline_s"])
+            try:
+                out.append(solve_lane(payload["problem"],
+                                      max_steps=payload.get("max_steps"),
+                                      deadline=deadline))
+            except Exception as e:  # noqa: BLE001 — parent re-raises inline
+                out.append(("err", [f"{type(e).__name__}: {e}"]))
+        try:
+            conn.send(("result", seq, out))
+        except (OSError, ValueError):
+            return

@@ -9,9 +9,11 @@ from .catalog import (
     version_pinned_chains,
 )
 from .entity_catalog import operatorhub_entities, operatorhub_generators
+from .hard import chain_requests
 from .random_instance import random_instance
 
 __all__ = [
+    "chain_requests",
     "fleet_states",
     "giant_pinned_conflict",
     "gvk_conflict_catalog",

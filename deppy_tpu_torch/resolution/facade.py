@@ -9,7 +9,7 @@ the installed ones to True).
 :class:`BatchResolver` resolves N independent problems (e.g. 10k cluster
 states over a shared catalog): encoded once and resolved together on
 ``device`` ("cuda" by default) by the ``"device"`` backend, or lane by
-lane on the inline host engine by the ``"host"`` backend.  Each comes
+lane on the host engine by the ``"host"`` backend.  Each comes
 back as a ``Solution``, the :class:`NotSatisfiable` error carrying its
 minimal core, or an :class:`Incomplete` marker when it ran out of steps.
 ``BatchResolver.last_report`` is the last batch's
@@ -22,9 +22,11 @@ into shared dispatches and repeats are served from its result cache;
 ``deadline_s`` then bounds each solve (expired lanes come back
 Incomplete).
 
-Left out (later slices): the mesh and checkpoint arguments, deadlines
-without a scheduler (ROADMAP A7, the driver's recovery wrapper), and the
-host worker pool.
+The host backend's batch runs through the host worker pool when one is
+available (:func:`deppy_tpu_torch.hostpool.solve_host_problems`).
+
+Left out (later slices): the mesh and checkpoint arguments, and deadlines
+without a scheduler (ROADMAP A7, the driver's recovery wrapper).
 """
 
 from __future__ import annotations
@@ -151,21 +153,21 @@ class BatchResolver:
         self, problems: Sequence[Sequence[Variable]]
     ) -> List[Union[Solution, NotSatisfiable, Incomplete]]:
         """Every problem encoded first (a ``DuplicateIdentifier`` raises
-        before any solve), then solved through the host path's lanes
-        (:func:`deppy_tpu_torch.hostpool.solve_inline`), accounted and
-        decoded with the scheduler's host drain's helpers: the
-        reference's host batch (``resolution/facade.py:180-250``)
-        without the worker pool and deadlines (ROADMAP A5.3), under a
-        ``facade.host_solve`` span and a batch report.  A core carries
-        the very objects of its problem's ``applied``."""
+        before any solve), then solved through the host path's entry
+        (:func:`deppy_tpu_torch.hostpool.solve_host_problems`: the
+        worker pool, or inline), accounted and decoded with the
+        scheduler's host drain's helpers: the reference's host batch
+        (``resolution/facade.py:180-250``) without deadlines (ROADMAP
+        A7), under a ``facade.host_solve`` span and a batch report.  A
+        core carries the very objects of its problem's ``applied``."""
         batch_rep, owns_rep = telemetry.begin_report(
             backend="host", n_problems=len(problems))
         reg = telemetry.default_registry()
         try:
             with reg.span("facade.host_solve", problems=len(problems)):
                 encoded = [encode(vs) for vs in problems]
-                lanes = hostpool.solve_inline(encoded,
-                                              max_steps=self.max_steps)
+                lanes = hostpool.solve_host_problems(
+                    encoded, max_steps=self.max_steps)
                 out = []
                 for p, lane in zip(encoded, lanes):
                     hostpool.count_lane(batch_rep, lane)

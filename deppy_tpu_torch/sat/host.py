@@ -35,9 +35,8 @@ propagation-round and backtrack counts.  The driver also routes the core
 of a giant UNSAT problem here
 (:data:`deppy_tpu_torch.engine.driver.HOST_CORE_NCONS`).
 
-Left out: nothing of the engine.  What the reference builds around it —
-the host worker pool, telemetry reports and deadlines — belongs to later
-slices of the port.
+Left out: nothing of the engine.  The worker pool that runs it in other
+processes is :mod:`deppy_tpu_torch.hostpool`.
 """
 
 from __future__ import annotations

@@ -10,7 +10,10 @@ returns the installed variables in input order, raises
     (:func:`deppy_tpu_torch.engine.driver.solve_one`) on ``device``:
     ``"cuda"`` by default, which raises without a card; ``"cpu"`` runs
     the kernels' plain versions;
-  * ``"host"`` — the NumPy spec engine (:class:`HostEngine`), inline.
+  * ``"host"`` — the NumPy spec engine (:class:`HostEngine`): an
+    untraced solve through the host path's entry
+    (:func:`deppy_tpu_torch.hostpool.solve_host_problems`, which runs a
+    lone problem inline), a traced one on an inline engine.
 
 A ``tracer`` receives one ``trace`` call per search backtrack on either
 backend: the host engine calls it as it searches, the device backend
@@ -30,8 +33,8 @@ not a fallback.  A :meth:`Solver.solve` under an open scope answers for
 the assumed problem (:func:`assumed_variables`), lowered by
 :func:`encode_assumed` and solved on the configured backend.
 
-Left out (later slices): the scheduler branch of ``solve_scoped``, the
-host worker pool, deadlines, the ``auto`` probe and the breaker.
+Left out (later slices): the scheduler branch of ``solve_scoped``,
+deadlines, the ``auto`` probe and the breaker.
 """
 
 from __future__ import annotations
@@ -231,10 +234,38 @@ class Solver:
 
     def _solve_host(self, problem: Problem,
                     tracer: Optional[Tracer]) -> List[Variable]:
-        """One inline host-engine solve (the reference's ``_solve_host``
-        and ``_solve_host_traced``, without the worker pool: the answer,
-        its core objects, its counts and its ``SolveReport``,
-        ``solver.py:350-376``, are the same)."""
+        """One host-engine solve (``solver.py:311-376``): untraced through
+        the host path's shared entry, whose one lane runs inline on the
+        same :func:`~deppy_tpu_torch.hostpool.solve_lane` the pool's
+        workers run; traced on an inline engine (tracer callbacks cannot
+        cross a process boundary).  The answer, its core objects, its
+        counts and its ``SolveReport`` are the engine's either way."""
+        if tracer is not None:
+            return self._solve_host_traced(problem, tracer)
+        from .. import hostpool
+
+        try:
+            (lane,) = hostpool.solve_host_problems(
+                [problem], max_steps=self.max_steps)
+        except InternalSolverError:
+            # The report exists (outcome-less) even when the problem was
+            # malformed, as on the traced path.
+            self.steps = self.backtracks = 0
+            self.report = telemetry.SolveReport(backend="host",
+                                                n_problems=1)
+            raise
+        self.steps = lane.steps
+        self.backtracks = lane.backtracks
+        rep = telemetry.SolveReport(backend="host", n_problems=1)
+        hostpool.count_lane(rep, lane)
+        rep.add_wall("solve", lane.wall_s)
+        self.report = rep
+        if lane.outcome == "sat":
+            return [problem.variables[i] for i in lane.installed_idx]
+        raise hostpool.lane_answer(problem, lane)
+
+    def _solve_host_traced(self, problem: Problem,
+                           tracer: Tracer) -> List[Variable]:
         engine = HostEngine(problem, tracer=tracer, max_steps=self.max_steps)
         t0 = time.perf_counter()
         outcome: Optional[str] = None

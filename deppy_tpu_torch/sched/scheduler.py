@@ -30,20 +30,33 @@ pad/pack, upload and set of kernel launches instead of paying one each.
     the weighted-fair gate (:mod:`.fair`), with priority lanes at the
     flush head.
 
+  * **Portfolio racing.**  A cold flush can race the top-K engine
+    backends of its size class (:class:`PortfolioRacer`, ranked by
+    :mod:`deppy_tpu_torch.engine.registry`): the first definitive
+    finisher wins, a sampled share of non-canonical wins is
+    cross-checked against the canonical backend, and lanes whose
+    deadline cannot survive the device estimate go to the host pool
+    (:meth:`Scheduler._triage_stragglers`).  ``portfolio="auto"`` (the
+    default) races only classes with a measured ``portfolio`` row for
+    the device's platform; ``"on"`` races wherever two candidates serve
+    the class; ``"off"`` constructs no racer.
+
 ``backend="device"`` (the default) runs each flush through
 ``driver.solve_problems(..., device=self.device)`` — the CUDA kernels on
 ``"cuda"``, their plain versions on ``"cpu"``; a failed build or launch
-raises inside the dispatch and reaches every coalesced submitter.
-``backend="host"`` drains through the host engine
-(:func:`deppy_tpu_torch.hostpool.solve_inline`; the worker pool is
-ROADMAP A5.3).
+raises inside the dispatch and reaches every coalesced submitter, raced
+or not (a raced device entrant's error is re-raised into its flush, or
+into the next dispatch when another entrant had already won).
+``backend="host"`` drains through the host path's entry
+(:func:`deppy_tpu_torch.hostpool.solve_host_problems`: the worker pool,
+or inline).
 
 Left out, each with the ROADMAP item that brings it (the parameters keep
 the reference's names and raise ``NotImplementedError`` when set; each
 tier stays off until then): the incremental tier and warm class (A5.4),
-portfolio racing (A5.2), speculation, optimize probes and route shadows
-(A5.6), sessions and the ``immediate`` head (A5.5), the serving mesh
-(A6), and the ``auto`` backend, its probe and the breaker (A7).
+speculation, optimize probes and route shadows (A5.6), sessions and the
+``immediate`` head (A5.5), the serving mesh (A6), and the ``auto``
+backend, its probe and the breaker (A7).
 """
 
 from __future__ import annotations
@@ -68,19 +81,24 @@ DEFAULT_MAX_WAIT_MS = 5.0
 DEFAULT_MAX_FILL = 256
 DEFAULT_CACHE_SIZE = 1024
 DEFAULT_MAX_DEPTH = 4096
+# Portfolio racing: top-K backends raced per cold flush, and the
+# deterministic 1-in-N fraction of non-canonical race wins that are
+# cross-checked against the canonical backend (the canonical entrant is
+# exempted from cancellation on sampled races so its answer exists to
+# compare).  Env mirrors: DEPPY_GPU_PORTFOLIO, DEPPY_GPU_PORTFOLIO_K and
+# DEPPY_GPU_PORTFOLIO_SAMPLE_CHECK.
+DEFAULT_PORTFOLIO_K = 2
+DEFAULT_PORTFOLIO_SAMPLE_CHECK = 0.0625
 
 _OFF = ("off", "0", "false", "no")
 
 # Parameters of tiers not ported yet, with the ROADMAP item of each: any
-# value but None raises.  incremental, portfolio and speculate also take
-# their "off" spellings.
+# value but None raises.  incremental and speculate also take their
+# "off" spellings.
 _LEFT_OUT = {
     "incremental": "A5.4 (the incremental tier)",
     "incremental_max_delta": "A5.4 (the incremental tier)",
     "incremental_index_size": "A5.4 (the incremental tier)",
-    "portfolio": "A5.2 (engine registry and portfolio racing)",
-    "portfolio_k": "A5.2 (engine registry and portfolio racing)",
-    "portfolio_sample_check": "A5.2 (engine registry and portfolio racing)",
     "speculate": "A5.6 (speculative pre-resolution)",
     "speculate_max_backlog": "A5.6 (speculative pre-resolution)",
     "mesh": "A6 (mesh serving)",
@@ -150,9 +168,14 @@ class _Group:
         self.priority = priority
 
 
-def _apply_lane_result(lane: _Lane, r, point: str) -> None:
+def _apply_lane_result(lane: _Lane, r, point: str,
+                       canonical: bool = True) -> None:
     """Decode one HostLaneResult onto its lane — the host drain's decode
-    convention (:func:`deppy_tpu_torch.hostpool.lane_answer`)."""
+    convention (:func:`deppy_tpu_torch.hostpool.lane_answer`), shared by
+    the racer's winner and the straggler resubmission so the paths
+    cannot drift.  ``canonical=False`` (a race won by a non-canonical
+    backend) clears the lane's backtrack observation: the winner's
+    count is not the canonical engine's."""
     if r.degraded:
         faults.note_deadline_exceeded(point, tenant=lane.tenant)
         lane.result = Incomplete()
@@ -160,7 +183,395 @@ def _apply_lane_result(lane: _Lane, r, point: str) -> None:
         return
     lane.result = hostpool.lane_answer(lane.problem, r)
     lane.steps = r.steps
-    lane.backtracks = r.backtracks
+    lane.backtracks = r.backtracks if canonical else None
+
+
+class _RacePlan:
+    """One flush's race decision: the candidate backends and the class
+    they were ranked for."""
+
+    __slots__ = ("names", "class_name", "canonical")
+
+    def __init__(self, names: List[str], class_name: str,
+                 canonical: str):
+        self.names = names
+        self.class_name = class_name
+        self.canonical = canonical
+
+
+# Abandoned race losers (a device solve mid-launch, a descent
+# mid-certification) must not be killed as daemon threads at interpreter
+# teardown while they hold the CUDA runtime.  Every race thread
+# registers here and an atexit hook joins the stragglers (bounded:
+# losers see the stop flag at their next step boundary; a device solve
+# runs out its dispatch).
+_RACE_THREADS: List[threading.Thread] = []
+_RACE_THREADS_LOCK = threading.Lock()
+_RACE_ATEXIT = [False]
+
+
+def _note_race_thread(t: threading.Thread) -> None:
+    with _RACE_THREADS_LOCK:
+        _RACE_THREADS[:] = [x for x in _RACE_THREADS if x.is_alive()]
+        _RACE_THREADS.append(t)
+        if not _RACE_ATEXIT[0]:
+            import atexit
+
+            atexit.register(_join_race_threads)
+            _RACE_ATEXIT[0] = True
+
+
+def _join_race_threads(timeout_s: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    with _RACE_THREADS_LOCK:
+        threads = list(_RACE_THREADS)
+    for t in threads:
+        t.join(max(deadline - time.monotonic(), 0.0))
+
+
+class PortfolioRacer:
+    """First-finisher-wins racing across registered engine backends
+    (``scheduler.py:304-599``).
+
+    One coalesced cold flush is dispatched to the top-K candidate
+    backends of its size class concurrently, one thread each
+    (``deppy-race-<backend>``; :mod:`deppy_tpu_torch.engine.registry`
+    ranks them — measured ``portfolio`` rows first, the static
+    canonical-first order otherwise); the first DEFINITIVE finisher
+    (every lane answered) wins, and the losers are cancelled: host lanes
+    check a cooperative stop flag at step boundaries, device solves run
+    to completion with their fetch dropped, hostpool dispatches are
+    abandoned.  A deterministic 1-in-N sample of non-canonical wins is
+    cross-checked against the canonical backend's answer — a mismatch is
+    a loud ``race_mismatch`` fault event and the canonical answer is
+    served.
+
+    Entrant errors are counted (``deppy_race_entrant_errors_total``,
+    by backend) and evented (a ``race_entrant_error`` fault naming the
+    error).  A host, grad_relax or hostpool entrant that raises, and a
+    fault injected at ``sched.race.<backend>``, lose the race as in the
+    reference.  A device entrant whose solve raises is NOT a lost
+    entrant: the port has no breaker (ROADMAP A7) to route around a
+    device that cannot build or launch, so the error is re-raised into
+    the dispatch as racing off would raise it — into this flush when no
+    winner was served yet, else into the next flush this racer plans.
+
+    Modes: ``on`` races wherever ≥2 candidates serve the class;
+    ``auto`` races only classes with a measured ``portfolio`` row.
+    ``off`` never constructs a racer.  Lanes are accounted with
+    :func:`deppy_tpu_torch.hostpool.count_lane` (the reference's
+    ``_count_lane_outcome``)."""
+
+    def __init__(self, mode: str, k: int, sample_check: float,
+                 registry: "telemetry.Registry", device="cuda"):
+        self.mode = mode
+        self.k = max(int(k), 2)
+        self.device = device
+        rate = max(float(sample_check), 0.0)
+        self._check_interval = (int(round(1.0 / min(rate, 1.0)))
+                                if rate > 0 else 0)
+        # Non-canonical wins since the last cross-check.  The sampling
+        # contract is 1-in-N NON-CANONICAL WINS (not 1-in-N races —
+        # counting races would let deterministic aliasing against the
+        # flush pattern starve the check forever); seeded so the very
+        # FIRST non-canonical win is checked.  The cancel exemption
+        # must be decided before racing, so the check arms whenever
+        # the next non-canonical win would be the Nth.
+        self._check_lock = threading.Lock()
+        self._since_check = max(self._check_interval - 1, 0)
+        self._registry = registry
+        # A device entrant's error that arrived after its race was
+        # decided; raised by the next plan() (under _check_lock).
+        self._device_error: Optional[BaseException] = None
+
+    # ------------------------------------------------------------- plan
+
+    def plan(self, live: List[_Lane], backend: str) -> Optional[_RacePlan]:
+        """Decide whether THIS flush races: candidate backends for its
+        ladder class, capability- and availability-filtered.  None
+        means the canonical single-backend path runs untouched.  Raises
+        a device entrant's error that landed after its race was decided
+        (the flush fails as a canonical dispatch on that device would)."""
+        from ..engine import registry as engine_registry
+        from ..engine.driver import padded_class
+
+        with self._check_lock:
+            err, self._device_error = self._device_error, None
+        if err is not None:
+            raise err
+        class_name = padded_class([lane.problem for lane in live])
+        # The reference also asks its breaker here; the port's breaker
+        # comes with ROADMAP A7, so the device races whenever the
+        # scheduler's backend is the device.
+        device_ok = backend != "host"
+        need_card = any(lane.problem.card_act.shape[0] > 0
+                        and (lane.problem.card_act >= 0).any()
+                        for lane in live)
+        names, measured = engine_registry.candidates(
+            class_name, self.k, device_ok=device_ok,
+            cardinality=need_card, device=self.device)
+        if self.mode == "auto" and not measured:
+            return None
+        if len(names) < 2:
+            return None
+        canonical = "host" if backend == "host" else "device"
+        return _RacePlan(names, class_name, canonical)
+
+    # ------------------------------------------------------------- race
+
+    def race(self, plan: _RacePlan, live: List[_Lane], rep,
+             timing: dict) -> bool:
+        """Run one race.  Returns True when a winner's results were
+        applied to the lanes (and merged into ``rep``); False when no
+        entrant finished definitively — the caller falls back to the
+        canonical path exactly as if racing were off."""
+        from ..engine import registry as engine_registry
+        from ..sat.host import SolveCancelled
+
+        reg = self._registry
+        problems = [lane.problem for lane in live]
+        deadlines = [lane.deadline for lane in live]
+        dl = faults.current_deadline()
+        stop = threading.Event()
+        with self._check_lock:
+            check = (self._check_interval > 0
+                     and plan.canonical in plan.names
+                     and self._since_check + 1 >= self._check_interval)
+        cv = threading.Condition()
+        finished: List[tuple] = []  # (name, dt, out, err, srep) in
+        #                             completion order
+        failed: List[BaseException] = []  # device solve errors
+        decided = [False]  # under cv: the race has returned
+
+        def run(name: str, t0: float) -> None:
+            srep, owns = telemetry.begin_report(backend=name)
+            out = None
+            err = None
+            solving = False
+            try:
+                if stop.is_set() and not (check
+                                          and name == plan.canonical):
+                    raise SolveCancelled()
+                with faults.deadline_scope(dl):
+                    faults.inject(f"sched.race.{name}")
+                    solving = True
+                    out = engine_registry.solve_via(
+                        name, problems, max_steps=live[0].max_steps,
+                        deadlines=deadlines,
+                        cancel=(None if (check and name == plan.canonical)
+                                else stop),
+                        device=self.device)
+                if name != "device" and out is not None:
+                    # Non-device backends don't flow through the
+                    # driver's report plumbing: account their lanes
+                    # here, on the entrant's own report (merged only
+                    # if this entrant wins).
+                    for r in out:
+                        if r is not None:
+                            hostpool.count_lane(srep, r)
+            except SolveCancelled:
+                err = "cancelled"
+            except BaseException as e:  # noqa: BLE001 — entrant-local
+                err = e
+                reg.counter(
+                    "deppy_race_entrant_errors_total",
+                    "Race entrants that raised (cancellation aside), "
+                    "by backend.",
+                    labelname="backend").inc(label=name)
+                telemetry.default_registry().event(
+                    "fault", fault="race_entrant_error", backend=name,
+                    error=f"{type(e).__name__}: {e}"[:200],
+                    size_class_name=plan.class_name, lanes=len(live))
+            finally:
+                telemetry.detach_report(srep, owns)
+            fatal = (name == "device" and solving
+                     and isinstance(err, BaseException))
+            with cv:
+                finished.append((name, time.perf_counter() - t0, out,
+                                 err, srep))
+                if fatal:
+                    if decided[0]:
+                        with self._check_lock:
+                            if self._device_error is None:
+                                self._device_error = err
+                    else:
+                        failed.append(err)
+                cv.notify_all()
+
+        t0 = time.perf_counter()
+        with reg.span("race", lanes=len(live), entrants=len(plan.names),
+                      size_class=plan.class_name) as sp:
+            for name in plan.names:
+                reg.counter(
+                    "deppy_race_starts_total",
+                    "Portfolio race entrant launches, by backend.",
+                    labelname="backend").inc(label=name)
+                t = threading.Thread(target=run, args=(name, t0),
+                                     name=f"deppy-race-{name}",
+                                     daemon=True)
+                _note_race_thread(t)
+                t.start()
+
+            def _definitive(name, out):
+                """A non-canonical entrant's budget-exhaustion
+                'incomplete' is that ENGINE's verdict, not the
+                canonical one (step accounting is engine-relative) —
+                letting it win would serve (and cache) Incomplete
+                where racing-off decides.  Only the canonical entrant
+                may call Incomplete; deadline-degraded lanes pass."""
+                if out is None:
+                    return False
+                for r in out:
+                    if r is None:
+                        return False
+                    if (r.outcome == "incomplete" and not r.degraded
+                            and name != plan.canonical):
+                        return False
+                return True
+
+            def _winner_locked():
+                for entry in finished:
+                    name, _, out, err, _ = entry
+                    if err is None and _definitive(name, out):
+                        return entry
+                return None
+
+            with cv:
+                winner = _winner_locked()
+                while (winner is None and not failed
+                       and len(finished) < len(plan.names)):
+                    cv.wait()
+                    winner = _winner_locked()
+                decided[0] = True
+            stop.set()
+            if failed:
+                # The device could not solve: raise into the dispatch
+                # exactly as racing off would, never serve around it.
+                sp.set(winner="error")
+                raise failed[0]
+            if winner is None:
+                sp.set(winner="none")
+                telemetry.default_registry().event(
+                    "race", size_class_name=plan.class_name,
+                    entrants=list(plan.names), lanes=len(live),
+                    default=plan.names[0], winner=None)
+                return False
+
+            noncanonical_win = winner[0] != plan.canonical
+            checked = None
+            if check and noncanonical_win:
+                # Sampled differential cross-check: the canonical
+                # entrant was exempt from cancellation — wait for its
+                # answer and compare outcome/model/core per lane.
+                # Deadline-degraded lanes are excluded on either side:
+                # degradation is pure timing, not disagreement.
+                with cv:
+                    while not any(e[0] == plan.canonical
+                                  for e in finished):
+                        cv.wait()
+                    canon = next(e for e in finished
+                                 if e[0] == plan.canonical)
+                with self._check_lock:
+                    err, self._device_error = self._device_error, None
+                if err is not None:
+                    # The canonical device entrant raised while the
+                    # check waited for it: this flush's error.
+                    sp.set(winner="error")
+                    raise err
+                if canon[3] is None and canon[2] is not None and all(
+                        r is not None for r in canon[2]):
+                    mismatch = any(
+                        (w.outcome, tuple(w.installed_idx),
+                         tuple(w.core_idx))
+                        != (c.outcome, tuple(c.installed_idx),
+                            tuple(c.core_idx))
+                        for w, c in zip(winner[2], canon[2])
+                        if not w.degraded and not c.degraded)
+                    checked = "mismatch" if mismatch else "ok"
+                    if mismatch:
+                        reg.counter(
+                            "deppy_race_check_mismatch_total",
+                            "Sampled race cross-checks that disagreed "
+                            "with the canonical backend (served "
+                            "canonical; investigate).").inc()
+                        telemetry.default_registry().event(
+                            "fault", fault="race_mismatch",
+                            winner=winner[0],
+                            canonical=plan.canonical,
+                            lanes=len(live))
+                        winner = canon  # serve the canonical answer
+            if noncanonical_win:
+                with self._check_lock:
+                    if check:
+                        self._since_check = 0
+                    else:
+                        self._since_check += 1
+
+            wname, wdt, wout, _, wsrep = winner
+            with cv:
+                # A cancelled loser can surface as a PARTIAL completion
+                # — err None but a None lane (a descent cancelled
+                # mid-certification) — whose wall clock measures when
+                # the cancel landed, not how fast the backend solves.
+                # Such entrants are CENSORED: recorded as losers but
+                # excluded from win-margin stats.
+                losers = []
+                for e in finished:
+                    if e[0] == wname:
+                        continue
+                    censored = (e[3] is not None or e[2] is None
+                                or any(r is None for r in e[2]))
+                    losers.append({"backend": e[0],
+                                   "wall_s": round(e[1], 6),
+                                   "censored": bool(censored)})
+                done = {e[0] for e in finished}
+                margins = [e[1] - wdt for e in finished
+                           if e[0] != wname and e[3] is None
+                           and e[2] is not None
+                           and all(r is not None for r in e[2])]
+                clean_done = {e[0] for e in finished if e[3] is None}
+            for name in plan.names:
+                if name != wname and name not in done:
+                    # Still running at event time (abandoned in the
+                    # background): censored, no usable wall clock.
+                    losers.append({"backend": name, "wall_s": None,
+                                   "censored": True})
+            for name in plan.names:
+                if name != wname and name not in clean_done:
+                    reg.counter(
+                        "deppy_race_cancels_total",
+                        "Race entrants cancelled or abandoned after "
+                        "losing, by backend.",
+                        labelname="backend").inc(label=name)
+            reg.counter(
+                "deppy_race_wins_total",
+                "Races won (first definitive finisher), by backend.",
+                labelname="backend").inc(label=wname)
+            margin = min(margins) if margins else None
+            if margin is not None:
+                reg.histogram(
+                    "deppy_race_win_margin_seconds",
+                    "Winner-vs-best-finished-loser wall-clock margin "
+                    "per race.").observe(max(margin, 0.0))
+            sp.set(winner=wname)
+            telemetry.default_registry().event(
+                "race", size_class_name=plan.class_name, winner=wname,
+                canonical=plan.canonical, default=plan.names[0],
+                entrants=list(plan.names),
+                lanes=len(live),
+                cancelled=[n for n in plan.names
+                           if n != wname and n not in clean_done],
+                losers=losers,
+                win_margin_s=(round(margin, 6)
+                              if margin is not None else None),
+                checked=checked, wall_s=round(wdt, 6))
+        rep.merge(wsrep)
+        canonical_won = wname == plan.canonical
+        for lane, r in zip(live, wout):
+            _apply_lane_result(lane, r, "sched.race",
+                               canonical=canonical_won)
+        timing["solve_s"] = timing.get("solve_s", 0.0) + wdt
+        return True
 
 
 class Scheduler:
@@ -194,15 +605,13 @@ class Scheduler:
             incremental=incremental,
             incremental_max_delta=incremental_max_delta,
             incremental_index_size=incremental_index_size,
-            portfolio=portfolio, portfolio_k=portfolio_k,
-            portfolio_sample_check=portfolio_sample_check,
             speculate=speculate,
             speculate_max_backlog=speculate_max_backlog,
             mesh=mesh, mesh_devices=mesh_devices,
             lanes_per_device=lanes_per_device)
         for name, value in given.items():
             if value is None or (
-                    name in ("incremental", "portfolio", "speculate")
+                    name in ("incremental", "speculate")
                     and str(value).strip().lower() in _OFF):
                 continue
             raise NotImplementedError(
@@ -230,6 +639,26 @@ class Scheduler:
         self._registry = registry if registry is not None \
             else telemetry.default_registry()
         self.cache = ResultCache(cache_size, registry=self._registry)
+        # Portfolio engine racing.  "off" constructs no racer at all;
+        # "auto" (the default) races only size classes holding a
+        # measured `portfolio` row; "on" races wherever ≥2 candidate
+        # backends serve the class.
+        if portfolio is None:
+            portfolio = os.environ.get("DEPPY_GPU_PORTFOLIO", "auto")
+        mode = str(portfolio).strip().lower()
+        self._racer: Optional[PortfolioRacer] = None
+        if mode not in _OFF:
+            if portfolio_k is None:
+                portfolio_k = _env_int("DEPPY_GPU_PORTFOLIO_K",
+                                       DEFAULT_PORTFOLIO_K)
+            if portfolio_sample_check is None:
+                portfolio_sample_check = faults.env_float(
+                    "DEPPY_GPU_PORTFOLIO_SAMPLE_CHECK",
+                    DEFAULT_PORTFOLIO_SAMPLE_CHECK, warn=True)
+            self._racer = PortfolioRacer(
+                "on" if mode in ("on", "1", "true", "yes") else "auto",
+                portfolio_k, portfolio_sample_check, self._registry,
+                device=device)
         # Weighted-fair per-tenant admission + priority lanes.  "off"
         # restores the global-depth-only gate and strict FIFO flush
         # head; "on" (the default) is identical while one tenant is
@@ -650,12 +1079,33 @@ class Scheduler:
                                            n_problems=len(live))
         try:
             with faults.deadline_scope(scope):
-                if self.backend == "host":
-                    t1 = time.perf_counter()
-                    self._solve_host(live, rep)
-                    timing["solve_s"] = time.perf_counter() - t1
-                else:
-                    self._solve_device(live, timing)
+                # Portfolio racing (scheduler.py:1826-1853).  A None plan
+                # (racing off, auto with no measured row, <2 candidates)
+                # leaves the canonical single-backend path below as it
+                # was.
+                plan = (self._racer.plan(live, self.backend)
+                        if self._racer is not None else None)
+                finisher = None
+                raced = False
+                try:
+                    if plan is not None:
+                        live, finisher = self._triage_stragglers(
+                            live, plan.class_name)
+                        if live:
+                            raced = self._racer.race(plan, live, rep,
+                                                     timing)
+                        else:
+                            raced = True
+                    if not raced:
+                        if self.backend == "host":
+                            t1 = time.perf_counter()
+                            self._solve_host(live, rep)
+                            timing["solve_s"] = time.perf_counter() - t1
+                        else:
+                            self._solve_device(live, timing)
+                finally:
+                    if finisher is not None:
+                        finisher(rep)
         finally:
             telemetry.end_report(rep, owns)
         return rep
@@ -680,13 +1130,89 @@ class Scheduler:
             lane.backtracks = int(res.trace_n)
             lane.result = dec
 
+    def _triage_stragglers(self, live: List[_Lane], class_name: str):
+        """Per-lane deadline triage (scheduler.py:1973-2047): lanes whose
+        remaining wall-clock budget cannot survive the expected device
+        dispatch (the dispatch EWMA, floored by the engine registry's
+        per-class device estimate) are resubmitted to the host pool on a
+        side thread (``deppy-race-resubmit``), where they start at once
+        instead of riding — or expiring inside — a device batch.  Returns
+        (kept lanes, finisher|None); the finisher joins the resubmission
+        and merges its report.  Racing path only: with the portfolio
+        off, deadline semantics are untouched."""
+        from ..engine import registry as engine_registry
+
+        with self._cv:
+            est = self._dispatch_ewma_s
+        est = max(est,
+                  engine_registry.estimate_us("device", class_name) / 1e6)
+        resub = [lane for lane in live
+                 if lane.deadline is not None
+                 and 0.0 < lane.deadline.remaining() < est]
+        if not resub:
+            return live, None
+        keep = [lane for lane in live
+                if not any(lane is r for r in resub)]
+        reg = self._registry
+        reg.counter(
+            "deppy_race_straggler_resubmits_total",
+            "Deadline-straggler lanes resubmitted to the host pool "
+            "instead of riding a device batch.").inc(len(resub))
+        telemetry.default_registry().event(
+            "race", resubmitted=len(resub),
+            size_class_name=class_name)
+        box: dict = {}
+
+        def side() -> None:
+            srep, owns = telemetry.begin_report(backend="hostpool")
+            try:
+                results = hostpool.solve_host_problems(
+                    [lane.problem for lane in resub],
+                    max_steps=[lane.max_steps for lane in resub],
+                    deadlines=[lane.deadline for lane in resub])
+                for lane, r in zip(resub, results):
+                    hostpool.count_lane(srep, r)
+                    _apply_lane_result(lane, r, "sched.race",
+                                       canonical=False)
+            except BaseException as e:  # noqa: BLE001 — re-raised at join
+                box["error"] = e
+            finally:
+                telemetry.detach_report(srep, owns)
+                box["rep"] = srep
+
+        t = threading.Thread(target=side, name="deppy-race-resubmit",
+                             daemon=True)
+        t.start()
+
+        def finisher(rep) -> None:
+            t.join()
+            rep.merge(box["rep"])
+            if "error" in box:
+                import sys
+
+                if sys.exc_info()[1] is not None:
+                    # A primary exception is already propagating out of
+                    # the dispatch (the finisher runs in its finally):
+                    # re-raising here would MASK it — surface the side
+                    # failure on the sink instead.
+                    telemetry.default_registry().event(
+                        "fault", fault="race_resubmit_failed",
+                        error=type(box["error"]).__name__,
+                        lanes=len(resub))
+                    return
+                raise box["error"]
+
+        return keep, finisher
+
     def _solve_host(self, live: List[_Lane], rep) -> None:
-        """Host-engine drain for ``backend="host"``.  Each LANE's own
-        deadline rides along: completed lanes keep their answers,
-        expired ones degrade individually."""
+        """Host-engine drain for ``backend="host"`` (scheduler.py:2112-2144):
+        the lanes run through the shared host entry — concurrent across
+        the worker pool when one is available, inline (bit-identical)
+        otherwise.  Each LANE's own deadline rides along: completed
+        lanes keep their answers, expired ones degrade individually."""
         reg = telemetry.default_registry()
         with reg.span("sched.host_solve", problems=len(live)):
-            results = hostpool.solve_inline(
+            results = hostpool.solve_host_problems(
                 [lane.problem for lane in live],
                 max_steps=[lane.max_steps for lane in live],
                 deadlines=[lane.deadline for lane in live])

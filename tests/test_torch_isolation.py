@@ -58,13 +58,22 @@ def test_scan_covers_sched_faults_hostpool():
         ("sched", "fair.py"), ("sched", "scheduler.py"),
         ("faults", "__init__.py"), ("faults", "inject.py"),
         ("faults", "metrics.py"), ("faults", "policy.py"),
-        ("hostpool", "__init__.py"), ("hostpool", "pool.py"),
-        ("hostpool", "worker.py")}
+        ("hostpool", "__init__.py"), ("hostpool", "metrics.py"),
+        ("hostpool", "pool.py"), ("hostpool", "worker.py")}
+
+
+def test_scan_covers_the_racing_modules():
+    """The engine registry, the grad_relax entrant and the
+    measured-defaults reader are the port's own copies: the AST scan
+    reads each."""
+    names = {p.name for p in PORT_FILES if p.parent.name == "engine"}
+    assert {"registry.py", "grad_relax.py", "defaults.py"} <= names
 
 
 def test_fresh_process_cpu_solve_loads_no_jax():
-    """A CPU batch, a traced Solver whose report is read, and a batch
-    through the request scheduler import nothing of JAX or deppy_tpu."""
+    """A CPU batch, a traced Solver whose report is read, a racing
+    scheduler (device, host and grad_relax entrants) and a batch through
+    the request scheduler import nothing of JAX or deppy_tpu."""
     code = textwrap.dedent("""
         import sys
         before = set(sys.modules)
@@ -86,6 +95,9 @@ def test_fresh_process_cpu_solve_loads_no_jax():
         assert isinstance(solver.report, telemetry.SolveReport)
         assert solver.report.backtracks == solver.backtracks
         from deppy_tpu_torch.sched import Scheduler
+        racing = Scheduler(device="cpu", portfolio="on", portfolio_k=3,
+                           cache_size=0)
+        assert len(racing.submit([pinned_tenant_catalog(seed=0)] * 2)) == 2
         sched = Scheduler(device="cpu", max_wait_ms=0.0)
         sched.start()
         try:

@@ -634,10 +634,8 @@ def test_unported_backends_raise(backend):
 @pytest.mark.parametrize("kw,item", [
     (dict(incremental="on"), "A5.4"), (dict(incremental_max_delta=0.5),
                                        "A5.4"),
-    (dict(incremental_index_size=8), "A5.4"), (dict(portfolio="on"), "A5.2"),
-    (dict(portfolio="auto"), "A5.2"), (dict(portfolio_k=3), "A5.2"),
-    (dict(portfolio_sample_check=0.5), "A5.2"), (dict(speculate="on"),
-                                                 "A5.6"),
+    (dict(incremental_index_size=8), "A5.4"), (dict(speculate="on"),
+                                               "A5.6"),
     (dict(speculate_max_backlog=4), "A5.6"), (dict(mesh=object()), "A6"),
     (dict(mesh_devices=2), "A6"), (dict(lanes_per_device=64), "A6"),
 ], ids=lambda v: "-".join(v) if isinstance(v, dict) else v)
@@ -645,6 +643,27 @@ def test_unported_backends_raise(backend):
 def test_unported_tiers_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TScheduler(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(), ("auto", 2, 16)),
+    (dict(portfolio="on"), ("on", 2, 16)),
+    (dict(portfolio="auto", portfolio_k=3), ("auto", 3, 16)),
+    (dict(portfolio="ON", portfolio_sample_check=0.5), ("on", 2, 2)),
+], ids=["defaults", "on", "auto-k3", "on-check-half"])
+@within(30)
+def test_portfolio_arguments_build_the_racer(kw, want, monkeypatch):
+    """The ``portfolio*`` arguments (ported from the reference with its
+    defaults: ``"auto"``, K 2, a 1-in-16 cross-check) configure the
+    racer: mode, K and the cross-check interval, as the reference's."""
+    for name in ("DEPPY_GPU_PORTFOLIO", "DEPPY_GPU_PORTFOLIO_K",
+                 "DEPPY_GPU_PORTFOLIO_SAMPLE_CHECK"):
+        monkeypatch.delenv(name, raising=False)
+    racer = TScheduler(device="cpu", **kw)._racer
+    ref = JScheduler(backend="tpu", incremental="off", speculate="off",
+                     **kw)._racer
+    assert (racer.mode, racer.k, racer._check_interval) == want
+    assert (ref.mode, ref.k, ref._check_interval) == want
 
 
 @within(30)
