@@ -92,7 +92,24 @@ Phases, each fatal on failure:
    Every answer equals the unraced scheduler's, no sampled cross-check
    disagrees, no device entrant raises, every launch of a race window
    comes from the race's device thread (losers included), and the first
-   race-thread launch of each kernel is held against its plain version;
+   race-thread launch of each kernel is held against its plain version
+   (both phases run their schedulers with the incremental tier off);
+4f. the incremental path: the port's incremental tier
+   (``deppy_tpu_torch.incremental``, the scheduler's warm class) on the
+   card, :func:`run_incremental_path`'s parts 1-4: the churn replay of
+   ``deppy_tpu/benchmarks/churn.py`` at its own defaults (120 requests,
+   32 bundles x 12, one dependency clause flipped each) through
+   ``Scheduler()`` from one thread with the tier on and off, 3 replays
+   each, then once 8 requests a submit; the screen on the card against
+   its CPU run over replay 1's warm plans and the same plans poisoned;
+   the ``sched`` burst A+B with the tier on and off; the ``warm``
+   backend's per-class cost (``incremental cost`` lines).  Answers must
+   be equal lane for lane with the tier on and off (steps too on every
+   churn lane, and every burst request, with no lane served warm), every
+   warm flush of two or more lanes must run the screen on ``cuda``,
+   every screen must equal its CPU run, no ``incremental_screen_failed``
+   event may fire, and the first loop-thread launch of each kernel in
+   the churn replays and in the burst is held against its plain version;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -1291,6 +1308,11 @@ SCHED_DEADLINES = (4, 8)  # part E: expired (and as many live) requests x states
 SCHED_BATCH = (8, 8)      # part F: clients x operatorhub_catalog(250, 8)
 SCHED_CACHE = 4096        # A's repeats (part D) are not evicted
 SCHED_LOOP = "deppy-sched"
+# The sched and race phases measure cold batching and hold each answer's
+# steps against an unscheduled (or unraced) solve, so their schedulers
+# run with the incremental tier off: on by default, it would serve some
+# lanes warm, with the host engine's step counts.  The incremental phase
+# measures the tier.
 
 
 def _pct(vals, q: float) -> float:
@@ -1356,6 +1378,26 @@ class DispatchLog:
         from deppy_tpu_torch.engine import driver
 
         driver.solve_problems = self._solve
+
+
+def burst_jobs(scale: float):
+    """The ``sched`` phase's burst A+B as (label, request) jobs: 128
+    requests of 16 ``gvk_conflict_catalog(20, 4, 10)`` states, with 32 of
+    8 distinct ``pinned_tenant_catalog`` states in flight among them
+    (every fifth job)."""
+    from deppy_tpu_torch.models import gvk_conflict_catalog
+
+    n_fleet = max(8, int(SCHED_FLEET[0] * scale))
+    n_tenant = max(4, int(SCHED_TENANTS[0] * scale))
+    fleet = [("A", [gvk_conflict_catalog(20, 4, 10, seed=SCHED_FLEET[1] * i + j)
+                    for j in range(SCHED_FLEET[1])]) for i in range(n_fleet)]
+    states = distinct_tenant_states(n_tenant * SCHED_TENANTS[1])
+    tenants = [("B", states[SCHED_TENANTS[1] * i:SCHED_TENANTS[1] * (i + 1)])
+               for i in range(n_tenant)]
+    jobs = list(fleet)
+    for i, job in enumerate(tenants):
+        jobs.insert(min(len(jobs), 5 * i + 3), job)
+    return jobs
 
 
 def run_clients(clients: int, jobs, submit):
@@ -1540,7 +1582,8 @@ def run_sched_path(scale: float):
 
     # Parts A, B and C: one burst through one scheduler.
     reg = telemetry.Registry()
-    sched = Scheduler(cache_size=SCHED_CACHE, registry=reg)
+    sched = Scheduler(cache_size=SCHED_CACHE, registry=reg,
+                      incremental="off")
     sched.start()
     try:
         wall, records, calls, counts = scheduled(
@@ -1624,7 +1667,8 @@ def run_sched_path(scale: float):
     e_jobs = [("E", [vs for vs in req[:width]])
               for _, req in fleet[:2 * n_dead]]
     reg_e = telemetry.Registry()
-    sched_e = Scheduler(max_wait_ms=50, cache_size=0, registry=reg_e)
+    sched_e = Scheduler(max_wait_ms=50, cache_size=0, registry=reg_e,
+                        incremental="off")
     missed0 = telemetry.default_registry().snapshot().get(
         "deppy_deadline_exceeded", 0)
     sched_e.start()
@@ -1680,7 +1724,8 @@ def run_sched_path(scale: float):
                      for j in range(width)]) for i in range(n_clients)]
     core.set_bcp_impl("blockwise")
     try:
-        sched_f = Scheduler(registry=telemetry.Registry())
+        sched_f = Scheduler(registry=telemetry.Registry(),
+                            incremental="off")
         sched_f.start()
         try:
             wall_f, rec_f, calls_f, counts_f = scheduled(
@@ -1772,12 +1817,14 @@ class ThreadLaunches:
 
 
 class RaceCapture:
-    """While on, the first launch of each of ``kernels`` made on the race's
-    device thread: the wrapper's inputs and outputs, cloned (compact rows
-    dropped: the plain versions read the planes)."""
+    """While on, the first launch of each of ``kernels`` made on the thread
+    named ``thread`` (the race's device thread unless given): the wrapper's
+    inputs and outputs, cloned (compact rows dropped: the plain versions
+    read the planes)."""
 
-    def __init__(self, kernels):
+    def __init__(self, kernels, thread: str = RACE_THREAD):
         self.kernels = tuple(kernels)
+        self.thread = thread
         self.calls = {}
 
     def __enter__(self):
@@ -1802,7 +1849,8 @@ class RaceCapture:
             self._saved.append((mod, fn_name, orig))
 
             def wrapped(*args, _k=kernel, _orig=orig, **kwargs):
-                mine = threading.current_thread().name == RACE_THREAD
+                mine = (_k not in self.calls
+                        and threading.current_thread().name == self.thread)
                 if mine:
                     ins = ([clone(a) for a in args],
                            {k: (None if k == "rows" else clone(v))
@@ -1821,17 +1869,21 @@ class RaceCapture:
         for mod, fn_name, orig in self._saved:
             setattr(mod, fn_name, orig)
 
-    def submit(self, plain: "PlainPool", family: str) -> None:
+    def submit(self, plain: "PlainPool", family: str,
+               need=None) -> None:
         """Hold the first :data:`RACE_COMPARE_LANES` lanes of each captured
         launch against its plain version (the same wrapper on CPU copies,
-        in the pool); fails when a kernel was never captured."""
-        missing = [k for k in self.kernels if k not in self.calls]
+        in the pool); fails when a kernel of ``need`` (every kernel unless
+        given) was never captured."""
+        missing = [k for k in (self.kernels if need is None else need)
+                   if k not in self.calls]
         if missing:
-            fail(f"race: no launch of {missing} on {RACE_THREAD} was seen")
+            fail(f"{family}: no launch of {missing} on {self.thread} was "
+                 f"seen")
         for kernel, ((args, kwargs), out) in sorted(self.calls.items()):
             n = min(RACE_COMPARE_LANES, out[0].shape[0])
             mod_name, fn_name = RACE_WRAPPERS[kernel]
-            plain.submit((kernel, family, f"{n} lanes of a {RACE_THREAD} "
+            plain.submit((kernel, family, f"{n} lanes of a {self.thread} "
                           f"launch ({out[0].shape[0]} lanes)"),
                          [o[:n] for o in out], mod_name, fn_name,
                          [_lanes(a, 0, n) for a in args],
@@ -2027,8 +2079,7 @@ def run_race_path(scale: float, plain: "PlainPool"):
 
     from deppy_tpu_torch import engine, faults, hostpool, telemetry
     from deppy_tpu_torch.engine import core, defaults, grad_relax, registry
-    from deppy_tpu_torch.models import (chain_requests, gvk_conflict_catalog,
-                                        pinned_tenant_catalog,
+    from deppy_tpu_torch.models import (chain_requests, pinned_tenant_catalog,
                                         version_pinned_chains)
     from deppy_tpu_torch.sat.encode import encode
     from deppy_tpu_torch.sched import Scheduler, fingerprint
@@ -2073,7 +2124,8 @@ def run_race_path(scale: float, plain: "PlainPool"):
 
     def unraced(label, jobs, clients, **kw):
         sched = Scheduler(portfolio="off", cache_size=0,
-                          registry=telemetry.Registry(), **kw)
+                          registry=telemetry.Registry(), incremental="off",
+                          **kw)
         sched.start()
         try:
             torch.cuda.synchronize()
@@ -2110,7 +2162,7 @@ def run_race_path(scale: float, plain: "PlainPool"):
             reg = telemetry.Registry()
             sched = Scheduler(portfolio="on", portfolio_k=k,
                               portfolio_sample_check=1.0, cache_size=0,
-                              registry=reg)
+                              registry=reg, incremental="off")
             sched.start()
             try:
                 cap = (RaceCapture(["blockwise_fixpoint"])
@@ -2131,20 +2183,12 @@ def run_race_path(scale: float, plain: "PlainPool"):
         numbers[f"chains_{impl}"] = row
 
     # Part 2: the sched phase's burst, unraced then raced top-2.
-    n_fleet = max(8, int(SCHED_FLEET[0] * scale))
-    n_tenant = max(4, int(SCHED_TENANTS[0] * scale))
-    fleet = [("A", [gvk_conflict_catalog(20, 4, 10, seed=SCHED_FLEET[1] * i + j)
-                    for j in range(SCHED_FLEET[1])]) for i in range(n_fleet)]
-    states = distinct_tenant_states(n_tenant * SCHED_TENANTS[1])
-    tenants = [("B", states[SCHED_TENANTS[1] * i:SCHED_TENANTS[1] * (i + 1)])
-               for i in range(n_tenant)]
-    jobs = list(fleet)
-    for i, job in enumerate(tenants):
-        jobs.insert(min(len(jobs), 5 * i + 3), job)
+    jobs = burst_jobs(scale)
+    fleet = [job for job in jobs if job[0] == "A"]
     wall_off, off = unraced("2 burst", jobs, SCHED_CLIENTS)
     reg = telemetry.Registry()
     sched = Scheduler(portfolio="on", portfolio_k=2, cache_size=0,
-                      registry=reg)
+                      registry=reg, incremental="off")
     sched.start()
     cap = RaceCapture(["bcp_fixpoint", "search", "minimize", "core"])
     try:
@@ -2172,7 +2216,8 @@ def run_race_path(scale: float, plain: "PlainPool"):
             defaults.reload_measured_defaults()
             label = f"3 auto ({'row' if with_row else 'no row'})"
             reg = telemetry.Registry()
-            sched = Scheduler(cache_size=0, registry=reg)
+            sched = Scheduler(cache_size=0, registry=reg,
+                              incremental="off")
             sched.start()
             try:
                 if with_row:
@@ -2260,7 +2305,7 @@ def run_race_path(scale: float, plain: "PlainPool"):
     tight = {id(req) for _, req in s_jobs[:n_tight]}
     reg = telemetry.Registry()
     sched = Scheduler(portfolio="on", portfolio_k=2, cache_size=0,
-                      max_wait_ms=200.0, registry=reg)
+                      max_wait_ms=200.0, registry=reg, incremental="off")
     sched._dispatch_ewma_s = 30.0
     sched.start()
     try:
@@ -2350,6 +2395,462 @@ def run_race_path(scale: float, plain: "PlainPool"):
     if _plain_work() != work0:
         fail("race path: a plain version ran during a card solve")
     print(f"race path launches (from {RACE_THREAD}, losers included): "
+          f"{launches}", flush=True)
+    return launches, numbers
+
+
+# --------------------------------------------------------------------------
+# the incremental path
+
+
+INC_REPLAYS = 3      # part 1: churn replays with the tier on, and off
+INC_BATCH = 8        # part 1b: churn requests a submit
+INC_COST_CALLS = 5   # part 4: timed solve_via("warm") calls per class
+# The kernels of the incremental path's cold dispatches, whose first
+# launch on the scheduler's loop thread is held against its plain version.
+INC_KERNELS = ("bcp_fixpoint", "search", "minimize", "core")
+
+
+class WarmLog:
+    """While on, every incremental-class flush of every scheduler (the
+    scheduler's device, its lanes' plans and which lanes were served
+    warm) and every ``driver.warm_screen`` call (device, inputs,
+    verdicts)."""
+
+    def __enter__(self):
+        from deppy_tpu_torch.engine import driver
+        from deppy_tpu_torch.sched.scheduler import Scheduler
+
+        self.flushes, self.screens = [], []
+        self._saved = [(Scheduler, "_solve_incremental",
+                        Scheduler._solve_incremental),
+                       (driver, "warm_screen", driver.warm_screen)]
+        flush, screen = self._saved[0][2], self._saved[1][2]
+        log = self
+
+        def solve_incremental(sched, live, rep, timing):
+            first = len(log.screens)
+            flush(sched, live, rep, timing)
+            log.flushes.append(dict(
+                device=str(sched.device), plans=[lane.warm for lane in live],
+                served=[lane.index_steps is not None for lane in live],
+                screens=log.screens[first:]))
+
+        def warm_screen(problems, models, cones, *, device="cuda"):
+            ok = screen(problems, models, cones, device=device)
+            log.screens.append(dict(device=str(device),
+                                    args=(problems, models, cones),
+                                    ok=ok))
+            return ok
+
+        Scheduler._solve_incremental = solve_incremental
+        driver.warm_screen = warm_screen
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    def check(self, label: str) -> dict:
+        """Every warm flush of more than one lane ran exactly one screen,
+        on ``cuda``, over all its lanes, and each screen's verdicts equal
+        its run on the CPU.  Returns the flushes' and screens' numbers."""
+        import numpy as np
+
+        from deppy_tpu_torch.engine import driver
+
+        multi = [f for f in self.flushes if len(f["plans"]) > 1]
+        for f in multi:
+            if [(s["device"], len(s["args"][0])) for s in f["screens"]] != \
+                    [("cuda", len(f["plans"]))]:
+                fail(f"incremental {label}: a warm flush of "
+                     f"{len(f['plans'])} lanes on {f['device']} ran the "
+                     f"screens {[(s['device'], len(s['args'][0])) for s in f['screens']]}")
+        for s in self.screens:
+            cpu = driver.warm_screen(*s["args"], device="cpu")
+            if not np.array_equal(cpu, s["ok"]):
+                fail(f"incremental {label}: the card's screen of "
+                     f"{len(cpu)} lanes differs from its CPU run")
+        return dict(
+            warm_flushes=len(self.flushes),
+            warm_flush_lanes=[len(f["plans"]) for f in self.flushes],
+            served=sum(sum(f["served"]) for f in self.flushes),
+            screens=len(self.screens),
+            screen_lanes=sum(len(s["ok"]) for s in self.screens),
+            screen_flagged=int(sum((~s["ok"]).sum() for s in self.screens)))
+
+    def served_keys(self) -> set:
+        """The fingerprints of the lanes served warm."""
+        return {p.key for f in self.flushes
+                for p, s in zip(f["plans"], f["served"]) if s}
+
+
+def plan_clock(reg) -> list:
+    """[ms, calls] of the clause-set index's ``plan`` on ``reg``, summed
+    from its ``incremental.delta`` spans as they are emitted."""
+    import threading
+
+    acc, lock = [0.0, 0], threading.Lock()
+
+    def note(event):
+        if event.get("kind") == "span" and \
+                event.get("name") == "incremental.delta":
+            with lock:
+                acc[0] += event["dur_s"] * 1e3
+                acc[1] += 1
+
+    reg.add_forwarder(note)
+    return acc
+
+
+def _screen_device_ms(fn) -> float:
+    """Device ms of every kernel ``fn`` launched, from ``torch.profiler``
+    (the screen's torch ops; no kernel of the port)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.self_device_time_total > 0
+               and e.key != "Activity Buffer Request") / 1e3
+
+
+def _med(vals) -> str:
+    return (f"median {statistics.median(vals):.3f} s (range "
+            f"{min(vals):.3f}-{max(vals):.3f})")
+
+
+def churn_replay(requests, tier: str, batch: int = 1) -> dict:
+    """One pass of the churn replay through a fresh started
+    ``Scheduler(incremental=tier)`` on the card from this thread,
+    ``batch`` requests a submit: wall, rendered answers, steps per
+    submit, the tier's counters and the index's ``plan`` time."""
+    import torch
+
+    from deppy_tpu_torch import telemetry
+    from deppy_tpu_torch.sched import Scheduler
+
+    reg = telemetry.Registry()
+    plans = plan_clock(reg)
+    sched = Scheduler(incremental=tier, registry=reg)
+    sched.start()
+    answers, steps = [], []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, len(requests), batch):
+            st: dict = {}
+            answers += [render(r) for r in
+                        sched.submit(requests[lo:lo + batch], stats=st)]
+            steps.append(st["steps"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sched.stop()
+    snap = reg.snapshot()
+    return dict(wall_s=wall, answers=answers, steps=steps,
+                hit_ratio=(sched.incremental.hit_ratio()
+                           if sched.incremental is not None else 0.0),
+                hits=snap.get("deppy_incremental_hits_total", 0),
+                fallbacks=snap.get("deppy_incremental_warm_fallbacks_total",
+                                   0),
+                dispatches=snap["deppy_sched_dispatches_total"],
+                plan_ms=plans[0], plans=plans[1])
+
+
+def poison(plan, problem):
+    """``plan``'s cached model with off-cone variables flipped, in index
+    order, until the port's screen on the CPU flags the lane."""
+    import numpy as np
+
+    from deppy_tpu_torch.engine import driver
+
+    model = plan.warm_assign > 0
+    for v in np.nonzero(~plan.cone)[0]:
+        model = model.copy()
+        model[v] = not model[v]
+        if not driver.warm_screen([problem], [model], [plan.cone],
+                                  device="cpu")[0]:
+            return model
+    fail("incremental: no off-cone flip made the screen flag a lane")
+
+
+def warm_costs(plans, card: str) -> dict:
+    """Per-lane µs of ``solve_via("warm", ...)`` on each class's plans:
+    the median of :data:`INC_COST_CALLS` calls after one untimed call,
+    and their range."""
+    from deppy_tpu_torch.engine import driver, registry
+
+    by_class: dict = {}
+    for plan in plans:
+        by_class.setdefault(driver.padded_class([plan.problem]),
+                            []).append(plan)
+    out = {}
+    for cls, ps in sorted(by_class.items()):
+        registry.solve_via("warm", ps)
+        samples = []
+        for _ in range(INC_COST_CALLS):
+            t0 = time.perf_counter()
+            registry.solve_via("warm", ps)
+            samples.append((time.perf_counter() - t0) / len(ps) * 1e6)
+        out[cls] = dict(lanes=len(ps), us=statistics.median(samples),
+                        range=(min(samples), max(samples)))
+        print(f"incremental cost {cls} ({len(ps)} warm plans): warm "
+              f"{out[cls]['us']:.1f} us/lane (median of {INC_COST_CALLS}, "
+              f"{min(samples):.1f}-{max(samples):.1f}) [{card}]", flush=True)
+    return out
+
+
+def run_incremental_path(scale: float, plain: "PlainPool"):
+    """The incremental tier on the card (parts 1-4): the churn replay of
+    ``deppy_tpu/benchmarks/churn.py`` at its own defaults through
+    ``Scheduler(device="cuda")`` with the tier on and off, 3 replays each
+    from one client thread (answers equal lane for lane; steps equal on
+    every lane the tier did not serve warm), and once with the tier on at
+    :data:`INC_BATCH` requests a submit (warm flushes of several lanes:
+    the screen on the card); the screen on ``cuda`` against ``cpu`` over
+    replay 1's warm plans and the same plans poisoned; the ``sched``
+    burst A+B with the tier on and off (answers equal, and steps on
+    every request none of whose lanes was served warm); and the ``warm``
+    backend's per-class cost.  Every warm flush of more than one lane
+    must run the screen on ``cuda``, every screen must equal its CPU run,
+    and no ``incremental_screen_failed`` event may fire.  The first
+    ``deppy-sched`` launch of each kernel in the churn replays and in the
+    burst is held against its plain version in ``plain``'s pool.
+    Returns the path's launches (parts 1 and 3, the main path) and
+    numbers."""
+    import numpy as np
+    import torch
+
+    from deppy_tpu_torch import engine, telemetry
+    from deppy_tpu_torch.engine import driver
+    from deppy_tpu_torch.models import churn_requests
+    from deppy_tpu_torch.sat.encode import encode
+    from deppy_tpu_torch.sched import Scheduler, fingerprint
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"incremental timings on {card}", flush=True)
+    requests = churn_requests()
+    keys = [fingerprint(encode(vs)) for vs in requests]
+    numbers = {}
+    work0 = _plain_work()
+    events = RaceEvents()
+    events.__enter__()
+    try:
+        torch.cuda.synchronize()
+        engine.reset_launch_counts()
+        # Part 1: the churn replay, tier on and off.
+        runs = {"on": [], "off": []}
+        logs = {}
+        churn_cap = RaceCapture(INC_KERNELS, thread=SCHED_LOOP)
+        for r in range(INC_REPLAYS):
+            for tier in ("on", "off"):
+                with WarmLog() as log, churn_cap:
+                    run = churn_replay(requests, tier)
+                row = log.check(f"churn {tier} replay {r + 1}")
+                run.update(row)
+                runs[tier].append(run)
+                logs.setdefault(tier, log)
+                print(f"incremental churn {tier} replay {r + 1}: "
+                      f"{len(requests)} requests in {run['wall_s']:.3f} s; "
+                      f"hit ratio {run['hit_ratio']}, served warm "
+                      f"{run['hits']}, warm fallbacks {run['fallbacks']}, "
+                      f"dispatches {run['dispatches']} (warm flushes "
+                      f"{row['warm_flushes']}); screens {row['screens']} "
+                      f"({row['screen_lanes']} lanes, "
+                      f"{row['screen_flagged']} flagged); index plan "
+                      f"{run['plan_ms']:.3f} ms over {run['plans']} "
+                      f"[{card}]", flush=True)
+        churn_cap.submit(plain, "incremental churn", need=())
+        off0 = runs["off"][0]
+        warm_keys = logs["on"].served_keys()
+        bad_answers = sum(run["answers"] != off0["answers"]
+                          for tier in runs for run in runs[tier])
+        bad_steps = sum(run["steps"] != runs[tier][0]["steps"]
+                        for tier in runs for run in runs[tier])
+        bad_steps += sum(a != b for k, a, b in zip(
+            keys, runs["on"][0]["steps"], off0["steps"])
+            if k not in warm_keys)
+        print(f"incremental churn: answers equal lane for lane across "
+              f"{2 * INC_REPLAYS} replays (mismatches {bad_answers}), steps "
+              f"equal replay for replay and on every lane not served warm "
+              f"(mismatches {bad_steps}; {len(warm_keys)} lanes served "
+              f"warm)", flush=True)
+        if bad_answers or bad_steps:
+            fail(f"incremental churn: {bad_answers} replays' answers and "
+                 f"{bad_steps} step counts differ")
+        if runs["on"][0]["hits"] == 0:
+            fail("incremental churn: the tier served nothing warm")
+        walls = {t: [run["wall_s"] for run in runs[t]] for t in runs}
+        ratio = (statistics.median(walls["on"])
+                 / statistics.median(walls["off"]))
+        print(f"incremental churn walls: on {_med(walls['on'])}, off "
+              f"{_med(walls['off'])}; on/off {ratio:.4f} [{card}]",
+              flush=True)
+        numbers["churn"] = dict(
+            requests=len(requests), walls_on_s=walls["on"],
+            walls_off_s=walls["off"], on_over_off=ratio,
+            hit_ratio=runs["on"][0]["hit_ratio"],
+            served=runs["on"][0]["hits"],
+            fallbacks=runs["on"][0]["fallbacks"],
+            dispatches_on=runs["on"][0]["dispatches"],
+            dispatches_off=off0["dispatches"],
+            screens=runs["on"][0]["screens"],
+            plan_ms=runs["on"][0]["plan_ms"], plans=runs["on"][0]["plans"])
+
+        # Part 1b: the replay at INC_BATCH requests a submit, tier on.
+        with WarmLog() as log:
+            run = churn_replay(requests, "on", batch=INC_BATCH)
+        row = log.check("churn batched")
+        if run["answers"] != off0["answers"]:
+            fail("incremental churn batched: answers differ from the "
+                 "serial replay's")
+        if row["screens"] == 0:
+            fail("incremental churn batched: no warm flush ran the screen")
+        print(f"incremental churn batched ({INC_BATCH} a submit, tier on): "
+              f"{len(requests)} requests in {run['wall_s']:.3f} s; warm "
+              f"flushes {row['warm_flushes']} (lanes "
+              f"{row['warm_flush_lanes']}), served warm {run['hits']}, "
+              f"fallbacks {run['fallbacks']}; screens on cuda "
+              f"{row['screens']} ({row['screen_lanes']} lanes, "
+              f"{row['screen_flagged']} flagged), each equal to its CPU "
+              f"run; answers equal the serial replay's [{card}]",
+              flush=True)
+        numbers["churn_batched"] = dict(wall_s=run["wall_s"],
+                                        hits=run["hits"],
+                                        fallbacks=run["fallbacks"], **row)
+
+        # Part 3: the sched burst A+B, tier on and off.
+        jobs = burst_jobs(scale)
+        burst, burst_plans, burst_warm = {}, [], set()
+        burst_cap = RaceCapture(INC_KERNELS, thread=SCHED_LOOP)
+        for tier in ("on", "off"):
+            reg = telemetry.Registry()
+            plan_ms = plan_clock(reg)
+            sched = Scheduler(incremental=tier, cache_size=SCHED_CACHE,
+                              registry=reg)
+            sched.start()
+            try:
+                with WarmLog() as log, burst_cap:
+                    torch.cuda.synchronize()
+                    wall, records = run_clients(
+                        SCHED_CLIENTS, jobs,
+                        lambda q, st: sched.submit(q, stats=st))
+                    torch.cuda.synchronize()
+            finally:
+                sched.stop()
+            row = log.check(f"burst {tier}")
+            burst_plans += [p for f in log.flushes for p in f["plans"]]
+            burst_warm |= log.served_keys()
+            snap = reg.snapshot()
+            total = snap["deppy_sched_dispatches_total"]
+            row.update(wall_s=wall, dispatches=total,
+                       plan_ms=plan_ms[0], plans=plan_ms[1],
+                       cold_dispatches=total - row["warm_flushes"],
+                       deltas=snap.get("deppy_incremental_delta_total", {}),
+                       records=records)
+            burst[tier] = row
+            print(f"incremental burst {tier}: {len(jobs)} requests from "
+                  f"{SCHED_CLIENTS} clients in {wall:.3f} s; dispatches "
+                  f"{total} (cold {row['cold_dispatches']}, incremental "
+                  f"class {row['warm_flushes']}), served warm "
+                  f"{row['served']}; delta classes {row['deltas']}; index "
+                  f"plan {row['plan_ms']:.3f} ms over {row['plans']} "
+                  f"[{card}]", flush=True)
+        # The burst's launches are compared with their plain versions
+        # after the churn's: those the churn never made must be here.
+        burst_cap.submit(plain, "incremental burst",
+                         need=[k for k in INC_KERNELS
+                               if k not in churn_cap.calls])
+        # Steps are held on every request none of whose lanes was served
+        # warm (a warm lane reports the host engine's warm steps).
+        bad_answers = bad_steps = held = 0
+        for (_, request), a, b in zip(jobs, burst["on"].pop("records"),
+                                      burst["off"].pop("records")):
+            if [render(r) for r in a["answers"]] != \
+                    [render(r) for r in b["answers"]]:
+                bad_answers += 1
+            if burst_warm.isdisjoint(fingerprint(encode(vs))
+                                     for vs in request):
+                held += 1
+                bad_steps += a["stats"]["steps"] != b["stats"]["steps"]
+        print(f"incremental burst: {len(jobs)} requests, mismatches "
+              f"{bad_answers} (answers) and {bad_steps} (steps, on the "
+              f"{held} requests with no lane served warm) tier on against "
+              f"off; wall on/off "
+              f"{burst['on']['wall_s'] / burst['off']['wall_s']:.4f} "
+              f"[{card}]", flush=True)
+        if bad_answers or bad_steps:
+            fail(f"incremental burst: {bad_answers} requests' answers and "
+                 f"{bad_steps} step counts differ with the tier on")
+        if held == 0:
+            fail("incremental burst: every request had a lane served warm; "
+                 "no step count was held")
+        numbers["burst_steps_held"] = held
+        numbers["burst"] = burst
+        torch.cuda.synchronize()
+        launches = engine.launch_counts()
+        if _plain_work() != work0:
+            fail("incremental path: a plain version ran during a card solve")
+
+        # Part 2: the screen on the card against its CPU run, over
+        # replay 1's warm plans and the same plans poisoned.
+        plans = [p for f in logs["on"].flushes for p in f["plans"]]
+        problems = [p.problem for p in plans] * 2
+        models = ([p.warm_assign > 0 for p in plans]
+                  + [poison(p, p.problem) for p in plans])
+        cones = [p.cone for p in plans] * 2
+        cuda = driver.warm_screen(problems, models, cones, device="cuda")
+        cpu = driver.warm_screen(problems, models, cones, device="cpu")
+        n = len(problems)
+        chunks = -(-n // driver._Dims(problems,
+                                      min(n, driver.MAX_LANES)).B)
+        walls_s = []
+        for _ in range(INC_COST_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            driver.warm_screen(problems, models, cones, device="cuda")
+            walls_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        driver.warm_screen(problems, models, cones, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        device_ms = _screen_device_ms(
+            lambda: driver.warm_screen(problems, models, cones,
+                                       device="cuda"))
+        flagged = int((~cuda).sum())
+        print(f"incremental screen: {n} lanes ({len(plans)} warm plans of "
+              f"replay 1, the same poisoned), {chunks} chunk(s); cuda "
+              f"equals cpu {np.array_equal(cuda, cpu)}, flagged {flagged} "
+              f"({int((~cuda[:len(plans)]).sum())} clean, every poisoned "
+              f"lane {bool((~cuda[len(plans):]).all())}); "
+              f"device {device_ms / chunks:.4f} ms a chunk, call "
+              f"{statistics.median(walls_s) * 1e3:.3f} ms (median of "
+              f"{INC_COST_CALLS}) on the card, {cpu_s * 1e3:.3f} ms on the "
+              f"CPU [{card}]", flush=True)
+        if not np.array_equal(cuda, cpu) or flagged == 0 or \
+                cuda[len(plans):].any():
+            fail("incremental screen: the card's verdicts differ from the "
+                 "CPU's or from the plans' poisoning")
+        numbers["screen"] = dict(lanes=n, chunks=chunks, flagged=flagged,
+                                 device_ms_per_chunk=device_ms / chunks,
+                                 call_ms=statistics.median(walls_s) * 1e3,
+                                 cpu_ms=cpu_s * 1e3)
+
+        # Part 4: the warm backend's per-class cost.
+        numbers["cost_us"] = warm_costs(plans + burst_plans, card)
+    finally:
+        events.__exit__()
+    failed = [e for e in events.events
+              if e.get("fault") == "incremental_screen_failed"]
+    if failed:
+        fail(f"incremental: {len(failed)} incremental_screen_failed events")
+    seconds = time.perf_counter() - t_phase
+    numbers["seconds"] = seconds
+    print(f"incremental path: {seconds:.1f} s; launches (parts 1 and 3) "
           f"{launches}", flush=True)
     return launches, numbers
 
@@ -3697,6 +4198,7 @@ PATH_KERNELS = {
               "core"),
     "race": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
              "core"),
+    "incremental": ("bcp_fixpoint", "search", "minimize", "core"),
 }
 
 
@@ -3754,6 +4256,9 @@ def main(argv=None) -> int:
         by_path["race"], per_family["race"] = run_race_path(args.scale,
                                                             plain)
         stamp("race path")
+        by_path["incremental"], per_family["incremental"] = \
+            run_incremental_path(args.scale, plain)
+        stamp("incremental path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")

@@ -19,6 +19,10 @@ Three layers, in the reference's order:
   :mod:`deppy_tpu_torch.engine.cuda_bcp`,
   :mod:`deppy_tpu_torch.engine.cuda_blockwise` and
   :mod:`deppy_tpu_torch.engine.cuda_search` launch the kernels there).
+* :func:`warm_check_phase`, the incremental tier's warm-prefix screen
+  (``core.py:1848-1882``): plain XLA in the reference, one elementwise
+  pass with no Pallas kernel, so batched torch ops on the lanes' device
+  are its port, on the card and on the CPU alike.
 
 The BCP impl is selected as in the reference (``core.py:488-508,
 634-641``): :func:`set_bcp_impl` or the ``DEPPY_GPU_BCP`` knob, one of
@@ -1075,3 +1079,41 @@ def core_phase(pt: ProblemTensors, budget: int, steps: int,
         k, chunk_mode = k2, advance
     return active, steps
 
+
+
+def warm_check_phase(clauses: torch.Tensor, card_ids: torch.Tensor,
+                     card_n: torch.Tensor, card_valid: torch.Tensor,
+                     n_vars: torch.Tensor, assign: torch.Tensor, *,
+                     NV: int) -> torch.Tensor:
+    """Warm-prefix screen for a batch of lanes (core.py:1848-1882, the
+    reference's per-lane function vmapped): each lane's assignment
+    ``assign[b]`` (int ``[B, NV]``) is initialized from its cached model
+    (+1 true / -1 false over the off-cone variables, 0 for the cone left
+    open to the re-solve), activation variables read constant TRUE, and
+    every clause and AtMost row is evaluated in one elementwise pass.
+    Returns ``bool[B]`` on the tensors' device: False means the warm
+    prefix already conflicts (a dead clause, or an AtMost row with more
+    true members than its bound) and the lane should cold-solve without
+    paying a host warm attempt.  No loop and no host sync."""
+    B = clauses.shape[0]
+    a = assign.to(_I32)
+    lit = clauses
+    var = lit.abs() - 1
+    # Activation (and any padded) variable indices read as constant
+    # TRUE: the solve assumes every applied constraint active, exactly
+    # like the host engine's base assignment.
+    is_act = var >= n_vars.view(B, 1, 1)
+    pv = torch.where(is_act, torch.zeros_like(var), var).clamp(0, NV - 1)
+    vals = torch.gather(a, 1, pv.reshape(B, -1)).view(lit.shape)
+    sign = lit.sign()
+    val = torch.where(lit == 0, torch.full_like(lit, FALSE),
+                      torch.where(is_act, sign, sign * vals))
+    valid_row = (lit != 0).any(dim=2)
+    sat_c = (val == TRUE).any(dim=2)
+    open_c = (val == UNASSIGNED).any(dim=2)
+    dead = valid_row & ~sat_c & ~open_c
+    mvals = torch.gather(a, 1, card_ids.clamp(0, NV - 1).reshape(B, -1)
+                         ).view(card_ids.shape)
+    trues = ((mvals == TRUE) & (card_ids >= 0)).sum(dim=2)
+    over = (card_valid > 0) & (trues > card_n)
+    return ~(dead.any(dim=1) | over.any(dim=1))

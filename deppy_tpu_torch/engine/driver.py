@@ -1,4 +1,4 @@
-"""Pad, batch, dispatch and decode (port of ``deppy_tpu/engine/driver.py:58-2152``, the three-phase split path).
+"""Pad, batch, dispatch and decode (port of ``deppy_tpu/engine/driver.py:58-2188``, the three-phase split path and the warm screen).
 
 One batched resolve, as the reference's ``solve_problems`` runs it
 without a mesh, faults or budget escalation:
@@ -18,6 +18,10 @@ without a mesh, faults or budget escalation:
    full-space planes derived, and phase 3 run on the device — routed
    exactly as the reference routes them (:func:`_core_routes`);
 5. :func:`decode_results` maps lanes back to variables.
+
+:func:`warm_screen` (driver.py:2155-2188) is the incremental tier's
+batched warm-prefix screen: pad, one elementwise
+:func:`core.warm_check_phase` pass per chunk, one ``bool[n]`` back.
 
 Tracing: ``trace_cap`` > 0 gives phase 1 a backtrack trace buffer of that
 depth (kernel 3 writes it on the card); :func:`solve_one` with a
@@ -711,3 +715,36 @@ def decode_results(problems: Sequence[Problem],
             else:
                 out.append(Incomplete())
     return out
+
+
+def warm_screen(problems: Sequence[Problem], models, cones, *,
+                device="cuda") -> np.ndarray:
+    """Batched warm-prefix screen (driver.py:2155-2188): the device lane
+    variant of the incremental tier.  Each lane's assignment is
+    initialized from its cached ``model`` (bool[n_vars]) with the
+    ``cone`` variables left open, and one :func:`core.warm_check_phase`
+    pass per chunk of at most :data:`MAX_LANES` lanes flags lanes whose
+    warm prefix already conflicts — those cold-solve without paying a
+    host warm attempt.  Runs on ``device`` (``"cuda"`` by default, which
+    raises without a card) under a ``driver.warm_screen`` span; the one
+    device-to-host copy is the returned ``bool[n]``.  Router only:
+    results never depend on this screen."""
+    dev = resolve_device(device)
+    n = len(problems)
+    d = _Dims(problems, min(max(n, 1), MAX_LANES))
+    CH = d.B
+    total = max(1, -(-n // CH)) * CH
+    pts = pad_stack(problems, d, total)
+    assign = np.zeros((total, d.NV), np.int32)
+    for i, (m, c) in enumerate(zip(models, cones)):
+        a = np.where(np.asarray(m, dtype=bool), 1, -1).astype(np.int32)
+        a[np.asarray(c, dtype=bool)] = 0
+        assign[i, : a.shape[0]] = a
+    with telemetry.default_registry().span("driver.warm_screen", lanes=n):
+        t = [torch.from_numpy(x).to(dev)
+             for x in (pts.clauses, pts.card_ids, pts.card_n,
+                       pts.card_valid, pts.n_vars, assign)]
+        ok = torch.cat([
+            core.warm_check_phase(*(x[lo: lo + CH] for x in t), NV=d.NV)
+            for lo in range(0, total, CH)]).cpu().numpy()
+    return ok[:n]

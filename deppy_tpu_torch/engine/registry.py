@@ -8,8 +8,9 @@ one lane vocabulary (:class:`~deppy_tpu_torch.hostpool.worker.HostLaneResult`)
 the scheduler's host drain already decodes.  The backends: the batched
 driver on the card (``device``), the inline host engine (``host``), the
 host worker pool (``hostpool``), the gradient-relaxation entrant
-(``grad_relax``) and the warm-start screen (``warm``, ROADMAP A5.4: its
-adapter raises until then, and :func:`candidates` never races it).
+(``grad_relax``) and the incremental tier's certified warm starts
+(``warm``, whose lanes are :class:`deppy_tpu_torch.incremental.WarmPlan`
+objects; :func:`candidates` never races it).
 
 The portfolio racer (:class:`deppy_tpu_torch.sched.scheduler.PortfolioRacer`)
 consumes this surface: :func:`candidates` ranks the backends for a size
@@ -73,8 +74,13 @@ class BackendSpec:
 # UNSAT states with cores).  Unmeasured: device xl (the phase reaches no
 # xl batch) and host and hostpool l and xl (the host engine takes tens of
 # seconds a lane on the l chains) hold the largest measured class's
-# value, a floor; grad_relax and warm keep the reference's TPU-era
-# anchors in every class.
+# value, a floor.  warm: chip_smoke.py's incremental phase (its
+# `incremental cost` lines: the 95 warm plans of the churn replay for m,
+# the 17 of pinned_tenant states the burst planned for xs), each the
+# median of 5 calls after one untimed call, on the same card; s, l and
+# xl, which its plans do not reach, hold m's value, their largest
+# measured neighbour.  grad_relax keeps the reference's TPU-era anchors
+# in every class.
 _SPECS: Dict[str, BackendSpec] = {
     spec.name: spec
     for spec in (
@@ -96,8 +102,10 @@ _SPECS: Dict[str, BackendSpec] = {
                              "xl": 162823.6}),     # unmeasured: m's
         BackendSpec("warm", _CLASS_NAMES, cardinality=True,
                     warm_start=True, definitive=False,
-                    cost_us={"xs": 60.0, "s": 120.0, "m": 400.0,
-                             "l": 1500.0, "xl": 3000.0}),  # unmeasured
+                    cost_us={"xs": 262.4, "s": 1893.2,   # s unmeasured: m's
+                             "m": 1893.2,
+                             "l": 1893.2,         # unmeasured: m's
+                             "xl": 1893.2}),      # unmeasured: m's
         BackendSpec("grad_relax", _CLASS_NAMES, cardinality=True,
                     warm_start=False, definitive=False,
                     cost_us={"xs": 250.0, "s": 500.0, "m": 1500.0,
@@ -275,11 +283,13 @@ def _solve_hostpool(problems, max_steps, deadlines, cancel, mesh=None,
 
 def _solve_warm(plans, max_steps, deadlines, cancel, mesh=None,
                 device="cuda"):
-    """Certified warm-start attempts: the scheduler's incremental class
-    is the only caller, and it is not ported yet."""
-    raise NotImplementedError(
-        "solve_via('warm', ...) is not ported yet: ROADMAP A5.4 (the "
-        "incremental tier)")
+    """Certified warm-start attempts (registry.py:299-317) — ``plans``
+    are WarmPlan objects, one per lane; None per lane on fallback.  They
+    run on the host engine whatever ``device`` says, and ``attempt``
+    already answers in the lane vocabulary."""
+    from .. import incremental as inc
+
+    return [inc.attempt(plan, max_steps) for plan in plans]
 
 
 def _solve_grad(problems, max_steps, deadlines, cancel, mesh=None,

@@ -8,12 +8,14 @@ from .catalog import (
     pinned_tenant_catalog,
     version_pinned_chains,
 )
+from .churn import churn_requests
 from .entity_catalog import operatorhub_entities, operatorhub_generators
 from .hard import chain_requests
 from .random_instance import random_instance
 
 __all__ = [
     "chain_requests",
+    "churn_requests",
     "fleet_states",
     "giant_pinned_conflict",
     "gvk_conflict_catalog",

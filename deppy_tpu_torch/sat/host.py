@@ -753,10 +753,10 @@ class HostEngine:
     # ----------------------------------------------------------- guided
     #
     # The gradient-relaxation entrant's certification surface.  The
-    # continuous descent (``deppy_tpu/engine/grad_relax.py``, not ported
-    # yet) proposes a rounded
-    # assignment; this entry serves an answer ONLY when that answer is
-    # provably the one :meth:`solve` would produce, and raises
+    # continuous descent (:mod:`deppy_tpu_torch.engine.grad_relax`)
+    # proposes a rounded assignment; this entry serves an answer ONLY
+    # when that answer is provably the one :meth:`solve` would produce,
+    # and raises
     # :class:`GuidanceUnverified` the moment that proof breaks — the
     # portfolio racer then falls back to the discrete engines, so
     # correctness never depends on the heuristic.

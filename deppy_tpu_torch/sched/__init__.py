@@ -11,7 +11,9 @@
   * **cache** — :class:`ResultCache` + :func:`fingerprint`: problems are
     fingerprinted after encoding; hits bypass the queue entirely, entries
     are invalidated on budget escalation, and hit/miss/evict counters
-    land in telemetry.
+    land in telemetry.  An exact miss consults the incremental tier's
+    clause-set index (:meth:`ResultCache.lookup_or_plan`), whose warm
+    plans the scheduler serves in their own size class.
 
 Metric families (on the scheduler's registry): ``deppy_sched_queue_depth``,
 ``deppy_sched_coalesced_batch_size``, ``deppy_sched_dispatches_total``,

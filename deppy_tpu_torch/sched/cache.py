@@ -1,4 +1,4 @@
-"""Canonical-form result cache (copy of ``deppy_tpu/sched/cache.py:1-331``, the exact LRU).
+"""Canonical-form result cache (copy of ``deppy_tpu/sched/cache.py:1-331``, the exact LRU and its delta tier).
 
 Catalog traffic is heavily repetitive — thousands of cluster states
 re-resolving the same problem against the same catalog — so the
@@ -27,10 +27,11 @@ under; the solver is deterministic, so
 
 Eviction is LRU at ``capacity`` entries.  Hit/miss/evict counters and
 the ``deppy_cache_hit_ratio`` gauge land on the registry the scheduler
-was built with.  The delta-aware tier in front of the LRU (the
-reference's ``incremental=``) comes with ROADMAP A5.4, and the
-speculation and fleet surfaces (``peek``, ``invalidate_keys``,
-``export_seeds``) with A5.6.
+was built with.  ``incremental=`` takes the delta-aware tier in front
+of the LRU, a :class:`deppy_tpu_torch.incremental.ClauseSetIndex`:
+:meth:`ResultCache.lookup_or_plan` (``cache.py:271-286``) consults it
+on an exact miss.  The speculation and fleet surfaces (``peek``,
+``invalidate_keys``, ``export_seeds``) come with ROADMAP A5.6.
 """
 
 from __future__ import annotations
@@ -122,11 +123,16 @@ class ResultCache:
     def __init__(self, capacity: int = 1024,
                  registry: Optional[telemetry.Registry] = None,
                  incremental=None):
-        if incremental is not None:
-            raise NotImplementedError(
-                "the delta-aware clause-set index (incremental=) comes "
-                "with the incremental tier, ROADMAP A5.4")
+        from ..incremental import ClauseSetIndex
+
+        if incremental is not None and not isinstance(incremental,
+                                                      ClauseSetIndex):
+            raise TypeError(
+                f"incremental= takes a ClauseSetIndex or None, not "
+                f"{type(incremental).__name__}")
         self.capacity = max(int(capacity), 0)
+        # The delta-aware tier (or None): consulted on exact misses.
+        self.incremental = incremental
         self._lock = threading.Lock()
         self._entries: "OrderedDict[str, _Entry]" = OrderedDict()
         reg = registry if registry is not None \
@@ -214,6 +220,23 @@ class ResultCache:
             self._size_changed_locked()
             self._account(hit=False)
             return MISS
+
+    def lookup_or_plan(self, problem: Problem, key: str, budget: int):
+        """Exact lookup, then the delta tier: returns ``(hit, None)`` on
+        an exact hit, ``(MISS, WarmPlan)`` when the incremental index
+        can plan a certified warm start for this problem, and
+        ``(MISS, None)`` otherwise (cold path)."""
+        hit = self.lookup(key, budget)
+        if hit is not MISS:
+            if self.incremental is not None:
+                # Exact hits never reach the solve/store path, so the
+                # index's scan-window recency must be refreshed here or
+                # a cycling catalog drifts it off the revisited states.
+                self.incremental.touch(key)
+            return hit, None
+        if self.incremental is None:
+            return MISS, None
+        return MISS, self.incremental.plan(problem, key, budget)
 
     def store(self, key: str, budget: int, result) -> None:
         """Record one solved problem.  ``result`` is a Solution dict, a

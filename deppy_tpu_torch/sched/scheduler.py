@@ -1,4 +1,4 @@
-"""Cross-request continuous-batching scheduler (port of ``deppy_tpu/sched/scheduler.py:1-2144``, its cold serving path).
+"""Cross-request continuous-batching scheduler (port of ``deppy_tpu/sched/scheduler.py:1-2144``, its cold and warm serving paths).
 
 One :class:`Scheduler` sits between request producers (``BatchResolver``
 callers, one thread each) and the engine driver.  Producers call
@@ -40,23 +40,32 @@ pad/pack, upload and set of kernel launches instead of paying one each.
     default) races only classes with a measured ``portfolio`` row for
     the device's platform; ``"on"`` races wherever two candidates serve
     the class; ``"off"`` constructs no racer.
+  * **Incremental tier.**  An exact-cache miss consults a
+    :class:`deppy_tpu_torch.incremental.ClauseSetIndex` of solved
+    problems (``incremental``, default ``"on"``): a problem within one
+    small delta of an indexed one queues in its own size class,
+    :data:`INCREMENTAL_CLASS`, and its flush screens the warm prefixes
+    on the scheduler's device (more than one lane), runs the survivors'
+    warm attempts on the host engine and cold-solves every fallback
+    through the normal path.  A warm flush never races.
 
 ``backend="device"`` (the default) runs each flush through
 ``driver.solve_problems(..., device=self.device)`` — the CUDA kernels on
 ``"cuda"``, their plain versions on ``"cpu"``; a failed build or launch
 raises inside the dispatch and reaches every coalesced submitter, raced
 or not (a raced device entrant's error is re-raised into its flush, or
-into the next dispatch when another entrant had already won).
+into the next dispatch when another entrant had already won), and so
+does a failed warm screen on the card.
 ``backend="host"`` drains through the host path's entry
 (:func:`deppy_tpu_torch.hostpool.solve_host_problems`: the worker pool,
 or inline).
 
 Left out, each with the ROADMAP item that brings it (the parameters keep
 the reference's names and raise ``NotImplementedError`` when set; each
-tier stays off until then): the incremental tier and warm class (A5.4),
-speculation, optimize probes and route shadows (A5.6), sessions and the
-``immediate`` head (A5.5), the serving mesh (A6), and the ``auto``
-backend, its probe and the breaker (A7).
+tier stays off until then): sessions, their ``scoped`` lanes and the
+``immediate`` head (A5.5), speculation, optimize probes and route
+shadows (A5.6), the serving mesh (A6), and the ``auto`` backend, its
+probe and the breaker (A7).
 """
 
 from __future__ import annotations
@@ -65,6 +74,8 @@ import os
 import threading
 import time
 from typing import List, Optional, Sequence
+
+import numpy as np
 
 from .. import faults, hostpool, telemetry
 from ..sat.constraints import Variable
@@ -89,16 +100,26 @@ DEFAULT_MAX_DEPTH = 4096
 # DEPPY_GPU_PORTFOLIO_SAMPLE_CHECK.
 DEFAULT_PORTFOLIO_K = 2
 DEFAULT_PORTFOLIO_SAMPLE_CHECK = 0.0625
+# The incremental tier: clause-set index capacity and the largest cone,
+# as a fraction of the problem's variables, a warm start may re-solve.
+# Env mirror: DEPPY_GPU_INCREMENTAL (on/off).  The reference's size and
+# cutoff knobs come with the CLI that sets them (ROADMAP A7.2).
+DEFAULT_INCREMENTAL_INDEX = 512
+DEFAULT_INCREMENTAL_MAX_DELTA = 0.25
+
+# The "incremental" size class (scheduler.py:91): warm-started lanes
+# coalesce with each other — their cost is a handful of host propagation
+# passes, not a device dispatch, so padding them into a cold batch's
+# lanes would waste device width AND serialize near-lookups behind a
+# solve.  Cold classes are power-of-two cost buckets (>= 1), so -1 can
+# never collide.
+INCREMENTAL_CLASS = -1
 
 _OFF = ("off", "0", "false", "no")
 
 # Parameters of tiers not ported yet, with the ROADMAP item of each: any
-# value but None raises.  incremental and speculate also take their
-# "off" spellings.
+# value but None raises.  speculate also takes its "off" spellings.
 _LEFT_OUT = {
-    "incremental": "A5.4 (the incremental tier)",
-    "incremental_max_delta": "A5.4 (the incremental tier)",
-    "incremental_index_size": "A5.4 (the incremental tier)",
     "speculate": "A5.6 (speculative pre-resolution)",
     "speculate_max_backlog": "A5.6 (speculative pre-resolution)",
     "mesh": "A6 (mesh serving)",
@@ -121,11 +142,12 @@ class _Lane:
     triage attributes to the tenant whose lane expired."""
 
     __slots__ = ("problem", "key", "max_steps", "budget", "deadline",
-                 "result", "steps", "degraded", "backtracks", "tenant")
+                 "result", "steps", "degraded", "warm", "backtracks",
+                 "index_steps", "tenant")
 
     def __init__(self, problem: Problem, key: str,
                  max_steps: Optional[int], budget: int, deadline,
-                 tenant: str = "default"):
+                 warm=None, tenant: str = "default"):
         self.problem = problem
         self.key = key
         self.max_steps = max_steps
@@ -134,9 +156,19 @@ class _Lane:
         self.result = None
         self.steps = 0
         self.degraded = False
-        # The solve's search-backtrack count, None until a path that
-        # measures it reports in.
+        # The lane's WarmPlan (incremental size class), and the solve's
+        # search-backtrack count — None until a path that measures it
+        # reports in (the clause-set index seeds warm starts only from
+        # zero-backtrack solves, so an unmeasured lane must never be
+        # indexed as zero).  ``index_steps`` is the COLD-equivalent step
+        # cost to index under when it differs from ``steps``: a
+        # warm-served lane's own step count is a fraction of what a cold
+        # solve would spend, and indexing it verbatim would erode the
+        # budget gate that keeps a warm SAT from shadowing a cold
+        # Incomplete at tight budgets.
+        self.warm = warm
         self.backtracks = None
+        self.index_steps = None
         self.tenant = tenant
 
 
@@ -602,16 +634,13 @@ class Scheduler:
         tenant_weights: Optional[str] = None,
     ):
         given = dict(
-            incremental=incremental,
-            incremental_max_delta=incremental_max_delta,
-            incremental_index_size=incremental_index_size,
             speculate=speculate,
             speculate_max_backlog=speculate_max_backlog,
             mesh=mesh, mesh_devices=mesh_devices,
             lanes_per_device=lanes_per_device)
         for name, value in given.items():
             if value is None or (
-                    name in ("incremental", "speculate")
+                    name == "speculate"
                     and str(value).strip().lower() in _OFF):
                 continue
             raise NotImplementedError(
@@ -638,7 +667,26 @@ class Scheduler:
                                   DEFAULT_CACHE_SIZE)
         self._registry = registry if registry is not None \
             else telemetry.default_registry()
-        self.cache = ResultCache(cache_size, registry=self._registry)
+        # Incremental tier (scheduler.py:664-689): a delta-aware
+        # clause-set index in front of the exact-fingerprint LRU.
+        # Default on; "off" removes the tier entirely.
+        if incremental is None:
+            incremental = os.environ.get("DEPPY_GPU_INCREMENTAL", "on")
+        index = None
+        if str(incremental).strip().lower() not in _OFF:
+            if incremental_max_delta is None:
+                incremental_max_delta = DEFAULT_INCREMENTAL_MAX_DELTA
+            if incremental_index_size is None:
+                incremental_index_size = DEFAULT_INCREMENTAL_INDEX
+            from ..incremental import ClauseSetIndex
+
+            index = ClauseSetIndex(
+                capacity=incremental_index_size,
+                max_delta_ratio=incremental_max_delta,
+                registry=self._registry)
+        self.incremental = index
+        self.cache = ResultCache(cache_size, registry=self._registry,
+                                 incremental=index)
         # Portfolio engine racing.  "off" constructs no racer at all;
         # "auto" (the default) races only size classes holding a
         # measured `portfolio` row; "on" races wherever ≥2 candidate
@@ -823,11 +871,19 @@ class Scheduler:
             dl = faults.current_deadline()
         results: List[object] = [None] * len(problems)
         pending: List[tuple] = []
+        warm_pending: List[tuple] = []
         for i, p in enumerate(problems):
             key = fingerprint(p)
-            hit = self.cache.lookup(key, budget)
+            hit, plan = self.cache.lookup_or_plan(p, key, budget)
             if hit is not MISS:
                 results[i] = hit  # bypasses the queue entirely
+            elif plan is not None:
+                # A certified warm plan queues in the incremental size
+                # class — warm lanes coalesce with each other instead of
+                # padding out a cold batch.
+                warm_pending.append(
+                    (i, _Lane(p, key, max_steps, budget, dl, warm=plan,
+                              tenant=tenant)))
             else:
                 pending.append((i, _Lane(p, key, max_steps, budget, dl,
                                          tenant=tenant)))
@@ -835,20 +891,48 @@ class Scheduler:
         deadline_misses = 0
         report = None
         timing: dict = {}
+        groups: List[tuple] = []
+        prio = (self.tenant_policy.priority(tenant) if self.fair
+                else 1)
         if pending:
-            prio = (self.tenant_policy.priority(tenant) if self.fair
-                    else 1)
-            group = self._make_group([lane for _, lane in pending],
-                                     budget, priority=prio)
+            groups.append(
+                (pending, self._make_group([lane for _, lane in pending],
+                                           budget, priority=prio)))
+        if warm_pending:
+            groups.append(
+                (warm_pending,
+                 _Group([lane for _, lane in warm_pending],
+                        INCREMENTAL_CLASS, budget, priority=prio)))
+        for _, group in groups:
             self._enqueue(group)
+        for grp_pending, group in groups:
             group.event.wait()
             if group.error is not None:
                 raise group.error
-            # The dispatch's report, shared with every request coalesced
-            # into it (the reference's, with one group per submit).
-            report = group.report
-            timing.update(group.timing)
-            for i, lane in pending:
+            if group.report is not None:
+                if report is None:
+                    report = group.report
+                else:
+                    # Never merge IN PLACE: a group's report object is
+                    # shared with every request coalesced into the same
+                    # dispatch — fold both into a fresh one instead.
+                    merged = telemetry.SolveReport(backend=report.backend)
+                    merged.n_problems = 0
+                    merged.merge(report)
+                    merged.merge(group.report)
+                    report = merged
+            for k, v in group.timing.items():
+                # A mixed submit spans two dispatches (cold + warm
+                # groups): sequential stage durations ADD, but the
+                # groups QUEUE concurrently, so overlapped waits take
+                # the max, not the sum.
+                if isinstance(v, (int, float)) and k in timing:
+                    timing[k] = (max(timing[k], v)
+                                 if k == "queue_wait_s"
+                                 else timing[k] + v)
+                else:
+                    timing[k] = v
+            for i, lane in grp_pending:
                 results[i] = lane.result
                 steps += lane.steps
                 if lane.degraded:
@@ -1041,6 +1125,21 @@ class Scheduler:
             # Budget exhaustion is reproducible; deadline degradation
             # is not — only the former may be cached.
             self.cache.store(lane.key, lane.budget, r)
+        # SAT models feed the clause-set index (scheduler.py:1753-1766)
+        # so the NEXT delta against this problem warm-starts.  Only
+        # lanes whose path measured the search-backtrack count are
+        # eligible (the index keeps zero-backtrack seeds only — the warm
+        # certification precondition); degraded lanes never are.
+        if (self.incremental is not None and isinstance(r, dict)
+                and not lane.degraded and lane.backtracks is not None):
+            model = np.fromiter(
+                (bool(r[v.identifier]) for v in lane.problem.variables),
+                dtype=bool, count=lane.problem.n_vars)
+            self.incremental.store(
+                lane.key, lane.problem, model,
+                lane.index_steps if lane.index_steps is not None
+                else lane.steps,
+                lane.backtracks)
 
     # -------------------------------------------------------------- solving
 
@@ -1079,6 +1178,14 @@ class Scheduler:
                                            n_problems=len(live))
         try:
             with faults.deadline_scope(scope):
+                if all(lane.warm is not None for lane in live):
+                    # An incremental-class flush (scheduler.py:1817-1823):
+                    # warm attempts first, cold fallbacks drain through
+                    # the normal backend path; it never races.
+                    t1 = time.perf_counter()
+                    self._solve_incremental(live, rep, timing)
+                    timing["solve_s"] = time.perf_counter() - t1
+                    return rep
                 # Portfolio racing (scheduler.py:1826-1853).  A None plan
                 # (racing off, auto with no measured row, <2 candidates)
                 # leaves the canonical single-backend path below as it
@@ -1129,6 +1236,64 @@ class Scheduler:
             lane.steps = int(res.steps)
             lane.backtracks = int(res.trace_n)
             lane.result = dec
+
+    def _solve_incremental(self, live: List[_Lane], rep,
+                           timing: dict) -> None:
+        """Drain one incremental-class flush (scheduler.py:1900-1971):
+        screen the warm prefixes on the scheduler's device (device
+        backend, more than one lane), run the surviving warm attempts on
+        the host spec engine, and cold-solve every fallback through the
+        NORMAL backend path.  Per-lane deadlines are admission checks
+        before each warm attempt (the hostpool convention: a lane never
+        preempts mid-solve), so a lapse during the flush degrades only
+        the lanes not yet started.
+
+        The reference skips the screen while its breaker is open; the
+        port has no breaker (ROADMAP A7.1), so the screen always runs
+        here and a screen error on the card fails the dispatch.  Nor
+        does it record the warm tier's profile events (A5.6.1)."""
+        from .. import incremental as inc
+
+        plans = [lane.warm for lane in live]
+        screened = [True] * len(live)
+        if self.backend != "host" and len(live) > 1:
+            # The batched device lane variant: one pass over the whole
+            # warm class instead of per-lane host prefix tests.
+            screened = inc.screen(plans, device=self.device)
+        cold: List[_Lane] = []
+        for lane, plan, ok in zip(live, plans, screened):
+            if lane.deadline is not None and lane.deadline.expired():
+                faults.note_deadline_exceeded("sched.dispatch",
+                                              tenant=lane.tenant)
+                rep.count_outcome("incomplete")
+                lane.result = Incomplete()
+                lane.degraded = True
+                continue
+            res = inc.attempt(plan, lane.max_steps) if ok else None
+            if res is None:
+                if self.incremental is not None:
+                    self.incremental.note_fallback()
+                cold.append(lane)
+                continue
+            lane.result = hostpool.lane_answer(lane.problem, res)
+            lane.steps = res.steps
+            lane.backtracks = res.backtracks
+            # Index under a cold-equivalent cost: the seeding entry's
+            # cold steps plus this cone's work bounds what a cold solve
+            # of THIS problem would spend far better than the warm
+            # attempt's own count does.
+            lane.index_steps = plan.entry_steps + res.steps
+            rep.count_outcome("sat")
+            rep.steps += res.steps
+            rep.decisions += res.decisions
+            rep.propagation_rounds += res.propagation_rounds
+            if self.incremental is not None:
+                self.incremental.note_served()
+        if cold:
+            if self.backend == "host":
+                self._solve_host(cold, rep)
+            else:
+                self._solve_device(cold, timing)
 
     def _triage_stragglers(self, live: List[_Lane], class_name: str):
         """Per-lane deadline triage (scheduler.py:1973-2047): lanes whose

@@ -48,12 +48,15 @@ def test_scan_covers_telemetry():
 
 
 def test_scan_covers_sched_faults_hostpool():
-    """The scheduler and the fault and host-lane packages it stands on
-    are the port's own copies: the AST scan reads each of their
-    modules."""
+    """The scheduler and the fault, host-lane and incremental packages
+    it stands on are the port's own copies: the AST scan reads each of
+    their modules."""
     names = {(p.parent.name, p.name) for p in PORT_FILES
-             if p.parent.name in ("sched", "faults", "hostpool")}
+             if p.parent.name in ("sched", "faults", "hostpool",
+                                  "incremental")}
     assert names == {
+        ("incremental", "__init__.py"), ("incremental", "clauseset.py"),
+        ("incremental", "warm.py"),
         ("sched", "__init__.py"), ("sched", "cache.py"),
         ("sched", "fair.py"), ("sched", "scheduler.py"),
         ("faults", "__init__.py"), ("faults", "inject.py"),

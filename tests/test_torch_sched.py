@@ -632,10 +632,7 @@ def test_unported_backends_raise(backend):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(incremental="on"), "A5.4"), (dict(incremental_max_delta=0.5),
-                                       "A5.4"),
-    (dict(incremental_index_size=8), "A5.4"), (dict(speculate="on"),
-                                               "A5.6"),
+    (dict(speculate="on"), "A5.6"),
     (dict(speculate_max_backlog=4), "A5.6"), (dict(mesh=object()), "A6"),
     (dict(mesh_devices=2), "A6"), (dict(lanes_per_device=64), "A6"),
 ], ids=lambda v: "-".join(v) if isinstance(v, dict) else v)
@@ -671,7 +668,11 @@ def test_off_spellings_of_unported_tiers_are_accepted():
     for off in ("off", "0", "false", "no", "OFF"):
         TScheduler(device="cpu", incremental=off, portfolio=off,
                    speculate=off)
-    with pytest.raises(NotImplementedError, match="A5.4"):
+    from deppy_tpu_torch.incremental import ClauseSetIndex
+
+    index = ClauseSetIndex(registry=ttelemetry.Registry())
+    assert TResultCache(8, incremental=index).incremental is index
+    with pytest.raises(TypeError, match="ClauseSetIndex"):
         TResultCache(8, incremental=object())
     with pytest.raises(NotImplementedError, match="A7"):
         TBatchResolver(device="cpu", deadline_s=1.0)
