@@ -110,6 +110,20 @@ Phases, each fatal on failure:
    every screen must equal its CPU run, no ``incremental_screen_failed``
    event may fire, and the first loop-thread launch of each kernel in
    the churn replays and in the burst is held against its plain version;
+4g. the sessions path: resolution sessions (``deppy_tpu_torch.sessions``,
+   the scheduler's session lanes) on the card, :func:`run_sessions_path`'s
+   parts 1-3 over ``session_catalog(96, 8)`` (the reference benchmark's
+   default: 768 variables in 96 bundle chains): one session's 48-step
+   walk beside the same walk as stateless submits, 16 sessions in
+   lockstep with a test scope and an UNSAT ``explain`` every 8th step,
+   and the handoff of the warm state and the sessions to a fresh
+   scheduler (4 more steps each).  Every answer must equal the one-shot
+   cold solve of its derived problem on the card, byte for byte (steps
+   too where no warm start was planned), no session answer may reach the
+   shared cache or index, every warm flush of two or more lanes must be
+   screened on ``cuda``, every session-class flush must be ``immediate``,
+   and the first loop-thread launch of kernels 1, 3, 4 and 5 is held
+   against its plain version;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -2855,6 +2869,590 @@ def run_incremental_path(scale: float, plain: "PlainPool"):
     return launches, numbers
 
 
+# --------------------------------------------------------------------------
+# the sessions path
+
+
+SESS_CATALOG = (96, 8)      # session_catalog: the reference benchmark's default
+SESS_STEPS = 48             # part 1: walk_steps(96, 8, 48), the benchmark's walk
+SESS_CLIENTS = 16           # part 2: concurrent sessions in lockstep
+SESS_LOCKSTEP = 24          # part 2: walk steps a session
+SESS_EXPLAIN_EVERY = 8      # part 2: every 8th step test, contradict, explain, untest
+SESS_HANDOFF_STEPS = 4      # part 3: steps each imported session takes
+
+
+class SessionLog:
+    """While on, every ``Scheduler.submit_session`` call's outcome by the
+    thread that made it: whether a warm start was planned, its steps and
+    the applied constraints of the problem it solved."""
+
+    def __enter__(self):
+        import threading
+
+        from deppy_tpu_torch.sched.scheduler import Scheduler
+
+        self.last = {}
+        self.calls = 0
+        self._lock = threading.Lock()
+        self._orig = Scheduler.submit_session
+        log = self
+
+        def submit_session(sched, *args, **kwargs):
+            st = kwargs.get("stats")
+            if st is None:
+                st = kwargs["stats"] = {}
+            out = log._orig(sched, *args, **kwargs)
+            with log._lock:
+                log.calls += 1
+                log.last[threading.current_thread().name] = dict(
+                    warm=st["warm"], steps=st["steps"],
+                    n_cons=kwargs["problem"].n_cons)
+            return out
+
+        Scheduler.submit_session = submit_session
+        return self
+
+    def __exit__(self, *exc):
+        from deppy_tpu_torch.sched.scheduler import Scheduler
+
+        Scheduler.submit_session = self._orig
+
+    def take(self) -> dict:
+        """The calling thread's last ``submit_session`` (and forget it)."""
+        import threading
+
+        with self._lock:
+            return self.last.pop(threading.current_thread().name)
+
+
+class FlushLog:
+    """While on, every flush of every scheduler: its groups' size
+    classes, its lanes and its reason."""
+
+    def __enter__(self):
+        from deppy_tpu_torch.sched.scheduler import Scheduler
+
+        self.flushes = []
+        self._orig = Scheduler._dispatch
+        log = self
+
+        def dispatch(sched, groups, reason):
+            log.flushes.append(dict(sched=id(sched),
+                                    classes=[g.size_class for g in groups],
+                                    lanes=sum(len(g.lanes) for g in groups),
+                                    reason=reason))
+            return log._orig(sched, groups, reason)
+
+        Scheduler._dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from deppy_tpu_torch.sched.scheduler import Scheduler
+
+        Scheduler._dispatch = self._orig
+
+    def of(self, sched) -> list:
+        return [f for f in self.flushes if f["sched"] == id(sched)]
+
+
+class SpanClock:
+    """While on, [ms, count] of each named span emitted on the given
+    registries, as they are emitted."""
+
+    NAMES = ("session.op", "incremental.delta", "sched.queue_wait")
+
+    def __init__(self, *registries):
+        self.regs = registries
+
+    def __enter__(self):
+        import threading
+
+        lock = threading.Lock()
+        self.acc = {}
+
+        def note(event):
+            if event.get("kind") == "span" and event.get("name") in \
+                    self.NAMES:
+                name = event["name"]
+                if name == "session.op":
+                    name = f"session.op {event['attrs']['op']}"
+                with lock:
+                    a = self.acc.setdefault(name, [0.0, 0])
+                    a[0] += event["dur_s"] * 1e3
+                    a[1] += 1
+
+        self._note = note
+        for reg in self.regs:
+            reg.add_forwarder(note)
+        return self
+
+    def __exit__(self, *exc):
+        for reg in self.regs:
+            reg.remove_forwarder(self._note)
+
+    def text(self) -> str:
+        return ", ".join(f"{k} {v[0]:.3f} ms over {v[1]} "
+                         f"({v[0] / max(v[1], 1):.3f} a span)"
+                         for k, v in sorted(self.acc.items()))
+
+
+def contradiction(stack):
+    """A pin that contradicts the last installed pin of ``stack``:
+    exclude the next entity of its chain (which the pin's dependency
+    drags in), or the pinned entity itself at a chain's end."""
+    ident = next(i for i, on in reversed(stack) if on)
+    b, j = ident[1:].split("v")
+    j = int(j)
+    return (f"b{b}v{j + 1}" if j + 1 < SESS_CATALOG[1] else ident), False
+
+
+class ScopeMirror:
+    """The assumption stack a session's ops leave, kept beside the
+    session the way its engine keeps it: ``test`` opens a scope owning
+    every assumption since the previous ``test``, ``untest`` drops the
+    last scope with the assumptions it owns."""
+
+    def __init__(self):
+        self.stack, self.scopes, self.base = [], [], 0
+
+    def assume(self, pin) -> None:
+        self.stack.append(pin)
+
+    def test(self) -> None:
+        self.scopes.append(self.base)
+        self.base = len(self.stack)
+
+    def untest(self) -> None:
+        self.base = self.scopes.pop()
+        del self.stack[self.base:]
+
+
+def session_walk(store, sid: str, log: SessionLog, walk, mirror, records,
+                 part: str, explain_every: int = 0, barrier=None) -> list:
+    """Drive ``walk`` through one session: per step assume then resolve,
+    and every ``explain_every``-th step a probe — ``test`` (a scope over
+    the walk so far), a contradicting pin, ``test`` again (the pin's own
+    scope), ``explain``, ``untest`` (the pin dropped, the walk kept).
+    Each solve is recorded with the stack it answers for (``mirror``),
+    its output and its ``submit_session`` numbers, each probe's second
+    ``test`` verdict under ``probe``.  With ``barrier``, every step's
+    solve starts with the other sessions'.  Returns the client-visible
+    seconds of each step (assume + resolve)."""
+    samples = []
+
+    def op(doc):
+        out = store.op(sid, doc)
+        if doc["op"] == "assume":
+            mirror.assume((doc["identifiers"][0], doc["installed"]))
+        elif doc["op"] in ("test", "untest"):
+            getattr(mirror, doc["op"])()
+        return out
+
+    for i, (ident, installed) in enumerate(walk):
+        if barrier is not None:
+            barrier.wait()
+        t0 = time.perf_counter()
+        op({"op": "assume", "identifiers": [ident], "installed": installed})
+        out = op({"op": "resolve"})
+        samples.append(time.perf_counter() - t0)
+        records.append(dict(part=part, op="resolve",
+                            stack=list(mirror.stack), out=out, **log.take()))
+        if explain_every and (i + 1) % explain_every == 0:
+            if barrier is not None:
+                barrier.wait()
+            op({"op": "test"})
+            pin = contradiction(mirror.stack)
+            op({"op": "assume", "identifiers": [pin[0]], "installed": pin[1]})
+            probe = op({"op": "test"})["result"]
+            out = op({"op": "explain"})
+            records.append(dict(part=part, op="explain",
+                                stack=list(mirror.stack), out=out,
+                                probe=probe, **log.take()))
+            op({"op": "untest"})
+    return samples
+
+
+def lockstep(store, sids, log, walks, mirrors, records, part: str,
+             explain_every: int = 0) -> float:
+    """Each session of ``sids`` on its own thread, all released step by
+    step by one barrier; returns the wall."""
+    import threading
+
+    barrier = threading.Barrier(len(sids), timeout=300)
+    errors = []
+    mine = [[] for _ in sids]
+
+    def client(k: int) -> None:
+        try:
+            session_walk(store, sids[k], log, walks[k], mirrors[k],
+                         mine[k], part, explain_every, barrier)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=client, args=(k,),
+                                name=f"session-{k}")
+               for k in range(len(sids))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail(f"sessions {part}: a session thread never returned")
+    if errors:
+        raise RuntimeError(f"chip_smoke: sessions {part} raised") \
+            from errors[0]
+    for rows in mine:
+        records += rows
+    return wall
+
+
+def _dist(samples) -> str:
+    ms = [s * 1e3 for s in samples]
+    return (f"p50 {_pct(ms, 0.5):.3f} ms, p99 {_pct(ms, 0.99):.3f} ms, "
+            f"mean {statistics.mean(ms):.3f} ms")
+
+
+def _flush_text(flushes) -> str:
+    """Flushes by size class: count and mean lanes."""
+    from deppy_tpu_torch.sched.scheduler import (INCREMENTAL_CLASS,
+                                                 SESSION_CLASS)
+
+    names = {SESSION_CLASS: "session", INCREMENTAL_CLASS: "incremental"}
+    by: dict = {}
+    for f in flushes:
+        by.setdefault(names.get(f["classes"][0], "cold"), []).append(
+            f["lanes"])
+    return ", ".join(f"{k} {len(v)} (mean {statistics.mean(v):.2f} lanes)"
+                     for k, v in sorted(by.items()))
+
+
+def run_sessions_path(scale: float, plain: "PlainPool"):
+    """Resolution sessions on the card (parts 1-3): one
+    ``Scheduler(device="cuda")`` at the reference's defaults and one
+    ``SessionStore`` on it over ``session_catalog(96, 8)`` (768
+    variables, 673 constraints). Part 1: the benchmark's walk (48 steps
+    of assume then resolve) through one session, then the same walk
+    stateless (each step's derived document through ``problem_from_dict``
+    and ``submit``). Part 2: 16 sessions in lockstep, each its own walk,
+    every 8th step a test scope with a contradicting pin and an UNSAT
+    ``explain``. Part 3: the warm state and the sessions exported, sent
+    through JSON, verified and imported into a fresh card scheduler,
+    where each imported session takes 4 more steps; a tampered copy must
+    be refused. An explain probe is ``test`` (a scope over the walk), the
+    contradicting pin, ``test`` (the pin's own scope), ``explain`` and
+    ``untest``: the pin is dropped and the walk kept, so the sessions
+    carry nested scopes into the handoff. Every answer must equal the one-shot cold solve of its
+    derived problem on the card (and the stateless pass's), steps too
+    where no warm start was planned; the first loop-thread launch of
+    kernels 1, 3, 4 and 5 is held against its plain version; every warm
+    flush of two or more lanes must be screened on ``cuda`` and equal
+    its CPU run; no session answer may reach the shared cache or index;
+    every session flush is an ``immediate`` one. Returns the path's
+    launches (parts 1-3) and numbers."""
+    import json
+
+    import torch
+
+    from deppy_tpu_torch import engine, io, telemetry
+    from deppy_tpu_torch.engine import driver
+    from deppy_tpu_torch.fleet import (SnapshotFormatError,
+                                       export_warm_state, import_warm_state,
+                                       verify_snapshot)
+    from deppy_tpu_torch.models import (derived_doc, session_catalog,
+                                        walk_steps)
+    from deppy_tpu_torch.sat.solver import assumed_variables
+    from deppy_tpu_torch.sched import Scheduler
+    from deppy_tpu_torch.sched.scheduler import SESSION_CLASS
+    from deppy_tpu_torch.sessions import SessionStore
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"sessions timings on {card}", flush=True)
+    bundles, size = SESS_CATALOG
+    n_steps = max(8, int(SESS_STEPS * scale))
+    n_lock = max(SESS_EXPLAIN_EVERY, int(SESS_LOCKSTEP * scale))
+    doc = session_catalog(bundles, size)
+    variables = io.problem_from_dict(doc)
+    numbers = {}
+    records = []
+    work0 = _plain_work()
+    reg = telemetry.Registry()
+    sched = Scheduler(registry=reg)
+    store = SessionStore(sched, metrics=reg)
+    sched.start()
+    events = RaceEvents()
+    cap = RaceCapture(INC_KERNELS, thread=SCHED_LOOP)
+    sched_b = store_b = None
+    try:
+        with events, cap, SessionLog() as log, FlushLog() as flog:
+            torch.cuda.synchronize()
+            engine.reset_launch_counts()
+            # Part 1: one session, serially, then the same walk stateless.
+            walk = walk_steps(bundles, size, n_steps)
+            sid = store.create(doc)["id"]
+            with WarmLog() as wlog, SpanClock(
+                    reg, telemetry.default_registry()) as clock:
+                t0 = time.perf_counter()
+                sess_s = session_walk(store, sid, log, walk, ScopeMirror(),
+                                      records, "serial")
+                sess_wall = time.perf_counter() - t0
+            wlog.check("sessions serial")
+            part1 = records[:]
+            if len(sched.cache) or any(e.key.startswith("scope:") for e in
+                                       sched.incremental.export_entries()):
+                fail("sessions: a session solve reached the shared cache "
+                     "or index")
+            stateless_s, stateless = [], []
+            acc = []
+            with WarmLog() as wlog_s:
+                t0 = time.perf_counter()
+                for step in walk:
+                    t1 = time.perf_counter()
+                    acc.append(step)
+                    [r] = sched.submit([io.problem_from_dict(
+                        derived_doc(doc, acc))])
+                    stateless_s.append(time.perf_counter() - t1)
+                    stateless.append(io.result_to_dict(r))
+                stateless_wall = time.perf_counter() - t0
+            wlog_s.check("sessions stateless")
+            n_shared = len(sched.cache)
+            bad = sum(json.dumps(a["out"]["result"], sort_keys=True)
+                      != json.dumps(b, sort_keys=True)
+                      for a, b in zip(part1, stateless))
+            warm1 = sum(r["warm"] for r in part1)
+            ratio_mean = statistics.mean(stateless_s) / statistics.mean(
+                sess_s)
+            ratio_p50 = _pct(stateless_s, 0.5) / _pct(sess_s, 0.5)
+            print(f"sessions serial: {len(walk)} steps (assume + resolve) "
+                  f"on session_catalog{SESS_CATALOG} ({doc_size(doc)}) in "
+                  f"{sess_wall:.3f} s, a step {_dist(sess_s)}; warm "
+                  f"{warm1}/{len(part1)}; spans {clock.text()} [{card}]",
+                  flush=True)
+            print(f"sessions stateless: the same {len(walk)} steps as "
+                  f"derived documents through submit in "
+                  f"{stateless_wall:.3f} s, a step {_dist(stateless_s)}; "
+                  f"answers equal the session's (mismatches {bad}); "
+                  f"stateless/session {ratio_mean:.3f} (means), "
+                  f"{ratio_p50:.3f} (p50s) [{card}]", flush=True)
+            if bad:
+                fail(f"sessions: {bad} stateless answers differ from the "
+                     f"session's")
+            numbers["serial"] = dict(
+                steps=len(walk), wall_s=sess_wall,
+                p50_ms=_pct(sess_s, 0.5) * 1e3,
+                p99_ms=_pct(sess_s, 0.99) * 1e3,
+                mean_ms=statistics.mean(sess_s) * 1e3, warm=warm1,
+                spans=clock.acc)
+            numbers["stateless"] = dict(
+                wall_s=stateless_wall, p50_ms=_pct(stateless_s, 0.5) * 1e3,
+                p99_ms=_pct(stateless_s, 0.99) * 1e3,
+                mean_ms=statistics.mean(stateless_s) * 1e3,
+                ratio_mean=ratio_mean, ratio_p50=ratio_p50,
+                shared_cache=n_shared)
+
+            # Part 2: SESS_CLIENTS sessions in lockstep.
+            sids = [store.create(doc, tenant=f"t{k % 4}")["id"]
+                    for k in range(SESS_CLIENTS)]
+            walks = [walk_steps(bundles, size, n_lock + SESS_HANDOFF_STEPS
+                                + k)[k:] for k in range(SESS_CLIENTS)]
+            mirrors = [ScopeMirror() for _ in sids]
+            n0 = len(records)
+            with WarmLog() as wlog2, SpanClock(
+                    reg, telemetry.default_registry()) as clock2:
+                wall2 = lockstep(store, sids, log,
+                                 [w[:n_lock] for w in walks], mirrors,
+                                 records, "lockstep", SESS_EXPLAIN_EVERY)
+            row2 = wlog2.check("sessions lockstep")
+            multi = [f for f in wlog2.flushes if len(f["plans"]) > 1]
+            if not multi:
+                fail("sessions lockstep: no warm flush of two or more lanes")
+            part2 = records[n0:]
+            unsat = [r for r in part2 if r["op"] == "explain"]
+            if any(r["out"]["result"]["status"] != "unsat" for r in unsat):
+                fail("sessions lockstep: an explain of a contradicting pin "
+                     "was not UNSAT")
+            max_cons = max(r["n_cons"] for r in unsat)
+            probes = sum(r["probe"] == -1 for r in unsat)
+            if max_cons > driver.HOST_CORE_NCONS:
+                fail(f"sessions lockstep: an UNSAT lane of {max_cons} "
+                     f"constraints routes its core to the host")
+            flushes2 = [f for f in flog.of(sched)
+                        if f["reason"] != "inline"]
+            print(f"sessions lockstep: {SESS_CLIENTS} sessions x {n_lock} "
+                  f"steps ({len(part2)} solves, {len(unsat)} UNSAT "
+                  f"explains, {probes} of their probes a conflict by "
+                  f"propagation, most applied constraints of an UNSAT lane "
+                  f"{max_cons} <= {driver.HOST_CORE_NCONS}) in "
+                  f"{wall2:.3f} s; warm {sum(r['warm'] for r in part2)}/"
+                  f"{len(part2)}; warm flushes {row2['warm_flushes']} "
+                  f"(of 2+ lanes {len(multi)}, lanes "
+                  f"{sorted(len(f['plans']) for f in multi)[-5:]} largest), "
+                  f"screens on cuda {row2['screens']} "
+                  f"({row2['screen_lanes']} lanes, "
+                  f"{row2['screen_flagged']} flagged), each equal to its "
+                  f"CPU run; spans {clock2.text()} [{card}]", flush=True)
+            numbers["lockstep"] = dict(
+                sessions=SESS_CLIENTS, steps=n_lock, solves=len(part2),
+                explains=len(unsat), max_unsat_cons=max_cons, wall_s=wall2,
+                warm=sum(r["warm"] for r in part2), spans=clock2.acc,
+                **{k: v for k, v in row2.items()
+                   if k != "warm_flush_lanes"},
+                multi_lane_warm_flushes=len(multi))
+
+            # Isolation and flush reasons on the first scheduler.
+            scoped = [k for k in sched.cache._entries
+                      if k.startswith("scope:")]
+            scoped += [e.key for e in sched.incremental.export_entries()
+                       if e.key.startswith("scope:")]
+            if scoped or len(sched.cache) != n_shared:
+                fail(f"sessions: {len(scoped)} scope keys in the shared "
+                     f"tier, shared cache {len(sched.cache)} entries "
+                     f"against {n_shared} from the stateless pass")
+            reasons = reg.snapshot()["deppy_sched_flushes_total"]
+            session_flushes = [f for f in flog.of(sched)
+                               if SESSION_CLASS in f["classes"]]
+            if reasons.get("immediate", 0) < len(session_flushes):
+                fail(f"sessions: {reasons.get('immediate', 0)} immediate "
+                     f"flushes against {len(session_flushes)} session-class "
+                     f"flushes")
+            print(f"sessions flushes: {sum(reasons.values())} by reason "
+                  f"{dict(sorted(reasons.items()))}; by class "
+                  f"{_flush_text(flushes2)}; shared cache {n_shared} "
+                  f"entries (the stateless pass's), 0 scope keys in the "
+                  f"shared cache and index", flush=True)
+            numbers["flushes"] = dict(reasons=reasons,
+                                      session_class=len(session_flushes),
+                                      by_class=_flush_text(flushes2))
+
+            # Part 3: the handoff to a fresh card scheduler.
+            t0 = time.perf_counter()
+            snap = export_warm_state(sched, sessions=store)
+            text = json.dumps(snap)
+            moved = verify_snapshot(json.loads(text))
+            tampered = json.loads(text)
+            tampered["sessions"][0]["tenant"] = "mallory"
+            try:
+                verify_snapshot(tampered)
+                fail("sessions handoff: a tampered snapshot verified")
+            except SnapshotFormatError:
+                pass
+            reg_b = telemetry.Registry()
+            sched_b = Scheduler(registry=reg_b)
+            store_b = SessionStore(sched_b, metrics=reg_b)
+            sched_b.start()
+            got = import_warm_state(sched_b, moved, sessions=store_b)
+            handoff_s = time.perf_counter() - t0
+            bad_state = 0
+            for entry in snap["sessions"]:
+                want = ([tuple(a) for a in entry["assumptions"]],
+                        entry["scopes"], entry["scope_base"])
+                have = store_b._sessions[entry["id"]].solver.scope_state()
+                bad_state += have != want
+            for k, m in zip(sids, mirrors):
+                have = store_b._sessions[k].solver.scope_state()
+                bad_state += have != (m.stack, m.scopes, m.base)
+            if got["sessions_imported"] != 1 + SESS_CLIENTS or bad_state:
+                fail(f"sessions handoff: imported {got}, {bad_state} scope "
+                     f"states differ")
+            n0 = len(records)
+            with WarmLog() as wlog3:
+                wall3 = lockstep(store_b, sids, log,
+                                 [w[n_lock:] for w in walks], mirrors,
+                                 records, "handoff")
+            row3 = wlog3.check("sessions handoff")
+            part3 = records[n0:]
+            first_warm = sum(part3[k * SESS_HANDOFF_STEPS]["warm"]
+                             for k in range(SESS_CLIENTS))
+            if first_warm == 0:
+                fail("sessions handoff: no imported session's next step was "
+                     "served warm from its imported index")
+            print(f"sessions handoff: {len(text)} bytes, "
+                  f"{len(snap['index'])} index entries, "
+                  f"{len(snap['cache'])} cache seeds, "
+                  f"{len(snap['sessions'])} sessions exported, verified and "
+                  f"imported in {handoff_s:.3f} s ({got}); scope states "
+                  f"equal (scope depth {len(mirrors[0].scopes)}); a "
+                  f"tampered copy refused; {SESS_CLIENTS} sessions "
+                  f"x {SESS_HANDOFF_STEPS} steps in {wall3:.3f} s, warm "
+                  f"{sum(r['warm'] for r in part3)}/{len(part3)} (first "
+                  f"step after the import {first_warm}/{SESS_CLIENTS}); "
+                  f"warm flushes {row3['warm_flushes']} [{card}]",
+                  flush=True)
+            numbers["handoff"] = dict(bytes=len(text), import_s=handoff_s,
+                                      imported=got, wall_s=wall3,
+                                      warm=sum(r["warm"] for r in part3),
+                                      first_warm=first_warm)
+            torch.cuda.synchronize()
+            launches = engine.launch_counts()
+        cap.submit(plain, "sessions")
+        failed = [e for e in events.events
+                  if e.get("fault") == "incremental_screen_failed"]
+        if failed:
+            fail(f"sessions: {len(failed)} incremental_screen_failed events")
+    finally:
+        store.stop()
+        sched.stop()
+        if store_b is not None:
+            store_b.stop()
+            sched_b.stop()
+
+    # The oracle: every solve's derived problem, cold, in one batch.
+    oracle = Scheduler(incremental="off", portfolio="off", cache_size=0,
+                       registry=telemetry.Registry())
+    derived = [assumed_variables(variables, r["stack"]) for r in records]
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        answers = oracle.submit(derived)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    if len(rec.keys) != len(records):
+        fail(f"sessions oracle: {len(rec.keys)} lanes solved for "
+             f"{len(records)} problems")
+    bad_answers = bad_steps = held = 0
+    for i, (r, want, key) in enumerate(zip(records, answers, rec.keys)):
+        if json.dumps(r["out"]["result"], sort_keys=True) != json.dumps(
+                io.result_to_dict(want), sort_keys=True):
+            bad_answers += 1
+            if bad_answers <= 3:
+                print(f"sessions oracle: solve {i} ({r['part']} {r['op']}, "
+                      f"{len(r['stack'])} pins, warm {r['warm']}) answered "
+                      f"{json.dumps(r['out']['result'])[:300]}, the cold "
+                      f"solve {json.dumps(io.result_to_dict(want))[:300]}",
+                      flush=True)
+        if not r["warm"]:
+            held += 1
+            bad_steps += r["steps"] != key[3]
+    if _plain_work() != work0:
+        fail("sessions path: a plain version ran during a card solve")
+    print(f"sessions oracle: {len(records)} solves against their one-shot "
+          f"cold solve on the card ({oracle_s:.3f} s, one batch): "
+          f"mismatches {bad_answers} (answers, byte for byte), {bad_steps} "
+          f"(steps, on the {held} solves with no warm start planned) "
+          f"[{card}]", flush=True)
+    if bad_answers or bad_steps:
+        fail(f"sessions: {bad_answers} answers and {bad_steps} step counts "
+             f"differ from the one-shot cold solves")
+    if held == 0:
+        fail("sessions: every solve was planned warm; no step count was "
+             "held")
+    seconds = time.perf_counter() - t_phase
+    numbers.update(solves=len(records), steps_held=held, oracle_s=oracle_s,
+                   seconds=seconds)
+    print(f"sessions path: {seconds:.1f} s; launches (parts 1-3) "
+          f"{launches}", flush=True)
+    return launches, numbers
+
+
+def doc_size(doc) -> str:
+    """'N variables, M constraints' of a document."""
+    vs = doc["variables"]
+    return (f"{len(vs)} variables, "
+            f"{sum(len(v.get('constraints') or ()) for v in vs)} constraints")
+
+
 def profile_solve(name: str, pool, impl: str = "auto") -> dict:
     """Device time by kernel over one resolve of ``pool``, from
     ``torch.profiler``: where the time goes."""
@@ -4199,6 +4797,7 @@ PATH_KERNELS = {
     "race": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
              "core"),
     "incremental": ("bcp_fixpoint", "search", "minimize", "core"),
+    "sessions": ("bcp_fixpoint", "search", "minimize", "core"),
 }
 
 
@@ -4259,6 +4858,9 @@ def main(argv=None) -> int:
         by_path["incremental"], per_family["incremental"] = \
             run_incremental_path(args.scale, plain)
         stamp("incremental path")
+        by_path["sessions"], per_family["sessions"] = run_sessions_path(
+            args.scale, plain)
+        stamp("sessions path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")

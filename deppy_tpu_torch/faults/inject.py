@@ -93,7 +93,6 @@ NOT_YET_CALLED = {
     "fleet.join_stream": "A5.6",
     "fleet.arc_flip": "A5.6",
     "router.peer_sync": "A5.6",
-    "sessions.op": "A5.5",
 }
 
 

@@ -8,7 +8,8 @@ re-solves from full searches into near-lookups:
     plus the decode vocabulary, with a delta extractor classifying new
     requests as {identical, additive, retractive, mixed} and computing
     the touched cone (variables reachable from changed rows through
-    shared literals);
+    shared literals), and the O(delta) ``scoped`` planner a session's
+    declared assumption delta takes;
   * :mod:`.warm` — warm-start execution: seed the assignment from the
     cached model outside the cone, re-solve the cone only
     (``HostEngine.solve_warm``), fall back to a cold solve whenever
@@ -26,6 +27,7 @@ from .clauseset import (  # noqa: F401
     DELTA_IDENTICAL,
     DELTA_MIXED,
     DELTA_RETRACTIVE,
+    DELTA_SCOPED,
     ClauseSetIndex,
     WarmPlan,
     problem_rows,

@@ -28,14 +28,15 @@ every served warm start inside the regime where warm output provably
 equals cold output; anything outside falls back to a cold solve.
 
 Brought across: :func:`problem_rows` (``:70``), :func:`vocab_key`
-(``:110``), :func:`touched_cone` (``:133``), :class:`WarmPlan`
-(``:213``) and :class:`ClauseSetIndex` (``:232``: ``store``, ``touch``,
-``plan``, the nearest-entry scan and the accounting), with a plain
-``threading`` lock.  Left out until their callers are ported: the
-session's scoped planner ``plan_for_scope`` and the ``scoped`` delta
-class (ROADMAP A5.5), the fleet handoff's ``export_entries`` /
-``import_entry`` (A5.6.7), and the speculation tier's
-``affected_keys`` and read-only ``plan(account=False)`` preview (A5.6).
+(``:110``), :func:`touched_cone` (``:133``), the lazy rows of
+``_Entry`` (``:179-210``), :class:`WarmPlan` (``:213``) and
+:class:`ClauseSetIndex` (``:232``: ``store`` with ``lazy_rows=``,
+``export_entries`` / ``import_entry`` with ``_admit_locked``, ``touch``,
+``plan``, the nearest-entry scan, the sessions' scoped planner
+``plan_for_scope`` with the ``scoped`` delta class, and the
+accounting), with a plain ``threading`` lock.  Left out until the
+speculation tier is ported (ROADMAP A5.6.3): ``affected_keys`` and the
+read-only ``plan(account=False)`` preview.
 """
 
 from __future__ import annotations
@@ -54,6 +55,10 @@ DELTA_IDENTICAL = "identical"
 DELTA_ADDITIVE = "additive"
 DELTA_RETRACTIVE = "retractive"
 DELTA_MIXED = "mixed"
+# A stateful session's scoped solve, planned from the delta the session
+# DECLARED (its assumption-stack diff) instead of from per-row
+# classification — the O(delta) fast path of plan_for_scope().
+DELTA_SCOPED = "scoped"
 
 # Nearest-entry search is a multiset intersection per candidate; bound
 # the scan to the most recent entries of the vocabulary bucket so a huge
@@ -182,16 +187,39 @@ def touched_cone(problem: Problem, seed_vars, extra_rows) -> np.ndarray:
 
 
 class _Entry:
-    __slots__ = ("key", "rows", "vocab", "model", "steps", "backtracks")
+    __slots__ = ("key", "_rows", "vocab", "model", "steps", "backtracks",
+                 "_problem")
 
-    def __init__(self, key: str, rows: "Counter[tuple]", vocab,
-                 model: np.ndarray, steps: int, backtracks: int):
+    def __init__(self, key: str, rows: "Optional[Counter[tuple]]", vocab,
+                 model: np.ndarray, steps: int, backtracks: int,
+                 problem: Optional[Problem] = None):
         self.key = key
-        self.rows = rows
+        # ``rows=None`` defers the per-row multiset to first use: a
+        # session's private-index store happens per interactive step,
+        # and the scoped planner never reads rows — only the
+        # generic-classifier fallback and the snapshot export do, so
+        # eager O(problem) hashing there is latency for nothing.
+        self._rows = rows
+        self._problem = problem if rows is None else None
         self.vocab = vocab
         self.model = model            # bool[n_vars], the final installed set
         self.steps = int(steps)
         self.backtracks = int(backtracks)
+
+    @property
+    def rows(self) -> "Counter[tuple]":
+        rows = self._rows
+        if rows is None:
+            prob = self._problem
+            if prob is None:
+                # Another thread materialized between our None check
+                # and the problem read — its assignment is ordered
+                # before the clear.
+                return self._rows
+            rows = problem_rows(prob)
+            self._rows = rows
+            self._problem = None
+        return rows
 
 
 class WarmPlan:
@@ -244,7 +272,8 @@ class ClauseSetIndex:
         self._c_delta = reg.counter(
             "deppy_incremental_delta_total",
             "Delta classifications against the clause-set index, by "
-            "class (identical / additive / retractive / mixed / none).",
+            "class (identical / additive / retractive / mixed / "
+            "scoped / none).",
             labelname="class")
         self._h_cone = reg.histogram(
             "deppy_incremental_cone_fraction",
@@ -261,37 +290,86 @@ class ClauseSetIndex:
     # ------------------------------------------------------------ store
 
     def store(self, key: str, problem: Problem, model: np.ndarray,
-              steps: int, backtracks: int) -> None:
+              steps: int, backtracks: int,
+              lazy_rows: bool = False) -> None:
         """Record one SAT solve.  Only zero-backtrack solves are
         warm-start seeds (the certification precondition), so anything
-        else is dropped here rather than filtered on every lookup."""
+        else is dropped here rather than filtered on every lookup.
+        ``lazy_rows=True`` (the scoped session store) defers the
+        O(problem) per-row hashing to first use — the scoped planner
+        never reads it."""
         if self.capacity == 0 or int(backtracks) != 0:
             return
-        entry = _Entry(key, problem_rows(problem), vocab_key(problem),
-                       np.asarray(model, dtype=bool).copy(), steps,
-                       backtracks)
+        rows = None if lazy_rows else problem_rows(problem)
+        vocab = vocab_key(problem)
+        model = np.asarray(model, dtype=bool).copy()
         with self._lock:
             if key in self._entries:
                 self._entries.move_to_end(key)
-                self._entries[key] = entry
+                self._entries[key] = _Entry(key, rows, vocab, model,
+                                            steps, backtracks,
+                                            problem=problem)
                 # Refresh bucket recency too: the nearest-entry scan is
                 # bounded to the most recent bucket keys, and a cycling
                 # catalog re-stores old fingerprints — without the touch
                 # the scan window drifts away from the live neighbors.
-                bucket = self._by_vocab.get(entry.vocab)
+                bucket = self._by_vocab.get(vocab)
                 if bucket is not None and key in bucket:
                     bucket.move_to_end(key)
                 return
-            self._entries[key] = entry
-            bucket = self._by_vocab.setdefault(entry.vocab, OrderedDict())
-            bucket[key] = None
-            while len(self._entries) > self.capacity:
-                old_key, old = self._entries.popitem(last=False)
-                ob = self._by_vocab.get(old.vocab)
-                if ob is not None:
-                    ob.pop(old_key, None)
-                    if not ob:
-                        del self._by_vocab[old.vocab]
+            self._admit_locked(_Entry(key, rows, vocab, model,
+                                      steps, backtracks, problem=problem))
+
+    def _admit_locked(self, entry: _Entry) -> None:
+        """Insert a NEW entry (caller holds the lock; ``entry.key``
+        not resident) and evict past capacity, keeping ``_entries``
+        and ``_by_vocab`` in sync — the one copy of the eviction
+        invariant, shared by ``store`` and ``import_entry``."""
+        self._entries[entry.key] = entry
+        bucket = self._by_vocab.setdefault(entry.vocab, OrderedDict())
+        bucket[entry.key] = None
+        while len(self._entries) > self.capacity:
+            old_key, old = self._entries.popitem(last=False)
+            ob = self._by_vocab.get(old.vocab)
+            if ob is not None:
+                ob.pop(old_key, None)
+                if not ob:
+                    del self._by_vocab[old.vocab]
+
+    def export_entries(self) -> List[_Entry]:
+        """Every resident entry, least recently used first (so an
+        importer replaying the list reproduces this index's recency
+        order) — the warm-state snapshot surface
+        (:func:`deppy_tpu_torch.fleet.snapshot.export_warm_state`, and
+        each session's private index in the session handoff)."""
+        with self._lock:
+            return list(self._entries.values())
+
+    def import_entry(self, key: str, rows: "Counter[tuple]", vocab,
+                     model: np.ndarray, steps: int,
+                     backtracks: int) -> bool:
+        """Admit one deserialized entry (the snapshot handoff path).
+        Returns False without touching anything when ``key`` is already
+        resident — the live entry is at least as fresh as the handed-off
+        copy — or when the entry is not a certified warm seed (the
+        store() gate: only zero-backtrack SAT models may seed warm
+        starts, and a tampered snapshot must not widen that).  Raises
+        ``ValueError`` when the model is not index-aligned with the
+        entry's vocabulary: admitting a misaligned entry would plant a
+        crash on the live warm path for that family's next delta."""
+        if self.capacity == 0 or int(backtracks) != 0:
+            return False
+        model = np.asarray(model, dtype=bool).copy()
+        if model.shape != (int(vocab[0]),):
+            raise ValueError(
+                f"model length {model.size} does not match the entry "
+                f"vocabulary ({vocab[0]} variables)")
+        with self._lock:
+            if key in self._entries:
+                return False
+            self._admit_locked(_Entry(key, rows, vocab, model,
+                                      steps, backtracks))
+        return True
 
     def touch(self, key: str) -> None:
         """Refresh ``key``'s LRU and bucket recency without re-storing.
@@ -390,6 +468,63 @@ class ClauseSetIndex:
             if best_delta <= ACCEPT_DELTA:
                 break
         return best
+
+    # ------------------------------------------------- scoped planning
+
+    def plan_for_scope(self, problem: Problem, key: str, budget: int,
+                       entry_key: str, seed_vars) -> Optional[WarmPlan]:
+        """O(delta) warm planning for a stateful session's scoped solve.
+
+        A session KNOWS its delta: successive scoped solves differ from
+        each other only in the assumption-derived unit constraints on
+        the variables whose assumptions changed — ``seed_vars``, the
+        symmetric difference of the two assumption stacks.  That makes
+        the generic :meth:`plan` pipeline's per-row multiset hashing and
+        nearest-entry scan (both O(problem), paid per step) pure
+        overhead here: this path looks the declared predecessor up by
+        ``entry_key`` directly and closes the declared seed over
+        shared-literal adjacency, so the per-step planning cost scales
+        with the CHANGE, not the catalog.
+
+        Identity is preserved by construction plus certification: every
+        added/removed row is a unit constraint whose subject variable is
+        in ``seed_vars`` (per-subject clause ordinals shift only for
+        those same subjects), so the fixpoint cone contains every
+        differing row and off-cone rows are byte-identical between the
+        entry's problem and this one — the same decomposition invariant
+        :meth:`plan` establishes, with
+        :meth:`deppy_tpu_torch.sat.host.HostEngine.solve_warm` still the
+        authoritative certifier (any imperfect plan falls back to a
+        cold solve, answers unchanged).  The serve gates — entry is a
+        zero-backtrack seed (enforced at :meth:`store`), cone fraction
+        under ``max_delta_ratio``, generous budget — are the generic
+        path's gates, unweakened."""
+        if self.capacity == 0:
+            return None
+        t0 = time.perf_counter()
+        with self._lock:
+            self._n_lookups += 1
+            entry = self._entries.get(entry_key)
+        plan = None
+        if entry is not None and entry.vocab == vocab_key(problem):
+            cone = touched_cone(problem, seed_vars, ())
+            fraction = float(cone.sum()) / max(problem.n_vars, 1)
+            if (fraction <= self.max_delta_ratio
+                    and int(budget) >= max(
+                        MIN_WARM_BUDGET,
+                        WARM_BUDGET_FACTOR * (entry.steps + 1))):
+                warm_assign = np.where(entry.model, 1, -1).astype(np.int8)
+                self._h_cone.observe(fraction)
+                plan = WarmPlan(problem, key, warm_assign, cone,
+                                DELTA_SCOPED, fraction, entry.key,
+                                entry.steps)
+        self._c_delta.inc(
+            label=DELTA_SCOPED if plan is not None else "none")
+        self._registry.record_span(
+            "incremental.delta", time.perf_counter() - t0,
+            klass=plan.klass if plan is not None else "none",
+            cone=int(plan.cone.sum()) if plan is not None else 0)
+        return plan
 
     # -------------------------------------------------------- accounting
 

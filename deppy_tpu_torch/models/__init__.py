@@ -12,10 +12,12 @@ from .churn import churn_requests
 from .entity_catalog import operatorhub_entities, operatorhub_generators
 from .hard import chain_requests
 from .random_instance import random_instance
+from .session import derived_doc, session_catalog, walk_steps
 
 __all__ = [
     "chain_requests",
     "churn_requests",
+    "derived_doc",
     "fleet_states",
     "giant_pinned_conflict",
     "gvk_conflict_catalog",
@@ -24,5 +26,7 @@ __all__ = [
     "operatorhub_generators",
     "pinned_tenant_catalog",
     "random_instance",
+    "session_catalog",
     "version_pinned_chains",
+    "walk_steps",
 ]

@@ -31,15 +31,25 @@ The assumption scopes (:meth:`Solver.assume`, :meth:`Solver.test`,
 the reference: a propagation-only Test is a host operation by design,
 not a fallback.  A :meth:`Solver.solve` under an open scope answers for
 the assumed problem (:func:`assumed_variables`), lowered by
-:func:`encode_assumed` and solved on the configured backend.
+:func:`encode_assumed`.  With a request scheduler attached
+(``Solver(..., scheduler=s)``, the scope model of
+``deppy_tpu/sat/solver.py:78-135,181-277``) a scoped solve routes
+through :meth:`deppy_tpu_torch.sched.Scheduler.submit_session` — the
+session class, the shared result cache bypassed both ways, warm starts
+planned against :attr:`Solver.warm_index` — and answers on the
+scheduler's device; without one it solves on the configured backend
+(where the reference solves on an inline host engine: the same answer,
+with the card kept in view).
 
-Left out (later slices): the scheduler branch of ``solve_scoped``,
-deadlines, the ``auto`` probe and the breaker.
+Left out (ROADMAP A7.1): deadlines without a scheduler, the ``auto``
+probe and the breaker.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
+from collections import Counter
 from typing import List, Optional, Sequence
 
 from .. import telemetry
@@ -96,7 +106,8 @@ class Solver:
     def __init__(self, variables: Sequence[Variable],
                  tracer: Optional[Tracer] = None, backend: str = "device",
                  device="cuda", max_steps: Optional[int] = None,
-                 trace_cap: Optional[int] = None):
+                 trace_cap: Optional[int] = None, scheduler=None,
+                 tenant: str = "default"):
         check_backend(backend)
         self.problem: Problem = encode(variables)
         self.tracer = tracer
@@ -113,6 +124,18 @@ class Solver:
         # device backend, the driver's padding data and stage walls).
         self.report: Optional[telemetry.SolveReport] = None
         self._inc_engine: Optional[HostEngine] = None
+        # An attached request scheduler makes scoped solves route
+        # through ``Scheduler.submit_session`` (racing, deadlines and
+        # fair admission unchanged, the shared result cache bypassed).
+        # ``warm_index`` is the session's private clause-set index,
+        # handed to the scheduler so scoped solves warm-start from the
+        # session's own last model.
+        self.scheduler = scheduler
+        self.tenant = tenant
+        self.warm_index = None
+        # (key, assumptions) of the last scheduled scoped solve: the
+        # declared warm predecessor of the next one.
+        self._scope_last: Optional[tuple] = None
 
     # ------------------------------------------------------------ scopes
     #
@@ -179,17 +202,89 @@ class Solver:
         return (self.assumptions(), list(eng._test_scopes),
                 int(eng._scope_base))
 
-    def solve_scoped(self, stats: Optional[dict] = None):
+    def _scope_key(self, assumptions: Sequence[tuple]) -> str:
+        """Session-local lane key for a scoped solve: the base problem's
+        canonical fingerprint (paid ONCE per solver, memoized) salted
+        with the open assumption stack in order.  Scoped lanes bypass
+        the shared result cache in both directions, so this key's only
+        job is entry identity inside the session's private clause-set
+        index — which makes an O(assumptions) digest legitimate where
+        stateless lanes must pay the O(problem) ``fingerprint``.
+        Deterministic per (catalog, stack), so revisiting an assumption
+        state revisits its private-index entry."""
+        base = self.problem.__dict__.get("_scope_base_key")
+        if base is None:
+            from ..sched.cache import fingerprint
+
+            base = fingerprint(self.problem)
+            self.problem.__dict__["_scope_base_key"] = base
+        h = hashlib.sha256(base.encode())
+        for ident, installed in assumptions:
+            h.update(b"\x1f" + str(ident).encode("utf-8", "surrogatepass"))
+            h.update(b"+" if installed else b"-")
+        return "scope:" + h.hexdigest()
+
+    def _scope_plan_args(self, assumptions: Sequence[tuple]) -> tuple:
+        """``(session_key, scope_entry_key, scope_seed)`` for
+        ``Scheduler.submit_session``: this solve's session-local key,
+        the previous scoped solve's key (the declared warm predecessor
+        in the private index — None on the session's first solve), and
+        the variable indices whose assumptions CHANGED between the two
+        stacks (multiset symmetric difference, so a re-assumed pair
+        cancels and an assume-then-invert shows up once per side) — the
+        exact seed the O(delta) cone closure needs, because every
+        added/removed constraint row is a unit on one of these
+        subjects."""
+        key = self._scope_key(assumptions)
+        prev = self._scope_last
+        if prev is None:
+            return key, None, ()
+        prev_key, prev_assumptions = prev
+        cur_c = Counter(assumptions)
+        prev_c = Counter(prev_assumptions)
+        seed = sorted({
+            idx for ident, _ in
+            list((cur_c - prev_c).keys()) + list((prev_c - cur_c).keys())
+            if (idx := self.problem.id_to_index.get(ident)) is not None})
+        return key, prev_key, tuple(seed)
+
+    def solve_scoped(self, deadline_s: Optional[float] = None,
+                     stats: Optional[dict] = None):
         """Solve under the OPEN assumption stack and return the raw
         result object (solution dict / ``NotSatisfiable`` /
         ``Incomplete``), un-decoded so a caller can render it with
         :func:`deppy_tpu_torch.io.result_to_dict`.
 
         The derived problem is lowered by :func:`encode_assumed` (the
-        assumption splice, not a catalog re-walk) and solved on the
-        configured backend: ``solve_one`` on ``device``, or an inline
-        :class:`HostEngine`."""
-        p = encode_assumed(self.problem, self.assumptions())
+        assumption splice, not a catalog re-walk).  With a scheduler
+        attached it routes through ``Scheduler.submit_session``: the
+        session class, the shared result cache bypassed in BOTH
+        directions (an assumption-conditioned answer must never be
+        admitted where stateless traffic could read it), and warm starts
+        planned against :attr:`warm_index` when set — O(delta) against
+        the previous scoped solve's entry when one is on record, the
+        generic classifier otherwise; ``deadline_s`` rides on the lane.
+        Without one it solves on the configured backend: ``solve_one``
+        on ``device``, or an inline :class:`HostEngine`
+        (``deadline_s`` is not read there, as in the reference's inline
+        path)."""
+        assumptions = self.assumptions()
+        p = encode_assumed(self.problem, assumptions)
+        if self.scheduler is not None:
+            key, entry_key, seed = self._scope_plan_args(assumptions)
+            try:
+                return self.scheduler.submit_session(
+                    p.variables, deadline_s=deadline_s,
+                    max_steps=self.max_steps, stats=stats,
+                    tenant=self.tenant, warm_index=self.warm_index,
+                    session_key=key, scope_entry_key=entry_key,
+                    scope_seed=seed, problem=p)
+            finally:
+                # Track the key/stack pair even for UNSAT or failed
+                # answers: a missing private-index entry just means the
+                # next step's scoped plan misses and the generic
+                # classifier (then the cold path) answers.
+                self._scope_last = (key, list(assumptions))
         if p.errors:
             raise InternalSolverError(p.errors)
         try:
@@ -207,7 +302,8 @@ class Solver:
     def solve(self) -> List[Variable]:
         if self.assumptions():
             # A solve under an open scope answers for the ASSUMED problem
-            # (gini's Solve consumes assumptions), decoded back to the
+            # (gini's Solve consumes assumptions) — through the scheduler
+            # when one is attached — decoded back to the
             # installed-variables contract.
             r = self.solve_scoped()
             if isinstance(r, (NotSatisfiable, Incomplete)):

@@ -30,8 +30,11 @@ the ``deppy_cache_hit_ratio`` gauge land on the registry the scheduler
 was built with.  ``incremental=`` takes the delta-aware tier in front
 of the LRU, a :class:`deppy_tpu_torch.incremental.ClauseSetIndex`:
 :meth:`ResultCache.lookup_or_plan` (``cache.py:271-286``) consults it
-on an exact miss.  The speculation and fleet surfaces (``peek``,
-``invalidate_keys``, ``export_seeds``) come with ROADMAP A5.6.
+on an exact miss.  :meth:`ResultCache.export_seeds` (``cache.py:256-269``)
+is the warm-state snapshot's reader
+(:func:`deppy_tpu_torch.fleet.snapshot.export_warm_state`).  The
+speculation surfaces (``peek``, ``invalidate_keys``) come with ROADMAP
+A5.6.3.
 """
 
 from __future__ import annotations
@@ -220,6 +223,21 @@ class ResultCache:
             self._size_changed_locked()
             self._account(hit=False)
             return MISS
+
+    def export_seeds(self) -> list:
+        """``(key, budget, solution-dict)`` for every definitive SAT
+        entry, least recently used first — the warm-state snapshot
+        surface.  UNSAT and Incomplete entries are not exported: cores
+        hold live constraint objects and incompletes are
+        budget-relative; both re-solve cold once on the inheritor.
+        Solution dicts are copied, so the snapshot cannot alias live
+        entries."""
+        out = []
+        with self._lock:
+            for key, e in self._entries.items():
+                if e.definitive and isinstance(e.result, dict):
+                    out.append((key, e.budget, dict(e.result)))
+        return out
 
     def lookup_or_plan(self, problem: Problem, key: str, budget: int):
         """Exact lookup, then the delta tier: returns ``(hit, None)`` on

@@ -48,6 +48,14 @@ pad/pack, upload and set of kernel launches instead of paying one each.
     on the scheduler's device (more than one lane), runs the survivors'
     warm attempts on the host engine and cold-solves every fallback
     through the normal path.  A warm flush never races.
+  * **Sessions.**  :meth:`Scheduler.submit_session` serves one stateful
+    session's scoped solve (:class:`deppy_tpu_torch.sessions.SessionStore`):
+    the lane skips the shared result cache and clause-set index in both
+    directions, plans its warm start against the session's private
+    index (the O(delta) ``plan_for_scope`` first, then the generic
+    ``plan``), queues in :data:`INCREMENTAL_CLASS` when planned and in
+    :data:`SESSION_CLASS` otherwise, and flushes as soon as it reaches
+    the head (the ``immediate`` flush reason).
 
 ``backend="device"`` (the default) runs each flush through
 ``driver.solve_problems(..., device=self.device)`` — the CUDA kernels on
@@ -62,8 +70,7 @@ or inline).
 
 Left out, each with the ROADMAP item that brings it (the parameters keep
 the reference's names and raise ``NotImplementedError`` when set; each
-tier stays off until then): sessions, their ``scoped`` lanes and the
-``immediate`` head (A5.5), speculation, optimize probes and route
+tier stays off until then): speculation, optimize probes and route
 shadows (A5.6), the serving mesh (A6), and the ``auto`` backend, its
 probe and the breaker (A7).
 """
@@ -115,6 +122,15 @@ DEFAULT_INCREMENTAL_MAX_DELTA = 0.25
 # never collide.
 INCREMENTAL_CLASS = -1
 
+# The "session" size class (scheduler.py:93-100): a stateful session's
+# cold solves dispatch in their own bucket — they carry assumption-
+# conditioned answers that must never coalesce into (or pad out) a
+# stateless cold batch, and their results bypass the shared result
+# cache entirely (see ``_maybe_cache``).  Warm session lanes ride
+# INCREMENTAL_CLASS like any other warm-started lane: the warm flush
+# machinery is per-lane and scoped-ness travels on the lane itself.
+SESSION_CLASS = -2
+
 _OFF = ("off", "0", "false", "no")
 
 # Parameters of tiers not ported yet, with the ROADMAP item of each: any
@@ -143,7 +159,7 @@ class _Lane:
 
     __slots__ = ("problem", "key", "max_steps", "budget", "deadline",
                  "result", "steps", "degraded", "warm", "backtracks",
-                 "index_steps", "tenant")
+                 "index_steps", "tenant", "scoped", "session_index")
 
     def __init__(self, problem: Problem, key: str,
                  max_steps: Optional[int], budget: int, deadline,
@@ -170,6 +186,14 @@ class _Lane:
         self.backtracks = None
         self.index_steps = None
         self.tenant = tenant
+        # A scoped lane answers under a session's open assumption stack
+        # — its result is assumption-conditioned and must never be
+        # admitted to the shared exact LRU or clause-set index (it would
+        # poison stateless traffic); instead the model lands in the
+        # session's OWN index so the next op warm-starts from the
+        # session's last model.
+        self.scoped = False
+        self.session_index = None
 
 
 class _Group:
@@ -183,10 +207,10 @@ class _Group:
 
     __slots__ = ("lanes", "enq_t", "size_class", "budget", "event",
                  "error", "report", "parent", "timing", "tenant",
-                 "priority")
+                 "priority", "immediate")
 
     def __init__(self, lanes: List[_Lane], size_class: int, budget: int,
-                 priority: int = 1):
+                 priority: int = 1, immediate: bool = False):
         self.lanes = lanes
         self.enq_t = time.monotonic()
         self.size_class = size_class
@@ -198,6 +222,12 @@ class _Group:
         self.timing: dict = {}
         self.tenant = lanes[0].tenant if lanes else "default"
         self.priority = priority
+        # A blocking interactive lane (a session op) flushes as soon as
+        # it reaches the head — a caller is synchronously waiting on ONE
+        # lane, so holding it the coalescing window's max-wait buys
+        # nothing and costs the whole window.  Batchmates that are
+        # already queued still coalesce into the flush.
+        self.immediate = immediate
 
 
 def _apply_lane_result(lane: _Lane, r, point: str,
@@ -743,7 +773,8 @@ class Scheduler:
         self._c_flushes = reg.counter(
             "deppy_sched_flushes_total",
             "Queue flushes by trigger (wait = max-wait elapsed, fill = "
-            "lane target reached, drain = shutdown, inline = loop not "
+            "lane target reached, immediate = blocking interactive "
+            "lane at the head, drain = shutdown, inline = loop not "
             "running).", labelname="reason")
         # Condition over an RLock: ``running`` re-enters it from
         # ``_enqueue``.
@@ -961,6 +992,100 @@ class Scheduler:
         size_class = _bucket(max(_cost_proxy(l.problem) for l in lanes))
         return _Group(lanes, size_class, budget, priority=priority)
 
+    # -------------------------------------------------------------- sessions
+
+    def submit_session(
+        self,
+        problem_vars: Sequence[Variable],
+        deadline_s: Optional[float] = None,
+        max_steps: Optional[int] = None,
+        stats: Optional[dict] = None,
+        tenant: str = "default",
+        warm_index=None,
+        session_key: Optional[str] = None,
+        scope_entry_key: Optional[str] = None,
+        scope_seed=None,
+        problem: Optional[Problem] = None,
+    ) -> object:
+        """Blocking single-problem submit for a stateful session's (or an
+        open test scope's) incremental solve (``scheduler.py:1117-1213``).
+        The answer is exactly what ``submit`` would return for the same
+        variables — same engines, same racing, same deadline and
+        fair-admission semantics — but the lane is **scoped**: it skips
+        the shared result cache entirely (no lookup, no store —
+        assumption-conditioned answers must never serve or poison
+        stateless traffic), its cold dispatch rides the dedicated
+        :data:`SESSION_CLASS` bucket, and warm starts plan against
+        ``warm_index`` — the session's private clause-set index holding
+        the session's own last model — rather than the shared index.
+
+        A per-step scoped solve must not re-pay O(problem) bookkeeping
+        the caller already knows the answer to, so the session facade
+        may hand over what it tracks: ``session_key`` replaces the
+        canonical ``fingerprint(p)`` as the lane key — legitimate ONLY
+        because scoped lanes never touch the shared result cache, the
+        key's sole job is entry identity inside the session's private
+        index — and ``scope_entry_key`` + ``scope_seed`` (the previous
+        scoped solve's key and the assumption-stack delta's variable
+        indices) let the index plan O(delta) via
+        :meth:`ClauseSetIndex.plan_for_scope` instead of re-hashing and
+        re-scanning the whole problem.  When the declared predecessor
+        is missing (first solve, UNSAT last step, post-handoff import)
+        the generic classifier answers, and when no plan survives the
+        gates the lane cold-solves — identity holds on every path.
+        ``problem`` is the already-lowered form of ``problem_vars``
+        (the facade's ``encode_assumed`` splice).
+
+        Returns the single result (Solution dict / NotSatisfiable /
+        Incomplete); raises what ``submit`` raises for malformed input,
+        and whatever its dispatch raised.  ``stats`` receives what
+        ``submit`` gives it, plus ``warm`` (a warm start was planned)."""
+        from ..engine.driver import _budget
+
+        if max_steps is None:
+            max_steps = self.max_steps
+        budget = int(_budget(max_steps))
+        p = problem if problem is not None else encode(problem_vars)
+        if p.errors:
+            raise InternalSolverError(p.errors)
+        with faults.deadline_scope(deadline_s), faults.ambient_deadline():
+            dl = faults.current_deadline()
+        key = session_key if session_key is not None else fingerprint(p)
+        plan = None
+        if warm_index is not None:
+            if scope_entry_key is not None:
+                plan = warm_index.plan_for_scope(
+                    p, key, budget, scope_entry_key, scope_seed or ())
+            if plan is None:
+                plan = warm_index.plan(p, key, budget)
+        lane = _Lane(p, key, max_steps, budget, dl, warm=plan,
+                     tenant=tenant)
+        lane.scoped = True
+        lane.session_index = warm_index
+        prio = (self.tenant_policy.priority(tenant) if self.fair
+                else 1)
+        group = _Group([lane],
+                       INCREMENTAL_CLASS if plan is not None
+                       else SESSION_CLASS,
+                       budget, priority=prio, immediate=True)
+        self._enqueue(group)
+        group.event.wait()
+        if group.error is not None:
+            raise group.error
+        if lane.degraded:
+            telemetry.trace.mark_error()
+        qw = group.timing.get("queue_wait_s")
+        if qw is not None:
+            telemetry.default_registry().record_span(
+                "sched.queue_wait", qw, lanes=1)
+        if stats is not None:
+            stats["steps"] = lane.steps
+            stats["report"] = group.report
+            stats["timings"] = dict(group.timing)
+            stats["deadline_misses"] = 1 if lane.degraded else 0
+            stats["warm"] = plan is not None
+        return lane.result
+
     def _enqueue(self, group: _Group) -> None:
         with self._cv:
             if self.running:
@@ -1053,6 +1178,8 @@ class Scheduler:
             reason = "drain"
         elif lanes >= self.max_fill:
             reason = "fill"
+        elif head.immediate:
+            reason = "immediate"
         elif time.monotonic() - head.enq_t >= self.max_wait_s:
             reason = "wait"
         else:
@@ -1119,6 +1246,27 @@ class Scheduler:
 
     def _maybe_cache(self, lane: _Lane) -> None:
         r = lane.result
+        if lane.scoped:
+            # Assumption-conditioned answers never reach the shared
+            # exact LRU or clause-set index (scheduler.py:1726-1745) —
+            # they would poison stateless traffic with results that
+            # only hold under the session's assumption stack.  The
+            # session's private index takes the model instead (same
+            # eligibility gate as the shared index: measured,
+            # zero-backtrack-certifiable, not degraded) so the
+            # session's NEXT op warm-starts from it.
+            if (lane.session_index is not None and isinstance(r, dict)
+                    and not lane.degraded and lane.backtracks is not None):
+                model = np.fromiter(
+                    (bool(r[v.identifier])
+                     for v in lane.problem.variables),
+                    dtype=bool, count=lane.problem.n_vars)
+                lane.session_index.store(
+                    lane.key, lane.problem, model,
+                    lane.index_steps if lane.index_steps is not None
+                    else lane.steps,
+                    lane.backtracks, lazy_rows=True)
+            return
         if isinstance(r, (dict, NotSatisfiable)):
             self.cache.store(lane.key, lane.budget, r)
         elif isinstance(r, Incomplete) and lane.deadline is None:

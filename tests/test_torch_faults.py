@@ -285,13 +285,13 @@ def test_plan_from_a_file_and_the_known_points(tmp_path):
 
 @within(30)
 def test_points_the_port_does_not_call_yet():
-    """Every registered point but the scheduler's, the racer's and the
-    host pool's waits for a ROADMAP item; a rule that can match only
-    those is named, one that can also match a called point (or nothing
-    known) is not."""
+    """Every registered point but the scheduler's, the racer's, the
+    host pool's and the session store's waits for a ROADMAP item; a rule
+    that can match only those is named, one that can also match a called
+    point (or nothing known) is not."""
     assert set(tinject.NOT_YET_CALLED) == set(tinject.KNOWN_POINTS) - {
         "sched.dispatch", "sched.race.*", "hostpool.dispatch",
-        "hostpool.worker_crash"}
+        "hostpool.worker_crash", "sessions.op"}
     plan = tfaults.plan_from_spec(
         '[{"point": "driver.dispatch"}, {"point": "sched.*"}, '
         '{"point": "sched.race.3"}, {"point": "hostpool.*"}, '

@@ -73,6 +73,57 @@ def test_scan_covers_the_racing_modules():
     assert {"registry.py", "grad_relax.py", "defaults.py"} <= names
 
 
+def test_scan_covers_the_session_modules():
+    """The session store, the handoff's fleet pieces and the session
+    walk's generators are the port's own copies: the AST scan reads
+    each of them."""
+    names = {(p.parent.name, p.name) for p in PORT_FILES
+             if p.parent.name in ("sessions", "fleet")}
+    assert names == {
+        ("sessions", "__init__.py"), ("sessions", "store.py"),
+        ("fleet", "__init__.py"), ("fleet", "ring.py"),
+        ("fleet", "snapshot.py")}
+    assert ROOT / "deppy_tpu_torch" / "models" / "session.py" in PORT_FILES
+
+
+def test_fresh_process_session_loads_no_jax():
+    """A session walk on the CPU scheduler, its handoff through the
+    snapshot stream and the session generators import nothing of JAX or
+    deppy_tpu."""
+    code = textwrap.dedent("""
+        import json, sys
+        before = set(sys.modules)
+        from deppy_tpu_torch.fleet import (export_warm_state,
+                                           import_warm_state)
+        from deppy_tpu_torch.models import session_catalog, walk_steps
+        from deppy_tpu_torch.sched import Scheduler
+        from deppy_tpu_torch.sessions import SessionStore
+        sched = Scheduler(device="cpu")
+        store = SessionStore(sched)
+        sid = store.create(session_catalog(4, 3))["id"]
+        for ident, installed in walk_steps(4, 3, 3):
+            store.op(sid, {"op": "assume", "identifiers": [ident],
+                           "installed": installed})
+            assert store.op(sid, {"op": "resolve"})["result"]["status"] \
+                == "sat"
+        doc = json.loads(json.dumps(export_warm_state(sched,
+                                                      sessions=store)))
+        other = SessionStore(Scheduler(device="cpu"))
+        assert import_warm_state(sched, doc, sessions=other)[
+            "sessions_imported"] == 1
+        store.stop()
+        other.stop()
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new
+                     if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_fresh_process_cpu_solve_loads_no_jax():
     """A CPU batch, a traced Solver whose report is read, a racing
     scheduler (device, host and grad_relax entrants) and a batch through
