@@ -124,6 +124,31 @@ Phases, each fatal on failure:
    screened on ``cuda``, every session-class flush must be ``immediate``,
    and the first loop-thread launch of kernels 1, 3, 4 and 5 is held
    against its plain version;
+4h. the faults path: the driver's fault envelope, the circuit breaker
+   and the ``auto`` backend on the card, :func:`run_faults_path`'s parts
+   1-13 over 256 ``gvk_conflict_catalog(20, 4, 10)`` and 64
+   ``pinned_tenant_catalog`` states: no earlier phase may have counted a
+   driver failure or a host-routed lane; the baseline on the card and on
+   the host backend; one transient ``driver.dispatch`` and one
+   ``driver.device_put`` fault (a retry each); a poison group that
+   exhausts its attempts and is halved; a dead card (every dispatch
+   fails) that trips the breaker (threshold 2) and host-routes every
+   lane, the short circuit under the open breaker (0 launches) and the
+   half-open probe after the cooldown; a chunk deadline of 1 ns that
+   charges the breaker with real dispatches; ``BatchResolver(deadline_s=
+   0.0)`` (0 launches) and a generous deadline; budget escalation with a
+   compacted redo and with a full rerun; a checkpointed solve crashed
+   after its first group and resumed; a transient fault under blockwise
+   (kernel 2 on the retry); and ``auto``: the subprocess engine probe,
+   then a ``Scheduler(backend="auto", portfolio="on")`` whose flushes run
+   on the card, trip the breaker, drain on the host with no device
+   entrant, and upgrade through the deferred re-probe.  Every answer
+   equals the baseline's (steps too, except where a split or the host
+   routed a lane: those equal the host backend's), every part's counter
+   deltas and breaker transitions are the scripted ones, and the first
+   launch of each kernel in the phase is held against its plain version.
+   At the end of the run the driver failures and host-routed lanes must
+   equal the phase's scripted totals;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -1277,7 +1302,10 @@ TELEMETRY_SPANS = ("driver.pad_pack", "driver.device_put", "driver.solve",
 def check_telemetry_sink(scale: float) -> dict:
     """One card batch with ``DEPPY_GPU_TELEMETRY_FILE`` set: the JSONL it
     writes must hold the four driver spans and exactly one report
-    event."""
+    event.  The batch runs on a registry of its own, which the run's
+    faults gates never read, so its driver failures and host-routed
+    lanes are gated here: both must be 0, in the registry and in the
+    batch's report."""
     from deppy_tpu_torch import telemetry
     from deppy_tpu_torch.resolution import BatchResolver
 
@@ -1293,13 +1321,25 @@ def check_telemetry_sink(scale: float) -> dict:
         resolver = BatchResolver(device="cuda")
         resolver.solve(pool)
         telemetry.default_registry().configure_sink(None)
+        snap = _fault_snapshot()
     finally:
         telemetry.set_default_registry(prev)
         del os.environ["DEPPY_GPU_TELEMETRY_FILE"]
+    if (snap["deppy_fault_failures_total"]
+            or snap["deppy_fault_host_routed_total"]
+            or resolver.last_report.fault_host_routed):
+        fail(f"telemetry sink: the card batch counted "
+             f"{snap['deppy_fault_failures_total']} driver failures and "
+             f"{snap['deppy_fault_host_routed_total']} host-routed lanes "
+             f"(report: {resolver.last_report.fault_host_routed})")
     events = [e for e in telemetry.iter_sink_events(path) if e is not None]
     names = {e.get("name") for e in events if e.get("kind") == "span"}
     reports = [e["report"] for e in events if e.get("kind") == "report"]
     missing = [s for s in TELEMETRY_SPANS if s not in names]
+    faulted = [e for e in events if e.get("kind") == "fault"]
+    if faulted:
+        fail(f"telemetry sink: {len(faulted)} fault events in the card "
+             f"batch, the first {faulted[0]}")
     if missing or len(reports) != 1:
         fail(f"telemetry sink: spans missing {missing}, {len(reports)} "
              f"report events")
@@ -2442,9 +2482,9 @@ class WarmLog:
         flush, screen = self._saved[0][2], self._saved[1][2]
         log = self
 
-        def solve_incremental(sched, live, rep, timing):
+        def solve_incremental(sched, live, rep, timing, backend):
             first = len(log.screens)
-            flush(sched, live, rep, timing)
+            flush(sched, live, rep, timing, backend)
             log.flushes.append(dict(
                 device=str(sched.device), plans=[lane.warm for lane in live],
                 served=[lane.index_steps is not None for lane in live],
@@ -3444,6 +3484,573 @@ def run_sessions_path(scale: float, plain: "PlainPool"):
     print(f"sessions path: {seconds:.1f} s; launches (parts 1-3) "
           f"{launches}", flush=True)
     return launches, numbers
+
+
+FAULT_GVK = 256          # part 2: gvk_conflict_catalog(20, 4, 10) states
+FAULT_TENANTS = 64       # part 2: pinned_tenant_catalog states
+FAULT_BLOCKWISE = 8      # part 10: operatorhub_catalog(250, 8) catalogs
+FAULT_CKPT_GROUP = 128   # part 9: problems a checkpoint group
+FAULT_REPROBE_S = 1.0    # part 11: DEPPY_GPU_REPROBE
+# The fault counters each part's line reports (deltas on the default
+# registry).
+FAULT_COUNTERS = ("deppy_fault_retries", "deppy_fault_failures_total",
+                  "deppy_fault_host_routed_total", "deppy_deadline_exceeded",
+                  "deppy_breaker_transitions_total", "deppy_escalation_total")
+
+
+class FaultLog:
+    """While on, the ``breaker`` and ``fault`` events of the default
+    registry, and the flight-recorder dumps a fresh breaker trip makes."""
+
+    def __enter__(self):
+        from deppy_tpu_torch import telemetry
+        from deppy_tpu_torch.telemetry import trace
+
+        self.events, self.dumps = [], 0
+        self._reg = telemetry.default_registry()
+        self._fn = lambda e: (self.events.append(e)
+                              if e.get("kind") in ("breaker", "fault")
+                              else None)
+        self._reg.add_forwarder(self._fn)
+        self._dump = trace.notify_breaker_open
+
+        def dump():
+            self.dumps += 1
+            self._dump()
+
+        trace.notify_breaker_open = dump
+        return self
+
+    def __exit__(self, *exc):
+        from deppy_tpu_torch.telemetry import trace
+
+        self._reg.remove_forwarder(self._fn)
+        trace.notify_breaker_open = self._dump
+
+    def mark(self) -> tuple:
+        return len(self.events), self.dumps
+
+    def since(self, mark: tuple) -> dict:
+        """The breaker states, fault kinds (with the deadline expiries'
+        ``where``) and dumps since ``mark``."""
+        new = self.events[mark[0]:]
+        return dict(
+            breaker=[e["state"] for e in new if e["kind"] == "breaker"],
+            faults=[e["fault"] + (f"@{e['where']}" if "where" in e else "")
+                    for e in new if e["kind"] == "fault"
+                    and e["fault"] != "injected"],
+            dumps=self.dumps - mark[1])
+
+
+def _fault_snapshot() -> dict:
+    from deppy_tpu_torch import telemetry
+
+    snap = telemetry.default_registry().snapshot()
+    return {k: snap.get(k, {} if k in ("deppy_breaker_transitions_total",
+                                       "deppy_escalation_total") else 0)
+            for k in FAULT_COUNTERS}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    out = {}
+    for k, v in after.items():
+        if isinstance(v, dict):
+            d = {s: n - before[k].get(s, 0) for s, n in v.items()
+                 if n - before[k].get(s, 0)}
+        else:
+            d = v - before[k]
+        out[k.replace("deppy_", "").replace("_total", "")] = d
+    return out
+
+
+def run_faults_path(scale: float, plain: "PlainPool"):
+    """The fault envelope, the breaker and ``auto`` on the card (parts
+    1-13 of the module docstring's phase 4h).  Returns the path's
+    launches, its numbers and the driver failures and host-routed lanes
+    it scripted, which the end of the run holds the counters to."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deppy_tpu_torch import engine, faults, hostpool, telemetry
+    from deppy_tpu_torch.engine import checkpoint, core, driver
+    from deppy_tpu_torch.models import (gvk_conflict_catalog,
+                                        operatorhub_catalog,
+                                        pinned_tenant_catalog)
+    from deppy_tpu_torch.resolution import BatchResolver
+    from deppy_tpu_torch.sat import solver as sat_solver
+    from deppy_tpu_torch.sat.encode import encode
+    from deppy_tpu_torch.sched import Scheduler
+    from deppy_tpu_torch.sched import scheduler as sched_mod
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"faults timings on {card}", flush=True)
+    # Part 1: the gate on the run so far.
+    snap = _fault_snapshot()
+    if snap["deppy_fault_failures_total"] or \
+            snap["deppy_fault_host_routed_total"]:
+        fail(f"faults: the earlier phases counted "
+             f"{snap['deppy_fault_failures_total']} driver failures and "
+             f"{snap['deppy_fault_host_routed_total']} host-routed lanes")
+    n_gvk = max(COMPARE_LANES, int(FAULT_GVK * scale))
+    n_ten = max(COMPARE_LANES, int(FAULT_TENANTS * scale))
+    states = ([gvk_conflict_catalog(20, 4, 10, seed=i) for i in range(n_gvk)]
+              + [pinned_tenant_catalog(seed=i) for i in range(n_ten)])
+    problems = [encode(vs) for vs in states]
+    n = len(problems)
+    groups = driver.partition_buckets(problems)
+    env_keys = ("DEPPY_GPU_BREAKER_THRESHOLD", "DEPPY_GPU_BREAKER_RESET_S",
+                "DEPPY_GPU_CHUNK_DEADLINE_S", "DEPPY_GPU_REPROBE")
+    env0 = {k: os.environ.get(k) for k in env_keys}
+    numbers, lines = {}, []
+    launches = {k: 0 for k in engine.KERNELS}
+    scripted = dict(failures=0, host_routed=0)
+    ckpt_dir = tempfile.mkdtemp(prefix="deppy-faults-")
+
+    def card_solve(plan=None, **kw):
+        faults.configure_plan(None if plan is None
+                              else faults.plan_from_spec(plan))
+        try:
+            out = driver.solve_problems(problems, device="cuda", **kw)
+            torch.cuda.synchronize()
+        finally:
+            faults.configure_plan(None)
+        return out
+
+    def part(name, fn, want, **extra):
+        """Run part ``name`` (``fn()`` returns its results' keys and a
+        dict of its own numbers); its counter deltas must include
+        ``want`` (failures, host_routed, retries, ...)."""
+        before, mark = _fault_snapshot(), log.mark()
+        torch.cuda.synchronize()
+        engine.reset_launch_counts()
+        t0 = time.perf_counter()
+        own = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = engine.launch_counts()
+        for k in engine.KERNELS:
+            launches[k] += counts[k]
+        d = _delta(before, _fault_snapshot())
+        d.update(log.since(mark))
+        for k, v in want.items():
+            if d.get(k) != v:
+                fail(f"faults {name}: {k} {d.get(k)!r}, scripted {v!r}")
+        scripted["failures"] += d["fault_failures"]
+        scripted["host_routed"] += d["fault_host_routed"]
+        row = dict(wall_s=wall, launches=counts, **d, **own)
+        numbers[name] = row
+        print(f"faults {name}: wall {wall:.3f} s; retries "
+              f"{d['fault_retries']} failures {d['fault_failures']} "
+              f"host-routed {d['fault_host_routed']} deadline-exceeded "
+              f"{d['deadline_exceeded']}; breaker {d['breaker']} "
+              f"(dumps {d['dumps']}); escalation {d['escalation']}; "
+              f"faults {d['faults']}; launches "
+              + " ".join(f"{k}={counts[k]}" for k in engine.KERNELS)
+              + "".join(f"; {k} {v}" for k, v in own.items()
+                        if not isinstance(v, (list, dict)))
+              + f" [{card}]", flush=True)
+        return row
+
+    def same(name, got, want, steps=True):
+        cut = (lambda k: k[:4]) if steps else (lambda k: k[:3])
+        bad = sum(cut(a) != cut(b) for a, b in zip(got, want))
+        if len(got) != len(want) or bad:
+            fail(f"faults {name}: {bad} of {len(want)} lanes differ from "
+                 f"the baseline ({'answers and steps' if steps else 'answers'})")
+
+    cap = RaceCapture(engine.KERNELS, thread="MainThread")
+    base = {}
+    try:
+        with cap, FaultLog() as log:
+            # Part 2: the baseline on the card, and on the host backend.
+            def baseline():
+                base["results"] = card_solve()
+                base["keys"] = [solve_key(r) for r in base["results"]]
+                # Twice: the first call may start the host pool.
+                walls = []
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    host = hostpool.solve_host_problems(problems)
+                    walls.append(time.perf_counter() - t0)
+                base["host_steps"] = [r.steps for r in host]
+                base["host_s"] = walls[1]
+                return dict(groups=len(groups), lanes=n,
+                            host_first_s=walls[0], host_s=walls[1])
+
+            part("2 baseline", baseline, dict(fault_failures=0,
+                                              fault_host_routed=0))
+            base["answers"] = driver.decode_results(problems,
+                                                    base["results"])
+            check_answers("faults baseline", states, base["answers"])
+
+            # Part 3: transient faults.
+            for point in ("driver.dispatch", "driver.device_put"):
+                def transient(point=point):
+                    got = [solve_key(r) for r in card_solve(
+                        f'[{{"point": "{point}", "times": 1}}]')]
+                    same(f"3 transient {point}", got, base["keys"])
+                    return {}
+
+                part(f"3 transient {point}", transient,
+                     dict(fault_retries=1, fault_failures=1,
+                          fault_host_routed=0, breaker=[]))
+
+            # Part 4: a poison split.
+            attempts = faults.RetryPolicy.from_env().max_attempts
+
+            def poison():
+                got = [solve_key(r) for r in card_solve(
+                    f'[{{"point": "driver.dispatch", "times": {attempts}}}]')]
+                same("4 poison split", got, base["keys"], steps=False)
+                return dict(step_mismatches=sum(
+                    a[3] != b[3] for a, b in zip(got, base["keys"])))
+
+            row = part("4 poison split", poison,
+                       dict(fault_retries=attempts - 1,
+                            fault_failures=attempts, fault_host_routed=0,
+                            breaker=[]))
+            if row["faults"].count("group_split") != 1:
+                fail(f"faults 4 poison split: events {row['faults']}")
+
+            # Part 5: a dead card, the open breaker and recovery.  The
+            # dead card's host fallback of the batch runs after the trip,
+            # inside the cooldown, and the short circuit after it must
+            # still find the breaker open: the cooldown is 1 s plus three
+            # times the host backend's wall on the batch (part 2's second
+            # call).
+            reset_s = round(1.0 + 3.0 * base["host_s"], 1)
+            numbers["breaker_reset_s"] = reset_s
+            os.environ["DEPPY_GPU_BREAKER_THRESHOLD"] = "2"
+            os.environ["DEPPY_GPU_BREAKER_RESET_S"] = str(reset_s)
+            faults.set_default_breaker(None)
+            breaker = faults.default_breaker()
+
+            def dead():
+                out = card_solve('[{"point": "driver.dispatch", '
+                                 '"times": -1}]')
+                got = [solve_key(r) for r in out]
+                same("5 dead card", got, base["keys"], steps=False)
+                if [k[3] for k in got] != base["host_steps"]:
+                    fail("faults 5 dead card: steps differ from the host "
+                         "backend's")
+                return dict(cooldown_left_s=breaker.remaining_s())
+
+            part("5 dead card", dead,
+                 dict(fault_failures=2, fault_retries=1,
+                      fault_host_routed=n, breaker=["open"], dumps=1))
+
+            def short_circuit():
+                if not breaker.blocks_device():
+                    fail("faults 5 short circuit: the cooldown lapsed "
+                         "before the solve")
+                got = [solve_key(r) for r in card_solve()]
+                same("5 short circuit", got, base["keys"], steps=False)
+                return {}
+
+            row = part("5 short circuit", short_circuit,
+                       dict(fault_failures=0, fault_host_routed=n,
+                            breaker=[]))
+            if any(row["launches"].values()):
+                fail(f"faults 5 short circuit: launches {row['launches']} "
+                     f"under the open breaker")
+            time.sleep(breaker.remaining_s() + 0.05)
+
+            def half_open():
+                got = [solve_key(r) for r in card_solve()]
+                same("5 half-open probe", got, base["keys"])
+                return {}
+
+            row = part("5 half-open probe", half_open,
+                       dict(fault_failures=0, fault_host_routed=0,
+                            breaker=["half_open", "closed"], dumps=0))
+            if not any(row["launches"].values()):
+                fail("faults 5 half-open probe: no kernel launched")
+
+            # Part 6: the chunk deadline charges the breaker with real
+            # card dispatches: it opens at the last group's.
+            os.environ["DEPPY_GPU_BREAKER_THRESHOLD"] = str(len(groups))
+            os.environ["DEPPY_GPU_CHUNK_DEADLINE_S"] = "1e-9"
+            faults.set_default_breaker(None)
+
+            def chunk():
+                got = [solve_key(r) for r in card_solve()]
+                same("6 chunk deadline", got, base["keys"])
+                if faults.default_breaker().state() != "open":
+                    fail("faults 6 chunk deadline: the breaker is "
+                         f"{faults.default_breaker().state()}")
+                return {}
+
+            row = part("6 chunk deadline", chunk,
+                       dict(fault_failures=0, fault_host_routed=0,
+                            deadline_exceeded=len(groups),
+                            breaker=["open"], dumps=1))
+            if row["faults"].count("deadline_exceeded@driver.chunk") != \
+                    len(groups):
+                fail(f"faults 6 chunk deadline: events {row['faults']}")
+            _restore_env(env0, ("DEPPY_GPU_CHUNK_DEADLINE_S",))
+            os.environ["DEPPY_GPU_BREAKER_THRESHOLD"] = "2"
+            faults.set_default_breaker(None)
+
+            # Part 7: deadlines.
+            def deadlines():
+                expired = BatchResolver(device="cuda", deadline_s=0.0)
+                out = expired.solve(states)
+                torch.cuda.synchronize()
+                if any(engine.launch_counts().values()):
+                    fail("faults 7: an expired deadline launched kernels")
+                if not all(render(r) == ("incomplete",) for r in out):
+                    fail("faults 7: an expired deadline answered")
+                live = BatchResolver(device="cuda", deadline_s=600.0)
+                if [render(r) for r in live.solve(states)] != \
+                        [render(r) for r in base["answers"]]:
+                    fail("faults 7: a generous deadline's answers differ")
+                with faults.deadline_scope(faults.Deadline(0.0)):
+                    got = driver.solve_problems(problems, device="cuda")
+                if any(r.outcome != 0 or r.steps for r in got):
+                    fail("faults 7: an expired scope did not degrade")
+                return {}
+
+            row = part("7 deadlines", deadlines,
+                       dict(fault_failures=0, fault_host_routed=0,
+                            breaker=[]))
+            if row["faults"].count("deadline_exceeded@driver.dispatch") != \
+                    2 * len(groups):
+                fail(f"faults 7: events {row['faults']}")
+
+            # Part 8: escalation, once with a quarter of the lanes or fewer
+            # straggling in every group (the compacted redo), once with
+            # more (the full rerun).
+            steps = [k[3] for k in base["keys"]]
+            eligible = [[steps[i] for i in g] for g in groups
+                        if len(g) >= driver.STAGE1_MIN_BATCH]
+            redo = _stage1_budget(eligible, driver.STAGE1_MAX_STRAGGLERS)
+            if any(sum(x > 1 for x in g) <= driver.STAGE1_MAX_STRAGGLERS
+                   * len(g) for g in eligible):
+                fail("faults 8: a stage-1 budget of 1 step strands a quarter "
+                     "of a group's lanes or fewer")
+            for label, stage1 in (("compacted", redo), ("full", 1)):
+                def escalate(stage1=stage1):
+                    driver.STAGE1_STEPS = stage1
+                    try:
+                        got = [solve_key(r) for r in card_solve()]
+                    finally:
+                        driver.STAGE1_STEPS = 0
+                    same(f"8 escalation {label}", got, base["keys"])
+                    spans = [s for s in telemetry.default_registry()
+                             .recent_spans()
+                             if s["name"] == "driver.escalation"]
+                    return dict(stage1=stage1, stragglers=[
+                        sp["attrs"].get("stragglers")
+                        for sp in spans[-len(groups):]])
+
+                row = part(f"8 escalation {label}", escalate,
+                           dict(fault_failures=0, fault_host_routed=0))
+                if row["escalation"].get("2", 0) < 1 or \
+                        sum(row["escalation"].values()) != len(groups) or \
+                        row["escalation"].get("0", 0) != \
+                        len(groups) - len(eligible):
+                    fail(f"faults 8 escalation {label}: stages "
+                         f"{row['escalation']}")
+
+            # Part 9: checkpoints.
+            group = FAULT_CKPT_GROUP if n > FAULT_CKPT_GROUP else \
+                max(1, n // 3)
+
+            def ckpt():
+                faults.configure_plan(faults.plan_from_spec(
+                    '[{"point": "checkpoint.save_group", "after": 1, '
+                    '"times": -1}]'))
+                try:
+                    checkpoint.solve_problems_checkpointed(
+                        problems, ckpt_dir, group=group, device="cuda")
+                except faults.InjectedFault:
+                    pass
+                else:
+                    fail("faults 9: the scripted crash did not fire")
+                finally:
+                    faults.configure_plan(None)
+                saved = sorted(p for p in os.listdir(ckpt_dir)
+                               if p.endswith(".npz"))
+                if saved != ["group_00000.npz"]:
+                    fail(f"faults 9: saved {saved} before the crash")
+                with Recorder() as rec:
+                    out = checkpoint.solve_problems_checkpointed(
+                        problems, ckpt_dir, group=group, device="cuda")
+                torch.cuda.synchronize()
+                same("9 checkpoints", [solve_key(r) for r in out],
+                     base["keys"], steps=False)
+                resumed = n - len(rec.keys)
+                if resumed != group:
+                    fail(f"faults 9: resumed {resumed} lanes, not {group}")
+                return dict(group=group, resumed=resumed,
+                            solved=len(rec.keys))
+
+            part("9 checkpoints", ckpt, dict(fault_failures=0,
+                                             fault_host_routed=0))
+
+            # Part 10: blockwise, kernel 2 on the retry.
+            core.set_bcp_impl("blockwise")
+            try:
+                cats = [encode(operatorhub_catalog(250, 8, seed=i))
+                        for i in range(FAULT_BLOCKWISE)]
+                clean = []
+
+                def blockwise_clean():
+                    clean.extend(solve_key(r) for r in driver.solve_problems(
+                        cats, device="cuda"))
+                    return {}
+
+                part("10 blockwise clean", blockwise_clean,
+                     dict(fault_failures=0, fault_host_routed=0))
+
+                def blockwise():
+                    faults.configure_plan(faults.plan_from_spec(
+                        '[{"point": "driver.dispatch", "times": 1}]'))
+                    try:
+                        got = [solve_key(r) for r in driver.solve_problems(
+                            cats, device="cuda")]
+                    finally:
+                        faults.configure_plan(None)
+                    if got != clean:
+                        fail("faults 10 blockwise: the retry's answers "
+                             "differ from the clean solve's")
+                    return {}
+
+                row = part("10 blockwise", blockwise,
+                           dict(fault_retries=1, fault_failures=1,
+                                fault_host_routed=0))
+                if row["launches"]["blockwise_fixpoint"] <= 0:
+                    fail("faults 10 blockwise: kernel 2 did not launch on "
+                         "the retry")
+            finally:
+                core.set_bcp_impl("auto")
+
+        # Part 11: auto on the card.
+        with FaultLog() as log:
+            sat_solver._ENGINE_USABLE.pop("cuda", None)
+            t0 = time.perf_counter()
+            if sat_solver.resolve_backend("auto", device="cuda") != "device":
+                fail("faults 11: the engine probe on the card said host")
+            probe_s = time.perf_counter() - t0
+            print(f"faults 11 probe: resolve_backend('auto', device='cuda') "
+                  f"= device in {probe_s:.3f} s (subprocess) [{card}]",
+                  flush=True)
+            numbers["probe_s"] = probe_s
+            os.environ["DEPPY_GPU_REPROBE"] = str(FAULT_REPROBE_S)
+            faults.set_default_breaker(None)
+            tenants = states[n_gvk:]
+            want = [render(r) for r in base["answers"][n_gvk:]]
+            reg = telemetry.Registry()
+            sched = Scheduler(backend="auto", device="cuda", portfolio="on",
+                              portfolio_k=2, portfolio_sample_check=1.0,
+                              incremental="off", cache_size=0, registry=reg)
+            sched.start()
+            try:
+                def flush(label, backend, plan=None, device_entrant=True):
+                    faults.configure_plan(None if plan is None
+                                          else faults.plan_from_spec(plan))
+                    try:
+                        starts0 = dict(reg.snapshot().get(
+                            "deppy_race_starts_total", {}))
+                        st: dict = {}
+                        out = sched.submit(tenants, stats=st)
+                        sched_mod._join_race_threads()
+                        torch.cuda.synchronize()
+                    finally:
+                        faults.configure_plan(None)
+                    if [render(r) for r in out] != want:
+                        fail(f"faults 11 {label}: answers differ from the "
+                             f"baseline's")
+                    got = st["report"].backend
+                    started = reg.snapshot().get(
+                        "deppy_race_starts_total", {}).get("device", 0) - \
+                        starts0.get("device", 0)
+                    if got != backend or bool(started) != device_entrant:
+                        fail(f"faults 11 {label}: backend {got}, device "
+                             f"entrants {started}")
+                    return dict(backend=got, device_entrants=started)
+
+                part("11 auto first flush",
+                     lambda: flush("first flush", "device"),
+                     dict(fault_failures=0, fault_host_routed=0))
+                part("11 auto trip",
+                     lambda: flush("trip", "device",
+                                   '[{"point": "driver.dispatch", '
+                                   '"times": -1}]'),
+                     dict(fault_failures=2, fault_host_routed=len(tenants),
+                          breaker=["open"], dumps=1))
+                row = part("11 auto host drain",
+                           lambda: flush("host drain", "host",
+                                         device_entrant=False),
+                           dict(fault_failures=0, fault_host_routed=0))
+                if any(row["launches"].values()):
+                    fail(f"faults 11 host drain: launches {row['launches']}")
+                t_clear = time.perf_counter()
+                thread = sched._reprobe_thread
+                if thread is None:
+                    fail("faults 11: the host drain kicked no re-probe")
+                thread.join(120)
+                upgrade_s = time.perf_counter() - t_clear
+                reprobes = reg.snapshot().get("deppy_sched_reprobes_total", {})
+                if reprobes != {"upgraded": 1} or \
+                        faults.default_breaker().state() != "closed":
+                    fail(f"faults 11: re-probes {reprobes}, breaker "
+                         f"{faults.default_breaker().state()}")
+                print(f"faults 11 re-probe: upgraded {upgrade_s:.3f} s after "
+                      f"the plan was cleared (cooldown {reset_s} s, "
+                      f"DEPPY_GPU_REPROBE {FAULT_REPROBE_S} s) [{card}]",
+                      flush=True)
+                numbers["upgrade_s"] = upgrade_s
+                row = part("11 auto upgraded",
+                           lambda: flush("upgraded", "device"),
+                           dict(fault_failures=0, fault_host_routed=0))
+                if not any(row["launches"].values()):
+                    fail("faults 11 upgraded: no kernel launched")
+            finally:
+                sched.stop()
+        # Part 12: each kernel's first launch in the phase against its
+        # plain version (checked with the pool's other jobs).
+        cap.submit(plain, "faults")
+    finally:
+        # Part 13: clean up.
+        faults.configure_plan(None)
+        driver.STAGE1_STEPS = 0
+        core.set_bcp_impl("auto")
+        _restore_env(env0, env_keys)
+        faults.set_default_breaker(None)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if faults.default_breaker().state() != "closed":
+        fail("faults: the breaker is not closed after the phase")
+    seconds = time.perf_counter() - t_phase
+    numbers.update(seconds=seconds, scripted=dict(scripted))
+    print(f"faults path: {seconds:.1f} s; scripted failures "
+          f"{scripted['failures']}, host-routed lanes "
+          f"{scripted['host_routed']}; launches {launches}", flush=True)
+    return launches, numbers, scripted
+
+
+def _stage1_budget(groups, max_share: float) -> int:
+    """The smallest stage-1 budget (a step count of the baseline) that
+    strands at most ``max_share`` of every group's lanes, and some lanes
+    of one: the compacted redo.  Fails when the steps allow none."""
+    for c in sorted({x for g in groups for x in g}):
+        out = [sum(x > c for x in g) for g in groups]
+        if all(k <= max_share * len(g) for k, g in zip(out, groups)):
+            if not any(out):
+                break
+            return c
+    fail("faults 8: no stage-1 budget strands a few lanes of a group")
+
+
+def _restore_env(env0: dict, keys) -> None:
+    for k in keys:
+        if env0[k] is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = env0[k]
 
 
 def doc_size(doc) -> str:
@@ -4798,6 +5405,8 @@ PATH_KERNELS = {
              "core"),
     "incremental": ("bcp_fixpoint", "search", "minimize", "core"),
     "sessions": ("bcp_fixpoint", "search", "minimize", "core"),
+    "faults": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
+               "core"),
 }
 
 
@@ -4861,6 +5470,9 @@ def main(argv=None) -> int:
         by_path["sessions"], per_family["sessions"] = run_sessions_path(
             args.scale, plain)
         stamp("sessions path")
+        by_path["faults"], per_family["faults"], scripted = run_faults_path(
+            args.scale, plain)
+        stamp("faults path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")
@@ -4897,6 +5509,20 @@ def main(argv=None) -> int:
 
         sched_mod._join_race_threads()
         hostpool.shutdown_default_pool()
+
+    # The faults gate at the end of the run: the driver failures and
+    # host-routed lanes of the whole run are exactly those the faults
+    # phase scripted (a real launch failure anywhere fails the run, even
+    # though the envelope answered it).
+    snap = _fault_snapshot()
+    seen = dict(failures=snap["deppy_fault_failures_total"],
+                host_routed=snap["deppy_fault_host_routed_total"])
+    print(f"faults gate: driver failures {seen['failures']}, host-routed "
+          f"lanes {seen['host_routed']} in the run; scripted {scripted}",
+          flush=True)
+    if seen != scripted:
+        fail(f"faults gate: the run counted {seen}, the faults phase "
+             f"scripted {scripted}")
 
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in engine.KERNELS}

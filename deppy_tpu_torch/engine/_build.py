@@ -6,7 +6,8 @@ into one shared library with a plain C interface that :mod:`ctypes`
 loads.  The library lands in ``build/torch_kernels/<hash>/`` at the
 repository root, keyed by a hash of every source and header, so an edit
 rebuilds and an unchanged tree reuses the last build.  A failed build
-raises with nvcc's stderr.  Nothing here runs at import time.
+raises :class:`KernelBuildError` with nvcc's stderr.  Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -30,6 +31,38 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libdeppy_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+
+class KernelBuildError(RuntimeError):
+    """The kernels cannot be built: no ``nvcc``, a failed compile or
+    link, or a library that does not load or lacks a launch function.
+    A defect of the tree or its toolchain, not of the card: the driver's
+    recovery wrapper re-raises it untouched instead of retrying or
+    host-routing it."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A launch that this tree's kernel cannot take, whatever the card's
+    health: a launch configuration or shape the launch function refuses,
+    more registers or shared memory than a block may hold, no image of
+    the kernel for this card, or a library whose warp slice disagrees
+    with the wrapper's rule.  A defect of the tree, like
+    :class:`KernelBuildError`, so the driver's recovery wrapper re-raises
+    it untouched too."""
+
+
+# CUDA runtime error codes (``cudaError_t``) that a launch function
+# returns for a launch the kernel cannot take, the same on every card
+# and every try: invalid value (1, the launch functions' own shape
+# refusal), invalid configuration (9), invalid device function (98),
+# invalid kernel image (200), no kernel image for the device (209),
+# invalid PTX (218), unsupported PTX version (222) and launch out of
+# resources (701).  Every other code (an illegal address, a launch
+# failure, a timeout, an allocation failure, a lost or sticky context)
+# is a fault of the card.
+LAUNCH_DEFECT_CODES = frozenset((1, 9, 98, 200, 209, 218, 222, 701))
+
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -64,7 +97,7 @@ def _nvcc() -> str:
     fallback = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(fallback):
         return fallback
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+    raise KernelBuildError("nvcc not found: the CUDA kernels need the CUDA "
                        "toolkit on PATH or under /usr/local/cuda")
 
 
@@ -97,13 +130,13 @@ def _compile(out_dir: Path) -> None:
             if p.returncode != 0:
                 failed.append(f"nvcc failed on {src}:\n{err}")
         if failed:
-            raise RuntimeError("\n".join(failed))
+            raise KernelBuildError("\n".join(failed))
         link = subprocess.run(
             [nvcc, "-shared", "-o", str(tmp / LIB_NAME),
              *[str(obj) for _, obj, _ in procs]],
             capture_output=True, text=True)
         if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+            raise KernelBuildError(f"nvcc link failed:\n{link.stderr}")
         (tmp / "ptxas.log").write_text("\n".join(log))
         os.replace(tmp, out_dir)
     finally:
@@ -127,9 +160,14 @@ def load() -> ctypes.CDLL:
             t0 = time.perf_counter()
             _compile(path.parent)
             build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
+        try:
+            lib = ctypes.CDLL(str(path))
+            fns = {name: getattr(lib, name) for name in _SIGNATURES}
+        except (OSError, AttributeError) as e:
+            raise KernelBuildError(
+                f"the kernel library {path} does not load: {e}") from e
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+            fn = fns[name]
             fn.argtypes = argtypes
             fn.restype = (ctypes.c_size_t
                           if name.endswith(("_words", "_bytes"))
@@ -139,6 +177,13 @@ def load() -> ctypes.CDLL:
 
 
 def check(rc: int, what: str) -> None:
-    """Raise when a launch function returned a CUDA error code."""
+    """Raise when a launch function returned a CUDA error code:
+    :class:`KernelLaunchError` for a code of
+    :data:`LAUNCH_DEFECT_CODES`, a plain ``RuntimeError`` (a fault of the
+    card) for any other."""
+    if rc in LAUNCH_DEFECT_CODES:
+        raise KernelLaunchError(
+            f"{what} launch refused: CUDA error {rc}, a launch this "
+            "kernel cannot take")
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")

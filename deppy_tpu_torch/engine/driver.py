@@ -1,23 +1,44 @@
-"""Pad, batch, dispatch and decode (port of ``deppy_tpu/engine/driver.py:58-2188``, the three-phase split path and the warm screen).
+"""Pad, batch, dispatch and decode (port of ``deppy_tpu/engine/driver.py:58-2188``, without the mesh).
 
 One batched resolve, as the reference's ``solve_problems`` runs it
-without a mesh, faults or budget escalation:
+without a mesh:
 
 1. :func:`partition_buckets` splits a heterogeneous batch along the
    shared size-class ladder;
-2. :func:`pad_stack` pads each bucket to common power-of-two dims on the
+2. each bucket runs through :func:`_solve_escalating` (the budget
+   escalation ladder, off while :data:`STAGE1_STEPS` is 0) and, inside
+   it, :func:`_recovering` (the fault envelope) around the three-phase
+   path :func:`_solve_split`;
+3. :func:`pad_stack` pads the bucket to common power-of-two dims on the
    host and the compact tensors go to the device once;
-3. per chunk of at most :data:`MAX_LANES` lanes the planes of phases
+4. per chunk of at most :data:`MAX_LANES` lanes the planes of phases
    1-2 are derived on the device where the kernels read them (the
    reduced space under ``bits`` and ``watched``, the full space under
    ``pallas``, ``blockwise`` and ``gather``, as ``_derive_planes`` does),
    then phase 1 (search) and phase 2 (minimization, SAT lanes) run there;
-4. the UNSAT lanes get their unsat core: the cores of giant problems
+5. the UNSAT lanes get their unsat core: the cores of giant problems
    (more than :data:`HOST_CORE_NCONS` applied constraints) from the host
    spec engine, the rest gathered into chunks of their own, their
    full-space planes derived, and phase 3 run on the device — routed
    exactly as the reference routes them (:func:`_core_routes`);
-5. :func:`decode_results` maps lanes back to variables.
+6. :func:`decode_results` maps lanes back to variables.
+
+The fault envelope (driver.py:1330-1516): every dispatch attempt passes
+the fault point ``driver.dispatch`` (and ``driver.device_put`` inside
+the upload); a failed attempt charges the process breaker
+(:func:`faults.default_breaker`), is retried with backoff
+(:class:`faults.RetryPolicy`, read on every dispatch), then its group is
+halved while the breaker allows, then solved on the host engine
+(:func:`_fault_results_host`, device-shaped results; counted in
+``deppy_fault_host_routed_total`` and ``SolveReport.fault_host_routed``).
+An open breaker host-routes a group without an attempt, an expired
+batch deadline (:func:`faults.ambient_deadline`) degrades it to
+Incomplete, and an attempt past ``chunk_deadline_s`` keeps its result
+but charges the breaker.  Semantic outcomes pass through, and so do the
+defects of the tree (:data:`TREE_DEFECTS`: a kernel that does not build,
+a launch it cannot take, a shape a wrapper refuses, a card that is not
+there), where the reference routes every other error to the host:
+routing those would hide a broken kernel behind correct answers.
 
 :func:`warm_screen` (driver.py:2155-2188) is the incremental tier's
 batched warm-prefix screen: pad, one elementwise
@@ -31,14 +52,14 @@ depth (kernel 3 writes it on the card); :func:`solve_one` with a
 Telemetry (:mod:`deppy_tpu_torch.telemetry`): every call runs under a
 ``driver.solve`` span and fills the thread's :class:`SolveReport`
 (``begin_report``/``end_report``; ``stats["report"]``): the spans
-``driver.pad_pack``, ``driver.device_put`` and ``driver.decode`` (and
+``driver.escalation``, ``driver.pad_pack``, ``driver.device_put``,
+``driver.fault_host_fallback`` and ``driver.decode`` (and
 ``driver.encode`` in :func:`solve_batch`), the padding counters of
-:func:`_telem_record_pad`, the host-core routing counter, and the
-``deppy_solve_seconds`` histogram.  The spans time the
-host wall and synchronize nothing: the driver's ``.cpu()`` fetches are
-where the card's work lands, inside ``driver.solve``.  The port has no
-escalation ladder, so no ``driver.escalation`` span is emitted (the
-reference's default ``STAGE1_STEPS = 0`` runs its ladder at stage 0).
+:func:`_telem_record_pad`, the host-core routing counter,
+``deppy_escalation_total`` and the ``deppy_solve_seconds`` histogram.
+The spans time the host wall and synchronize nothing: the driver's
+``.cpu()`` fetches are where the card's work lands, inside
+``driver.solve``.
 
 Under ``blockwise`` on the card the kernels read compact rows, built once
 per bucket (``cuda_blockwise.compact_rows``) and cut per chunk, and no
@@ -71,6 +92,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import faults
 from .. import size_classes as _size_classes
 from .. import telemetry
 from ..size_classes import bucket as _bucket
@@ -78,7 +100,7 @@ from ..sat.constraints import Variable
 from ..sat.encode import Problem, encode
 from ..sat.errors import Incomplete, InternalSolverError, NotSatisfiable
 from ..sat.host import HostEngine
-from . import clause_bank, core, cuda_blockwise, cuda_search
+from . import _build, clause_bank, core, cuda_blockwise, cuda_search
 
 # Default step budget when the caller sets none (driver.py:55).
 DEFAULT_MAX_STEPS = 1 << 24
@@ -104,6 +126,34 @@ HOST_CORE_NCONS = int(os.environ.get("DEPPY_GPU_HOST_CORE_NCONS", "768"))
 BANK_OCC_CAP = int(os.environ.get("DEPPY_GPU_BANK_OCC_CAP", "0"))
 
 
+# Progressive budget escalation (driver.py:1296-1313): stage 1 runs every
+# lane at this small step budget and the few lanes still running
+# re-dispatch compacted at the full budget (or, past
+# STAGE1_MAX_STRAGGLERS, the whole group re-runs).  0 disables it, as in
+# the reference's default; tests and chip_smoke.py's faults phase set the
+# attribute.
+STAGE1_STEPS = 0
+STAGE1_MAX_STRAGGLERS = 0.25
+# Groups below this size are not worth a two-stage run.
+STAGE1_MIN_BATCH = 64
+
+
+class NoDeviceError(RuntimeError):
+    """``device="cuda"`` was asked for and ``torch.cuda.is_available()``
+    is False.  Nothing routes around it: it is one of
+    :data:`TREE_DEFECTS`."""
+
+
+# The errors of a defect of the tree or of the call, not of the card: a
+# kernel that does not build, a launch the kernel cannot take, a shape or
+# argument a kernel wrapper refuses, and a card asked for on a machine
+# that has none.  The fault envelope re-raises them untouched (no retry,
+# no breaker charge, no host route), and so do the portfolio racer and
+# the warm screen.
+TREE_DEFECTS = (_build.KernelBuildError, _build.KernelLaunchError,
+                NoDeviceError, ValueError, TypeError)
+
+
 # Trace-buffer depth when a tracer is attached and the caller sets none
 # (driver.py:1974-1978): truncation warns, and shows as
 # stats["backtracks"] > trace calls.
@@ -115,7 +165,7 @@ def resolve_device(device) -> torch.device:
     nothing falls back to the CPU unasked."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise NoDeviceError(
             "device='cuda' was requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the kernels' plain versions")
     if dev.type not in ("cuda", "cpu"):
@@ -423,6 +473,7 @@ def _solve_split(problems: Sequence[Problem], budget: int,
     # The compact tensors cross to the device once, and the bucket's
     # clause banks and compact rows are derived there.
     with reg.span("driver.device_put", lanes=total, chunks=n_chunks) as sp:
+        faults.inject("driver.device_put")
         pts_all = _upload(pts_np, dev)
         en_all = torch.arange(total, device=dev) < n
         banks = impl == "watched" and d.Ob <= _bank_cap(d)
@@ -522,6 +573,222 @@ def _solve_split(problems: Sequence[Problem], budget: int,
     ]
 
 
+def _record_escalation(stage: int) -> None:
+    """The escalation stage a dispatch group reached (driver.py:1316-1327):
+    0 = single stage, 1 = stage 1 resolved every lane, 2 = stage 2."""
+    telemetry.default_registry().counter(
+        "deppy_escalation_total",
+        "Dispatch groups by the budget-escalation stage reached.",
+        labelname="stage",
+    ).inc(1, label=str(stage))
+    rep = telemetry.current_report()
+    if rep is not None:
+        rep.note_escalation(stage)
+
+
+def _fault_results_host(problems: Sequence[Problem], budget: int,
+                        reason: str) -> List[core.SolveResult]:
+    """Solve one dispatch group on the host engine (driver.py:1341-1400):
+    the device dispatch failed or the breaker is open.  Lanes run through
+    the host path's entry (:func:`hostpool.solve_host_problems`: the
+    worker pool, or inline), each under the ambient batch deadline.
+    Results are device-shaped — installed and core masks padded to the
+    group's dims — and the step budget carries over, so a lane that runs
+    out reads Incomplete (RUNNING), as does one not started before the
+    deadline (one counted expiry for the group)."""
+    from .. import hostpool
+
+    faults.inject("driver.host_fallback")
+    reg = telemetry.default_registry()
+    faults.fault_counter("deppy_fault_host_routed_total").inc(len(problems))
+    reg.event("fault", fault="host_fallback", reason=reason,
+              problems=len(problems))
+    rep = telemetry.current_report()
+    if rep is not None:
+        rep.fault_host_routed += len(problems)
+    d = _Dims(problems, max(len(problems), 1))
+    out: List[core.SolveResult] = []
+    dl = faults.current_deadline()
+    with reg.span("driver.fault_host_fallback", problems=len(problems),
+                  reason=reason):
+        lanes = hostpool.solve_host_problems(
+            problems, max_steps=int(budget),
+            deadlines=[dl] * len(problems))
+        n_degraded = sum(1 for r in lanes if r.degraded)
+        if n_degraded:
+            faults.note_deadline_exceeded("driver.host_fallback",
+                                          n_degraded)
+        for lane in lanes:
+            installed = torch.zeros(d.NV, dtype=torch.bool)
+            cmask = torch.zeros(d.NCON, dtype=torch.bool)
+            if lane.outcome == "sat":
+                installed[lane.installed_idx] = True
+                outcome = core.SAT
+            elif lane.outcome == "unsat":
+                cmask[lane.core_idx] = True
+                outcome = core.UNSAT
+            else:
+                outcome = core.RUNNING
+            out.append(core.SolveResult(
+                outcome, installed, cmask, lane.steps,
+                torch.zeros((0, d.NC + 1), dtype=torch.int32),
+                lane.backtracks))
+    return out
+
+
+def _deadline_results(problems: Sequence[Problem]) -> List[core.SolveResult]:
+    """Incomplete results for a group whose batch deadline expired before
+    it could dispatch (driver.py:1403-1413): completed batchmates keep
+    their answers, these lanes report what a budget-exhausted solve
+    would."""
+    d = _Dims(problems, max(len(problems), 1))
+    return [
+        core.SolveResult(core.RUNNING, torch.zeros(d.NV, dtype=torch.bool),
+                         torch.zeros(d.NCON, dtype=torch.bool), 0,
+                         torch.zeros((0, d.NC + 1), dtype=torch.int32), 0)
+        for _ in problems
+    ]
+
+
+def _recovering(impl, point: str = "driver.dispatch"):
+    """Wrap a dispatch-group impl ``impl(problems, budget, trace_cap)``
+    with the fault-domain policy (driver.py:1416-1516).
+
+    In order: an expired batch deadline degrades the group
+    (:func:`_deadline_results`); an open breaker host-routes it without an
+    attempt; otherwise each attempt passes the fault point ``point``, then
+    runs ``impl``.  A semantic outcome (``InternalSolverError``,
+    ``NotSatisfiable``, ``Incomplete``, ``DeadlineExceeded``) and a
+    defect of the tree (:data:`TREE_DEFECTS`) hand back a claimed
+    half-open probe slot and re-raise.  Any other failure is a device
+    fault: it charges the breaker and is retried up to
+    ``RetryPolicy.max_attempts`` with backoff (capped at the deadline's
+    remainder); a group that keeps failing is halved while the breaker
+    allows (a poison problem isolates in log2 steps), and what is left
+    goes to the host engine.  An attempt that overruns
+    ``chunk_deadline_s`` keeps its result, counts
+    ``deppy_deadline_exceeded{driver.chunk}`` and charges the breaker."""
+
+    def run(problems, budget, trace_cap):
+        policy = faults.RetryPolicy.from_env()
+        breaker = faults.default_breaker()
+        reg = telemetry.default_registry()
+        dl = faults.current_deadline()
+        if dl is not None and dl.expired():
+            faults.note_deadline_exceeded(point, len(problems))
+            return _deadline_results(problems)
+        if not breaker.allow():
+            return _fault_results_host(problems, budget,
+                                       reason="breaker_open")
+        attempt = 0
+        while True:
+            t0 = time.monotonic()
+            try:
+                faults.inject(point)
+                results = impl(problems, budget, trace_cap)
+            except (InternalSolverError, NotSatisfiable, Incomplete,
+                    faults.DeadlineExceeded) + TREE_DEFECTS:
+                # Not a device verdict: if this attempt was the breaker's
+                # half-open probe, hand the slot back.
+                breaker.abandon_probe()
+                raise
+            except Exception as e:  # noqa: BLE001 — a device fault
+                attempt += 1
+                breaker.record_failure()
+                faults.fault_counter("deppy_fault_failures_total").inc()
+                reg.event("fault", fault="dispatch_failed",
+                          error=type(e).__name__, attempt=attempt,
+                          problems=len(problems), breaker=breaker.state())
+                if dl is not None and dl.expired():
+                    faults.note_deadline_exceeded(point, len(problems))
+                    return _deadline_results(problems)
+                if (attempt < policy.max_attempts
+                        and not breaker.blocks_device()):
+                    faults.fault_counter("deppy_fault_retries").inc()
+                    back = policy.backoff_s(attempt)
+                    if dl is not None:
+                        back = min(back, max(dl.remaining(), 0.0))
+                    if back > 0:
+                        time.sleep(back)
+                    continue
+                if (len(problems) > 1 and policy.split_failed_groups
+                        and not breaker.blocks_device()):
+                    reg.event("fault", fault="group_split",
+                              problems=len(problems))
+                    mid = (len(problems) + 1) // 2
+                    return (run(list(problems[:mid]), budget, trace_cap)
+                            + run(list(problems[mid:]), budget, trace_cap))
+                return _fault_results_host(problems, budget,
+                                           reason=type(e).__name__)
+            else:
+                dur = time.monotonic() - t0
+                if (policy.chunk_deadline_s > 0
+                        and dur > policy.chunk_deadline_s):
+                    faults.note_deadline_exceeded("driver.chunk",
+                                                  len(problems))
+                    breaker.record_failure()
+                else:
+                    breaker.record_success()
+                return results
+
+    return run
+
+
+def _solve_escalating(impl, problems: Sequence[Problem], budget: int,
+                      trace_cap: int) -> List[core.SolveResult]:
+    """Run ``impl`` in two budget stages when profitable
+    (driver.py:1519-1586), every call under :func:`_recovering`.  The
+    ladder is off while :data:`STAGE1_STEPS` is 0, and tracing, a group
+    below :data:`STAGE1_MIN_BATCH`, a budget below 8 stage-1 budgets and
+    a problem whose core goes to the host each disable it.  Otherwise
+    stage 1 runs every lane at ``STAGE1_STEPS``; if more than
+    :data:`STAGE1_MAX_STRAGGLERS` of the lanes are still running, the
+    whole group re-runs at the full budget (a lane the redo left
+    undecided keeps its stage-1 decision), else the stragglers re-run
+    compacted.  Each lane reports the steps of the run that produced its
+    result, so answers and steps equal the single-stage solve's."""
+    impl = _recovering(impl)
+    reg = telemetry.default_registry()
+    if (
+        STAGE1_STEPS <= 0
+        or trace_cap > 0
+        or len(problems) < STAGE1_MIN_BATCH
+        or int(budget) < 8 * STAGE1_STEPS
+        or any(p.n_cons > HOST_CORE_NCONS for p in problems)
+    ):
+        with reg.span("driver.escalation", problems=len(problems),
+                      stage=0):
+            results = impl(problems, budget, trace_cap)
+        _record_escalation(0)
+        return results
+    with reg.span("driver.escalation", problems=len(problems)) as sp:
+        results = impl(problems, STAGE1_STEPS, 0)
+        stragglers = [i for i, r in enumerate(results)
+                      if r.outcome == core.RUNNING]
+        sp.set(stragglers=len(stragglers))
+        if not stragglers:
+            sp["stage"] = 1
+            _record_escalation(1)
+            return results
+        sp["stage"] = 2
+        _record_escalation(2)
+        dl = faults.current_deadline()
+        if dl is not None and dl.expired():
+            # The redo would only degrade the same lanes again.
+            return results
+        if len(stragglers) > STAGE1_MAX_STRAGGLERS * len(problems):
+            redo = impl(problems, budget, trace_cap)
+            return [
+                r1 if (r2.outcome == core.RUNNING
+                       and r1.outcome != core.RUNNING) else r2
+                for r1, r2 in zip(results, redo)
+            ]
+        sub = impl([problems[i] for i in stragglers], budget, 0)
+        for i, r in zip(stragglers, sub):
+            results[i] = r
+        return results
+
+
 def solve_problems(problems: Sequence[Problem],
                    max_steps: Optional[int] = None,
                    device="cuda", trace_cap: int = 0
@@ -531,26 +798,38 @@ def solve_problems(problems: Sequence[Problem],
     0 keeps a backtrack trace of that depth per problem
     (``SolveResult.trace_stack``).
 
-    The call runs under a ``driver.solve`` span and fills the thread's
-    active :class:`telemetry.SolveReport`, made here when none is active
-    (a nested call merges into the enclosing one; driver.py:1872-1926);
-    read it afterwards with :func:`telemetry.last_report`."""
+    The call runs under the ambient batch deadline (the caller's
+    ``deadline_scope``, else ``DEPPY_GPU_BATCH_DEADLINE_S``) and a
+    ``driver.solve`` span, and fills the thread's active
+    :class:`telemetry.SolveReport`, made here when none is active (a
+    nested call merges into the enclosing one; driver.py:1883-1943);
+    read it afterwards with :func:`telemetry.last_report`.  Whether the
+    core phase routes as one problem's (``monolith``) is decided once
+    per call, from its size: a split half or a straggler sub-group keeps
+    it."""
     for p in problems:
         if p.errors:
             raise InternalSolverError(p.errors)
     dev = resolve_device(device)
     budget = _budget(max_steps)
     n = len(problems)
+    monolith = n == 1
+
+    def impl(group, group_budget, group_trace_cap):
+        return _solve_split(group, group_budget, dev, monolith,
+                            trace_cap=group_trace_cap)
+
     rep, owns = telemetry.begin_report(backend="device", n_problems=n)
     reg = telemetry.default_registry()
     t0 = time.perf_counter()
     try:
-        with reg.span("driver.solve", problems=n):
+        with faults.ambient_deadline(), \
+                reg.span("driver.solve", problems=n):
             results: List[Optional[core.SolveResult]] = [None] * n
             for idxs in (partition_buckets(problems) if n > 1
                          else [list(range(n))]):
-                sub = _solve_split([problems[i] for i in idxs], budget, dev,
-                                   monolith=n == 1, trace_cap=trace_cap)
+                sub = _solve_escalating(impl, [problems[i] for i in idxs],
+                                        budget, trace_cap)
                 for i, r in zip(idxs, sub):
                     results[i] = r
         for r in results:
@@ -673,21 +952,32 @@ def solve_one(problem: Problem, max_steps: Optional[int] = None,
 
 def solve_batch(problem_vars: Sequence[Sequence[Variable]],
                 max_steps: Optional[int] = None,
-                stats: Optional[dict] = None, device="cuda"):
+                stats: Optional[dict] = None, device="cuda",
+                checkpoint_dir: Optional[str] = None):
     """Batch entry used by :class:`deppy_tpu_torch.resolution.BatchResolver`
     (driver.py:2088-2123): per problem a solution dict, its
     :class:`NotSatisfiable`, or an :class:`Incomplete` marker.  ``stats``
     receives the summed ``steps`` and the batch's ``report``.  The encode
     runs under a ``driver.encode`` span, its wall the report's
-    ``encode`` (the reference times no encode)."""
+    ``encode`` (the reference times no encode).  ``checkpoint_dir``
+    solves group by group with resume
+    (:func:`deppy_tpu_torch.engine.checkpoint.solve_problems_checkpointed`),
+    every group's driver call merging into this batch's report."""
     rep, owns = telemetry.begin_report(backend="device")
     try:
         with telemetry.default_registry().span(
                 "driver.encode", problems=len(problem_vars)) as sp:
             problems = [encode(vs) for vs in problem_vars]
         rep.add_wall("encode", sp.dur_s)
-        results = solve_problems(problems, max_steps=max_steps,
-                                 device=device)
+        if checkpoint_dir is not None:
+            from .checkpoint import solve_problems_checkpointed
+
+            results = solve_problems_checkpointed(
+                problems, checkpoint_dir, max_steps=max_steps,
+                device=device)
+        else:
+            results = solve_problems(problems, max_steps=max_steps,
+                                     device=device)
     finally:
         telemetry.end_report(rep, owns)
     if stats is not None:

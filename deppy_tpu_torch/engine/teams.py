@@ -29,6 +29,7 @@ from __future__ import annotations
 from typing import Optional
 
 from . import core
+from ._build import KernelLaunchError
 
 # The opt-in shared memory of one thread block on the H100.
 SMEM_BYTES = 232448
@@ -116,5 +117,6 @@ def check_slice(lib, kernel: str, C: int, NA: int, W: int, NV: int,
         got = lib.deppy_minimize_warp_smem_bytes(C, NA, W, NV, int(snaps))
     want = warp_smem_bytes(kernel, C, NA, W, NV, NCON, snaps)
     if got != want:
-        raise RuntimeError(f"{kernel} warp slice: the kernel library counts "
-                           f"{got} bytes, warp_smem_bytes {want}")
+        raise KernelLaunchError(
+            f"{kernel} warp slice: the kernel library counts {got} bytes, "
+            f"warp_smem_bytes {want}")

@@ -20,6 +20,17 @@ rules matched against named **fault points** the pipeline calls
   ``hostpool.worker_crash``   each chunk sent to a pool worker (an error
                               makes that worker exit mid-task; its lanes
                               retry on a fresh worker)
+  ``driver.dispatch``         each device dispatch attempt of one group
+                              (an error is retried, split, host-routed and
+                              charged to the breaker)
+  ``driver.device_put``       the upload of one bucket's tensors to the
+                              device (inside an attempt: same recovery)
+  ``driver.host_fallback``    entry of a group's host-engine fallback (an
+                              error here is the caller's)
+  ``checkpoint.save_group``   before one checkpoint group is written (an
+                              error models the process dying between
+                              completed groups)
+  ``sessions.op``             entry of one session operation
   ==========================  ================================================
 
 The rest of the reference's points (:data:`KNOWN_POINTS`) parse the
@@ -83,11 +94,7 @@ KNOWN_POINTS = (
 # ROADMAP item that brings its call site.  A rule that can match only
 # these is named on the env path too: it would inject nothing here.
 NOT_YET_CALLED = {
-    "driver.dispatch": "A7",
-    "driver.device_put": "A7",
-    "driver.host_fallback": "A7",
     "driver.shard_dispatch.*": "A6",
-    "checkpoint.save_group": "A7",
     "service.resolve": "A5.6",
     "fleet.forward": "A5.6",
     "fleet.join_stream": "A5.6",

@@ -2,9 +2,9 @@
 
 Every counter the fault layer increments is declared here once (name,
 help, optional label) and reached through :func:`fault_counter`, so the
-help text cannot drift between the sites that increment it.  The
-breaker's families are declared too, so that a scrape names the same
-families as the reference's; the breaker itself is not ported yet.
+help text cannot drift between the sites that increment it (the
+driver's recovery wrapper, the breaker, the injection harness and the
+deadline paths).
 """
 
 from __future__ import annotations

@@ -1,17 +1,22 @@
-"""Wall-clock deadlines (copy of ``deppy_tpu/faults/policy.py:1-210``, without ``RetryPolicy``).
+"""Retry/backoff policy and wall-clock deadlines (copy of ``deppy_tpu/faults/policy.py:1-210``).
 
-:class:`Deadline` is a monotonic wall-clock budget.  The **batch**
-deadline rides a thread-local scope (:func:`deadline_scope`) from the
-caller down through the scheduler without touching the driver's
-signatures.
+  * :class:`RetryPolicy` (``policy.py:90-139``) — how many times a
+    failed dispatch group is re-attempted, with exponential backoff and
+    jitter between attempts, and whether a group that keeps failing is
+    split in half (isolating a poison chunk) before falling back to the
+    host engine.  The **chunk** deadline (``chunk_deadline_s``) bounds
+    one dispatch attempt: an attempt that runs past it counts
+    ``deppy_deadline_exceeded`` and charges the circuit breaker;
+  * :class:`Deadline` — a monotonic wall-clock budget.  The **batch**
+    deadline rides a thread-local scope (:func:`deadline_scope`) from
+    the caller down through the scheduler and the driver without
+    touching their signatures.
 
-Nothing here sleeps or loops on its own.  The request scheduler
-(:mod:`deppy_tpu_torch.sched`) reads the deadlines: it degrades an
-expired lane at triage and runs each dispatch under the loosest live
-lane's scope.  The driver's recovery wrapper, which reads the scope in
-the reference, is not ported yet; ``RetryPolicy`` and its knobs (retry
-count, backoff, the chunk deadline) come with it (ROADMAP A7), since
-nothing else reads them.
+Nothing here sleeps or loops on its own.  The driver's recovery wrapper
+(:func:`deppy_tpu_torch.engine.driver._recovering`) reads both, on every
+dispatch; the request scheduler (:mod:`deppy_tpu_torch.sched`) degrades
+an expired lane at triage and runs each dispatch under the loosest live
+lane's scope.
 
 The knobs are ``DEPPY_GPU_*`` (the reference's ``DEPPY_TPU_*`` names);
 the port has no typed knob registry, so a name is read as given.
@@ -20,10 +25,12 @@ the port has no typed knob registry, so a name is read as given.
 from __future__ import annotations
 
 import os
+import random
 import sys
 import threading
 import time
 from contextlib import contextmanager
+from dataclasses import dataclass
 from typing import Callable, Iterator, Optional, Union
 
 
@@ -71,6 +78,54 @@ class Deadline:
 
     def expired(self) -> bool:
         return self.remaining() <= 0.0
+
+
+@dataclass
+class RetryPolicy:
+    """How a failed device dispatch is retried before degrading.
+
+    ``max_attempts`` counts total tries of one dispatch group (2 = one
+    retry).  Backoff for attempt *k* (1-based failures) is
+    ``base * multiplier**(k-1)`` clamped to ``max_backoff_s``, plus up
+    to ``jitter`` of itself at random so workers retrying against a
+    shared card do not synchronize.  ``split_failed_groups`` halves a
+    group that exhausted its attempts (recursively, so a single poison
+    problem isolates in log2 steps) before the host-engine fallback.
+    ``chunk_deadline_s`` > 0 bounds one attempt's wall clock; 0
+    disables.
+    """
+
+    max_attempts: int = 2
+    base_backoff_s: float = 0.05
+    max_backoff_s: float = 2.0
+    multiplier: float = 2.0
+    jitter: float = 0.5
+    split_failed_groups: bool = True
+    chunk_deadline_s: float = 0.0
+
+    def backoff_s(self, attempt: int,
+                  rng: Callable[[], float] = random.random) -> float:
+        """Sleep before retry number ``attempt`` (1-based)."""
+        base = min(self.base_backoff_s * self.multiplier ** max(attempt - 1, 0),
+                   self.max_backoff_s)
+        return base * (1.0 + self.jitter * rng())
+
+    @classmethod
+    def from_env(cls) -> "RetryPolicy":
+        """Build the driver's policy from the environment
+        (``DEPPY_GPU_FAULT_RETRIES``, ``DEPPY_GPU_FAULT_BACKOFF_S``,
+        ``DEPPY_GPU_FAULT_BACKOFF_MAX_S``, ``DEPPY_GPU_CHUNK_DEADLINE_S``;
+        malformed values degrade to the defaults, see :func:`env_float`)."""
+        return cls(
+            max_attempts=max(int(env_float(
+                "DEPPY_GPU_FAULT_RETRIES", cls.max_attempts)), 1),
+            base_backoff_s=max(env_float(
+                "DEPPY_GPU_FAULT_BACKOFF_S", cls.base_backoff_s), 0.0),
+            max_backoff_s=max(env_float(
+                "DEPPY_GPU_FAULT_BACKOFF_MAX_S", cls.max_backoff_s), 0.0),
+            chunk_deadline_s=max(env_float(
+                "DEPPY_GPU_CHUNK_DEADLINE_S", 0.0), 0.0),
+        )
 
 
 # ------------------------------------------------------------- deadline scope

@@ -8,9 +8,9 @@ wait``:
   * a worker that dies mid-solve is detected by its pipe or process
     sentinel, its lanes retried on a fresh worker
     (``deppy_fault_retries`` charged,
-    ``deppy_hostpool_worker_crashes_total`` counted) up to
-    :data:`CRASH_ATTEMPTS` tries, then solved inline — answers survive
-    any crash;
+    ``deppy_hostpool_worker_crashes_total`` counted) up to the retry
+    policy's ``max_attempts`` tries (``DEPPY_GPU_FAULT_RETRIES``, read at
+    each dispatch), then solved inline — answers survive any crash;
   * workers recycle after ``DEPPY_GPU_HOST_WORKER_RECYCLE`` solves;
   * per-lane deadlines cancel only the expired lane: queued lanes are
     triaged at assignment (and again worker-side just before the solve);
@@ -53,10 +53,6 @@ DEFAULT_RECYCLE_AFTER = 256
 # Bound on waiting for a spawned worker's ready handshake; a sandbox
 # that allows fork but hangs it must not hang the solve path.
 DEFAULT_SPAWN_TIMEOUT_S = 30.0
-# Tries of one lane across worker crashes before it is solved inline: the
-# reference's RetryPolicy default (``faults/policy.py:104``), whose knob
-# (DEPPY_GPU_FAULT_RETRIES) comes with the policy in ROADMAP A7.
-CRASH_ATTEMPTS = 2
 
 
 class HostPoolError(RuntimeError):
@@ -340,7 +336,9 @@ class HostPool:
         n = len(problems)
         results: List[Optional[HostLaneResult]] = [None] * n
         attempts = [0] * n
-        max_attempts = CRASH_ATTEMPTS
+        # Tries of one lane across worker crashes before it is solved
+        # inline: the device dispatch's retry policy (pool.py:351).
+        max_attempts = max(faults.RetryPolicy.from_env().max_attempts, 1)
         # Tasks are CHUNKS of lanes: per-lane tasks run slower than the
         # serial loop (the pipe round trip eats the concurrency on ~ms
         # solves).  Oversubscribe 4 chunks per worker so stragglers

@@ -18,16 +18,15 @@ attempt entirely and cold-solve with their batchmates.  The screen is a
 router: the authoritative certification stays in
 ``HostEngine.solve_warm``.
 
-One departure from the reference: on ``device="cuda"`` a screen error
-propagates to the caller (through the scheduler, into the dispatch and
-to every coalesced submitter), where the reference turns any error into
-all-True (``warm.py:69-74``).  The reference can route around a device
-that cannot build or launch with its breaker; the port has none yet, so
-swallowing the error would hide a broken card behind host warm attempts,
-as a raising device entrant of the portfolio race would.  ROADMAP A7.1
-re-decides this together with the race's device entrant.  On
-``device="cpu"`` the reference's behaviour stands: a ``fault`` event
-``incremental_screen_failed`` naming the error, then all-True.
+A screen error degrades to all-True with a ``fault`` event
+``incremental_screen_failed`` naming it, as in the reference
+(``warm.py:69-74``), on every device: the screen is a router and the
+host warm attempt re-checks authoritatively, and the scheduler skips the
+screen while the card's breaker is open.  The one departure: a defect of
+the tree (``driver.TREE_DEFECTS``: a kernel that does not build, a
+launch it cannot take, a shape the wrapper refuses, ``"cuda"`` on a
+machine without a card) raises instead, since degrading would hide a
+broken kernel behind host warm attempts.
 """
 
 from __future__ import annotations
@@ -67,21 +66,18 @@ def screen(plans: Sequence[WarmPlan], device="cuda") -> List[bool]:
     """Batched warm-prefix screen over one warm lane class on
     ``device``.  ``True`` means the prefix survived the check and the
     host warm attempt is worth paying; ``False`` routes the lane
-    straight to the cold path.  On the card any error propagates (see
-    the module docstring); on the CPU it degrades to all-True — the
-    host attempt re-checks authoritatively."""
-    import torch
-
+    straight to the cold path.  A failure degrades to all-True (see the
+    module docstring), except a defect of the tree, which raises."""
     from .. import telemetry
     from ..engine import driver
 
-    args = ([p.problem for p in plans], [p.warm_assign > 0 for p in plans],
-            [p.cone for p in plans])
-    if torch.device(device).type != "cpu":
-        return [bool(v) for v in driver.warm_screen(*args, device=device)]
     try:
-        ok = driver.warm_screen(*args, device=device)
+        ok = driver.warm_screen(
+            [p.problem for p in plans], [p.warm_assign > 0 for p in plans],
+            [p.cone for p in plans], device=device)
         return [bool(v) for v in ok]
+    except driver.TREE_DEFECTS:
+        raise
     except Exception as e:  # noqa: BLE001 — router only; host re-checks
         telemetry.default_registry().event(
             "fault", fault="incremental_screen_failed",

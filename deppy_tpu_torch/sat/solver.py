@@ -22,9 +22,18 @@ replays the search kernel's trace buffer (``trace_cap`` rows, default
 :attr:`Solver.report` is the last solve's :class:`SolveReport`: the
 driver's on the device backend, one built here on the host backend.
 
+  * ``"auto"`` — :func:`resolve_backend` (``solver.py:379-561``) picks
+    one of the two: the host engine for a single problem (so
+    ``Solver(backend="auto")`` always solves on the host, as the
+    reference's does) and while the card's circuit breaker is open, else
+    the device when the engine probe's verdict for ``device`` says it is
+    usable.  On ``"cpu"`` the verdict is True in-process (the plain
+    versions always run); on ``"cuda"`` it comes from a killable
+    subprocess that solves one tiny problem on the card, so True means
+    the kernels loaded (or built) and launched.
+
 Any other name raises :class:`InternalSolverError`, the reference's
-``"auto"`` and ``"tpu"`` included: ``auto`` picks the host engine for a
-single problem, which would hide the card.
+``"tpu"`` included.
 
 The assumption scopes (:meth:`Solver.assume`, :meth:`Solver.test`,
 :meth:`Solver.untest`) run on the host engine on either backend, as in
@@ -40,17 +49,18 @@ planned against :attr:`Solver.warm_index` — and answers on the
 scheduler's device; without one it solves on the configured backend
 (where the reference solves on an inline host engine: the same answer,
 with the card kept in view).
-
-Left out (ROADMAP A7.1): deadlines without a scheduler, the ``auto``
-probe and the breaker.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
+import subprocess
+import sys
+import threading
 import time
 from collections import Counter
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from .. import telemetry
 from .constraints import Variable, mandatory, prohibited
@@ -59,7 +69,7 @@ from .errors import Incomplete, InternalSolverError, NotSatisfiable
 from .host import HostEngine
 from .tracer import Tracer
 
-BACKENDS = ("device", "host")
+BACKENDS = ("device", "host", "auto")
 
 
 def check_backend(backend: str) -> str:
@@ -67,6 +77,133 @@ def check_backend(backend: str) -> str:
     if backend not in BACKENDS:
         raise InternalSolverError([f"unknown backend {backend!r}"])
     return backend
+
+
+def resolve_backend(backend: str, *, batch: bool = True, block: bool = True,
+                    device="cuda") -> str:
+    """Resolve a backend name to ``"device"`` or ``"host"``: the one place
+    the ``auto`` policy lives (``solver.py:379-423``; shared by
+    :class:`Solver`, the resolution facade and the request scheduler).
+    Raises on unknown names.
+
+    Under ``auto``: a single problem (``batch=False``) goes to the host
+    engine — a batch of one is dispatch-latency-bound, and the device's
+    win is batch parallelism; an open circuit breaker means host, without
+    a probe; ``block=False`` (a caller that must not stall on the first
+    probe, the scheduler's dispatch loop) with no verdict yet for
+    ``device``'s type means host, except on the CPU, whose verdict is
+    instant; otherwise the probe's verdict decides.  ``"device"`` and
+    ``"host"`` resolve to themselves."""
+    check_backend(backend)
+    if backend != "auto":
+        return backend
+    if not batch:
+        return "host"
+    from .. import faults
+
+    if faults.default_breaker().blocks_device():
+        return "host"
+    kind = _device_type(device)
+    if not block and kind not in _ENGINE_USABLE and kind != "cpu":
+        return "host"
+    return "device" if _engine_usable(device) else "host"
+
+
+# The engine probe's verdict per device type ("cuda", "cpu"), cached for
+# the process: ``auto`` is a routing policy, not a health monitor
+# (:func:`reprobe_engine` replaces a verdict).  One lock serializes the
+# probes, so concurrent ``auto`` callers share one subprocess.
+_ENGINE_USABLE: Dict[str, bool] = {}
+_ENGINE_USABLE_LOCK = threading.Lock()
+# A card probe loads the kernels (building them into the git-ignored
+# cache when the tree has none) and launches them; a wedged card can
+# hang its first call, so the probe is a killable subprocess.
+_PROBE_TIMEOUT_S = 75
+# The child also ends itself shortly after the parent's timeout, so an
+# orphan (its parent died mid-probe) cannot hang holding the card.
+_PROBE_SELF_DESTRUCT_S = _PROBE_TIMEOUT_S + 5
+# The probe's source: import the port, solve one tiny problem on the
+# card — right, through the kernels, and not host-routed by the fault
+# envelope — and leave through os._exit (skipping a teardown that could
+# hang).
+_PROBE_SRC = """
+import os, signal
+signal.signal(signal.SIGALRM, lambda *a: os._exit(3))
+signal.alarm({alarm})
+import torch
+from deppy_tpu_torch import engine, telemetry
+from deppy_tpu_torch.engine import driver
+from deppy_tpu_torch.sat.constraints import dependency, mandatory, variable
+out = driver.solve_batch(
+    [[variable("a", mandatory(), dependency("b")), variable("b")]],
+    device="cuda")
+torch.cuda.synchronize()
+routed = telemetry.default_registry().snapshot().get(
+    "deppy_fault_host_routed_total", 0)
+ok = (out == [{{"a": True, "b": True}}] and not routed
+      and sum(engine.launch_counts().values()) > 0)
+os._exit(0 if ok else 4)
+"""
+
+
+def _device_type(device) -> str:
+    return str(device).split(":")[0]
+
+
+def reprobe_engine(device="cuda") -> bool:
+    """Probe engine usability on ``device`` again and replace its cached
+    verdict (``solver.py:465-497``).  A long-lived ``auto``-routed
+    process (the scheduler's deferred re-probe) calls this to upgrade
+    routing once the card recovers.  A True verdict is independent
+    evidence that the card works, so it also closes the circuit
+    breaker.  Returns the fresh verdict."""
+    kind = _device_type(device)
+    with _ENGINE_USABLE_LOCK:
+        fresh = _probe_verdict(kind)
+        _ENGINE_USABLE[kind] = fresh
+    if fresh:
+        from .. import faults
+
+        faults.default_breaker().reset()
+    return fresh
+
+
+def _engine_usable(device="cuda") -> bool:
+    """The cached verdict for ``device``'s type, probing once on first
+    use (``solver.py:500-525``)."""
+    kind = _device_type(device)
+    verdict = _ENGINE_USABLE.get(kind)
+    if verdict is not None:
+        return verdict
+    with _ENGINE_USABLE_LOCK:
+        if kind not in _ENGINE_USABLE:  # a concurrent caller probed first
+            _ENGINE_USABLE[kind] = _probe_verdict(kind)
+        return _ENGINE_USABLE[kind]
+
+
+def _probe_verdict(kind: str) -> bool:
+    """One engine-usability probe, no cache interaction
+    (``solver.py:527-561``).  On the CPU the plain versions always run:
+    True, in-process.  On ``cuda`` a subprocess with its output sent to
+    DEVNULL (a captured pipe held by a wedged helper would hang the
+    parent past the timeout) solves one tiny problem on the card."""
+    if kind == "cpu":
+        return True
+    env = dict(os.environ)
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (pkg_root, env.get("PYTHONPATH")) if p)
+    try:
+        probe = subprocess.run(
+            [sys.executable, "-c",
+             _PROBE_SRC.format(alarm=_PROBE_SELF_DESTRUCT_S)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+            timeout=_PROBE_TIMEOUT_S, env=env)
+        return probe.returncode == 0
+    # A hung or failed probe IS the False verdict.
+    except Exception:  # noqa: BLE001
+        return False
 
 
 def assumed_variables(variables: Sequence[Variable],
@@ -314,7 +451,8 @@ class Solver:
 
     def _solve_problem(self, problem: Problem,
                        tracer: Optional[Tracer]) -> List[Variable]:
-        if self.backend == "host":
+        if resolve_backend(self.backend, batch=False,
+                           device=self.device) == "host":
             return self._solve_host(problem, tracer)
         from ..engine.driver import solve_one
 

@@ -59,20 +59,29 @@ pad/pack, upload and set of kernel launches instead of paying one each.
 
 ``backend="device"`` (the default) runs each flush through
 ``driver.solve_problems(..., device=self.device)`` — the CUDA kernels on
-``"cuda"``, their plain versions on ``"cpu"``; a failed build or launch
-raises inside the dispatch and reaches every coalesced submitter, raced
-or not (a raced device entrant's error is re-raised into its flush, or
-into the next dispatch when another entrant had already won), and so
-does a failed warm screen on the card.
+``"cuda"``, their plain versions on ``"cpu"`` — whose fault envelope
+retries, splits and host-routes a failed launch and charges the card's
+circuit breaker.  A defect of the tree (``driver.TREE_DEFECTS``: a
+kernel that does not build, a launch it cannot take, a shape a wrapper
+refuses, ``"cuda"`` on a machine without a card) passes through
+the envelope and reaches every coalesced submitter, raced or not (a
+raced device entrant's defect is re-raised into its flush, or into the
+next dispatch when another entrant had already won).
 ``backend="host"`` drains through the host path's entry
 (:func:`deppy_tpu_torch.hostpool.solve_host_problems`: the worker pool,
-or inline).
+or inline).  ``backend="auto"`` resolves each flush without blocking
+(:func:`deppy_tpu_torch.sat.solver.resolve_backend`): host until the
+engine probe's verdict lands (:meth:`Scheduler.start` kicks one in the
+background), and while the breaker is open, when a host drain kicks the
+deferred re-probe (:meth:`Scheduler._kick_reprobe`,
+``DEPPY_GPU_REPROBE`` seconds between failed probes, default 600).
+While the breaker blocks the device, the racer offers no device entrant
+and the warm screen is skipped.
 
 Left out, each with the ROADMAP item that brings it (the parameters keep
 the reference's names and raise ``NotImplementedError`` when set; each
 tier stays off until then): speculation, optimize probes and route
-shadows (A5.6), the serving mesh (A6), and the ``auto`` backend, its
-probe and the breaker (A7).
+shadows (A5.6), and the serving mesh (A6).
 """
 
 from __future__ import annotations
@@ -88,7 +97,7 @@ from .. import faults, hostpool, telemetry
 from ..sat.constraints import Variable
 from ..sat.encode import Problem, encode
 from ..sat.errors import Incomplete, InternalSolverError, NotSatisfiable
-from ..sat.solver import check_backend
+from ..sat.solver import check_backend, resolve_backend
 from .cache import MISS, ResultCache, fingerprint
 from .fair import TenantPolicy
 
@@ -310,13 +319,13 @@ class PortfolioRacer:
 
     Entrant errors are counted (``deppy_race_entrant_errors_total``,
     by backend) and evented (a ``race_entrant_error`` fault naming the
-    error).  A host, grad_relax or hostpool entrant that raises, and a
-    fault injected at ``sched.race.<backend>``, lose the race as in the
-    reference.  A device entrant whose solve raises is NOT a lost
-    entrant: the port has no breaker (ROADMAP A7) to route around a
-    device that cannot build or launch, so the error is re-raised into
-    the dispatch as racing off would raise it — into this flush when no
-    winner was served yet, else into the next flush this racer plans.
+    error), and an entrant that raises loses the race, as in the
+    reference — a device fault seldom gets here, since the driver's
+    envelope retries, splits and host-routes it.  The one exception is a
+    device entrant whose solve raised a defect of the tree
+    (``driver.TREE_DEFECTS``): that error is re-raised into the dispatch
+    as racing off would raise it — into this flush when no winner was
+    served yet, else into the next flush this racer plans.
 
     Modes: ``on`` races wherever ≥2 candidates serve the class;
     ``auto`` races only classes with a measured ``portfolio`` row.
@@ -362,10 +371,8 @@ class PortfolioRacer:
         if err is not None:
             raise err
         class_name = padded_class([lane.problem for lane in live])
-        # The reference also asks its breaker here; the port's breaker
-        # comes with ROADMAP A7, so the device races whenever the
-        # scheduler's backend is the device.
-        device_ok = backend != "host"
+        device_ok = (backend != "host"
+                     and not faults.default_breaker().blocks_device())
         need_card = any(lane.problem.card_act.shape[0] > 0
                         and (lane.problem.card_act >= 0).any()
                         for lane in live)
@@ -377,6 +384,8 @@ class PortfolioRacer:
         if len(names) < 2:
             return None
         canonical = "host" if backend == "host" else "device"
+        if canonical == "device" and not device_ok:
+            canonical = "host"
         return _RacePlan(names, class_name, canonical)
 
     # ------------------------------------------------------------- race
@@ -388,6 +397,7 @@ class PortfolioRacer:
         entrant finished definitively — the caller falls back to the
         canonical path exactly as if racing were off."""
         from ..engine import registry as engine_registry
+        from ..engine.driver import TREE_DEFECTS
         from ..sat.host import SolveCancelled
 
         reg = self._registry
@@ -447,7 +457,7 @@ class PortfolioRacer:
             finally:
                 telemetry.detach_report(srep, owns)
             fatal = (name == "device" and solving
-                     and isinstance(err, BaseException))
+                     and isinstance(err, TREE_DEFECTS))
             with cv:
                 finished.append((name, time.perf_counter() - t0, out,
                                  err, srep))
@@ -507,8 +517,8 @@ class PortfolioRacer:
                 decided[0] = True
             stop.set()
             if failed:
-                # The device could not solve: raise into the dispatch
-                # exactly as racing off would, never serve around it.
+                # A defect of the tree: raise into the dispatch exactly
+                # as racing off would, never serve around it.
                 sp.set(winner="error")
                 raise failed[0]
             if winner is None:
@@ -785,11 +795,19 @@ class Scheduler:
         self._thread: Optional[threading.Thread] = None
         # EWMA of dispatch wall clock, seeding the Retry-After estimate.
         self._dispatch_ewma_s = 0.05
+        # The deferred background engine re-probe (scheduler.py:804-810):
+        # a breaker-open host drain under ``auto`` kicks ONE loop that
+        # upgrades routing once the card recovers.
+        self._reprobe_stop = threading.Event()
+        self._reprobe_thread: Optional[threading.Thread] = None
+        self._reprobe_s = faults.env_float("DEPPY_GPU_REPROBE", 600.0,
+                                           warn=True) or 0.0
 
     # -------------------------------------------------------------- lifecycle
 
     def start(self) -> None:
         """Start the dispatch-loop thread (idempotent)."""
+        self._reprobe_stop.clear()
         with self._cv:
             if self._thread is not None and self._thread.is_alive():
                 return
@@ -797,11 +815,31 @@ class Scheduler:
             self._thread = threading.Thread(
                 target=self._loop, name="deppy-sched", daemon=True)
             self._thread.start()
+        self._prewarm_backend()
+
+    def _prewarm_backend(self) -> None:
+        """The dispatch loop resolves the backend with ``block=False`` (it
+        must never stall the queue behind the engine probe), so ``auto``
+        answers "host" until something establishes the verdict; kick one
+        background probe here so routing upgrades once it lands
+        (scheduler.py:870-889).  On the CPU the verdict is instant."""
+        if self.backend != "auto":
+            return
+        from ..sat import solver as sat_solver
+
+        kind = sat_solver._device_type(self.device)
+        if kind in sat_solver._ENGINE_USABLE or kind == "cpu":
+            return
+        threading.Thread(
+            target=lambda: sat_solver.resolve_backend(
+                "auto", device=self.device),
+            name="deppy-sched-prewarm", daemon=True).start()
 
     def stop(self, timeout: float = 10.0) -> None:
         """Stop the loop; queued groups drain (dispatch) first so no
         submitter is left hanging.  Submits after stop dispatch
         inline."""
+        self._reprobe_stop.set()
         with self._cv:
             self._stop = True
             self._cv.notify_all()
@@ -1311,18 +1349,22 @@ class Scheduler:
                 live.append(lane)
         if not live:
             return None
-        # The dispatch runs under the LOOSEST live deadline (a
+        # The dispatch runs under the LOOSEST live deadline (the driver
+        # degrades whole groups past the scope's expiry, and a
         # stranger's tighter budget must not cut a batchmate short).
-        # Any unbounded lane means an unbounded dispatch.  The port's
-        # driver does not read this scope yet: the reference's recovery
-        # wrapper, which decodes a group past its expiry Incomplete,
-        # comes with ROADMAP A7, so until then a lane that passed
-        # triage is solved to its answer.
+        # Any unbounded lane means an unbounded dispatch.
         scope = None
         deadlines = [lane.deadline for lane in live]
         if all(d is not None for d in deadlines):
             scope = max(deadlines, key=lambda d: d.remaining())
-        rep, owns = telemetry.begin_report(backend=self.backend,
+        backend = resolve_backend(self.backend, block=False,
+                                  device=self.device)
+        if (self.backend == "auto" and backend == "host"
+                and faults.default_breaker().blocks_device()):
+            # A breaker-open host drain: kick the deferred background
+            # re-probe so routing upgrades once the card recovers.
+            self._kick_reprobe()
+        rep, owns = telemetry.begin_report(backend=backend,
                                            n_problems=len(live))
         try:
             with faults.deadline_scope(scope):
@@ -1331,14 +1373,14 @@ class Scheduler:
                     # warm attempts first, cold fallbacks drain through
                     # the normal backend path; it never races.
                     t1 = time.perf_counter()
-                    self._solve_incremental(live, rep, timing)
+                    self._solve_incremental(live, rep, timing, backend)
                     timing["solve_s"] = time.perf_counter() - t1
                     return rep
                 # Portfolio racing (scheduler.py:1826-1853).  A None plan
                 # (racing off, auto with no measured row, <2 candidates)
                 # leaves the canonical single-backend path below as it
                 # was.
-                plan = (self._racer.plan(live, self.backend)
+                plan = (self._racer.plan(live, backend)
                         if self._racer is not None else None)
                 finisher = None
                 raced = False
@@ -1352,7 +1394,7 @@ class Scheduler:
                         else:
                             raced = True
                     if not raced:
-                        if self.backend == "host":
+                        if backend == "host":
                             t1 = time.perf_counter()
                             self._solve_host(live, rep)
                             timing["solve_s"] = time.perf_counter() - t1
@@ -1386,7 +1428,7 @@ class Scheduler:
             lane.result = dec
 
     def _solve_incremental(self, live: List[_Lane], rep,
-                           timing: dict) -> None:
+                           timing: dict, backend: str) -> None:
         """Drain one incremental-class flush (scheduler.py:1900-1971):
         screen the warm prefixes on the scheduler's device (device
         backend, more than one lane), run the surviving warm attempts on
@@ -1396,15 +1438,16 @@ class Scheduler:
         preempts mid-solve), so a lapse during the flush degrades only
         the lanes not yet started.
 
-        The reference skips the screen while its breaker is open; the
-        port has no breaker (ROADMAP A7.1), so the screen always runs
-        here and a screen error on the card fails the dispatch.  Nor
-        does it record the warm tier's profile events (A5.6.1)."""
+        The screen is skipped while the card's breaker blocks the device
+        (its contract is zero device attempts); a screen failure
+        degrades to all-True (:func:`incremental.screen`).  The warm
+        tier's profile events wait for A5.6.1."""
         from .. import incremental as inc
 
         plans = [lane.warm for lane in live]
         screened = [True] * len(live)
-        if self.backend != "host" and len(live) > 1:
+        if (backend != "host" and len(live) > 1
+                and not faults.default_breaker().blocks_device()):
             # The batched device lane variant: one pass over the whole
             # warm class instead of per-lane host prefix tests.
             screened = inc.screen(plans, device=self.device)
@@ -1438,7 +1481,7 @@ class Scheduler:
             if self.incremental is not None:
                 self.incremental.note_served()
         if cold:
-            if self.backend == "host":
+            if backend == "host":
                 self._solve_host(cold, rep)
             else:
                 self._solve_device(cold, timing)
@@ -1517,8 +1560,67 @@ class Scheduler:
 
         return keep, finisher
 
+    # ------------------------------------------------- deferred re-probe
+
+    def _kick_reprobe(self) -> None:
+        """Start the background re-probe loop (once) after a breaker-open
+        host drain (scheduler.py:2051-2071).  The loop waits out the
+        breaker's cooldown, then runs the killable subprocess engine
+        probe off the serving path: a success resets the breaker and
+        replaces the ``auto`` verdict
+        (:func:`deppy_tpu_torch.sat.solver.reprobe_engine`), so routing
+        upgrades without a live dispatch on the half-open probe; a
+        failure retries every ``DEPPY_GPU_REPROBE`` seconds while the
+        breaker stays open.  ``DEPPY_GPU_REPROBE`` <= 0 disables it."""
+        if self._reprobe_s <= 0:
+            return
+        with self._cv:
+            t = self._reprobe_thread
+            if t is not None and t.is_alive():
+                return
+            t = threading.Thread(target=self._reprobe_loop,
+                                 name="deppy-sched-reprobe", daemon=True)
+            self._reprobe_thread = t
+        t.start()
+
+    def _reprobe_loop(self) -> None:
+        """The re-probe loop (scheduler.py:2073-2113)."""
+        from ..sat import solver as sat_solver
+
+        c_reprobes = self._registry.counter(
+            "deppy_sched_reprobes_total",
+            "Deferred background engine re-probes after a breaker-open "
+            "host drain, by result.", labelname="result")
+        # The first wake lands right after the cooldown; failed probes
+        # retry on the full interval (a subprocess probe must not
+        # hot-loop against a dead card).
+        delay = max(faults.default_breaker().remaining_s(), 1.0)
+        while True:
+            if self._reprobe_stop.wait(delay):
+                return
+            state = faults.default_breaker().state()
+            if state == "closed":
+                # Recovered through the dispatch path while we slept.
+                return
+            if state == "open":
+                # Re-opened (or still cooling): wait out the cooldown.
+                delay = max(faults.default_breaker().remaining_s(), 1.0)
+                continue
+            try:
+                ok = sat_solver.reprobe_engine(self.device)
+            # A probe that raises means not recovered; retried next tick.
+            except Exception:  # noqa: BLE001
+                ok = False
+            c_reprobes.inc(label="upgraded" if ok else "failed")
+            if ok:
+                telemetry.default_registry().event(
+                    "fault", fault="sched_reprobe_upgraded")
+                return
+            delay = max(self._reprobe_s, 1.0)
+
     def _solve_host(self, live: List[_Lane], rep) -> None:
-        """Host-engine drain for ``backend="host"`` (scheduler.py:2112-2144):
+        """Host-engine drain for ``backend="host"`` and for ``auto``
+        resolved to host (scheduler.py:2115-2144):
         the lanes run through the shared host entry — concurrent across
         the worker pool when one is available, inline (bit-identical)
         otherwise.  Each LANE's own deadline rides along: completed

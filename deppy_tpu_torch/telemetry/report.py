@@ -5,10 +5,9 @@ pipeline contributes to: the engine driver fills in padding/packing
 economics, device-transfer and solve wall-clock, and host-fallback
 routing; the SAT facades add outcome/step/decision counters.  Its
 ``backend`` is the port's backend name, ``"device"`` or ``"host"``.  The
-port has no escalation ladder, fault layer or trip profiler yet, so
-``escalation_stage``, ``fault_host_routed`` and the ledger fields stay 0
-(the reference's default, ``STAGE1_STEPS = 0``, runs its ladder at stage
-0 too).
+driver fills ``escalation_stage`` (its budget escalation ladder) and
+``fault_host_routed`` (groups its fault envelope solved on the host
+engine); the port has no trip profiler yet, so the ledger fields stay 0.
 
 The active report travels through the driver on a thread-local rather
 than through function signatures: the driver's internal phase functions

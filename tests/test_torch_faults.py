@@ -286,18 +286,22 @@ def test_plan_from_a_file_and_the_known_points(tmp_path):
 @within(30)
 def test_points_the_port_does_not_call_yet():
     """Every registered point but the scheduler's, the racer's, the
-    host pool's and the session store's waits for a ROADMAP item; a rule
-    that can match only those is named, one that can also match a called
-    point (or nothing known) is not."""
+    host pool's, the session store's, the driver's three and the
+    checkpoint writer's waits for a ROADMAP item; a rule that can match
+    only those is named, one that can also match a called point (or
+    nothing known) is not."""
     assert set(tinject.NOT_YET_CALLED) == set(tinject.KNOWN_POINTS) - {
         "sched.dispatch", "sched.race.*", "hostpool.dispatch",
-        "hostpool.worker_crash", "sessions.op"}
+        "hostpool.worker_crash", "sessions.op", "driver.dispatch",
+        "driver.device_put", "driver.host_fallback",
+        "checkpoint.save_group"}
     plan = tfaults.plan_from_spec(
         '[{"point": "driver.dispatch"}, {"point": "sched.*"}, '
         '{"point": "sched.race.3"}, {"point": "hostpool.*"}, '
-        '{"point": "fleet.*"}, {"point": "nowhere"}, {"point": "*"}]')
+        '{"point": "fleet.*"}, {"point": "nowhere"}, {"point": "*"}, '
+        '{"point": "driver.shard_dispatch.0"}, {"point": "driver.*"}]')
     assert tinject.uncalled_points(plan) == [
-        ("driver.dispatch", ["A7"]), ("fleet.*", ["A5.6"])]
+        ("fleet.*", ["A5.6"]), ("driver.shard_dispatch.0", ["A6"])]
 
 
 @within(30)
@@ -323,8 +327,12 @@ def test_plan_from_env_and_inject(monkeypatch, capsys):
     monkeypatch.setenv("DEPPY_GPU_FAULT_PLAN",
                        '[{"point": "driver.device_put"}]')
     assert tfaults.plan_from_env() is not None
-    assert "'driver.device_put' matches only points this package does " \
-        "not call yet (ROADMAP A7)" in capsys.readouterr().err
+    assert capsys.readouterr().err == ""
+    monkeypatch.setenv("DEPPY_GPU_FAULT_PLAN",
+                       '[{"point": "driver.shard_dispatch.0"}]')
+    assert tfaults.plan_from_env() is not None
+    assert "'driver.shard_dispatch.0' matches only points this package " \
+        "does not call yet (ROADMAP A6)" in capsys.readouterr().err
     monkeypatch.setenv("DEPPY_GPU_FAULT_PLAN", "")
     assert tfaults.plan_from_env() is None
 

@@ -273,8 +273,9 @@ def test_worker_crash_retries_on_a_fresh_worker():
 
 
 def test_crash_storm_solves_inline():
-    """Every chunk's worker crashes: after CRASH_ATTEMPTS tries each lane
-    is solved inline, and the answers still equal the inline path's."""
+    """Every chunk's worker crashes: after the retry policy's
+    ``max_attempts`` tries each lane is solved inline, and the answers
+    still equal the inline path's."""
     problems = _fuzz(4)
     pool = thostpool.HostPool(workers=WORKERS)
     try:
@@ -285,7 +286,7 @@ def test_crash_storm_solves_inline():
     finally:
         pool.shutdown()
     assert _snap()["deppy_hostpool_worker_crashes_total"] >= \
-        tpool.CRASH_ATTEMPTS
+        tfaults.RetryPolicy.from_env().max_attempts
 
 
 def test_deadline_expired_lane_cancels_without_poisoning():

@@ -38,6 +38,7 @@ from deppy_tpu_torch import io as tio
 from deppy_tpu_torch import telemetry as ttelemetry
 from deppy_tpu_torch.engine import driver as tdriver
 from deppy_tpu_torch.engine import registry as tregistry
+from deppy_tpu_torch.engine._build import KernelBuildError, KernelLaunchError
 from deppy_tpu_torch.engine.convert import variables_from_objects
 from deppy_tpu_torch.incremental import (DELTA_ADDITIVE, DELTA_IDENTICAL,
                                          DELTA_MIXED, DELTA_RETRACTIVE,
@@ -586,9 +587,10 @@ class TestWarmScreen:
 # ---------------------------------------------- the screen's error rule
 
 
-def _raising_screen(monkeypatch):
+def _raising_screen(monkeypatch, error=None):
     def boom(*args, **kw):
-        raise RuntimeError("screen launch failed")
+        raise (error if error is not None
+               else RuntimeError("screen launch failed"))
 
     monkeypatch.setattr(tdriver, "warm_screen", boom)
 
@@ -621,9 +623,33 @@ def _plans(n: int):
 
 
 def test_screen_error_on_cuda_raises(monkeypatch):
+    """On the card a screen launch error degrades like the reference's
+    (the event, then all-True); only a defect of the tree raises: a
+    kernel that does not build, a shape the wrapper refuses."""
     _raising_screen(monkeypatch)
     with _FaultEvents() as ev:
-        with pytest.raises(RuntimeError, match="screen launch failed"):
+        assert tinc.screen(_plans(2), device="cuda") == [True] * 2
+    (e,) = ev.of("incremental_screen_failed")
+    assert e["error"] == "RuntimeError" and e["lanes"] == 2
+    for error in (KernelBuildError("nvcc failed on search.cu"),
+                  KernelLaunchError("screen launch refused"),
+                  ValueError("shape refused"), TypeError("dtype refused")):
+        _raising_screen(monkeypatch, error)
+        with _FaultEvents() as ev:
+            with pytest.raises(type(error), match="refused|nvcc"):
+                tinc.screen(_plans(2), device="cuda")
+        assert ev.of("incremental_screen_failed") == []
+
+
+def test_screen_on_cuda_without_a_card_raises(monkeypatch):
+    """On a machine without a card the screen on ``cuda`` raises the
+    driver's ``NoDeviceError``: it does not degrade to all-True and let
+    host warm attempts run in its place."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with _FaultEvents() as ev:
+        with pytest.raises(tdriver.NoDeviceError, match="cuda"):
             tinc.screen(_plans(2), device="cuda")
     assert ev.of("incremental_screen_failed") == []
 
@@ -647,12 +673,13 @@ def _seeded(sched, base_jvars):
 
 
 def test_screen_error_on_cuda_reaches_every_coalesced_submitter(monkeypatch):
-    """A warm flush of two requests on ``device="cuda"`` (the screen is
-    faked to fail as a build or launch would; no card is asked): both
-    submitters get the error, nothing is served around it, nothing
-    falls back to host warm attempts, and no event turns it into
-    all-True."""
-    _raising_screen(monkeypatch)
+    """A warm flush of two requests on ``device="cuda"`` whose screen
+    fails as a kernel build would (no card is asked): both submitters
+    get the error, nothing is served around it, nothing falls back to
+    host warm attempts, and no event turns it into all-True.  (A launch
+    error degrades instead: ``test_screen_error_on_cuda_raises``.)"""
+    _raising_screen(monkeypatch,
+                    KernelBuildError("screen launch failed"))
     attempted = []
     monkeypatch.setattr(tinc, "attempt",
                         lambda *a, **k: attempted.append(1))

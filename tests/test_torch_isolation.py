@@ -59,18 +59,20 @@ def test_scan_covers_sched_faults_hostpool():
         ("incremental", "warm.py"),
         ("sched", "__init__.py"), ("sched", "cache.py"),
         ("sched", "fair.py"), ("sched", "scheduler.py"),
-        ("faults", "__init__.py"), ("faults", "inject.py"),
+        ("faults", "__init__.py"), ("faults", "breaker.py"),
+        ("faults", "inject.py"),
         ("faults", "metrics.py"), ("faults", "policy.py"),
         ("hostpool", "__init__.py"), ("hostpool", "metrics.py"),
         ("hostpool", "pool.py"), ("hostpool", "worker.py")}
 
 
 def test_scan_covers_the_racing_modules():
-    """The engine registry, the grad_relax entrant and the
-    measured-defaults reader are the port's own copies: the AST scan
-    reads each."""
+    """The engine registry, the grad_relax entrant, the
+    measured-defaults reader and the checkpoint writer are the port's own
+    copies: the AST scan reads each."""
     names = {p.name for p in PORT_FILES if p.parent.name == "engine"}
-    assert {"registry.py", "grad_relax.py", "defaults.py"} <= names
+    assert {"registry.py", "grad_relax.py", "defaults.py",
+            "checkpoint.py"} <= names
 
 
 def test_scan_covers_the_session_modules():
@@ -194,6 +196,39 @@ def test_fresh_process_surface_loads_no_jax():
         out = BatchResolver(device="cpu").solve(
             io.problems_from_document(doc))
         assert io.result_to_dict(out[0])["status"] == "sat"
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new
+                     if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_fresh_process_auto_and_checkpoint_load_no_jax(tmp_path):
+    """``auto`` resolution on the CPU, a BatchResolver under ``auto``, a
+    faulted dispatch through the envelope and a checkpointed CPU solve
+    import nothing of JAX or deppy_tpu."""
+    code = textwrap.dedent(f"""
+        import sys
+        before = set(sys.modules)
+        from deppy_tpu_torch import faults
+        from deppy_tpu_torch.engine import checkpoint
+        from deppy_tpu_torch.models import pinned_tenant_catalog
+        from deppy_tpu_torch.resolution import BatchResolver
+        from deppy_tpu_torch.sat.encode import encode
+        from deppy_tpu_torch.sat.solver import resolve_backend
+        assert resolve_backend("auto", device="cpu") == "device"
+        states = [pinned_tenant_catalog(seed=s) for s in range(2)]
+        plain = BatchResolver(backend="auto", device="cpu").solve(states)
+        faults.configure_plan(faults.plan_from_spec(
+            '[{{"point": "driver.dispatch", "times": 1}}]'))
+        out = checkpoint.solve_problems_checkpointed(
+            [encode(vs) for vs in states], {str(tmp_path)!r}, group=1,
+            device="cpu")
+        assert len(out) == len(plain) == 2
         new = set(sys.modules) - before
         bad = sorted(m for m in new
                      if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))

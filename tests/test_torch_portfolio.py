@@ -54,6 +54,7 @@ from deppy_tpu_torch import size_classes as tsize
 from deppy_tpu_torch import telemetry as ttelemetry
 from deppy_tpu_torch.engine import defaults as tdefaults
 from deppy_tpu_torch.engine import driver as tdriver
+from deppy_tpu_torch.engine._build import KernelBuildError, KernelLaunchError
 from deppy_tpu_torch.engine import grad_relax as tgrad
 from deppy_tpu_torch.engine import registry as tregistry
 from deppy_tpu_torch.hostpool.worker import HostLaneResult as THostLaneResult
@@ -456,18 +457,16 @@ class _FaultEvents:
         return [e for e in self.events if e.get("fault") == fault]
 
 
-@within(120)
-def test_a_raising_device_entrant_raises_into_its_dispatch(monkeypatch):
-    """A device entrant whose solve raises is not a lost entrant: its
-    error reaches the flush's submitter, as racing off would raise it,
-    counted and evented with its type, and no host answer is served
-    around it."""
+def _race_device_first(monkeypatch, error, reg):
+    """One raced submit whose device entrant raises ``error`` before the
+    host entrant (which waits for it) finishes: the answers, or the
+    exception the submit raised."""
     host_solve = tregistry._SOLVERS["host"]
     failed = threading.Event()
 
     def device_fails(problems, *args, **kwargs):
         failed.set()
-        raise RuntimeError("kernel build failed")
+        raise error
 
     def host_second(problems, *args, **kwargs):
         # Finish only after the device entrant's thread has ended.
@@ -479,55 +478,124 @@ def test_a_raising_device_entrant_raises_into_its_dispatch(monkeypatch):
 
     monkeypatch.setitem(tregistry._SOLVERS, "device", device_fails)
     monkeypatch.setitem(tregistry._SOLVERS, "host", host_second)
+    try:
+        return TScheduler(device="cpu", portfolio="on", portfolio_k=2,
+                          portfolio_sample_check=0.0, registry=reg).submit(
+            [_chain(tsat, 16)] * 2)
+    except RuntimeError as e:
+        return e
+    finally:
+        monkeypatch.setitem(tregistry._SOLVERS, "host", host_solve)
+
+
+@within(120)
+def test_a_raising_device_entrant_raises_into_its_dispatch(monkeypatch):
+    """A device entrant whose solve raises a device fault loses the race,
+    as in the reference (the driver's envelope has already retried it):
+    counted and evented with its type, the host answer served.  One that
+    raises a defect of the tree (a kernel that does not build) is not a
+    lost entrant: its error reaches the flush's submitter, as racing off
+    would raise it, and no host answer is served around it."""
+    reqs = [_chain(tsat, 16)] * 2
+    off = _render("port", TScheduler(device="cpu",
+                                     portfolio="off").submit(reqs))
+    for error, raises in ((RuntimeError("launch failed"), False),
+                          (KernelBuildError("kernel build failed"), True),
+                          (KernelLaunchError("launch refused"), True)):
+        reg = ttelemetry.Registry()
+        with _FaultEvents() as ev:
+            out = _race_device_first(monkeypatch, error, reg)
+        snap = reg.snapshot()
+        assert snap["deppy_race_entrant_errors_total"] == {"device": 1}
+        (e,) = ev.of("race_entrant_error")
+        assert e["backend"] == "device"
+        assert e["error"] == f"{type(error).__name__}: {error}"
+        if raises:
+            assert out is error
+            assert not _wins(reg)
+        else:
+            assert _render("port", out) == off
+            assert _wins(reg) == {"host": 1}
+
+
+@within(120)
+def test_cuda_without_a_card_raises_into_the_raced_dispatch(monkeypatch):
+    """``Scheduler(device="cuda", portfolio="on")`` on a machine without a
+    card: the device entrant's ``NoDeviceError`` reaches the submitter,
+    and no host answer is served around it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    device_solve = tregistry._SOLVERS["device"]
+    host_solve = tregistry._SOLVERS["host"]
+    ended = threading.Event()
+
+    def device_then_flag(*args, **kwargs):
+        try:
+            return device_solve(*args, **kwargs)
+        finally:
+            ended.set()
+
+    def host_second(*args, **kwargs):
+        ended.wait(30)
+        for t in threading.enumerate():
+            if t.name == "deppy-race-device":
+                t.join(30)
+        return host_solve(*args, **kwargs)
+
+    monkeypatch.setitem(tregistry._SOLVERS, "device", device_then_flag)
+    monkeypatch.setitem(tregistry._SOLVERS, "host", host_second)
     reg = ttelemetry.Registry()
+    sched = TScheduler(device="cuda", portfolio="on", portfolio_k=2,
+                       portfolio_sample_check=0.0, registry=reg)
     with _FaultEvents() as ev:
-        with pytest.raises(RuntimeError, match="kernel build failed"):
-            TScheduler(device="cpu", portfolio="on", portfolio_k=2,
-                       portfolio_sample_check=0.0, registry=reg).submit(
-                [_chain(tsat, 16)] * 2)
-    snap = reg.snapshot()
-    assert snap["deppy_race_entrant_errors_total"] == {"device": 1}
+        with pytest.raises(tdriver.NoDeviceError, match="cuda"):
+            sched.submit([_chain(tsat, 16)] * 2)
+    assert reg.snapshot()["deppy_race_starts_total"]["device"] == 1
     assert not _wins(reg)
     (e,) = ev.of("race_entrant_error")
-    assert e["backend"] == "device"
-    assert e["error"] == "RuntimeError: kernel build failed"
+    assert e["backend"] == "device" and e["error"].startswith(
+        "NoDeviceError")
 
 
 @within(120)
 def test_a_device_error_after_the_win_raises_into_the_next_dispatch(
         monkeypatch):
     """A device entrant that raises after another entrant's answer was
-    served is counted and evented at once, and its error fails the
-    scheduler's next dispatch; the one after races again."""
+    served is counted and evented at once.  A defect of the tree (a
+    kernel that does not build) fails the scheduler's next dispatch, and
+    the one after races again; a device fault fails nothing."""
     device_solve = tregistry._SOLVERS["device"]
-    served = threading.Event()
-
-    def device_late(problems, *args, **kwargs):
-        served.wait(30)
-        raise RuntimeError("launch failed")
-
-    monkeypatch.setitem(tregistry._SOLVERS, "device", device_late)
     reqs = [_chain(tsat, 16)] * 2
     off = _render("port", TScheduler(device="cpu",
                                      portfolio="off").submit(reqs))
-    reg = ttelemetry.Registry()
-    sched = TScheduler(device="cpu", portfolio="on", portfolio_k=2,
-                       portfolio_sample_check=0.0, cache_size=0,
-                       registry=reg)
-    with _FaultEvents() as ev:
+    for error in (RuntimeError("launch failed"),
+                  KernelBuildError("kernel build failed")):
+        served = threading.Event()
+
+        def device_late(problems, *args, _error=error, _served=served,
+                        **kwargs):
+            _served.wait(30)
+            raise _error
+
+        monkeypatch.setitem(tregistry._SOLVERS, "device", device_late)
+        reg = ttelemetry.Registry()
+        sched = TScheduler(device="cpu", portfolio="on", portfolio_k=2,
+                           portfolio_sample_check=0.0, cache_size=0,
+                           registry=reg)
+        with _FaultEvents() as ev:
+            assert _render("port", sched.submit(reqs)) == off
+            assert _wins(reg) == {"host": 1}
+            served.set()
+            tsched_mod._join_race_threads()
+            assert [e["backend"] for e in ev.of("race_entrant_error")] == \
+                ["device"]
+        assert reg.snapshot()["deppy_race_entrant_errors_total"] == \
+            {"device": 1}
+        if isinstance(error, KernelBuildError):
+            with pytest.raises(KernelBuildError, match="kernel build"):
+                sched.submit(reqs)
+        monkeypatch.setitem(tregistry._SOLVERS, "device", device_solve)
         assert _render("port", sched.submit(reqs)) == off
-        assert _wins(reg) == {"host": 1}
-        served.set()
-        tsched_mod._join_race_threads()
-        assert [e["backend"] for e in ev.of("race_entrant_error")] == \
-            ["device"]
-    assert reg.snapshot()["deppy_race_entrant_errors_total"] == \
-        {"device": 1}
-    with pytest.raises(RuntimeError, match="launch failed"):
-        sched.submit(reqs)
-    monkeypatch.setitem(tregistry._SOLVERS, "device", device_solve)
-    assert _render("port", sched.submit(reqs)) == off
-    assert sum(_wins(reg).values()) == 2
+        assert sum(_wins(reg).values()) == 2
 
 
 @within(240)

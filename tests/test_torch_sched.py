@@ -627,8 +627,20 @@ def test_cuda_without_a_card_raises_at_first_dispatch(monkeypatch, started):
 @pytest.mark.parametrize("backend", ["auto", "tpu", "hsot"])
 @within(30)
 def test_unported_backends_raise(backend):
-    with pytest.raises(InternalSolverError):
-        TScheduler(backend=backend)
+    """``"tpu"`` and unknown names raise; ``"auto"`` is served and
+    resolves per flush (on the CPU to the device path, whose verdict
+    there is instant)."""
+    if backend != "auto":
+        with pytest.raises(InternalSolverError):
+            TScheduler(backend=backend)
+        return
+    sched = TScheduler(backend=backend, device="cpu")
+    st: dict = {}
+    got = sched.submit([_problem("port", "a")], stats=st)
+    assert st["report"].backend == "device"
+    want = TScheduler(device="cpu").submit([_problem("port", "a")])
+    assert [render("port", r) for r in got] == \
+        [render("port", r) for r in want]
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -674,8 +686,18 @@ def test_off_spellings_of_unported_tiers_are_accepted():
     assert TResultCache(8, incremental=index).incremental is index
     with pytest.raises(TypeError, match="ClauseSetIndex"):
         TResultCache(8, incremental=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        TBatchResolver(device="cpu", deadline_s=1.0)
+    # deadline_s without a scheduler bounds the solve, as the
+    # reference's does: an expired one degrades every problem.
+    states = [pinned_tenant_catalog(seed=s) for s in range(2)]
+    for backend in ("device", "host"):
+        got = unscheduled(backend, deadline_s=0.0).solve(
+            [own("port", vs) for vs in states])
+        want = JBatchResolver(
+            backend="tpu" if backend == "device" else "host",
+            deadline_s=0.0).solve(states)
+        assert [render("port", r) for r in got] == \
+            [render("reference", r) for r in want]
+        assert all(isinstance(r, TIncomplete) for r in got)
 
 
 # ---------------------------------------------------------------- units

@@ -48,6 +48,7 @@ from deppy_tpu_torch import io as tio
 from deppy_tpu_torch import models as tmodels
 from deppy_tpu_torch import telemetry as ttelemetry
 from deppy_tpu_torch.engine import driver as tdriver
+from deppy_tpu_torch.engine._build import KernelBuildError
 from deppy_tpu_torch.fleet import ring as tring
 from deppy_tpu_torch.fleet import snapshot as tsnapshot
 from deppy_tpu_torch.incremental import ClauseSetIndex, problem_rows
@@ -1005,23 +1006,14 @@ def test_raised_dispatch_reaches_the_op_and_the_session_survives(
         [("fbb1v0", True)])
 
 
-def test_card_screen_error_reaches_every_coalesced_op(monkeypatch):
-    """Three sessions on ``device="cuda"`` (no card is asked: their
-    private indexes come from a CPU store's export, and the screen is
-    faked to fail as a launch would): a stalled first flush lets two
-    warm session lanes coalesce, their screen raises, both ops raise it,
-    nothing is served around it, and each session stays usable."""
-    cpu = Scheduler(device="cpu", registry=ttelemetry.Registry())
-    src = SessionStore(cpu, metrics=ttelemetry.Registry(),
-                       sweep_interval_s=3600.0)
-    try:
-        sids = [_scripted(src, name)[0] for name in ("ca", "cb", "cc")]
-        entries = src.export_entries()
-    finally:
-        src.stop()
-
+def _coalesced_screen_ops(monkeypatch, entries, sids, error):
+    """Import ``entries`` into a store on ``device="cuda"`` whose screen
+    raises ``error``, stall the first flush so the other two sessions'
+    warm lanes coalesce, and resolve all three: (outcome or exception
+    by session, host warm attempts, the scheduler's registry, the fault
+    events, the store)."""
     def boom(*a, **k):
-        raise RuntimeError("screen launch failed")
+        raise error
 
     monkeypatch.setattr(tdriver, "warm_screen", boom)
     attempted = []
@@ -1036,6 +1028,9 @@ def test_card_screen_error_reaches_every_coalesced_op(monkeypatch):
     sched = Scheduler(device="cuda", registry=reg)
     st = SessionStore(sched, metrics=ttelemetry.Registry(),
                       sweep_interval_s=3600.0)
+    events = []
+    forward = events.append
+    ttelemetry.default_registry().add_forwarder(forward)
     try:
         for e in entries:
             assert st.import_entry(e)
@@ -1062,13 +1057,50 @@ def test_card_screen_error_reaches_every_coalesced_op(monkeypatch):
             t.start()
         for t in [first] + rest:
             t.join(60)
-        assert [str(outs[sid]) for sid in sids[1:]] == \
-            ["screen launch failed"] * 2
-        assert attempted == [1]  # the lone first lane: no screen
-        assert reg.snapshot().get("deppy_incremental_hits_total", 0) == 1
         for sid in sids:
             assert st._sessions[sid].solver.scope_state() == states[sid]
             assert st.op(sid, {"op": "test"})["op"] == "test"
     finally:
+        ttelemetry.default_registry().remove_forwarder(forward)
         sched.stop()
         st.stop()
+    screen_failed = [e for e in events
+                     if e.get("fault") == "incremental_screen_failed"]
+    return outs, attempted, reg, screen_failed
+
+
+def test_card_screen_error_reaches_every_coalesced_op(monkeypatch):
+    """Three sessions on ``device="cuda"`` (no card is asked: their
+    private indexes come from a CPU store's export, and the screen is
+    faked to fail): a stalled first flush lets two warm session lanes
+    coalesce.  A screen that fails as a launch would degrades, as the
+    reference's does: the event, then both lanes' host warm attempts
+    answer, equal to the CPU store's answers.  One that fails as a
+    kernel build would reaches both ops, nothing is served around it,
+    and each session stays usable."""
+    cpu = Scheduler(device="cpu", registry=ttelemetry.Registry())
+    src = SessionStore(cpu, metrics=ttelemetry.Registry(),
+                       sweep_interval_s=3600.0)
+    try:
+        scripted = [_scripted(src, name) for name in ("ca", "cb", "cc")]
+        sids = [sid for sid, _ in scripted]
+        want = {sid: answer["result"] for sid, answer in scripted}
+        entries = src.export_entries()
+    finally:
+        src.stop()
+
+    outs, attempted, reg, failed = _coalesced_screen_ops(
+        monkeypatch, entries, sids, RuntimeError("screen launch failed"))
+    assert {sid: outs[sid]["result"] for sid in sids} == want
+    assert attempted == [1, 1, 1]
+    assert reg.snapshot().get("deppy_incremental_hits_total", 0) == 3
+    (e,) = failed
+    assert e["error"] == "RuntimeError" and e["lanes"] == 2
+
+    outs, attempted, reg, failed = _coalesced_screen_ops(
+        monkeypatch, entries, sids, KernelBuildError("screen launch failed"))
+    assert [str(outs[sid]) for sid in sids[1:]] == \
+        ["screen launch failed"] * 2
+    assert attempted == [1]  # the lone first lane: no screen
+    assert reg.snapshot().get("deppy_incremental_hits_total", 0) == 1
+    assert failed == []

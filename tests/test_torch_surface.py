@@ -230,9 +230,21 @@ def test_batch_resolver_host_path():
 
 @pytest.mark.parametrize("backend", ["auto", "tpu", "hsot"])
 def test_unknown_backends_raise(backend):
-    """The port serves "device" and "host" only: the reference's "auto"
-    (which picks the host engine for one problem) and "tpu" raise, like
-    any unknown name."""
+    """The port serves "device", "host" and "auto": the reference's "tpu"
+    raises, like any unknown name.  "auto" resolves as the reference's
+    does: one problem to the host engine, a batch on the CPU to the
+    device path (the probe's verdict there is instant)."""
+    if backend == "auto":
+        problem = [variable("a", mandatory())]
+        solver = tsat.Solver(problem, backend=backend, device="cpu")
+        assert [v.identifier for v in solver.solve()] == ["a"]
+        assert solver.report.backend == "host"
+        assert Resolver(CacheQuerier({}), lambda q: problem,
+                        backend=backend).solve() == {"a": True}
+        batch = BatchResolver(backend=backend, device="cpu")
+        assert batch.solve([problem]) == [{"a": True}]
+        assert batch.last_report.backend == "device"
+        return
     with pytest.raises(tsat.InternalSolverError,
                        match=f"unknown backend '{backend}'"):
         BatchResolver(backend=backend).solve([[variable("a")]])

@@ -258,6 +258,7 @@ def test_batch_report_matches_reference(registries, monkeypatch, host_ncons):
     report field equal (with the host-core threshold lowered in both
     drivers, the routed rows too), and the span names in each sink."""
     monkeypatch.setattr(jdriver, "STAGE1_STEPS", 0)
+    monkeypatch.setattr(tdriver, "STAGE1_STEPS", 0)
     if host_ncons is not None:
         monkeypatch.setattr(jdriver, "HOST_CORE_NCONS", host_ncons)
         monkeypatch.setattr(tdriver, "HOST_CORE_NCONS", host_ncons)
@@ -277,7 +278,12 @@ def test_batch_report_matches_reference(registries, monkeypatch, host_ncons):
     events = list(ttelemetry.iter_sink_events(str(registries["port"])))
     names = {e["name"] for e in events if e["kind"] == "span"}
     assert DRIVER_SPANS <= names
-    assert "driver.escalation" not in names
+    # The escalation ladder is off (STAGE1_STEPS 0 in both drivers): one
+    # stage-0 escalation span per bucket, as the reference emits.
+    stages = [e["attrs"]["stage"] for e in events
+              if e["kind"] == "span" and e["name"] == "driver.escalation"]
+    assert stages == [0] * trep.n_buckets
+    assert trep.escalation_stage == jrep.escalation_stage == 0
     reports = [e["report"] for e in events if e["kind"] == "report"]
     assert len(reports) == 1 and reports[0] == trep.to_dict()
     snap = ttelemetry.default_registry().snapshot()

@@ -247,4 +247,4 @@ def test_cuda_tracer_raises_without_card(monkeypatch):
     assert solver.device == "cuda" and solver.backend == "device"
     with pytest.raises(RuntimeError, match="torch.cuda.is_available") as e:
         solver.solve()
-    assert e.type is RuntimeError
+    assert e.type is tdriver.NoDeviceError
