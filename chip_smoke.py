@@ -148,7 +148,37 @@ Phases, each fatal on failure:
    deltas and breaker transitions are the scripted ones, and the first
    launch of each kernel in the phase is held against its plain version.
    At the end of the run the driver failures and host-routed lanes must
-   equal the phase's scripted totals;
+   equal the phase's scripted totals (with 4i's);
+4i. the optimize path: the trip profiler (``deppy_tpu_torch.profile``,
+   armed at sample 1.0 over the phase, on a sink of its own) and the
+   optimization tier (``deppy_tpu_torch.optimize.Planner`` over
+   ``Scheduler(device="cuda")``, whose feasibility solves, native probes
+   and explains ride the idle queue), :func:`run_optimize_path`: (1) 8
+   soft documents over ``operatorhub_catalog(40, 5)`` (unit-positive:
+   optimum 1, floor 0, the last probe an UNSAT proof on kernel 5) from 8
+   clients at once; (2) the reference's upgrade replay at its defaults
+   (96 packages x 4 versions, 6 rounds of 4 releases), a cold pass and a
+   warm pass, with the µs a probe from the sink's ``optimize`` events;
+   (3) workload 1 again beside a live burst of 32 requests x 16
+   ``gvk_conflict_catalog(20, 4, 10)`` states from 8 clients, the live
+   p50/p99 with the load and without it and the probes' queue waits;
+   then the profiler's sites: ``BatchResolver(device="cuda")`` over 512
+   ``gvk_fleet`` states (disarmed and armed, in turns) and 64
+   ``pinned_tenant`` states, 8 ``operatorhub_catalog(250, 8)`` under
+   blockwise, a host flush, a churn replay's warm flushes and one
+   scripted dead-card host fallback, and each site at sample 0.25.
+   Every response equals the host scheduler's byte for byte and every
+   ``selected`` set is a solution; every live answer and step count
+   equals its unscheduled solve; every idle flush drained with no live
+   lane queued; there is one ``profile`` event per sampled dispatch and
+   flush, each report's ledger fields are its events' sums, the
+   ``gvk_fleet`` and ``pinned_tenant`` events' steps and fields, and one
+   blockwise catalog's dispatched alone, equal the plain versions' on the
+   CPU (in the pool), exactly 1 of 4 dispatches a site is sampled
+   at 0.25, the sink read back by ``profile.report.summarize`` holds
+   every event, and the first loop-thread launch of kernels 1, 3, 4 and 5
+   from an idle flush and the blockwise run's kernel 2 launch are held
+   against their plain versions;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -4032,6 +4062,837 @@ def run_faults_path(scale: float, plain: "PlainPool"):
     return launches, numbers, scripted
 
 
+OPT_SOFT = (40, 5, 8)         # workload 1: operatorhub_catalog(40, 5, seed=s), s < 8
+OPT_CLIENTS = 8               # workload 1: client threads, one document each
+OPT_UPGRADE = (96, 4, 6, 4)   # workload 2: packages, versions, rounds, releases a round
+OPT_LIVE = (32, 16)           # workload 3: requests x gvk_conflict_catalog(20, 4, 10) states
+OPT_LIVE_CLIENTS = 8          # workload 3: the live burst's client threads
+OPT_GVK = 512                 # profiler: gvk_conflict_catalog(20, 4, 10) states
+OPT_TENANTS = 64              # profiler: pinned_tenant_catalog states
+OPT_BLOCKWISE = 8             # profiler: operatorhub_catalog(250, 8) catalogs
+OPT_CHURN = (1, 8, 8)         # profiler: churn requests a submit (a seed, then two warm flushes)
+OPT_SAMPLE = 0.25             # profiler: the sampling check's rate, 4 dispatches a site
+OPT_PLAIN_LANES = 32          # lanes a CPU pool task solves
+OPT_SITES = ("device", "host", "warm", "hostpool")
+
+
+def soft_docs():
+    """Workload 1's documents: one ``soft`` query over each
+    ``operatorhub_catalog(40, 5, seed=s)`` whose entries, each
+    ``{"installed": false, "weight": 1}``, name every head bundle
+    ``p{p}.v0`` and every version of the mandatory root ``p0``.  The
+    objective is unit-positive (its probes lower to native AtMost
+    probes that ride the idle queue to the card), its floor is 0 and its
+    optimum 1 (some version of ``p0`` is installed), so the last probe
+    is an UNSAT proof (kernel 5)."""
+    from deppy_tpu_torch import io
+    from deppy_tpu_torch.models import operatorhub_catalog
+
+    P, V, n = OPT_SOFT
+    ids = [f"p0.v{v}" for v in range(V)] + [f"p{p}.v0" for p in range(1, P)]
+    return [{"query": "soft", "warm": False,
+             "variables": [io.variable_to_dict(v)
+                           for v in operatorhub_catalog(P, V, seed=s)],
+             "soft": [{"id": i, "installed": False, "weight": 1}
+                      for i in ids]}
+            for s in range(n)]
+
+
+def upgrade_catalog(n_packages: int, catalog_versions) -> list:
+    """One round's bundle catalog (copy of
+    ``deppy_tpu/benchmarks/upgrade.py:44-69``): package ``p`` is a
+    version group (AtMost-1 pin) whose versions each depend on the next
+    package, chained under one mandatory root; each dependency row lists
+    its versions newest first, so the feasibility solve upgrades every
+    package and the tightening loop walks the touch count back down."""
+    from deppy_tpu_torch import sat
+
+    variables = []
+    for p in range(n_packages):
+        vids = catalog_versions[p]
+        cons = [sat.dependency(*vids), sat.at_most(1, *vids)]
+        if p == 0:
+            cons.insert(0, sat.mandatory())
+        variables.append(sat.variable(f"p{p}", *cons))
+        for vid in vids:
+            vcons = []
+            if p + 1 < n_packages:
+                vcons.append(sat.dependency(f"p{p + 1}"))
+            variables.append(sat.variable(vid, *vcons))
+    return variables
+
+
+def round_docs(n_packages: int, versions: int, rounds: int,
+               n_drift: int) -> list:
+    """The upgrade replay's documents (copy of
+    ``deppy_tpu/benchmarks/upgrade.py:72-110``): each round a rotating
+    window of ``n_drift`` packages ships a release the round's plan must
+    adopt (``prefer``), and the installed state carries the optimal plan
+    forward."""
+    from deppy_tpu_torch import io
+
+    catalog_versions = {p: [f"p{p}.v{v}" for v in range(versions)]
+                        for p in range(n_packages)}
+    installed = {p: f"p{p}.v{versions - 1}" for p in range(n_packages)}
+    docs = []
+    for rnd in range(rounds):
+        drift = sorted((rnd * n_drift + i) % n_packages
+                       for i in range(n_drift))
+        prefer = []
+        for p in drift:
+            release = f"p{p}.r{rnd}"
+            catalog_versions[p] = [release] + catalog_versions[p]
+            prefer.append(release)
+        docs.append({
+            "query": "upgrade",
+            "variables": [io.variable_to_dict(v) for v in
+                          upgrade_catalog(n_packages, catalog_versions)],
+            "installed": ([f"p{p}" for p in range(n_packages)]
+                          + sorted(installed.values())),
+            "prefer": prefer,
+        })
+        for p in drift:
+            installed[p] = f"p{p}.r{rnd}"
+    return docs
+
+
+def probe_stats(events) -> dict:
+    """Per-(tenant, mode) probe counts and µs a probe from ``optimize``
+    events (the reference's ``probe_stats``,
+    ``deppy_tpu/benchmarks/upgrade.py:147-168``, over events read back
+    from the sink)."""
+    out: dict = {}
+    for ev in events:
+        if ev.get("kind") != "optimize":
+            continue
+        agg = out.setdefault(f"{ev.get('tenant')}:{ev.get('mode')}",
+                             {"probes": 0, "improved": 0, "dur_s": 0.0})
+        agg["probes"] += 1
+        agg["dur_s"] += float(ev.get("dur_s", 0.0) or 0.0)
+        agg["improved"] += ev.get("outcome") == "improved"
+    for agg in out.values():
+        agg["us_per_probe"] = (agg["dur_s"] * 1e6 / agg["probes"]
+                               if agg["probes"] else 0.0)
+    return out
+
+
+class SpecLog:
+    """While on, every idle-queue drain of every scheduler: the live
+    groups and lanes still queued when it drained (read under the
+    scheduler's lock), and the idle groups and lanes it took."""
+
+    def __enter__(self):
+        from deppy_tpu_torch.sched.scheduler import Scheduler
+
+        self.drains = []
+        self._orig = Scheduler._drain_spec_locked
+        log = self
+
+        def drain(sched):
+            live_groups, live_lanes = len(sched._queue), sched._depth
+            take, reason = log._orig(sched)
+            log.drains.append(dict(
+                sched=id(sched), live_groups=live_groups,
+                live_lanes=live_lanes, groups=len(take),
+                lanes=sum(len(g.lanes) for g in take)))
+            return take, reason
+
+        Scheduler._drain_spec_locked = drain
+        return self
+
+    def __exit__(self, *exc):
+        from deppy_tpu_torch.sched.scheduler import Scheduler
+
+        Scheduler._drain_spec_locked = self._orig
+
+    def check(self, label: str, sched) -> list:
+        """The drains of ``sched``; fails unless every one found no live
+        lane queued."""
+        mine = [d for d in self.drains if d["sched"] == id(sched)]
+        busy = [d for d in mine if d["live_groups"] or d["live_lanes"]]
+        if busy:
+            fail(f"optimize {label}: {len(busy)} idle flushes drained with "
+                 f"live lanes queued: {busy[:3]}")
+        return mine
+
+
+class ProfileLog:
+    """While on: the ``profile`` and ``optimize`` events of the default
+    registry with the thread that emitted each; each site's
+    ``profile.dispatch_t0`` calls and samples; each sampled device
+    dispatch's ledger inputs (``driver._profile_dispatch``); and, per warm
+    flush, whether it was sampled and how many lanes it served warm."""
+
+    def __enter__(self):
+        import collections
+        import threading
+
+        from deppy_tpu_torch import profile, telemetry
+        from deppy_tpu_torch.engine import driver
+        from deppy_tpu_torch.sched.scheduler import Scheduler
+
+        self.events, self.ledgers = [], []
+        self.calls = collections.Counter()
+        self.sampled = collections.Counter()
+        self.warm_expected = 0
+        lock = threading.Lock()
+        self._reg = telemetry.default_registry()
+
+        def note(ev):
+            if ev.get("kind") in ("profile", "optimize"):
+                with lock:
+                    self.events.append(
+                        (threading.current_thread().name, ev))
+
+        self._note = note
+        self._reg.add_forwarder(note)
+        self._t0 = profile.dispatch_t0
+        self._ledger = driver._profile_dispatch
+        self._inc = Scheduler._solve_incremental
+
+        def dispatch_t0(site="device"):
+            t0 = self._t0(site)
+            with lock:
+                self.calls[site] += 1
+                self.sampled[site] += t0 is not None
+            return t0
+
+        def profile_dispatch(t0, problems, d, steps, live, total, chunk):
+            self.ledgers.append(dict(
+                problems=list(problems), steps=steps.copy(), live=live,
+                total=total, chunk=chunk, C=d.C, K=d.K))
+            return self._ledger(t0, problems, d, steps, live, total, chunk)
+
+        def solve_incremental(sched, live, rep, timing, backend):
+            before = self.sampled["warm"]
+            out = self._inc(sched, live, rep, timing, backend)
+            served = sum(lane.index_steps is not None for lane in live)
+            if self.sampled["warm"] > before and served:
+                self.warm_expected += 1
+            return out
+
+        profile.dispatch_t0 = dispatch_t0
+        driver._profile_dispatch = profile_dispatch
+        Scheduler._solve_incremental = solve_incremental
+        return self
+
+    def __exit__(self, *exc):
+        from deppy_tpu_torch import profile
+        from deppy_tpu_torch.engine import driver
+        from deppy_tpu_torch.sched.scheduler import Scheduler
+
+        self._reg.remove_forwarder(self._note)
+        profile.dispatch_t0 = self._t0
+        driver._profile_dispatch = self._ledger
+        Scheduler._solve_incremental = self._inc
+
+    def mark(self) -> tuple:
+        return (len(self.events), len(self.ledgers), dict(self.calls),
+                dict(self.sampled), self.warm_expected)
+
+    def since(self, mark: tuple, kind: str = "profile", thread=None):
+        return [ev for t, ev in self.events[mark[0]:]
+                if ev["kind"] == kind and (thread is None or t == thread)]
+
+    def check_sites(self, label: str, mark: tuple) -> dict:
+        """One ``profile`` event per sampled dispatch and flush since
+        ``mark``, by site (a warm flush that served no lane warm records
+        none); returns {site: [calls, sampled, events]}."""
+        evs = self.since(mark)
+        out = {}
+        for site in OPT_SITES:
+            calls = self.calls[site] - mark[2].get(site, 0)
+            sampled = self.sampled[site] - mark[3].get(site, 0)
+            events = sum(e["backend"] == site for e in evs)
+            want = (self.warm_expected - mark[4] if site == "warm"
+                    else sampled)
+            if events != want:
+                fail(f"optimize {label}: {events} {site} profile events "
+                     f"for {want} sampled dispatches ({calls} calls)")
+            out[site] = [calls, sampled, events]
+        return out
+
+
+def ledger_sums(label: str, rep, events) -> None:
+    """A report's ledger fields must be the sums of its device events'
+    (dispatches, trips, lane steps), and with one event its useful-work
+    ratio the event's."""
+    dev = [e for e in events if "trips" in e]
+    got = (rep.profiled_dispatches, rep.ledger_trips, rep.ledger_lane_steps)
+    want = (len(dev), sum(e["trips"] for e in dev),
+            sum(e["lane_steps"] for e in dev))
+    if got != want or (len(dev) == 1 and round(rep.useful_work_ratio, 4)
+                       != dev[0]["useful_work_ratio"]):
+        fail(f"optimize {label}: the report's (dispatches, trips, lane "
+             f"steps) {got} != its events' {want}")
+
+
+def _opt_plain_steps(problems, impl: str):
+    """Pool task: the plain versions' steps of ``problems`` on the CPU
+    under ``impl`` (one thread), and the seconds they took."""
+    import torch
+
+    from deppy_tpu_torch.engine import core, driver
+
+    torch.set_num_threads(1)
+    core.set_bcp_impl(impl)
+    t0 = time.perf_counter()
+    out = [int(r.steps) for r in driver.solve_problems(problems,
+                                                      device="cpu")]
+    return out, time.perf_counter() - t0
+
+
+def hold_ledger(plain: "PlainPool", label: str, ledger: dict, event: dict,
+                impl: str) -> None:
+    """Submit the CPU check of one sampled card dispatch: its live
+    problems solved by the plain versions on the CPU in the pool (a few
+    lanes a task; a lane's steps do not depend on its batchmates), their
+    steps held against the card's lane for lane, the card's pad lanes
+    at 0 steps, and the event recomputed by the ledger from the plain
+    steps equal to the card's in every field but ``ts`` and
+    ``solve_s``."""
+    import numpy as np
+
+    live = ledger["live"]
+    problems = ledger["problems"]
+    futures = [plain.pool.submit(_opt_plain_steps,
+                                 problems[lo:lo + OPT_PLAIN_LANES], impl)
+               for lo in range(0, live, OPT_PLAIN_LANES)]
+
+    def done():
+        from deppy_tpu_torch import profile, size_classes, telemetry
+        from deppy_tpu_torch.engine import driver
+
+        parts = [f.result() for f in futures]
+        steps = np.array([s for p in parts for s in p[0]], np.int64)
+        card = ledger["steps"]
+        bad = int((steps != card[:live]).sum())
+        if bad or card[live:].any():
+            fail(f"optimize {label}: {bad} of {live} lanes' steps differ "
+                 f"from the plain versions' (pad steps "
+                 f"{card[live:].tolist()[:8]})")
+        full = card.copy()
+        full[:live] = steps
+        reg = telemetry.Registry()
+        seen = []
+        reg.add_forwarder(seen.append)
+        prev = telemetry.set_default_registry(reg)
+        try:
+            c = max(driver._cost_proxy(p) for p in problems)
+            profile.record_device_dispatch(
+                time.perf_counter(), steps=full, live=live,
+                chunk=ledger["chunk"], size_class=size_classes.bucket(c),
+                size_class_name=size_classes.class_of_cost(c),
+                pad_cells=ledger["total"] * ledger["C"] * ledger["K"],
+                live_cells=int(sum(p.clauses.size for p in problems)))
+        finally:
+            telemetry.set_default_registry(prev)
+        strip = lambda e: {k: v for k, v in e.items()  # noqa: E731
+                           if k not in ("ts", "solve_s")}
+        if strip(seen[0]) != strip(event):
+            fail(f"optimize {label}: the plain versions' event "
+                 f"{strip(seen[0])} != the card's {strip(event)}")
+        print(f"optimize profile {label}: {live} lanes' steps and the "
+              f"event equal the plain versions' on the CPU "
+              f"({sum(p[1] for p in parts):.1f} s in {len(parts)} pool "
+              f"tasks)", flush=True)
+
+    plain.calls.append(done)
+
+
+def run_optimize_path(scale: float, plain: "PlainPool"):
+    """The trip profiler and the optimization tier on the card (the
+    module docstring's phase 4i).  Returns the path's launches, its
+    numbers, and the driver failures and host-routed lanes it scripted
+    (the dead-card fallbacks of the profiler's ``hostpool`` site)."""
+    import json as _json
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from deppy_tpu_torch import engine, faults, profile, telemetry
+    from deppy_tpu_torch.engine import core, driver
+    from deppy_tpu_torch.models import (churn_requests, gvk_conflict_catalog,
+                                        operatorhub_catalog,
+                                        pinned_tenant_catalog)
+    from deppy_tpu_torch.optimize import Planner
+    from deppy_tpu_torch.profile import report
+    from deppy_tpu_torch.resolution import BatchResolver
+    from deppy_tpu_torch.sat.encode import encode
+    from deppy_tpu_torch.sched import Scheduler
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"optimize timings on {card}", flush=True)
+    numbers = {}
+    launches = {k: 0 for k in engine.KERNELS}
+    scripted = dict(failures=0, host_routed=0)
+    reg = telemetry.default_registry()
+    sink_dir = tempfile.mkdtemp(prefix="deppy-optimize-")
+    sink = os.path.join(sink_dir, "sink.jsonl")
+    prev_sink = reg.sink_path
+    env_keys = ("DEPPY_GPU_BREAKER_THRESHOLD",)
+    env0 = {k: os.environ.get(k) for k in env_keys}
+    dumps = lambda x: _json.dumps(x, sort_keys=True)  # noqa: E731
+
+    def window(fn):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after; the launches add to the path's."""
+        torch.cuda.synchronize()
+        engine.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = engine.launch_counts()
+        for k in engine.KERNELS:
+            launches[k] += counts[k]
+        return out, counts
+
+    def planner_clients(sched, docs, tenant, records, prefix="opt"):
+        """One thread a document through ``Planner(sched).handle``; each
+        record is (response or the error raised, seconds)."""
+        def run(i):
+            t0 = time.perf_counter()
+            try:
+                out = Planner(sched).handle(docs[i], tenant=tenant)
+            except BaseException as e:  # noqa: BLE001 — raised by join
+                out = e
+            records[i] = (out, time.perf_counter() - t0)
+
+        return [threading.Thread(target=run, args=(i,),
+                                 name=f"{prefix}-client-{i}")
+                for i in range(len(docs))]
+
+    def join(threads, records):
+        for t in threads:
+            t.join(600)
+        if any(t.is_alive() for t in threads):
+            fail("optimize: a client thread never returned")
+        for r in records:
+            if isinstance(r[0], BaseException):
+                raise RuntimeError("chip_smoke: optimize: a Planner "
+                                   "raised") from r[0]
+
+    def oracle_check(label, docs, got, want):
+        """Every card response byte-equal to the host scheduler's, every
+        ``selected`` set a solution of its catalog."""
+        from deppy_tpu_torch import io
+
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if dumps(a) != dumps(b)]
+        if bad or len(got) != len(want):
+            fail(f"optimize {label}: {len(bad)} of {len(want)} responses "
+                 f"differ from the host scheduler's (first: "
+                 f"{got[bad[0]] if bad else None} against "
+                 f"{want[bad[0]] if bad else None})")
+        for doc, out in zip(docs, got):
+            if out.get("status") != "optimal":
+                fail(f"optimize {label}: status {out.get('status')}")
+            variables = [io.variable_from_dict(v) for v in doc["variables"]]
+            chosen = set(out["selected"])
+            check_solution(variables, {v.identifier: v.identifier in chosen
+                                       for v in variables})
+
+    soft = soft_docs()
+    host = Scheduler(backend="host", incremental="off", cache_size=0,
+                     registry=telemetry.Registry())
+    host.start()
+    reg.configure_sink(sink)
+    try:
+        with profile.override("on", 1.0), ProfileLog() as plog, \
+                SpecLog() as slog:
+            # The oracle: the same documents on the host scheduler.
+            want_soft = [Planner(host).handle(d, tenant="host-soft")
+                         for d in soft]
+            if not all(o["proof"] == "unsat_probe" and o["objective"] == 1
+                       for o in want_soft):
+                fail(f"optimize: the soft documents' host answers "
+                     f"{[(o['objective'], o['proof']) for o in want_soft]}"
+                     f" are not optimum 1 by an UNSAT probe")
+            sched = Scheduler(device="cuda", incremental="off",
+                              cache_size=0, registry=telemetry.Registry())
+            sched.start()
+            try:
+                # Workload 1: the soft documents from 8 clients at once.
+                records = [None] * len(soft)
+                cap = RaceCapture(INC_KERNELS, thread=SCHED_LOOP)
+                mark = plog.mark()
+
+                def workload1():
+                    threads = planner_clients(sched, soft, "soft", records)
+                    t0 = time.perf_counter()
+                    for t in threads:
+                        t.start()
+                    join(threads, records)
+                    return time.perf_counter() - t0
+
+                with cap, DispatchLog() as dlog:
+                    wall, counts = window(workload1)
+                _loop_only("optimize soft", dlog.calls, counts)
+                got = [r[0] for r in records]
+                oracle_check("1 soft", soft, got, want_soft)
+                drains = slog.check("1 soft", sched)
+                if len(dlog.calls) != len(drains):
+                    fail(f"optimize 1 soft: {len(drains)} idle flushes, "
+                         f"{len(dlog.calls)} card dispatches")
+                if counts["core"] <= 0:
+                    fail("optimize 1 soft: no UNSAT proof reached kernel 5")
+                probes = [e for e in plog.since(mark, "optimize")
+                          if e["tenant"] == "soft"]
+                lanes = [d["lanes"] for d in drains]
+                row = dict(
+                    wall_s=wall, launches=counts, flushes=len(drains),
+                    lanes_per_flush=lanes,
+                    probes_per_doc=[o["iterations"] for o in got],
+                    us_per_probe=statistics.mean(
+                        e["dur_s"] for e in probes) * 1e6,
+                    latency_s=[r[1] for r in records])
+                numbers["1 soft"] = row
+                print(f"optimize 1 soft: {len(soft)} documents from "
+                      f"{OPT_CLIENTS} clients in {wall:.3f} s; probes a "
+                      f"document {row['probes_per_doc']}, "
+                      f"{row['us_per_probe']:.1f} us a probe; "
+                      f"{len(drains)} idle flushes (lanes "
+                      f"{min(lanes)}-{max(lanes)}, mean "
+                      f"{statistics.mean(lanes):.2f}), every one with no "
+                      f"live lane queued; responses equal the host "
+                      f"scheduler's, every proof an UNSAT probe; launches "
+                      + " ".join(f"{k}={counts[k]}" for k in engine.KERNELS)
+                      + f" [{card}]", flush=True)
+                cap.submit(plain, "optimize idle flush")
+
+                # Workload 2: the upgrade replay, cold then warm.
+                docs = round_docs(*OPT_UPGRADE)
+                mark = plog.mark()
+                for warm in (False, True):
+                    tenant = "warm" if warm else "cold"
+                    mine, theirs = [], []
+
+                    def replay():
+                        t0 = time.perf_counter()
+                        p = Planner(sched)
+                        for d in docs:
+                            mine.append(p.handle({**d, "warm": warm},
+                                                 tenant=tenant))
+                        return time.perf_counter() - t0
+
+                    wall, counts = window(replay)
+                    ph = Planner(host)
+                    for d in docs:
+                        theirs.append(ph.handle({**d, "warm": warm},
+                                                tenant=f"host-{tenant}"))
+                    oracle_check(f"2 upgrade {tenant}", docs, mine, theirs)
+                    numbers[f"2 upgrade {tenant}"] = dict(
+                        wall_s=wall, launches=counts,
+                        iterations=[o["iterations"] for o in mine],
+                        objectives=[o["objective"] for o in mine])
+                stats = probe_stats(plog.since(mark, "optimize"))
+                numbers["2 probes"] = stats
+                w, c = stats.get("warm:warm"), stats.get("cold:cold")
+                if not w or not c:
+                    fail(f"optimize 2 upgrade: probes {stats}")
+                print(f"optimize 2 upgrade: {OPT_UPGRADE[0]} packages x "
+                      f"{OPT_UPGRADE[1]} versions, {OPT_UPGRADE[2]} rounds "
+                      f"of {OPT_UPGRADE[3]} releases; cold pass "
+                      f"{numbers['2 upgrade cold']['wall_s']:.3f} s, "
+                      f"{c['probes']} probes, {c['us_per_probe']:.1f} us a "
+                      f"probe; warm pass "
+                      f"{numbers['2 upgrade warm']['wall_s']:.3f} s, "
+                      f"{w['probes']} probes, {w['us_per_probe']:.1f} us a "
+                      f"probe (cold/warm "
+                      f"{c['us_per_probe'] / w['us_per_probe']:.2f}); "
+                      f"objectives "
+                      f"{numbers['2 upgrade warm']['objectives']}; "
+                      f"responses equal the host scheduler's [{card}]",
+                      flush=True)
+
+                # Workload 3: workload 1 beside a live burst.
+                n_req = max(4, int(OPT_LIVE[0] * scale))
+                jobs = [("L", [gvk_conflict_catalog(
+                    20, 4, 10, seed=OPT_LIVE[1] * i + j)
+                    for j in range(OPT_LIVE[1])]) for i in range(n_req)]
+                want_live = unscheduled(jobs)
+
+                def live_submit(request, st):
+                    return sched.submit(request, stats=st)
+
+                def check_live(label, recs):
+                    bad = sum([render(r) for r in rec["answers"]] != a
+                              or rec["stats"]["steps"] != s
+                              for rec, (a, s, _) in zip(recs, want_live))
+                    if bad:
+                        fail(f"optimize 3 {label}: {bad} live requests "
+                             f"differ from their unscheduled solves")
+                    return [r["latency_s"] for r in recs]
+
+                _, recs = run_clients(OPT_LIVE_CLIENTS, jobs, live_submit)
+                alone = check_live("alone", recs)
+                waits = []
+
+                def note_wait(ev):
+                    if (ev.get("kind") == "span"
+                            and ev.get("name") == "sched.queue_wait"
+                            and threading.current_thread().name.startswith(
+                                "opt3-")):
+                        waits.append(ev["dur_s"])
+
+                records = [None] * len(soft)
+                reg.add_forwarder(note_wait)
+                n_drains = len(slog.drains)
+                try:
+                    def workload3():
+                        threads = planner_clients(sched, soft, "soft3",
+                                                  records, prefix="opt3")
+                        for t in threads:
+                            t.start()
+                        out = run_clients(OPT_LIVE_CLIENTS, jobs,
+                                          live_submit)
+                        join(threads, records)
+                        return out
+
+                    (_, recs), counts = window(workload3)
+                finally:
+                    reg.remove_forwarder(note_wait)
+                loaded = check_live("with optimize load", recs)
+                oracle_check("3 soft under load", soft,
+                             [r[0] for r in records], want_soft)
+                slog.check("3 preemption", sched)
+                row = dict(
+                    live_p50_ms=(_pct(alone, 0.5) * 1e3,
+                                 _pct(loaded, 0.5) * 1e3),
+                    live_p99_ms=(_pct(alone, 0.99) * 1e3,
+                                 _pct(loaded, 0.99) * 1e3),
+                    probe_wait_p50_ms=_pct(waits, 0.5) * 1e3,
+                    probe_wait_p99_ms=_pct(waits, 0.99) * 1e3,
+                    probe_waits=len(waits),
+                    idle_flushes=len(slog.drains) - n_drains,
+                    launches=counts)
+                numbers["3 preemption"] = row
+                print(f"optimize 3 preemption: {n_req} live requests x "
+                      f"{OPT_LIVE[1]} states from {OPT_LIVE_CLIENTS} "
+                      f"clients: p50 {row['live_p50_ms'][0]:.3f} ms alone, "
+                      f"{row['live_p50_ms'][1]:.3f} ms with the optimize "
+                      f"load; p99 {row['live_p99_ms'][0]:.3f} / "
+                      f"{row['live_p99_ms'][1]:.3f} ms; the probes' "
+                      f"sched.queue_wait p50 {row['probe_wait_p50_ms']:.3f}"
+                      f" ms p99 {row['probe_wait_p99_ms']:.3f} ms over "
+                      f"{len(waits)} probes; {row['idle_flushes']} idle "
+                      f"flushes, none with a live lane queued; live answers "
+                      f"and steps equal the unscheduled solves, responses "
+                      f"the host scheduler's [{card}]", flush=True)
+            finally:
+                sched.stop()
+            numbers["sites"] = plog.check_sites("workloads",
+                                                (0, 0, {}, {}, 0))
+
+            # The profiler's sites, armed, each event held.
+            mark = plog.mark()
+            fleet = [gvk_conflict_catalog(20, 4, 10, seed=i)
+                     for i in range(max(COMPARE_LANES, int(OPT_GVK * scale)))]
+            tenants = [pinned_tenant_catalog(seed=i) for i in
+                       range(max(COMPARE_LANES,
+                                 int(OPT_TENANTS * scale)))]
+            walls = {"on": [], "off": []}
+            held = []
+
+            def resolve(states, label, mode=None):
+                m = plog.mark()
+                resolver = BatchResolver(device="cuda")
+                t0 = time.perf_counter()
+                if mode is None:
+                    answers = resolver.solve(states)
+                else:
+                    with profile.override(mode, 1.0):
+                        answers = resolver.solve(states)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                check_answers(f"optimize profile {label}", states, answers)
+                evs = plog.since(m, thread="MainThread")
+                return wall, resolver.last_report, evs, plog.ledgers[m[1]:]
+
+            def profiled():
+                for mode in ("off", "on", "on", "off"):
+                    wall, rep, evs, _ = resolve(fleet, "gvk_fleet", mode)
+                    walls[mode].append(wall)
+                    if len(evs) != int(mode == "on"):
+                        fail(f"optimize profile: {len(evs)} events with "
+                             f"the profiler {mode}")
+                for label, states in (("gvk_fleet", fleet),
+                                      ("pinned_tenant", tenants)):
+                    _, rep, evs, ledgers = resolve(states, label)
+                    ledger_sums(label, rep, evs)
+                    held.append((label, ledgers, evs, "auto"))
+                core.set_bcp_impl("blockwise")
+                try:
+                    cats = [encode(operatorhub_catalog(250, 8, seed=i))
+                            for i in range(OPT_BLOCKWISE)]
+                    m = plog.mark()
+                    bcap = RaceCapture(["blockwise_fixpoint"],
+                                       thread="MainThread")
+                    with bcap:
+                        batch = driver.solve_problems(cats, device="cuda")
+                    rep = telemetry.last_report()
+                    evs = plog.since(m, thread="MainThread")
+                    ledger_sums("blockwise", rep, evs)
+                    bcap.submit(plain, "optimize blockwise",
+                                need=["blockwise_fixpoint"])
+                    # The CPU hold of a blockwise event: the first catalog
+                    # dispatched alone (its plain solve on the CPU takes
+                    # minutes on one core; all 8 would take the pool's
+                    # every core for as long).  Its steps equal its lane's
+                    # in the batch: a lane's steps do not depend on its
+                    # batchmates.
+                    m = plog.mark()
+                    (one,) = driver.solve_problems(cats[:1], device="cuda")
+                    evs1 = plog.since(m, thread="MainThread")
+                    ledger_sums("blockwise alone", telemetry.last_report(),
+                                evs1)
+                    if int(one.steps) != int(batch[0].steps):
+                        fail(f"optimize profile blockwise: the catalog's "
+                             f"steps alone {int(one.steps)} != in the batch "
+                             f"{int(batch[0].steps)}")
+                    held.append(("blockwise", plog.ledgers[m[1]:], evs1,
+                                 "blockwise"))
+                finally:
+                    core.set_bcp_impl("auto")
+                # The host site: one host flush of one tenant.
+                hs = Scheduler(backend="host", cache_size=0,
+                               registry=telemetry.Registry())
+                m = plog.mark()
+                hs.submit(fleet[:16], tenant="solo")
+                evs = plog.since(m)
+                if [(e["backend"], e.get("tenant"), e["lanes"])
+                        for e in evs] != [("host", "solo", 16)]:
+                    fail(f"optimize profile host: events {evs}")
+                # The warm site: a churn replay's warm flushes.
+                ws = Scheduler(device="cuda", registry=telemetry.Registry())
+                ws.start()
+                try:
+                    reqs = churn_requests()
+                    lo = 0
+                    for n in OPT_CHURN:
+                        ws.submit(reqs[lo:lo + n], tenant="churn")
+                        lo += n
+                finally:
+                    ws.stop()
+                # The hostpool site: one scripted dead-card fallback.
+                os.environ["DEPPY_GPU_BREAKER_THRESHOLD"] = "1000"
+                faults.set_default_breaker(None)
+                before = _fault_snapshot()
+                faults.configure_plan(faults.plan_from_spec(
+                    '[{"point": "driver.dispatch", "times": -1}]'))
+                try:
+                    out = driver.solve_problems([encode(fleet[0])],
+                                                device="cuda")
+                finally:
+                    faults.configure_plan(None)
+                d = _delta(before, _fault_snapshot())
+                scripted["failures"] += d["fault_failures"]
+                scripted["host_routed"] += d["fault_host_routed"]
+                if d["fault_host_routed"] != 1 or out[0].outcome != core.SAT:
+                    fail(f"optimize profile hostpool: {d}")
+                return None
+
+            _, counts = window(profiled)
+            sites = plog.check_sites("profiler", mark)
+            # The sampling check's warm scheduler, seeded at rate 1.0 so
+            # that each site below sees exactly 4 dispatches.
+            ws = Scheduler(device="cuda", registry=telemetry.Registry())
+            reqs = churn_requests()
+            ws.submit(reqs[:1])
+            numbers["profile"] = dict(
+                walls=walls, sites=sites, launches=counts,
+                armed_over_disarmed=(statistics.median(walls["on"])
+                                     / statistics.median(walls["off"])))
+            # The blockwise catalogs' CPU solves are the longest pool
+            # tasks: first in the queue.
+            held.sort(key=lambda h: h[3] != "blockwise")
+            for label, ledgers, evs, impl in held:
+                if len(ledgers) != len(evs):
+                    fail(f"optimize profile {label}: {len(ledgers)} ledgers "
+                         f"for {len(evs)} events")
+                for lg, ev in zip(ledgers, evs):
+                    hold_ledger(plain, label, lg, ev, impl)
+            print(f"optimize profile: the {len(fleet)}-lane gvk_fleet wall "
+                  f"disarmed {walls['off'][0]:.4f}, {walls['off'][1]:.4f} s, "
+                  f"armed {walls['on'][0]:.4f}, {walls['on'][1]:.4f} s "
+                  f"(armed/disarmed medians "
+                  f"{numbers['profile']['armed_over_disarmed']:.4f}); "
+                  f"sites [calls, sampled, events] {sites}; the reports' "
+                  f"ledger fields equal their events' sums; launches "
+                  + " ".join(f"{k}={counts[k]}" for k in engine.KERNELS)
+                  + f" [{card}]", flush=True)
+
+            # Sampling: 4 dispatches a site at 0.25, exactly 1 profiled.
+            mark = plog.mark()
+
+            def sampling():
+                with profile.override("on", OPT_SAMPLE):
+                    for _ in range(4):
+                        driver.solve_problems(
+                            [encode(s) for s in fleet[:4]], device="cuda")
+                    hs = Scheduler(backend="host", cache_size=0,
+                                   registry=telemetry.Registry())
+                    for i in range(4):
+                        hs.submit(fleet[4 * i:4 * i + 4])
+                    for r in reqs[1:5]:
+                        ws.submit([r])
+                    before = _fault_snapshot()
+                    faults.configure_plan(faults.plan_from_spec(
+                        '[{"point": "driver.dispatch", "times": -1}]'))
+                    try:
+                        for i in range(4):
+                            driver.solve_problems([encode(fleet[i])],
+                                                  device="cuda")
+                    finally:
+                        faults.configure_plan(None)
+                    d = _delta(before, _fault_snapshot())
+                    scripted["failures"] += d["fault_failures"]
+                    scripted["host_routed"] += d["fault_host_routed"]
+
+            _, counts = window(sampling)
+            sample = plog.check_sites("sampling", mark)
+            for site, (calls, sampled, _) in sample.items():
+                if calls != 4 or sampled != 1:
+                    fail(f"optimize sampling: {site} sampled {sampled} of "
+                         f"{calls} at {OPT_SAMPLE}")
+            numbers["sampling"] = sample
+            print(f"optimize sampling at {OPT_SAMPLE}: [calls, sampled, "
+                  f"events] {sample} [{card}]", flush=True)
+    finally:
+        reg.configure_sink(prev_sink)
+        host.stop()
+        faults.configure_plan(None)
+        core.set_bcp_impl("auto")
+        _restore_env(env0, env_keys)
+        faults.set_default_breaker(None)
+    # The sink read back through the port's report: every event the
+    # phase emitted is there.
+    summary = report.summarize(sink)
+    shutil.rmtree(sink_dir, ignore_errors=True)
+    numbers["summary"] = summary
+    print("optimize profile report:\n" + report.render_text(summary, sink),
+          flush=True)
+    evs = [ev for _, ev in plog.events]
+    want = (sum(e["kind"] == "profile" for e in evs),
+            sum(e["kind"] == "profile" and "trips" in e for e in evs),
+            sum(e["kind"] == "optimize" for e in evs))
+    got = (summary["profile_events"], summary["device_dispatches"],
+           sum(a["probes"] for a in summary["optimize"].values()))
+    if got != want:
+        fail(f"optimize: the sink's report counts (profile events, device "
+             f"dispatches, probes) {got}, the phase emitted {want}")
+    if faults.default_breaker().state() != "closed":
+        fail("optimize: the breaker is not closed after the phase")
+    seconds = time.perf_counter() - t_phase
+    numbers.update(seconds=seconds, scripted=dict(scripted))
+    print(f"optimize path: {seconds:.1f} s; scripted failures "
+          f"{scripted['failures']}, host-routed lanes "
+          f"{scripted['host_routed']}; launches {launches}", flush=True)
+    return launches, numbers, scripted
+
+
 def _stage1_budget(groups, max_share: float) -> int:
     """The smallest stage-1 budget (a step count of the baseline) that
     strands at most ``max_share`` of every group's lanes, and some lanes
@@ -4627,6 +5488,9 @@ class PlainPool:
         self.pool = ProcessPoolExecutor(
             workers, mp_context=multiprocessing.get_context("spawn"))
         self.jobs = []
+        # Checks of other pool work (``pool.submit`` futures), run by
+        # :meth:`check` after the comparisons.
+        self.calls = []
         # Per checked job: the plain version's work (:func:`_plain_work`)
         # and ms, summed over its tasks, each on one CPU core.
         self.stats = {}
@@ -4651,8 +5515,10 @@ class PlainPool:
             self.stats[label] = dict(
                 {k: sum(p[1][k] for p in parts) for k in parts[0][1]},
                 plain_ms=sum(p[2] for p in parts) * 1e3)
-        n = len(self.jobs)
-        self.jobs = []
+        n = len(self.jobs) + len(self.calls)
+        for done in self.calls:
+            done()
+        self.jobs, self.calls = [], []
         return n
 
     def close(self) -> None:
@@ -5407,6 +6273,8 @@ PATH_KERNELS = {
     "sessions": ("bcp_fixpoint", "search", "minimize", "core"),
     "faults": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
                "core"),
+    "optimize": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
+                 "core"),
 }
 
 
@@ -5473,6 +6341,10 @@ def main(argv=None) -> int:
         by_path["faults"], per_family["faults"], scripted = run_faults_path(
             args.scale, plain)
         stamp("faults path")
+        by_path["optimize"], per_family["optimize"], opt_scripted = \
+            run_optimize_path(args.scale, plain)
+        scripted = {k: v + opt_scripted[k] for k, v in scripted.items()}
+        stamp("optimize path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")
@@ -5511,9 +6383,9 @@ def main(argv=None) -> int:
         hostpool.shutdown_default_pool()
 
     # The faults gate at the end of the run: the driver failures and
-    # host-routed lanes of the whole run are exactly those the faults
-    # phase scripted (a real launch failure anywhere fails the run, even
-    # though the envelope answered it).
+    # host-routed lanes of the whole run are exactly those the faults and
+    # optimize phases scripted (a real launch failure anywhere fails the
+    # run, even though the envelope answered it).
     snap = _fault_snapshot()
     seen = dict(failures=snap["deppy_fault_failures_total"],
                 host_routed=snap["deppy_fault_host_routed_total"])
@@ -5521,8 +6393,8 @@ def main(argv=None) -> int:
           f"lanes {seen['host_routed']} in the run; scripted {scripted}",
           flush=True)
     if seen != scripted:
-        fail(f"faults gate: the run counted {seen}, the faults phase "
-             f"scripted {scripted}")
+        fail(f"faults gate: the run counted {seen}, the faults and "
+             f"optimize phases scripted {scripted}")
 
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in engine.KERNELS}

@@ -59,7 +59,10 @@ Telemetry (:mod:`deppy_tpu_torch.telemetry`): every call runs under a
 ``deppy_escalation_total`` and the ``deppy_solve_seconds`` histogram.
 The spans time the host wall and synchronize nothing: the driver's
 ``.cpu()`` fetches are where the card's work lands, inside
-``driver.solve``.
+``driver.solve``.  A dispatch the trip profiler samples
+(:mod:`deppy_tpu_torch.profile`, site ``device``; a fault envelope's host
+fallback, site ``hostpool``) records its ledger after its last fetch,
+from those host copies.
 
 Under ``blockwise`` on the card the kernels read compact rows, built once
 per bucket (``cuda_blockwise.compact_rows``) and cut per chunk, and no
@@ -93,6 +96,7 @@ import numpy as np
 import torch
 
 from .. import faults
+from .. import profile as _profile
 from .. import size_classes as _size_classes
 from .. import telemetry
 from ..size_classes import bucket as _bucket
@@ -449,12 +453,32 @@ def _core_routes(problems: Sequence[Problem], unsat_idx: np.ndarray,
     return unsat_idx[~big], unsat_idx[big]
 
 
+def _profile_dispatch(t0: float, problems: Sequence[Problem], d: _Dims,
+                      steps: np.ndarray, live: int, total: int,
+                      chunk: int) -> None:
+    """Trip-ledger hook of a dispatch the profiler sampled
+    (driver.py:829-843), run after the dispatch's last fetch: ``steps``
+    are its final per-lane counts on the host, live lanes first, and
+    ``chunk`` the launch width."""
+    cost = max(_cost_proxy(p) for p in problems)
+    _profile.record_device_dispatch(
+        t0, steps=steps, live=live, chunk=chunk,
+        size_class=_bucket(cost),
+        size_class_name=_size_classes.class_of_cost(cost),
+        pad_cells=int(total) * d.C * d.K,
+        live_cells=int(sum(p.clauses.size for p in problems)))
+
+
 def _solve_split(problems: Sequence[Problem], budget: int,
                  dev: torch.device, monolith: bool,
                  trace_cap: int = 0) -> List[core.SolveResult]:
     """The three-phase path over one bucket (driver.py:992-1191), with
     the core routing of :func:`_core_routes`; ``trace_cap`` is phase 1's
-    trace depth ``T``."""
+    trace depth ``T``.  A call with one problem takes this path too: its
+    dims and chunk width are the reference's monolith's for one problem
+    (driver.py:894-896), so the trip ledger records the same dispatch."""
+    prof_t0 = _profile.dispatch_t0()
+    prof_steps = None  # the ledger's device-only steps, once host cores land
     n = len(problems)
     d = _Dims(problems, min(max(n, 1), MAX_LANES))
     CH = d.B
@@ -560,11 +584,20 @@ def _solve_split(problems: Sequence[Problem], budget: int,
         hc, hs = _host_core_rows(problems, host_idx, d.NCON, budget,
                                  steps[host_idx])
         cores[host_idx] = hc
+        if prof_t0 is not None:
+            # The ledger's snapshot before the host engine's core steps
+            # land (driver.py:1004-1005, :1160-1170): they ran on no
+            # launch, and would inflate the trips.
+            prof_steps = steps.copy()
         steps[host_idx] += hs
 
     incomplete = ((steps > budget) | (result == core.RUNNING)
                   | ((result == core.SAT) & ~min_found))
     outcome = np.where(incomplete, core.RUNNING, result).astype(np.int32)
+    if prof_t0 is not None:
+        _profile_dispatch(prof_t0, problems, d,
+                          prof_steps if prof_steps is not None else steps,
+                          live=n, total=total, chunk=CH)
     return [
         core.SolveResult(int(outcome[i]), torch.from_numpy(installed[i]),
                          torch.from_numpy(cores[i]), int(steps[i]),
@@ -609,11 +642,20 @@ def _fault_results_host(problems: Sequence[Problem], budget: int,
     d = _Dims(problems, max(len(problems), 1))
     out: List[core.SolveResult] = []
     dl = faults.current_deadline()
+    prof_t0 = _profile.dispatch_t0("hostpool")
     with reg.span("driver.fault_host_fallback", problems=len(problems),
                   reason=reason):
         lanes = hostpool.solve_host_problems(
             problems, max_steps=int(budget),
             deadlines=[dl] * len(problems))
+        if prof_t0 is not None:
+            # Per-backend cost attribution (driver.py:1374-1380):
+            # breaker-open and fault-routed groups account under
+            # "hostpool".
+            _profile.record_backend_flush(
+                "hostpool", len(problems),
+                int(sum(r.steps for r in lanes)),
+                time.perf_counter() - prof_t0)
         n_degraded = sum(1 for r in lanes if r.degraded)
         if n_degraded:
             faults.note_deadline_exceeded("driver.host_fallback",

@@ -56,6 +56,17 @@ pad/pack, upload and set of kernel launches instead of paying one each.
     ``plan``), queues in :data:`INCREMENTAL_CLASS` when planned and in
     :data:`SESSION_CLASS` otherwise, and flushes as soon as it reaches
     the head (the ``immediate`` flush reason).
+  * **Idle-priority queue.**  :meth:`Scheduler.submit_optimize` queues
+    the optimization tier's solves (:class:`deppy_tpu_torch.optimize.Planner`:
+    feasibility solves, native bound probes, explains) on a queue of
+    their own, which the loop drains only when no live lane is queued
+    and no live flush is pending (the ``spec`` flush reason): live
+    traffic preempts every probe at a flush boundary.  The submitter
+    blocks, and a dispatch error re-raises into it.
+  * **Trip profiler.**  The host drain and the warm flush record their
+    cost at the profiler's ``host`` and ``warm`` sites
+    (:mod:`deppy_tpu_torch.profile`), stamped with the flush's tenant
+    when it serves one only.
 
 ``backend="device"`` (the default) runs each flush through
 ``driver.solve_problems(..., device=self.device)`` — the CUDA kernels on
@@ -80,8 +91,11 @@ and the warm screen is skipped.
 
 Left out, each with the ROADMAP item that brings it (the parameters keep
 the reference's names and raise ``NotImplementedError`` when set; each
-tier stays off until then): speculation, optimize probes and route
-shadows (A5.6), and the serving mesh (A6).
+tier stays off until then): speculative pre-resolution (A5.6.3:
+``submit_speculative``, the backlog cap and its gauge; with
+``speculate`` unset the scheduler is the reference's
+``Scheduler(speculate="off")``), route shadows (A5.6.4) and the serving
+mesh (A6).
 """
 
 from __future__ import annotations
@@ -94,6 +108,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from .. import faults, hostpool, telemetry
+from .. import profile as _profile
 from ..sat.constraints import Variable
 from ..sat.encode import Problem, encode
 from ..sat.errors import Incomplete, InternalSolverError, NotSatisfiable
@@ -145,8 +160,8 @@ _OFF = ("off", "0", "false", "no")
 # Parameters of tiers not ported yet, with the ROADMAP item of each: any
 # value but None raises.  speculate also takes its "off" spellings.
 _LEFT_OUT = {
-    "speculate": "A5.6 (speculative pre-resolution)",
-    "speculate_max_backlog": "A5.6 (speculative pre-resolution)",
+    "speculate": "A5.6.3 (speculative pre-resolution)",
+    "speculate_max_backlog": "A5.6.3 (speculative pre-resolution)",
     "mesh": "A6 (mesh serving)",
     "mesh_devices": "A6 (mesh serving)",
     "lanes_per_device": "A6 (mesh serving)",
@@ -156,6 +171,13 @@ _LEFT_OUT = {
 def _env_int(name: str, default: int) -> int:
     v = faults.env_float(name, float(default), warn=True)
     return int(v if v is not None else default)
+
+
+def _single_tenant(lanes: List["_Lane"]) -> Optional[str]:
+    """The one tenant a flush serves, or None when mixed — profile
+    events are tenant-stamped only when attribution is unambiguous."""
+    tenants = {lane.tenant for lane in lanes}
+    return tenants.pop() if len(tenants) == 1 else None
 
 
 class _Lane:
@@ -215,11 +237,12 @@ class _Group:
     single-tenant (one submit = one request = one tenant)."""
 
     __slots__ = ("lanes", "enq_t", "size_class", "budget", "event",
-                 "error", "report", "parent", "timing", "tenant",
-                 "priority", "immediate")
+                 "error", "report", "parent", "timing", "speculative",
+                 "tenant", "priority", "immediate")
 
     def __init__(self, lanes: List[_Lane], size_class: int, budget: int,
-                 priority: int = 1, immediate: bool = False):
+                 speculative: bool = False, priority: int = 1,
+                 immediate: bool = False):
         self.lanes = lanes
         self.enq_t = time.monotonic()
         self.size_class = size_class
@@ -229,6 +252,9 @@ class _Group:
         self.report = None
         self.parent = telemetry.trace.capture_parent()
         self.timing: dict = {}
+        # An idle-priority group (an optimize probe): queued on the idle
+        # queue, drained only when no live lane waits.
+        self.speculative = speculative
         self.tenant = lanes[0].tenant if lanes else "default"
         self.priority = priority
         # A blocking interactive lane (a session op) flushes as soon as
@@ -784,13 +810,20 @@ class Scheduler:
             "deppy_sched_flushes_total",
             "Queue flushes by trigger (wait = max-wait elapsed, fill = "
             "lane target reached, immediate = blocking interactive "
-            "lane at the head, drain = shutdown, inline = loop not "
-            "running).", labelname="reason")
+            "lane at the head, spec = idle-queue flush, drain = "
+            "shutdown, inline = loop not running).", labelname="reason")
         # Condition over an RLock: ``running`` re-enters it from
         # ``_enqueue``.
         self._cv = threading.Condition()
         self._queue: List[_Group] = []
         self._depth = 0
+        # The idle-priority queue (scheduler.py:770-780): optimize
+        # probe groups, drained only while no live lane is queued.
+        # ``_spec_keys`` holds the fingerprints the speculation tier
+        # (A5.6.3) marks in flight; a dispatch releases its lanes' keys.
+        self._spec_queue: List[_Group] = []
+        self._spec_depth = 0
+        self._spec_keys: set = set()
         self._stop = False
         self._thread: Optional[threading.Thread] = None
         # EWMA of dispatch wall clock, seeding the Retry-After estimate.
@@ -836,9 +869,10 @@ class Scheduler:
             name="deppy-sched-prewarm", daemon=True).start()
 
     def stop(self, timeout: float = 10.0) -> None:
-        """Stop the loop; queued groups drain (dispatch) first so no
-        submitter is left hanging.  Submits after stop dispatch
-        inline."""
+        """Stop the loop; queued LIVE groups drain (dispatch) first so
+        no submitter is left hanging, and queued optimize groups fail
+        with "scheduler stopped before optimize dispatch" (idle work
+        never slows a drain).  Submits after stop dispatch inline."""
         self._reprobe_stop.set()
         with self._cv:
             self._stop = True
@@ -1024,11 +1058,81 @@ class Scheduler:
         return results
 
     def _make_group(self, lanes: List[_Lane], budget: int,
+                    speculative: bool = False,
                     priority: int = 1) -> _Group:
         from ..engine.driver import _bucket, _cost_proxy
 
         size_class = _bucket(max(_cost_proxy(l.problem) for l in lanes))
-        return _Group(lanes, size_class, budget, priority=priority)
+        return _Group(lanes, size_class, budget, speculative=speculative,
+                      priority=priority)
+
+    # ----------------------------------------------------- optimize probes
+
+    def submit_optimize(
+        self,
+        problem_vars: Sequence[Sequence[Variable]],
+        deadline_s: Optional[float] = None,
+        max_steps: Optional[int] = None,
+        stats: Optional[dict] = None,
+        tenant: str = "default",
+    ) -> List[object]:
+        """Blocking :meth:`submit` sibling for the optimization tier's
+        solves (``scheduler.py:1316-1379``), queued at IDLE priority:
+        probe groups ride the idle queue, so a long bound-tightening
+        loop coalesces at flush boundaries and live resolution traffic
+        preempts every iteration.  A submitter waits, so probes are
+        never dropped (the blocked caller is the backpressure) and
+        dispatch errors re-raise here.
+
+        The lanes take no cache lookup, but their dispatch stores their
+        answers in the result cache and their SAT models in the
+        clause-set index like any other lane (``_dispatch`` runs every
+        lane through ``_maybe_cache``, as the reference's does).  With
+        the loop not running the probe dispatches inline."""
+        from ..engine.driver import _budget
+
+        if max_steps is None:
+            max_steps = self.max_steps
+        budget = int(_budget(max_steps))
+        problems = [encode(vs) for vs in problem_vars]
+        for p in problems:
+            if p.errors:
+                raise InternalSolverError(p.errors)
+        with faults.deadline_scope(deadline_s), faults.ambient_deadline():
+            dl = faults.current_deadline()
+        lanes = [_Lane(p, fingerprint(p), max_steps, budget, dl,
+                       tenant=tenant) for p in problems]
+        group = self._make_group(lanes, budget, speculative=True)
+        inline = False
+        with self._cv:
+            if self.running:
+                self._spec_queue.append(group)
+                self._spec_depth += len(group.lanes)
+                self._cv.notify_all()
+            else:
+                inline = True
+        if inline:
+            # No loop thread (library use, or post-shutdown stragglers):
+            # the probe dispatches on the caller's thread like _enqueue.
+            self._dispatch([group], reason="inline")
+        group.event.wait()
+        if group.error is not None:
+            raise group.error
+        deadline_misses = 0
+        for lane in lanes:
+            if lane.degraded:
+                deadline_misses += 1
+                telemetry.trace.mark_error()
+        qw = group.timing.get("queue_wait_s")
+        if qw is not None:
+            telemetry.default_registry().record_span(
+                "sched.queue_wait", qw, lanes=len(group.lanes))
+        if stats is not None:
+            stats["steps"] = sum(lane.steps for lane in lanes)
+            stats["report"] = group.report
+            stats["timings"] = dict(group.timing)
+            stats["deadline_misses"] = deadline_misses
+        return [lane.result for lane in lanes]
 
     # -------------------------------------------------------------- sessions
 
@@ -1153,6 +1257,12 @@ class Scheduler:
                 self._depth = 0
                 self._tenant_depth.clear()
                 self._g_depth.set(0)
+                # Idle-queue orphans fail loudly too: an optimize
+                # probe's submitter waits on its event.
+                orphans += self._spec_queue
+                self._spec_queue = []
+                self._spec_depth = 0
+                self._spec_keys.clear()
             for g in orphans:
                 if not g.event.is_set():
                     g.error = RuntimeError(
@@ -1161,22 +1271,69 @@ class Scheduler:
 
     def _loop_inner(self) -> None:
         while True:
+            spec_orphans: List[_Group] = []
             groups: List[_Group] = []
             reason = None
             with self._cv:
-                while not self._queue and not self._stop:
+                while (not self._queue and not self._spec_queue
+                       and not self._stop):
                     self._cv.wait()
+                if self._stop and self._spec_queue:
+                    # Shutdown discards the idle backlog: idle work must
+                    # never slow a drain.  Optimize probes have a waiter:
+                    # their groups are failed below, outside the lock.
+                    spec_orphans = self._spec_queue
+                    self._spec_queue = []
+                    self._spec_depth = 0
+                    self._spec_keys.clear()
                 if self._queue:
                     groups, reason = self._drain_locked(force=self._stop)
                     if not groups:
+                        # A live flush is pending but not yet due.  The
+                        # idle queue is NOT consulted in this window: a
+                        # probe dispatch here could push the live flush
+                        # past max_wait — idle priority means idle, not
+                        # "between live flushes".
                         head_due = (self._head_locked().enq_t
                                     + self.max_wait_s)
                         delay = head_due - time.monotonic()
                         self._cv.wait(timeout=max(delay, 0.001))
                         continue
+                elif self._spec_queue:
+                    # No live lane is queued: drain ONE idle flush.  Live
+                    # submits arriving during its dispatch preempt at the
+                    # next loop iteration (the flush boundary).
+                    groups, reason = self._drain_spec_locked()
+            for g in spec_orphans:
+                if not g.event.is_set():
+                    g.error = RuntimeError(
+                        "scheduler stopped before optimize dispatch")
+                    g.event.set()
             if not groups:
                 return  # stopped and drained
             self._dispatch(groups, reason)
+
+    def _drain_spec_locked(self):
+        """Pick one idle flush (caller holds the lock;
+        scheduler.py:1564-1586): the oldest idle group plus its
+        same-class, same-budget neighbours up to ``max_fill`` lanes —
+        the live drain's coalescing rule applied to the idle queue."""
+        head = self._spec_queue[0]
+        take = [head]
+        lanes = len(head.lanes)
+        for g in self._spec_queue[1:]:
+            if lanes >= self.max_fill:
+                break
+            if (g.size_class == head.size_class
+                    and g.budget == head.budget
+                    and lanes + len(g.lanes) <= self.max_fill):
+                take.append(g)
+                lanes += len(g.lanes)
+        taken = set(map(id, take))
+        self._spec_queue = [g for g in self._spec_queue
+                            if id(g) not in taken]
+        self._spec_depth -= lanes
+        return take, "spec"
 
     # A queued group older than this many coalescing windows becomes
     # the flush head regardless of priority class: a sustained urgent
@@ -1269,6 +1426,15 @@ class Scheduler:
         except BaseException as e:  # noqa: BLE001 — re-raised per request
             for g in groups:
                 g.error = e
+            if any(g.speculative for g in groups):
+                # The sink's record of a failed idle flush
+                # (scheduler.py:1691-1700); the optimize submitter gets
+                # the error re-raised as well.
+                telemetry.default_registry().event(
+                    "fault", fault="speculate_dispatch_failed",
+                    error=type(e).__name__,
+                    lanes=sum(len(g.lanes) for g in groups
+                              if g.speculative))
         finally:
             dur = time.monotonic() - t0
             # Read-modify-write under the CV: admission_retry_after
@@ -1276,6 +1442,10 @@ class Scheduler:
             with self._cv:
                 self._dispatch_ewma_s = (0.8 * self._dispatch_ewma_s
                                          + 0.2 * dur)
+                for g in groups:
+                    if g.speculative:
+                        self._spec_keys.difference_update(
+                            lane.key for lane in g.lanes)
             timing["dispatch_s"] = dur
             for g in groups:
                 g.timing.update(timing)
@@ -1440,10 +1610,15 @@ class Scheduler:
 
         The screen is skipped while the card's breaker blocks the device
         (its contract is zero device attempts); a screen failure
-        degrades to all-True (:func:`incremental.screen`).  The warm
-        tier's profile events wait for A5.6.1."""
+        degrades to all-True (:func:`incremental.screen`).  A sampled
+        flush records the screen and the warm attempts at the
+        profiler's ``warm`` site; cold fallbacks account under their own
+        backend."""
         from .. import incremental as inc
 
+        prof_t0 = _profile.dispatch_t0("warm")
+        warm_served = 0
+        warm_steps = 0
         plans = [lane.warm for lane in live]
         screened = [True] * len(live)
         if (backend != "host" and len(live) > 1
@@ -1474,12 +1649,19 @@ class Scheduler:
             # of THIS problem would spend far better than the warm
             # attempt's own count does.
             lane.index_steps = plan.entry_steps + res.steps
+            warm_served += 1
+            warm_steps += res.steps
             rep.count_outcome("sat")
             rep.steps += res.steps
             rep.decisions += res.decisions
             rep.propagation_rounds += res.propagation_rounds
             if self.incremental is not None:
                 self.incremental.note_served()
+        if prof_t0 is not None and warm_served:
+            _profile.record_backend_flush(
+                "warm", warm_served, warm_steps,
+                time.perf_counter() - prof_t0,
+                tenant=_single_tenant(live))
         if cold:
             if backend == "host":
                 self._solve_host(cold, rep)
@@ -1624,13 +1806,21 @@ class Scheduler:
         the lanes run through the shared host entry — concurrent across
         the worker pool when one is available, inline (bit-identical)
         otherwise.  Each LANE's own deadline rides along: completed
-        lanes keep their answers, expired ones degrade individually."""
+        lanes keep their answers, expired ones degrade individually.  A
+        sampled drain records its cost at the profiler's ``host`` site."""
         reg = telemetry.default_registry()
+        prof_t0 = _profile.dispatch_t0("host")
         with reg.span("sched.host_solve", problems=len(live)):
             results = hostpool.solve_host_problems(
                 [lane.problem for lane in live],
                 max_steps=[lane.max_steps for lane in live],
                 deadlines=[lane.deadline for lane in live])
+            if prof_t0 is not None:
+                _profile.record_backend_flush(
+                    "host", len(live),
+                    int(sum(r.steps for r in results)),
+                    time.perf_counter() - prof_t0,
+                    tenant=_single_tenant(live))
             for lane, r in zip(live, results):
                 hostpool.count_lane(rep, r)
                 _apply_lane_result(lane, r, "sched.host_solve")

@@ -7,7 +7,9 @@ routing; the SAT facades add outcome/step/decision counters.  Its
 ``backend`` is the port's backend name, ``"device"`` or ``"host"``.  The
 driver fills ``escalation_stage`` (its budget escalation ladder) and
 ``fault_host_routed`` (groups its fault envelope solved on the host
-engine); the port has no trip profiler yet, so the ledger fields stay 0.
+engine), and the trip profiler (:mod:`deppy_tpu_torch.profile`) fills the
+ledger fields (``profiled_dispatches``, ``ledger_*``) of each device
+dispatch it samples; disarmed, they stay 0.
 
 The active report travels through the driver on a thread-local rather
 than through function signatures: the driver's internal phase functions

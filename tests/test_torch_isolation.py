@@ -88,6 +88,64 @@ def test_scan_covers_the_session_modules():
     assert ROOT / "deppy_tpu_torch" / "models" / "session.py" in PORT_FILES
 
 
+def test_scan_covers_the_profile_and_optimize_modules():
+    """The trip profiler, the SLO accountant, the sink report and the
+    optimization tier are the port's own copies: the AST scan reads each
+    of their modules."""
+    names = {(p.parent.name, p.name) for p in PORT_FILES
+             if p.parent.name in ("profile", "optimize")}
+    assert names == {
+        ("profile", "__init__.py"), ("profile", "ledger.py"),
+        ("profile", "slo.py"), ("profile", "report.py"),
+        ("optimize", "__init__.py"), ("optimize", "objective.py"),
+        ("optimize", "loop.py")}
+
+
+def test_fresh_process_profiled_optimize_loads_no_jax():
+    """An armed profiler over a CPU dispatch and a host drain, the sink's
+    report, and a Planner over the CPU scheduler's idle queue import
+    nothing of JAX or deppy_tpu."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        before = set(sys.modules)
+        from deppy_tpu_torch import profile, telemetry
+        from deppy_tpu_torch.models import random_instance
+        from deppy_tpu_torch.optimize import Planner
+        from deppy_tpu_torch.profile import report
+        from deppy_tpu_torch.resolution import BatchResolver
+        from deppy_tpu_torch.sched import Scheduler
+        sink = os.path.join(tempfile.mkdtemp(), "t.jsonl")
+        telemetry.default_registry().configure_sink(sink)
+        sched = Scheduler(device="cpu")
+        sched.start()
+        try:
+            with profile.override("on", 1.0):
+                BatchResolver(device="cpu").solve(
+                    [random_instance(length=12, seed=s) for s in range(3)])
+                Scheduler(backend="host").submit(
+                    [random_instance(length=12, seed=5)])
+                out = Planner(sched).handle({
+                    "variables": [{"id": "a"}, {"id": "b"}],
+                    "query": "soft", "warm": False,
+                    "soft": [{"id": "a", "installed": False}]})
+        finally:
+            sched.stop()
+        telemetry.default_registry().configure_sink(None)
+        assert out["status"] == "optimal" and out["selected"] == []
+        summary = report.summarize(sink)
+        assert set(summary["backends"]) == {"device", "host"}
+        assert summary["device_dispatches"] == 2
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new
+                     if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_fresh_process_session_loads_no_jax():
     """A session walk on the CPU scheduler, its handoff through the
     snapshot stream and the session generators import nothing of JAX or
