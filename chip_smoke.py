@@ -179,6 +179,27 @@ Phases, each fatal on failure:
    every event, and the first loop-thread launch of kernels 1, 3, 4 and 5
    from an idle flush and the blockwise run's kernel 2 launch are held
    against their plain versions;
+4j. the speculate path: speculative pre-resolution
+   (``deppy_tpu_torch.speculate``, the scheduler's pre-solves on the idle
+   queue), :func:`run_speculate_path`: the reference's publish-churn
+   replay at its defaults (16 ``catalog_family(., f, 8, 16)`` families,
+   5 ``round_delta`` publishes, every family re-asking through ``submit``
+   after each) on ``Scheduler(device="cuda")`` with the incremental tier
+   on, speculation off (A) and on (B, each publish drained, then a 0.25 s
+   settle beat), two passes each, the lower p99 kept; then (C) 256
+   families (every distinct fingerprint) with the incremental tier off,
+   so that every pre-solve is a cold dispatch on the card, through the 5
+   rounds and a withdrawal of ``b0v1`` (every family UNSAT), a live
+   request riding round 3's drain.  A's and B's responses are equal with
+   the prefix stripped, B's hit ratio is at least 0.9, every re-ask in C
+   is a cache hit (0 steps, no report) equal to a cold
+   ``BatchResolver(device="cuda")`` solve of the same 256 states, the
+   withdrawal's cores are the three constraints of ``b0v0``/``b0v1``,
+   every SAT answer is a solution, no idle drain ran with a live lane
+   queued, the backlog gauge reads 0 after every drain and the
+   presolves and dropped counters equal the publishes' sums, C's idle
+   flushes launch kernels 1, 3, 4 and 5, and the first loop-thread
+   launch of each in C is held against its plain version;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -4206,12 +4227,13 @@ class SpecLog:
         Scheduler._drain_spec_locked = self._orig
 
     def check(self, label: str, sched) -> list:
-        """The drains of ``sched``; fails unless every one found no live
-        lane queued."""
-        mine = [d for d in self.drains if d["sched"] == id(sched)]
+        """The drains of ``sched`` (of every scheduler when None); fails
+        unless every one found no live lane queued."""
+        mine = [d for d in self.drains
+                if sched is None or d["sched"] == id(sched)]
         busy = [d for d in mine if d["live_groups"] or d["live_lanes"]]
         if busy:
-            fail(f"optimize {label}: {len(busy)} idle flushes drained with "
+            fail(f"{label}: {len(busy)} idle flushes drained with "
                  f"live lanes queued: {busy[:3]}")
         return mine
 
@@ -4532,7 +4554,7 @@ def run_optimize_path(scale: float, plain: "PlainPool"):
                 _loop_only("optimize soft", dlog.calls, counts)
                 got = [r[0] for r in records]
                 oracle_check("1 soft", soft, got, want_soft)
-                drains = slog.check("1 soft", sched)
+                drains = slog.check("optimize 1 soft", sched)
                 if len(dlog.calls) != len(drains):
                     fail(f"optimize 1 soft: {len(drains)} idle flushes, "
                          f"{len(dlog.calls)} card dispatches")
@@ -4657,7 +4679,7 @@ def run_optimize_path(scale: float, plain: "PlainPool"):
                 loaded = check_live("with optimize load", recs)
                 oracle_check("3 soft under load", soft,
                              [r[0] for r in records], want_soft)
-                slog.check("3 preemption", sched)
+                slog.check("optimize 3 preemption", sched)
                 row = dict(
                     live_p50_ms=(_pct(alone, 0.5) * 1e3,
                                  _pct(loaded, 0.5) * 1e3),
@@ -4891,6 +4913,300 @@ def run_optimize_path(scale: float, plain: "PlainPool"):
           f"{scripted['failures']}, host-routed lanes "
           f"{scripted['host_routed']}; launches {launches}", flush=True)
     return launches, numbers, scripted
+
+
+SPEC_WORKLOAD = (16, 5, 8, 16)  # families, rounds, bundles, bundle size: the reference's defaults
+SPEC_PASSES = 2                 # passes A (off) and B (on), each; the lower p99 is kept
+SPEC_FANOUT = 256               # pass C: families, 2**8 (every distinct fingerprint)
+SPEC_LIVE_ROUND = 2             # pass C: the live request rides round 3's drain
+SPEC_SETTLE_S = 0.25            # pass B: the settle beat after the backlog empties
+SPEC_DRAIN_TIMEOUT_S = 60.0
+
+
+def spec_drained(sched) -> bool:
+    """No pre-solve queued and none dequeued but not yet stored (a
+    dispatch releases its lanes' in-flight keys after it stores them)."""
+    with sched._cv:
+        return not (sched._spec_depth or sched._spec_keys)
+
+
+def spec_wait(sched, stored: bool) -> float:
+    """Seconds until the backlog empties (``stored``: until every
+    pre-solve is stored as well); fails past the timeout."""
+    t0 = time.perf_counter()
+    done = (lambda: spec_drained(sched)) if stored else (
+        lambda: sched.speculative_depth() == 0)
+    while not done():
+        if time.perf_counter() - t0 > SPEC_DRAIN_TIMEOUT_S:
+            fail(f"speculate: the backlog did not drain in "
+                 f"{SPEC_DRAIN_TIMEOUT_S} s")
+        time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def spec_metrics(label: str, reg, published) -> dict:
+    """The speculation families of one scheduler's registry, held
+    against the ``publish()`` returns: the backlog gauge 0, presolves
+    the queued sum, dropped the dropped sum."""
+    snap = reg.snapshot()
+    got = {k: snap.get(f"deppy_speculate_{k}", 0)
+           for k in ("backlog", "presolves_total", "dropped_total",
+                     "publishes_total", "affected_total")}
+    want = dict(backlog=0,
+                presolves_total=sum(o["queued"] for o in published),
+                dropped_total=sum(o["dropped"] for o in published),
+                publishes_total=len(published),
+                affected_total=sum(o["affected"] for o in published))
+    if got != want:
+        fail(f"speculate {label}: the registry holds {got}, the publishes "
+             f"returned {want}")
+    return got
+
+
+def spec_replay(phase: str, speculate: bool) -> dict:
+    """The reference's publish-churn pass (``deppy_tpu/benchmarks/
+    publish.py:102-153``) on ``Scheduler(device="cuda")`` with the
+    incremental tier on: warm-up queries, then rounds of publish (on
+    only: then the backlog empties and a settle beat), every family
+    re-asking its post-publish problem through ``submit``."""
+    from deppy_tpu_torch import io, telemetry
+    from deppy_tpu_torch.models import catalog_family, round_delta
+    from deppy_tpu_torch.sched import Scheduler
+
+    n_fam, rounds, n_bundles, size = SPEC_WORKLOAD
+    reg = telemetry.Registry()
+    sched = Scheduler(device="cuda", speculate="on" if speculate else "off",
+                      registry=reg)
+    sched.start()
+    try:
+        families = [catalog_family(phase, f, n_bundles, size)
+                    for f in range(n_fam)]
+        for fam in families:
+            sched.submit([fam])
+        latencies, rendered, published = [], [], []
+        hits, drain_s = 0, 0.0
+        t_pass = time.perf_counter()
+        for rnd in range(rounds):
+            delta = round_delta(phase, rnd, n_bundles, size)
+            if speculate:
+                published.append(sched.speculate.publish(delta))
+                drain_s += spec_wait(sched, stored=False)
+                time.sleep(SPEC_SETTLE_S)
+                drain_s += SPEC_SETTLE_S
+                if reg.snapshot()["deppy_speculate_backlog"] != 0:
+                    fail(f"speculate {phase}: the backlog gauge is not 0 "
+                         f"after the drain")
+            for f in range(n_fam):
+                applied = delta.apply(families[f])
+                if applied is not None:
+                    families[f] = list(applied)
+                st: dict = {}
+                t0 = time.perf_counter()
+                (res,) = sched.submit([families[f]], stats=st)
+                latencies.append(time.perf_counter() - t0)
+                hits += st["steps"] == 0 and st["report"] is None
+                if isinstance(res, dict):
+                    check_solution(families[f], res)
+                else:
+                    fail(f"speculate {phase}: a re-ask answered {res!r}")
+                rendered.append(io.result_to_dict(res))
+        wall = time.perf_counter() - t_pass
+        if speculate:
+            spec_metrics(phase, reg, published)
+        elif sched.speculate is not None:
+            fail("speculate: speculate=\"off\" built a manager")
+    finally:
+        sched.stop()
+    return dict(
+        queries=len(latencies), p50_ms=_pct(latencies, 0.5) * 1e3,
+        p99_ms=_pct(latencies, 0.99) * 1e3,
+        hit_ratio=hits / max(len(latencies), 1), wall_s=wall,
+        drain_wait_s=drain_s, published=published,
+        normalized=json.dumps(rendered, sort_keys=True).replace(
+            f"{phase}.", ""))
+
+
+def run_speculate_path(scale: float, plain: "PlainPool"):
+    """Speculative pre-resolution on the card (the module docstring's
+    phase 4j): the reference's publish-churn replay with the tier off
+    (A) and on (B), then the fan-out on the card (C).  Runs at its full
+    size at every ``scale``.  Returns the path's launches and its
+    numbers."""
+    import torch
+
+    from deppy_tpu_torch import engine, faults, io, telemetry
+    from deppy_tpu_torch.models import catalog_family, round_delta
+    from deppy_tpu_torch.resolution import BatchResolver
+    from deppy_tpu_torch.sat.encode import encode
+    from deppy_tpu_torch.sat.errors import NotSatisfiable
+    from deppy_tpu_torch.sched import Scheduler, fingerprint
+    from deppy_tpu_torch.speculate import PublishDelta
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"speculate timings on {card}", flush=True)
+    numbers = {}
+    torch.cuda.synchronize()
+    engine.reset_launch_counts()
+
+    # A and B: the replay, off then on, two passes each.
+    with SpecLog() as slog:
+        passes = {"off": [], "on": []}
+        for mode in ("off", "on"):
+            for p in range(SPEC_PASSES):
+                passes[mode].append(spec_replay(f"{mode}{p}", mode == "on"))
+        b_flushes = len(slog.check("speculate B", None))
+    norms = {r["normalized"] for rs in passes.values() for r in rs}
+    if len(norms) != 1:
+        fail("speculate A/B: the rendered responses differ between the "
+             "passes with the tier off and on")
+    best = {m: min(rs, key=lambda r: r["p99_ms"]) for m, rs in passes.items()}
+    if best["on"]["hit_ratio"] < 0.9:
+        fail(f"speculate B: hit ratio {best['on']['hit_ratio']} < 0.9")
+    ratio = best["off"]["p99_ms"] / max(best["on"]["p99_ms"], 1e-9)
+    for m, rs in passes.items():
+        numbers[m] = [{k: v for k, v in r.items() if k != "normalized"}
+                      for r in rs]
+    numbers["vs_baseline"] = ratio
+    n_fam, rounds, n_bundles, size = SPEC_WORKLOAD
+    print(f"speculate A/B: {n_fam} families x {rounds} rounds of "
+          f"catalog_family(., f, {n_bundles}, {size}) re-asks "
+          f"({best['on']['queries']} a pass), {SPEC_PASSES} passes each: "
+          f"off p50 {best['off']['p50_ms']:.3f} ms p99 "
+          f"{best['off']['p99_ms']:.3f} ms (passes "
+          + ", ".join(f"{r['p99_ms']:.3f}" for r in passes["off"])
+          + f"); on p50 {best['on']['p50_ms']:.3f} ms p99 "
+          f"{best['on']['p99_ms']:.3f} ms (passes "
+          + ", ".join(f"{r['p99_ms']:.3f}" for r in passes["on"])
+          + f"); off/on p99 {ratio:.3f}; on hit ratio "
+          f"{best['on']['hit_ratio']:.4f} (passes "
+          + ", ".join(f"{r['hit_ratio']:.4f}" for r in passes["on"])
+          + f"), drain wait {best['on']['drain_wait_s']:.3f} s "
+          f"({SPEC_SETTLE_S} s settle a round included); {b_flushes} idle "
+          f"flushes, none with a live lane queued; responses equal off and "
+          f"on [{card}]", flush=True)
+
+    # C: the fan-out on the card, every pre-solve a cold dispatch.
+    reg = telemetry.Registry()
+    sched = Scheduler(device="cuda", speculate="on", incremental="off",
+                      registry=reg)
+    sched.start()
+    rounds_c, published, live, live_key = [], [], {}, None
+    fams = [catalog_family("fan", f, n_bundles, size)
+            for f in range(SPEC_FANOUT)]
+    deltas = [round_delta("fan", r, n_bundles, size) for r in range(rounds)]
+    deltas.append(PublishDelta.from_doc({"removed": ["fan.b0v1"]}))
+    want_core = None
+    try:
+        sched.submit(fams)
+        cap = RaceCapture(INC_KERNELS, thread=SCHED_LOOP)
+        with SpecLog() as slog, cap, DispatchLog() as dlog:
+            for rnd, delta in enumerate(deltas):
+                t0 = time.perf_counter()
+                out = sched.speculate.publish(delta)
+                published.append(out)
+                if rnd == SPEC_LIVE_ROUND:
+                    live["in_flight"] = not spec_drained(sched)
+                    req = catalog_family("live", 1, n_bundles, size)
+                    live_key = fingerprint(encode(req))
+                    t1 = time.perf_counter()
+                    (res,) = sched.submit([req])
+                    live["latency_s"] = time.perf_counter() - t1
+                    check_solution(req, res)
+                spec_wait(sched, stored=True)
+                wall = time.perf_counter() - t0
+                if reg.snapshot()["deppy_speculate_backlog"] != 0:
+                    fail("speculate C: the backlog gauge is not 0 after "
+                         "the drain")
+                got = []
+                for f in range(SPEC_FANOUT):
+                    applied = delta.apply(fams[f])
+                    if applied is not None:
+                        fams[f] = list(applied)
+                    st: dict = {}
+                    (res,) = sched.submit([fams[f]], stats=st)
+                    if st["steps"] != 0 or st["report"] is not None:
+                        fail(f"speculate C round {rnd + 1}: a re-ask took "
+                             f"{st['steps']} steps (report "
+                             f"{st['report'] is not None})")
+                    got.append(res)
+                cold = BatchResolver(device="cuda").solve(fams)
+                dumps = [json.dumps(io.result_to_dict(r), sort_keys=True)
+                         for r in got]
+                bad = sum(a != json.dumps(io.result_to_dict(b),
+                                          sort_keys=True)
+                          for a, b in zip(dumps, cold))
+                if bad:
+                    fail(f"speculate C round {rnd + 1}: {bad} re-asks "
+                         f"differ from the cold card solve")
+                unsat = 0
+                for vs, res in zip(fams, got):
+                    if isinstance(res, dict):
+                        check_solution(vs, res)
+                    elif isinstance(res, NotSatisfiable):
+                        unsat += 1
+                        core = sorted(str(ac) for ac in res.constraints)
+                        idents = {ac.variable.identifier
+                                  for ac in res.constraints}
+                        if (len(core) != 3
+                                or idents != {"fan.b0v0", "fan.b0v1"}):
+                            fail(f"speculate C round {rnd + 1}: core {core}")
+                        want_core = core
+                    else:
+                        fail(f"speculate C round {rnd + 1}: {res!r}")
+                withdrawal = rnd == len(deltas) - 1
+                if unsat != (SPEC_FANOUT if withdrawal else 0):
+                    fail(f"speculate C round {rnd + 1}: {unsat} UNSAT "
+                         f"re-asks")
+                rounds_c.append(dict(wall_s=wall, unsat=unsat, **out))
+        drains = slog.check("speculate C", sched)
+        spec_metrics("C", reg, published)
+        if any(o["dropped"] for o in published):
+            fail(f"speculate C: pre-solves dropped under the "
+                 f"{sched.spec_max_backlog}-lane cap: "
+                 f"{[o['dropped'] for o in published]}")
+    finally:
+        sched.stop()
+    torch.cuda.synchronize()
+    launches = dict(engine.launch_counts())
+    # The loop's card dispatches of C's window, the live request's
+    # aside: the idle flushes.
+    idle = [c for c in dlog.calls if c["thread"] == SCHED_LOOP
+            and live_key not in c["keys"]]
+    by_kernel = {k: sum(c["launches"][k] for c in idle)
+                 for k in engine.KERNELS}
+    missing = [k for k in INC_KERNELS if by_kernel[k] <= 0]
+    if missing:
+        fail(f"speculate C: the idle flushes never launched {missing}")
+    if len(idle) != len(drains):
+        fail(f"speculate C: {len(drains)} idle flushes, {len(idle)} card "
+             f"dispatches of pre-solves")
+    cap.submit(plain, "speculate idle flush")
+    if faults.default_breaker().state() != "closed":
+        fail("speculate: the breaker is not closed after the phase")
+    lanes = [d["lanes"] for d in drains]
+    numbers["C"] = dict(rounds=rounds_c, idle_flushes=len(drains),
+                        lanes_per_flush=lanes, launches_idle=by_kernel,
+                        live=live, core=want_core)
+    print(f"speculate C: {SPEC_FANOUT} families, {rounds} rounds and a "
+          f"withdrawal of fan.b0v1, tier incremental off: queued a round "
+          f"{[r['queued'] for r in rounds_c]}, dropped "
+          f"{[r['dropped'] for r in rounds_c]}; publish-to-drained wall "
+          f"a round (s) {[round(r['wall_s'], 4) for r in rounds_c]}; "
+          f"{len(drains)} idle flushes, lanes {lanes}, none with a live "
+          f"lane queued; idle-flush launches " + " ".join(
+              f"{k}={by_kernel[k]}" for k in engine.KERNELS)
+          + f"; every re-ask a cache hit (0 steps, no report) equal to the "
+          f"cold card solve, the withdrawal's cores {want_core}; a live "
+          f"request during round {SPEC_LIVE_ROUND + 1}'s drain (pre-solves "
+          f"in flight: {live.get('in_flight')}) took "
+          f"{live.get('latency_s', 0.0) * 1e3:.3f} ms [{card}]",
+          flush=True)
+    seconds = time.perf_counter() - t_phase
+    numbers["seconds"] = seconds
+    print(f"speculate path: {seconds:.1f} s; launches {launches} "
+          f"[{card}]", flush=True)
+    return launches, numbers
 
 
 def _stage1_budget(groups, max_share: float) -> int:
@@ -6275,6 +6591,7 @@ PATH_KERNELS = {
                "core"),
     "optimize": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
                  "core"),
+    "speculate": INC_KERNELS,
 }
 
 
@@ -6345,6 +6662,9 @@ def main(argv=None) -> int:
             run_optimize_path(args.scale, plain)
         scripted = {k: v + opt_scripted[k] for k, v in scripted.items()}
         stamp("optimize path")
+        by_path["speculate"], per_family["speculate"] = run_speculate_path(
+            args.scale, plain)
+        stamp("speculate path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")

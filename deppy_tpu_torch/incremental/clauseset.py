@@ -34,9 +34,9 @@ Brought across: :func:`problem_rows` (``:70``), :func:`vocab_key`
 ``export_entries`` / ``import_entry`` with ``_admit_locked``, ``touch``,
 ``plan``, the nearest-entry scan, the sessions' scoped planner
 ``plan_for_scope`` with the ``scoped`` delta class, and the
-accounting), with a plain ``threading`` lock.  Left out until the
-speculation tier is ported (ROADMAP A5.6.3): ``affected_keys`` and the
-read-only ``plan(account=False)`` preview.
+accounting, and the speculation tier's ``affected_keys`` (``:530``)
+and read-only ``plan(account=False)`` (``:379``)), with a plain
+``threading`` lock.
 """
 
 from __future__ import annotations
@@ -388,37 +388,46 @@ class ClauseSetIndex:
 
     # ------------------------------------------------------------- plan
 
-    def plan(self, problem: Problem, key: str,
-             budget: int) -> Optional[WarmPlan]:
+    def plan(self, problem: Problem, key: str, budget: int,
+             account: bool = True) -> Optional[WarmPlan]:
         """Classify ``problem`` against the nearest cached entry and
         return a warm plan when certifiable, else None.  Spanned as
-        ``incremental.delta`` with the class and cone size."""
+        ``incremental.delta`` with the class and cone size.
+
+        ``account=False`` (the read-only preview tier) skips the
+        lookup/delta/cone accounting AND the span: a what-if
+        consultation that never serves must not deflate the serving
+        tier's hit ratio or inflate its delta counters."""
         if self.capacity == 0:
             return None
         t0 = time.perf_counter()
-        plan = self._plan_inner(problem, key, budget)
-        self._registry.record_span(
-            "incremental.delta", time.perf_counter() - t0,
-            klass=plan.klass if plan is not None else "none",
-            cone=int(plan.cone.sum()) if plan is not None else 0)
+        plan = self._plan_inner(problem, key, budget, account)
+        if account:
+            self._registry.record_span(
+                "incremental.delta", time.perf_counter() - t0,
+                klass=plan.klass if plan is not None else "none",
+                cone=int(plan.cone.sum()) if plan is not None else 0)
         return plan
 
-    def _plan_inner(self, problem: Problem, key: str,
-                    budget: int) -> Optional[WarmPlan]:
+    def _plan_inner(self, problem: Problem, key: str, budget: int,
+                    account: bool = True) -> Optional[WarmPlan]:
         vocab = vocab_key(problem)
         with self._lock:
-            self._n_lookups += 1
+            if account:
+                self._n_lookups += 1
             empty = not self._by_vocab.get(vocab)
         if empty:
             # No comparable entry: skip the per-row hashing entirely —
             # a cold fleet's first pass must not pay the delta tier.
-            self._c_delta.inc(label="none")
+            if account:
+                self._c_delta.inc(label="none")
             return None
         rows = problem_rows(problem)
         with self._lock:
             entry = self._nearest_locked(vocab, rows)
         if entry is None:
-            self._c_delta.inc(label="none")
+            if account:
+                self._c_delta.inc(label="none")
             return None
         added = rows - entry.rows
         removed = entry.rows - rows
@@ -430,7 +439,8 @@ class ClauseSetIndex:
             klass = DELTA_RETRACTIVE
         else:
             klass = DELTA_MIXED
-        self._c_delta.inc(label=klass)
+        if account:
+            self._c_delta.inc(label=klass)
         seed: List[int] = []
         for k in list(added) + list(removed):
             seed.extend(_row_vars(k))
@@ -442,7 +452,8 @@ class ClauseSetIndex:
                              WARM_BUDGET_FACTOR * (entry.steps + 1)):
             return None
         warm_assign = np.where(entry.model, 1, -1).astype(np.int8)
-        self._h_cone.observe(fraction)
+        if account:
+            self._h_cone.observe(fraction)
         return WarmPlan(problem, key, warm_assign, cone, klass, fraction,
                         entry.key, entry.steps)
 
@@ -543,3 +554,30 @@ class ClauseSetIndex:
             if self._n_lookups == 0:
                 return 0.0
             return round(self._n_hits / self._n_lookups, 4)
+
+    # ------------------------------------------------------------ affected
+
+    def affected_keys(self, identifiers) -> List[str]:
+        """Fingerprints of indexed solves a catalog publish touches,
+        most recently stored first: an entry is affected when some
+        structural row (clause or cardinality) mentions a changed
+        identifier — the per-row keys store literals as vocab indices,
+        so membership is a vocab-index lookup plus a row scan.  A
+        changed identifier absent from an entry's vocabulary cannot
+        affect it (no row can reference an unknown variable)."""
+        wanted = frozenset(identifiers)
+        if not wanted:
+            return []
+        out: List[str] = []
+        with self._lock:
+            entries = list(reversed(self._entries.values()))
+        for entry in entries:
+            idx = {i for i, ident in enumerate(entry.vocab[1])
+                   if ident in wanted}
+            if not idx:
+                continue
+            for row_key in entry.rows:
+                if any(v in idx for v in _row_vars(row_key)):
+                    out.append(entry.key)
+                    break
+        return out

@@ -32,9 +32,10 @@ of the LRU, a :class:`deppy_tpu_torch.incremental.ClauseSetIndex`:
 :meth:`ResultCache.lookup_or_plan` (``cache.py:271-286``) consults it
 on an exact miss.  :meth:`ResultCache.export_seeds` (``cache.py:256-269``)
 is the warm-state snapshot's reader
-(:func:`deppy_tpu_torch.fleet.snapshot.export_warm_state`).  The
-speculation surfaces (``peek``, ``invalidate_keys``) come with ROADMAP
-A5.6.3.
+(:func:`deppy_tpu_torch.fleet.snapshot.export_warm_state`).
+:meth:`ResultCache.peek` and :meth:`ResultCache.invalidate_keys`
+(``cache.py:220-254``) are the speculation tier's
+(:mod:`deppy_tpu_torch.speculate`).
 """
 
 from __future__ import annotations
@@ -223,6 +224,41 @@ class ResultCache:
             self._size_changed_locked()
             self._account(hit=False)
             return MISS
+
+    def peek(self, key: str, budget: int) -> bool:
+        """True when :meth:`lookup` would hit — WITHOUT the hit/miss
+        accounting or the LRU touch.  The speculation tier consults this
+        before queuing a pre-solve: a probe must not distort the serving
+        hit ratio or refresh recency on behalf of traffic that never
+        arrived."""
+        if self.capacity == 0:
+            return False
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None:
+                return False
+            if e.definitive:
+                return e.budget <= budget
+            return budget <= e.budget
+
+    def invalidate_keys(self, keys) -> int:
+        """Publish-driven invalidation: evict the entries whose
+        fingerprints a catalog publish retracted or contradicted — they
+        describe pre-publish states that can no longer be re-asked and
+        must not be served stale.  Returns the eviction count; each one
+        lands on ``deppy_cache_invalidations_total``."""
+        n = 0
+        with self._lock:
+            for key in keys:
+                e = self._entries.pop(key, None)
+                if e is None:
+                    continue
+                self._bytes -= e.nbytes
+                self._invalidations.inc()
+                n += 1
+            if n:
+                self._size_changed_locked()
+        return n
 
     def export_seeds(self) -> list:
         """``(key, budget, solution-dict)`` for every definitive SAT

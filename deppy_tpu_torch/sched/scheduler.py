@@ -63,6 +63,15 @@ pad/pack, upload and set of kernel launches instead of paying one each.
     and no live flush is pending (the ``spec`` flush reason): live
     traffic preempts every probe at a flush boundary.  The submitter
     blocks, and a dispatch error re-raises into it.
+  * **Speculative pre-resolution.**  With ``speculate`` on (the
+    default), every submitted problem's family is retained by a
+    :class:`deppy_tpu_torch.speculate.SpeculationManager`; a catalog
+    publish (:meth:`SpeculationManager.publish`) queues the affected
+    families' post-publish states through
+    :meth:`Scheduler.submit_speculative` on the same idle queue —
+    fire-and-forget pre-solves capped at ``speculate_max_backlog``
+    lanes, discarded (and counted) at shutdown — whose answers land in
+    the result cache and the clause-set index like any other lane's.
   * **Trip profiler.**  The host drain and the warm flush record their
     cost at the profiler's ``host`` and ``warm`` sites
     (:mod:`deppy_tpu_torch.profile`), stamped with the flush's tenant
@@ -91,11 +100,9 @@ and the warm screen is skipped.
 
 Left out, each with the ROADMAP item that brings it (the parameters keep
 the reference's names and raise ``NotImplementedError`` when set; each
-tier stays off until then): speculative pre-resolution (A5.6.3:
-``submit_speculative``, the backlog cap and its gauge; with
-``speculate`` unset the scheduler is the reference's
-``Scheduler(speculate="off")``), route shadows (A5.6.4) and the serving
-mesh (A6).
+tier stays off until then): route shadows (A5.6.4: ``set_route_plane``,
+``submit_shadow``) and the serving mesh (A6: ``mesh``, ``mesh_devices``,
+``lanes_per_device``).
 """
 
 from __future__ import annotations
@@ -137,6 +144,10 @@ DEFAULT_PORTFOLIO_SAMPLE_CHECK = 0.0625
 # cutoff knobs come with the CLI that sets them (ROADMAP A7.2).
 DEFAULT_INCREMENTAL_INDEX = 512
 DEFAULT_INCREMENTAL_MAX_DELTA = 0.25
+# Speculative pre-solve lanes queued at idle priority, at most
+# (scheduler.py:84).  Env mirrors: DEPPY_GPU_SPECULATE (on/off) and
+# DEPPY_GPU_SPECULATE_MAX_BACKLOG.
+DEFAULT_SPECULATE_MAX_BACKLOG = 2048
 
 # The "incremental" size class (scheduler.py:91): warm-started lanes
 # coalesce with each other — their cost is a handful of host propagation
@@ -158,10 +169,8 @@ SESSION_CLASS = -2
 _OFF = ("off", "0", "false", "no")
 
 # Parameters of tiers not ported yet, with the ROADMAP item of each: any
-# value but None raises.  speculate also takes its "off" spellings.
+# value but None raises.
 _LEFT_OUT = {
-    "speculate": "A5.6.3 (speculative pre-resolution)",
-    "speculate_max_backlog": "A5.6.3 (speculative pre-resolution)",
     "mesh": "A6 (mesh serving)",
     "mesh_devices": "A6 (mesh serving)",
     "lanes_per_device": "A6 (mesh serving)",
@@ -252,8 +261,8 @@ class _Group:
         self.report = None
         self.parent = telemetry.trace.capture_parent()
         self.timing: dict = {}
-        # An idle-priority group (an optimize probe): queued on the idle
-        # queue, drained only when no live lane waits.
+        # An idle-priority group (an optimize probe or a pre-solve):
+        # queued on the idle queue, drained only when no live lane waits.
         self.speculative = speculative
         self.tenant = lanes[0].tenant if lanes else "default"
         self.priority = priority
@@ -699,15 +708,10 @@ class Scheduler:
         fair: Optional[str] = None,
         tenant_weights: Optional[str] = None,
     ):
-        given = dict(
-            speculate=speculate,
-            speculate_max_backlog=speculate_max_backlog,
-            mesh=mesh, mesh_devices=mesh_devices,
-            lanes_per_device=lanes_per_device)
+        given = dict(mesh=mesh, mesh_devices=mesh_devices,
+                     lanes_per_device=lanes_per_device)
         for name, value in given.items():
-            if value is None or (
-                    name == "speculate"
-                    and str(value).strip().lower() in _OFF):
+            if value is None:
                 continue
             raise NotImplementedError(
                 f"Scheduler({name}=...) is not ported yet: ROADMAP "
@@ -817,13 +821,38 @@ class Scheduler:
         self._cv = threading.Condition()
         self._queue: List[_Group] = []
         self._depth = 0
-        # The idle-priority queue (scheduler.py:770-780): optimize
-        # probe groups, drained only while no live lane is queued.
-        # ``_spec_keys`` holds the fingerprints the speculation tier
-        # (A5.6.3) marks in flight; a dispatch releases its lanes' keys.
+        # The idle-priority queue (scheduler.py:770-800): optimize
+        # probe groups and speculative pre-solves, drained only while
+        # no live lane is queued.
         self._spec_queue: List[_Group] = []
         self._spec_depth = 0
+        # Fingerprints queued or mid-dispatch on the idle queue (CV-
+        # guarded): a duplicate publish burst arriving before the first
+        # pre-solves have stored must not double-burn the backlog cap
+        # solving the same families twice.  A dispatch releases its
+        # lanes' keys.
         self._spec_keys: set = set()
+        # Speculative pre-resolution.  "off" constructs no manager and
+        # no gauge: the submit and dispatch paths are those of a
+        # scheduler without the tier.
+        if speculate is None:
+            speculate = os.environ.get("DEPPY_GPU_SPECULATE", "on")
+        self.speculate = None
+        self._g_spec_depth = None
+        if str(speculate).strip().lower() not in _OFF:
+            if speculate_max_backlog is None:
+                speculate_max_backlog = _env_int(
+                    "DEPPY_GPU_SPECULATE_MAX_BACKLOG",
+                    DEFAULT_SPECULATE_MAX_BACKLOG)
+            self.spec_max_backlog = max(int(speculate_max_backlog), 0)
+            from ..speculate import SpeculationManager
+
+            self.speculate = SpeculationManager(self, registry=reg)
+            self._g_spec_depth = reg.gauge(
+                "deppy_speculate_backlog",
+                "Speculative pre-solve lanes queued at idle priority "
+                "right now.")
+            self._g_spec_depth.set(0)
         self._stop = False
         self._thread: Optional[threading.Thread] = None
         # EWMA of dispatch wall clock, seeding the Retry-After estimate.
@@ -870,9 +899,11 @@ class Scheduler:
 
     def stop(self, timeout: float = 10.0) -> None:
         """Stop the loop; queued LIVE groups drain (dispatch) first so
-        no submitter is left hanging, and queued optimize groups fail
-        with "scheduler stopped before optimize dispatch" (idle work
-        never slows a drain).  Submits after stop dispatch inline."""
+        no submitter is left hanging, queued optimize groups fail with
+        "scheduler stopped before optimize dispatch", and queued
+        pre-solves are discarded, counted on
+        ``deppy_speculate_dropped_total`` (idle work never slows a
+        drain).  Submits after stop dispatch inline."""
         self._reprobe_stop.set()
         with self._cv:
             self._stop = True
@@ -977,6 +1008,10 @@ class Scheduler:
         warm_pending: List[tuple] = []
         for i, p in enumerate(problems):
             key = fingerprint(p)
+            if self.speculate is not None:
+                # Retain the served family so a later catalog publish
+                # can be applied to it and pre-solved.
+                self.speculate.observe(key, problem_vars[i])
             hit, plan = self.cache.lookup_or_plan(p, key, budget)
             if hit is not MISS:
                 results[i] = hit  # bypasses the queue entirely
@@ -1066,6 +1101,115 @@ class Scheduler:
         return _Group(lanes, size_class, budget, speculative=speculative,
                       priority=priority)
 
+    # ------------------------------------------------------------ speculation
+
+    def _set_spec_gauge_locked(self) -> None:
+        """Caller holds the CV: the backlog gauge follows ``_spec_depth``
+        (absent with the tier off)."""
+        if self._g_spec_depth is not None:
+            self._g_spec_depth.set(self._spec_depth)
+
+    def speculative_depth(self) -> int:
+        """Lanes queued at idle priority (pre-solves and optimize
+        probes)."""
+        with self._cv:
+            return self._spec_depth
+
+    def submit_speculative(
+        self,
+        problem_vars: Sequence[Sequence[Variable]],
+        max_steps: Optional[int] = None,
+    ) -> tuple:
+        """Queue pre-solves at IDLE priority and return immediately with
+        ``(queued, dropped)`` lane counts (``scheduler.py:1220-1312``) —
+        fire-and-forget: results land in the result cache and the
+        clause-set index exactly like ordinary solves, and nobody blocks
+        on them.  The dispatch loop drains these groups only while no
+        live group is queued, so live traffic preempts at every flush
+        boundary.  Malformed families, already-cached fingerprints, and
+        within-call duplicates are skipped; lanes past the backlog cap
+        (or arriving while the loop is not running — a pre-solve must
+        never dispatch inline on a publisher's thread) are dropped."""
+        if self.speculate is None:
+            return 0, len(problem_vars)
+        from ..engine.driver import _budget
+
+        if max_steps is None:
+            max_steps = self.max_steps
+        budget = int(_budget(max_steps))
+        dropped = 0
+        seen: set = set()
+        cold: List[_Lane] = []
+        warm: List[_Lane] = []
+        for vs in problem_vars:
+            try:
+                p = encode(vs)
+            except Exception as e:  # noqa: BLE001 — a malformed family
+                # must never abort the rest of a publish burst; it is a
+                # counted drop with a sink event, not a request error
+                # (no requester exists to answer).
+                telemetry.default_registry().event(
+                    "fault", fault="speculate_encode_failed",
+                    error=type(e).__name__)
+                dropped += 1
+                continue
+            if p.errors:
+                dropped += 1
+                continue
+            key = fingerprint(p)
+            if key in seen:
+                continue
+            seen.add(key)
+            if self.cache.peek(key, budget):
+                continue  # the answer is already served from cache
+            plan = (self.incremental.plan(p, key, budget)
+                    if self.incremental is not None else None)
+            lane = _Lane(p, key, max_steps, budget, None, warm=plan,
+                         tenant="speculate")
+            (warm if plan is not None else cold).append(lane)
+            # Retain the POST-publish family under its new fingerprint:
+            # a later publish must compose on this state, not the
+            # superseded one the publish just retired.
+            self.speculate.observe(key, vs)
+        groups: List[_Group] = []
+        # One group per cold family keeps size classes honest (the idle
+        # drain coalesces same-class neighbours like the live drain);
+        # warm lanes coalesce as the incremental class.
+        for lane in cold:
+            groups.append(self._make_group([lane], budget,
+                                           speculative=True))
+        if warm:
+            groups.append(_Group(warm, INCREMENTAL_CLASS, budget,
+                                 speculative=True))
+        queued = 0
+        with self._cv:
+            admit = self.running
+            for g in groups:
+                # Drop lanes whose fingerprint is already queued or
+                # mid-dispatch (a duplicate publish burst): neither
+                # queued nor dropped — the answer is already on its
+                # way.  The cache is re-peeked HERE because a pre-solve
+                # can complete (store + key release) between the
+                # pre-encode peek above and this enqueue; peek is a
+                # leaf lock, safe under the CV.
+                g.lanes = [lane for lane in g.lanes
+                           if lane.key not in self._spec_keys
+                           and not self.cache.peek(lane.key, budget)]
+                if not g.lanes:
+                    continue
+                if (not admit or self._spec_depth + len(g.lanes)
+                        > self.spec_max_backlog):
+                    dropped += len(g.lanes)
+                    continue
+                self._spec_keys.update(lane.key for lane in g.lanes)
+                self._spec_queue.append(g)
+                self._spec_depth += len(g.lanes)
+                queued += len(g.lanes)
+            self._set_spec_gauge_locked()
+            if queued:
+                self._cv.notify_all()
+        return queued, dropped
+
     # ----------------------------------------------------- optimize probes
 
     def submit_optimize(
@@ -1108,6 +1252,7 @@ class Scheduler:
             if self.running:
                 self._spec_queue.append(group)
                 self._spec_depth += len(group.lanes)
+                self._set_spec_gauge_locked()
                 self._cv.notify_all()
             else:
                 inline = True
@@ -1263,6 +1408,7 @@ class Scheduler:
                 self._spec_queue = []
                 self._spec_depth = 0
                 self._spec_keys.clear()
+                self._set_spec_gauge_locked()
             for g in orphans:
                 if not g.event.is_set():
                     g.error = RuntimeError(
@@ -1271,6 +1417,7 @@ class Scheduler:
 
     def _loop_inner(self) -> None:
         while True:
+            discarded = 0
             spec_orphans: List[_Group] = []
             groups: List[_Group] = []
             reason = None
@@ -1279,13 +1426,18 @@ class Scheduler:
                        and not self._stop):
                     self._cv.wait()
                 if self._stop and self._spec_queue:
-                    # Shutdown discards the idle backlog: idle work must
-                    # never slow a drain.  Optimize probes have a waiter:
+                    # Shutdown discards the idle backlog: no submitter
+                    # waits on a pre-solve, and idle work must never
+                    # slow a drain.  Optimize probes have a waiter:
                     # their groups are failed below, outside the lock.
+                    # The discarded lanes (scheduler.py:1527) are the
+                    # backlog's, probes included, as the reference's.
+                    discarded = self._spec_depth
                     spec_orphans = self._spec_queue
                     self._spec_queue = []
                     self._spec_depth = 0
                     self._spec_keys.clear()
+                    self._set_spec_gauge_locked()
                 if self._queue:
                     groups, reason = self._drain_locked(force=self._stop)
                     if not groups:
@@ -1309,6 +1461,8 @@ class Scheduler:
                     g.error = RuntimeError(
                         "scheduler stopped before optimize dispatch")
                     g.event.set()
+            if discarded and self.speculate is not None:
+                self.speculate.note_discarded(discarded)
             if not groups:
                 return  # stopped and drained
             self._dispatch(groups, reason)
@@ -1333,6 +1487,7 @@ class Scheduler:
         self._spec_queue = [g for g in self._spec_queue
                             if id(g) not in taken]
         self._spec_depth -= lanes
+        self._set_spec_gauge_locked()
         return take, "spec"
 
     # A queued group older than this many coalescing windows becomes

@@ -101,6 +101,14 @@ def test_scan_covers_the_profile_and_optimize_modules():
         ("optimize", "loop.py")}
 
 
+def test_scan_covers_the_speculate_modules():
+    """The speculation tier and the publish-churn generators are the
+    port's own copies: the AST scan reads each of their modules."""
+    names = {p.name for p in PORT_FILES if p.parent.name == "speculate"}
+    assert names == {"__init__.py", "manager.py"}
+    assert ROOT / "deppy_tpu_torch" / "models" / "publish.py" in PORT_FILES
+
+
 def test_fresh_process_profiled_optimize_loads_no_jax():
     """An armed profiler over a CPU dispatch and a host drain, the sink's
     report, and a Planner over the CPU scheduler's idle queue import

@@ -12,7 +12,7 @@ exact:
   * the upgrade, explain and degradation cases and the tier's counters;
   * the idle queue: live lanes first, coalescing by class and budget up
     to ``max_fill``, the stop's failure of queued probes, the dispatch
-    error's event, and ``speculate`` still left out;
+    error's event, and a stop with probes and pre-solves queued;
   * the result cache and the clause-set index after a ``Planner`` run,
     equal to the reference's (probe answers are stored, as the
     reference's ``_dispatch`` stores every lane).
@@ -756,9 +756,61 @@ class TestIdleQueue:
                  if sp["name"] == "sched.queue_wait"]
         assert spans and spans[-1]["attrs"]["lanes"] == 1
 
-    @pytest.mark.parametrize("name,value", [
-        ("speculate", "on"), ("speculate_max_backlog", 8)])
-    def test_speculation_is_still_left_out(self, name, value):
-        with pytest.raises(NotImplementedError, match="A5.6.3"):
-            Scheduler(device="cpu", **{name: value})
-        Scheduler(device="cpu", speculate="off")
+    @pytest.mark.parametrize("speculate", ["on", "off"])
+    def test_stop_with_probes_and_presolves_queued(self, speculate):
+        """Probes and pre-solves share the idle queue: a stop with both
+        queued fails the probes' groups, discards the pre-solves (and the
+        probes' lanes, as the reference counts them) on
+        ``deppy_speculate_dropped_total``, and empties the queue, its
+        gauge and the in-flight keys.  With the tier off no pre-solve
+        queues and no speculation family exists."""
+        reg = ttelemetry.Registry()
+        s = Scheduler(device="cpu", speculate=speculate, registry=reg)
+        gate = threading.Event()
+        orig = s._dispatch
+
+        def held(groups, reason):
+            gate.wait(30)
+            return orig(groups, reason)
+
+        s._dispatch = held
+        s.start()
+        errors = []
+
+        def probe():
+            try:
+                s.submit_optimize([_state(1)])
+            except RuntimeError as e:
+                errors.append(str(e))
+
+        try:
+            # A live lane holds the loop in its dispatch while the idle
+            # queue fills.
+            live = threading.Thread(target=lambda: s.submit([_state(0)]))
+            live.start()
+            while s.queue_depth() and live.is_alive():
+                time.sleep(0.005)
+            prober = threading.Thread(target=probe)
+            prober.start()
+            while s.speculative_depth() < 1:
+                time.sleep(0.005)
+            queued, dropped = s.submit_speculative([_state(2), _state(3)])
+        finally:
+            stopper = threading.Thread(target=s.stop)
+            stopper.start()
+            while not s._stop:  # the stop is seen before the loop wakes
+                time.sleep(0.005)
+            gate.set()
+            stopper.join(30)
+            live.join(30)
+            prober.join(30)
+        snap = reg.snapshot()
+        assert errors == ["scheduler stopped before optimize dispatch"]
+        assert s.speculative_depth() == 0 and not s._spec_keys
+        if speculate == "on":
+            assert (queued, dropped) == (2, 0)
+            assert snap["deppy_speculate_dropped_total"] == 3
+            assert snap["deppy_speculate_backlog"] == 0
+        else:
+            assert (queued, dropped) == (0, 2) and s.speculate is None
+            assert not any(k.startswith("deppy_speculate") for k in snap)

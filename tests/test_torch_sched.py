@@ -644,14 +644,43 @@ def test_unported_backends_raise(backend):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(speculate="on"), "A5.6"),
-    (dict(speculate_max_backlog=4), "A5.6"), (dict(mesh=object()), "A6"),
+    (dict(mesh=object()), "A6"),
     (dict(mesh_devices=2), "A6"), (dict(lanes_per_device=64), "A6"),
 ], ids=lambda v: "-".join(v) if isinstance(v, dict) else v)
 @within(30)
 def test_unported_tiers_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TScheduler(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,backlog", [
+    (dict(), 2048),
+    (dict(speculate=None), 2048),
+    (dict(speculate="on"), 2048),
+    (dict(speculate="ON"), 2048),
+    (dict(speculate_max_backlog=8), 8),
+    (dict(speculate="on", speculate_max_backlog=0), 0),
+], ids=["default", "None", "on", "ON", "backlog-8", "backlog-0"])
+@within(30)
+def test_speculate_arguments_build_the_tier(kw, backlog, monkeypatch):
+    """The ``speculate*`` arguments (ported with the reference's
+    default, ``"on"``, and its backlog cap of 2048) build the manager,
+    the ``deppy_speculate_backlog`` gauge at 0 and the cap, as the
+    reference's do."""
+    for name in ("DEPPY_GPU_SPECULATE", "DEPPY_GPU_SPECULATE_MAX_BACKLOG"):
+        monkeypatch.delenv(name, raising=False)
+    treg, jreg = ttelemetry.Registry(), jtelemetry.Registry()
+    mine = TScheduler(device="cpu", registry=treg, **kw)
+    ref = JScheduler(backend="tpu", incremental="off", portfolio="off",
+                     registry=jreg, **kw)
+    for sched, reg in ((mine, treg), (ref, jreg)):
+        assert sched.speculate is not None
+        assert sched._g_spec_depth is not None
+        assert reg.snapshot()["deppy_speculate_backlog"] == 0
+        assert sched.spec_max_backlog == backlog
+        assert sched.speculative_depth() == 0
+    assert type(mine.speculate).__module__ == \
+        "deppy_tpu_torch.speculate.manager"
 
 
 @pytest.mark.parametrize("kw,want", [
