@@ -199,7 +199,38 @@ Phases, each fatal on failure:
    queued, the backlog gauge reads 0 after every drain and the
    presolves and dropped counters equal the publishes' sums, C's idle
    flushes launch kernels 1, 3, 4 and 5, and the first loop-thread
-   launch of each in C is held against its plain version;
+   launch of each in C is held against its plain version; the path's
+   launch counts leave out the cold card solves the re-asks are held
+   against;
+4k. the routes path: the route-health plane (``deppy_tpu_torch.routes``,
+   the scheduler's shadow probes on the idle queue),
+   :func:`run_routes_path`: (A) the reference's distribution-shift bench
+   at its defaults (``deppy_tpu/benchmarks/routes.py``: 8 warm and 12
+   measured waves of 6 chains of depth 40, three in four with an UNSAT
+   lane, shadow rate 0.5, ``min_samples`` 2) on ``Scheduler(device=
+   "cuda", backend="auto", portfolio="on", cache_size=0,
+   incremental="off")``: a probe of the device, host and grad_relax
+   backends, then the frozen (the worst row, stale, no plane), learned
+   (the same row, ``routes.start_plane(mode="on")``), oracle (the
+   best-first row, fresh) and observe (the oracle row and an
+   ``observe`` plane) passes, one round each, every row written by
+   ``defaults.merge_rows``; (B) 8 waves under a stale
+   ``host,grad_relax,device`` row and an ``observe`` plane at shadow rate
+   1.0, so the card is probed from the loop thread and never serves,
+   then one scripted ``sched.shadow.device`` fault; (C) the worst-first
+   overlay on every class at sample check 1.0.  Every pass's answers
+   equal one cold ``BatchResolver(device="cuda")`` solve of the waves,
+   the observe pass fires no probe, the overlay is empty after
+   ``stop_plane``, no idle drain ran with a live lane queued, B's device
+   probes answer (``ok``) and launch kernels 1, 3, 4 and 5 from the loop
+   thread, every loop-thread card solve is an ``ok`` device probe and no
+   card solve runs elsewhere, B's cache holds exactly the
+   live lanes' keys, the fault is one ``ok: false`` event counted as
+   injected and never as a driver failure, C's answers equal the
+   unraced card scheduler's, and the first loop-thread launch of each
+   kernel in B is held against its plain version.  The path's launch
+   counts leave out the reference runs (A's cold solve, C's unraced
+   run);
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -2312,8 +2343,8 @@ def run_race_path(scale: float, plain: "PlainPool"):
     fleet_off = [r for (lab, _), r in zip(jobs, off) if lab == "A"]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "measured_defaults.json")
-        with open(path, "w") as f:
-            json.dump({"gpu": {"portfolio.s": "device,host"}}, f)
+        defaults.merge_rows("gpu", {"portfolio.s": "device,host"},
+                            path=path)
         prev = os.environ.get("DEPPY_GPU_MEASURED_DEFAULTS")
         for with_row in (True, False):
             os.environ["DEPPY_GPU_MEASURED_DEFAULTS"] = (
@@ -5046,6 +5077,7 @@ def run_speculate_path(scale: float, plain: "PlainPool"):
     card = card_line()
     print(f"speculate timings on {card}", flush=True)
     numbers = {}
+    ref = {}  # the cold card solves' launches, not the path's
     torch.cuda.synchronize()
     engine.reset_launch_counts()
 
@@ -5130,7 +5162,8 @@ def run_speculate_path(scale: float, plain: "PlainPool"):
                              f"{st['steps']} steps (report "
                              f"{st['report'] is not None})")
                     got.append(res)
-                cold = BatchResolver(device="cuda").solve(fams)
+                with uncounted(ref):
+                    cold = BatchResolver(device="cuda").solve(fams)
                 dumps = [json.dumps(io.result_to_dict(r), sort_keys=True)
                          for r in got]
                 bad = sum(a != json.dumps(io.result_to_dict(b),
@@ -5168,7 +5201,9 @@ def run_speculate_path(scale: float, plain: "PlainPool"):
     finally:
         sched.stop()
     torch.cuda.synchronize()
-    launches = dict(engine.launch_counts())
+    launches = {k: n - ref.get(k, 0)
+                for k, n in engine.launch_counts().items()}
+    numbers["reference_launches"] = dict(ref)
     # The loop's card dispatches of C's window, the live request's
     # aside: the idle flushes.
     idle = [c for c in dlog.calls if c["thread"] == SCHED_LOOP
@@ -5204,7 +5239,544 @@ def run_speculate_path(scale: float, plain: "PlainPool"):
           flush=True)
     seconds = time.perf_counter() - t_phase
     numbers["seconds"] = seconds
-    print(f"speculate path: {seconds:.1f} s; launches {launches} "
+    print(f"speculate path: {seconds:.1f} s; launches {launches}, not "
+          f"counting the cold card solves' {ref} [{card}]", flush=True)
+    return launches, numbers
+
+
+ROUTES_BENCH = (40, 6, 8, 12)   # depth, lanes, warm and measured waves: the reference bench's defaults
+ROUTES_SHADOW_RATE = 0.5        # the bench's shadow rate
+ROUTES_MIN_SAMPLES = 2          # the bench's min_samples
+ROUTES_STALE_TS = 1000.0        # a provenance stamp older than any max age
+ROUTES_RACEABLE = ("device", "host", "grad_relax")
+ROUTES_SHADOW_WAVES = 8         # part B: waves served with a probe each
+ROUTES_FAULT_WAVES = 3          # part B: waves, at most, until the scripted probe fault fires
+ROUTES_CACHE = 1024             # part B: the scheduler's result cache
+ROUTES_SHADOW_TIMEOUT_S = 60.0
+
+
+class ShadowLog:
+    """While on, one scheduler's accepted ``submit_shadow`` calls and
+    the default registry's ``route`` events, so a caller can wait until
+    every accepted probe has reported."""
+
+    def __init__(self, sched):
+        self.sched = sched
+        self.calls = []
+        self.events = []
+
+    def __enter__(self):
+        from deppy_tpu_torch import telemetry
+
+        orig = self.sched.submit_shadow
+
+        def submit_shadow(backend, cls, problems, max_steps=None):
+            ok = orig(backend, cls, problems, max_steps=max_steps)
+            self.calls.append(dict(backend=backend, cls=cls,
+                                   lanes=len(problems), queued=ok))
+            return ok
+
+        self.sched.submit_shadow = submit_shadow
+        self._reg = telemetry.default_registry()
+        self._fn = lambda e: (self.events.append(e)
+                              if e.get("kind") == "route" else None)
+        self._reg.add_forwarder(self._fn)
+        return self
+
+    def __exit__(self, *exc):
+        self._reg.remove_forwarder(self._fn)
+        del self.sched.submit_shadow
+
+    def wait(self) -> None:
+        """Until every accepted probe has emitted its ``route`` event."""
+        t0 = time.perf_counter()
+        while len(self.events) < sum(c["queued"] for c in self.calls):
+            if time.perf_counter() - t0 > ROUTES_SHADOW_TIMEOUT_S:
+                fail(f"routes: {sum(c['queued'] for c in self.calls)} "
+                     f"probes queued, {len(self.events)} reported in "
+                     f"{ROUTES_SHADOW_TIMEOUT_S} s")
+            time.sleep(0.002)
+
+
+@contextlib.contextmanager
+def uncounted(tally: dict):
+    """Adds the kernel launches made inside to ``tally``: a check's own
+    reference run, which its phase takes out of the path's counts."""
+    from deppy_tpu_torch import engine
+
+    before = engine.launch_counts()
+    try:
+        yield
+    finally:
+        after = engine.launch_counts()
+        for k, n in after.items():
+            tally[k] = tally.get(k, 0) + n - before[k]
+
+
+def routes_freeze(path: str, row: str, stale: bool) -> None:
+    """The bench's ``_freeze`` (``deppy_tpu/benchmarks/routes.py:
+    146-160``): a fresh registry file at ``path`` (made
+    ``DEPPY_GPU_MEASURED_DEFAULTS``) holding the ``gpu`` platform's
+    ``portfolio`` row, written by the store's writer with a stale or a
+    fresh provenance stamp, then reloaded."""
+    from deppy_tpu_torch.engine import defaults
+
+    os.environ["DEPPY_GPU_MEASURED_DEFAULTS"] = path
+    for p in (path, path + ".lock"):
+        with contextlib.suppress(OSError):
+            os.unlink(p)
+    evidence = {"platform": "gpu", "samples": 4}
+    if stale:
+        evidence["ts"] = ROUTES_STALE_TS
+    defaults.merge_rows("gpu", {"portfolio": row}, evidence=evidence,
+                        path=path)
+    defaults.reload_measured_defaults()
+
+
+def routes_probe(depth: int, lanes: int) -> dict:
+    """The bench's ``_probe``: each raceable backend on one wave-shaped
+    batch on the card, a warm call first, then one timed call, and
+    whether it answered every lane definitively."""
+    import torch
+
+    from deppy_tpu_torch.engine import registry
+    from deppy_tpu_torch.models import route_wave
+    from deppy_tpu_torch.sat.encode import encode
+
+    probs = [encode(vs) for vs in route_wave(depth, lanes, "probe")]
+    verdicts = {}
+    for name in ROUTES_RACEABLE:
+        registry.solve_via(name, probs, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = registry.solve_via(name, probs, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        verdicts[name] = dict(
+            wall_s=wall, definitive=all(r is not None and not r.degraded
+                                        for r in out))
+    return verdicts
+
+
+def routes_rows(verdicts: dict):
+    """The bench's ``_rows``: (frozen, oracle).  Frozen leads with the
+    slowest definitive backend and puts the non-definitive ones second;
+    oracle is the definitive ones fastest first."""
+    definitive = sorted((n for n, v in verdicts.items() if v["definitive"]),
+                        key=lambda n: verdicts[n]["wall_s"])
+    nondef = sorted((n for n, v in verdicts.items()
+                     if not v["definitive"]),
+                    key=lambda n: verdicts[n]["wall_s"])
+    if len(definitive) < 2:
+        fail(f"routes: fewer than 2 definitive backends: {verdicts}")
+    return (",".join([definitive[-1]] + nondef + definitive[:-1]),
+            ",".join(definitive + nondef))
+
+
+def routes_serve(sched, waves, plane=None) -> dict:
+    """One pass of ``waves`` through ``sched.submit`` from one thread:
+    the walls, the rendered answers and, with a learning plane, the wave
+    whose serving left a row adopted and the peak stale count."""
+    from deppy_tpu_torch import io
+    from deppy_tpu_torch.engine import registry
+
+    walls, rendered = [], []
+    adopted_at, stale_peak = None, 0
+    for i, wave in enumerate(waves):
+        t0 = time.perf_counter()
+        results = sched.submit(wave)
+        walls.append(time.perf_counter() - t0)
+        rendered += [json.dumps(io.result_to_dict(r), sort_keys=True)
+                     for r in results]
+        if plane is not None:
+            stale_peak = max(stale_peak, plane.watcher.stale_count())
+            if adopted_at is None and registry.route_overlay():
+                adopted_at = i
+    return dict(walls=walls, rendered=rendered, adopted_at=adopted_at,
+                stale_peak=stale_peak)
+
+
+def _routes_scheduler(**kw):
+    from deppy_tpu_torch.sched import Scheduler
+
+    sched = Scheduler(device="cuda", backend="auto", **kw)
+    sched.start()
+    return sched
+
+
+def _routes_stop(sched) -> None:
+    from deppy_tpu_torch import routes
+    from deppy_tpu_torch.sched import scheduler as sched_mod
+
+    routes.stop_plane()
+    sched.stop()
+    sched_mod._join_race_threads()
+
+
+def routes_bench(card: str, ref: dict) -> dict:
+    """Part A: the reference bench (``deppy_tpu/benchmarks/routes.py:
+    173-300``) at its defaults on the card: the probe, then the frozen
+    (stale row, no plane), learned (stale row, ``mode="on"``), oracle
+    (fresh best-first row) and observe (oracle row, an ``observe``
+    plane) passes over the same waves, one round each.  The bench's
+    ``shadow_overhead_ratio`` (the min of two observe rounds over the min
+    of two oracle rounds) is left out: the rounds vary by more than the
+    5 % it tests.  The cold card solve the answers are held against
+    counts its launches in ``ref``, not in the path's."""
+    import tempfile
+
+    from deppy_tpu_torch import io, routes
+    from deppy_tpu_torch.engine import registry
+    from deppy_tpu_torch.models import route_wave
+    from deppy_tpu_torch.resolution import BatchResolver
+
+    depth, lanes, warm, meas = ROUTES_BENCH
+    waves = [route_wave(depth, lanes, f"w{i}", unsat=(i % 4 != 1))
+             for i in range(warm + meas)]
+    kw = dict(portfolio="on", cache_size=0, incremental="off")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "measured_defaults.json")
+        verdicts = routes_probe(depth, lanes)
+        frozen_row, oracle_row = routes_rows(verdicts)
+        print(f"routes A probe ({lanes} lanes of depth {depth}): " + ", ".join(
+            f"{n} {v['wall_s'] * 1e3:.3f} ms"
+            f"{'' if v['definitive'] else ' (not definitive)'}"
+            for n, v in verdicts.items())
+            + f"; frozen row {frozen_row}, oracle row {oracle_row} "
+            f"[{card}]", flush=True)
+        passes = {}
+
+        routes_freeze(path, frozen_row, stale=True)
+        sched = _routes_scheduler(**kw)
+        try:
+            passes["frozen"] = routes_serve(sched, waves)
+        finally:
+            _routes_stop(sched)
+
+        routes_freeze(path, frozen_row, stale=True)
+        sched = _routes_scheduler(**kw)
+        try:
+            plane = routes.start_plane(
+                sched, mode="on", shadow_rate=ROUTES_SHADOW_RATE,
+                min_samples=ROUTES_MIN_SAMPLES)
+            passes["learned"] = routes_serve(sched, waves, plane)
+            snap = plane.snapshot()
+            estimates = plane.ledger.estimates()
+        finally:
+            _routes_stop(sched)
+        if registry.route_overlay():
+            fail(f"routes A: the overlay holds {registry.route_overlay()} "
+                 f"after stop_plane")
+
+        for name, mode in (("oracle", None), ("observe", "observe")):
+            routes_freeze(path, oracle_row, stale=False)
+            sched = _routes_scheduler(**kw)
+            try:
+                if mode is not None:
+                    plane = routes.start_plane(
+                        sched, mode=mode, shadow_rate=ROUTES_SHADOW_RATE)
+                passes[name] = routes_serve(sched, waves)
+                if mode is not None:
+                    obs_snap = plane.snapshot()
+            finally:
+                _routes_stop(sched)
+    with uncounted(ref):
+        cold = BatchResolver(device="cuda").solve(
+            [vs for wave in waves for vs in wave])
+    want = [json.dumps(io.result_to_dict(r), sort_keys=True) for r in cold]
+    bad = {name: sum(a != b for a, b in zip(p["rendered"], want))
+           for name, p in passes.items()}
+    if any(bad.values()) or any(len(p["rendered"]) != len(want)
+                                for p in passes.values()):
+        fail(f"routes A: answers differing from the cold card solve, by "
+             f"pass: {bad}")
+    obs_shadow = sum(v["dispatches"] for v in obs_snap["shadow"].values())
+    if obs_shadow:
+        fail(f"routes A: the observe pass on the fresh oracle row fired "
+             f"{obs_shadow} shadow probes")
+
+    def measured(p):
+        return sum(p["walls"][warm:])
+
+    n_meas = meas * lanes
+    rate = {name: n_meas / measured(p) for name, p in passes.items()}
+    regret = sum(s for c in snap["classes"].values()
+                 for s in (c.get("regret_s") or {}).values())
+    row = dict(
+        probe=verdicts, frozen_row=frozen_row, oracle_row=oracle_row,
+        frozen_rate=rate["frozen"], learned_rate=rate["learned"],
+        oracle_rate=rate["oracle"], observe_rate=rate["observe"],
+        vs_baseline=rate["learned"] / rate["frozen"],
+        oracle_ratio=rate["learned"] / rate["oracle"],
+        adoption_wave=passes["learned"]["adopted_at"],
+        learned=snap.get("learned"), regret_s=regret,
+        shadow=snap["shadow"], stale_peak=passes["learned"]["stale_peak"],
+        races={c: v["races"] for c, v in snap["classes"].items()},
+        wins={c: v["wins"] for c, v in snap["classes"].items()},
+        unshifted_shadow_dispatches=obs_shadow, estimates=estimates,
+        measured_wall_s={name: measured(p) for name, p in passes.items()},
+        pass_wall_s={name: sum(p["walls"]) for name, p in passes.items()})
+    print(f"routes A: {warm} warm + {meas} measured waves of {lanes} chains "
+          f"of depth {depth} (3 in 4 with an UNSAT lane), portfolio on, "
+          f"k=2: resolutions/s frozen {rate['frozen']:.1f}, learned "
+          f"{rate['learned']:.1f}, oracle {rate['oracle']:.1f}, observe "
+          f"{rate['observe']:.1f}; learned/frozen (vs_baseline) "
+          f"{row['vs_baseline']:.3f}, oracle_ratio {row['oracle_ratio']:.3f}; "
+          f"adopted at wave {row['adoption_wave']} ({row['learned']}); "
+          f"regret {regret:.6f} s; shadow probes {snap['shadow']}; stale "
+          f"peak {row['stale_peak']}; wins {row['wins']}; the learned "
+          f"pass's estimates (µs a lane) " + ", ".join(
+              f"{b} {e['us_per_lane']} ({e['samples']} samples, "
+              f"{e['censored']} censored)"
+              for c in estimates.values() for b, e in sorted(c.items()))
+          + "; pass walls s " + ", ".join(
+              f"{name} {sum(p['walls']):.3f}" for name, p in passes.items())
+          + f"; every pass's "
+          f"{len(want)} answers equal the cold card solve; the observe pass "
+          f"fired 0 probes; the overlay empty after stop_plane [{card}]",
+          flush=True)
+    return row
+
+
+def routes_shadow(card: str, plain: "PlainPool") -> dict:
+    """Part B: a stale ``host,grad_relax,device`` row, so ``device`` is
+    never a serving entrant, and an ``observe`` plane at shadow rate 1.0:
+    every wave's flush queues one probe, which reports before the next
+    wave; the device probes launch the kernels from the loop thread.
+    Then one scripted ``sched.shadow.device`` fault."""
+    import tempfile
+
+    import torch
+
+    from deppy_tpu_torch import engine, faults, routes, telemetry
+    from deppy_tpu_torch.models import route_wave
+    from deppy_tpu_torch.sat.encode import encode
+    from deppy_tpu_torch.sched import fingerprint
+
+    depth, lanes = ROUTES_BENCH[:2]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "measured_defaults.json")
+        routes_freeze(path, "host,grad_relax,device", stale=True)
+        sched = _routes_scheduler(portfolio="on", cache_size=ROUTES_CACHE,
+                                  incremental="off")
+        keys = []
+        cap = RaceCapture(INC_KERNELS, thread=SCHED_LOOP)
+        try:
+            plane = routes.start_plane(sched, mode="observe",
+                                       shadow_rate=1.0)
+            torch.cuda.synchronize()
+            with ShadowLog(sched) as slog, cap, DispatchLog() as dlog:
+                for i in range(ROUTES_SHADOW_WAVES):
+                    wave = route_wave(depth, lanes, f"s{i}",
+                                      unsat=(i % 4 != 1))
+                    keys += [fingerprint(encode(vs)) for vs in wave]
+                    sched.submit(wave)
+                    slog.wait()
+                shadow_events = list(slog.events)
+                snap0 = telemetry.default_registry().snapshot()
+                faults.configure_plan(faults.FaultPlan.from_doc(
+                    [{"point": "sched.shadow.device", "kind": "error",
+                      "times": 1}]))
+                try:
+                    for i in range(ROUTES_FAULT_WAVES):
+                        wave = route_wave(depth, lanes, f"f{i}")
+                        keys += [fingerprint(encode(vs)) for vs in wave]
+                        sched.submit(wave)
+                        slog.wait()
+                        if any(not e["ok"] for e in slog.events):
+                            break
+                finally:
+                    faults.configure_plan(None)
+                fault_events = slog.events[len(shadow_events):]
+                calls = list(slog.calls)
+            snap1 = telemetry.default_registry().snapshot()
+            cached = sorted(sched.cache._entries)
+            stale = plane.watcher.status()
+            shadow_counts = plane.snapshot()["shadow"]
+        finally:
+            _routes_stop(sched)
+    torch.cuda.synchronize()
+    device_ok = [e for e in shadow_events
+                 if e["backend"] == "device" and e["ok"]]
+    if not device_ok:
+        fail(f"routes B: no device probe answered: {shadow_events}")
+    if any(not e["ok"] for e in shadow_events):
+        fail(f"routes B: probes failed: {shadow_events}")
+    loop = [c for c in dlog.calls if c["thread"] == SCHED_LOOP]
+    others = [c for c in dlog.calls if c["thread"] != SCHED_LOOP]
+    if others:
+        fail(f"routes B: device solves off the loop thread: "
+             f"{[c['thread'] for c in others]} (device is no entrant)")
+    # Every loop-thread card solve is a probe: a canonical flush on the
+    # loop would have no ok device route event to match.
+    probes_ok = sum(e["backend"] == "device" and e["ok"]
+                    for e in shadow_events + fault_events)
+    if len(loop) != probes_ok:
+        fail(f"routes B: {len(loop)} loop-thread card solves, {probes_ok} "
+             f"ok device probes")
+    by_kernel = {k: sum(c["launches"][k] for c in loop)
+                 for k in engine.KERNELS}
+    missing = [k for k in INC_KERNELS if by_kernel[k] <= 0]
+    if missing:
+        fail(f"routes B: the loop's shadow probes never launched {missing}")
+    cap.submit(plain, "routes shadow probe")
+    if cached != sorted(keys):
+        fail(f"routes B: the cache holds {len(cached)} keys, the live lanes "
+             f"{len(keys)} (a shadow answer must never be cached)")
+    failed = [e for e in fault_events if not e["ok"]]
+    if (len(failed) != 1 or failed[0]["backend"] != "device"
+            or failed[0]["error"] != "InjectedFault"):
+        fail(f"routes B: the scripted probe fault gave {fault_events}")
+
+    def delta(name, label=None):
+        a, b = snap0.get(name, 0), snap1.get(name, 0)
+        if label is not None:
+            a = (a or {}).get(label, 0) if isinstance(a, dict) else 0
+            b = (b or {}).get(label, 0) if isinstance(b, dict) else 0
+        return b - a
+
+    injected = delta("deppy_faults_injected_total", "sched.shadow.device")
+    failures = delta("deppy_fault_failures_total")
+    routed = delta("deppy_fault_host_routed_total")
+    if (injected, failures, routed) != (1, 0, 0):
+        fail(f"routes B: the probe fault counted injected {injected}, "
+             f"driver failures {failures}, host-routed {routed}; want 1, "
+             f"0, 0")
+    walls = {}
+    for e in shadow_events:
+        walls.setdefault(e["backend"], []).append(e["wall_s"])
+    row = dict(calls=[c["backend"] for c in calls],
+               probe_wall_s=walls, loop_launches=by_kernel,
+               loop_solves=len(loop), cached=len(cached), stale=stale,
+               shadow=shadow_counts, fault=failed[0])
+    print(f"routes B: {ROUTES_SHADOW_WAVES} waves under a stale "
+          f"host,grad_relax,device row, observe, shadow rate 1.0: probes "
+          f"{row['calls'][:ROUTES_SHADOW_WAVES]}; probe walls (median, "
+          f"range) " + ", ".join(
+              f"{b} {statistics.median(ws) * 1e3:.3f} ms ({min(ws) * 1e3:.3f}"
+              f"-{max(ws) * 1e3:.3f})" for b, ws in walls.items())
+          + f"; {len(loop)} loop-thread card solves = the ok device probes, "
+          f"launches " + " ".join(
+              f"{k}={by_kernel[k]}" for k in engine.KERNELS)
+          + f", none off the loop; cache {len(cached)} keys = the live "
+          f"lanes'; a scripted sched.shadow.device fault: one ok false "
+          f"InjectedFault event, injected +1, driver failures +0, the loop "
+          f"served on [{card}]", flush=True)
+    return row
+
+
+def routes_adversarial(card: str, ref: dict) -> dict:
+    """Part C: the worst-first row (``grad_relax,host,device``) on every
+    class's overlay, raced with every non-canonical win checked; the
+    answers must equal the unraced card scheduler's
+    (``tests/test_routes.py::TestAdversarialLearnedRows``' requests, at
+    the suite's full depth of 6 random instances).  The unraced run
+    counts its launches in ``ref``, not in the path's."""
+    from deppy_tpu_torch import io, sat
+    from deppy_tpu_torch.engine import registry
+    from deppy_tpu_torch.models import random_instance
+
+    def chain(d):
+        vs = [sat.variable("a0", sat.mandatory(), sat.dependency("a1"))]
+        vs += [sat.variable(f"a{i}", sat.dependency(f"a{i + 1}"))
+               for i in range(1, d - 1)]
+        vs.append(sat.variable(f"a{d - 1}"))
+        return vs
+
+    reqs = [chain(24), chain(48)]
+    reqs += [random_instance(length=12, seed=s) for s in range(6)]
+    reqs.append([sat.variable("u0", sat.mandatory(), sat.dependency("u1")),
+                 sat.variable("u1", sat.prohibited())])
+    jobs = [reqs]
+    worst_first = ",".join(reversed(
+        [n for n in registry.specs() if n in ROUTES_RACEABLE]))
+
+    def serve(**kw):
+        sched = _routes_scheduler(cache_size=0, incremental="off", **kw)
+        try:
+            t0 = time.perf_counter()
+            out = [json.dumps(io.result_to_dict(r), sort_keys=True)
+                   for job in jobs for r in sched.submit(job)]
+            return out, time.perf_counter() - t0
+        finally:
+            _routes_stop(sched)
+
+    with uncounted(ref):
+        base, base_wall = serve(portfolio="off")
+    registry.set_route_overlay({f"portfolio.{c}": worst_first
+                                for c in ("xs", "s", "m", "l", "xl")})
+    try:
+        raced, raced_wall = serve(portfolio="on", portfolio_sample_check=1.0)
+    finally:
+        registry.set_route_overlay({})
+    bad = sum(a != b for a, b in zip(raced, base))
+    if bad or len(raced) != len(base):
+        fail(f"routes C: {bad} of {len(base)} answers under the worst-first "
+             f"overlay differ from the unraced card scheduler's")
+    print(f"routes C: worst-first overlay {worst_first} on every class, "
+          f"sample check 1.0: {len(raced)} answers equal the unraced card "
+          f"scheduler's; wall {raced_wall:.3f} s raced against "
+          f"{base_wall:.3f} s unraced [{card}]", flush=True)
+    return dict(row=worst_first, answers=len(raced), raced_wall_s=raced_wall,
+                unraced_wall_s=base_wall)
+
+
+def run_routes_path(scale: float, plain: "PlainPool"):
+    """The route-health plane on the card (the module docstring's phase
+    4k): the reference bench (A), a deterministic shadow probe of the
+    card from the loop thread (B) and the adversarial overlay (C).  Runs
+    at its full size at every ``scale``.  Returns the path's launches and
+    its numbers."""
+    import torch
+
+    from deppy_tpu_torch import engine, faults
+    from deppy_tpu_torch.engine import defaults, registry
+    from deppy_tpu_torch.sat.solver import resolve_backend
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"routes timings on {card}", flush=True)
+    prev = os.environ.get("DEPPY_GPU_MEASURED_DEFAULTS")
+    ref = {}
+    # The auto backend's verdict for the card (the faults phase took it
+    # already; alone, this takes it), so no flush is routed to the host
+    # while the probe runs.
+    if resolve_backend("auto", device="cuda") != "device":
+        fail("routes: the auto backend does not resolve to the card")
+    torch.cuda.synchronize()
+    engine.reset_launch_counts()
+    numbers = {}
+    try:
+        with SpecLog() as slog:
+            for part, run in (("A", lambda: routes_bench(card, ref)),
+                              ("B", lambda: routes_shadow(card, plain)),
+                              ("C", lambda: routes_adversarial(card, ref))):
+                t0 = time.perf_counter()
+                numbers[part] = run()
+                numbers[part]["seconds"] = time.perf_counter() - t0
+        drains = slog.check("routes", None)
+    finally:
+        if prev is None:
+            os.environ.pop("DEPPY_GPU_MEASURED_DEFAULTS", None)
+        else:
+            os.environ["DEPPY_GPU_MEASURED_DEFAULTS"] = prev
+        defaults.reload_measured_defaults()
+        registry.set_route_overlay({})
+    torch.cuda.synchronize()
+    # The plane's own runs only: the probe, the passes, the shadow probes
+    # and C's raced run, not the reference solves they are held against.
+    launches = {k: n - ref.get(k, 0)
+                for k, n in engine.launch_counts().items()}
+    if faults.default_breaker().state() != "closed":
+        fail("routes: the breaker is not closed after the phase")
+    numbers["idle_flushes"] = len(drains)
+    numbers["reference_launches"] = dict(ref)
+    seconds = time.perf_counter() - t_phase
+    numbers["seconds"] = seconds
+    print(f"routes path: {seconds:.1f} s (A {numbers['A']['seconds']:.1f}, B "
+          f"{numbers['B']['seconds']:.1f}, C {numbers['C']['seconds']:.1f}); "
+          f"{len(drains)} idle flushes, none with a live lane queued; "
+          f"launches {launches}, not counting the reference solves' {ref} "
           f"[{card}]", flush=True)
     return launches, numbers
 
@@ -6592,6 +7164,7 @@ PATH_KERNELS = {
     "optimize": ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
                  "core"),
     "speculate": INC_KERNELS,
+    "routes": INC_KERNELS,
 }
 
 
@@ -6665,6 +7238,9 @@ def main(argv=None) -> int:
         by_path["speculate"], per_family["speculate"] = run_speculate_path(
             args.scale, plain)
         stamp("speculate path")
+        by_path["routes"], per_family["routes"] = run_routes_path(
+            args.scale, plain)
+        stamp("routes path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")

@@ -14,10 +14,12 @@ objects; :func:`candidates` never races it).
 
 The portfolio racer (:class:`deppy_tpu_torch.sched.scheduler.PortfolioRacer`)
 consumes this surface: :func:`candidates` ranks the backends for a size
-class — by the measured-defaults registry's ``portfolio.<class>`` /
-``portfolio`` rows for the device's platform when one was measured
-(:mod:`.defaults`), else by the static canonical-first order — and the
-racer dispatches the top K concurrently.
+class — by a learned-route overlay row (:func:`set_route_overlay`, the
+route plane's learner) or else the measured-defaults registry's
+``portfolio.<class>`` / ``portfolio`` rows for the device's platform
+when one was measured (:mod:`.defaults`), else by the static
+canonical-first order — and the racer dispatches the top K
+concurrently.
 
 Answer identity: the host engine is the executable spec and the device
 engine is pinned bit-identical to it (models, unsat cores), so any
@@ -137,17 +139,55 @@ def estimate_us(name: str, class_name: str) -> float:
                             max(spec.cost_us.values()))
 
 
+# The learned-route overlay (registry.py:123-153): in-memory ranking
+# rows adopted by the online route registry (:mod:`deppy_tpu_torch.routes.
+# learn`), consulted ahead of the measured-defaults file so a serving
+# process can adopt a live-learned row without mutating the registry
+# file mid-serve.  A learned row can only reorder WHICH definitive
+# backends race — the racer's first-definitive-winner rule and sampled
+# cross-check still gate every answer, so adoption changes speed, never
+# answers.  Empty (the default, and always with the route plane off)
+# leaves ranked() as it was.  Rows are kept per platform of the device
+# they were learned on (``{platform: {key: row}}``): one process may
+# serve a card scheduler and a CPU one, and a row measured on one must
+# not reorder the other's race.
+_ROUTE_OVERLAY: Dict[str, Dict[str, str]] = {}
+
+
+def set_route_overlay(rows: Optional[Dict[str, str]],
+                      device="cuda") -> None:
+    """Replace ``device``'s platform's learned-route overlay: ``{key:
+    comma-separated row}`` under the keys :func:`ranked` reads
+    (``portfolio.<class>``, ``portfolio``).  None or {} clears it."""
+    global _ROUTE_OVERLAY
+    _ROUTE_OVERLAY = {**_ROUTE_OVERLAY,
+                      defaults.platform_of(device): dict(rows or {})}
+
+
+def update_route_overlay(rows: Dict[str, str], device="cuda") -> None:
+    """Merge rows into ``device``'s platform's learned-route overlay (an
+    atomic swap: the racer may be reading concurrently)."""
+    global _ROUTE_OVERLAY
+    platform = defaults.platform_of(device)
+    _ROUTE_OVERLAY = {**_ROUTE_OVERLAY,
+                      platform: {**_ROUTE_OVERLAY.get(platform, {}), **rows}}
+
+
+def route_overlay(device="cuda") -> Dict[str, str]:
+    return dict(_ROUTE_OVERLAY.get(defaults.platform_of(device), {}))
+
+
 def ranked(class_name: str, device="cuda") -> Tuple[List[str], bool]:
     """Candidate backend names for a size class, best first, plus
     whether the order came from a MEASURED ``portfolio`` row (the
     ``auto`` racing mode engages only then).  Rows are comma-separated
     backend names under the measured-defaults keys
     ``portfolio.<class>`` (per class) or ``portfolio`` (global) of
-    ``device``'s platform.  The reference also reads a learned-route
-    overlay ahead of the file; it comes with its writer, the online
-    route learner (ROADMAP A7)."""
+    ``device``'s platform; a learned-route overlay row of that platform
+    takes precedence and counts as measured (it is a measurement, just a fresher one)."""
+    overlay = _ROUTE_OVERLAY.get(defaults.platform_of(device), {})
     for key in (f"portfolio.{class_name}", "portfolio"):
-        row = defaults.measured_default(key, device)
+        row = overlay.get(key) or defaults.measured_default(key, device)
         if row:
             names = [n.strip() for n in row.split(",")
                      if n.strip() in _SPECS]

@@ -15,6 +15,12 @@ rules matched against named **fault points** the pipeline calls
   ``sched.race.<backend>``    entry of one portfolio race entrant (an error
                               loses that entrant the race; every entrant
                               failing falls back to the canonical path)
+  ``sched.shadow.<backend>``  entry of one shadow route probe (an error is
+                              the probe's ``ok: false`` route event; no
+                              answer depends on it).  Like the reference,
+                              :data:`KNOWN_POINTS` does not list it, so an
+                              env plan naming it warns "unmatched" and
+                              still injects
   ``hostpool.dispatch``       entry of one host-pool dispatch (an error
                               degrades the batch to the inline engine)
   ``hostpool.worker_crash``   each chunk sent to a pool worker (an error

@@ -13,6 +13,7 @@ from .entity_catalog import operatorhub_entities, operatorhub_generators
 from .hard import chain_requests
 from .publish import catalog_family, round_delta
 from .random_instance import random_instance
+from .routes import route_wave
 from .session import derived_doc, session_catalog, walk_steps
 
 __all__ = [
@@ -29,6 +30,7 @@ __all__ = [
     "pinned_tenant_catalog",
     "random_instance",
     "round_delta",
+    "route_wave",
     "session_catalog",
     "version_pinned_chains",
     "walk_steps",

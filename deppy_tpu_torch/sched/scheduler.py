@@ -98,11 +98,18 @@ deferred re-probe (:meth:`Scheduler._kick_reprobe`,
 While the breaker blocks the device, the racer offers no device entrant
 and the warm screen is skipped.
 
-Left out, each with the ROADMAP item that brings it (the parameters keep
-the reference's names and raise ``NotImplementedError`` when set; each
-tier stays off until then): route shadows (A5.6.4: ``set_route_plane``,
-``submit_shadow``) and the serving mesh (A6: ``mesh``, ``mesh_devices``,
-``lanes_per_device``).
+  * **Route plane.**  :meth:`Scheduler.set_route_plane` installs a
+    :class:`deppy_tpu_torch.routes.RoutePlane` (``routes.start_plane``;
+    off by default): it observes every cold live flush after its answers
+    are computed and may queue a shadow route probe with
+    :meth:`Scheduler.submit_shadow` — the flush's problems re-solved on
+    the idle queue through ONE named backend, timed for the route
+    ledger, the answers thrown away (they never reach a lane, the cache
+    or the index).
+
+Left out, with the ROADMAP item that brings it (the parameters keep the
+reference's names and raise ``NotImplementedError`` when set): the
+serving mesh (A6: ``mesh``, ``mesh_devices``, ``lanes_per_device``).
 """
 
 from __future__ import annotations
@@ -247,7 +254,8 @@ class _Group:
 
     __slots__ = ("lanes", "enq_t", "size_class", "budget", "event",
                  "error", "report", "parent", "timing", "speculative",
-                 "tenant", "priority", "immediate")
+                 "tenant", "priority", "immediate", "shadow_backend",
+                 "shadow_class")
 
     def __init__(self, lanes: List[_Lane], size_class: int, budget: int,
                  speculative: bool = False, priority: int = 1,
@@ -272,6 +280,11 @@ class _Group:
         # nothing and costs the whole window.  Batchmates that are
         # already queued still coalesce into the flush.
         self.immediate = immediate
+        # A shadow route probe (scheduler.py:210-214): the group
+        # re-solves a served flush's problems through this one backend,
+        # for the route ledger only.
+        self.shadow_backend: Optional[str] = None
+        self.shadow_class: Optional[str] = None
 
 
 def _apply_lane_result(lane: _Lane, r, point: str,
@@ -839,6 +852,9 @@ class Scheduler:
             speculate = os.environ.get("DEPPY_GPU_SPECULATE", "on")
         self.speculate = None
         self._g_spec_depth = None
+        # The idle queue's lane cap: shadow probes (submit_shadow) share
+        # it, and with the tier off it stays at the default.
+        self.spec_max_backlog = DEFAULT_SPECULATE_MAX_BACKLOG
         if str(speculate).strip().lower() not in _OFF:
             if speculate_max_backlog is None:
                 speculate_max_backlog = _env_int(
@@ -864,6 +880,9 @@ class Scheduler:
         self._reprobe_thread: Optional[threading.Thread] = None
         self._reprobe_s = faults.env_float("DEPPY_GPU_REPROBE", 600.0,
                                            warn=True) or 0.0
+        # The route-health plane (routes.start_plane): None means no
+        # flush observation, no shadow groups and no route events.
+        self._route_plane = None
 
     # -------------------------------------------------------------- lifecycle
 
@@ -1388,6 +1407,87 @@ class Scheduler:
         # dispatch on the caller's thread — same code path, no queue.
         self._dispatch([group], reason="inline")
 
+    # ------------------------------------------------------------ route plane
+
+    def set_route_plane(self, plane) -> None:
+        """Install (or, with None, remove) the route-health plane
+        (scheduler.py:1385-1390).  The plane observes every cold live
+        flush after its answers are served and may enqueue shadow route
+        probes via :meth:`submit_shadow`."""
+        self._route_plane = plane
+
+    def submit_shadow(self, backend_name: str, class_name: str,
+                      problems: Sequence[Problem],
+                      max_steps: Optional[int] = None) -> bool:
+        """Queue one shadow route probe at IDLE priority
+        (scheduler.py:1392-1429): re-solve an already-coalesced flush's
+        problems via ONE named backend, timing it for the route ledger.
+        Rides the idle queue, so live traffic preempts every shadow
+        dispatch at the flush boundary; the result is a ``route`` sink
+        event and NEVER touches a lane result, the cache or the index.
+        Returns False when dropped (the loop is not running, or the
+        idle backlog is full — a shadow probe is pure opportunism)."""
+        from ..engine.driver import _budget
+
+        if max_steps is None:
+            max_steps = self.max_steps
+        budget = int(_budget(max_steps))
+        lanes = [_Lane(p, "", max_steps, budget, None, tenant="shadow")
+                 for p in problems]
+        # The size class carries a shadow-only sentinel so the idle
+        # drain's coalescing can never mix a shadow probe into an
+        # optimize or pre-solve flush (those dispatch through the normal
+        # solve path; shadow groups do not).
+        group = _Group(lanes, f"shadow:{class_name}:{backend_name}",
+                       budget, speculative=True)
+        group.shadow_backend = backend_name
+        group.shadow_class = class_name
+        with self._cv:
+            if (not self.running
+                    or self._spec_depth + len(lanes)
+                    > self.spec_max_backlog):
+                return False
+            self._spec_queue.append(group)
+            self._spec_depth += len(lanes)
+            self._set_spec_gauge_locked()
+            self._cv.notify_all()
+        return True
+
+    def _dispatch_shadow(self, groups: List[_Group]) -> None:
+        """Drain shadow route probes (scheduler.py:1431-1464): one timed
+        ``solve_via`` dispatch per group on the scheduler's device, the
+        answers discarded, wall clock and definitiveness emitted as a
+        ``route`` event for the ledger and the learner.  A failure is an
+        ``ok: false`` event — a shadow probe never takes down the
+        dispatch loop, and no answer depends on it.  The serving mesh
+        (and so ``mesh=``) comes with ROADMAP A6."""
+        from ..engine import registry as engine_registry
+
+        for g in groups:
+            problems = [lane.problem for lane in g.lanes]
+            name = g.shadow_backend
+            out = None
+            err = None
+            t1 = time.perf_counter()
+            try:
+                faults.inject(f"sched.shadow.{name}")
+                out = engine_registry.solve_via(
+                    name, problems, max_steps=g.lanes[0].max_steps,
+                    device=self.device)
+            except BaseException as e:  # noqa: BLE001 — probe-local
+                err = type(e).__name__
+            finally:
+                wall = time.perf_counter() - t1
+                ok = (err is None and out is not None
+                      and all(r is not None and not r.degraded
+                              for r in out))
+                telemetry.default_registry().event(
+                    "route", phase="shadow",
+                    size_class_name=g.shadow_class, backend=name,
+                    lanes=len(g.lanes), wall_s=round(wall, 6),
+                    ok=bool(ok), error=err)
+                g.event.set()
+
     # --------------------------------------------------------- dispatch loop
 
     def _loop(self) -> None:
@@ -1547,6 +1647,12 @@ class Scheduler:
         return take, reason
 
     def _dispatch(self, groups: List[_Group], reason: str) -> None:
+        if groups and groups[0].shadow_backend is not None:
+            # Shadow route probes never coalesce with real groups (their
+            # size-class sentinel is shadow-only), so a drained set is
+            # homogeneous.
+            self._dispatch_shadow(groups)
+            return
         lanes = [lane for g in groups for lane in g.lanes]
         t0 = time.monotonic()
         report = None
@@ -1691,6 +1797,7 @@ class Scheduler:
             self._kick_reprobe()
         rep, owns = telemetry.begin_report(backend=backend,
                                            n_problems=len(live))
+        cold_flush = False
         try:
             with faults.deadline_scope(scope):
                 if all(lane.warm is not None for lane in live):
@@ -1701,6 +1808,7 @@ class Scheduler:
                     self._solve_incremental(live, rep, timing, backend)
                     timing["solve_s"] = time.perf_counter() - t1
                     return rep
+                cold_flush = True
                 # Portfolio racing (scheduler.py:1826-1853).  A None plan
                 # (racing off, auto with no measured row, <2 candidates)
                 # leaves the canonical single-backend path below as it
@@ -1730,6 +1838,18 @@ class Scheduler:
                         finisher(rep)
         finally:
             telemetry.end_report(rep, owns)
+        if (self._route_plane is not None and cold_flush and live
+                and any(lane.tenant not in ("speculate", "shadow")
+                        for lane in live)):
+            # The route plane observes the flush after its answers are
+            # computed (scheduler.py:1857-1869): O(1) bookkeeping plus
+            # at most one idle-queue enqueue; the shadow solve itself
+            # runs later, only while the live queue is empty.
+            # Observability must never fail serving.
+            try:
+                self._route_plane.observe_flush(self, live)
+            except Exception:  # noqa: BLE001 — a flush with answers
+                pass
         return rep
 
     def _solve_device(self, live: List[_Lane], timing: dict) -> None:

@@ -109,6 +109,15 @@ def test_scan_covers_the_speculate_modules():
     assert ROOT / "deppy_tpu_torch" / "models" / "publish.py" in PORT_FILES
 
 
+def test_scan_covers_the_routes_modules():
+    """The route-health plane and the distribution-shift waves are the
+    port's own copies: the AST scan reads each of their modules."""
+    names = {p.name for p in PORT_FILES if p.parent.name == "routes"}
+    assert names == {"__init__.py", "ledger.py", "staleness.py",
+                     "shadow.py", "learn.py", "report.py"}
+    assert ROOT / "deppy_tpu_torch" / "models" / "routes.py" in PORT_FILES
+
+
 def test_fresh_process_profiled_optimize_loads_no_jax():
     """An armed profiler over a CPU dispatch and a host drain, the sink's
     report, and a Planner over the CPU scheduler's idle queue import
