@@ -231,6 +231,34 @@ Phases, each fatal on failure:
    kernel in B is held against its plain version.  The path's launch
    counts leave out the reference runs (A's cold solve, C's unraced
    run);
+4l. the obs path: the observability plane (``deppy_tpu_torch.obs``)
+   around small card bursts, the profiler armed at sample 1.0,
+   :func:`run_obs_path`: (A) 8 clients send 16 requests of 16
+   ``gvk_conflict_catalog(20, 4, 10)`` states and 8 of 8 distinct
+   ``pinned_tenant_catalog`` states through ``Scheduler(device="cuda")``
+   disarmed, then with ``obs.start_streamer`` (replica ``r0``) pushing to
+   a stdlib HTTP aggregator in the process (``obs.Aggregator`` behind
+   ``POST /fleet/telemetry``, a merged sink), then armed at that port
+   while it is dead, the aggregator coming back on it for one more
+   burst; (B) the cost-model watchdog on the card's own baseline: 12
+   ``BatchResolver(device="cuda")`` solves of 32 ``gvk_fleet`` states
+   whose ``profile.report.summarize`` is the baseline file, 12 clean
+   solves, 12 with a ``driver.device_put`` latency of 8x the baseline's
+   mean ``solve_s``, 64 clean ones (a window) and 12 latency ones again
+   (B runs first);
+   (C) A's traffic through two card schedulers, replicas ``r0`` and
+   ``r1``.  Every pass's answers equal the disarmed pass's; the armed
+   pass conserves events (every event the forwarder saw reached the
+   merged sink stamped ``r0`` or was counted dropped, 0 errors) and the
+   local sink holds the same events; merged reads of copies of the sinks
+   dedupe them; the dead pass counts errors and the recovery exactly one
+   reconnect; B's clean passes stay in the band with no
+   ``costmodel_drift`` event and each latency pass gives exactly one,
+   the gauge past the band; the latency rule adds no driver failure and
+   no host-routed lane; ``merge_scrapes`` keeps every family of both
+   registries under its ``replica`` label and ``fleet_rollups`` equals
+   the registries' sums; the first loop-thread launch of kernels 1, 3, 4
+   and 5 in the armed pass is held against its plain version;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -1899,7 +1927,9 @@ RACE_POOL_STATES = 1000    # part 4: the bits path's pinned_tenant states
 RACE_GRAD_CHAINS = 1000    # part 6: version_pinned_chains(20, 3)
 RACE_COST_DEPTHS = {"m": 192, "l": 768}   # part 7: chain depth per class
 RACE_COST_CALLS = 5        # part 7: timed calls per backend and class (median)
-RACE_COST_CALLS_HOST_M = 3  # the host engine's m calls take seconds each
+# The host engine's m calls take ~10 s each; one timed call keeps the
+# whole run inside its limit.
+RACE_COST_CALLS_HOST_M = 1
 # The descents' logits on the card and the CPU agree within this, and
 # their rounding agrees wherever |sigmoid(x) - 0.5| passes the margin
 # (the CPU tests' tolerances against JAX).
@@ -5781,6 +5811,518 @@ def run_routes_path(scale: float, plain: "PlainPool"):
     return launches, numbers
 
 
+# The obs path: the observability plane (deppy_tpu_torch.obs) around small
+# card bursts: the sched path's traffic, cut to a few seconds a pass.
+OBS_CLIENTS = 8
+OBS_FLEET = (16, 16)      # part A: requests x gvk_fleet states each
+OBS_TENANTS = (8, 8)      # part A: requests x distinct pinned_tenant states each
+OBS_FLUSH_MS = 20.0       # part A: the streamer's flush period
+OBS_DRIFT_STATES = 32     # part B: gvk_fleet states a solve (one dispatch)
+OBS_DRIFT_SOLVES = 12     # part B: solves in the baseline, clean and latency passes
+OBS_DRIFT_WARM = 3        # part B: solves before the baseline, left out of it
+OBS_LATENCY_X = 8.0       # part B: the injected latency over the baseline's mean solve_s
+OBS_REPLICAS = ("r0", "r1")
+
+
+class ObsAggregator:
+    """The router's half of the stream: a stdlib HTTP server on
+    ``127.0.0.1:port`` (0: any free port) answering ``POST
+    /fleet/telemetry`` through the port's ``obs.Aggregator`` into the
+    merged sink ``path``."""
+
+    def __init__(self, path: str, port: int = 0):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from deppy_tpu_torch import telemetry
+        from deppy_tpu_torch.obs import Aggregator
+
+        self.registry = telemetry.Registry()
+        self.agg = agg = Aggregator(path, registry=self.registry)
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 — the stdlib's name
+                n = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(n)
+                status, out = 404, b""
+                if self.path == "/fleet/telemetry":
+                    try:
+                        doc = json.loads(body)
+                    except ValueError:
+                        doc = None
+                    accepted, err = agg.ingest(doc)
+                    status = 400 if err else 200
+                    out = json.dumps({"accepted": accepted,
+                                      "error": err}).encode()
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(out)))
+                self.end_headers()
+                self.wfile.write(out)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+        self.server.daemon_threads = True
+        self.port = self.server.server_address[1]
+        self._thread = threading.Thread(target=self.server.serve_forever,
+                                        name="obs-aggregator", daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self._thread.join(10)
+        self.agg.close()
+
+
+def obs_jobs():
+    """Part A's burst as (label, request) jobs: 16 requests of 16
+    ``gvk_conflict_catalog(20, 4, 10)`` states with 8 of 8 distinct
+    ``pinned_tenant_catalog`` states among them (every third job)."""
+    from deppy_tpu_torch.models import gvk_conflict_catalog
+
+    fleet = [("A", [gvk_conflict_catalog(20, 4, 10, seed=OBS_FLEET[1] * i + j)
+                    for j in range(OBS_FLEET[1])])
+             for i in range(OBS_FLEET[0])]
+    states = distinct_tenant_states(OBS_TENANTS[0] * OBS_TENANTS[1])
+    jobs = list(fleet)
+    for i in range(OBS_TENANTS[0]):
+        jobs.insert(min(len(jobs), 3 * i + 1),
+                    ("B", states[OBS_TENANTS[1] * i:OBS_TENANTS[1] * (i + 1)]))
+    return jobs
+
+
+def obs_burst(jobs, registries) -> tuple:
+    """``jobs`` from :data:`OBS_CLIENTS` clients through one fresh
+    ``Scheduler(device="cuda")`` per registry (job ``k`` to scheduler
+    ``k % n``), stopped before this returns: (wall, the rendered answers
+    per job)."""
+    from deppy_tpu_torch.sched import Scheduler
+
+    scheds = [Scheduler(device="cuda", incremental="off", registry=reg)
+              for reg in registries]
+    for s in scheds:
+        s.start()
+    route = {id(req): scheds[k % len(scheds)]
+             for k, (_, req) in enumerate(jobs)}
+    try:
+        wall, records = run_clients(
+            OBS_CLIENTS, jobs,
+            lambda req, st: route[id(req)].submit(req, stats=st))
+    finally:
+        for s in scheds:
+            s.stop()
+    return wall, [[render(r) for r in rec["answers"]] for rec in records]
+
+
+def _stream_counts() -> dict:
+    """The default registry's ``deppy_obs_stream_*`` counters."""
+    from deppy_tpu_torch import telemetry
+    from deppy_tpu_torch.obs import STREAM_FAMILIES
+
+    snap = telemetry.default_registry().snapshot()
+    return {n.replace("deppy_obs_stream_", "").replace("_total", ""):
+            snap.get(n, 0) for n in STREAM_FAMILIES}
+
+
+def _json_events(path: str) -> list:
+    from deppy_tpu_torch import telemetry
+
+    return [e for e in telemetry.iter_sink_events(path) if e is not None] \
+        if os.path.exists(path) else []
+
+
+def obs_streaming(card: str, plain: "PlainPool", tmp: str, jobs) -> tuple:
+    """Part A: the burst disarmed, armed (replica ``r0``, a live
+    aggregator), armed at a dead port, and once more after the aggregator
+    came back on that port.  Every pass's answers equal the disarmed
+    pass's; the armed pass conserves events; the dead pass counts errors
+    and raises nothing; the recovery counts one reconnect; the merged
+    reads dedupe the copies; the armed pass's first loop-thread launch of
+    kernels 1, 3, 4 and 5 is held against its plain version.  Returns the
+    part's numbers and the disarmed pass's answers."""
+    import collections
+
+    from deppy_tpu_torch import obs, telemetry
+
+    reg = telemetry.default_registry()
+    prev_sink = reg.sink_path
+    out = {"walls": {}, "stream": {}}
+
+    def streamed(label, target, after=None):
+        """One burst with the streamer armed at ``target``; ``after``
+        runs before the streamer closes.  The events it saw and its
+        counters' deltas."""
+        seen = []
+        note = seen.append  # one bound method: the registry removes by identity
+        c0 = _stream_counts()
+        reg.add_forwarder(note)
+        try:
+            st = obs.start_streamer(target, replica="r0",
+                                    flush_ms=OBS_FLUSH_MS)
+            thread = st._thread
+            try:
+                out["walls"][label], answers = obs_burst(
+                    jobs, [telemetry.Registry()])
+                if after is not None:
+                    after()
+            finally:
+                obs.stop_all()
+                thread.join(30)
+            if thread.is_alive():
+                fail(f"obs A {label}: the streamer's thread outlived close")
+        finally:
+            reg.remove_forwarder(note)
+        c1 = _stream_counts()
+        d = {k: c1[k] - c0[k] for k in c1}
+        out["stream"][label] = d
+        if d["events"] + d["dropped"] != len(seen):
+            fail(f"obs A {label}: the streamer counted {d}, its forwarder "
+                 f"saw {len(seen)} events")
+        if answers != want:
+            fail(f"obs A {label}: answers differ from the disarmed pass")
+        return seen, d
+
+    out["walls"]["disarmed"], want = obs_burst(jobs, [telemetry.Registry()])
+    # Armed, a live aggregator, the local sink on: conservation.
+    merged, local = os.path.join(tmp, "merged.jsonl"), \
+        os.path.join(tmp, "local.jsonl")
+    agg = ObsAggregator(merged)
+    port = agg.port
+    cap = RaceCapture(INC_KERNELS, thread=SCHED_LOOP)
+    try:
+        reg.configure_sink(local)
+        with cap:
+            seen, d = streamed("armed", f"127.0.0.1:{port}")
+    finally:
+        reg.configure_sink(prev_sink)
+        agg.close()
+    cap.submit(plain, "obs A", need=list(INC_KERNELS))
+    got = _json_events(merged)
+    stamps = {e.get("replica") for e in got}
+    # As multisets: concurrent emitters may interleave between the
+    # forwarders and the sink write of one event.
+    def bag(events, drop=()):
+        return collections.Counter(
+            json.dumps({k: v for k, v in e.items() if k not in drop},
+                       sort_keys=True) for e in events)
+
+    canon = bag(seen)
+    if d["errors"] or stamps - {"r0"} or len(got) != d["events"]:
+        fail(f"obs A armed: {len(got)} events in the merged sink stamped "
+             f"{stamps}, the streamer counted {d}")
+    unstamped, bare = bag(got, ("replica",)), bag(seen, ("replica",))
+    if unstamped - bare or sum((bare - unstamped).values()) != d["dropped"]:
+        fail("obs A armed: the merged sink's events are not the events "
+             "the forwarder saw")
+    if bag(_json_events(local)) != canon:
+        fail("obs A armed: the local sink's events are not the events "
+             "the forwarder saw")
+    once = list(telemetry.iter_merged_sink_events([local, merged]))
+    twice = list(telemetry.iter_merged_sink_events(
+        [local, merged, local, merged]))
+    if twice != once or list(telemetry.iter_merged_sink_events(
+            [merged, merged])) != list(
+                telemetry.iter_merged_sink_events([merged])):
+        fail(f"obs A armed: merged reads of copies of the sinks give "
+             f"{len(twice)} events, of one each {len(once)}")
+    out["merged_events"], out["local_events"] = len(got), len(seen)
+    out["merged_read"] = len(once)
+    # Armed at the dead port, then the aggregator back on it.
+    back = os.path.join(tmp, "back.jsonl")
+    revived = []
+
+    def revive():
+        t0 = time.perf_counter()
+        while _stream_counts()["errors"] <= errors0:
+            if time.perf_counter() - t0 > 10:
+                fail("obs A dead: no POST failed in 10 s")
+            time.sleep(0.005)
+        revived.append(ObsAggregator(back, port=port))
+        out["walls"]["recovery"], again = obs_burst(
+            jobs, [telemetry.Registry()])
+        if again != want:
+            fail("obs A recovery: answers differ from the disarmed pass")
+
+    errors0 = _stream_counts()["errors"]
+    try:
+        _, dead = streamed("dead", f"127.0.0.1:{port}", after=revive)
+    finally:
+        for a in revived:
+            a.close()
+    if dead["errors"] < 1 or dead["reconnects"] != 1:
+        fail(f"obs A dead: the streamer counted {dead}: not one reconnect "
+             f"after at least one error")
+    back_events = _json_events(back)
+    if not back_events or {e.get("replica") for e in back_events} != {"r0"}:
+        fail(f"obs A recovery: {len(back_events)} events reached the "
+             f"revived aggregator")
+    out["recovered_events"] = len(back_events)
+    w = out["walls"]
+    print(f"obs A: {len(jobs)} requests from {OBS_CLIENTS} clients a pass; "
+          f"walls disarmed {w['disarmed']:.3f} s, armed {w['armed']:.3f} s, "
+          f"dead port and recovery {w['dead']:.3f} s (the recovery burst "
+          f"{w['recovery']:.3f} s); streamer armed {out['stream']['armed']}, "
+          f"dead {dead}; merged sink {len(got)} events stamped r0 (local "
+          f"sink {len(seen)}, merged read {len(once)}), {len(back_events)} "
+          f"after the aggregator came back [{card}]", flush=True)
+    return out, want
+
+
+def _drift_ratio(cls: str):
+    """``deppy_costmodel_drift_ratio`` of ``cls`` in the armed obs lines."""
+    from deppy_tpu_torch import obs
+    from deppy_tpu_torch.obs.federate import parse_samples
+
+    for name, labels, v in parse_samples("\n".join(obs.render_metric_lines())):
+        if name == "deppy_costmodel_drift_ratio" and \
+                labels.get("size_class") == cls:
+            return v
+    return None
+
+
+def obs_drift(card: str, tmp: str) -> dict:
+    """Part B: the cost-model watchdog on the card's own baseline: a
+    baseline pass, a clean pass, a pass with ``driver.device_put``
+    latency, a window of clean solves and a second latency pass, every
+    solve ``BatchResolver(device="cuda")`` over the same 32 states."""
+    from deppy_tpu_torch import faults, obs, telemetry
+    from deppy_tpu_torch.models import gvk_conflict_catalog
+    from deppy_tpu_torch.obs.drift import WINDOW
+    from deppy_tpu_torch.profile import report
+    from deppy_tpu_torch.resolution import BatchResolver
+
+    states = [gvk_conflict_catalog(20, 4, 10, seed=i)
+              for i in range(OBS_DRIFT_STATES)]
+    reg = telemetry.default_registry()
+    events = []
+    note = (lambda e: events.append(e)
+            if e.get("kind") in ("profile", "costmodel_drift") else None)
+    want = None
+    walls = {}
+
+    def solves(label, n):
+        nonlocal want
+        m = len(events)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            k = sum(e["kind"] == "profile" for e in events)
+            answers = [render(r) for r in
+                       BatchResolver(device="cuda").solve(states)]
+            if want is None:
+                want = answers
+            if answers != want:
+                fail(f"obs B {label}: answers differ from the first solve's")
+            if sum(e["kind"] == "profile" for e in events) != k + 1:
+                fail(f"obs B {label}: not one profile event a solve")
+        walls[label] = time.perf_counter() - t0
+        new = events[m:]
+        return [e for e in new if e["kind"] == "costmodel_drift"], \
+            [e for e in new if e["kind"] == "profile"]
+
+    sink, base_path = os.path.join(tmp, "baseline_sink.jsonl"), \
+        os.path.join(tmp, "baseline.json")
+    reg.add_forwarder(note)
+    prev_plan = faults.configure_plan(None)
+    snap0 = reg.snapshot()
+    try:
+        solves("warm", OBS_DRIFT_WARM)
+        # The baseline pass's events go to its sink after the pass, so
+        # that no sink write lies inside a measured dispatch.
+        _, prof = solves("baseline", OBS_DRIFT_SOLVES)
+        with open(sink, "w", encoding="utf-8") as fh:
+            fh.writelines(json.dumps(e) + "\n" for e in prof)
+        classes = {e.get("size_class_name") for e in prof}
+        if len(classes) != 1:
+            fail(f"obs B: the baseline's solves span classes {classes}")
+        (cls,) = classes
+        summary = report.summarize(sink)
+        with open(base_path, "w", encoding="utf-8") as fh:
+            json.dump(summary, fh)
+        row = summary["size_classes"][cls]
+        mean_s = row["solve_s"] / row["dispatches"]
+        latency = OBS_LATENCY_X * mean_s
+        dog = obs.start_watchdog(base_path, replica="r0")
+        if dog is None or cls not in dog.baseline:
+            fail(f"obs B: the watchdog did not arm on the baseline "
+                 f"({None if dog is None else dog.baseline})")
+        band = dog.band
+        rule = {"point": "driver.device_put", "kind": "latency",
+                "latency_s": latency, "times": -1}
+        trail = {}
+
+        def check(label, alerts, drifted):
+            snap = dog.snapshot().get(cls)
+            ratio = _drift_ratio(cls)
+            if snap is None or ratio != snap["ratio"]:
+                fail(f"obs B {label}: snapshot {snap}, metric {ratio}")
+            if len(alerts) != int(drifted) or snap["drift"] != drifted or \
+                    (abs(ratio - 1.0) > band) != drifted:
+                fail(f"obs B {label}: ratio {ratio} (band {band}), "
+                     f"{len(alerts)} costmodel_drift events")
+            if alerts and (alerts[0]["size_class"], alerts[0]["replica"]) \
+                    != (cls, "r0"):
+                fail(f"obs B {label}: the event {alerts[0]}")
+            trail[label] = dict(ratio=ratio, events=len(alerts),
+                                samples=snap["samples"])
+
+        check("clean", solves("clean", OBS_DRIFT_SOLVES)[0], False)
+        for label, n, faulty in (("latency", OBS_DRIFT_SOLVES, True),
+                                 ("refill", WINDOW, False),
+                                 ("latency again", OBS_DRIFT_SOLVES, True)):
+            faults.configure_plan(faults.FaultPlan.from_doc([rule])
+                                  if faulty else None)
+            try:
+                alerts, _ = solves(label, n)
+            finally:
+                faults.configure_plan(None)
+            check(label, alerts, faulty)
+    finally:
+        obs.stop_all()
+        faults.configure_plan(prev_plan)
+        reg.remove_forwarder(note)
+    snap1 = reg.snapshot()
+
+    def delta(name, label=None):
+        a, b = snap0.get(name, 0), snap1.get(name, 0)
+        if label is not None:
+            a = a.get(label, 0) if isinstance(a, dict) else 0
+            b = b.get(label, 0) if isinstance(b, dict) else 0
+        return b - a
+
+    injected = delta("deppy_faults_injected_total", "driver.device_put")
+    failures = delta("deppy_fault_failures_total")
+    routed = delta("deppy_fault_host_routed_total")
+    if (injected, failures, routed) != (2 * OBS_DRIFT_SOLVES, 0, 0):
+        fail(f"obs B: the latency rule fired {injected} times for "
+             f"{2 * OBS_DRIFT_SOLVES} solves; driver failures {failures}, "
+             f"host-routed {routed}")
+    us = dog.baseline[cls]
+    print(f"obs B: class {cls}, baseline {us:.3f} us/trip over "
+          f"{row['dispatches']} solves (mean solve_s {mean_s * 1e3:.3f} ms), "
+          f"latency {latency * 1e3:.3f} ms a dispatch; ratios " + ", ".join(
+              f"{k} {v['ratio']} ({v['events']} events, {v['samples']} "
+              f"samples)" for k, v in trail.items())
+          + "; walls " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items())
+          + f" [{card}]", flush=True)
+    return dict(size_class=cls, baseline_us_per_trip=us, mean_solve_s=mean_s,
+                latency_s=latency, band=band, passes=trail, walls=walls)
+
+
+def obs_federation(card: str, jobs, want) -> dict:
+    """Part C: A's traffic through two card schedulers, replicas ``r0``
+    and ``r1``; ``merge_scrapes`` keeps every family of each under its
+    ``replica`` label, and ``fleet_rollups`` equals the sums of the two
+    registries' own counters."""
+    from deppy_tpu_torch import telemetry
+    from deppy_tpu_torch.obs import fleet_rollups, merge_scrapes
+
+    regs = [telemetry.Registry() for _ in OBS_REPLICAS]
+    wall, answers = obs_burst(jobs, regs)
+    if answers != want:
+        fail("obs C: answers differ from part A's disarmed pass")
+    scrapes = [(rep, reg.render()) for rep, reg in zip(OBS_REPLICAS, regs)]
+    merged = merge_scrapes(scrapes)
+    have = set(merged)
+    for rep, text in scrapes:
+        for line in text.splitlines():
+            if not line:
+                continue
+            if line.startswith("#"):
+                if not any(h.split(None, 3)[:3] == line.split(None, 3)[:3]
+                           for h in merged if h.startswith("#")):
+                    fail(f"obs C: {rep}'s header {line!r} is not merged")
+                continue
+            name, _, rest = line.partition(" ")
+            if "{" in name:
+                base, _, labels = name.partition("{")
+                relabeled = f'{base}{{replica="{rep}",{labels} {rest}'
+            else:
+                relabeled = f'{name}{{replica="{rep}"}} {rest}'
+            if relabeled not in have:
+                fail(f"obs C: {rep}'s sample {line!r} is not merged")
+    roll = fleet_rollups(scrapes)
+
+    def total(reg, name):
+        v = reg.snapshot().get(name, 0)
+        return sum(v.values()) if isinstance(v, dict) else v
+
+    hits = sum(total(r, "deppy_cache_hits_total")
+               + total(r, "deppy_incremental_hits_total") for r in regs)
+    asks = sum(total(r, "deppy_cache_hits_total")
+               + total(r, "deppy_cache_misses_total") for r in regs)
+    depth = sum(total(r, "deppy_sched_queue_depth") for r in regs)
+    if (roll["warm_hits"], roll["warm_asks"], roll["queue_depth"],
+            roll["replicas"]) != (hits, asks, depth, len(OBS_REPLICAS)) \
+            or not asks:
+        fail(f"obs C: rollups {roll}, the registries' sums hits {hits} "
+             f"asks {asks} queue depth {depth}")
+    print(f"obs C: {len(jobs)} requests over replicas {OBS_REPLICAS} in "
+          f"{wall:.3f} s; {len(merged)} merged lines; rollups warm hits "
+          f"{hits}, asks {asks}, queue depth {depth} [{card}]", flush=True)
+    return dict(wall_s=wall, merged_lines=len(merged), warm_hits=hits,
+                warm_asks=asks, queue_depth=depth)
+
+
+def run_obs_path(scale: float, plain: "PlainPool"):
+    """The observability plane on the card (the module docstring's phase
+    4l): streaming (A), the drift watchdog (B) and federation (C), with
+    the profiler armed at sample 1.0.  Runs at its full size at every
+    ``scale``.  Returns the path's launches and its numbers."""
+    import tempfile
+
+    import torch
+
+    from deppy_tpu_torch import engine, faults, obs, profile
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"obs timings on {card}", flush=True)
+    torch.cuda.synchronize()
+    f0 = _fault_snapshot()
+    engine.reset_launch_counts()
+    numbers, part_s = {}, {}
+    with tempfile.TemporaryDirectory(prefix="deppy-obs-") as tmp, \
+            profile.override("on", 1.0):
+        try:
+            # B runs first, so that A's plain comparisons, which the
+            # pool's processes run in the background, do not load the
+            # CPU while B measures.
+            t0 = time.perf_counter()
+            numbers["B"] = obs_drift(card, tmp)
+            part_s["B"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            jobs = obs_jobs()
+            numbers["A"], want = obs_streaming(card, plain, tmp, jobs)
+            part_s["A"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            numbers["C"] = obs_federation(card, jobs, want)
+            part_s["C"] = time.perf_counter() - t0
+        finally:
+            obs.stop_all()
+    for part, s in part_s.items():
+        numbers[part]["seconds"] = s
+    torch.cuda.synchronize()
+    launches = engine.launch_counts()
+    d = _delta(f0, _fault_snapshot())
+    if d["fault_failures"] or d["fault_host_routed"]:
+        fail(f"obs: the phase counted {d['fault_failures']} driver failures "
+             f"and {d['fault_host_routed']} host-routed lanes")
+    if faults.default_breaker().state() != "closed":
+        fail("obs: the breaker is not closed after the phase")
+    missing = [k for k in INC_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"obs: the phase never launched {missing}")
+    seconds = time.perf_counter() - t_phase
+    numbers["seconds"] = seconds
+    print(f"obs path: {seconds:.1f} s (A {numbers['A']['seconds']:.1f}, B "
+          f"{numbers['B']['seconds']:.1f}, C {numbers['C']['seconds']:.1f}); "
+          f"launches {launches}, no driver failure, no host-routed lane "
+          f"[{card}]", flush=True)
+    return launches, numbers
+
+
 def _stage1_budget(groups, max_share: float) -> int:
     """The smallest stage-1 budget (a step count of the baseline) that
     strands at most ``max_share`` of every group's lanes, and some lanes
@@ -7165,6 +7707,7 @@ PATH_KERNELS = {
                  "core"),
     "speculate": INC_KERNELS,
     "routes": INC_KERNELS,
+    "obs": INC_KERNELS,
 }
 
 
@@ -7241,6 +7784,8 @@ def main(argv=None) -> int:
         by_path["routes"], per_family["routes"] = run_routes_path(
             args.scale, plain)
         stamp("routes path")
+        by_path["obs"], per_family["obs"] = run_obs_path(args.scale, plain)
+        stamp("obs path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")

@@ -118,6 +118,78 @@ def test_scan_covers_the_routes_modules():
     assert ROOT / "deppy_tpu_torch" / "models" / "routes.py" in PORT_FILES
 
 
+def test_scan_covers_the_obs_modules():
+    """The observability plane is the port's own copy: the AST scan reads
+    each of its modules."""
+    names = {p.name for p in PORT_FILES if p.parent.name == "obs"}
+    assert names == {"__init__.py", "stream.py", "aggregate.py",
+                     "federate.py", "drift.py", "top.py"}
+
+
+def test_fresh_process_obs_plane_loads_no_jax():
+    """Every obs module, a streamer pushing a CPU scheduler's events to
+    an aggregator behind a stdlib HTTP server, and a watchdog on a
+    baseline import nothing of JAX or deppy_tpu."""
+    code = textwrap.dedent("""
+        import json, os, sys, tempfile, threading
+        before = set(sys.modules)
+        os.environ["DEPPY_GPU_HOST_WORKERS"] = "0"
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from deppy_tpu_torch import obs, profile
+        from deppy_tpu_torch.models import random_instance
+        from deppy_tpu_torch.obs import aggregate, drift, federate, stream, top
+        from deppy_tpu_torch.sched import Scheduler
+        tmp = tempfile.mkdtemp()
+        agg = obs.Aggregator(os.path.join(tmp, "merged.jsonl"))
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                agg.ingest(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        base = os.path.join(tmp, "baseline.json")
+        with open(base, "w") as fh:
+            json.dump({"us_per_trip": 100.0}, fh)
+        try:
+            obs.start_streamer(f"127.0.0.1:{srv.server_address[1]}",
+                               replica="r0", flush_ms=5)
+            dog = obs.start_watchdog(base, replica="r0")
+            sched = Scheduler(device="cpu")
+            sched.start()
+            try:
+                with profile.override("on", 1.0):
+                    sched.submit([random_instance(length=12, seed=s)
+                                  for s in range(3)])
+            finally:
+                sched.stop()
+            lines = obs.render_metric_lines()
+        finally:
+            obs.stop_all()
+            srv.shutdown()
+            srv.server_close()
+            agg.close()
+        assert agg.counts().get("r0", 0) > 0, agg.counts()
+        assert dog is not None and lines and obs.render_metric_lines() == []
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new
+                     if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))
+        assert not bad, bad
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_fresh_process_profiled_optimize_loads_no_jax():
     """An armed profiler over a CPU dispatch and a host drain, the sink's
     report, and a Planner over the CPU scheduler's idle queue import

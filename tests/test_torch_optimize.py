@@ -767,11 +767,19 @@ class TestIdleQueue:
         reg = ttelemetry.Registry()
         s = Scheduler(device="cpu", speculate=speculate, registry=reg)
         gate = threading.Event()
+        entered = threading.Event()
         orig = s._dispatch
 
         def held(groups, reason):
+            entered.set()
             gate.wait(30)
             return orig(groups, reason)
+
+        def until(cond, what):
+            t0 = time.monotonic()
+            while not cond():
+                assert time.monotonic() - t0 < 30, f"{what} never happened"
+                time.sleep(0.005)
 
         s._dispatch = held
         s.start()
@@ -783,27 +791,30 @@ class TestIdleQueue:
             except RuntimeError as e:
                 errors.append(str(e))
 
+        live = threading.Thread(target=lambda: s.submit([_state(0)]))
+        prober = threading.Thread(target=probe)
         try:
             # A live lane holds the loop in its dispatch while the idle
-            # queue fills.
-            live = threading.Thread(target=lambda: s.submit([_state(0)]))
+            # queue fills.  The probe is submitted only once the loop is
+            # inside that dispatch: a probe queued first could be drained
+            # (and held) before the live lane, and never be seen queued.
             live.start()
-            while s.queue_depth() and live.is_alive():
-                time.sleep(0.005)
-            prober = threading.Thread(target=probe)
+            assert entered.wait(30), "the live lane was never dispatched"
             prober.start()
-            while s.speculative_depth() < 1:
-                time.sleep(0.005)
+            until(lambda: s.speculative_depth() >= 1, "the probe's queueing")
             queued, dropped = s.submit_speculative([_state(2), _state(3)])
         finally:
             stopper = threading.Thread(target=s.stop)
             stopper.start()
-            while not s._stop:  # the stop is seen before the loop wakes
-                time.sleep(0.005)
-            gate.set()
+            try:
+                # The stop is seen before the loop wakes.
+                until(lambda: s._stop, "the stop")
+            finally:
+                gate.set()
             stopper.join(30)
-            live.join(30)
-            prober.join(30)
+            for t in (live, prober):
+                if t.ident is not None:
+                    t.join(30)
         snap = reg.snapshot()
         assert errors == ["scheduler stopped before optimize dispatch"]
         assert s.speculative_depth() == 0 and not s._spec_keys
