@@ -86,7 +86,7 @@ Phases, each fatal on failure:
    grad_relax; under bits, then top-2 under blockwise), the ``sched``
    burst raced top-2 beside it unraced, the ``auto`` mode with and
    without a measured row, the host pool against the inline engine on
-   the 1,000 pinned-tenant states (and after a scripted worker crash),
+   500 pinned-tenant states (and after a scripted worker crash),
    straggler triage, the grad_relax descent twice on the card and once
    on the CPU, and the registry's per-class costs (``race cost`` lines).
    Every answer equals the unraced scheduler's, no sampled cross-check
@@ -99,7 +99,7 @@ Phases, each fatal on failure:
    card, :func:`run_incremental_path`'s parts 1-4: the churn replay of
    ``deppy_tpu/benchmarks/churn.py`` at its own defaults (120 requests,
    32 bundles x 12, one dependency clause flipped each) through
-   ``Scheduler()`` from one thread with the tier on and off, 3 replays
+   ``Scheduler()`` from one thread with the tier on and off, 2 replays
    each, then once 8 requests a submit; the screen on the card against
    its CPU run over replay 1's warm plans and the same plans poisoned;
    the ``sched`` burst A+B with the tier on and off; the ``warm``
@@ -205,7 +205,8 @@ Phases, each fatal on failure:
 4k. the routes path: the route-health plane (``deppy_tpu_torch.routes``,
    the scheduler's shadow probes on the idle queue),
    :func:`run_routes_path`: (A) the reference's distribution-shift bench
-   at its defaults (``deppy_tpu/benchmarks/routes.py``: 8 warm and 12
+   at half its waves (``deppy_tpu/benchmarks/routes.py``, whose defaults
+   are 8 warm and 12 measured: :data:`ROUTES_BENCH`, 4 warm and 6
    measured waves of 6 chains of depth 40, three in four with an UNSAT
    lane, shadow rate 0.5, ``min_samples`` 2) on ``Scheduler(device=
    "cuda", backend="auto", portfolio="on", cache_size=0,
@@ -259,6 +260,53 @@ Phases, each fatal on failure:
    registries under its ``replica`` label and ``fleet_rollups`` equals
    the registries' sums; the first loop-thread launch of kernels 1, 3, 4
    and 5 in the armed pass is held against its plain version;
+4m. the service path: the port's HTTP service
+   (``deppy_tpu_torch.service``), every server on ``127.0.0.1:0`` and
+   shut down in a ``finally``, every client socket with a timeout,
+   :func:`run_service_path`: (A) ``Server(device="cuda")`` at the
+   reference's defaults (scheduler, incremental tier, speculation,
+   sessions and optimize on) beside ``Server(backend="host")``: 8
+   clients send each 32 requests of 16 ``gvk_conflict_catalog(20, 4,
+   10)`` states and 8 of 8 distinct ``pinned_tenant_catalog`` states,
+   two tenants on ``X-Deppy-Tenant``, the host server (``serve`` in a
+   subprocess started with the phase, its incremental tier off, 4 pool
+   workers) taking the same burst in the background, and every
+   answer of parts A-D held against its answers at the phase's end;
+   every body byte-equal to the host server's,
+   ``deppy_resolutions_total`` by outcome the lanes sent,
+   ``deppy_request_total_seconds``'s count the requests,
+   ``X-Deppy-Timings: 1`` the stage breakdown, an ``X-Deppy-Request-Id``
+   echoed and found at ``/debug/traces?id=``, ``/debug/slo`` listing
+   both tenants, the first loop-thread launch of kernels 1, 3, 4 and 5
+   held against its plain version; (B) on the card server a
+   ``/v1/session`` walk of 12 steps over ``session_catalog(96, 8)``
+   equal to the port's ``SessionStore`` on a host scheduler, workload
+   1's first soft ``/v1/optimize`` document byte-equal to the host
+   server's, a ``/v1/catalog/publish`` and a ``/v1/resolve/preview`` of
+   ``round_delta``s over 8 ``catalog_family`` states whose previews
+   equal cold card solves of the changed families, a
+   ``/v1/routes/learned`` row on a second server with ``route_learn="on"``
+   (its incremental tier off) after which its answers stay byte-equal
+   and ``/metrics`` carries the ``deppy_route_*`` families, and the
+   families the profiler, the faults and the host pool add to
+   ``/metrics`` (the session walk and the optimize run armed);
+   (C) every ``driver.dispatch`` failing until the breaker opens
+   (threshold 2; the breaker on a clock of its own, moved past its
+   60 s cooldown once the open breaker's checks are done): the request
+   answered on the host engine (2 driver
+   failures and its lanes host-routed, the phase's scripted totals),
+   ``/readyz`` degraded, the ``device`` server's 503 with
+   ``Retry-After`` >= 1, a ``backend="auto"`` server's equal answers on
+   the host engine, a scripted ``service.resolve`` fault a counted 500,
+   and after the half-open probe ``/readyz`` ok; (D) a 512-lane request
+   in flight at ``shutdown()`` (a server with the tier off):
+   ``/readyz`` 503 first, then the request's 200 with the host
+   server's answers; and ``serve(device="cuda")`` in a subprocess
+   started at the phase's start and driven by a thread: its banner, one
+   request, exit 0 on SIGTERM, its kernels the parent's build
+   (``build_seconds`` 0, the library untouched).  The path's launch
+   counts leave out the cold card solves B's previews are held against,
+   made at the phase's start;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -327,11 +375,13 @@ import contextlib
 import json
 import multiprocessing
 import os
+import signal
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
+from typing import NamedTuple
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the 32-bit
 # non-tensor rate used for the kernels' integer bit operations.
@@ -340,10 +390,11 @@ OPS_PER_S = 67e12
 
 COMPARE_LANES = 32
 REFERENCE_LANES = 16
-# A kernel's time: the median of TIMED_PASSES profiled passes of
-# TIMED_REPS calls each.
+# A kernel's time: its device time per launch over one profiled session
+# of TIMED_REPS calls (up to TIMED_SESSIONS sessions while they keep no
+# launch); the wrapper's, over TIMED_REPS calls by events.
 TIMED_REPS = 5
-TIMED_PASSES = 3
+TIMED_SESSIONS = 9
 
 # The blockwise path: the repo's over-VMEM case, one giant catalog
 # (deppy_tpu/benchmarks/pallas_case.py:129-133), and a batch at that
@@ -1197,9 +1248,10 @@ def traced_solve(variables, backend: str, T=None):
 
     from deppy_tpu_torch.sat import NotSatisfiable, Solver
 
+    host = backend == "host"
     rec = RecordingTracer()
-    solver = Solver(variables, tracer=rec, backend=backend, device="cuda",
-                    trace_cap=T)
+    solver = Solver(variables, tracer=rec, backend=backend,
+                    device="cpu" if host else "cuda", trace_cap=T)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         t0 = time.perf_counter()
@@ -1207,17 +1259,34 @@ def traced_solve(variables, backend: str, T=None):
             out = ("sat", sorted(v.identifier for v in solver.solve()))
         except NotSatisfiable as e:
             out = ("unsat", sorted(str(c) for c in e.constraints))
-        torch.cuda.synchronize()
+        if not host:
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     warned = [w for w in caught if issubclass(w.category, RuntimeWarning)
               and "trace buffer holds" in str(w.message)]
     return out, rec.positions, solver.backtracks, warned, wall
 
 
-def run_tracing_path():
+def host_traced(name: str):
+    """:func:`traced_solve` of the named :func:`tracing_instances` entry on
+    ``backend="host"``: the reference of the tracing phase, solved in a
+    pool worker from the run's start (the doomed catalogs take the host
+    engine seconds)."""
+    return traced_solve(dict(tracing_instances())[name], "host")
+
+
+def host_traces(plain: "PlainPool") -> dict:
+    """:func:`host_traced` of every tracing instance, submitted to the
+    pool: {name: future}."""
+    return {name: plain.pool.submit(host_traced, name)
+            for name, _ in tracing_instances()}
+
+
+def run_tracing_path(host_refs: dict):
     """Phase 4c: ``Solver(vars, tracer=rec, trace_cap=T, device="cuda")``
     under each impl of :data:`TRACE_IMPLS` on :func:`tracing_instances`,
-    each held against ``backend="host"`` with the same tracer: the same
+    each held against ``backend="host"`` with the same tracer (its
+    solves, :func:`host_traced`, are ``host_refs``' futures): the same
     outcome, the card's backtrack count equal to the host's, every
     assumption stack equal event for event, conflicts equal wherever the
     card's replay reports any.  The doomed catalogs run twice: at the
@@ -1232,7 +1301,7 @@ def run_tracing_path():
     per_instance = {}
     work0 = _plain_work()
     for name, variables in tracing_instances():
-        h_out, h_pos, h_bt, _, h_wall = traced_solve(variables, "host")
+        h_out, h_pos, h_bt, _, h_wall = host_refs[name].result()
         if h_bt != len(h_pos) or h_bt == 0:
             fail(f"tracing {name}: the host engine traced {len(h_pos)} of "
                  f"{h_bt} backtracks")
@@ -1923,12 +1992,13 @@ RACE_LANES = 8             # part 1: hard.py's lanes per depth (192/384/768)
 RACE_THREAD = "deppy-race-device"
 RACE_COMPARE_LANES = 8     # lanes of each race-thread launch held against plain
 RACE_STRAGGLERS = (4, 8)   # part 5: tight-deadline (and as many live) requests x states
-RACE_POOL_STATES = 1000    # part 4: the bits path's pinned_tenant states
+RACE_POOL_STATES = 500     # part 4: half the bits path's pinned_tenant states
 RACE_GRAD_CHAINS = 1000    # part 6: version_pinned_chains(20, 3)
 RACE_COST_DEPTHS = {"m": 192, "l": 768}   # part 7: chain depth per class
-RACE_COST_CALLS = 5        # part 7: timed calls per backend and class (median)
+RACE_COST_CALLS = 3        # part 7: timed calls per backend and class (median)
 # The host engine's m calls take ~10 s each; one timed call keeps the
-# whole run inside its limit.
+# whole run inside its limit, and the inline host engine has no untimed
+# first call (it allocates nothing on the card and starts no worker).
 RACE_COST_CALLS_HOST_M = 1
 # The descents' logits on the card and the CPU agree within this, and
 # their rounding agrees wherever |sigmoid(x) - 0.5| passes the margin
@@ -2154,9 +2224,10 @@ def race_costs(card: str) -> dict:
     depth 192, l 8 of depth 768 (the device only: the host engine takes
     tens of seconds a lane there).  Each cost is the median of
     :data:`RACE_COST_CALLS` timed calls (:data:`RACE_COST_CALLS_HOST_M`
-    for the host engine on m) after one untimed call on the same batch
-    (the device's first call on a shape allocates; the pool's starts its
-    workers); the calls' spread is printed beside it."""
+    for the host engine on m), the device's and the pool's after one
+    untimed call on the same batch (the device's first call on a shape
+    allocates; the pool's starts its workers); the calls' spread is
+    printed beside it."""
     import torch
 
     from deppy_tpu_torch import hostpool
@@ -2184,7 +2255,8 @@ def race_costs(card: str) -> dict:
                      ("hostpool",
                       lambda: hostpool.solve_host_problems(problems))]
         for backend, fn in runs:
-            fn()
+            if backend != "host":
+                fn()
             calls = (RACE_COST_CALLS_HOST_M if (backend, cls) == ("host", "m")
                      else RACE_COST_CALLS)
             samples = []
@@ -2569,7 +2641,7 @@ def run_race_path(scale: float, plain: "PlainPool"):
 # the incremental path
 
 
-INC_REPLAYS = 3      # part 1: churn replays with the tier on, and off
+INC_REPLAYS = 2      # part 1: churn replays with the tier on, and off
 INC_BATCH = 8        # part 1b: churn requests a submit
 INC_COST_CALLS = 5   # part 4: timed solve_via("warm") calls per class
 # The kernels of the incremental path's cold dispatches, whose first
@@ -2773,8 +2845,8 @@ def warm_costs(plans, card: str) -> dict:
 def run_incremental_path(scale: float, plain: "PlainPool"):
     """The incremental tier on the card (parts 1-4): the churn replay of
     ``deppy_tpu/benchmarks/churn.py`` at its own defaults through
-    ``Scheduler(device="cuda")`` with the tier on and off, 3 replays each
-    from one client thread (answers equal lane for lane; steps equal on
+    ``Scheduler(device="cuda")`` with the tier on and off,
+    :data:`INC_REPLAYS` replays each from one client thread (answers equal lane for lane; steps equal on
     every lane the tier did not serve warm), and once with the tier on at
     :data:`INC_BATCH` requests a submit (warm flushes of several lanes:
     the screen on the card); the screen on ``cuda`` against ``cpu`` over
@@ -5274,7 +5346,10 @@ def run_speculate_path(scale: float, plain: "PlainPool"):
     return launches, numbers
 
 
-ROUTES_BENCH = (40, 6, 8, 12)   # depth, lanes, warm and measured waves: the reference bench's defaults
+# Depth, lanes, warm and measured waves: the reference bench's defaults
+# (40, 6, 8, 12) with half its waves, to keep the run inside its limit
+# (the plane adopts its row at wave 3 in every run so far).
+ROUTES_BENCH = (40, 6, 4, 6)
 ROUTES_SHADOW_RATE = 0.5        # the bench's shadow rate
 ROUTES_MIN_SAMPLES = 2          # the bench's min_samples
 ROUTES_STALE_TS = 1000.0        # a provenance stamp older than any max age
@@ -5445,7 +5520,8 @@ def _routes_stop(sched) -> None:
 
 def routes_bench(card: str, ref: dict) -> dict:
     """Part A: the reference bench (``deppy_tpu/benchmarks/routes.py:
-    173-300``) at its defaults on the card: the probe, then the frozen
+    173-300``) at half its waves (:data:`ROUTES_BENCH`) on the card: the
+    probe, then the frozen
     (stale row, no plane), learned (stale row, ``mode="on"``), oracle
     (fresh best-first row) and observe (oracle row, an ``observe``
     plane) passes over the same waves, one round each.  The bench's
@@ -6323,6 +6399,766 @@ def run_obs_path(scale: float, plain: "PlainPool"):
     return launches, numbers
 
 
+SVC_CLIENTS = 8
+SVC_FLEET = (32, 16)      # part A: requests x gvk_fleet states each
+SVC_TENANTS = (8, 8)      # part A: requests x distinct pinned_tenant states each
+SVC_TENANT_NAMES = ("alpha", "beta")
+SVC_WALK = (96, 8, 12)    # part B: session_catalog(96, 8), a 12-step walk
+SVC_SPEC = (8, 8, 16)     # part B: families, bundles, bundle size
+SVC_ROUTE_BURST = 4       # part B: part A's first requests, after a learned row
+SVC_BREAKER_RESET_S = 60.0  # part C: the breaker's cooldown, on its own clock
+SVC_DRAIN_LANES = 512     # part D: one gvk_fleet request in flight at shutdown
+SVC_HOST_WORKERS = 4      # the host reference server's pool workers
+SVC_TIMEOUT_S = 120.0     # every client socket
+
+
+def svc_request(port: int, method: str, path: str, body=None,
+                headers=None) -> tuple:
+    """One HTTP exchange with the service: (status, headers, body bytes).
+    ``body`` is sent as is when it is bytes, else as JSON."""
+    from http.client import HTTPConnection
+
+    conn = HTTPConnection("127.0.0.1", port, timeout=SVC_TIMEOUT_S)
+    h = dict(headers or {})
+    if body is not None:
+        h.setdefault("Content-Type", "application/json")
+        if not isinstance(body, bytes):
+            body = json.dumps(body).encode()
+    try:
+        conn.request(method, path, body=body, headers=h)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def svc_doc(states) -> bytes:
+    from deppy_tpu_torch import io
+
+    return json.dumps({"problems": [
+        {"variables": [io.variable_to_dict(v) for v in vs]}
+        for vs in states]}).encode()
+
+
+def svc_jobs():
+    """Part A's burst: (tenant, body) jobs, 32 requests of 16
+    ``gvk_conflict_catalog(20, 4, 10)`` states with 8 of 8 distinct
+    ``pinned_tenant_catalog`` states among them (every fifth job), the
+    two tenants alternating; the 512 fleet states; the indices of the
+    fleet's requests; and the lanes sent."""
+    from deppy_tpu_torch.models import gvk_conflict_catalog
+
+    n, k = SVC_FLEET
+    fleet = [gvk_conflict_catalog(20, 4, 10, seed=i) for i in range(n * k)]
+    reqs = [fleet[k * i:k * (i + 1)] for i in range(n)]
+    states = distinct_tenant_states(SVC_TENANTS[0] * SVC_TENANTS[1])
+    m = SVC_TENANTS[1]
+    for i in range(SVC_TENANTS[0]):
+        reqs.insert(min(len(reqs), 5 * i + 2), states[m * i:m * (i + 1)])
+    jobs = [(SVC_TENANT_NAMES[j % 2], svc_doc(r)) for j, r in enumerate(reqs)]
+    ids = {id(vs) for vs in fleet}
+    fleet_jobs = [j for j, r in enumerate(reqs) if id(r[0]) in ids]
+    return jobs, fleet, fleet_jobs, sum(len(r) for r in reqs)
+
+
+def svc_burst(port: int, jobs) -> tuple:
+    """``jobs`` from :data:`SVC_CLIENTS` clients to the ``/v1/resolve``
+    of the server on ``port``: (wall, per job (status, body))."""
+    def submit(job, st):
+        tenant, body = job
+        status, _, data = svc_request(port, "POST", "/v1/resolve",
+                                      body, {"X-Deppy-Tenant": tenant})
+        return status, data
+
+    wall, records = run_clients(SVC_CLIENTS, [(t, (t, b)) for t, b in jobs],
+                                submit)
+    return wall, [rec["answers"] for rec in records]
+
+
+def svc_metrics(srv) -> dict:
+    """``srv``'s ``/metrics`` as {sample: value}, and the text."""
+    status, _, data = svc_request(srv.api_port, "GET", "/metrics")
+    if status != 200:
+        fail(f"service: /metrics answered {status}")
+    text = data.decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out, text
+
+
+def svc_server(**kw):
+    from deppy_tpu_torch.service import Server
+
+    srv = Server(bind_address="127.0.0.1:0", probe_address="127.0.0.1:0",
+                 **kw)
+    srv.start()
+    return srv
+
+
+def svc_spawn(tmp: str, name: str, args: str, env=None) -> dict:
+    """``serve(bind_address="127.0.0.1:0", ..., <args>)`` in a
+    subprocess, started now, with ``env`` added to the environment; it
+    prints its kernels' build seconds at exit (0.0: the parent's build
+    reused, or nothing built).  Its output goes to
+    ``<tmp>/<name>.out``."""
+    code = (
+        "import atexit\n"
+        "from deppy_tpu_torch.engine import _build\n"
+        "atexit.register(lambda: print('build_seconds', "
+        "_build.build_seconds, flush=True))\n"
+        "from deppy_tpu_torch.service import serve\n"
+        "serve(bind_address='127.0.0.1:0', probe_address='127.0.0.1:0', "
+        f"{args})\n")
+    out = open(os.path.join(tmp, f"{name}.out"), "w+")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code], cwd=root, stdout=out,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, **(env or {})))
+    return dict(name=name, out=out, t0=time.perf_counter(), proc=proc)
+
+
+def svc_banner(child: dict, timeout: float = 120.0) -> int:
+    """The API port of a :func:`svc_spawn` child once its banner is out
+    (``banner_s``: seconds since its spawn); raises if it exits or
+    prints none within ``timeout``."""
+    t0 = time.perf_counter()
+    while True:
+        with open(child["out"].name) as fh:
+            banner = fh.read()
+        if "deppy service listening on :" in banner:
+            child["banner_s"] = time.perf_counter() - child["t0"]
+            return int(banner.split("listening on :")[1].split()[0])
+        if child["proc"].poll() is not None or \
+                time.perf_counter() - t0 > timeout:
+            raise RuntimeError(f"chip_smoke: service: the {child['name']} "
+                               f"child printed no banner: {banner[-2000:]}")
+        time.sleep(0.05)
+
+
+def svc_stop(child: dict) -> int:
+    """SIGTERM a :func:`svc_spawn` child if it runs, and its exit code."""
+    proc = child["proc"]
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(10)
+        fail(f"service: the {child['name']} child did not exit within 60 s "
+             f"of SIGTERM")
+
+
+def svc_child(tmp: str) -> dict:
+    """``serve(device="cuda")`` in a subprocess, started now, and a
+    thread that waits for its banner, sends it one request (the first
+    fleet state) and SIGTERMs it, so its start-up and exit overlap the
+    other parts; its kernels come from the build the parent made."""
+    import threading
+
+    from deppy_tpu_torch.models import gvk_conflict_catalog
+
+    child = svc_spawn(tmp, "serve", "device='cuda'")
+    body = svc_doc([gvk_conflict_catalog(20, 4, 10, seed=0)])
+
+    def drive():
+        try:
+            api = svc_banner(child)
+            child["answer"] = svc_request(api, "POST", "/v1/resolve", body)
+        except Exception as e:  # noqa: BLE001 — part D reports it
+            child["error"] = repr(e)
+        finally:
+            if child["proc"].poll() is None:
+                child["proc"].send_signal(signal.SIGTERM)
+
+    child["thread"] = threading.Thread(target=drive, name="svc-serve")
+    child["thread"].start()
+    return child
+
+
+def svc_preview_want(tally: dict):
+    """Part B's publish states and the preview's expected answers: 8
+    ``catalog_family`` states, the round-0 and round-1 ``round_delta``s,
+    and, by the fingerprint of each family before and after round 0,
+    the cold card solve of that state under round 1, rendered.  Run at
+    the phase's start, when nothing else of the process launches, so
+    that :func:`uncounted` leaves exactly these solves out."""
+    from deppy_tpu_torch import io
+    from deppy_tpu_torch.models import catalog_family, round_delta
+    from deppy_tpu_torch.resolution import BatchResolver
+    from deppy_tpu_torch.sat.encode import encode
+    from deppy_tpu_torch.sched import fingerprint
+
+    nf, nb, bs = SVC_SPEC
+    fams = [catalog_family("svc", f, nb, bs) for f in range(nf)]
+    d0, d1 = round_delta("svc", 0, nb, bs), round_delta("svc", 1, nb, bs)
+    states = {}
+    for f in fams:
+        for vs in (f, d0.apply(f)):
+            states[fingerprint(encode(list(vs)))] = list(d1.apply(vs))
+    keys = sorted(states)
+    with uncounted(tally):
+        cold = BatchResolver(device="cuda").solve([states[k] for k in keys])
+    want = {k: io.result_to_dict(r) for k, r in zip(keys, cold)}
+    return fams, d0, d1, want
+
+
+def svc_walk_host(doc, steps) -> list:
+    """The walk through the port's ``SessionStore`` on a host scheduler:
+    each resolve's result."""
+    from deppy_tpu_torch.sched import Scheduler
+    from deppy_tpu_torch.sessions import SessionStore
+
+    sched = Scheduler(backend="host", device="cpu")
+    store = SessionStore(sched)
+    try:
+        sid = store.create(json.loads(json.dumps(doc)))["id"]
+        out = []
+        for ident, installed in steps:
+            store.op(sid, {"op": "assume", "identifiers": [ident],
+                           "installed": installed})
+            out.append(store.op(sid, {"op": "resolve"})["result"])
+        return out
+    finally:
+        store.stop()
+
+
+class HostRef:
+    """The host reference: ``serve(backend="host")`` in a subprocess
+    (its incremental tier off, its lanes on :data:`SVC_HOST_WORKERS`
+    pool workers; it takes no turn of this process's interpreter lock),
+    started with the phase.  A thread sends it part A's burst as soon as
+    its banner is out, then part B's optimize document once B has sent
+    it to the card (:meth:`optimize`), then SIGTERMs it, so its start-up,
+    work and exit overlap the parts.  Each answer the parts hold against
+    the host server is queued with :meth:`expect` and checked by
+    :meth:`finish`."""
+
+    def __init__(self, tmp: str):
+        import threading
+
+        self.child = svc_spawn(tmp, "host", "backend='host', device='cpu', "
+                                            "incremental='off'",
+                               env={"DEPPY_GPU_HOST_WORKERS":
+                                    str(SVC_HOST_WORKERS)})
+        self.box: dict = {}
+        self.checks: list = []
+        self.jobs = None
+        self.soft = None
+        self._soft_ready = threading.Event()
+        self.thread = threading.Thread(target=self._run, name="svc-host")
+
+    def start(self, jobs) -> None:
+        self.jobs = jobs
+        self.thread.start()
+
+    def optimize(self, soft: bytes) -> None:
+        """Part B's optimize document, for the host server too."""
+        self.soft = soft
+        self._soft_ready.set()
+
+    def _run(self) -> None:
+        try:
+            port = svc_banner(self.child)
+            self.box["burst"] = svc_burst(port, self.jobs)
+            self._soft_ready.wait(SVC_TIMEOUT_S * 4)
+            if self.soft is not None:
+                self.box["optimize"] = svc_request(
+                    port, "POST", "/v1/optimize", self.soft)[::2]
+        except Exception as e:  # noqa: BLE001 — finish() reports it
+            self.box["error"] = e
+        finally:
+            try:
+                self.box["rc"] = svc_stop(self.child)
+            except Exception as e:  # noqa: BLE001 — finish() reports it
+                self.box["error"] = e
+
+    def expect(self, label: str, got, want) -> None:
+        """Hold ``got`` against ``want(the host burst's answers, the
+        host's (status, body) for the optimize document)``."""
+        self.checks.append((label, got, want))
+
+    def finish(self) -> tuple:
+        """Wait for the thread; the server's exit 0; every queued check.
+        Returns the burst's wall and its answers per job."""
+        self.thread.join(SVC_TIMEOUT_S * 4)
+        if self.thread.is_alive() or "error" in self.box or \
+                "burst" not in self.box:
+            fail(f"service: the host server's burst did not finish: "
+                 f"{self.box.get('error')!r}")
+        if self.box.get("rc") != 0:
+            fail(f"service: the host server's process exited "
+                 f"{self.box.get('rc')}")
+        wall, answers = self.box["burst"]
+        if any(s != 200 for s, _ in answers):
+            fail(f"service A: the host server answered "
+                 f"{sorted({s for s, _ in answers})}")
+        for label, got, want in self.checks:
+            if got != want(answers, self.box.get("optimize")):
+                fail(f"{label}: differs from the host server's answer")
+        return wall, answers
+
+    def close(self) -> None:
+        self._soft_ready.set()
+        self.thread.join(SVC_TIMEOUT_S)
+        if self.child["proc"].poll() is None:
+            self.child["proc"].kill()
+            self.child["proc"].wait(10)
+        self.child["out"].close()
+
+
+def service_defaults(card: str, plain: "PlainPool", jobs, lanes,
+                     ref: HostRef) -> tuple:
+    """Part A: the deployable defaults over HTTP, ``Server(device="cuda")``
+    at the reference's defaults, its bodies held against the host
+    server's (``ref``).  Returns the part's numbers and the card server
+    (the caller shuts it down)."""
+    cardsrv = svc_server(device="cuda")
+    cap = RaceCapture(INC_KERNELS, thread=SCHED_LOOP)
+    with cap:
+        card_wall, card_out = svc_burst(cardsrv.api_port, jobs)
+    cap.submit(plain, "service A", need=list(INC_KERNELS))
+    if any(s != 200 for s, _ in card_out):
+        fail(f"service A: the card server answered "
+             f"{sorted({s for s, _ in card_out})}")
+    ref.expect("service A: the card server's bodies", card_out,
+               lambda host, opt: host)
+    outcomes = {"sat": 0, "unsat": 0, "incomplete": 0}
+    for _, body in card_out:
+        for r in json.loads(body)["results"]:
+            outcomes[r["status"]] += 1
+    m, _ = svc_metrics(cardsrv)
+    counted = {k: m.get(f'deppy_resolutions_total{{outcome="{k}"}}', 0)
+               for k in outcomes}
+    if counted != outcomes or sum(outcomes.values()) != lanes:
+        fail(f"service A: resolutions {counted}, the bodies {outcomes}, "
+             f"{lanes} lanes sent")
+    if m.get("deppy_request_total_seconds_count") != len(jobs):
+        fail(f"service A: deppy_request_total_seconds_count "
+             f"{m.get('deppy_request_total_seconds_count')}, {len(jobs)} "
+             f"requests")
+    mean_ms = 1e3 * m["deppy_request_total_seconds_sum"] / len(jobs)
+    wait_ms = 1e3 * m.get("deppy_request_queue_wait_seconds_sum", 0.0) / \
+        max(m.get("deppy_request_queue_wait_seconds_count", 0.0), 1.0)
+    # One traced request of states the burst did not send (a cache hit
+    # has no stages): the breakdown, the echoed id, the trace.
+    from deppy_tpu_torch.models import gvk_conflict_catalog
+
+    fresh = svc_doc([gvk_conflict_catalog(20, 4, 10, seed=lanes + i)
+                     for i in range(SVC_FLEET[1])])
+    status, hdrs, body = svc_request(
+        cardsrv.api_port, "POST", "/v1/resolve", fresh,
+        {"X-Deppy-Timings": "1", "X-Deppy-Request-Id": "svc-a-1"})
+    timings = json.loads(body).get("timings", {})
+    if status != 200 or not {"queue_wait_s", "dispatch_s", "solve_s",
+                             "decode_s", "total_s"} <= set(timings):
+        fail(f"service A: X-Deppy-Timings gave {status} {sorted(timings)}")
+    if hdrs.get("X-Deppy-Request-Id") != "svc-a-1":
+        fail(f"service A: request id echoed as "
+             f"{hdrs.get('X-Deppy-Request-Id')!r}")
+    status, _, body = svc_request(cardsrv.api_port, "GET",
+                                  "/debug/traces?id=svc-a-1")
+    if status != 200 or json.loads(body)["trace"]["request_id"] != "svc-a-1":
+        fail(f"service A: /debug/traces?id=svc-a-1 answered {status}")
+    status, _, body = svc_request(cardsrv.api_port, "GET", "/debug/slo")
+    slo = json.loads(body)["slo"]
+    if status != 200 or not set(SVC_TENANT_NAMES) <= set(slo):
+        fail(f"service A: /debug/slo lists {sorted(slo)}")
+    out = dict(card_wall_s=card_wall, mean_request_ms=mean_ms,
+               mean_queue_wait_ms=wait_ms, requests=len(jobs), lanes=lanes,
+               outcomes=outcomes,
+               timings={k: round(v * 1e3, 3) for k, v in timings.items()},
+               slo={t: slo[t]["requests"] for t in SVC_TENANT_NAMES})
+    print(f"service A: {len(jobs)} requests ({lanes} lanes, {outcomes}) "
+          f"from {SVC_CLIENTS} clients, two tenants; card server "
+          f"{card_wall:.3f} s (a request {mean_ms:.1f} ms on average, "
+          f"{wait_ms:.1f} ms of it queued); one request's stages (ms) "
+          f"{out['timings']}; /debug/slo {out['slo']} [{card}]", flush=True)
+    return out, cardsrv
+
+
+def service_tiers(card: str, cardsrv, jobs, preview, ref: HostRef) -> dict:
+    """Part B: each tier's endpoint on the card server: a session walk
+    and a soft optimize document with the profiler armed, a publish and
+    a preview, the learned-route ingress on a second server, and the
+    armed families on /metrics."""
+    from deppy_tpu_torch import io, profile
+    from deppy_tpu_torch.models import session_catalog, walk_steps
+
+    out = {}
+    port = cardsrv.api_port
+    # Sessions: create, then a 12-step walk against the host store's.
+    bundles, size, n = SVC_WALK
+    doc = session_catalog(bundles, size)
+    steps = walk_steps(bundles, size, n)
+    soft = json.dumps(soft_docs()[0]).encode()
+    with profile.override("on", 1.0):
+        t0 = time.perf_counter()
+        status, _, body = svc_request(port, "POST", "/v1/session", doc)
+        if status != 200:
+            fail(f"service B: /v1/session answered {status}: "
+                 f"{body[:200]!r}")
+        op = f"/v1/session/{json.loads(body)['session']['id']}/op"
+        got = []
+        for ident, installed in steps:
+            for req in ({"op": "assume", "identifiers": [ident],
+                         "installed": installed}, {"op": "resolve"}):
+                status, _, body = svc_request(port, "POST", op, req)
+                if status != 200:
+                    fail(f"service B: {op} {req['op']} answered {status}")
+            got.append(json.loads(body)["result"])
+        out["session_s"] = time.perf_counter() - t0
+        # Optimize: workload 1's first soft document, card against host.
+        t0 = time.perf_counter()
+        a = svc_request(port, "POST", "/v1/optimize", soft)
+        out["optimize_s"] = time.perf_counter() - t0
+    if got != svc_walk_host(doc, steps):
+        fail("service B: the session walk differs from the host store's")
+    if a[0] != 200:
+        fail(f"service B: /v1/optimize answered {a[0]} on the card")
+    ref.optimize(soft)
+    ref.expect("service B: the soft optimize", (a[0], a[2]),
+               lambda host, opt: opt)
+    # Publish and preview: families retained by a resolve, one publish,
+    # a preview of the next round held against cold card solves.
+    fams, d0, d1, expected = preview
+    if svc_request(port, "POST", "/v1/resolve", svc_doc(fams))[0] != 200:
+        fail("service B: the families' resolve failed")
+
+    def delta_doc(d) -> dict:
+        return {"updates": [{"id": i, "constraints": [
+            io.constraint_to_dict(c) for c in cons]}
+            for i, cons in sorted(d.updates.items())]}
+
+    status, _, body = svc_request(port, "POST", "/v1/catalog/publish",
+                                  delta_doc(d0))
+    published = json.loads(body).get("publish", {})
+    if status != 200 or published.get("affected", 0) < 1:
+        fail(f"service B: /v1/catalog/publish gave {status} {published}")
+    spec_wait(cardsrv.scheduler, stored=True)
+    status, _, body = svc_request(port, "POST", "/v1/resolve/preview",
+                                  dict(delta_doc(d1), limit=64))
+    entries = json.loads(body).get("preview", [])
+    keys = [e["fingerprint"] for e in entries]
+    if status != 200 or not entries or any(k not in expected for k in keys):
+        fail(f"service B: /v1/resolve/preview gave {status}, "
+             f"{len(entries)} entries")
+    if [e["result"] for e in entries] != [expected[k] for k in keys]:
+        fail("service B: the preview's results differ from cold card "
+             "solves of the changed families")
+    out.update(published=published, previewed=len(entries))
+    # Learned routes: a second card server with route learning on (its
+    # incremental tier off: the part reads the adopted row, not the tier).
+    routesrv = svc_server(device="cuda", route_learn="on",
+                          incremental="off")
+    try:
+        rows = {"rows": {"portfolio.s": "device,host"}, "origin": "svc"}
+        status, _, body = svc_request(routesrv.api_port, "POST",
+                                      "/v1/routes/learned", rows)
+        applied = json.loads(body).get("applied")
+        if status != 200 or not applied:
+            fail(f"service B: /v1/routes/learned gave {status} {applied}")
+        _, again = svc_burst(routesrv.api_port, jobs[:SVC_ROUTE_BURST])
+        ref.expect("service B: the answers after the learned row", again,
+                   lambda host, opt: host[:SVC_ROUTE_BURST])
+        _, rtext = svc_metrics(routesrv)
+        if "deppy_route_" not in rtext:
+            fail("service B: /metrics lacks the deppy_route_* families")
+        out["applied"] = applied
+    finally:
+        routesrv.shutdown()
+    _, text = svc_metrics(cardsrv)
+    fams_seen = {f: f in text for f in (
+        "deppy_profile_dispatches_total", "deppy_tenant_requests_total",
+        "deppy_breaker_state", "deppy_fault_host_routed_total",
+        "deppy_hostpool_", "deppy_session_active",
+        "deppy_optimize_iterations_total", "deppy_speculate_publishes_total")}
+    if not all(fams_seen.values()):
+        fail(f"service B: /metrics families {fams_seen}")
+    print(f"service B: a {n}-step session walk of session_catalog("
+          f"{bundles}, {size}) in {out['session_s']:.3f} s, equal to the host "
+          f"store's; a soft optimize in {out['optimize_s']:.3f} s; publish "
+          f"{published}, {len(entries)} previews equal to cold card solves; "
+          f"learned row {applied}, then {SVC_ROUTE_BURST} requests; /metrics "
+          f"carries the armed families [{card}]", flush=True)
+    return out
+
+
+def service_degraded(card: str, jobs, ref: HostRef) -> tuple:
+    """Part C: every ``driver.dispatch`` fails until the breaker opens
+    (threshold 2).  The breaker runs on a clock of its own, which the
+    part moves past the cooldown once the open breaker's checks are
+    done (however long the host fallback took), instead of sleeping.
+    Returns the part's numbers and the driver failures and host-routed
+    lanes it scripted."""
+    from deppy_tpu_torch import faults, io
+    from deppy_tpu_torch.models import gvk_conflict_catalog
+    from deppy_tpu_torch.resolution import BatchResolver
+
+    env_keys = ("DEPPY_GPU_REPROBE",)
+    env0 = {k: os.environ.get(k) for k in env_keys}
+    # No deferred re-probe: its subprocess would outlive the part.
+    os.environ["DEPPY_GPU_REPROBE"] = "0"
+    skew = [0.0]
+    breaker = faults.CircuitBreaker(
+        failure_threshold=2, reset_after_s=SVC_BREAKER_RESET_S,
+        clock=lambda: time.monotonic() + skew[0])
+    faults.set_default_breaker(breaker)
+    dev = svc_server(device="cuda")
+    auto = None
+    first = lambda host, opt: host[0][1]  # noqa: E731 — job 0's body
+    try:
+        body = jobs[0][1]
+        f0 = _fault_snapshot()
+        faults.configure_plan(faults.plan_from_spec(
+            '[{"point": "driver.dispatch", "times": -1}]'))
+        try:
+            status, _, got = svc_request(dev.api_port, "POST",
+                                         "/v1/resolve", body)
+        finally:
+            faults.configure_plan(None)
+        d = _delta(f0, _fault_snapshot())
+        lanes = len(json.loads(got)["results"]) if status == 200 else 0
+        if status != 200:
+            fail(f"service C: the dead card's request answered {status}")
+        ref.expect("service C: the dead card's answers", got, first)
+        if (d["fault_failures"], d["fault_host_routed"]) != (2, lanes) or \
+                not breaker.blocks_device():
+            fail(f"service C: failures {d['fault_failures']}, host-routed "
+                 f"{d['fault_host_routed']} of {lanes} lanes, breaker "
+                 f"{breaker.state()}")
+        scripted = dict(failures=d["fault_failures"],
+                        host_routed=d["fault_host_routed"])
+        _, _, ready = svc_request(dev.probe_port, "GET", "/readyz")
+        if ready != b"ok (degraded: accelerator breaker open)":
+            fail(f"service C: /readyz {ready!r} with the breaker open")
+        status, hdrs, shed = svc_request(dev.api_port, "POST",
+                                         "/v1/resolve", body)
+        retry = int(hdrs.get("Retry-After") or 0)
+        if status != 503 or retry < 1:
+            fail(f"service C: the device server answered {status}, "
+                 f"Retry-After {retry}")
+        # Built once the breaker is open: its pre-warm then routes to
+        # the host without an engine probe.
+        auto = svc_server(device="cuda", backend="auto")
+        f1 = _fault_snapshot()
+        status, _, drained = svc_request(auto.api_port, "POST",
+                                         "/v1/resolve", body)
+        if status != 200:
+            fail(f"service C: the auto server answered {status}")
+        ref.expect("service C: the auto server's answers", drained, first)
+        d = _delta(f1, _fault_snapshot())
+        if d["fault_failures"] or d["fault_host_routed"]:
+            fail(f"service C: the auto drain counted {d}")
+        faults.configure_plan(faults.plan_from_spec(
+            '[{"point": "service.resolve", "times": 1}]'))
+        try:
+            e0, _ = svc_metrics(dev)
+            status, _, err = svc_request(dev.api_port, "POST",
+                                         "/v1/resolve", body)
+            e1, _ = svc_metrics(dev)
+        finally:
+            faults.configure_plan(None)
+        errors = e1["deppy_request_errors_total"] - \
+            e0["deppy_request_errors_total"]
+        if status != 500 or errors != 1:
+            fail(f"service C: the scripted service.resolve fault gave "
+                 f"{status}, {errors} counted errors")
+        # The half-open probe: states no server here has cached.
+        states = [gvk_conflict_catalog(20, 4, 10, seed=2 * SVC_FLEET[0] *
+                                       SVC_FLEET[1] + i)
+                  for i in range(SVC_FLEET[1])]
+        want = [io.result_to_dict(r)
+                for r in BatchResolver(backend="host").solve(states)]
+        skew[0] += breaker.remaining_s() + 0.05  # the cooldown elapses
+        status, _, probed = svc_request(dev.api_port, "POST",
+                                        "/v1/resolve", svc_doc(states))
+        _, _, ready2 = svc_request(dev.probe_port, "GET", "/readyz")
+        if status != 200 or json.loads(probed)["results"] != want \
+                or ready2 != b"ok" or breaker.state() != "closed":
+            fail(f"service C: after the cooldown {status}, /readyz "
+                 f"{ready2!r}, breaker {breaker.state()}")
+        out = dict(lanes=lanes, retry_after=retry, shed=json.loads(shed))
+    finally:
+        dev.shutdown()
+        if auto is not None:
+            auto.shutdown()
+        _restore_env(env0, env_keys)
+        faults.set_default_breaker(None)
+    print(f"service C: a dead card: 2 driver failures, {lanes} host-routed "
+          f"lanes; /readyz degraded; the device server shed 503 Retry-After "
+          f"{retry}; the auto server drained on the host; a scripted "
+          f"service.resolve fault a counted 500; after the half-open probe "
+          f"/readyz ok [{card}]", flush=True)
+    return out, scripted
+
+
+def service_drain(card: str, fleet, fleet_jobs, child, ref: HostRef) -> dict:
+    """Part D: the ``serve`` subprocess (started with the phase): its
+    banner, one request, SIGTERM; then a 512-lane request in flight at
+    ``shutdown()``; then the subprocess's exit 0, its kernels not built
+    again."""
+    import threading
+
+    from deppy_tpu_torch.engine import _build
+
+    def fleet_answers(host):
+        return [r for j in fleet_jobs
+                for r in json.loads(host[j][1])["results"]]
+
+    proc, out = child["proc"], child["out"]
+    lib = _build.library_path()
+    mtime = lib.stat().st_mtime_ns
+    child["thread"].join(SVC_TIMEOUT_S)
+    if "error" in child or "answer" not in child:
+        fail(f"service D: serve(): {child.get('error')}")
+    status, _, one = child["answer"]
+    if status != 200:
+        fail(f"service D: serve() answered {status}")
+    ref.expect("service D: serve()'s answer", json.loads(one)["results"],
+               lambda host, opt: fleet_answers(host)[:1])
+    # The drain, while the subprocess exits (the incremental tier off:
+    # the part reads the drain, not the tier's plans of 512 lanes).
+    srv = svc_server(device="cuda", incremental="off")
+    body = svc_doc(fleet[:SVC_DRAIN_LANES])
+    got = {}
+    th = threading.Thread(target=lambda: got.update(r=svc_request(
+        srv.api_port, "POST", "/v1/resolve", body)), name="svc-drain")
+    th.start()
+    t0 = time.perf_counter()
+    while srv._inflight < 1:
+        if time.perf_counter() - t0 > 30:
+            srv.shutdown()
+            fail("service D: the request never entered the server")
+        time.sleep(0.001)
+    stopper = threading.Thread(target=srv.shutdown, name="svc-shutdown")
+    stopper.start()
+    t0 = time.perf_counter()
+    while True:
+        status, _, _ = svc_request(srv.probe_port, "GET", "/readyz")
+        if status == 503:
+            break
+        if time.perf_counter() - t0 > 10:
+            fail("service D: /readyz never flipped to 503")
+    in_flight = th.is_alive()
+    th.join(SVC_TIMEOUT_S)
+    stopper.join(SVC_TIMEOUT_S)
+    if not in_flight or "r" not in got or got["r"][0] != 200:
+        fail(f"service D: the request was in flight at 503: {in_flight}; "
+             f"it answered {got.get('r', (None,))[0]}")
+    ref.expect("service D: the drained request's answers",
+               json.loads(got["r"][2])["results"],
+               lambda host, opt: fleet_answers(host)[:SVC_DRAIN_LANES])
+    rc = svc_stop(child)
+    out.seek(0)
+    log = out.read()
+    if rc != 0 or "build_seconds 0.0" not in log or \
+            lib.stat().st_mtime_ns != mtime:
+        fail(f"service D: serve() exited {rc}; its log: {log[-2000:]}")
+    print(f"service D: serve(device=\"cuda\") in a subprocess: banner, one "
+          f"request, exit 0 on SIGTERM, kernels reused from "
+          f"{lib.parent.name}; /readyz 503 while a {SVC_DRAIN_LANES}-lane "
+          f"request was in flight, which then answered 200 [{card}]",
+          flush=True)
+    return dict(drain_lanes=SVC_DRAIN_LANES, child_rc=rc,
+                child_banner_s=child["banner_s"])
+
+
+def run_service_path(scale: float, plain: "PlainPool"):
+    """The service on the card (the module docstring's phase 4m):
+    the deployable defaults over HTTP (A), each tier's endpoint (B),
+    degraded mode (C), drain and the ``serve`` process (D), every answer
+    they give held against the host server.  Runs at its full size at
+    every ``scale``.  Returns the path's launches, its numbers and the
+    driver failures and host-routed lanes it scripted."""
+    import tempfile
+
+    import torch
+
+    from deppy_tpu_torch import engine, faults
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"service timings on {card}", flush=True)
+    torch.cuda.synchronize()
+    f0 = _fault_snapshot()
+    engine.reset_launch_counts()
+    tally: dict = {}
+    numbers, part_s = {}, {}
+    with tempfile.TemporaryDirectory(prefix="deppy-svc-") as tmp:
+        # Both subprocesses start now: their imports overlap the rest.
+        child = svc_child(tmp)
+        ref = HostRef(tmp)
+        try:
+            preview = svc_preview_want(tally)
+            jobs, fleet, fleet_jobs, lanes = svc_jobs()
+            ref.start(jobs)
+            t0 = time.perf_counter()
+            numbers["A"], cardsrv = service_defaults(card, plain, jobs,
+                                                     lanes, ref)
+            part_s["A"] = time.perf_counter() - t0
+            try:
+                t0 = time.perf_counter()
+                numbers["B"] = service_tiers(card, cardsrv, jobs, preview,
+                                             ref)
+                part_s["B"] = time.perf_counter() - t0
+            finally:
+                cardsrv.shutdown()
+            t0 = time.perf_counter()
+            numbers["C"], scripted = service_degraded(card, jobs, ref)
+            part_s["C"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            numbers["D"] = service_drain(card, fleet, fleet_jobs, child, ref)
+            part_s["D"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            host_wall, _ = ref.finish()
+            numbers["host"] = dict(wall_s=host_wall,
+                                   banner_s=ref.child["banner_s"],
+                                   checks=len(ref.checks),
+                                   wait_s=time.perf_counter() - t0)
+        finally:
+            child["thread"].join(SVC_TIMEOUT_S)
+            if child["proc"].poll() is None:
+                child["proc"].kill()
+                child["proc"].wait(10)
+            child["out"].close()
+            ref.close()
+    print(f"service host: serve(backend=\"host\") up {ref.child['banner_s']:.1f}"
+          f" s after its spawn, its burst {host_wall:.3f} s; "
+          f"{len(ref.checks)} answers of parts A-D byte-equal to it; waited "
+          f"{numbers['host']['wait_s']:.3f} s for it at the end [{card}]",
+          flush=True)
+    for part, s in part_s.items():
+        numbers[part]["seconds"] = s
+    torch.cuda.synchronize()
+    launches = {k: n - tally.get(k, 0)
+                for k, n in engine.launch_counts().items()}
+    d = _delta(f0, _fault_snapshot())
+    seen = dict(failures=d["fault_failures"],
+                host_routed=d["fault_host_routed"])
+    if seen != scripted:
+        fail(f"service: the phase counted {seen}, part C scripted "
+             f"{scripted}")
+    if faults.default_breaker().state() != "closed":
+        fail("service: the breaker is not closed after the phase")
+    missing = [k for k in INC_KERNELS if launches[k] <= 0]
+    if missing:
+        fail(f"service: the phase never launched {missing}")
+    seconds = time.perf_counter() - t_phase
+    numbers.update(seconds=seconds, scripted=dict(scripted))
+    print(f"service path: {seconds:.1f} s ("
+          + ", ".join(f"{p} {s:.1f}" for p, s in part_s.items())
+          + f", the host server's checks {numbers['host']['wait_s']:.1f}); "
+          f"scripted failures {scripted['failures']}, host-routed lanes "
+          f"{scripted['host_routed']}; launches {launches} [{card}]",
+          flush=True)
+    return launches, numbers, scripted
+
+
 def _stage1_budget(groups, max_share: float) -> int:
     """The smallest stage-1 budget (a step count of the baseline) that
     strands at most ``max_share`` of every group's lanes, and some lanes
@@ -6424,13 +7260,14 @@ def _device_ms(prof, symbols):
 
 def _timed(fn, kernel: str, reps: int):
     """(result, kernel ms, wrapper ms) per call: the kernel's own device
-    time from ``torch.profiler`` per launch it recorded (the median of
-    :data:`TIMED_PASSES` passes; the profiler now and then drops a short
-    kernel's launches, so a pass's time is over the launches it kept,
-    and passes are added, up to three times as many, while it has kept
-    none), and the whole wrapper call (the host work that prepares the launch
-    included) by CUDA events.  Every wrapper timed here launches its
-    kernel once a call."""
+    time from ``torch.profiler`` per launch it recorded, over one profiled
+    session of ``reps`` calls (the profiler now and then drops a
+    session's launches, often the first session's after other card work,
+    so the time is over the launches it kept, and a session that kept
+    none is run again, up to :data:`TIMED_SESSIONS` in all), and the
+    whole wrapper call (the host work that prepares the launch included)
+    by CUDA events.  Every wrapper timed here launches its kernel once a
+    call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -6444,25 +7281,21 @@ def _timed(fn, kernel: str, reps: int):
     stop.record()
     torch.cuda.synchronize()
     wrapper_ms = start.elapsed_time(stop) / reps
-    passes, kept = [], []
-    # Up to 3x the passes while the profiler has kept no launch at all.
-    while len(kept) < TIMED_PASSES or (not passes
-                                       and len(kept) < 3 * TIMED_PASSES):
+    calls, kept, ms = reps, [], None
+    while ms is None and len(kept) < TIMED_SESSIONS:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        ms, seen = _device_ms(prof, KERNEL_SYMBOLS[kernel])
+        total, seen = _device_ms(prof, KERNEL_SYMBOLS[kernel])
         kept.append(seen)
         if seen:
-            passes.append(ms / seen)
-    if sum(kept) != reps * TIMED_PASSES:
-        print(f"kernel {kernel}: the profiler kept {kept} of {reps} "
-              f"launches a pass", flush=True)
-    if passes:
-        ms = statistics.median(passes)
-    else:
+            ms = total / seen
+    if kept != [calls]:
+        print(f"kernel {kernel}: the profiler kept {kept} of {calls} "
+              f"launches a session", flush=True)
+    if ms is None:
         print(f"kernel {kernel}: the profiler saw no device time; ms is "
               f"the wrapper's event time", flush=True)
         ms = wrapper_ms
@@ -6521,8 +7354,12 @@ def _ops_per_round(C: int, NA: int, W: int) -> int:
     return 12 * C * W + 7 * NA * W + 8 * W
 
 
-def compare_kernels(scale: float, launches: dict):
-    """Phase 4: every kernel and its plain version on the same tensors."""
+def compare_kernels(scale: float, launches: dict, plain: PlainPool):
+    """Phase 4: every kernel and its plain version on the same tensors.
+    The plain version runs on the card, timed, on the family the
+    summary line reports for the kernel (:data:`SUMMARY_FAMILY`); on
+    every other family it runs in the pool, and that family's row is
+    filled when the pool is checked."""
     import torch
 
     from deppy_tpu_torch.engine import core, cuda_bcp, cuda_search, driver
@@ -6532,21 +7369,52 @@ def compare_kernels(scale: float, launches: dict):
     dev = torch.device("cuda")
     budget = driver.DEFAULT_MAX_STEPS
     rows, teams = {}, {}
+    wrappers = {"cuda_bcp": cuda_bcp, "cuda_search": cuda_search}
     print(f"clocks before the bits kernels' timings: {clock_line()}",
           flush=True)
+
+    def timed_plain(kernel, family, got, module, fn, args, kwargs=None):
+        """(the plain outputs, ms, rounds) on the kernel's inputs, timed
+        on the card, for the summary family; on any other family the
+        plain version goes to the pool and this returns (None, pool
+        label, None)."""
+        kwargs = kwargs or {}
+        if family == SUMMARY_FAMILY[kernel]:
+            mod = wrappers[module]
+            return _timed_plain(lambda: getattr(mod, fn)(*args, **kwargs))
+        label = (kernel, family, f"{int(got[0].shape[0])} lanes")
+        plain.submit(label, got, module, fn, args, kwargs,
+                     int(got[0].shape[0]))
+        return None, label, None
 
     def record(kernel, family, got, want, timing, plain_ms, rounds, nbytes,
                C, NA, W, chunk=None):
         """One kernel's 32-lane comparison and time, with its bound; and
         ``chunk``, the bound at the family's chunk (the shape the main
-        path launches) where given."""
+        path launches) where given.  With no ``want`` the plain version
+        ran in the pool (``plain_ms`` its label): the row is recorded
+        once the pool's check has held the outputs equal, with the pool's
+        rounds and CPU ms."""
+        if want is None:
+            label = plain_ms
+
+            def done():
+                stats = plain.stats[label]
+                record(kernel, family, got, got, timing, stats["plain_ms"],
+                       stats["rounds"], nbytes, C, NA, W, chunk=chunk)
+                row = rows[kernel]["families"][family]
+                row["plain_on"] = "cpu"
+
+            plain.calls.append(done)
+            return
+        on = "" if want is not got else " (cpu)"
         ms, wrapper_ms = timing
         bad, err = _mismatch(got, want)
         bound_ms, bound_by = _bound(nbytes, rounds * _ops_per_round(C, NA, W))
         line = (f"kernel {kernel} on {family}: main-path launches "
                 f"{launches[kernel]} ms {ms:.4f} wrapper_ms "
                 f"{wrapper_ms:.4f} plain_ms "
-                f"{plain_ms:.3f} mismatches {bad} max_abs_err {err} "
+                f"{plain_ms:.3f}{on} mismatches {bad} max_abs_err {err} "
                 f"rounds {rounds} bytes {nbytes} bound_ms {bound_ms:.8f} "
                 f"({bound_by})")
         if chunk is not None:
@@ -6592,8 +7460,9 @@ def compare_kernels(scale: float, launches: dict):
         # the block team there.
         got, *timing = _timed(lambda: cuda_bcp.bcp_fixpoint(*bcp_in),
                               "bcp_fixpoint", TIMED_REPS)
-        want, pms, rounds = _timed_plain(
-            lambda: cuda_bcp.bcp_fixpoint_plain(*bcp_in))
+        want, pms, rounds = timed_plain("bcp_fixpoint", name, got,
+                                        "cuda_bcp", "bcp_fixpoint_plain",
+                                        bcp_in)
         c_row = None
         if chunk:
             c_label, c_in = chunk["bcp_fixpoint"][0]
@@ -6618,8 +7487,11 @@ def compare_kernels(scale: float, launches: dict):
         unbound[5] = torch.full_like(bcp_in[5], -1)
         unbound[6] = torch.full_like(bcp_in[6], 32 * d.Wr + 1)
         mixed = mixed_lanes(bcp_in)
+        # (Where the plain version went to the pool, each team is held
+        # against the default team's outputs, which the pool holds
+        # against the plain version's.)
         bcp_cases = [
-            ("anchors", bcp_in, want),
+            ("anchors", bcp_in, got if want is None else want),
             ("disabled, overlap and bounded lanes", mixed,
              cuda_bcp.bcp_fixpoint_plain(*mixed)),
             ("zero extras row against a bound that cannot bind", bcp_in,
@@ -6639,8 +7511,9 @@ def compare_kernels(scale: float, launches: dict):
         got, *timing = _timed(
             lambda: cuda_search.batched_search_fused(red, budget, en),
             "search", TIMED_REPS)
-        want, pms, rounds = _timed_plain(
-            lambda: cuda_search.batched_search_plain(red, budget, en))
+        want, pms, rounds = timed_plain("search", name, got, "cuda_search",
+                                        "batched_search_plain",
+                                        (red, budget, en))
         record("search", name, got, want, timing, pms, rounds,
                _nbytes(*search_in, *got), d.C, d.NA, d.Wr)
         result, guessed, model, steps = got[0], got[1], got[2], got[3]
@@ -6651,14 +7524,16 @@ def compare_kernels(scale: float, launches: dict):
         got, *timing = _timed(
             lambda: cuda_search.batched_minimize_fused(*min_args),
             "minimize", TIMED_REPS)
-        want, pms, rounds = _timed_plain(
-            lambda: cuda_search.batched_minimize_plain(*min_args))
+        want, pms, rounds = timed_plain("minimize", name, got,
+                                        "cuda_search",
+                                        "batched_minimize_plain", min_args)
         record("minimize", name, got, want, timing, pms, rounds,
                _nbytes(red.pos_bits_r, red.neg_bits_r,
                        red.card_member_bits_r, red.card_n, red.card_valid,
                        red.anchors, red.n_vars, result, model, guessed,
                        steps, en, *got), d.C, d.NA, d.Wr)
-        min_cases = [("full budget", min_args, want)]
+        min_cases = [("full budget", min_args,
+                      got if want is None else want)]
 
         # Tight budgets and padding lanes: the step accounting behind
         # Incomplete, and lanes that must run nothing.
@@ -6693,15 +7568,16 @@ def compare_kernels(scale: float, launches: dict):
         got, *timing = _timed(
             lambda: cuda_search.batched_core_fused(*core_args, NCON=d.NCON),
             "core", TIMED_REPS)
-        want, pms, rounds = _timed_plain(
-            lambda: cuda_search.batched_core_plain(*core_args, NCON=d.NCON))
+        want, pms, rounds = timed_plain("core", name, got, "cuda_search",
+                                        "batched_core_plain", core_args,
+                                        dict(NCON=d.NCON))
         record("core", name, got, want, timing, pms, rounds,
                _nbytes(full.pos_bits, full.neg_bits, full.card_member_bits,
                        full.card_n, full.card_act_bits, full.n_vars,
                        full.n_cons, steps, en_c, *got),
                d.C, d.NA, d.Wv)
         core_cases = [
-            ("full budget", core_args, want),
+            ("full budget", core_args, got if want is None else want),
             ("budget 25, padding lanes", tight_args,
              cuda_search.batched_core_plain(*tight_args, NCON=d.NCON))]
         teams.setdefault("core", {})[name] = compare_teams(
@@ -6888,24 +7764,53 @@ def _plain_task(module: str, fn: str, args, kwargs):
 
     torch.set_num_threads(1)
     mod = importlib.import_module(f"deppy_tpu_torch.engine.{module}")
+    args = [_unwire(a) for a in args]
+    kwargs = {k: _unwire(v) for k, v in kwargs.items()}
     w0 = _plain_work()
     t0 = time.perf_counter()
     out = [x.numpy() for x in getattr(mod, fn)(*args, **kwargs)]
     return out, _work_since(w0), time.perf_counter() - t0
 
 
+class _Wire(NamedTuple):
+    """A tensor (``fields`` None) or a ``ProblemTensors`` (``fields`` its
+    arrays) on its way to a pool worker as numpy arrays, which pickle by
+    value: a CPU tensor would travel as a shared-memory file descriptor,
+    one socket exchange with this process for each tensor."""
+    array: object
+    fields: object
+
+
 def _lanes(x, lo: int, hi: int):
-    """Lanes [lo, hi) of an argument, on the CPU: tensors and
-    ProblemTensors are cut on their batch axis, anything else passes."""
+    """Lanes [lo, hi) of an argument, on the CPU, wired for a pool task:
+    tensors, ProblemTensors and wired arguments are cut on their batch
+    axis, anything else passes."""
     import torch
 
     from deppy_tpu_torch.engine import core
 
+    if isinstance(x, _Wire):
+        return _Wire(None if x.array is None else x.array[lo:hi],
+                     None if x.fields is None
+                     else [f[lo:hi] for f in x.fields])
     if isinstance(x, core.ProblemTensors):
-        return core.ProblemTensors(*[f[lo:hi].cpu() for f in x])
+        return _Wire(None, [f[lo:hi].cpu().numpy() for f in x])
     if isinstance(x, torch.Tensor) and x.dim() > 0:
-        return x[lo:hi].cpu()
+        return _Wire(x[lo:hi].cpu().numpy(), None)
     return x
+
+
+def _unwire(x):
+    """A pool task's argument back as the tensor it was wired from."""
+    import torch
+
+    from deppy_tpu_torch.engine import core
+
+    if not isinstance(x, _Wire):
+        return x
+    if x.fields is not None:
+        return core.ProblemTensors(*[torch.from_numpy(f) for f in x.fields])
+    return torch.from_numpy(x.array)
 
 
 class PlainPool:
@@ -7269,16 +8174,19 @@ def compare_blockwise(scale: float, launches: dict, plain: PlainPool):
             got = cuda_blockwise.bcp_fixpoint(*sub_k, block_rows=br)
             kw = dict(block_rows=cuda_blockwise.tile_rows(
                 br, d.C, d.K, d.M, d.Wv, d.NA))
-            if name in big_names:
-                # Thousands of tiles of wide rows: the plain version runs
-                # on the card, where each round takes a fraction of the
-                # time it takes on one CPU core.
+            if name == "giant":
+                # 8,192 tiles of 768-word rows, each round over all 1,024
+                # AtMost rows: the plain version runs on the card, where a
+                # round takes a fraction of its time on one CPU core.
                 _same("blockwise_fixpoint", name, what, got,
                       cuda_blockwise.bcp_fixpoint_plain(*sub_p, **kw))
             else:
+                # Elsewhere a round is a few small operations and a host
+                # read, launch-bound on the card, and the lanes spread
+                # over the pool's workers (one a task on the batch).
                 plain.submit(("blockwise_fixpoint", name, what), got,
                              "cuda_blockwise", "bcp_fixpoint_plain", sub_p,
-                             kw, nb)
+                             kw, nb, chunk=1 if name in big_names else 2)
 
         if name in big_names:
             # The search kernel on the big family: its time per path, and
@@ -7708,6 +8616,7 @@ PATH_KERNELS = {
     "speculate": INC_KERNELS,
     "routes": INC_KERNELS,
     "obs": INC_KERNELS,
+    "service": INC_KERNELS,
 }
 
 
@@ -7732,6 +8641,7 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     plain = PlainPool()
     try:
+        tracing_refs = host_traces(plain)
         t0 = time.perf_counter()
         _build.load()
         print(f"kernels built in {time.perf_counter() - t0:.1f} s "
@@ -7757,7 +8667,8 @@ def main(argv=None) -> int:
         by_path.update(by_impl)
         del bits_keys
         stamp("impls path")
-        by_path["tracing"], per_family["tracing"] = run_tracing_path()
+        by_path["tracing"], per_family["tracing"] = run_tracing_path(
+            tracing_refs)
         per_family["telemetry_sink"] = check_telemetry_sink(args.scale)
         stamp("tracing path")
         by_path["sched"], per_family["sched"] = run_sched_path(args.scale)
@@ -7786,6 +8697,10 @@ def main(argv=None) -> int:
         stamp("routes path")
         by_path["obs"], per_family["obs"] = run_obs_path(args.scale, plain)
         stamp("obs path")
+        by_path["service"], per_family["service"], svc_scripted = \
+            run_service_path(args.scale, plain)
+        scripted = {k: v + svc_scripted[k] for k, v in scripted.items()}
+        stamp("service path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")
@@ -7797,7 +8712,7 @@ def main(argv=None) -> int:
             "operatorhub_batch", operatorhub_batch(args.scale),
             impl="blockwise")
         stamp("profiles")
-        rows = compare_kernels(args.scale, by_path["bits"])
+        rows = compare_kernels(args.scale, by_path["bits"], plain)
         stamp("bits kernels compared")
         (rows["blockwise_fixpoint"], search_big,
          per_family["choices"]) = compare_blockwise(
@@ -7824,9 +8739,9 @@ def main(argv=None) -> int:
         hostpool.shutdown_default_pool()
 
     # The faults gate at the end of the run: the driver failures and
-    # host-routed lanes of the whole run are exactly those the faults and
-    # optimize phases scripted (a real launch failure anywhere fails the
-    # run, even though the envelope answered it).
+    # host-routed lanes of the whole run are exactly those the faults,
+    # optimize and service phases scripted (a real launch failure
+    # anywhere fails the run, even though the envelope answered it).
     snap = _fault_snapshot()
     seen = dict(failures=snap["deppy_fault_failures_total"],
                 host_routed=snap["deppy_fault_host_routed_total"])
@@ -7834,8 +8749,8 @@ def main(argv=None) -> int:
           f"lanes {seen['host_routed']} in the run; scripted {scripted}",
           flush=True)
     if seen != scripted:
-        fail(f"faults gate: the run counted {seen}, the faults and "
-             f"optimize phases scripted {scripted}")
+        fail(f"faults gate: the run counted {seen}, the faults, optimize "
+             f"and service phases scripted {scripted}")
 
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in engine.KERNELS}

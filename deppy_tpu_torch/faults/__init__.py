@@ -23,8 +23,9 @@ The families (``deppy_fault_retries``, ``deppy_fault_failures_total``,
 ``deppy_fault_host_routed_total``, ``deppy_breaker_state``,
 ``deppy_deadline_exceeded``, ...) live on
 :func:`deppy_tpu_torch.telemetry.default_registry`, beside ``fault`` and
-``breaker`` events.  The per-device breakers wait for the mesh (ROADMAP
-A6) and ``render_metric_lines`` for the service (A5.6.6).
+``breaker`` events; :func:`render_metric_lines` renders them for the
+service's ``/metrics`` (``deppy_tpu/faults/__init__.py:95-122``).  The
+per-device breakers wait for the mesh (ROADMAP A6).
 """
 
 from .breaker import (
@@ -81,5 +82,30 @@ __all__ = [
     "note_deadline_exceeded",
     "plan_from_env",
     "plan_from_spec",
+    "render_metric_lines",
     "set_default_breaker",
 ]
+
+
+def render_metric_lines() -> list:
+    """Prometheus exposition lines for every fault-domain family, for the
+    service's ``Metrics.render`` to append (``faults/__init__.py:95-122``).
+    Reads the process state, so every server in the process reports the
+    one real breaker.  The breaker gauge is synthesized from the live
+    breaker (always present, cooldown edge included); the counters
+    render from their default-registry families, registered at zero when
+    nothing has incremented them yet.  The per-device breaker lines come
+    with the mesh (ROADMAP A6): until then there are none, as in a
+    reference process that never dispatched a shard."""
+    from .. import telemetry
+    from .metrics import BREAKER_STATE_HELP
+
+    lines = [
+        f"# HELP deppy_breaker_state {BREAKER_STATE_HELP}",
+        "# TYPE deppy_breaker_state gauge",
+        f"deppy_breaker_state {default_breaker().state_code()}",
+    ]
+    for name in FAMILIES:
+        fault_counter(name)  # ensure registered (zero) before rendering
+    return lines + telemetry.default_registry().render_families(
+        list(FAMILIES))

@@ -25,9 +25,9 @@ dumps the flight recorder (:func:`telemetry.trace.notify_breaker_open`).
 
 Left out, each with the ROADMAP item that brings it: the per-device
 fleet (``device_breaker``, ``device_breakers``,
-``reset_device_breakers``, ``GatedDeviceBreaker``; A6) and
-``render_metric_lines``, whose only caller is the service (A5.6.6).
-The lock is a plain :class:`threading.Lock` until lockdep (A7.2).
+``reset_device_breakers``, ``GatedDeviceBreaker``; A6).
+``render_metric_lines`` is in the package's ``__init__``, as in the
+reference.  The lock is a plain :class:`threading.Lock` until lockdep (A7.2).
 """
 
 from __future__ import annotations

@@ -37,6 +37,9 @@ rules matched against named **fault points** the pipeline calls
                               error models the process dying between
                               completed groups)
   ``sessions.op``             entry of one session operation
+  ``service.resolve``         entry of one ``/v1/resolve`` request's
+                              resolve (an error is the request's counted
+                              500)
   ==========================  ================================================
 
 The rest of the reference's points (:data:`KNOWN_POINTS`) parse the
@@ -101,7 +104,6 @@ KNOWN_POINTS = (
 # these is named on the env path too: it would inject nothing here.
 NOT_YET_CALLED = {
     "driver.shard_dispatch.*": "A6",
-    "service.resolve": "A5.6",
     "fleet.forward": "A5.6",
     "fleet.join_stream": "A5.6",
     "fleet.arc_flip": "A5.6",

@@ -34,9 +34,10 @@ Metric families (on ``metrics``, default the default registry):
 ``deppy_session_evictions_total{reason}``; span ``session.op``; fault
 point ``sessions.op``.  Locks are plain ``threading`` locks.  The limits
 are arguments whose defaults are the reference's; their env knobs and
-CLI flags come with ROADMAP A7.2, the service's on/off switch with
-A5.6.6, and the replica name the reference stamps on ``session.op``
-with the fleet (A5.6.7).
+CLI flags come with ROADMAP A7.2.  The service
+(:mod:`deppy_tpu_torch.service`) switches the store on and off
+(``DEPPY_GPU_SESSIONS``) and passes its replica name, which
+``session.op`` spans carry as in the reference.
 """
 
 from __future__ import annotations
@@ -130,8 +131,10 @@ class SessionStore:
                  lease_s: float = DEFAULT_LEASE_S,
                  max_sessions: int = DEFAULT_MAX_SESSIONS,
                  max_per_tenant: int = DEFAULT_MAX_PER_TENANT,
-                 sweep_interval_s: Optional[float] = None):
+                 sweep_interval_s: Optional[float] = None,
+                 replica: Optional[str] = None):
         self.scheduler = scheduler
+        self.replica = replica
         self.lease_s = max(float(lease_s), 0.05)
         self.max_sessions = max(int(max_sessions), 1)
         self.max_per_tenant = max(int(max_per_tenant), 1)
@@ -292,8 +295,10 @@ class SessionStore:
                 f'"op" must be one of {", ".join(_OPS)}')
         s = self._get(sid)
         op = doc["op"]
-        with telemetry.default_registry().span(
-                "session.op", op=op, session=sid, tenant=s.tenant):
+        attrs = {"op": op, "session": sid, "tenant": s.tenant}
+        if self.replica is not None:
+            attrs["replica"] = self.replica
+        with telemetry.default_registry().span("session.op", **attrs):
             with s.lock:
                 s.renew(self.lease_s)
                 s.ops += 1

@@ -1,0 +1,349 @@
+"""Lease-based leader election over the Kubernetes coordination API
+(copy of ``deppy_tpu/utils/lease.py:1-355``).
+
+The service's optional active-passive HA (``deppy_tpu/service.py:457-469``):
+operators running a **hot-standby pair** (one pod holding the card, one
+warm spare) want exactly one pod serving at a time.  Only the lease
+holder reports ready on ``/readyz``, so the Service's endpoints carry
+exactly one pod and failover is a lease takeover away.  The default
+topology, active-active replicas behind a Service, needs no election.
+
+Implementation notes, as in the reference:
+
+* Talks to ``coordination.k8s.io/v1`` Lease objects directly with the
+  stdlib (``urllib`` + ``ssl``): the election protocol is three verbs
+  (GET/POST/PUT) plus optimistic concurrency via
+  ``metadata.resourceVersion``.
+* The algorithm mirrors client-go's leaderelection: create the lease if
+  absent; renew it while held; take it over when the holder's
+  ``renewTime`` is more than ``leaseDurationSeconds`` stale.  Every
+  write carries the read's ``resourceVersion``, so a lost race is a 409,
+  never a split brain.
+* Failure posture is **fail-closed**: a tick that cannot read or write
+  the API drops leadership at once (flipping ``/readyz`` to 503) rather
+  than coasting on the last known state.
+* ``stop(release=True)`` clears ``holderIdentity`` so the standby takes
+  over on its next tick instead of waiting out the lease duration.
+
+The knobs are the port's: ``DEPPY_GPU_HA_LEASE``, ``DEPPY_GPU_HA_API``,
+``DEPPY_GPU_HA_NAMESPACE`` and ``DEPPY_GPU_HA_LEASE_SECONDS`` (the
+reference's ``DEPPY_HA_*``), read with the reference's parse.  Stdlib
+only: it imports neither torch nor anything else of the port.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import socket
+import ssl
+import threading
+import time
+import urllib.error
+import urllib.request
+from dataclasses import dataclass, field
+from datetime import datetime, timedelta, timezone
+from typing import Callable, Optional
+
+_RFC3339_MICRO = "%Y-%m-%dT%H:%M:%S.%fZ"
+
+_SA_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
+
+
+def _now() -> datetime:
+    return datetime.now(timezone.utc)
+
+
+def _fmt_time(t: datetime) -> str:
+    return t.astimezone(timezone.utc).strftime(_RFC3339_MICRO)
+
+
+def _parse_time(s: str) -> Optional[datetime]:
+    # The API server emits RFC3339 with or without fractional seconds.
+    for fmt in (_RFC3339_MICRO, "%Y-%m-%dT%H:%M:%SZ"):
+        try:
+            return datetime.strptime(s, fmt).replace(tzinfo=timezone.utc)
+        except ValueError:
+            continue
+    return None
+
+
+@dataclass
+class LeaseConfig:
+    """Where the lease lives and who we claim to be."""
+
+    name: str
+    namespace: str = "deppy-tpu-system"
+    identity: str = field(default_factory=socket.gethostname)
+    api_base: str = ""          # e.g. https://10.0.0.1:443 (in-cluster)
+    token: Optional[str] = None
+    ca_path: Optional[str] = None
+    lease_seconds: int = 15
+    renew_seconds: float = 0.0  # 0 → lease_seconds / 3
+    # Random fraction of the renew interval added to each tick's wait: a
+    # hot-standby pair whose pods started together would otherwise renew
+    # in lockstep and hammer the API server at the same instants forever.
+    renew_jitter: float = 0.2
+
+    def __post_init__(self) -> None:
+        if self.renew_seconds <= 0:
+            self.renew_seconds = max(self.lease_seconds / 3.0, 0.2)
+        self.renew_jitter = min(max(self.renew_jitter, 0.0), 1.0)
+
+    @property
+    def url(self) -> str:
+        return (f"{self.api_base}/apis/coordination.k8s.io/v1/namespaces/"
+                f"{self.namespace}/leases/{self.name}")
+
+    @property
+    def create_url(self) -> str:
+        return (f"{self.api_base}/apis/coordination.k8s.io/v1/namespaces/"
+                f"{self.namespace}/leases")
+
+
+def in_cluster_config(name: str, lease_seconds: int = 15) -> LeaseConfig:
+    """Build a :class:`LeaseConfig` from the pod's mounted service account
+    (the standard in-cluster discovery: env for the API address, files for
+    token/CA/namespace)."""
+    host = os.environ.get("KUBERNETES_SERVICE_HOST", "")
+    port = os.environ.get("KUBERNETES_SERVICE_PORT", "443")
+    if not host:
+        raise RuntimeError(
+            "KUBERNETES_SERVICE_HOST not set: not running in a cluster "
+            "(set DEPPY_GPU_HA_API to point at an API server explicitly)")
+    token = None
+    namespace = "deppy-tpu-system"
+    try:
+        with open(os.path.join(_SA_DIR, "token")) as f:
+            token = f.read().strip()
+        with open(os.path.join(_SA_DIR, "namespace")) as f:
+            namespace = f.read().strip()
+    except OSError:
+        pass
+    ca = os.path.join(_SA_DIR, "ca.crt")
+    return LeaseConfig(
+        name=name, namespace=namespace,
+        api_base=f"https://{host}:{port}", token=token,
+        ca_path=ca if os.path.exists(ca) else None,
+        lease_seconds=lease_seconds,
+    )
+
+
+class LeaseElector:
+    """Acquire/renew a Lease on a background thread; expose ``is_leader``.
+
+    ``on_change(bool)`` fires on every leadership transition (under no
+    locks — keep it cheap; the service uses it to log and bump a gauge).
+    """
+
+    def __init__(self, config: LeaseConfig,
+                 on_change: Optional[Callable[[bool], None]] = None):
+        self.config = config
+        self.on_change = on_change
+        self._leader = False
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._ctx: Optional[ssl.SSLContext] = None
+        if config.api_base.startswith("https"):
+            self._ctx = ssl.create_default_context(cafile=config.ca_path)
+
+    # -- HTTP plumbing ----------------------------------------------------
+
+    def _request(self, method: str, url: str,
+                 body: Optional[dict] = None) -> tuple:
+        """Returns (status, parsed-json-or-None); network errors raise."""
+        data = json.dumps(body).encode() if body is not None else None
+        req = urllib.request.Request(url, data=data, method=method)
+        req.add_header("Accept", "application/json")
+        if data is not None:
+            req.add_header("Content-Type", "application/json")
+        if self.config.token:
+            req.add_header("Authorization", f"Bearer {self.config.token}")
+        try:
+            with urllib.request.urlopen(req, timeout=5,
+                                        context=self._ctx) as resp:
+                payload = resp.read()
+                return resp.status, (json.loads(payload) if payload else None)
+        except urllib.error.HTTPError as e:
+            # 404 (absent) and 409 (lost race) are protocol states, not
+            # failures; read the body so the connection is reusable.
+            e.read()
+            return e.code, None
+
+    # -- election protocol -------------------------------------------------
+
+    def _lease_body(self, acquire: bool, transitions: int,
+                    prev_acquire: Optional[str]) -> dict:
+        now = _fmt_time(_now())
+        return {
+            "apiVersion": "coordination.k8s.io/v1",
+            "kind": "Lease",
+            "metadata": {"name": self.config.name,
+                         "namespace": self.config.namespace},
+            "spec": {
+                "holderIdentity": self.config.identity,
+                "leaseDurationSeconds": self.config.lease_seconds,
+                "acquireTime": now if acquire else (prev_acquire or now),
+                "renewTime": now,
+                "leaseTransitions": transitions,
+            },
+        }
+
+    def tick(self) -> bool:
+        """One election step; returns the resulting leadership verdict.
+        Exposed for tests — the background loop just calls this on the
+        renew interval."""
+        try:
+            verdict = self._tick_inner()
+        except Exception:  # noqa: BLE001
+            # Fail closed (see module docstring): unreachable OR
+            # misbehaving API ⇒ not leader, so /readyz flips rather than
+            # risking two actives.  Deliberately broad — a truncated
+            # response raises http.client.HTTPException (not OSError),
+            # and ANY escape would kill the election thread, freezing
+            # leadership at its last value: the one unrecoverable state.
+            verdict = False
+        self._set_leader(verdict)
+        return verdict
+
+    def _tick_inner(self) -> bool:
+        status, doc = self._request("GET", self.config.url)
+        if status == 404:
+            body = self._lease_body(acquire=True, transitions=0,
+                                    prev_acquire=None)
+            status, _ = self._request("POST", self.config.create_url, body)
+            return 200 <= status < 300  # 409 ⇒ another replica created it
+        if not (200 <= status < 300) or doc is None:
+            return False
+
+        spec = doc.get("spec") or {}
+        holder = spec.get("holderIdentity") or ""
+        transitions = int(spec.get("leaseTransitions") or 0)
+        duration = int(spec.get("leaseDurationSeconds")
+                       or self.config.lease_seconds)
+        renew = _parse_time(spec.get("renewTime") or "")
+        expired = (holder == "" or renew is None
+                   or _now() > renew + timedelta(seconds=duration))
+
+        if holder != self.config.identity and not expired:
+            return False  # healthy foreign holder
+
+        # Renew (ours) or take over (vacant/expired) — same guarded PUT.
+        taking_over = holder != self.config.identity
+        body = self._lease_body(
+            acquire=taking_over,
+            transitions=transitions + (1 if taking_over else 0),
+            prev_acquire=spec.get("acquireTime"),
+        )
+        # The read's resourceVersion is the optimistic-concurrency guard:
+        # if anyone wrote between our GET and PUT, the PUT 409s and we
+        # re-evaluate next tick.
+        rv = (doc.get("metadata") or {}).get("resourceVersion")
+        if rv is not None:
+            body["metadata"]["resourceVersion"] = rv
+        status, _ = self._request("PUT", self.config.url, body)
+        return 200 <= status < 300
+
+    def release(self) -> None:
+        """Graceful handoff: blank the holder so the standby's next tick
+        takes over immediately instead of waiting out the duration."""
+        try:
+            status, doc = self._request("GET", self.config.url)
+            if not (200 <= status < 300) or doc is None:
+                return
+            spec = doc.get("spec") or {}
+            if (spec.get("holderIdentity") or "") != self.config.identity:
+                return
+            spec["holderIdentity"] = ""
+            self._request("PUT", self.config.url, doc)
+        except Exception:  # noqa: BLE001
+            pass  # best effort; expiry still bounds the outage
+
+    # -- lifecycle ---------------------------------------------------------
+
+    @property
+    def is_leader(self) -> bool:
+        return self._leader
+
+    def _set_leader(self, value: bool) -> None:
+        if value != self._leader:
+            self._leader = value
+            if self.on_change is not None:
+                try:
+                    self.on_change(value)
+                except Exception:  # noqa: BLE001
+                    pass  # observer errors must not break election
+
+    def _renew_wait(self, elapsed: float,
+                    rng=random.random) -> float:
+        """Sleep before the next tick: the renew interval plus up to
+        ``renew_jitter`` of it at random (desynchronizing hot-standby
+        pairs), minus the time the tick itself took.  Clamped to a small
+        floor so a tick that overruns its interval (slow/flapping API
+        server) degrades to closely spaced renews instead of a
+        negative-wait hot loop — and the schedule doesn't drift by the
+        tick's own latency."""
+        base = self.config.renew_seconds
+        jitter = base * self.config.renew_jitter * rng()
+        return max(base + jitter - max(elapsed, 0.0), base * 0.05)
+
+    def start(self) -> None:
+        def _loop():
+            while not self._stop.is_set():
+                t0 = time.monotonic()
+                self.tick()
+                self._stop.wait(self._renew_wait(time.monotonic() - t0))
+
+        self._thread = threading.Thread(target=_loop, daemon=True)
+        self._thread.start()
+
+    def stop(self, release: bool = True) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        if release:
+            # Unconditional, NOT gated on self._leader: a transient API
+            # error on the final tick clears the local flag while the
+            # server-side lease still names this pod with a fresh
+            # renewTime — skipping the handoff there would make the
+            # drain wait out full lease expiry.  release() verifies the
+            # holder server-side, so calling it as a non-holder is a
+            # cheap no-op.
+            self.release()
+        self._set_leader(False)
+
+
+def elector_from_env() -> Optional[LeaseElector]:
+    """Build the service's elector from the environment, or None when HA
+    election is off (the default — stateless active-active needs none).
+
+    ``DEPPY_GPU_HA_LEASE``           lease name; empty/unset disables.
+    ``DEPPY_GPU_HA_API``             API base URL override (tests /
+                                     kubeconfig proxies); default
+                                     in-cluster discovery.
+    ``DEPPY_GPU_HA_NAMESPACE``       lease namespace override.
+    ``DEPPY_GPU_HA_LEASE_SECONDS``   lease duration (default 15).
+    """
+    name = os.environ.get("DEPPY_GPU_HA_LEASE", "").strip()
+    if not name:
+        return None
+    try:
+        seconds = int(os.environ.get("DEPPY_GPU_HA_LEASE_SECONDS", "15"))
+    except ValueError:
+        seconds = 15
+    if seconds < 1:
+        seconds = 15
+    api = os.environ.get("DEPPY_GPU_HA_API", "").strip()
+    if api:
+        cfg = LeaseConfig(name=name, api_base=api, lease_seconds=seconds)
+        ns = os.environ.get("DEPPY_GPU_HA_NAMESPACE", "").strip()
+        if ns:
+            cfg.namespace = ns
+    else:
+        cfg = in_cluster_config(name, lease_seconds=seconds)
+        ns = os.environ.get("DEPPY_GPU_HA_NAMESPACE", "").strip()
+        if ns:
+            cfg.namespace = ns
+    return LeaseElector(cfg)

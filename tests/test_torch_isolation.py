@@ -126,6 +126,52 @@ def test_scan_covers_the_obs_modules():
                      "federate.py", "drift.py", "top.py"}
 
 
+def test_scan_covers_the_service_and_lease():
+    """The service and its HA lease election are the port's own copies:
+    the AST scan reads both."""
+    assert ROOT / "deppy_tpu_torch" / "service.py" in PORT_FILES
+    names = {p.name for p in PORT_FILES if p.parent.name == "utils"}
+    assert names == {"__init__.py", "lease.py"}
+
+
+def test_fresh_process_service_loads_no_jax():
+    """``Server(device="cpu")`` starts, answers one ``/v1/resolve`` and a
+    scrape, and shuts down, with neither jax nor deppy_tpu loaded."""
+    code = textwrap.dedent("""
+        import json, os, sys
+        before = set(sys.modules)
+        os.environ["DEPPY_GPU_HOST_WORKERS"] = "0"
+        from http.client import HTTPConnection
+        from deppy_tpu_torch.service import Server
+        srv = Server(device="cpu", bind_address="127.0.0.1:0",
+                     probe_address="127.0.0.1:0")
+        srv.start()
+        try:
+            conn = HTTPConnection("127.0.0.1", srv.api_port, timeout=60)
+            conn.request("POST", "/v1/resolve", json.dumps({"variables": [
+                {"id": "a", "constraints": [{"type": "mandatory"}]}]}),
+                {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            conn.request("GET", "/metrics")
+            text = conn.getresponse().read().decode()
+            conn.close()
+        finally:
+            srv.shutdown()
+        assert resp.status == 200, body
+        assert body["results"][0]["selected"] == ["a"], body
+        assert "deppy_resolutions_total" in text
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new
+                     if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_fresh_process_obs_plane_loads_no_jax():
     """Every obs module, a streamer pushing a CPU scheduler's events to
     an aggregator behind a stdlib HTTP server, and a watchdog on a
