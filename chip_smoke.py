@@ -83,10 +83,11 @@ Phases, each fatal on failure:
    ...)``, the engine registry, the host worker pool and the grad_relax
    entrant) on the card, :func:`run_race_path`'s parts 1-7: the deep
    chains of ``deppy_tpu/benchmarks/hard.py`` raced top-3 (device, host,
-   grad_relax; under bits, then top-2 under blockwise), the ``sched``
-   burst raced top-2 beside it unraced, the ``auto`` mode with and
-   without a measured row, the host pool against the inline engine on
-   500 pinned-tenant states (and after a scripted worker crash),
+   grad_relax; under bits, then top-2 under blockwise), half the
+   ``sched`` burst raced top-2 beside it unraced, the ``auto`` mode with
+   and without a measured row on its fleet requests, the host pool
+   against the inline engine on 250 pinned-tenant states (and after a
+   scripted worker crash),
    straggler triage, the grad_relax descent twice on the card and once
    on the CPU, and the registry's per-class costs (``race cost`` lines).
    Every answer equals the unraced scheduler's, no sampled cross-check
@@ -102,7 +103,7 @@ Phases, each fatal on failure:
    ``Scheduler()`` from one thread with the tier on and off, 2 replays
    each, then once 8 requests a submit; the screen on the card against
    its CPU run over replay 1's warm plans and the same plans poisoned;
-   the ``sched`` burst A+B with the tier on and off; the ``warm``
+   half the ``sched`` burst A+B with the tier on and off; the ``warm``
    backend's per-class cost (``incremental cost`` lines).  Answers must
    be equal lane for lane with the tier on and off (steps too on every
    churn lane, and every burst request, with no lane served warm), every
@@ -307,6 +308,43 @@ Phases, each fatal on failure:
    (``build_seconds`` 0, the library untouched).  The path's launch
    counts leave out the cold card solves B's previews are held against,
    made at the phase's start;
+4n. the fleet path: the port's fleet (``deppy_tpu_torch.fleet``), every
+   replica a ``Server(device="cuda")`` in this process behind a port
+   ``Router``, the host reference ``serve(backend="host")`` in a
+   subprocess (as in 4m), :func:`run_fleet_path`: (A) the reference's
+   fleet bench at its defaults (``deppy_tpu/benchmarks/fleet.py:93-163``:
+   7 families x 12 churn rounds of a 6x6 bundle catalog, one client, 3
+   replicas) under ``affinity`` and then ``roundrobin``, fresh replicas
+   each pass: the passes' answers identical and the affinity pass's
+   equal to the host server's, each pass's p50/p99 and wall, the
+   fleet-wide warm-hit ratio (affinity >= 11/12 and above
+   round-robin's); (B) on a fresh fleet (its router's merged sink armed)
+   4m's part A burst plus 4 requests mixing fleet states, tenant states
+   and bench families (split over replicas and merged in input order)
+   from 8 clients, every body byte-equal to the host server's, and one
+   publish fanned out to the 3 replicas; (C) a session walk of 12 steps
+   over ``session_catalog(96, 8)`` started, a burst of 16 mixed
+   requests in which a replica (not the session's holder; it owns two
+   families of every request) dies after 4 answers, the requests past
+   the clients' first round sent once it is gone (every answer 200 and
+   equal to the host server's, at least one forward retried on the ring
+   successor), a drain of the holder under one scripted
+   ``fleet.forward`` fault (502, still routable), then the drain (warm
+   entries and the session handed off, two families it owned re-asked
+   as cache hits on their inheritors), the walk finished across it
+   (equal to the host server's walk), a fourth card replica's join under
+   one scripted ``fleet.join_stream`` fault (chunks streamed, the epoch
+   bumped, a warm family's arc flipped to it), and an op on a second
+   session whose holder died answering 409 "session lost"; (D)
+   ``obs.start_streamer`` pushing to the router's ``POST
+   /fleet/telemetry``, one fresh routed request rebuilt from the merged
+   sink as one tree under the ``router.forward`` hop, and
+   ``/fleet/metrics``, ``/fleet/status`` and ``/fleet/policy``.  Every
+   launch of the phase is attributed to a replica's ``deppy-sched`` loop
+   thread; kernels 1, 3, 4 and 5 launch there, the first loop-thread
+   launch of each in A-B is held against its plain version; the phase
+   injects exactly its two scripted faults and counts no driver failure
+   and no host-routed lane;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -379,6 +417,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor
 from typing import NamedTuple
@@ -1633,6 +1672,36 @@ def burst_jobs(scale: float):
     return jobs
 
 
+TCP_COUNTERS = ("TcpExt:ListenOverflows", "TcpExt:TCPReqQFullDoCookies",
+                "TcpExt:SyncookiesFailed", "Tcp:OutRsts")
+
+
+def tcp_counters() -> dict:
+    """The network namespace's TCP counters that a listener's full accept
+    queue and the resets it causes move (``/proc/net/netstat`` and
+    ``/proc/net/snmp``); empty where they cannot be read."""
+    out = {}
+    try:
+        for path in ("/proc/net/netstat", "/proc/net/snmp"):
+            with open(path) as f:
+                lines = f.read().splitlines()
+            for head, values in zip(lines[::2], lines[1::2]):
+                keys = head.split()
+                for key, value in zip(keys[1:], values.split()[1:]):
+                    if keys[0] + key in TCP_COUNTERS:
+                        out[keys[0] + key] = int(value)
+    except (OSError, ValueError):
+        return {}
+    return out
+
+
+def tcp_moved(since: dict) -> dict:
+    """The :data:`TCP_COUNTERS` that moved since ``since``."""
+    now = tcp_counters()
+    return {k.split(":")[1]: now[k] - since[k] for k in now
+            if k in since and now[k] != since[k]}
+
+
 def run_clients(clients: int, jobs, submit):
     """``jobs`` (label, request) shared round-robin among ``clients``
     threads, each running its jobs in turn, all released at once.
@@ -1660,6 +1729,7 @@ def run_clients(clients: int, jobs, submit):
                for c in range(clients)]
     for t in threads:
         t.start()
+    tcp0 = tcp_counters()
     gate.wait()
     t0 = time.perf_counter()
     for t in threads:
@@ -1667,6 +1737,14 @@ def run_clients(clients: int, jobs, submit):
     wall = time.perf_counter() - t0
     if any(t.is_alive() for t in threads):
         fail("sched: a client thread never returned")
+    raised = [rec["answers"] for rec in records
+              if isinstance(rec["answers"], BaseException)]
+    if raised:
+        print(f"chip_smoke: {len(raised)} of {len(jobs)} requests raised "
+              f"({sorted({type(e).__name__ for e in raised})}); "
+              f"{threading.active_count()} threads; TCP counters moved "
+              f"during the burst: {tcp_moved(tcp0)}", file=sys.stderr,
+              flush=True)
     for (label, _), rec in zip(jobs, records):
         if isinstance(rec["answers"], BaseException):
             raise RuntimeError(f"chip_smoke: sched {label} raised") \
@@ -1992,14 +2070,17 @@ RACE_LANES = 8             # part 1: hard.py's lanes per depth (192/384/768)
 RACE_THREAD = "deppy-race-device"
 RACE_COMPARE_LANES = 8     # lanes of each race-thread launch held against plain
 RACE_STRAGGLERS = (4, 8)   # part 5: tight-deadline (and as many live) requests x states
-RACE_POOL_STATES = 500     # part 4: half the bits path's pinned_tenant states
+RACE_POOL_STATES = 250     # part 4: a quarter of the bits path's pinned_tenant states
+RACE_BURST = 0.5           # parts 2-3: the share of the sched phase's burst raced
 RACE_GRAD_CHAINS = 1000    # part 6: version_pinned_chains(20, 3)
 RACE_COST_DEPTHS = {"m": 192, "l": 768}   # part 7: chain depth per class
 RACE_COST_CALLS = 3        # part 7: timed calls per backend and class (median)
-# The host engine's m calls take ~10 s each; one timed call keeps the
-# whole run inside its limit, and the inline host engine has no untimed
-# first call (it allocates nothing on the card and starts no worker).
+# The host engine's m calls take ~10 s each; one timed call on two of
+# the lanes keeps the whole run inside its limit, and the inline host
+# engine has no untimed first call (it allocates nothing on the card and
+# starts no worker).
 RACE_COST_CALLS_HOST_M = 1
+RACE_COST_LANES_HOST_M = 2
 # The descents' logits on the card and the CPU agree within this, and
 # their rounding agrees wherever |sigmoid(x) - 0.5| passes the margin
 # (the CPU tests' tolerances against JAX).
@@ -2016,12 +2097,14 @@ RACE_WRAPPERS = {"bcp_fixpoint": ("cuda_bcp", "bcp_fixpoint"),
 
 class ThreadLaunches:
     """While on, every kernel launch the wrappers count
-    (``engine.counts.count``), by the thread that made it."""
+    (``engine.counts.count``), by the name of the thread that made it
+    and by the thread itself."""
 
     def __init__(self):
         import collections
 
         self.by_thread = collections.Counter()
+        self.by_object = collections.Counter()
 
     def __enter__(self):
         import threading
@@ -2033,8 +2116,10 @@ class ThreadLaunches:
 
         def count(kernel, *args, **kwargs):
             self._count(kernel, *args, **kwargs)
+            thread = threading.current_thread()
             with lock:
-                self.by_thread[threading.current_thread().name, kernel] += 1
+                self.by_thread[thread.name, kernel] += 1
+                self.by_object[thread, kernel] += 1
 
         counts.count = count
         return self
@@ -2221,8 +2306,9 @@ def race_costs(card: str) -> dict:
     """Per-lane µs of the device, host and hostpool backends on batches of
     each size class the phase reaches (the registry's ``cost_us``): xs 64
     distinct pinned_tenant states, s 64 gvk_fleet states, m 8 chains of
-    depth 192, l 8 of depth 768 (the device only: the host engine takes
-    tens of seconds a lane there).  Each cost is the median of
+    depth 192 (the inline host engine on 2 of them), l 8 of depth 768
+    (the device only: the host engine takes tens of seconds a lane
+    there).  Each cost is the median of
     :data:`RACE_COST_CALLS` timed calls (:data:`RACE_COST_CALLS_HOST_M`
     for the host engine on m), the device's and the pool's after one
     untimed call on the same batch (the device's first call on a shape
@@ -2250,11 +2336,14 @@ def race_costs(card: str) -> dict:
         walls, spread = {}, {}
         runs = [("device", lambda: driver.solve_problems(problems,
                                                          device="cuda"))]
+        host = (problems[:RACE_COST_LANES_HOST_M] if cls == "m"
+                else problems)
         if host_too:
-            runs += [("host", lambda: hostpool.solve_inline(problems)),
+            runs += [("host", lambda: hostpool.solve_inline(host)),
                      ("hostpool",
                       lambda: hostpool.solve_host_problems(problems))]
         for backend, fn in runs:
+            lanes = len(host) if backend == "host" else len(problems)
             if backend != "host":
                 fn()
             calls = (RACE_COST_CALLS_HOST_M if (backend, cls) == ("host", "m")
@@ -2265,8 +2354,7 @@ def race_costs(card: str) -> dict:
                     torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 fn()
-                samples.append((time.perf_counter() - t0) / len(problems)
-                               * 1e6)
+                samples.append((time.perf_counter() - t0) / lanes * 1e6)
             walls[backend] = statistics.median(samples)
             spread[backend] = (min(samples), max(samples), calls)
         out[cls] = dict(family=name, lanes=len(problems), us=walls,
@@ -2420,8 +2508,8 @@ def run_race_path(scale: float, plain: "PlainPool"):
         row.update(unraced_wall_s=wall_off)
         numbers[f"chains_{impl}"] = row
 
-    # Part 2: the sched phase's burst, unraced then raced top-2.
-    jobs = burst_jobs(scale)
+    # Part 2: half the sched phase's burst, unraced then raced top-2.
+    jobs = burst_jobs(scale * RACE_BURST)
     fleet = [job for job in jobs if job[0] == "A"]
     wall_off, off = unraced("2 burst", jobs, SCHED_CLIENTS)
     reg = telemetry.Registry()
@@ -2642,6 +2730,7 @@ def run_race_path(scale: float, plain: "PlainPool"):
 
 
 INC_REPLAYS = 2      # part 1: churn replays with the tier on, and off
+INC_BURST = 0.5      # part 3: the share of the sched phase's burst
 INC_BATCH = 8        # part 1b: churn requests a submit
 INC_COST_CALLS = 5   # part 4: timed solve_via("warm") calls per class
 # The kernels of the incremental path's cold dispatches, whose first
@@ -2962,8 +3051,8 @@ def run_incremental_path(scale: float, plain: "PlainPool"):
                                         hits=run["hits"],
                                         fallbacks=run["fallbacks"], **row)
 
-        # Part 3: the sched burst A+B, tier on and off.
-        jobs = burst_jobs(scale)
+        # Part 3: half the sched burst A+B, tier on and off.
+        jobs = burst_jobs(scale * INC_BURST)
         burst, burst_plans, burst_warm = {}, [], set()
         burst_cap = RaceCapture(INC_KERNELS, thread=SCHED_LOOP)
         for tier in ("on", "off"):
@@ -3675,6 +3764,7 @@ FAULT_TENANTS = 64       # part 2: pinned_tenant_catalog states
 FAULT_BLOCKWISE = 8      # part 10: operatorhub_catalog(250, 8) catalogs
 FAULT_CKPT_GROUP = 128   # part 9: problems a checkpoint group
 FAULT_REPROBE_S = 1.0    # part 11: DEPPY_GPU_REPROBE
+FAULT_DEAD_HOLD_S = 600.0  # part 5: the cooldown until the dead card's wall is known
 # The fault counters each part's line reports (deltas on the default
 # registry).
 FAULT_COUNTERS = ("deppy_fault_retries", "deppy_fault_failures_total",
@@ -3901,8 +3991,12 @@ def run_faults_path(scale: float, plain: "PlainPool"):
 
             # Part 5: a dead card, the open breaker and recovery.  The
             # dead card's host fallback of the batch runs after the trip,
-            # inside the cooldown, and the short circuit after it must
-            # still find the breaker open: the cooldown is 1 s plus three
+            # inside the cooldown, and the whole short circuit after it
+            # must still find the breaker open.  No wall measured before
+            # bounds the fallback's on every host, so the breaker opens
+            # with a cooldown of FAULT_DEAD_HOLD_S, cut once the dead card
+            # is done to leave the short circuit 1 s plus twice that
+            # part's wall.  Later breakers' cooldown is 1 s plus three
             # times the host backend's wall on the batch (part 2's second
             # call).
             reset_s = round(1.0 + 3.0 * base["host_s"], 1)
@@ -3911,6 +4005,7 @@ def run_faults_path(scale: float, plain: "PlainPool"):
             os.environ["DEPPY_GPU_BREAKER_RESET_S"] = str(reset_s)
             faults.set_default_breaker(None)
             breaker = faults.default_breaker()
+            breaker.reset_after_s = FAULT_DEAD_HOLD_S
 
             def dead():
                 out = card_solve('[{"point": "driver.dispatch", '
@@ -3920,11 +4015,14 @@ def run_faults_path(scale: float, plain: "PlainPool"):
                 if [k[3] for k in got] != base["host_steps"]:
                     fail("faults 5 dead card: steps differ from the host "
                          "backend's")
-                return dict(cooldown_left_s=breaker.remaining_s())
+                return {}
 
-            part("5 dead card", dead,
-                 dict(fault_failures=2, fault_retries=1,
-                      fault_host_routed=n, breaker=["open"], dumps=1))
+            row = part("5 dead card", dead,
+                       dict(fault_failures=2, fault_retries=1,
+                            fault_host_routed=n, breaker=["open"], dumps=1))
+            hold_s = round(1.0 + 2.0 * row["wall_s"], 1)
+            numbers["short_circuit_hold_s"] = hold_s
+            breaker.reset_after_s += hold_s - breaker.remaining_s()
 
             def short_circuit():
                 if not breaker.blocks_device():
@@ -3932,7 +4030,7 @@ def run_faults_path(scale: float, plain: "PlainPool"):
                          "before the solve")
                 got = [solve_key(r) for r in card_solve()]
                 same("5 short circuit", got, base["keys"], steps=False)
-                return {}
+                return dict(hold_s=hold_s)
 
             row = part("5 short circuit", short_circuit,
                        dict(fault_failures=0, fault_host_routed=n,
@@ -6607,6 +6705,35 @@ def svc_preview_want(tally: dict):
     return fams, d0, d1, want
 
 
+def svc_walk(port: int, doc, steps, headers=None) -> list:
+    """A session walk over HTTP on the server (or router) on ``port``:
+    create, then each step's assume and resolve; each resolve's result.
+    ``headers`` adds the session key's header when true."""
+    status, _, body = svc_request(port, "POST", "/v1/session", doc)
+    if status != 200:
+        raise RuntimeError(f"chip_smoke: /v1/session answered {status}: "
+                           f"{body[:200]!r}")
+    session = json.loads(body)["session"]
+    return svc_walk_on(port, session, steps, headers)
+
+
+def svc_walk_on(port: int, session: dict, steps, keyed=None) -> list:
+    """``steps`` of the walk on an existing ``session`` (its create
+    answer); ``keyed`` sends ``X-Deppy-Session`` with its key."""
+    op = f"/v1/session/{session['id']}/op"
+    hdr = {"X-Deppy-Session": session["key"]} if keyed else None
+    got = []
+    for ident, installed in steps:
+        for req in ({"op": "assume", "identifiers": [ident],
+                     "installed": installed}, {"op": "resolve"}):
+            status, _, body = svc_request(port, "POST", op, req, hdr)
+            if status != 200:
+                raise RuntimeError(f"chip_smoke: {op} {req['op']} answered "
+                                   f"{status}")
+        got.append(json.loads(body)["result"])
+    return got
+
+
 def svc_walk_host(doc, steps) -> list:
     """The walk through the port's ``SessionStore`` on a host scheduler:
     each resolve's result."""
@@ -6638,9 +6765,10 @@ class HostRef:
     the host server is queued with :meth:`expect` and checked by
     :meth:`finish`."""
 
-    def __init__(self, tmp: str):
+    def __init__(self, tmp: str, label: str = "service"):
         import threading
 
+        self.label = label
         self.child = svc_spawn(tmp, "host", "backend='host', device='cpu', "
                                             "incremental='off'",
                                env={"DEPPY_GPU_HOST_WORKERS":
@@ -6652,8 +6780,11 @@ class HostRef:
         self._soft_ready = threading.Event()
         self.thread = threading.Thread(target=self._run, name="svc-host")
 
-    def start(self, jobs) -> None:
+    def start(self, jobs, walk=None) -> None:
+        """Send ``jobs`` once the server is up, then, when given, walk a
+        session (``walk``: a catalog document and its steps) on it."""
         self.jobs = jobs
+        self.walk = walk
         self.thread.start()
 
     def optimize(self, soft: bytes) -> None:
@@ -6665,6 +6796,8 @@ class HostRef:
         try:
             port = svc_banner(self.child)
             self.box["burst"] = svc_burst(port, self.jobs)
+            if self.walk is not None:
+                self.box["walk"] = svc_walk(port, *self.walk)
             self._soft_ready.wait(SVC_TIMEOUT_S * 4)
             if self.soft is not None:
                 self.box["optimize"] = svc_request(
@@ -6688,14 +6821,14 @@ class HostRef:
         self.thread.join(SVC_TIMEOUT_S * 4)
         if self.thread.is_alive() or "error" in self.box or \
                 "burst" not in self.box:
-            fail(f"service: the host server's burst did not finish: "
+            fail(f"{self.label}: the host server's burst did not finish: "
                  f"{self.box.get('error')!r}")
         if self.box.get("rc") != 0:
-            fail(f"service: the host server's process exited "
+            fail(f"{self.label}: the host server's process exited "
                  f"{self.box.get('rc')}")
         wall, answers = self.box["burst"]
         if any(s != 200 for s, _ in answers):
-            fail(f"service A: the host server answered "
+            fail(f"{self.label}: the host server answered "
                  f"{sorted({s for s, _ in answers})}")
         for label, got, want in self.checks:
             if got != want(answers, self.box.get("optimize")):
@@ -6704,7 +6837,8 @@ class HostRef:
 
     def close(self) -> None:
         self._soft_ready.set()
-        self.thread.join(SVC_TIMEOUT_S)
+        if self.thread.ident is not None:
+            self.thread.join(SVC_TIMEOUT_S)
         if self.child["proc"].poll() is None:
             self.child["proc"].kill()
             self.child["proc"].wait(10)
@@ -7156,6 +7290,706 @@ def run_service_path(scale: float, plain: "PlainPool"):
           f"scripted failures {scripted['failures']}, host-routed lanes "
           f"{scripted['host_routed']}; launches {launches} [{card}]",
           flush=True)
+    return launches, numbers, scripted
+
+
+FLT_REPLICAS = 3
+FLT_BENCH = (7, 12, 6, 6)  # part A: families, rounds, bundles, bundle size: the reference bench's defaults
+FLT_MIXED = 4             # part B: requests mixing 4 fleet, 4 tenant states and 2 bench families
+FLT_KILL = 16             # part C: mixed requests in the burst a replica dies in
+FLT_KILL_AFTER = 4        # part C: answers before the replica dies; the
+#                           requests past the clients' first round wait for it
+FLT_WALK_SPLIT = 6        # part C: the walk's steps before the drain
+FLT_FLUSH_MS = 20.0       # part D: the streamer's flush period
+FLT_STREAM = "flt-cards"  # part D: the streamer's replica stamp
+FLT_POLICY = ("hold", "scale_up", "scale_down", "rebalance")
+
+
+def flt_family_doc(name: str, tgts: dict, bundles: int, size: int) -> dict:
+    """One family's catalog state as the reference's fleet bench builds
+    it (``deppy_tpu/benchmarks/fleet.py:36-56``): ``bundles``
+    disconnected dependency chains; ``tgts[b]`` is bundle ``b``'s churned
+    mid-chain dependency target."""
+    variables = []
+    for b in range(bundles):
+        for j in range(size):
+            cons = []
+            if j == 0:
+                cons += [{"type": "mandatory"},
+                         {"type": "dependency", "ids": [f"{name}b{b}v1"]}]
+            elif j == 1:
+                cons.append({"type": "dependency",
+                             "ids": [f"{name}b{b}v{tgts.get(b, 2)}"]})
+            elif j < size - 1:
+                cons.append({"type": "dependency",
+                             "ids": [f"{name}b{b}v{j + 1}"]})
+            variables.append({"id": f"{name}b{b}v{j}", "constraints": cons})
+    return {"variables": variables}
+
+
+def flt_bench_docs(tag: str) -> list:
+    """The bench's replay (``fleet.py:93-163``): every family's current
+    state each round, one bundle of each family churned a round (a
+    one-row delta, ``_mutate``)."""
+    families, rounds, bundles, size = FLT_BENCH
+    states = [dict() for _ in range(families)]
+    docs = []
+    for rnd in range(rounds):
+        for f in range(families):
+            if rnd:
+                b = (rnd - 1) % bundles
+                t = states[f]
+                t[b] = 2 + (t.get(b, 2) - 2 + 1) % (size - 2)
+            docs.append(flt_family_doc(f"{tag}.f{f}.", states[f], bundles,
+                                       size))
+    return docs
+
+
+def flt_sum(m: dict, name: str) -> float:
+    """A family's samples summed over its labels (``svc_metrics`` dict)."""
+    return sum(v for k, v in m.items()
+               if k == name or k.startswith(name + "{"))
+
+
+def flt_host(docs) -> list:
+    """``docs`` answered by the host engine in this process, rendered as
+    the service renders them."""
+    from deppy_tpu_torch import io
+    from deppy_tpu_torch.resolution import BatchResolver
+
+    problems = [io.problems_from_document(d)[0] for d in docs]
+    return [io.result_to_dict(r)
+            for r in BatchResolver(backend="host").solve(problems)]
+
+
+class FleetCard:
+    """Card replicas (``Server(device="cuda")``) behind a port ``Router``,
+    every replica's scheduler loop thread recorded."""
+
+    def __init__(self, tag: str, loops: list, **router_kw):
+        from deppy_tpu_torch.fleet import Router
+
+        self.tag, self.loops = tag, loops
+        self.replicas = []
+        self.router = None
+        try:
+            for i in range(FLT_REPLICAS):
+                self.add(f"{tag}{i}")
+            self.router = Router(bind_address="127.0.0.1:0",
+                                 replicas=[self.addr(s) for s in
+                                           self.replicas], **router_kw)
+            self.router.start()
+        except BaseException:
+            self.close()
+            raise
+
+    def add(self, name: str):
+        srv = svc_server(device="cuda", replica=name)
+        self.replicas.append(srv)
+        self.loops.append((name, srv.scheduler._thread))
+        return srv
+
+    @staticmethod
+    def addr(srv) -> str:
+        return f"127.0.0.1:{srv.api_port}"
+
+    def by_addr(self, address: str):
+        return next(s for s in self.replicas if self.addr(s) == address)
+
+    def post(self, path: str, body, headers=None) -> tuple:
+        return svc_request(self.router.api_port, "POST", path, body, headers)
+
+    def metric(self, name: str) -> float:
+        """A family of the router's ``/metrics``, summed over labels."""
+        return flt_sum(svc_metrics(self.router)[0], name)
+
+    def routed(self) -> list:
+        """Problems the router routed to each replica."""
+        m, _ = svc_metrics(self.router)
+        return [m.get(f'deppy_fleet_routed_total{{replica="{self.addr(s)}"}}',
+                      0.0) for s in self.replicas]
+
+    def close(self) -> None:
+        if self.router is not None:
+            self.router.shutdown()
+        for srv in self.replicas:
+            try:
+                srv.shutdown()
+            except Exception:  # noqa: BLE001 — part C killed it already
+                pass
+
+
+def fleet_bench(policy: str, docs, loops: list) -> dict:
+    """One pass of the reference's fleet bench on fresh card replicas:
+    the docs in order from one client; p50/p99, wall, and the fleet-wide
+    warm-hit ratio (exact-cache hits plus incremental warm serves over
+    asks, from every replica's ``/metrics``, as the bench reads them)."""
+    fleet = FleetCard(f"{policy[0]}", loops, policy=policy)
+    try:
+        lat, rendered = [], []
+        t0 = time.perf_counter()
+        for doc in docs:
+            t1 = time.perf_counter()
+            status, _, body = fleet.post("/v1/resolve", doc)
+            lat.append(time.perf_counter() - t1)
+            if status != 200:
+                fail(f"fleet A: the {policy} pass answered {status}: "
+                     f"{body[:200]!r}")
+            rendered.append(json.loads(body)["results"])
+        wall = time.perf_counter() - t0
+        warm = asks = 0.0
+        for srv in fleet.replicas:
+            m, _ = svc_metrics(srv)
+            hits = flt_sum(m, "deppy_cache_hits_total")
+            warm += hits + flt_sum(m, "deppy_incremental_hits_total")
+            asks += hits + flt_sum(m, "deppy_cache_misses_total")
+        routed = fleet.routed()
+    finally:
+        fleet.close()
+    return dict(policy=policy, queries=len(lat),
+                p50_ms=_pct(lat, 0.50) * 1e3, p99_ms=_pct(lat, 0.99) * 1e3,
+                wall_s=wall, warm_hit_ratio=warm / max(asks, 1.0),
+                routed=routed, rendered=rendered)
+
+
+def fleet_replay(card: str, loops: list, ref: "HostRef", first: int) -> dict:
+    """Part A: the bench under ``affinity`` then ``roundrobin``, fresh
+    replicas each pass; both passes' answers equal each other's and the
+    host server's (``first``: the docs' first job on the host)."""
+    families, rounds, _, _ = FLT_BENCH
+    passes = {}
+    for policy in ("affinity", "roundrobin"):
+        docs = flt_bench_docs(policy[0])
+        passes[policy] = fleet_bench(policy, docs, loops)
+    aff, rr = passes["affinity"], passes["roundrobin"]
+    rendered = {p: r.pop("rendered") for p, r in passes.items()}
+    norm = {p: json.dumps(r).replace(f'"{p[0]}.f', '"f')
+            for p, r in rendered.items()}
+    if norm["affinity"] != norm["roundrobin"]:
+        fail("fleet A: the round-robin pass answered otherwise than the "
+             "affinity pass")
+    n = families * rounds
+    ref.expect("fleet A: the affinity pass's answers", rendered["affinity"],
+               lambda host, opt: [json.loads(b)["results"]
+                                  for _, b in host[first:first + n]])
+    floor = (rounds - 1) / rounds
+    if not (aff["warm_hit_ratio"] >= floor
+            and aff["warm_hit_ratio"] > rr["warm_hit_ratio"]):
+        fail(f"fleet A: warm-hit ratio affinity {aff['warm_hit_ratio']:.4f}"
+             f", round-robin {rr['warm_hit_ratio']:.4f} (want >= "
+             f"{floor:.4f} and above round-robin's)")
+    print(f"fleet A: the reference's fleet bench ({families} families x "
+          f"{rounds} rounds of {FLT_BENCH[2]}x{FLT_BENCH[3]} bundles, "
+          f"{FLT_REPLICAS} card replicas): affinity p50 {aff['p50_ms']:.2f} "
+          f"p99 {aff['p99_ms']:.2f} ms, wall {aff['wall_s']:.3f} s, warm-hit "
+          f"{aff['warm_hit_ratio']:.4f}, routed {aff['routed']}; round-robin "
+          f"p50 {rr['p50_ms']:.2f} p99 {rr['p99_ms']:.2f} ms, wall "
+          f"{rr['wall_s']:.3f} s, warm-hit {rr['warm_hit_ratio']:.4f}; "
+          f"answers identical between the passes [{card}]", flush=True)
+    return dict(affinity=aff, roundrobin=rr, p99_ratio=rr["p99_ms"] /
+                max(aff["p99_ms"], 1e-9))
+
+
+def flt_mixed(fleet_states, tenant_states, tag: str, count: int) -> list:
+    """``count`` requests whose problems have different owners: 4 fleet
+    states, 4 tenant states and 2 bench families each (as body bytes)."""
+    from deppy_tpu_torch import io
+
+    families, _, bundles, size = FLT_BENCH
+    out = []
+    for i in range(count):
+        probs = [{"variables": [io.variable_to_dict(v) for v in vs]}
+                 for vs in fleet_states[4 * i:4 * i + 4]
+                 + tenant_states[4 * i:4 * i + 4]]
+        probs += [flt_family_doc(f"{tag}{i}.f{f}.", {}, bundles, size)
+                  for f in range(2)]
+        out.append(("beta", json.dumps({"problems": probs}).encode()))
+    return out
+
+
+def fleet_burst(card: str, fleet: FleetCard, jobs, mixed, ref: "HostRef",
+                ) -> dict:
+    """Part B: the service phase's part A burst and the mixed requests
+    through the router from 8 clients; one publish fanned out."""
+    from deppy_tpu_torch.fleet import doc_affinity_keys
+
+    wall, out = svc_burst(fleet.router.api_port, jobs + mixed)
+    if any(s != 200 for s, _ in out):
+        fail(f"fleet B: the router answered {sorted({s for s, _ in out})}")
+    n = len(jobs) + len(mixed)
+    ref.expect("fleet B: the routed bodies", out,
+               lambda host, opt: host[:n])
+    split = sum(1 for _, b in mixed
+                if len({fleet.router.target_for(k) for k in
+                        doc_affinity_keys(json.loads(b))}) > 1)
+    if split < 1:
+        fail("fleet B: no mixed request spans two replicas")
+    delta = {"updates": [{"id": "flt-none", "constraints": []}]}
+    status, _, body = fleet.post("/v1/catalog/publish", delta)
+    merged = json.loads(body).get("publish", {})
+    fanout = fleet.metric("deppy_fleet_publish_fanout_total")
+    if status != 200 or merged.get("replicas") != FLT_REPLICAS or \
+            merged.get("errors") or fanout != FLT_REPLICAS:
+        fail(f"fleet B: publish {status} {merged}, fan-out {fanout}")
+    routed = fleet.routed()
+    lanes = sum(len(json.loads(b)["results"]) for _, b in out)
+    print(f"fleet B: {n} requests ({lanes} lanes; {len(mixed)} mixed, "
+          f"{split} split over replicas) from {SVC_CLIENTS} clients through "
+          f"the router in {wall:.3f} s, routed per replica {routed}; a "
+          f"publish fanned out to {fanout:.0f} replicas [{card}]",
+          flush=True)
+    return dict(requests=n, lanes=lanes, wall_s=wall, split=split,
+                routed=routed, fanout=fanout)
+
+
+def flt_owned(fleet: FleetCard, owner: str, tag: str, n: int) -> list:
+    """``n`` bench-family docs the ring routes to ``owner``."""
+    from deppy_tpu_torch.fleet import doc_affinity_keys
+
+    _, _, bundles, size = FLT_BENCH
+    out = []
+    for i in range(4096):
+        doc = flt_family_doc(f"{tag}{i}.", {}, bundles, size)
+        if fleet.router.target_for(doc_affinity_keys(doc)[0]) == owner:
+            out.append(doc)
+            if len(out) == n:
+                return out
+    fail(f"fleet C: no {n} families route to {owner}")
+
+
+def flt_kill_jobs(fleet: FleetCard, fresh, tenants, doc) -> tuple:
+    """Part C's burst: :data:`FLT_KILL` requests of 4 fresh fleet states,
+    4 tenant states and 2 bench families that the victim owns, the
+    victim a replica other than the one the session ``doc`` will live
+    on.  Returns the victim's address and the jobs."""
+    from deppy_tpu_torch.fleet import doc_affinity_keys
+
+    holder = fleet.router.target_for(doc_affinity_keys(doc)[0])
+    victim = next(a for a in map(fleet.addr, fleet.replicas) if a != holder)
+    owned = flt_owned(fleet, victim, "kl", 2 * FLT_KILL)
+    jobs = []
+    for i, (_, body) in enumerate(flt_mixed(fresh, tenants, "kl", FLT_KILL)):
+        req = json.loads(body)
+        req["problems"][-2:] = owned[2 * i:2 * i + 2]
+        jobs.append(("beta", json.dumps(req).encode()))
+    return victim, jobs
+
+
+def fleet_membership(card: str, fleet: FleetCard, victim_addr: str,
+                     kill_jobs, ref: "HostRef", first: int) -> dict:
+    """Part C: a session walk across a drain, a replica killed in the
+    middle of a burst, the warm drain (after one scripted
+    ``fleet.forward`` fault), a fourth card replica's join (after one
+    scripted ``fleet.join_stream`` fault), and the 409 of an op whose
+    holder died."""
+    import threading
+
+    from deppy_tpu_torch import faults
+    from deppy_tpu_torch.fleet import HashRing, doc_affinity_keys
+    from deppy_tpu_torch.models import session_catalog, walk_steps
+
+    out = {}
+    router = fleet.router
+    bundles, size, n_steps = SVC_WALK
+    doc = session_catalog(bundles, size)
+    steps = walk_steps(bundles, size, n_steps)
+    status, _, body = fleet.post("/v1/session", doc)
+    if status != 200:
+        fail(f"fleet C: /v1/session answered {status}: {body[:200]!r}")
+    session = json.loads(body)["session"]
+
+    def walk(part):
+        return svc_walk_on(router.api_port, session, part, keyed=True)
+
+    t0 = time.perf_counter()
+    walked = walk(steps[:FLT_WALK_SPLIT])
+    holder = next(s for s in fleet.replicas
+                  if s.sessions is not None
+                  and session["id"] in s.sessions._sessions)
+    # The kill: the victim (not the session's holder) owns two families
+    # of every request of the burst and dies after its first answers;
+    # the requests past the clients' first round are sent once it is
+    # gone, so their forwards to it fail and retry on the successor.
+    victim = fleet.by_addr(victim_addr)
+    if victim is holder:
+        fail("fleet C: the session lives on the burst's victim")
+    r0 = fleet.metric("deppy_fleet_retries_total")
+    answered = threading.Semaphore(0)
+    dead = threading.Event()
+
+    def killer():
+        for _ in range(FLT_KILL_AFTER):
+            answered.acquire(timeout=SVC_TIMEOUT_S)
+        try:
+            victim.shutdown()
+        finally:
+            dead.set()
+
+    def submit(job, st):
+        k, tenant, body = job
+        if k >= SVC_CLIENTS and not dead.wait(SVC_TIMEOUT_S):
+            fail("fleet C: the victim never stopped")
+        status, _, data = svc_request(router.api_port, "POST",
+                                      "/v1/resolve", body,
+                                      {"X-Deppy-Tenant": tenant})
+        answered.release()
+        return status, data
+
+    kt = threading.Thread(target=killer, name="flt-kill")
+    kt.start()
+    kill_wall, records = run_clients(
+        SVC_CLIENTS, [(t, (k, t, b)) for k, (t, b) in enumerate(kill_jobs)],
+        submit)
+    kt.join(SVC_TIMEOUT_S)
+    killed = [rec["answers"] for rec in records]
+    if any(s != 200 for s, _ in killed):
+        fail(f"fleet C: a client saw {sorted({s for s, _ in killed})} "
+             f"while a replica died")
+    ref.expect("fleet C: the answers while a replica died", killed,
+               lambda host, opt: host[first:first + len(kill_jobs)])
+    retries = fleet.metric("deppy_fleet_retries_total") - r0
+    if retries < 1:
+        fail("fleet C: no forward retried on the ring successor")
+    out["kill"] = dict(requests=len(kill_jobs), wall_s=kill_wall,
+                       retries=retries)
+    # The drain: families the holder owns are warm on it first.
+    mine = flt_owned(fleet, fleet.addr(holder), "dr", 2)
+    cold = [fleet.post("/v1/resolve", d) for d in mine]
+    if [s for s, _, _ in cold] != [200] * len(mine) or \
+            [json.loads(b)["results"][0] for _, _, b in cold] != \
+            flt_host(mine):
+        fail("fleet C: the holder's families answered otherwise than the "
+             "host engine")
+    faults.configure_plan(faults.plan_from_spec(
+        '[{"point": "fleet.forward", "times": 1}]'))
+    try:
+        status, _, body = fleet.post("/fleet/drain",
+                                     {"replica": fleet.addr(holder)})
+    finally:
+        faults.configure_plan(None)
+    states = {s["replica"]: s for s in router.replica_states()}
+    if status != 502 or states[fleet.addr(holder)]["drained"]:
+        fail(f"fleet C: the drain under a fleet.forward fault gave {status}"
+             f", drained {states[fleet.addr(holder)]['drained']}")
+    survivors = [s for s in fleet.replicas
+                 if s is not holder and s is not victim]
+    h0 = sum(flt_sum(svc_metrics(s)[0], "deppy_cache_hits_total")
+             for s in survivors)
+    td = time.perf_counter()
+    status, _, body = fleet.post("/fleet/drain",
+                                 {"replica": fleet.addr(holder)})
+    drain_s = time.perf_counter() - td
+    drained = json.loads(body).get("drain", {})
+    if status != 200 or drained.get("handed_off", 0) < 1 or \
+            drained.get("sessions") != 1:
+        fail(f"fleet C: the drain gave {status} {drained}")
+    again = [fleet.post("/v1/resolve", d) for d in mine]
+    if [(s, b) for s, _, b in again] != [(s, b) for s, _, b in cold]:
+        fail("fleet C: the drained families' re-asks differ")
+    warm = sum(flt_sum(svc_metrics(s)[0], "deppy_cache_hits_total")
+               for s in survivors) - h0
+    if warm < len(mine):
+        fail(f"fleet C: {warm:.0f} cache hits on the inheritors for "
+             f"{len(mine)} re-asks of drained families")
+    walked += walk(steps[FLT_WALK_SPLIT:])
+    ref.expect("fleet C: the session walk across the drain", walked,
+               lambda host, opt: ref.box.get("walk"))
+    out["drain"] = dict(handed_off=drained["handed_off"], seconds=drain_s,
+                        sessions=drained["sessions"], warm_reasks=warm)
+    # The join: a family whose arc the joiner steals is warm first.
+    joiner = fleet.add("flt-join")
+    j = fleet.addr(joiner)
+    ring = HashRing(list(router.ring.replicas) + [j],
+                    vnodes=router.ring.vnodes)
+    moving = None
+    for i in range(4096):
+        cand = flt_family_doc(f"jn{i}.", {}, FLT_BENCH[2], FLT_BENCH[3])
+        key = doc_affinity_keys(cand)[0]
+        if ring.route(key) == j and router.target_for(key) != j:
+            moving = cand
+            break
+    if moving is None or fleet.post("/v1/resolve", moving)[0] != 200:
+        fail("fleet C: no warm family moves to the joiner")
+    epoch0 = router.epoch
+    faults.configure_plan(faults.plan_from_spec(
+        '[{"point": "fleet.join_stream", "times": 1}]'))
+    tj = time.perf_counter()
+    try:
+        status, _, body = fleet.post("/fleet/join", {"replica": j})
+    finally:
+        faults.configure_plan(None)
+    join_s = time.perf_counter() - tj
+    joined = json.loads(body).get("join", {})
+    if status != 200 or joined.get("chunks", 0) < 1 or \
+            router.epoch != epoch0 + 1 or \
+            router.target_for(doc_affinity_keys(moving)[0]) != j:
+        fail(f"fleet C: the join gave {status} {joined}, epoch "
+             f"{router.epoch}")
+    out["join"] = dict(joined, seconds=join_s)
+    # The 409: a second session whose holder dies.
+    status, _, body = fleet.post("/v1/session", doc)
+    lost = json.loads(body)["session"]
+    holder2 = next(s for s in fleet.replicas
+                   if s.sessions is not None
+                   and lost["id"] in s.sessions._sessions)
+    holder2.shutdown()
+    status, _, body = fleet.post(f"/v1/session/{lost['id']}/op",
+                                 {"op": "resolve"},
+                                 {"X-Deppy-Session": lost["key"]})
+    if (status, json.loads(body)) != (409, {"error": "session lost"}):
+        fail(f"fleet C: an op on a dead holder answered {status} "
+             f"{body[:200]!r}")
+    out["seconds_walk_and_membership"] = time.perf_counter() - t0
+    print(f"fleet C: a replica killed after {FLT_KILL_AFTER} answers of a "
+          f"{len(kill_jobs)}-request burst ({kill_wall:.3f} s, {retries:.0f} "
+          f"forwards retried on the successor, no client error); the drain "
+          f"after a scripted fleet.forward fault's 502: {drained['handed_off']}"
+          f" entries and {drained['sessions']} session handed off in "
+          f"{drain_s:.3f} s, {warm:.0f} warm re-asks on the inheritors; a "
+          f"{n_steps}-step session walk across it (held against the host "
+          f"server's); "
+          f"a fourth card replica joined after a scripted fleet.join_stream "
+          f"fault: {joined['chunks']} chunks, {joined['warm_entries']} "
+          f"entries, epoch {router.epoch}, in {join_s:.3f} s; an op on a dead "
+          f"holder 409 session lost [{card}]", flush=True)
+    return out
+
+
+def flt_trace(path: str, trace_id: str) -> tuple:
+    """The span-name tree of one trace in a merged sink (spans deduped by
+    id, a dispatch trace grafted under the span it links to), and the
+    replica stamps its ``service.request`` span arrived under."""
+    spans, stamps = {}, set()
+    with open(path) as fh:
+        for line in fh:
+            ev = json.loads(line)
+            if ev.get("kind") != "span" or not ev.get("span_id"):
+                continue
+            spans.setdefault(ev["span_id"], ev)
+            if ev.get("trace_id") == trace_id and \
+                    ev.get("name") == "service.request":
+                stamps.add(ev.get("replica"))
+    linked = {sp["trace_id"] for sp in spans.values()
+              if any(l.get("trace_id") == trace_id
+                     for l in sp.get("links") or [])}
+    mine = {i: sp for i, sp in spans.items()
+            if sp.get("trace_id") == trace_id or sp.get("trace_id") in linked}
+    kids: dict = {}
+    roots = []
+    for sp in sorted(mine.values(), key=lambda s: (s.get("ts", 0.0),
+                                                   s.get("name", ""))):
+        parent = sp.get("parent_id")
+        if parent not in mine and sp.get("links"):
+            parent = sp["links"][0].get("span_id")
+        if parent in mine:
+            kids.setdefault(parent, []).append(sp)
+        else:
+            roots.append(sp)
+
+    def tree(sp):
+        return (sp["name"], tuple(tree(c) for c in kids.get(sp["span_id"],
+                                                            [])))
+
+    return [tree(sp) for sp in roots], stamps
+
+
+def fleet_obs(card: str, fleet: FleetCard, sink: str) -> dict:
+    """Part D: the replicas' events streamed to the router's aggregator,
+    one fresh routed request rebuilt from the merged sink as one tree
+    under the router hop, and ``/fleet/metrics``, ``/fleet/status`` and
+    ``/fleet/policy``."""
+    from deppy_tpu_torch import io, obs
+    from deppy_tpu_torch.models import gvk_conflict_catalog
+
+    port = fleet.router.api_port
+    obs.start_streamer(f"127.0.0.1:{port}", replica=FLT_STREAM,
+                       flush_ms=FLT_FLUSH_MS)
+    try:
+        states = [gvk_conflict_catalog(20, 4, 10, seed=3 * SVC_FLEET[0] *
+                                       SVC_FLEET[1] + i)
+                  for i in range(SVC_FLEET[1])]
+        status, hdrs, body = svc_request(port, "POST", "/v1/resolve",
+                                         svc_doc(states),
+                                         {"X-Deppy-Request-Id": "flt-d-1"})
+        want = flt_host([{"variables": [io.variable_to_dict(v) for v in vs]}
+                         for vs in states])
+        if status != 200 or json.loads(body)["results"] != want:
+            fail(f"fleet D: the traced request answered {status} or "
+                 f"otherwise than the host engine")
+        trace_id = hdrs.get("traceparent", "--").split("-")[1]
+        t0 = time.perf_counter()
+        while True:
+            obs_tree, stamps = flt_trace(sink, trace_id)
+            names = [n for n, _ in obs_tree[0][1]] if obs_tree else []
+            hop = obs_tree[0][1][0][1] if names else ()
+            if len(obs_tree) == 1 and obs_tree[0][0] == "router.forward" \
+                    and names == ["service.request"] \
+                    and "sched.dispatch" in [n for n, _ in hop] \
+                    and FLT_STREAM in stamps:
+                break
+            if time.perf_counter() - t0 > 30:
+                fail(f"fleet D: the merged sink's tree of the routed "
+                     f"request is {obs_tree}")
+            time.sleep(0.05)
+    finally:
+        obs.stop_all()
+    status, _, text = svc_request(port, "GET", "/fleet/metrics")
+    text = text.decode()
+    live = fleet.router.live_replicas()
+    if status != 200 or "deppy_fleet_warm_hit_ratio" not in text or \
+            any(f'replica="{a}"' not in text for a in live):
+        fail(f"fleet D: /fleet/metrics answered {status}")
+    status, _, body = svc_request(port, "GET", "/fleet/status")
+    ingested = json.loads(body).get("telemetry", {}).get("ingested", {})
+    if status != 200 or ingested.get(FLT_STREAM, 0) < 1:
+        fail(f"fleet D: /fleet/status answered {status}, ingested "
+             f"{ingested}")
+    status, _, body = svc_request(port, "GET", "/fleet/policy")
+    policy = json.loads(body).get("policy", {})
+    if status != 200 or policy.get("decision") not in FLT_POLICY:
+        fail(f"fleet D: /fleet/policy answered {status} {policy}")
+    print(f"fleet D: the replicas' events streamed to the router's "
+          f"aggregator ({ingested}); request flt-d-1 rebuilt from the merged "
+          f"sink as one tree: {obs_tree[0][0]} > service.request > "
+          f"{[n for n, _ in hop]}; /fleet/metrics over {len(live)} live "
+          f"replicas; /fleet/policy {policy['decision']} ({policy['reasons']}"
+          f") [{card}]", flush=True)
+    return dict(ingested=ingested, tree=obs_tree, live=len(live),
+                policy=policy["decision"])
+
+
+def run_fleet_path(scale: float, plain: "PlainPool"):
+    """The fleet on the card (the module docstring's phase 4n): the
+    reference's fleet bench under both policies (A), the service burst
+    through the router (B), membership (C) and obs (D), every replica a
+    ``Server(device="cuda")`` in this process and the host reference a
+    ``serve(backend="host")`` subprocess.  Runs at its full size at every
+    ``scale``.  Returns the path's launches, its numbers and the driver
+    failures and host-routed lanes it scripted (none)."""
+    import tempfile
+
+    import torch
+
+    from deppy_tpu_torch import engine, telemetry
+    from deppy_tpu_torch.models import (gvk_conflict_catalog,
+                                        session_catalog, walk_steps)
+
+    t_phase = time.perf_counter()
+    tcp0 = tcp_counters()
+    card = card_line()
+    print(f"fleet timings on {card}", flush=True)
+    torch.cuda.synchronize()
+    f0 = _fault_snapshot()
+    i0 = dict(telemetry.default_registry().snapshot().get(
+        "deppy_faults_injected_total", {}))
+    engine.reset_launch_counts()
+    loops: list = []
+    numbers, part_s = {}, {}
+    jobs, _, _, _ = svc_jobs()
+    base = 4 * SVC_FLEET[0] * SVC_FLEET[1]
+    fresh = [gvk_conflict_catalog(20, 4, 10, seed=base + i)
+             for i in range(4 * (FLT_MIXED + FLT_KILL))]
+    tenants = distinct_tenant_states(SVC_TENANTS[0] * SVC_TENANTS[1] +
+                                     4 * (FLT_MIXED + FLT_KILL))
+    extra = tenants[SVC_TENANTS[0] * SVC_TENANTS[1]:]
+    mixed = flt_mixed(fresh, extra, "mx", FLT_MIXED)
+    bench = [("alpha", json.dumps(d).encode()) for d in flt_bench_docs("a")]
+    with tempfile.TemporaryDirectory(prefix="deppy-flt-") as tmp, \
+            ThreadLaunches() as tl:
+        ref = HostRef(tmp, label="fleet")
+        try:
+            cap = RaceCapture(INC_KERNELS, thread=SCHED_LOOP)
+            sink = os.path.join(tmp, "fleet.jsonl")
+            fleet = None
+            try:
+                with cap:
+                    t0 = time.perf_counter()
+                    numbers["A"] = fleet_replay(card, loops, ref,
+                                                len(jobs) + len(mixed))
+                    part_s["A"] = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    fleet = FleetCard("r", loops, probe_interval_s=60.0,
+                                      probe_failures=2, obs_sink=sink)
+                    # The host server's burst starts once the kill
+                    # burst's owners are known.
+                    walk_doc = session_catalog(*SVC_WALK[:2])
+                    victim, kill_jobs = flt_kill_jobs(
+                        fleet, fresh[4 * FLT_MIXED:], extra[4 * FLT_MIXED:],
+                        walk_doc)
+                    ref.start(jobs + mixed + bench + kill_jobs,
+                              walk=(walk_doc, walk_steps(*SVC_WALK)))
+                    ref.optimize(None)
+                    numbers["B"] = fleet_burst(card, fleet, jobs, mixed, ref)
+                    part_s["B"] = time.perf_counter() - t0
+                cap.submit(plain, "fleet A-B", need=list(INC_KERNELS))
+                t0 = time.perf_counter()
+                numbers["C"] = fleet_membership(
+                    card, fleet, victim, kill_jobs, ref,
+                    len(jobs) + len(mixed) + len(bench))
+                part_s["C"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                numbers["D"] = fleet_obs(card, fleet, sink)
+                part_s["D"] = time.perf_counter() - t0
+            finally:
+                if fleet is not None:
+                    fleet.close()
+            t0 = time.perf_counter()
+            host_wall, _ = ref.finish()
+            numbers["host"] = dict(wall_s=host_wall,
+                                   banner_s=ref.child["banner_s"],
+                                   checks=len(ref.checks),
+                                   wait_s=time.perf_counter() - t0)
+        finally:
+            ref.close()
+    torch.cuda.synchronize()
+    launches = engine.launch_counts()
+    names = {id(t): name for name, t in loops}
+    on_loops: dict = {}
+    by_replica: dict = {}
+    off_loops = 0
+    for (thread, kernel), n in tl.by_object.items():
+        if id(thread) in names:
+            on_loops[kernel] = on_loops.get(kernel, 0) + n
+            name = names[id(thread)]
+            by_replica[name] = by_replica.get(name, 0) + n
+        else:
+            off_loops += n
+    d = _delta(f0, _fault_snapshot())
+    seen = dict(failures=d["fault_failures"],
+                host_routed=d["fault_host_routed"])
+    scripted = dict(failures=0, host_routed=0)
+    if seen != scripted:
+        fail(f"fleet: the phase counted {seen}, it scripted {scripted}")
+    i1 = telemetry.default_registry().snapshot().get(
+        "deppy_faults_injected_total", {})
+    injected = {p: n - i0.get(p, 0) for p, n in i1.items()
+                if n - i0.get(p, 0)}
+    if injected != {"fleet.forward": 1, "fleet.join_stream": 1}:
+        fail(f"fleet: faults injected {injected}, scripted one "
+             f"fleet.forward and one fleet.join_stream")
+    missing = [k for k in INC_KERNELS if on_loops.get(k, 0) <= 0]
+    if missing:
+        fail(f"fleet: the replicas' loops never launched {missing}")
+    for part, s in part_s.items():
+        numbers[part]["seconds"] = s
+    seconds = time.perf_counter() - t_phase
+    tcp = tcp_moved(tcp0)
+    numbers.update(seconds=seconds, scripted=scripted, injected=injected,
+                   loop_launches=on_loops, off_loop_launches=off_loops,
+                   by_replica=by_replica, tcp=tcp)
+    print(f"fleet host: serve(backend=\"host\") up {ref.child['banner_s']:.1f}"
+          f" s after its spawn, its burst {host_wall:.3f} s; "
+          f"{len(ref.checks)} answer sets of parts A-C byte-equal to it; "
+          f"waited {numbers['host']['wait_s']:.3f} s for it at the end "
+          f"[{card}]", flush=True)
+    print(f"fleet path: {seconds:.1f} s ("
+          + ", ".join(f"{p} {s:.1f}" for p, s in part_s.items())
+          + f"); {len(loops)} card replicas' loops launched {on_loops} "
+          f"(by replica {by_replica}), {off_loops} launches off their loops;"
+          f" injected {injected}, no "
+          f"driver failure, no host-routed lane; launches {launches}; "
+          f"TCP counters moved {tcp} (resets sent: C's dead replica) "
+          f"[{card}]", flush=True)
     return launches, numbers, scripted
 
 
@@ -8617,6 +9451,7 @@ PATH_KERNELS = {
     "routes": INC_KERNELS,
     "obs": INC_KERNELS,
     "service": INC_KERNELS,
+    "fleet": INC_KERNELS,
 }
 
 
@@ -8650,7 +9485,7 @@ def main(argv=None) -> int:
 
         def stamp(phase):
             print(f"phase {phase} done at {time.perf_counter() - t_all:.1f} "
-                  f"s", flush=True)
+                  f"s ({threading.active_count()} threads)", flush=True)
 
         by_path, bits_keys = {}, {}
         by_path["bits"], per_family, main_answers = run_main_path(
@@ -8701,6 +9536,10 @@ def main(argv=None) -> int:
             run_service_path(args.scale, plain)
         scripted = {k: v + svc_scripted[k] for k, v in scripted.items()}
         stamp("service path")
+        by_path["fleet"], per_family["fleet"], flt_scripted = \
+            run_fleet_path(args.scale, plain)
+        scripted = {k: v + flt_scripted[k] for k, v in scripted.items()}
+        stamp("fleet path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")

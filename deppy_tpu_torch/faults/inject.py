@@ -40,6 +40,17 @@ rules matched against named **fault points** the pipeline calls
   ``service.resolve``         entry of one ``/v1/resolve`` request's
                               resolve (an error is the request's counted
                               500)
+  ``fleet.forward``           each router-to-replica HTTP exchange (an
+                              error fails that forward before the
+                              transport; a drain or join answers 502)
+  ``fleet.join_stream``       each warm-state chunk streamed to a joining
+                              replica (an error resends the chunk, up to
+                              the join's retries)
+  ``fleet.arc_flip``          the atomic ring swap of a join, after the
+                              stream (an error leaves membership as it
+                              was)
+  ``router.peer_sync``        each gossip exchange with a peer router (an
+                              error is counted, never raised)
   ==========================  ================================================
 
 The rest of the reference's points (:data:`KNOWN_POINTS`) parse the
@@ -104,10 +115,6 @@ KNOWN_POINTS = (
 # these is named on the env path too: it would inject nothing here.
 NOT_YET_CALLED = {
     "driver.shard_dispatch.*": "A6",
-    "fleet.forward": "A5.6",
-    "fleet.join_stream": "A5.6",
-    "fleet.arc_flip": "A5.6",
-    "router.peer_sync": "A5.6",
 }
 
 

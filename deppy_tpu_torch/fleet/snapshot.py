@@ -1,4 +1,4 @@
-"""Warm-state snapshot and handoff (copy of ``deppy_tpu/fleet/snapshot.py:41-203``).
+"""Warm-state snapshot and handoff (copy of ``deppy_tpu/fleet/snapshot.py:41-226``).
 
 A scheduler's warm tier is two in-process stores: the clause-set index
 (zero-backtrack SAT models keyed by fingerprint — the warm-start seeds)
@@ -24,17 +24,16 @@ the canonical JSON of the payload — a truncated or bit-flipped handoff
 is rejected loudly (:class:`SnapshotFormatError`) rather than silently
 poisoning the inheritor's warm tier.  The document is the reference's
 format, byte for byte: a snapshot taken by either package imports into
-the other.
-
-Left out until the router is ported (ROADMAP A5.6.7):
-``split_snapshot``, which partitions a snapshot over the hash ring.
+the other.  :func:`split_snapshot` partitions one by each entry's
+owner on the hash ring, for the router's drain handoff and the warm
+stream of a runtime join (:mod:`.router`, :mod:`.membership`).
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 from .ring import affinity_key
 
@@ -201,3 +200,26 @@ def import_warm_state(scheduler, doc, sessions=None) -> dict:
         out["sessions_imported"] = ses_in
         out["sessions_skipped"] = ses_skip
     return out
+
+
+def split_snapshot(doc, assign: Callable[[str], Optional[str]]
+                   ) -> Dict[str, dict]:
+    """Partition a verified snapshot by each entry's family owner
+    (``assign(affinity) -> replica-or-None``); each shard is re-sealed
+    so recipients verify integrity end to end.  Entries assigned None
+    (no surviving owner) are dropped."""
+    verify_snapshot(doc)
+    sections = ("index", "cache") + (("sessions",)
+                                     if "sessions" in doc else ())
+    shards: Dict[str, Dict[str, List[dict]]] = {}
+    for section in sections:
+        for entry in doc[section]:
+            owner = assign(entry.get("affinity"))
+            if owner is None:
+                continue
+            shard = shards.setdefault(
+                owner, {s: [] for s in sections})
+            shard[section].append(entry)
+    return {owner: _seal(s["index"], s["cache"],
+                         sessions=s.get("sessions"))
+            for owner, s in shards.items()}

@@ -26,10 +26,10 @@ Capped by :mod:`deppy_tpu_torch.obs.top`: a terminal fleet dashboard
 over ``/fleet/metrics`` + ``/fleet/status``.
 
 Armed from Python with :func:`start_streamer` (an aggregator's
-``host:port``) and :func:`start_watchdog` (a baseline file); the
-service, router and CLI flags that arm them in the reference
-(``DEPPY_TPU_OBS_STREAM``, ``_SINK``, ``_BASELINE``) come with the
-port's service and router.  The lock is a plain ``threading`` lock
+``host:port``) and :func:`start_watchdog` (a baseline file), or by the
+port's service (``DEPPY_GPU_OBS_STREAM``, ``_BASELINE``) and router
+(``DEPPY_GPU_OBS_SINK``: the router's :class:`Aggregator` behind its
+``POST /fleet/telemetry``); their CLI flags are ROADMAP A7.2.  The lock is a plain ``threading`` lock
 where the reference takes a lockdep-named one.
 """
 

@@ -39,10 +39,12 @@ registry.  The other knobs: ``DEPPY_GPU_ROUTE_DECAY``,
 plane's platform and candidate ranking follow the scheduler's
 ``device`` (``"cuda"`` without a scheduler).
 
-Left for later items of ROADMAP: ``POST /v1/routes/learned`` and the
-``/metrics`` route families on the service (A5.6.6), the obs streamer's
-gossip leg and the fleet's route rollups (A5.6.5, A5.6.7), and the
-``deppy routes`` CLI over :mod:`.report` (A7.2).
+The service carries ``POST /v1/routes/learned`` (:func:`adopt_remote`)
+and the ``/metrics`` route families; the obs streamer carries a
+``route_learned`` event to the fleet router, which re-broadcasts
+first-hand rows to every replica (``Router.gossip_routes``) and rolls
+the route families up on ``/fleet/metrics``.  Left for ROADMAP A7.2:
+the ``deppy routes`` CLI over :mod:`.report`.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ stdlib HTTP server, as in the reference:
   * graceful drain (``shutdown``, SIGTERM in :func:`serve`), the HA
     lease (:mod:`deppy_tpu_torch.utils.lease`) and the server's half of
     fleet membership (``POST /fleet/join`` and ``/fleet/drain`` to a
-    router; the router itself is ROADMAP A5.6.7).
+    :class:`deppy_tpu_torch.fleet.Router`).
 
 Deliberate differences from the reference:
 
@@ -74,7 +74,18 @@ def _env_str(name: str) -> Optional[str]:
     return raw if raw is not None and raw.strip() else None
 
 
-class _V6HTTPServer(ThreadingHTTPServer):
+class _HTTPServer(ThreadingHTTPServer):
+    """The listen backlog is the system's ``somaxconn``, as the reference's
+    Go listeners take it, not ``socketserver``'s 5.  In-process replicas
+    and routers share one interpreter lock, so the accept thread can stall
+    behind it; a burst of clients then overflows a five-deep queue, and
+    the kernel answers the overflow with SYN cookies whose failed checks
+    reset connections that already sent their request."""
+
+    request_queue_size = socket.SOMAXCONN
+
+
+class _V6HTTPServer(_HTTPServer):
     address_family = socket.AF_INET6
 
 
@@ -102,10 +113,10 @@ def _make_http_server(addr: Tuple[str, int], handler) -> ThreadingHTTPServer:
         try:
             return _DualStackHTTPServer(("::", port), handler)
         except OSError:
-            return ThreadingHTTPServer(("0.0.0.0", port), handler)
+            return _HTTPServer(("0.0.0.0", port), handler)
     if ":" in host:  # IPv6 literal (brackets already stripped by _parse_addr)
         return _V6HTTPServer(addr, handler)
-    return ThreadingHTTPServer(addr, handler)
+    return _HTTPServer(addr, handler)
 
 
 def _default_engine_probe(device="cuda") -> Optional[bool]:

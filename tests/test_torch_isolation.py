@@ -76,15 +76,16 @@ def test_scan_covers_the_racing_modules():
 
 
 def test_scan_covers_the_session_modules():
-    """The session store, the handoff's fleet pieces and the session
-    walk's generators are the port's own copies: the AST scan reads
-    each of them."""
+    """The session store, the fleet (the handoff, the ring, the router,
+    membership and the scale policy) and the session walk's generators
+    are the port's own copies: the AST scan reads each of them."""
     names = {(p.parent.name, p.name) for p in PORT_FILES
              if p.parent.name in ("sessions", "fleet")}
     assert names == {
         ("sessions", "__init__.py"), ("sessions", "store.py"),
         ("fleet", "__init__.py"), ("fleet", "ring.py"),
-        ("fleet", "snapshot.py")}
+        ("fleet", "snapshot.py"), ("fleet", "router.py"),
+        ("fleet", "membership.py"), ("fleet", "policy.py")}
     assert ROOT / "deppy_tpu_torch" / "models" / "session.py" in PORT_FILES
 
 
@@ -136,31 +137,50 @@ def test_scan_covers_the_service_and_lease():
 
 def test_fresh_process_service_loads_no_jax():
     """``Server(device="cpu")`` starts, answers one ``/v1/resolve`` and a
-    scrape, and shuts down, with neither jax nor deppy_tpu loaded."""
+    scrape, also through a fleet ``Router`` in front of it, and shuts
+    down, with neither jax nor deppy_tpu loaded."""
     code = textwrap.dedent("""
         import json, os, sys
         before = set(sys.modules)
         os.environ["DEPPY_GPU_HOST_WORKERS"] = "0"
         from http.client import HTTPConnection
+        from deppy_tpu_torch.fleet import membership, router as fleet_router
         from deppy_tpu_torch.service import Server
         srv = Server(device="cpu", bind_address="127.0.0.1:0",
                      probe_address="127.0.0.1:0")
         srv.start()
+        router = None
         try:
             conn = HTTPConnection("127.0.0.1", srv.api_port, timeout=60)
-            conn.request("POST", "/v1/resolve", json.dumps({"variables": [
-                {"id": "a", "constraints": [{"type": "mandatory"}]}]}),
-                {"Content-Type": "application/json"})
+            doc = json.dumps({"variables": [
+                {"id": "a", "constraints": [{"type": "mandatory"}]}]})
+            conn.request("POST", "/v1/resolve", doc,
+                         {"Content-Type": "application/json"})
             resp = conn.getresponse()
             body = json.loads(resp.read())
             conn.request("GET", "/metrics")
             text = conn.getresponse().read().decode()
             conn.close()
+            router = fleet_router.Router(
+                bind_address="127.0.0.1:0",
+                replicas=[f"127.0.0.1:{srv.api_port}"], probe_interval_s=0)
+            router.start()
+            conn = HTTPConnection("127.0.0.1", router.api_port, timeout=60)
+            conn.request("POST", "/v1/resolve", doc,
+                         {"Content-Type": "application/json"})
+            routed = conn.getresponse()
+            routed_body = json.loads(routed.read())
+            conn.close()
+            view = membership.membership_view(router)
         finally:
+            if router is not None:
+                router.shutdown()
             srv.shutdown()
         assert resp.status == 200, body
         assert body["results"][0]["selected"] == ["a"], body
         assert "deppy_resolutions_total" in text
+        assert (routed.status, routed_body) == (200, body), routed_body
+        assert view["members"] == [f"127.0.0.1:{srv.api_port}"], view
         new = set(sys.modules) - before
         bad = sorted(m for m in new
                      if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))

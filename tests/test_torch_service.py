@@ -1278,6 +1278,31 @@ class TestSpeculation:
                           {"updates": []}).status == 400
 
 
+def _routes_quiet(srv) -> bool:
+    """Every shadow probe the server's route plane picked has run and
+    been folded into its ledger, and its idle queue is empty."""
+    plane = srv.route_plane
+    with plane.sampler._lock:
+        picked = sum(plane.sampler._rotate.values())
+    folded = sum(c["dispatches"]
+                 for c in plane.ledger.shadow_counts().values())
+    return srv.scheduler.speculative_depth() == 0 and folded >= picked
+
+
+def settle_routes(p: Pair, limit_s: float = 30.0) -> None:
+    """Wait, at most ``limit_s``, until both servers' route planes and
+    idle queues are quiet.  The first cold flush of a class with no
+    measured row queues one shadow probe on each side: the port's plain
+    versions answer it in milliseconds, the reference's ``tpu`` backend
+    compiles CPU XLA first (seconds, more under load), so a scrape taken
+    at once can see only the port's ``deppy_route_shadow_dispatches_total``."""
+    deadline = time.monotonic() + limit_s
+    while not all(_routes_quiet(srv) for srv in p.srv.values()):
+        if time.monotonic() > deadline:
+            pytest.fail(f"route planes not quiet after {limit_s} s")
+        time.sleep(0.02)
+
+
 class TestRoutes:
     def test_learned_rows_endpoint(self):
         rows = {"rows": {"portfolio.xs": "host,device"}, "origin": "peer"}
@@ -1289,6 +1314,7 @@ class TestRoutes:
                 assert p.same("POST", "/v1/routes/learned",
                               {"rows": []}).status == 400
                 assert p.same("POST", "/v1/resolve", ONE).status == 200
+                settle_routes(p)
                 text = p.same_metrics()
                 assert "deppy_route_" in text
             finally:
