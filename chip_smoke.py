@@ -149,7 +149,7 @@ Phases, each fatal on failure:
    deltas and breaker transitions are the scripted ones, and the first
    launch of each kernel in the phase is held against its plain version.
    At the end of the run the driver failures and host-routed lanes must
-   equal the phase's scripted totals (with 4i's);
+   equal the phase's scripted totals (with 4i's, 4m's and 4o's);
 4i. the optimize path: the trip profiler (``deppy_tpu_torch.profile``,
    armed at sample 1.0 over the phase, on a sink of its own) and the
    optimization tier (``deppy_tpu_torch.optimize.Planner`` over
@@ -345,6 +345,28 @@ Phases, each fatal on failure:
    launch of each in A-B is held against its plain version; the phase
    injects exactly its two scripted faults and counts no driver failure
    and no host-routed lane;
+4o. the mesh path: serving on the batch axis of a mesh
+   (``deppy_tpu_torch.parallel``) whose slots all name the one card,
+   :func:`run_mesh_path`: (1) 512 ``gvk_conflict_catalog(20, 4, 10)`` and
+   64 ``pinned_tenant_catalog`` states through
+   ``driver.solve_problems_sharded`` on 4 and on 2 slots, a worker thread
+   and a fault domain a slot and then ``spmd=True``, every lane (outcome,
+   installed set, core, steps, backtracks) equal to the unsharded
+   solve's, one shard dispatch a slot; (2) on the first 128 of those
+   lanes, a plan failing ``driver.shard_dispatch.1`` every time: only
+   slot 1's lanes host-routed, only breaker ``"1"`` charged (open, its
+   labelled ``deppy_breaker_state`` line on ``/metrics``), the other
+   slots' launches on their own workers, the answers the unsharded
+   solve's;
+   (3) ``Scheduler(device="cuda", mesh=<2 slots>)`` sized to 2 x
+   ``lanes_per_device``, 16 requests of 16 ``gvk_conflict_catalog(20, 4,
+   10)`` states from 8 clients answered, steps too, as by an unsharded
+   scheduler, the drain sharded; (4) ``serving_mesh()`` under
+   ``DEPPY_GPU_MESH_DEVICES=all``: None on one card.  Every launch of
+   the path is on a ``deppy-shard-*`` worker, and the first such launch
+   of kernels 1, 3, 4 and 5 is held against its plain version; the
+   references (the unsharded solve and scheduler) run before the path's
+   counts start;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -514,31 +536,17 @@ def operatorhub_lanes(i: int):
     return operatorhub_catalog(40, 5, seed=i)
 
 
-def check_solution(variables, solution) -> None:
-    """Every constraint of the problem holds under ``solution``."""
-    from deppy_tpu_torch.sat.constraints import (AtMost, Conflict,
-                                                 Dependency, Mandatory,
-                                                 Prohibited)
+def hold_solution(variables, solution) -> None:
+    """``solution`` covers exactly the problem's identifiers and the
+    port's independent oracle (``deppy_tpu_torch.utils.verify``) finds no
+    violated constraint."""
+    from deppy_tpu_torch.utils.verify import check_solution
 
     if set(solution) != {v.identifier for v in variables}:
         fail("solution does not cover exactly the problem's identifiers")
-    for v in variables:
-        on = solution[v.identifier]
-        for c in v.constraints:
-            if isinstance(c, Mandatory):
-                ok = on
-            elif isinstance(c, Prohibited):
-                ok = not on
-            elif isinstance(c, Dependency):
-                ok = not on or any(solution.get(i, False) for i in c.ids)
-            elif isinstance(c, Conflict):
-                ok = not (on and solution.get(c.id, False))
-            elif isinstance(c, AtMost):
-                ok = sum(solution.get(i, False) for i in set(c.ids)) <= c.n
-            else:
-                fail(f"unknown constraint {c!r}")
-            if not ok:
-                fail(f"solution violates {c.string(v.identifier)!r}")
+    bad = check_solution(variables, [k for k, on in solution.items() if on])
+    if bad:
+        fail(f"solution violates {str(bad[0])!r}")
 
 
 def operatorhub_batch(scale: float):
@@ -587,7 +595,7 @@ def check_answers(name: str, pool, results) -> None:
 
     for variables, r in zip(pool, results):
         if isinstance(r, dict):
-            check_solution(variables, r)
+            hold_solution(variables, r)
         elif isinstance(r, NotSatisfiable):
             if not r.constraints:
                 fail(f"{name}: empty unsat core")
@@ -739,7 +747,7 @@ def run_main_path(scale: float, bits_keys: dict):
                                      outcome=render(answer)[0],
                                      split_ms=split)
     if isinstance(answer, dict):
-        check_solution(variables, answer)
+        hold_solution(variables, answer)
     elif not answer.constraints:
         fail("operatorhub: empty unsat core")
     samples["operatorhub"] = ([variables], [answer])
@@ -948,7 +956,7 @@ def surface_catalogs(run: SurfaceRun, main_answer, batch_answer) -> None:
                  f"operatorhub_catalog{size}")
         card, counts = run.card(name, Resolver(source, *gens).solve)
         host = run.host(name, Resolver(source, *gens, backend="host").solve)
-        check_solution(variables, card)
+        hold_solution(variables, card)
         if render(card) != render(host):
             fail(f"surface {name}: the card's answer differs from the host "
                  f"backend's")
@@ -2139,13 +2147,16 @@ class ThreadLaunches:
 
 class RaceCapture:
     """While on, the first launch of each of ``kernels`` made on the thread
-    named ``thread`` (the race's device thread unless given): the wrapper's
+    named ``thread`` (the race's device thread unless given; with
+    ``prefix``, on any thread whose name starts with it): the wrapper's
     inputs and outputs, cloned (compact rows dropped: the plain versions
     read the planes)."""
 
-    def __init__(self, kernels, thread: str = RACE_THREAD):
+    def __init__(self, kernels, thread: str = RACE_THREAD,
+                 prefix: bool = False):
         self.kernels = tuple(kernels)
         self.thread = thread
+        self.prefix = prefix
         self.calls = {}
 
     def __enter__(self):
@@ -2170,8 +2181,10 @@ class RaceCapture:
             self._saved.append((mod, fn_name, orig))
 
             def wrapped(*args, _k=kernel, _orig=orig, **kwargs):
+                name = threading.current_thread().name
                 mine = (_k not in self.calls
-                        and threading.current_thread().name == self.thread)
+                        and (name.startswith(self.thread) if self.prefix
+                             else name == self.thread))
                 if mine:
                     ins = ([clone(a) for a in args],
                            {k: (None if k == "rows" else clone(v))
@@ -2403,7 +2416,7 @@ def run_race_path(scale: float, plain: "PlainPool"):
 
     import torch
 
-    from deppy_tpu_torch import engine, faults, hostpool, telemetry
+    from deppy_tpu_torch import config, engine, faults, hostpool, telemetry
     from deppy_tpu_torch.engine import core, defaults, grad_relax, registry
     from deppy_tpu_torch.models import (chain_requests, pinned_tenant_catalog,
                                         version_pinned_chains)
@@ -2535,7 +2548,7 @@ def run_race_path(scale: float, plain: "PlainPool"):
         path = os.path.join(tmp, "measured_defaults.json")
         defaults.merge_rows("gpu", {"portfolio.s": "device,host"},
                             path=path)
-        prev = os.environ.get("DEPPY_GPU_MEASURED_DEFAULTS")
+        prev = config.env_raw("DEPPY_GPU_MEASURED_DEFAULTS")
         for with_row in (True, False):
             os.environ["DEPPY_GPU_MEASURED_DEFAULTS"] = (
                 path if with_row else os.path.join(tmp, "none.json"))
@@ -4744,7 +4757,7 @@ def run_optimize_path(scale: float, plain: "PlainPool"):
                 fail(f"optimize {label}: status {out.get('status')}")
             variables = [io.variable_from_dict(v) for v in doc["variables"]]
             chosen = set(out["selected"])
-            check_solution(variables, {v.identifier: v.identifier in chosen
+            hold_solution(variables, {v.identifier: v.identifier in chosen
                                        for v in variables})
 
     soft = soft_docs()
@@ -5237,7 +5250,7 @@ def spec_replay(phase: str, speculate: bool) -> dict:
                 latencies.append(time.perf_counter() - t0)
                 hits += st["steps"] == 0 and st["report"] is None
                 if isinstance(res, dict):
-                    check_solution(families[f], res)
+                    hold_solution(families[f], res)
                 else:
                     fail(f"speculate {phase}: a re-ask answered {res!r}")
                 rendered.append(io.result_to_dict(res))
@@ -5344,7 +5357,7 @@ def run_speculate_path(scale: float, plain: "PlainPool"):
                     t1 = time.perf_counter()
                     (res,) = sched.submit([req])
                     live["latency_s"] = time.perf_counter() - t1
-                    check_solution(req, res)
+                    hold_solution(req, res)
                 spec_wait(sched, stored=True)
                 wall = time.perf_counter() - t0
                 if reg.snapshot()["deppy_speculate_backlog"] != 0:
@@ -5375,7 +5388,7 @@ def run_speculate_path(scale: float, plain: "PlainPool"):
                 unsat = 0
                 for vs, res in zip(fams, got):
                     if isinstance(res, dict):
-                        check_solution(vs, res)
+                        hold_solution(vs, res)
                     elif isinstance(res, NotSatisfiable):
                         unsat += 1
                         core = sorted(str(ac) for ac in res.constraints)
@@ -5933,14 +5946,14 @@ def run_routes_path(scale: float, plain: "PlainPool"):
     its numbers."""
     import torch
 
-    from deppy_tpu_torch import engine, faults
+    from deppy_tpu_torch import config, engine, faults
     from deppy_tpu_torch.engine import defaults, registry
     from deppy_tpu_torch.sat.solver import resolve_backend
 
     t_phase = time.perf_counter()
     card = card_line()
     print(f"routes timings on {card}", flush=True)
-    prev = os.environ.get("DEPPY_GPU_MEASURED_DEFAULTS")
+    prev = config.env_raw("DEPPY_GPU_MEASURED_DEFAULTS")
     ref = {}
     # The auto backend's verdict for the card (the faults phase took it
     # already; alone, this takes it), so no flush is routed to the host
@@ -7993,6 +8006,284 @@ def run_fleet_path(scale: float, plain: "PlainPool"):
     return launches, numbers, scripted
 
 
+MESH_GVK = 512           # part 1: gvk_conflict_catalog(20, 4, 10) states
+MESH_TENANTS = 64        # part 1: pinned_tenant_catalog states
+MESH_SLOTS = (4, 2)      # part 1: slots on the one card
+MESH_POISONED = 1        # part 2: the slot whose dispatch always fails
+MESH_POISON_LANES = 128  # part 2: the first lanes of part 1's batch
+MESH_SCHED = (16, 16)    # part 3: requests x gvk_fleet states
+MESH_CLIENTS = 8         # part 3
+MESH_THREAD = "deppy-shard-"
+
+
+def mesh_lanes(problems, results) -> list:
+    """Per lane: outcome, the live prefix of the model and of the core,
+    steps and backtracks."""
+    return [(int(r.outcome), r.installed[: p.n_vars].tolist(),
+             r.core[: p.n_cons].tolist(), int(r.steps), int(r.trace_n))
+            for p, r in zip(problems, results)]
+
+
+def run_mesh_path(scale: float, plain: "PlainPool"):
+    """The mesh's batch axis on the card (the module docstring's phase
+    4o): (1) the sharded solve over 4 and 2 slots of the one card, per
+    slot and ``spmd``, against the unsharded solve; (2) one poisoned
+    slot; (3) a burst through a scheduler on a 2-slot mesh against an
+    unsharded scheduler; (4) ``serving_mesh`` under
+    ``DEPPY_GPU_MESH_DEVICES=all``.  The references (the unsharded solve
+    and scheduler) run before the path's counts start.  Returns the
+    path's launches, its numbers and the driver failures and host-routed
+    lanes it scripted (part 2's)."""
+    import torch
+
+    from deppy_tpu_torch import engine, faults, telemetry
+    from deppy_tpu_torch.engine import driver
+    from deppy_tpu_torch.models import (gvk_conflict_catalog,
+                                        pinned_tenant_catalog)
+    from deppy_tpu_torch.parallel import default_mesh, serving_mesh
+    from deppy_tpu_torch.sat.encode import encode
+    from deppy_tpu_torch.sched import Scheduler
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"mesh timings on {card}", flush=True)
+    cuda0 = torch.device("cuda", 0)
+    n_gvk = max(COMPARE_LANES, int(MESH_GVK * scale))
+    n_ten = max(COMPARE_LANES, int(MESH_TENANTS * scale))
+    states = ([gvk_conflict_catalog(20, 4, 10, seed=i) for i in range(n_gvk)]
+              + [pinned_tenant_catalog(seed=i) for i in range(n_ten)])
+    problems = [encode(vs) for vs in states]
+    n = len(problems)
+    n_req, per = MESH_SCHED
+    jobs = [("A", [gvk_conflict_catalog(20, 4, 10, seed=n_gvk + k * per + i)
+                   for i in range(per)]) for k in range(n_req)]
+    numbers, part_s = {}, {}
+
+    def burst(mesh):
+        sched = Scheduler(device="cuda", mesh=mesh, cache_size=0,
+                          incremental="off", portfolio="off",
+                          speculate="off")
+        fill = sched.max_fill
+        sched.start()
+        try:
+            wall, records = run_clients(
+                MESH_CLIENTS, jobs,
+                lambda req, st: sched.submit(req, stats=st))
+        finally:
+            sched.stop()
+        return wall, fill, [([render(r) for r in rec["answers"]],
+                             rec["stats"].get("steps")) for rec in records]
+
+    # The references, before the path's counts start.
+    t0 = time.perf_counter()
+    base = driver.solve_problems(problems, device="cuda")
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    want = mesh_lanes(problems, base)
+    want_dec = [render(r) for r in driver.decode_results(problems, base)]
+    ref_wall, _, ref_answers = burst(None)
+    numbers["references"] = dict(unsharded_s=base_s, sched_wall_s=ref_wall)
+
+    env_keys = ("DEPPY_GPU_FAULT_BACKOFF_S", "DEPPY_GPU_BREAKER_RESET_S",
+                "DEPPY_GPU_MESH_DEVICES")
+    env0 = {k: os.environ.get(k) for k in env_keys}
+    prev_breaker = faults.set_default_breaker(faults.CircuitBreaker())
+    faults.reset_device_breakers()
+    f0 = _fault_snapshot()
+    reg = telemetry.default_registry()
+
+    def shard_counts(name):
+        return dict(reg.snapshot().get(name, {}))
+
+    torch.cuda.synchronize()
+    engine.reset_launch_counts()
+    scripted = dict(failures=0, host_routed=0)
+    try:
+        with ThreadLaunches() as tl:
+            # Part 1: sharded equals unsharded, per slot and spmd.
+            t0 = time.perf_counter()
+            cap = RaceCapture(INC_KERNELS, thread=MESH_THREAD, prefix=True)
+            rows = []
+            with cap:
+                for slots in MESH_SLOTS:
+                    mesh = default_mesh([cuda0] * slots)
+                    for spmd in (False, True):
+                        d0 = shard_counts("deppy_shard_dispatches_total")
+                        t1 = time.perf_counter()
+                        got = driver.solve_problems_sharded(problems,
+                                                            mesh=mesh,
+                                                            spmd=spmd)
+                        torch.cuda.synchronize()
+                        wall = time.perf_counter() - t1
+                        lanes = mesh_lanes(problems, got)
+                        bad = [i for i, (a, b) in enumerate(zip(lanes, want))
+                               if a != b]
+                        if bad:
+                            fail(f"mesh 1: {slots} slots, spmd={spmd}: "
+                                 f"{len(bad)} lanes differ from the "
+                                 f"unsharded solve (first {bad[0]})")
+                        d1 = shard_counts("deppy_shard_dispatches_total")
+                        moved = {k: v - d0.get(k, 0) for k, v in d1.items()
+                                 if v - d0.get(k, 0)}
+                        expect = ({} if spmd else
+                                  {str(i): 1 for i in range(slots)})
+                        if moved != expect:
+                            fail(f"mesh 1: {slots} slots, spmd={spmd}: "
+                                 f"shard dispatches {moved}, want {expect}")
+                        rows.append(dict(slots=slots, spmd=spmd, wall_s=wall,
+                                         lanes=n))
+                        print(f"mesh 1 {slots} slots spmd={spmd}: {n} lanes "
+                              f"in {wall:.3f} s (unsharded {base_s:.3f} s), "
+                              f"every lane equal (outcome, installed, core, "
+                              f"steps, trace_n) [{card}]", flush=True)
+            cap.submit(plain, "mesh 1", need=list(INC_KERNELS))
+            numbers["1"] = dict(rows=rows)
+            part_s["1"] = time.perf_counter() - t0
+
+            # Part 2: one poisoned slot, on the first lanes of part 1's
+            # batch (the poisoned slice runs on the host engine).
+            t0 = time.perf_counter()
+            mesh = default_mesh([cuda0] * MESH_SLOTS[0])
+            n2 = min(MESH_POISON_LANES, n)
+            slices = driver._shard_slices(n2, mesh.size)
+            poisoned = [i for si, idxs in enumerate(slices)
+                        if si % mesh.size == MESH_POISONED for i in idxs]
+            # Quick retries, and a cooldown no part outlasts: the slot's
+            # breaker (made on first use) stays open after it trips.
+            os.environ["DEPPY_GPU_FAULT_BACKOFF_S"] = "0.001"
+            os.environ["DEPPY_GPU_BREAKER_RESET_S"] = "600"
+            faults.reset_device_breakers()
+            before = _fault_snapshot()
+            i0 = dict(reg.snapshot().get("deppy_faults_injected_total", {}))
+            by0 = dict(tl.by_thread)
+            faults.configure_plan(faults.plan_from_spec(
+                '[{"point": "driver.shard_dispatch.%d", "kind": "error", '
+                '"times": -1}]' % MESH_POISONED))
+            try:
+                got = driver.solve_problems_sharded(problems[:n2],
+                                                    mesh=mesh)
+                torch.cuda.synchronize()
+            finally:
+                faults.configure_plan(None)
+            d = _delta(before, _fault_snapshot())
+            i1 = reg.snapshot().get("deppy_faults_injected_total", {})
+            injected = {p: v - i0.get(p, 0) for p, v in i1.items()
+                        if v - i0.get(p, 0)}
+            dec = [render(r) for r in
+                   driver.decode_results(problems[:n2], got)]
+            if dec != want_dec[:n2]:
+                fail("mesh 2: the poisoned run's answers differ from the "
+                     "unsharded solve's")
+            lanes = mesh_lanes(problems[:n2], got)
+            kept = set(range(n2)) - set(poisoned)
+            if any(lanes[i] != want[i] for i in kept):
+                fail("mesh 2: a lane of a healthy slot differs from the "
+                     "unsharded solve")
+            slot = faults.device_breaker(str(MESH_POISONED))
+            others = {k: b.state() for k, b in
+                      faults.device_breakers().items()
+                      if k != str(MESH_POISONED)}
+            if not slot.blocks_device() or any(
+                    v != "closed" for v in others.values()) or \
+                    faults.default_breaker().blocks_device():
+                fail(f"mesh 2: breakers slot {slot.state()}, others "
+                     f"{others}, process {faults.default_breaker().state()}")
+            if d["fault_host_routed"] != len(poisoned) or \
+                    d["fault_failures"] != slot.failure_threshold or \
+                    injected != {f"driver.shard_dispatch.{MESH_POISONED}":
+                                 slot.failure_threshold}:
+                fail(f"mesh 2: host-routed {d['fault_host_routed']} of "
+                     f"{len(poisoned)} poisoned lanes, failures "
+                     f"{d['fault_failures']}, injected {injected}")
+            launched = {}
+            for (thread, kernel), v in tl.by_thread.items():
+                if v - by0.get((thread, kernel), 0):
+                    launched[thread] = launched.get(thread, 0) + v - by0.get(
+                        (thread, kernel), 0)
+            healthy = {f"{MESH_THREAD}{i}" for i in range(mesh.size)
+                       if i != MESH_POISONED}
+            if set(launched) != healthy:
+                fail(f"mesh 2: launches by thread {launched}, want only "
+                     f"{sorted(healthy)}")
+            gauge = f'deppy_breaker_state{{device="{MESH_POISONED}"}} 2'
+            if gauge not in faults.render_metric_lines():
+                fail(f"mesh 2: /metrics lacks {gauge!r}")
+            scripted = dict(failures=d["fault_failures"],
+                            host_routed=d["fault_host_routed"])
+            numbers["2"] = dict(poisoned_lanes=len(poisoned),
+                                launches_by_thread=launched,
+                                injected=injected, **scripted)
+            part_s["2"] = time.perf_counter() - t0
+            print(f"mesh 2 poisoned slot {MESH_POISONED} of {n2} lanes: "
+                  f"{len(poisoned)} lanes host-routed, {d['fault_failures']} failures on "
+                  f"its breaker only ({gauge}), launches by thread "
+                  f"{launched}; answers equal the unsharded solve "
+                  f"({part_s['2']:.3f} s) [{card}]", flush=True)
+            faults.reset_device_breakers()
+
+            # Part 3: a scheduler over a 2-slot mesh.
+            t0 = time.perf_counter()
+            mesh = default_mesh([cuda0] * MESH_SLOTS[1])
+            d0 = shard_counts("deppy_shard_dispatches_total")
+            wall, fill, answers = burst(mesh)
+            moved = {k: v - d0.get(k, 0) for k, v in
+                     shard_counts("deppy_shard_dispatches_total").items()
+                     if v - d0.get(k, 0)}
+            lanes_per_device = Scheduler(device="cuda").lanes_per_device
+            if fill != mesh.size * lanes_per_device:
+                fail(f"mesh 3: max_fill {fill}, want {mesh.size} x "
+                     f"{lanes_per_device}")
+            if answers != ref_answers:
+                bad = sum(a != b for a, b in zip(answers, ref_answers))
+                fail(f"mesh 3: {bad} requests differ from the unsharded "
+                     f"scheduler's answers or steps")
+            if set(moved) != {str(i) for i in range(mesh.size)}:
+                fail(f"mesh 3: shard dispatches {moved}")
+            numbers["3"] = dict(wall_s=wall, unsharded_wall_s=ref_wall,
+                                max_fill=fill, shard_dispatches=moved)
+            part_s["3"] = time.perf_counter() - t0
+            print(f"mesh 3 scheduler on {mesh.size} slots (max_fill {fill})"
+                  f": {n_req} requests x {per} states from {MESH_CLIENTS} "
+                  f"clients in {wall:.3f} s (unsharded {ref_wall:.3f} s), "
+                  f"answers and steps equal, shard dispatches {moved} "
+                  f"[{card}]", flush=True)
+
+            # Part 4: serving_mesh counts distinct cards.
+            os.environ["DEPPY_GPU_MESH_DEVICES"] = "all"
+            sm = serving_mesh()
+            cards = torch.cuda.device_count()
+            if (sm is None) != (cards < 2) or \
+                    (sm is not None and sm.size != cards):
+                fail(f"mesh 4: serving_mesh() {sm} on {cards} cards")
+            numbers["4"] = dict(serving_mesh=repr(sm), cards=cards)
+            print(f"mesh 4 serving_mesh() with DEPPY_GPU_MESH_DEVICES=all "
+                  f"on {cards} card(s): {sm}", flush=True)
+        torch.cuda.synchronize()
+    finally:
+        faults.configure_plan(None)
+        faults.reset_device_breakers()
+        faults.set_default_breaker(prev_breaker)
+        _restore_env(env0, env_keys)
+    launches = engine.launch_counts()
+    off = {t: v for (t, _), v in tl.by_thread.items()
+           if not t.startswith(MESH_THREAD)}
+    if off:
+        fail(f"mesh: launches off the shard workers: {off}")
+    d = _delta(f0, _fault_snapshot())
+    seen = dict(failures=d["fault_failures"],
+                host_routed=d["fault_host_routed"])
+    if seen != scripted:
+        fail(f"mesh: the phase counted {seen}, it scripted {scripted}")
+    seconds = time.perf_counter() - t_phase
+    numbers.update(seconds=seconds, part_s=part_s, scripted=scripted,
+                   launches_by_thread=tl.threads())
+    print(f"mesh path: {seconds:.1f} s (" + ", ".join(
+        f"{p} {v:.1f}" for p, v in part_s.items()) + f"); launches "
+          f"{launches}, every one on a {MESH_THREAD}* worker; scripted "
+          f"{scripted} [{card}]", flush=True)
+    return launches, numbers, scripted
+
+
 def _stage1_budget(groups, max_share: float) -> int:
     """The smallest stage-1 budget (a step count of the baseline) that
     strands at most ``max_share`` of every group's lanes, and some lanes
@@ -9452,6 +9743,7 @@ PATH_KERNELS = {
     "obs": INC_KERNELS,
     "service": INC_KERNELS,
     "fleet": INC_KERNELS,
+    "mesh": INC_KERNELS,
 }
 
 
@@ -9540,6 +9832,10 @@ def main(argv=None) -> int:
             run_fleet_path(args.scale, plain)
         scripted = {k: v + flt_scripted[k] for k, v in scripted.items()}
         stamp("fleet path")
+        by_path["mesh"], per_family["mesh"], mesh_scripted = \
+            run_mesh_path(args.scale, plain)
+        scripted = {k: v + mesh_scripted[k] for k, v in scripted.items()}
+        stamp("mesh path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")
@@ -9579,7 +9875,7 @@ def main(argv=None) -> int:
 
     # The faults gate at the end of the run: the driver failures and
     # host-routed lanes of the whole run are exactly those the faults,
-    # optimize and service phases scripted (a real launch failure
+    # optimize, service and mesh phases scripted (a real launch failure
     # anywhere fails the run, even though the envelope answered it).
     snap = _fault_snapshot()
     seen = dict(failures=snap["deppy_fault_failures_total"],
@@ -9588,8 +9884,8 @@ def main(argv=None) -> int:
           f"lanes {seen['host_routed']} in the run; scripted {scripted}",
           flush=True)
     if seen != scripted:
-        fail(f"faults gate: the run counted {seen}, the faults, optimize "
-             f"and service phases scripted {scripted}")
+        fail(f"faults gate: the run counted {seen}, the faults, optimize, "
+             f"service and mesh phases scripted {scripted}")
 
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in engine.KERNELS}

@@ -1,6 +1,8 @@
 """PyTorch/CUDA port of :mod:`deppy_tpu` (counterpart: ``deppy_tpu/__init__.py``).
 
 Layers, bottom-up:
+  * :mod:`deppy_tpu_torch.config` — the typed registry of every
+    ``DEPPY_GPU_*`` knob, which every module reads through;
   * :mod:`deppy_tpu_torch.sat` — constraint vocabulary, tensor lowering,
     the host spec engine and the :class:`~deppy_tpu_torch.sat.Solver`
     facade with its assumption scopes;
@@ -15,7 +17,9 @@ Layers, bottom-up:
   * :mod:`deppy_tpu_torch.io` — the JSON problem codec;
   * :mod:`deppy_tpu_torch.models` — the workload families;
   * :mod:`deppy_tpu_torch.telemetry` — the span/counter/histogram
-    registry and the per-batch ``SolveReport`` the driver fills.
+    registry and the per-batch ``SolveReport`` the driver fills;
+  * :mod:`deppy_tpu_torch.parallel` — the mesh whose slots the driver's
+    sharded entry deals a batch over.
 
 Entry points default to ``backend="device"`` on ``device="cuda"`` and
 raise when no card is present; ``device="cpu"`` runs each kernel's plain

@@ -14,7 +14,8 @@ Results round-trip exactly: each :class:`core.SolveResult` field is
 stacked per group as a numpy array on save (the tensors copied to the
 host) and unstacked into the port's types on load (ints and CPU
 tensors).  The fault point ``checkpoint.save_group`` fires before each
-write.  The reference's ``mesh=`` waits for ROADMAP A6.
+write.  ``mesh=`` places each group's dispatches over a mesh's slots
+(``driver.solve_problems(mesh=)``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -139,10 +140,6 @@ def solve_problems_checkpointed(
     input order; groups are solved independently.  A group solved after
     the batch deadline expired may be deadline-degraded and is never
     persisted."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_problems_checkpointed(mesh=...) is not ported yet: "
-            "ROADMAP A6 (mesh serving)")
     if group <= 0:
         group = driver.MAX_LANES
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -179,7 +176,7 @@ def solve_problems_checkpointed(
                       if meta_ok else None)
             if cached is None:
                 cached = driver.solve_problems(chunk, max_steps=max_steps,
-                                               device=device)
+                                               device=device, mesh=mesh)
                 if dl is None or not dl.expired():
                     _save_group(ckpt_dir, gi, cached)
             else:

@@ -45,10 +45,11 @@ shift is logical, and narrow back with :func:`_to_i32` at their edges.
 
 from __future__ import annotations
 
-import os
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+
+from .. import config
 
 # Assignment values (same convention as the reference engine).
 TRUE = 1
@@ -74,7 +75,7 @@ plain_sweeps = 0
 
 # BCP implementation (core.py:506-508).
 _BCP_IMPLS = ("auto", "gather", "bits", "pallas", "blockwise", "watched")
-_BCP_IMPL = os.environ.get("DEPPY_GPU_BCP", "auto")
+_BCP_IMPL = config.env_raw("DEPPY_GPU_BCP", "auto")
 
 _U32 = 0xFFFFFFFF
 _I32 = torch.int32

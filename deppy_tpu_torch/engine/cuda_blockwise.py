@@ -33,17 +33,17 @@ builds them from ``clauses`` and ``card_ids``.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import config
 from . import _build, core, counts
 from .cuda_bcp import _check_args
 from .teams import SMEM_BYTES
 
 # Clause rows per block (pallas_blockwise.py:64).
-BLOCK_ROWS = int(os.environ.get("DEPPY_GPU_BLOCK_ROWS", "2048"))
+BLOCK_ROWS = int(config.env_raw("DEPPY_GPU_BLOCK_ROWS", "2048"))
 
 # Words kept free for the kernels' static shared control structs.
 STATIC_WORDS = 128

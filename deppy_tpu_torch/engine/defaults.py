@@ -34,6 +34,8 @@ import threading
 import time
 from typing import Dict, Optional
 
+from .. import config
+
 _CACHE: Optional[dict] = None
 _CACHE_LOCK = threading.Lock()
 
@@ -43,7 +45,7 @@ def registry_path(path: Optional[str] = None) -> str:
     else the package-local file."""
     if path:
         return path
-    return os.environ.get(
+    return config.env_raw(
         "DEPPY_GPU_MEASURED_DEFAULTS",
         os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      "measured_defaults.json"))

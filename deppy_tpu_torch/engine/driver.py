@@ -1,4 +1,4 @@
-"""Pad, batch, dispatch and decode (port of ``deppy_tpu/engine/driver.py:58-2188``, without the mesh).
+"""Pad, batch, dispatch and decode (port of ``deppy_tpu/engine/driver.py:58-2188``).
 
 One batched resolve, as the reference's ``solve_problems`` runs it
 without a mesh:
@@ -39,6 +39,11 @@ defects of the tree (:data:`TREE_DEFECTS`: a kernel that does not build,
 a launch it cannot take, a shape a wrapper refuses, a card that is not
 there), where the reference routes every other error to the host:
 routing those would hide a broken kernel behind correct answers.
+
+The mesh's batch axis (driver.py:1589-1876): :func:`solve_problems_sharded`
+deals a batch's lanes over a :class:`deppy_tpu_torch.parallel.Mesh`'s
+slots, a worker thread and a fault domain a slot (see the section
+"mesh serving" below).
 
 :func:`warm_screen` (driver.py:2155-2188) is the incremental tier's
 batched warm-prefix screen: pad, one elementwise
@@ -86,8 +91,9 @@ read when a solve starts.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-import os
+import threading
 import time
 import warnings
 from typing import List, Optional, Sequence, Tuple, Union
@@ -95,7 +101,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .. import faults
+from .. import config, faults
 from .. import profile as _profile
 from .. import size_classes as _size_classes
 from .. import telemetry
@@ -121,13 +127,13 @@ SPLIT_RATIO = _size_classes.SPLIT_RATIO
 # routes to the host spec engine (driver.py:613-624): its single-drop
 # probes beat a device deletion loop on giant problems, and the answer is
 # the same core.
-HOST_CORE_NCONS = int(os.environ.get("DEPPY_GPU_HOST_CORE_NCONS", "768"))
+HOST_CORE_NCONS = int(config.env_raw("DEPPY_GPU_HOST_CORE_NCONS", "768"))
 
 # Watched-bank occurrence-width cap (driver.py:425-430; 0 = the bucket's
 # size-class OCC cap): a bucket whose largest per-literal clause count
 # passes it would pay a V x Ob bank mostly for one popular literal, so it
 # keeps dummy banks and runs the dense rounds.
-BANK_OCC_CAP = int(os.environ.get("DEPPY_GPU_BANK_OCC_CAP", "0"))
+BANK_OCC_CAP = int(config.env_raw("DEPPY_GPU_BANK_OCC_CAP", "0"))
 
 
 # Progressive budget escalation (driver.py:1296-1313): stage 1 runs every
@@ -692,7 +698,8 @@ def _deadline_results(problems: Sequence[Problem]) -> List[core.SolveResult]:
     ]
 
 
-def _recovering(impl, point: str = "driver.dispatch"):
+def _recovering(impl, breaker=None, point: str = "driver.dispatch",
+                on_fault=None):
     """Wrap a dispatch-group impl ``impl(problems, budget, trace_cap)``
     with the fault-domain policy (driver.py:1416-1516).
 
@@ -709,17 +716,27 @@ def _recovering(impl, point: str = "driver.dispatch"):
     allows (a poison problem isolates in log2 steps), and what is left
     goes to the host engine.  An attempt that overruns
     ``chunk_deadline_s`` keeps its result, counts
-    ``deppy_deadline_exceeded{driver.chunk}`` and charges the breaker."""
+    ``deppy_deadline_exceeded{driver.chunk}`` and charges the breaker.
+
+    ``breaker`` defaults to the process-wide breaker; the mesh's sharded
+    dispatch passes a slot's (a :class:`faults.GatedDeviceBreaker`) and
+    the slot's fault point (``driver.shard_dispatch.N``), so a poisoned
+    shard charges, and trips, only its own slot.  ``on_fault`` (optional)
+    is called whenever the group leaves the clean path: a dispatch
+    failure or a breaker-open host route, possibly more than once a
+    call."""
 
     def run(problems, budget, trace_cap):
         policy = faults.RetryPolicy.from_env()
-        breaker = faults.default_breaker()
+        br = breaker if breaker is not None else faults.default_breaker()
         reg = telemetry.default_registry()
         dl = faults.current_deadline()
         if dl is not None and dl.expired():
             faults.note_deadline_exceeded(point, len(problems))
             return _deadline_results(problems)
-        if not breaker.allow():
+        if not br.allow():
+            if on_fault is not None:
+                on_fault()
             return _fault_results_host(problems, budget,
                                        reason="breaker_open")
         attempt = 0
@@ -732,20 +749,22 @@ def _recovering(impl, point: str = "driver.dispatch"):
                     faults.DeadlineExceeded) + TREE_DEFECTS:
                 # Not a device verdict: if this attempt was the breaker's
                 # half-open probe, hand the slot back.
-                breaker.abandon_probe()
+                br.abandon_probe()
                 raise
             except Exception as e:  # noqa: BLE001 — a device fault
                 attempt += 1
-                breaker.record_failure()
+                if on_fault is not None:
+                    on_fault()
+                br.record_failure()
                 faults.fault_counter("deppy_fault_failures_total").inc()
                 reg.event("fault", fault="dispatch_failed",
                           error=type(e).__name__, attempt=attempt,
-                          problems=len(problems), breaker=breaker.state())
+                          problems=len(problems), breaker=br.state())
                 if dl is not None and dl.expired():
                     faults.note_deadline_exceeded(point, len(problems))
                     return _deadline_results(problems)
                 if (attempt < policy.max_attempts
-                        and not breaker.blocks_device()):
+                        and not br.blocks_device()):
                     faults.fault_counter("deppy_fault_retries").inc()
                     back = policy.backoff_s(attempt)
                     if dl is not None:
@@ -754,7 +773,7 @@ def _recovering(impl, point: str = "driver.dispatch"):
                         time.sleep(back)
                     continue
                 if (len(problems) > 1 and policy.split_failed_groups
-                        and not breaker.blocks_device()):
+                        and not br.blocks_device()):
                     reg.event("fault", fault="group_split",
                               problems=len(problems))
                     mid = (len(problems) + 1) // 2
@@ -768,16 +787,18 @@ def _recovering(impl, point: str = "driver.dispatch"):
                         and dur > policy.chunk_deadline_s):
                     faults.note_deadline_exceeded("driver.chunk",
                                                   len(problems))
-                    breaker.record_failure()
+                    br.record_failure()
                 else:
-                    breaker.record_success()
+                    br.record_success()
                 return results
 
     return run
 
 
 def _solve_escalating(impl, problems: Sequence[Problem], budget: int,
-                      trace_cap: int) -> List[core.SolveResult]:
+                      trace_cap: int, breaker=None,
+                      point: str = "driver.dispatch",
+                      on_fault=None) -> List[core.SolveResult]:
     """Run ``impl`` in two budget stages when profitable
     (driver.py:1519-1586), every call under :func:`_recovering`.  The
     ladder is off while :data:`STAGE1_STEPS` is 0, and tracing, a group
@@ -788,8 +809,12 @@ def _solve_escalating(impl, problems: Sequence[Problem], budget: int,
     whole group re-runs at the full budget (a lane the redo left
     undecided keeps its stage-1 decision), else the stragglers re-run
     compacted.  Each lane reports the steps of the run that produced its
-    result, so answers and steps equal the single-stage solve's."""
-    impl = _recovering(impl)
+    result, so answers and steps equal the single-stage solve's.
+    ``breaker``/``point``/``on_fault`` pass through to
+    :func:`_recovering`: the mesh's slots run this same pipeline under
+    their own fault domains."""
+    impl = _recovering(impl, breaker=breaker, point=point,
+                       on_fault=on_fault)
     reg = telemetry.default_registry()
     if (
         STAGE1_STEPS <= 0
@@ -833,7 +858,7 @@ def _solve_escalating(impl, problems: Sequence[Problem], budget: int,
 
 def solve_problems(problems: Sequence[Problem],
                    max_steps: Optional[int] = None,
-                   device="cuda", trace_cap: int = 0
+                   device="cuda", trace_cap: int = 0, mesh=None
                    ) -> List[core.SolveResult]:
     """Solve lowered problems as device batches; one
     :class:`core.SolveResult` per problem, on the host.  ``trace_cap`` >
@@ -848,32 +873,51 @@ def solve_problems(problems: Sequence[Problem],
     read it afterwards with :func:`telemetry.last_report`.  Whether the
     core phase routes as one problem's (``monolith``) is decided once
     per call, from its size: a split half or a straggler sub-group keeps
-    it."""
+    it.
+
+    ``mesh`` (a :class:`deppy_tpu_torch.parallel.Mesh`; the reference's
+    ``mesh=``, driver.py:1886-1894) places every dispatch group's lanes
+    over the mesh's slots (:func:`_solve_placed`) under this call's one
+    fault domain; ``device`` is then not read, and a mesh of one slot is
+    that slot's device."""
     for p in problems:
         if p.errors:
             raise InternalSolverError(p.errors)
-    dev = resolve_device(device)
+    if mesh is not None:
+        for d in mesh.distinct():
+            resolve_device(d)
+        if mesh.size < 2:
+            device, mesh = mesh.devices[0], None
+    dev = resolve_device(device) if mesh is None else None
     budget = _budget(max_steps)
-    n = len(problems)
-    monolith = n == 1
+    monolith = len(problems) == 1
 
     def impl(group, group_budget, group_trace_cap):
+        if mesh is not None:
+            return _solve_placed(group, group_budget, mesh, monolith,
+                                 group_trace_cap)
         return _solve_split(group, group_budget, dev, monolith,
                             trace_cap=group_trace_cap)
 
+    return _solve_entry(
+        problems, lambda: _bucketed(impl, problems, budget, trace_cap),
+        **({"devices": mesh.size} if mesh is not None else {}))
+
+
+def _solve_entry(problems: Sequence[Problem], solve, **span):
+    """The envelope of a driver entry (driver.py:1883-1943): the thread's
+    report begun (or merged into), the ambient batch deadline and the
+    ``driver.solve`` span around ``solve()``, its outcomes, steps and
+    backtracks counted and the ``deppy_solve_seconds`` histogram
+    observed."""
+    n = len(problems)
     rep, owns = telemetry.begin_report(backend="device", n_problems=n)
     reg = telemetry.default_registry()
     t0 = time.perf_counter()
     try:
         with faults.ambient_deadline(), \
-                reg.span("driver.solve", problems=n):
-            results: List[Optional[core.SolveResult]] = [None] * n
-            for idxs in (partition_buckets(problems) if n > 1
-                         else [list(range(n))]):
-                sub = _solve_escalating(impl, [problems[i] for i in idxs],
-                                        budget, trace_cap)
-                for i, r in zip(idxs, sub):
-                    results[i] = r
+                reg.span("driver.solve", problems=n, **span):
+            results = solve()
         for r in results:
             rep.count_outcome("sat" if r.outcome == core.SAT
                               else "unsat" if r.outcome == core.UNSAT
@@ -889,7 +933,257 @@ def solve_problems(problems: Sequence[Problem],
         rep.add_wall("solve", time.perf_counter() - t0)
         if owns:
             telemetry.end_report(rep, owns)
+    return results
+
+
+def _bucketed(impl, problems: Sequence[Problem], budget: int,
+              trace_cap: int, **fault_domain) -> List[core.SolveResult]:
+    """Each size-class bucket of ``problems`` through the escalation
+    ladder and the fault envelope (``fault_domain``: a mesh slot's
+    breaker, fault point and ``on_fault``; the process's by default)."""
+    n = len(problems)
+    out: List[Optional[core.SolveResult]] = [None] * n
+    for idxs in (partition_buckets(problems) if n > 1 else [list(range(n))]):
+        sub = _solve_escalating(impl, [problems[i] for i in idxs], budget,
+                                trace_cap, **fault_domain)
+        for i, r in zip(idxs, sub):
+            out[i] = r
+    return out  # type: ignore[return-value]
+
+
+# ------------------------------------------------------------- mesh serving
+#
+# The batch axis of a mesh (driver.py:1589-1876): a micro-batch's lanes are
+# dealt over the mesh's slots, each slot bound to a torch device.  Two
+# spellings, as in the reference:
+#
+#   * :func:`solve_problems_sharded` — one worker thread a slot draining
+#     its round-robin share of contiguous slices, each slice through the
+#     FULL single-device pipeline (buckets, escalation, the three phases)
+#     under the slot's own fault domain: its breaker (gated on the
+#     process breaker) and its fault point ``driver.shard_dispatch.N``.
+#     One bad slot host-routes only its slices.
+#   * ``spmd=True`` and ``solve_problems(mesh=)`` — the same placement
+#     under ONE fault domain (:func:`_solve_placed` inside one
+#     ``_recovering`` walk on the process breaker): PyTorch has no single
+#     program over devices, so this is the reference's SPMD program's
+#     blast radius, not its compilation.
+#
+# A worker makes its slot's card current (``torch.cuda.device``) before it
+# uploads or launches: the kernel wrappers launch on
+# ``torch.cuda.current_stream(dev)``, and a launch on another card's
+# stream needs that card current.  Slots that share a card share its
+# stream, so their launches serialize: correct, not faster.
+
+
+def _shard_slices(n: int, n_dev: int) -> List[List[int]]:
+    """Contiguous lane slices for a sharded dispatch (driver.py:1667-1675):
+    ``ceil(n/n_dev)`` lanes a shard, capped at :data:`MAX_LANES`; shard
+    *i* runs on slot ``i % n_dev``, so batches past ``n_dev × MAX_LANES``
+    wrap round-robin and every slot stays busy."""
+    per = min(-(-n // n_dev), MAX_LANES)
+    return [list(range(lo, min(lo + per, n)))
+            for lo in range(0, n, per)]
+
+
+def _slot_scope(dev: torch.device):
+    """The scope a slot's worker runs in: its card made current."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _on_slots(mesh, slices: List[List[int]], solve):
+    """Run ``solve(slot, lane_indices)`` for every slice on
+    worker threads ``deppy-shard-{slot}``, one a slot (slot *d* drains
+    slices *d*, *d* + n_slots, ...), each with the caller's batch
+    deadline re-installed, its slot's card current and a report of its
+    own (driver.py:1737-1790: the report and the deadline are
+    thread-local).  Returns (outputs, reports, seconds, errors), each
+    per slice; a worker stops at its first exception, which the caller
+    re-raises on its own thread."""
+    n_dev = mesh.size
+    dl = faults.current_deadline()
+    outs: list = [None] * len(slices)
+    reports: list = [None] * len(slices)
+    seconds: list = [None] * len(slices)
+    errors: List[BaseException] = []
+
+    def drain(di: int) -> None:
+        with _slot_scope(mesh.devices[di]):
+            for si in range(di, len(slices), n_dev):
+                srep, owns = telemetry.begin_report(backend="device")
+                t1 = time.perf_counter()
+                try:
+                    with faults.deadline_scope(dl):
+                        outs[si] = solve(di, slices[si])
+                except BaseException as e:  # re-raised on the caller
+                    errors.append(e)
+                    return
+                finally:
+                    telemetry.detach_report(srep, owns)
+                    if owns:
+                        reports[si] = srep
+                seconds[si] = time.perf_counter() - t1
+
+    workers = [
+        threading.Thread(target=drain, args=(di,),
+                         name=f"deppy-shard-{di}", daemon=True)
+        for di in range(min(n_dev, len(slices)))
+    ]
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join()
+    return outs, reports, seconds, errors
+
+
+def _merge_reports(reports) -> None:
+    """Fold the slots' reports into the caller's (their trip ledgers
+    sum), on the caller's thread after the join."""
+    rep = telemetry.current_report()
+    if rep is None:
+        return
+    for srep in reports:
+        if srep is not None:
+            rep.merge(srep)
+
+
+def _gather(n: int, slices, outs) -> List[core.SolveResult]:
+    results: List[Optional[core.SolveResult]] = [None] * n
+    for idxs, out in zip(slices, outs):
+        for i, r in zip(idxs, out):
+            results[i] = r
     return results  # type: ignore[return-value]
+
+
+def _solve_placed(problems: Sequence[Problem], budget: int, mesh,
+                  monolith: bool, trace_cap: int) -> List[core.SolveResult]:
+    """One dispatch group's lanes placed over the mesh's slots: the
+    port's spelling of the reference's SPMD program over a mesh
+    (driver.py:1624-1657, :1678-1685).  Contiguous slices are dealt
+    round-robin, each runs the three-phase path on its slot's device,
+    and the caller's fault domain covers the whole group: a slot's
+    failure fails the group."""
+    slices = _shard_slices(len(problems), mesh.size)
+    outs, reports, _, errors = _on_slots(
+        mesh, slices, lambda di, idxs: _solve_split(
+            [problems[i] for i in idxs], budget, mesh.devices[di], monolith,
+            trace_cap=trace_cap))
+    _merge_reports(reports)
+    if errors:
+        raise errors[0]
+    return _gather(len(problems), slices, outs)
+
+
+def _solve_sharded_inner(problems: Sequence[Problem], budget: int, mesh,
+                         trace_cap: int) -> List[core.SolveResult]:
+    """The per-slot serving composition (driver.py:1714-1818): a worker
+    and a fault domain a slot, the counters
+    ``deppy_shard_dispatches_total`` and ``deppy_shard_recoveries_total``
+    by slot, and the spans ``driver.mesh_dispatch`` and (on the parent,
+    after the join) ``driver.shard_solve``.  The breaker key of slot *i*
+    is ``str(i)``, the keys the reference's virtual devices give."""
+    n = len(problems)
+    n_dev = mesh.size
+    reg = telemetry.default_registry()
+    dl = faults.current_deadline()
+    if dl is not None and dl.expired():
+        faults.note_deadline_exceeded("driver.mesh_dispatch", n)
+        return _deadline_results(problems)
+    slices = _shard_slices(n, n_dev)
+    c_disp = reg.counter(
+        "deppy_shard_dispatches_total",
+        "Mesh-serving shard dispatches, by device.", labelname="device")
+    c_rec = reg.counter(
+        "deppy_shard_recoveries_total",
+        "Shard slices that entered per-device fault recovery "
+        "(retry / split / host fallback).", labelname="device")
+    breakers = [faults.GatedDeviceBreaker(faults.device_breaker(str(di)),
+                                          faults.default_breaker())
+                for di in range(n_dev)]
+
+    def solve(di: int, idxs: List[int]):
+        key = str(di)
+        c_disp.inc(label=key)
+        fired = [False]
+
+        def on_fault():
+            # Once a slice, however many retries, split halves or
+            # breaker-open host routes its recovery walk takes.
+            if not fired[0]:
+                fired[0] = True
+                c_rec.inc(label=key)
+
+        # One slice through the full single-device composition (buckets,
+        # escalation, the three phases; driver.py:1688-1711) under the
+        # slot's fault domain.
+        dev, monolith = mesh.devices[di], len(idxs) == 1
+        return _bucketed(
+            lambda group, group_budget, group_trace_cap: _solve_split(
+                group, group_budget, dev, monolith,
+                trace_cap=group_trace_cap),
+            [problems[i] for i in idxs], budget, trace_cap,
+            breaker=breakers[di], point=f"driver.shard_dispatch.{di}",
+            on_fault=on_fault)
+
+    with reg.span("driver.mesh_dispatch", problems=n, shards=len(slices),
+                  devices=n_dev):
+        outs, reports, seconds, errors = _on_slots(mesh, slices, solve)
+    # Spans and the report merge land on the parent thread: record_span
+    # here stamps the submitting request's trace context (workers have
+    # none), and the merged report keeps one report event a batch.
+    for si, dur in enumerate(seconds):
+        if dur is not None:
+            reg.record_span("driver.shard_solve", dur,
+                            device=str(si % n_dev), lanes=len(slices[si]))
+    _merge_reports(reports)
+    if errors:
+        # Semantic outcomes and defects of the tree pass through the
+        # slots' fault domains untouched; surface the first one exactly
+        # as the unsharded path would.
+        raise errors[0]
+    return _gather(n, slices, outs)
+
+
+def solve_problems_sharded(problems: Sequence[Problem], mesh=None,
+                           max_steps: Optional[int] = None,
+                           trace_cap: int = 0, spmd: bool = False,
+                           device="cuda") -> List[core.SolveResult]:
+    """Mesh-serving batch entry (driver.py:1821-1876): shard one coalesced
+    micro-batch's lanes across ``mesh``'s slots — one worker thread a
+    slot draining its shards through the full pipeline under the slot's
+    own fault domain (:func:`_solve_sharded_inner`).  Problems are
+    independent and sharding changes only placement, so the answers
+    (outcome, installed set, core, steps, backtracks) are those of
+    :func:`solve_problems` on the same batch.  A mesh under two slots,
+    or a batch of one, goes to :func:`solve_problems` (on the mesh's
+    device, else ``device``).
+
+    ``spmd=True`` runs the same placement under ONE fault domain: one
+    ``_recovering`` walk on the process breaker and ``driver.dispatch``
+    (:func:`_solve_placed`), the reference's single-program blast
+    radius."""
+    if mesh is None or mesh.size < 2 or len(problems) < 2:
+        return solve_problems(
+            problems, max_steps=max_steps, trace_cap=trace_cap,
+            device=mesh.devices[0] if mesh is not None else device)
+    for p in problems:
+        if p.errors:
+            raise InternalSolverError(p.errors)
+    for d in mesh.distinct():
+        resolve_device(d)
+    budget = _budget(max_steps)
+
+    def solve():
+        if spmd:
+            return _recovering(
+                lambda group, group_budget, group_trace_cap: _solve_placed(
+                    group, group_budget, mesh, False, group_trace_cap))(
+                list(problems), budget, trace_cap)
+        return _solve_sharded_inner(problems, budget, mesh, trace_cap)
+
+    return _solve_entry(problems, solve, devices=mesh.size)
 
 
 def _decode_installed(p: Problem, installed) -> List[Variable]:
@@ -995,7 +1289,7 @@ def solve_one(problem: Problem, max_steps: Optional[int] = None,
 def solve_batch(problem_vars: Sequence[Sequence[Variable]],
                 max_steps: Optional[int] = None,
                 stats: Optional[dict] = None, device="cuda",
-                checkpoint_dir: Optional[str] = None):
+                checkpoint_dir: Optional[str] = None, mesh=None):
     """Batch entry used by :class:`deppy_tpu_torch.resolution.BatchResolver`
     (driver.py:2088-2123): per problem a solution dict, its
     :class:`NotSatisfiable`, or an :class:`Incomplete` marker.  ``stats``
@@ -1004,7 +1298,8 @@ def solve_batch(problem_vars: Sequence[Sequence[Variable]],
     ``encode`` (the reference times no encode).  ``checkpoint_dir``
     solves group by group with resume
     (:func:`deppy_tpu_torch.engine.checkpoint.solve_problems_checkpointed`),
-    every group's driver call merging into this batch's report."""
+    every group's driver call merging into this batch's report.  ``mesh``
+    passes to :func:`solve_problems`."""
     rep, owns = telemetry.begin_report(backend="device")
     try:
         with telemetry.default_registry().span(
@@ -1016,10 +1311,10 @@ def solve_batch(problem_vars: Sequence[Sequence[Variable]],
 
             results = solve_problems_checkpointed(
                 problems, checkpoint_dir, max_steps=max_steps,
-                device=device)
+                device=device, mesh=mesh)
         else:
             results = solve_problems(problems, max_steps=max_steps,
-                                     device=device)
+                                     device=device, mesh=mesh)
     finally:
         telemetry.end_report(rep, owns)
     if stats is not None:

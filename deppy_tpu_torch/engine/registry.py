@@ -282,17 +282,18 @@ def _from_solve_result(problem, res) -> HostLaneResult:
 def _solve_device(problems, max_steps, deadlines, cancel, mesh=None,
                   device="cuda"):
     """Batched dispatch through the driver on ``device`` (the CUDA
-    kernels on the card).  A launched kernel cannot be cooperatively
-    cancelled — a losing race lane runs to completion and its fetch is
-    dropped."""
+    kernels on the card), or sharded over ``mesh``'s slots when it has
+    two or more (registry.py:261-273).  A launched kernel cannot be
+    cooperatively cancelled — a losing race lane runs to completion and
+    its fetch is dropped."""
     from . import driver
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_via('device', mesh=...) is not ported yet: ROADMAP A6 "
-            "(mesh serving)")
-    results = driver.solve_problems(problems, max_steps=max_steps,
-                                    device=device)
+    if mesh is not None and mesh.size >= 2:
+        results = driver.solve_problems_sharded(problems, mesh=mesh,
+                                                max_steps=max_steps)
+    else:
+        results = driver.solve_problems(problems, max_steps=max_steps,
+                                        device=device)
     return [_from_solve_result(p, r) for p, r in zip(problems, results)]
 
 

@@ -25,7 +25,8 @@ The families (``deppy_fault_retries``, ``deppy_fault_failures_total``,
 :func:`deppy_tpu_torch.telemetry.default_registry`, beside ``fault`` and
 ``breaker`` events; :func:`render_metric_lines` renders them for the
 service's ``/metrics`` (``deppy_tpu/faults/__init__.py:95-122``).  The
-per-device breakers wait for the mesh (ROADMAP A6).
+mesh's per-slot breakers (:func:`device_breaker`,
+:class:`GatedDeviceBreaker`) add their labelled state lines there.
 """
 
 from .breaker import (
@@ -33,7 +34,11 @@ from .breaker import (
     BREAKER_HALF_OPEN,
     BREAKER_OPEN,
     CircuitBreaker,
+    GatedDeviceBreaker,
     default_breaker,
+    device_breaker,
+    device_breakers,
+    reset_device_breakers,
     set_default_breaker,
 )
 from .inject import (
@@ -55,6 +60,7 @@ from .policy import (
     current_deadline,
     deadline_scope,
     env_float,
+    env_int,
     note_deadline_exceeded,
 )
 
@@ -68,6 +74,7 @@ __all__ = [
     "FAMILIES",
     "FaultPlan",
     "FaultRule",
+    "GatedDeviceBreaker",
     "InjectedFault",
     "RetryPolicy",
     "ambient_deadline",
@@ -76,13 +83,17 @@ __all__ = [
     "current_plan",
     "deadline_scope",
     "default_breaker",
+    "device_breaker",
+    "device_breakers",
     "env_float",
+    "env_int",
     "fault_counter",
     "inject",
     "note_deadline_exceeded",
     "plan_from_env",
     "plan_from_spec",
     "render_metric_lines",
+    "reset_device_breakers",
     "set_default_breaker",
 ]
 
@@ -94,9 +105,10 @@ def render_metric_lines() -> list:
     one real breaker.  The breaker gauge is synthesized from the live
     breaker (always present, cooldown edge included); the counters
     render from their default-registry families, registered at zero when
-    nothing has incremented them yet.  The per-device breaker lines come
-    with the mesh (ROADMAP A6): until then there are none, as in a
-    reference process that never dispatched a shard."""
+    nothing has incremented them yet.  Each slot breaker of the mesh
+    (:func:`device_breakers`) adds one labelled line,
+    ``deppy_breaker_state{device="<slot>"}``, synthesized live like the
+    process-wide gauge."""
     from .. import telemetry
     from .metrics import BREAKER_STATE_HELP
 
@@ -105,6 +117,9 @@ def render_metric_lines() -> list:
         "# TYPE deppy_breaker_state gauge",
         f"deppy_breaker_state {default_breaker().state_code()}",
     ]
+    for key, br in sorted(device_breakers().items()):
+        lines.append(f'deppy_breaker_state{{device="{key}"}} '
+                     f"{br.state_code()}")
     for name in FAMILIES:
         fault_counter(name)  # ensure registered (zero) before rendering
     return lines + telemetry.default_registry().render_families(

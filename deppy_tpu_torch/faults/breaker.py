@@ -1,4 +1,4 @@
-"""The card's circuit breaker (copy of ``deppy_tpu/faults/breaker.py:1-284``, the process-wide breaker).
+"""The card's circuit breakers (copy of ``deppy_tpu/faults/breaker.py:1-366``).
 
 Trip to host-only solving under repeated device failures, half-open on
 a probe dispatch after a cooldown.  A card that starts failing (a
@@ -23,11 +23,12 @@ State changes are exported on the telemetry registry
 counter) and emitted as ``breaker`` events; a fresh closed→open trip
 dumps the flight recorder (:func:`telemetry.trace.notify_breaker_open`).
 
-Left out, each with the ROADMAP item that brings it: the per-device
-fleet (``device_breaker``, ``device_breakers``,
-``reset_device_breakers``, ``GatedDeviceBreaker``; A6).
-``render_metric_lines`` is in the package's ``__init__``, as in the
-reference.  The lock is a plain :class:`threading.Lock` until lockdep (A7.2).
+The per-device fleet (breaker.py:287-366): the mesh's sharded dispatch
+charges the breaker of the slot whose shard failed
+(:func:`device_breaker`, keyed by the slot index), gated on the process
+breaker (:class:`GatedDeviceBreaker`), so one bad slot host-routes only
+its slice.  ``render_metric_lines`` is in the package's ``__init__``, as
+in the reference.  The lock is a plain :class:`threading.Lock` until lockdep (A7.2).
 """
 
 from __future__ import annotations
@@ -49,14 +50,24 @@ _STATE_NAMES = {
 
 
 class CircuitBreaker:
-    """Thread-safe three-state breaker (closed → open → half-open)."""
+    """Thread-safe three-state breaker (closed → open → half-open).
+
+    ``device`` labels a per-device breaker (one a mesh slot, so a single
+    bad slot trips only its shard to the host).  ``None`` is the
+    process-wide breaker; labelled breakers publish their transitions
+    with a ``device`` field and leave the process-wide
+    ``deppy_breaker_state`` gauge, the transitions counter and the
+    flight-recorder dump alone (``faults.render_metric_lines`` renders
+    their ``deppy_breaker_state{device=...}`` lines)."""
 
     def __init__(self, failure_threshold: int = 3,
                  reset_after_s: float = 30.0,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 device: Optional[str] = None):
         self.failure_threshold = max(int(failure_threshold), 1)
         self.reset_after_s = float(reset_after_s)
         self._clock = clock
+        self.device = device
         self._lock = threading.Lock()
         self._state = BREAKER_CLOSED
         self._consecutive_failures = 0
@@ -192,17 +203,23 @@ class CircuitBreaker:
                 "consecutive_failures": self._consecutive_failures}
 
     def _publish(self, ev: "Optional[dict]") -> None:
-        """Export one transition (outside the lock): the state gauge, the
-        transitions counter and a ``breaker`` event; a fresh closed→open
-        trip also dumps the flight recorder.  Half-open probe failures
-        re-open without re-dumping: a card that stays down re-trips
-        every cooldown."""
+        """Export one transition (outside the lock): a ``breaker`` event,
+        and for the process breaker the state gauge and the transitions
+        counter; a fresh closed→open trip of the process breaker also
+        dumps the flight recorder.  Half-open probe failures re-open
+        without re-dumping: a card that stays down re-trips every
+        cooldown.  A slot's breaker leaves the process-wide gauge and
+        counter alone: one flapping slot is not the card cycling."""
         if ev is None:
             return
         from .. import telemetry
         from .metrics import BREAKER_STATE_HELP, fault_counter
 
         reg = telemetry.default_registry()
+        if self.device is not None:
+            reg.event("breaker", state=ev["state"], device=self.device,
+                      consecutive_failures=ev["consecutive_failures"])
+            return
         reg.gauge("deppy_breaker_state", BREAKER_STATE_HELP).set(ev["code"])
         reg.event("breaker", state=ev["state"],
                   consecutive_failures=ev["consecutive_failures"])
@@ -247,3 +264,81 @@ def set_default_breaker(
     with _DEFAULT_LOCK:
         prev, _DEFAULT = _DEFAULT, breaker
     return prev
+
+
+# --------------------------------------------------------- per-device fleet
+#
+# The mesh's sharded dispatch charges failures to the breaker of the SLOT
+# whose shard failed, so one bad slot degrades only its slice of the
+# serving mesh; batchmates on healthy slots keep dispatching.  The
+# process-wide breaker above stays the whole-card verdict (the driver's
+# non-sharded paths keep charging it).
+
+_DEVICE_BREAKERS: "dict[str, CircuitBreaker]" = {}
+_DEVICE_LOCK = threading.Lock()
+
+
+def device_breaker(device: object) -> CircuitBreaker:
+    """The breaker for one mesh slot, keyed by ``str(device)`` (the
+    driver passes the slot index, the keys the reference's virtual
+    devices give); created from the same ``DEPPY_GPU_BREAKER_*`` knobs
+    as the process breaker on first use."""
+    key = str(device)
+    with _DEVICE_LOCK:
+        br = _DEVICE_BREAKERS.get(key)
+        if br is None:
+            br = _breaker_from_env()
+            br.device = key
+            _DEVICE_BREAKERS[key] = br
+    return br
+
+
+def device_breakers() -> "dict[str, CircuitBreaker]":
+    """Snapshot of the per-device breaker fleet (metrics rendering)."""
+    with _DEVICE_LOCK:
+        return dict(_DEVICE_BREAKERS)
+
+
+def reset_device_breakers() -> None:
+    """Drop every per-device breaker (tests; also after a mesh
+    reconfiguration, where stale keys would render forever)."""
+    with _DEVICE_LOCK:
+        _DEVICE_BREAKERS.clear()
+
+
+class GatedDeviceBreaker:
+    """A slot's breaker that ALSO honours the process-wide breaker
+    (breaker.py:331-366): an OPEN process breaker host-routes every shard
+    without paying an attempt, as it does every non-sharded dispatch.
+    Verdicts charge only the slot's breaker: one shard's failure must not
+    trip the process to host-only, and a shard success must not close (or
+    consume the half-open probe slot of) the process breaker."""
+
+    def __init__(self, device: CircuitBreaker, process: CircuitBreaker):
+        self._device = device
+        self._process = process
+
+    def allow(self) -> bool:
+        # blocks_device() is the non-consuming check: an open process
+        # breaker denies the shard without claiming its probe slot.
+        if self._process.blocks_device():
+            return False
+        return self._device.allow()
+
+    def blocks_device(self) -> bool:
+        return (self._process.blocks_device()
+                or self._device.blocks_device())
+
+    def state(self) -> str:
+        """The effective (most-degraded) state, for fault events (the
+        names order as the states degrade: closed < half_open < open)."""
+        return max(self._process.state(), self._device.state())
+
+    def record_success(self) -> None:
+        self._device.record_success()
+
+    def record_failure(self) -> bool:
+        return self._device.record_failure()
+
+    def abandon_probe(self) -> None:
+        self._device.abandon_probe()

@@ -51,11 +51,15 @@ rules matched against named **fault points** the pipeline calls
                               was)
   ``router.peer_sync``        each gossip exchange with a peer router (an
                               error is counted, never raised)
+  ``driver.shard_dispatch.N`` each dispatch attempt of mesh slot ``N``'s
+                              shard (an error charges only that slot's
+                              breaker)
   ==========================  ================================================
 
-The rest of the reference's points (:data:`KNOWN_POINTS`) parse the
-same, but :data:`NOT_YET_CALLED` names the ROADMAP item that brings each
-call site, and the env path warns on a rule that can match only those.
+Every point of the reference's vocabulary (:data:`KNOWN_POINTS`) is
+called.  :data:`NOT_YET_CALLED` would name the ROADMAP item that brings a
+call site still missing, and the env path warns on a rule that can match
+only those; it is empty.
 
 Plan format — an object ``{"faults": [...]}`` or a bare list of rules::
 
@@ -79,11 +83,12 @@ to the telemetry sink.
 from __future__ import annotations
 
 import json
-import os
 import threading
 import time
 from fnmatch import fnmatch
 from typing import List, Optional, Tuple, Union
+
+from .. import config
 
 
 # The registered fault-point vocabulary, the reference's whole list, so
@@ -111,11 +116,10 @@ KNOWN_POINTS = (
 )
 
 # The points of KNOWN_POINTS the port does not call yet, each with the
-# ROADMAP item that brings its call site.  A rule that can match only
-# these is named on the env path too: it would inject nothing here.
-NOT_YET_CALLED = {
-    "driver.shard_dispatch.*": "A6",
-}
+# ROADMAP item that brings its call site (none since the mesh).  A rule
+# that can match only these is named on the env path too: it would
+# inject nothing here.
+NOT_YET_CALLED: dict = {}
 
 
 def _matches(rule_point: str, known: str) -> bool:
@@ -285,7 +289,7 @@ def plan_from_env() -> Optional[FaultPlan]:
     unset/empty → None.  A malformed plan raises — a chaos run that
     silently injects nothing would report green without testing
     anything."""
-    raw = os.environ.get("DEPPY_GPU_FAULT_PLAN", "").strip()
+    raw = config.env_raw("DEPPY_GPU_FAULT_PLAN", "").strip()
     if not raw:
         return None
     plan = plan_from_spec(raw)

@@ -18,13 +18,13 @@ dispatch; the request scheduler (:mod:`deppy_tpu_torch.sched`) degrades
 an expired lane at triage and runs each dispatch under the loosest live
 lane's scope.
 
-The knobs are ``DEPPY_GPU_*`` (the reference's ``DEPPY_TPU_*`` names);
-the port has no typed knob registry, so a name is read as given.
+The knobs are ``DEPPY_GPU_*`` (the reference's ``DEPPY_TPU_*`` names),
+declared in :mod:`deppy_tpu_torch.config`: :func:`env_float` and
+:func:`env_int` assert the declaration before they read.
 """
 
 from __future__ import annotations
 
-import os
 import random
 import sys
 import threading
@@ -39,8 +39,12 @@ def env_float(name: str, default: Optional[float],
     """Defensive float-env parsing for every fault-domain knob: a typo'd
     value degrades to the default — the fault layer must never be the
     thing that crashes a solve — with an optional stderr warning for
-    operator-facing knobs."""
-    raw = os.environ.get(name, "")
+    operator-facing knobs.  ``DEPPY_GPU_*`` names resolve through the
+    typed registry (policy.py:45-47): an undeclared knob raises at the
+    read site instead of silently existing."""
+    from .. import config
+
+    raw = config.env_raw(name, "")
     if not raw:
         return default
     try:
@@ -50,6 +54,15 @@ def env_float(name: str, default: Optional[float],
             print(f"[deppy] ignoring non-numeric {name}={raw!r}",
                   file=sys.stderr, flush=True)
         return default
+
+
+def env_int(name: str, default: int, warn: bool = True) -> int:
+    """:func:`env_float` truncated to an int: the scheduler's and the host
+    pool's int knobs (the reference's ``_env_int``, scheduler.py:103-105
+    and hostpool/pool.py:67-69).  ``1.5`` reads 1; a malformed value
+    warns and reads ``default``."""
+    v = env_float(name, float(default), warn=warn)
+    return int(v if v is not None else default)
 
 
 class DeadlineExceeded(Exception):

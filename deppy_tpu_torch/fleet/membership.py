@@ -40,29 +40,9 @@ import hashlib
 import json
 from typing import Iterator, List, Tuple
 
-import os
-
-from .. import faults, telemetry
+from .. import config, faults, telemetry
 from .ring import HashRing
 from .snapshot import _seal, split_snapshot, verify_snapshot
-
-def _env_str(name: str):
-    """The raw value of ``name``, or None when unset or blank."""
-    raw = os.environ.get(name)
-    return raw if raw is not None and raw.strip() else None
-
-
-def _env_int(name: str, default: int) -> int:
-    """``name`` as an int: unset, blank or malformed reads
-    ``default``."""
-    raw = _env_str(name)
-    if raw is None:
-        return default
-    try:
-        return int(raw)
-    except ValueError:
-        return default
-
 
 DEFAULT_MEMBERSHIP = "elastic"
 DEFAULT_JOIN_CHUNK = 64
@@ -75,7 +55,7 @@ _ELASTIC = ("elastic", "on", "1", "true", "yes")
 def membership_mode(value=None) -> str:
     """Normalize the fleet membership mode ('elastic' | 'static')."""
     if value is None:
-        value = _env_str("DEPPY_GPU_FLEET") or DEFAULT_MEMBERSHIP
+        value = config.env_str("DEPPY_GPU_FLEET") or DEFAULT_MEMBERSHIP
     mode = str(value).strip().lower() or DEFAULT_MEMBERSHIP
     if mode in _STATIC:
         return "static"
@@ -180,9 +160,10 @@ def join_replica(router, address: str) -> dict:
         unroutable = set(router._unroutable_locked())
     prospective = HashRing(
         [m for m in members if m != address] + [address], vnodes=vnodes)
-    chunk_entries = _env_int("DEPPY_GPU_FLEET_JOIN_CHUNK",
-                             DEFAULT_JOIN_CHUNK)
-    retries = _env_int("DEPPY_GPU_FLEET_JOIN_RETRIES", DEFAULT_JOIN_RETRIES)
+    chunk_entries = config.env_int(
+        "DEPPY_GPU_FLEET_JOIN_CHUNK", DEFAULT_JOIN_CHUNK, strict=False)
+    retries = config.env_int(
+        "DEPPY_GPU_FLEET_JOIN_RETRIES", DEFAULT_JOIN_RETRIES, strict=False)
     donors = [m for m in members if m != address and m not in unroutable]
     chunks = entries = 0
     for donor in donors:

@@ -56,8 +56,7 @@ from http.client import HTTPConnection
 from http.server import BaseHTTPRequestHandler
 from typing import Dict, List, Optional, Tuple
 
-from .. import faults, telemetry
-from .membership import _env_int, _env_str
+from .. import config, faults, telemetry
 from .ring import DEFAULT_VNODES, HashRing, doc_affinity_keys
 from .snapshot import SnapshotFormatError, split_snapshot, verify_snapshot
 
@@ -144,17 +143,19 @@ class Router:
         sync_interval_s: Optional[float] = None,
     ):
         if replicas is None:
-            replicas = _env_str("DEPPY_GPU_FLEET_REPLICAS")
+            replicas = config.env_str("DEPPY_GPU_FLEET_REPLICAS")
         addresses = _parse_replicas(replicas)
         if vnodes is None:
-            vnodes = _env_int("DEPPY_GPU_FLEET_VNODES", DEFAULT_VNODES)
+            vnodes = config.env_int("DEPPY_GPU_FLEET_VNODES",
+                                    DEFAULT_VNODES, strict=False)
         if probe_interval_s is None:
             probe_interval_s = faults.env_float(
                 "DEPPY_GPU_FLEET_PROBE_INTERVAL_S",
                 DEFAULT_PROBE_INTERVAL_S, warn=True)
         if probe_failures is None:
-            probe_failures = _env_int("DEPPY_GPU_FLEET_PROBE_FAILURES",
-                                      DEFAULT_PROBE_FAILURES)
+            probe_failures = config.env_int(
+                "DEPPY_GPU_FLEET_PROBE_FAILURES", DEFAULT_PROBE_FAILURES,
+                strict=False)
         if policy not in ("affinity", "roundrobin"):
             raise ValueError(
                 f"unknown routing policy {policy!r} "
@@ -178,7 +179,7 @@ class Router:
         self.membership = membership_mode(membership)
         self.epoch = 1
         if peers is None:
-            peers = _env_str("DEPPY_GPU_FLEET_PEERS")
+            peers = config.env_str("DEPPY_GPU_FLEET_PEERS")
         if isinstance(peers, str):
             peers = [p for p in (t.strip() for t in peers.split(","))
                      if p]
@@ -259,7 +260,7 @@ class Router:
         # forwarders stamped "router", so a fleet trace query rebuilds
         # a routed request as one tree from this single file.
         if obs_sink is None:
-            obs_sink = _env_str("DEPPY_GPU_OBS_SINK")
+            obs_sink = config.env_str("DEPPY_GPU_OBS_SINK")
         self.aggregator = None
         self._obs_forwarders: list = []
         if obs_sink:

@@ -39,7 +39,7 @@ import threading
 from collections import deque
 from typing import List, Optional, Sequence, Union
 
-from .. import faults, telemetry
+from .. import config, faults, telemetry
 from . import metrics
 from .worker import HostLaneResult, _degraded_result, solve_lane, worker_main
 
@@ -64,27 +64,22 @@ class HostPoolError(RuntimeError):
     through the pool untouched."""
 
 
-def _env_int(name: str, default: int) -> int:
-    v = faults.env_float(name, float(default), warn=True)
-    return int(v if v is not None else default)
-
-
 def pool_workers() -> int:
     """The configured worker count: explicit override
     (:func:`configure_pool`), else ``DEPPY_GPU_HOST_WORKERS``, else
     ``min(cpu_count, 8)``."""
     if _OVERRIDE_WORKERS is not None:
         return _OVERRIDE_WORKERS
-    raw = os.environ.get("DEPPY_GPU_HOST_WORKERS")
+    raw = config.env_raw("DEPPY_GPU_HOST_WORKERS")
     if raw is not None and raw.strip():
-        return max(_env_int("DEPPY_GPU_HOST_WORKERS", 0), 0)
+        return max(faults.env_int("DEPPY_GPU_HOST_WORKERS", 0), 0)
     return min(os.cpu_count() or 1, DEFAULT_MAX_WORKERS)
 
 
 def _workers_explicit() -> bool:
     if _OVERRIDE_WORKERS is not None:
         return True
-    raw = os.environ.get("DEPPY_GPU_HOST_WORKERS")
+    raw = config.env_raw("DEPPY_GPU_HOST_WORKERS")
     return raw is not None and bool(raw.strip())
 
 
@@ -127,8 +122,8 @@ class HostPool:
                  spawn_timeout_s: Optional[float] = None):
         self.workers = workers if workers is not None else pool_workers()
         if recycle_after is None:
-            recycle_after = _env_int("DEPPY_GPU_HOST_WORKER_RECYCLE",
-                                     DEFAULT_RECYCLE_AFTER)
+            recycle_after = faults.env_int(
+                "DEPPY_GPU_HOST_WORKER_RECYCLE", DEFAULT_RECYCLE_AFTER)
         self.recycle_after = max(int(recycle_after), 0)
         if spawn_timeout_s is None:
             spawn_timeout_s = faults.env_float(

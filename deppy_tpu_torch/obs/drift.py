@@ -99,14 +99,15 @@ class CostModelWatchdog:
                  min_samples: Optional[int] = None,
                  replica: Optional[str] = None,
                  registry=None):
-        from .. import telemetry
+        from .. import config, telemetry
         from ..profile import sanitize_replica
-        from .stream import env_float, env_int
 
         if band is None:
-            band = env_float("DEPPY_GPU_OBS_DRIFT_BAND", 0.5)
+            band = config.env_float("DEPPY_GPU_OBS_DRIFT_BAND", 0.5,
+                                    strict=False)
         if min_samples is None:
-            min_samples = env_int("DEPPY_GPU_OBS_DRIFT_MIN", 8)
+            min_samples = config.env_int("DEPPY_GPU_OBS_DRIFT_MIN", 8,
+                                         strict=False)
         self.baseline = dict(baseline)
         self.band = float(band)
         self.min_samples = max(int(min_samples), 2)

@@ -24,9 +24,8 @@ exponentially growing interval (doubling from the flush period up to
 restarting aggregator at full flush cadence; the first successful POST
 after a down streak resets the hold-off and is counted on
 ``deppy_obs_stream_reconnects_total``.  A knob's malformed value reads
-its default, as the reference's ``config.env_int`` /
-``config.env_float`` read their ``DEPPY_TPU_OBS_*`` with
-``strict=False``.  The lock is a plain ``threading`` lock where the
+its default (``config.env_int`` / ``config.env_float`` with
+``strict=False``, as the reference reads its ``DEPPY_TPU_OBS_*``).  The lock is a plain ``threading`` lock where the
 reference takes a lockdep-named one.
 """
 
@@ -34,10 +33,11 @@ from __future__ import annotations
 
 import http.client
 import json
-import os
 import threading
 import time
 from typing import List, Optional, Tuple
+
+from .. import config
 
 # The streamer's own families (registered on the process registry only
 # while a streamer is armed; `obs.render_metric_lines` mirrors them
@@ -51,30 +51,6 @@ STREAM_FAMILIES = (
 )
 
 POST_TIMEOUT_S = 5.0
-
-
-def env_int(name: str, default: int) -> int:
-    """``DEPPY_GPU_OBS_*`` int knob: unset, blank or malformed reads
-    ``default``."""
-    raw = os.environ.get(name)
-    if raw is None or not raw.strip():
-        return default
-    try:
-        return int(raw)
-    except ValueError:
-        return default
-
-
-def env_float(name: str, default: float) -> float:
-    """``DEPPY_GPU_OBS_*`` float knob: unset, blank or malformed reads
-    ``default``."""
-    raw = os.environ.get(name)
-    if raw is None or not raw.strip():
-        return default
-    try:
-        return float(raw)
-    except ValueError:
-        return default
 
 
 def _parse_target(target: str) -> Tuple[str, int]:
@@ -97,15 +73,19 @@ class TelemetryStreamer:
         self._host, self._port = _parse_target(target)
         self.replica = sanitize_replica(replica) or "unknown"
         if queue_cap is None:
-            queue_cap = env_int("DEPPY_GPU_OBS_QUEUE", 4096)
+            queue_cap = config.env_int("DEPPY_GPU_OBS_QUEUE", 4096,
+                                       strict=False)
         if batch is None:
-            batch = env_int("DEPPY_GPU_OBS_BATCH", 256)
+            batch = config.env_int("DEPPY_GPU_OBS_BATCH", 256,
+                                   strict=False)
         if flush_ms is None:
-            flush_ms = env_float("DEPPY_GPU_OBS_FLUSH_MS", 200.0)
+            flush_ms = config.env_float("DEPPY_GPU_OBS_FLUSH_MS", 200.0,
+                                        strict=False)
         self._cap = max(int(queue_cap), 1)
         self._batch = max(int(batch), 1)
         self._flush_s = max(float(flush_ms), 1.0) / 1000.0
-        backoff_max = env_float("DEPPY_GPU_OBS_BACKOFF_MAX_S", 5.0)
+        backoff_max = config.env_float("DEPPY_GPU_OBS_BACKOFF_MAX_S",
+                                       5.0, strict=False)
         self._backoff_max_s = max(float(backoff_max), 0.0)
         self._backoff_s = 0.0     # current hold-off (0 = healthy)
         self._retry_at = 0.0      # monotonic deadline of the hold-off

@@ -34,13 +34,12 @@ malformed value degrades to the default.
 
 from __future__ import annotations
 
-import os
 import time
 from typing import List, Optional
 
 import numpy as np
 
-from .. import telemetry
+from .. import config, telemetry
 from ..engine import registry as engine_registry
 from ..sat.constraints import Variable
 from ..sat.encode import encode
@@ -66,17 +65,6 @@ DEFAULT_MAX_WEIGHT = 64
 MAX_CONE_FRACTION = 0.5
 
 
-def _env_int(name: str, default: int) -> int:
-    """An int knob; unset, blank or malformed reads ``default``."""
-    raw = os.environ.get(name)
-    if raw is None or not raw.strip():
-        return default
-    try:
-        return int(raw)
-    except ValueError:
-        return default
-
-
 class Planner:
     """The optimization tier's serving core: parse → objective →
     tightening loop → canonical answer.
@@ -95,13 +83,16 @@ class Planner:
         self.scheduler = scheduler
         self.max_iterations = (
             max_iterations if max_iterations is not None
-            else _env_int("DEPPY_GPU_OPT_MAX_ITERATIONS", DEFAULT_MAX_ITERATIONS))
+            else config.env_int("DEPPY_GPU_OPT_MAX_ITERATIONS",
+                                DEFAULT_MAX_ITERATIONS, strict=False))
         self.iter_budget = (
             iter_budget if iter_budget is not None
-            else _env_int("DEPPY_GPU_OPT_ITER_BUDGET", DEFAULT_ITER_BUDGET))
+            else config.env_int("DEPPY_GPU_OPT_ITER_BUDGET",
+                                DEFAULT_ITER_BUDGET, strict=False))
         self.max_weight = (
             max_weight if max_weight is not None
-            else _env_int("DEPPY_GPU_OPT_MAX_WEIGHT", DEFAULT_MAX_WEIGHT))
+            else config.env_int("DEPPY_GPU_OPT_MAX_WEIGHT",
+                                DEFAULT_MAX_WEIGHT, strict=False))
         reg = metrics if metrics is not None \
             else telemetry.default_registry()
         self._c_iterations = reg.counter(

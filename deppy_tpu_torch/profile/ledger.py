@@ -31,7 +31,6 @@ here reads a CUDA tensor or adds a synchronization.
 from __future__ import annotations
 
 import itertools
-import os
 import threading
 import time
 from contextlib import contextmanager
@@ -39,7 +38,7 @@ from typing import Optional
 
 import numpy as np
 
-from .. import telemetry
+from .. import config, telemetry
 
 # The tenant every request without a tenant name accounts under
 # (slo.py reads it too; declared here so ledger stays the leaf).
@@ -72,19 +71,14 @@ def _resolve_locked() -> None:
     vice versa)."""
     global _ARMED, _INTERVAL
     if _ARMED is None:
-        _ARMED = _on(os.environ.get("DEPPY_GPU_PROFILE", "off") or "off")
+        _ARMED = _on(config.env_raw("DEPPY_GPU_PROFILE", "off") or "off")
     if _INTERVAL is None:
         _INTERVAL = _interval_of(_env_sample())
 
 
 def _env_sample() -> float:
-    raw = os.environ.get("DEPPY_GPU_PROFILE_SAMPLE")
-    if raw is None or not raw.strip():
-        return DEFAULT_SAMPLE
-    try:
-        return float(raw)
-    except ValueError:
-        return DEFAULT_SAMPLE
+    return config.env_float("DEPPY_GPU_PROFILE_SAMPLE", DEFAULT_SAMPLE,
+                            strict=False)
 
 
 def _interval_of(rate: float) -> int:

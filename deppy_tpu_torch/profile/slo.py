@@ -30,11 +30,12 @@ plain ``threading`` lock where the reference takes a lockdep-named one
 from __future__ import annotations
 
 import json
-import os
 import re
 import threading
 from collections import deque
 from typing import Dict, Optional
+
+from .. import config
 
 # Built-in default SLO when no spec (or no "default" entry) is given:
 # generous enough that an unconfigured service never alarms, tight
@@ -133,7 +134,7 @@ class SLOConfig:
 
 
 def slo_config_from_env() -> SLOConfig:
-    return SLOConfig.from_spec(os.environ.get("DEPPY_GPU_SLO"))
+    return SLOConfig.from_spec(config.env_raw("DEPPY_GPU_SLO"))
 
 
 class _TenantStats:

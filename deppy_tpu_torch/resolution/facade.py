@@ -29,7 +29,11 @@ into shared dispatches and repeats are served from its result cache.
 The host backend's batch runs through the host worker pool when one is
 available (:func:`deppy_tpu_torch.hostpool.solve_host_problems`).
 
-Left out: the mesh argument (ROADMAP A6).
+``BatchResolver(mesh=)`` (a :class:`deppy_tpu_torch.parallel.Mesh`;
+facade.py:90-172) places each device dispatch's lanes over the mesh's
+slots (``driver.solve_problems(mesh=)``); the backend resolves on the
+mesh's first device, and the scheduled path ignores the mesh, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -107,15 +111,19 @@ class BatchResolver:
     def __init__(self, backend: str = "device", device="cuda",
                  max_steps: Optional[int] = None, scheduler=None,
                  deadline_s: Optional[float] = None,
-                 checkpoint_dir: Optional[str] = None):
+                 checkpoint_dir: Optional[str] = None, mesh=None):
         self.backend = check_backend(backend)
         self.device = device
         self.max_steps = max_steps
+        # A deppy_tpu_torch.parallel.Mesh: device dispatches place their
+        # lanes over its slots (private dispatch only).
+        self.mesh = mesh
         # Cross-request continuous batching: with a Scheduler, solve()
         # routes through its shared queue and result cache instead of
         # dispatching privately.  The scheduler owns backend and device
-        # routing then (it was built with its own); checkpoint_dir is a
-        # private-dispatch feature and is not read on that path.
+        # routing then (it was built with its own); mesh and
+        # checkpoint_dir are private-dispatch features and are not read
+        # on that path.
         self.scheduler = scheduler
         # Wall-clock budget for one solve call: problems not dispatched
         # before it expires come back Incomplete instead of the batch
@@ -153,7 +161,9 @@ class BatchResolver:
 
     def _solve_inner(self, problems: Sequence[Sequence[Variable]]
                      ) -> List[Union[Solution, NotSatisfiable, Incomplete]]:
-        if resolve_backend(self.backend, device=self.device) == "host":
+        device = self.mesh.devices[0] if self.mesh is not None \
+            else self.device
+        if resolve_backend(self.backend, device=device) == "host":
             if self.checkpoint_dir is not None:
                 print("warning: checkpoint_dir is a device-backend feature; "
                       "the host engine solves without persisting groups — "
@@ -166,7 +176,8 @@ class BatchResolver:
         try:
             return solve_batch(problems, max_steps=self.max_steps,
                                stats=stats, device=self.device,
-                               checkpoint_dir=self.checkpoint_dir)
+                               checkpoint_dir=self.checkpoint_dir,
+                               mesh=self.mesh)
         finally:
             self.last_steps = stats.get("steps", 0)
             self.last_report = stats.get("report")

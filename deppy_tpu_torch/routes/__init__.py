@@ -49,10 +49,10 @@ the ``deppy routes`` CLI over :mod:`.report`.
 
 from __future__ import annotations
 
-import os
 import threading
 from typing import Dict, List, Optional
 
+from .. import config
 from .ledger import RegretLedger
 from .learn import OnlineRouteRegistry
 from .shadow import ShadowSampler
@@ -63,7 +63,7 @@ MODES = ("off", "observe", "on")
 
 def resolve_mode(mode: Optional[str] = None) -> str:
     if mode is None:
-        mode = os.environ.get("DEPPY_GPU_ROUTE_LEARN", "off")
+        mode = config.env_raw("DEPPY_GPU_ROUTE_LEARN", "off")
     mode = str(mode).strip().lower()
     if mode in ("off", "0", "false", "no", ""):
         return "off"

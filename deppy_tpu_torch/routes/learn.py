@@ -30,23 +30,12 @@ for that device.
 
 from __future__ import annotations
 
-import os
 import threading
 from typing import Dict, Optional
 
+from .. import config
+
 DEFAULT_MIN_SAMPLES = 8
-
-
-def _env_min_samples() -> int:
-    """``DEPPY_GPU_ROUTE_MIN_SAMPLES`` as the reference's
-    ``config.env_int(strict=False)`` reads it: an int, else the default."""
-    raw = os.environ.get("DEPPY_GPU_ROUTE_MIN_SAMPLES")
-    if raw is None or not raw.strip():
-        return DEFAULT_MIN_SAMPLES
-    try:
-        return int(raw)
-    except ValueError:
-        return DEFAULT_MIN_SAMPLES
 
 
 class OnlineRouteRegistry:
@@ -59,7 +48,8 @@ class OnlineRouteRegistry:
         from ..engine import defaults
 
         if min_samples is None:
-            min_samples = _env_min_samples()
+            min_samples = config.env_int("DEPPY_GPU_ROUTE_MIN_SAMPLES",
+                                         DEFAULT_MIN_SAMPLES, strict=False)
         self.min_samples = max(int(min_samples), 1)
         self.device = device
         if platform is None:
@@ -69,8 +59,7 @@ class OnlineRouteRegistry:
         self._registry = (registry if registry is not None
                           else telemetry.default_registry())
         if registry_path is None:
-            raw = os.environ.get("DEPPY_GPU_ROUTE_REGISTRY")
-            registry_path = raw if raw is not None and raw.strip() else None
+            registry_path = config.env_str("DEPPY_GPU_ROUTE_REGISTRY")
         self.registry_path = registry_path or None
         self.watcher = watcher
         self._ledger = ledger

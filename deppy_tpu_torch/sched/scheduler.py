@@ -106,22 +106,27 @@ and the warm screen is skipped.
     the idle queue through ONE named backend, timed for the route
     ledger, the answers thrown away (they never reach a lane, the cache
     or the index).
-
-Left out, with the ROADMAP item that brings it (the parameters keep the
-reference's names and raise ``NotImplementedError`` when set): the
-serving mesh (A6: ``mesh``, ``mesh_devices``, ``lanes_per_device``).
+  * **Mesh serving** (scheduler.py:613-641, :811-851, :1883-1887).
+    ``mesh`` (a :class:`deppy_tpu_torch.parallel.Mesh`) pins the serving
+    mesh; otherwise ``mesh_devices`` (or ``DEPPY_GPU_MESH_DEVICES``)
+    sizes one lazily on the first device dispatch
+    (:func:`deppy_tpu_torch.parallel.serving_mesh`).  Under a mesh a
+    flush targets ``slots × lanes_per_device`` lanes (unless
+    ``max_fill`` is given), the device drain runs
+    ``driver.solve_problems_sharded`` (one worker a slot, a fault domain
+    a slot), and the race's device entrant and the shadow probes get
+    the mesh too.
 """
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 
-from .. import faults, hostpool, telemetry
+from .. import config, faults, hostpool, telemetry
 from .. import profile as _profile
 from ..sat.constraints import Variable
 from ..sat.encode import Problem, encode
@@ -147,8 +152,8 @@ DEFAULT_PORTFOLIO_K = 2
 DEFAULT_PORTFOLIO_SAMPLE_CHECK = 0.0625
 # The incremental tier: clause-set index capacity and the largest cone,
 # as a fraction of the problem's variables, a warm start may re-solve.
-# Env mirror: DEPPY_GPU_INCREMENTAL (on/off).  The reference's size and
-# cutoff knobs come with the CLI that sets them (ROADMAP A7.2).
+# Env mirrors: DEPPY_GPU_INCREMENTAL (on/off),
+# DEPPY_GPU_INCREMENTAL_INDEX_SIZE and DEPPY_GPU_INCREMENTAL_MAX_DELTA.
 DEFAULT_INCREMENTAL_INDEX = 512
 DEFAULT_INCREMENTAL_MAX_DELTA = 0.25
 # Speculative pre-solve lanes queued at idle priority, at most
@@ -174,19 +179,6 @@ INCREMENTAL_CLASS = -1
 SESSION_CLASS = -2
 
 _OFF = ("off", "0", "false", "no")
-
-# Parameters of tiers not ported yet, with the ROADMAP item of each: any
-# value but None raises.
-_LEFT_OUT = {
-    "mesh": "A6 (mesh serving)",
-    "mesh_devices": "A6 (mesh serving)",
-    "lanes_per_device": "A6 (mesh serving)",
-}
-
-
-def _env_int(name: str, default: int) -> int:
-    v = faults.env_float(name, float(default), warn=True)
-    return int(v if v is not None else default)
 
 
 def _single_tenant(lanes: List["_Lane"]) -> Optional[str]:
@@ -439,7 +431,7 @@ class PortfolioRacer:
     # ------------------------------------------------------------- race
 
     def race(self, plan: _RacePlan, live: List[_Lane], rep,
-             timing: dict) -> bool:
+             timing: dict, mesh_fn) -> bool:
         """Run one race.  Returns True when a winner's results were
         applied to the lanes (and merged into ``rep``); False when no
         entrant finished definitively — the caller falls back to the
@@ -452,6 +444,7 @@ class PortfolioRacer:
         problems = [lane.problem for lane in live]
         deadlines = [lane.deadline for lane in live]
         dl = faults.current_deadline()
+        mesh = mesh_fn() if "device" in plan.names else None
         stop = threading.Event()
         with self._check_lock:
             check = (self._check_interval > 0
@@ -480,6 +473,7 @@ class PortfolioRacer:
                         deadlines=deadlines,
                         cancel=(None if (check and name == plan.canonical)
                                 else stop),
+                        mesh=mesh if name == "device" else None,
                         device=self.device)
                 if name != "device" and out is not None:
                     # Non-device backends don't flow through the
@@ -721,46 +715,54 @@ class Scheduler:
         fair: Optional[str] = None,
         tenant_weights: Optional[str] = None,
     ):
-        given = dict(mesh=mesh, mesh_devices=mesh_devices,
-                     lanes_per_device=lanes_per_device)
-        for name, value in given.items():
-            if value is None:
-                continue
-            raise NotImplementedError(
-                f"Scheduler({name}=...) is not ported yet: ROADMAP "
-                f"{_LEFT_OUT[name]}")
         self.backend = check_backend(backend)
         self.device = device
         self.max_steps = max_steps
+        # Mesh serving (scheduler.py:627-642): ``mesh`` pins one
+        # explicitly; otherwise ``mesh_devices`` (or
+        # DEPPY_GPU_MESH_DEVICES) sizes one LAZILY on the first device
+        # dispatch, never on the submit path.
+        self._mesh = mesh
+        self._mesh_devices = mesh_devices
+        self._mesh_resolved = mesh is not None
+        self._max_fill_explicit = max_fill is not None
+        if lanes_per_device is None:
+            lanes_per_device = faults.env_int(
+                "DEPPY_GPU_SCHED_LANES_PER_DEVICE", DEFAULT_MAX_FILL)
+        self.lanes_per_device = max(int(lanes_per_device), 1)
         if max_wait_ms is None:
             max_wait_ms = faults.env_float(
                 "DEPPY_GPU_SCHED_MAX_WAIT_MS", DEFAULT_MAX_WAIT_MS,
                 warn=True)
         self.max_wait_s = max(float(max_wait_ms), 0.0) / 1000.0
         if max_fill is None:
-            max_fill = _env_int("DEPPY_GPU_SCHED_MAX_FILL",
-                                DEFAULT_MAX_FILL)
+            max_fill = faults.env_int(
+                "DEPPY_GPU_SCHED_MAX_FILL", DEFAULT_MAX_FILL)
         self.max_fill = max(int(max_fill), 1)
         if max_depth is None:
-            max_depth = _env_int("DEPPY_GPU_SCHED_MAX_DEPTH",
-                                 DEFAULT_MAX_DEPTH)
+            max_depth = faults.env_int(
+                "DEPPY_GPU_SCHED_MAX_DEPTH", DEFAULT_MAX_DEPTH)
         self.max_depth = int(max_depth)
         if cache_size is None:
-            cache_size = _env_int("DEPPY_GPU_CACHE_SIZE",
-                                  DEFAULT_CACHE_SIZE)
+            cache_size = faults.env_int(
+                "DEPPY_GPU_CACHE_SIZE", DEFAULT_CACHE_SIZE)
         self._registry = registry if registry is not None \
             else telemetry.default_registry()
         # Incremental tier (scheduler.py:664-689): a delta-aware
         # clause-set index in front of the exact-fingerprint LRU.
         # Default on; "off" removes the tier entirely.
         if incremental is None:
-            incremental = os.environ.get("DEPPY_GPU_INCREMENTAL", "on")
+            incremental = config.env_raw("DEPPY_GPU_INCREMENTAL", "on")
         index = None
         if str(incremental).strip().lower() not in _OFF:
             if incremental_max_delta is None:
-                incremental_max_delta = DEFAULT_INCREMENTAL_MAX_DELTA
+                incremental_max_delta = faults.env_float(
+                    "DEPPY_GPU_INCREMENTAL_MAX_DELTA",
+                    DEFAULT_INCREMENTAL_MAX_DELTA, warn=True)
             if incremental_index_size is None:
-                incremental_index_size = DEFAULT_INCREMENTAL_INDEX
+                incremental_index_size = faults.env_int(
+                    "DEPPY_GPU_INCREMENTAL_INDEX_SIZE",
+                    DEFAULT_INCREMENTAL_INDEX)
             from ..incremental import ClauseSetIndex
 
             index = ClauseSetIndex(
@@ -775,13 +777,13 @@ class Scheduler:
         # measured `portfolio` row; "on" races wherever ≥2 candidate
         # backends serve the class.
         if portfolio is None:
-            portfolio = os.environ.get("DEPPY_GPU_PORTFOLIO", "auto")
+            portfolio = config.env_raw("DEPPY_GPU_PORTFOLIO", "auto")
         mode = str(portfolio).strip().lower()
         self._racer: Optional[PortfolioRacer] = None
         if mode not in _OFF:
             if portfolio_k is None:
-                portfolio_k = _env_int("DEPPY_GPU_PORTFOLIO_K",
-                                       DEFAULT_PORTFOLIO_K)
+                portfolio_k = faults.env_int(
+                    "DEPPY_GPU_PORTFOLIO_K", DEFAULT_PORTFOLIO_K)
             if portfolio_sample_check is None:
                 portfolio_sample_check = faults.env_float(
                     "DEPPY_GPU_PORTFOLIO_SAMPLE_CHECK",
@@ -795,10 +797,10 @@ class Scheduler:
         # head; "on" (the default) is identical while one tenant is
         # queued — the fairness math only bites under contention.
         if fair is None:
-            fair = os.environ.get("DEPPY_GPU_SCHED_FAIR", "on")
+            fair = config.env_raw("DEPPY_GPU_SCHED_FAIR", "on")
         self.fair = str(fair).strip().lower() not in _OFF
         if tenant_weights is None:
-            tenant_weights = os.environ.get(
+            tenant_weights = config.env_raw(
                 "DEPPY_GPU_SCHED_TENANT_WEIGHTS")
         self.tenant_policy = TenantPolicy.from_spec(tenant_weights)
         # Queued lanes per tenant (CV-guarded).
@@ -849,7 +851,7 @@ class Scheduler:
         # no gauge: the submit and dispatch paths are those of a
         # scheduler without the tier.
         if speculate is None:
-            speculate = os.environ.get("DEPPY_GPU_SPECULATE", "on")
+            speculate = config.env_raw("DEPPY_GPU_SPECULATE", "on")
         self.speculate = None
         self._g_spec_depth = None
         # The idle queue's lane cap: shadow probes (submit_shadow) share
@@ -857,9 +859,8 @@ class Scheduler:
         self.spec_max_backlog = DEFAULT_SPECULATE_MAX_BACKLOG
         if str(speculate).strip().lower() not in _OFF:
             if speculate_max_backlog is None:
-                speculate_max_backlog = _env_int(
-                    "DEPPY_GPU_SPECULATE_MAX_BACKLOG",
-                    DEFAULT_SPECULATE_MAX_BACKLOG)
+                speculate_max_backlog = faults.env_int(
+                    "DEPPY_GPU_SPECULATE_MAX_BACKLOG", DEFAULT_SPECULATE_MAX_BACKLOG)
             self.spec_max_backlog = max(int(speculate_max_backlog), 0)
             from ..speculate import SpeculationManager
 
@@ -883,6 +884,44 @@ class Scheduler:
         # The route-health plane (routes.start_plane): None means no
         # flush observation, no shadow groups and no route events.
         self._route_plane = None
+        if self._mesh is not None:
+            self._apply_mesh_sizing(self._mesh)
+
+    # ----------------------------------------------------------------- mesh
+
+    def _apply_mesh_sizing(self, mesh) -> None:
+        """Size micro-batches to the mesh (scheduler.py:816-823):
+        ``n_slots × lanes_per_device`` lanes per flush, so a full flush
+        hands every slot a full shard.  An explicit ``max_fill`` wins."""
+        if mesh is None or self._max_fill_explicit:
+            return
+        self.max_fill = max(int(mesh.size) * self.lanes_per_device, 1)
+
+    def _resolve_mesh(self):
+        """The serving mesh, resolved lazily on the first device dispatch
+        (scheduler.py:825-851), never on the submit path.  A failure to
+        resolve degrades to single-device dispatch, with a warning and a
+        ``sched_mesh_unavailable`` fault event: mesh serving never takes
+        down serving."""
+        if self._mesh_resolved:
+            return self._mesh
+        try:
+            from ..parallel.mesh import serving_mesh
+
+            self._mesh = serving_mesh(self._mesh_devices,
+                                      device=self.device)
+        except Exception as e:  # noqa: BLE001 — degrade, don't die
+            import sys
+
+            print(f"[sched] mesh resolution failed ({e}); serving "
+                  f"single-device", file=sys.stderr, flush=True)
+            telemetry.default_registry().event(
+                "fault", fault="sched_mesh_unavailable",
+                error=type(e).__name__)
+            self._mesh = None
+        self._mesh_resolved = True
+        self._apply_mesh_sizing(self._mesh)
+        return self._mesh
 
     # -------------------------------------------------------------- lifecycle
 
@@ -1459,8 +1498,8 @@ class Scheduler:
         answers discarded, wall clock and definitiveness emitted as a
         ``route`` event for the ledger and the learner.  A failure is an
         ``ok: false`` event — a shadow probe never takes down the
-        dispatch loop, and no answer depends on it.  The serving mesh
-        (and so ``mesh=``) comes with ROADMAP A6."""
+        dispatch loop, and no answer depends on it.  A device probe runs
+        on the serving mesh, when there is one."""
         from ..engine import registry as engine_registry
 
         for g in groups:
@@ -1471,9 +1510,11 @@ class Scheduler:
             t1 = time.perf_counter()
             try:
                 faults.inject(f"sched.shadow.{name}")
+                mesh = (self._resolve_mesh() if name == "device"
+                        else None)
                 out = engine_registry.solve_via(
                     name, problems, max_steps=g.lanes[0].max_steps,
-                    device=self.device)
+                    mesh=mesh, device=self.device)
             except BaseException as e:  # noqa: BLE001 — probe-local
                 err = type(e).__name__
             finally:
@@ -1823,7 +1864,8 @@ class Scheduler:
                             live, plan.class_name)
                         if live:
                             raced = self._racer.race(plan, live, rep,
-                                                     timing)
+                                                     timing,
+                                                     self._resolve_mesh)
                         else:
                             raced = True
                     if not raced:
@@ -1857,12 +1899,20 @@ class Scheduler:
 
         problems = [lane.problem for lane in live]
         # All live lanes share one normalized budget (the flush policy
-        # only coalesces equal-budget groups); solve_problems merges its
-        # telemetry into the report begun above.
+        # only coalesces equal-budget groups).  Under a serving mesh the
+        # micro-batch drains through the sharded entry (a worker and a
+        # fault domain a slot); otherwise solve_problems runs it under
+        # the process-wide fault domain.  Both merge their telemetry into
+        # the report begun above.
+        mesh = self._resolve_mesh()
         t1 = time.perf_counter()
-        results = driver.solve_problems(problems,
-                                        max_steps=live[0].max_steps,
-                                        device=self.device)
+        if mesh is not None:
+            results = driver.solve_problems_sharded(
+                problems, mesh=mesh, max_steps=live[0].max_steps)
+        else:
+            results = driver.solve_problems(problems,
+                                            max_steps=live[0].max_steps,
+                                            device=self.device)
         timing["solve_s"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         decoded = driver.decode_results(problems, results)

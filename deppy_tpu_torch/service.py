@@ -35,10 +35,11 @@ Deliberate differences from the reference:
   * The knobs are ``DEPPY_GPU_*``: ``SCHED``, ``OPT``, ``SESSIONS``,
     ``REPLICA``, ``REQUEST_DEADLINE_S``, ``DRAIN_S``, ``REPROBE``,
     ``OBS_STREAM``, ``OBS_BASELINE``, ``FLEET_ROUTER`` and
-    ``FLEET_ADVERTISE``, each with the reference's parse, read from the
-    environment directly (the typed knob registry is ROADMAP A7.2).
-  * ``mesh_devices`` raises ``NotImplementedError`` (ROADMAP A6), and so
-    the ``BackendCapabilityError`` 400 of clause sharding has no source.
+    ``FLEET_ADVERTISE``, each with the reference's parse, read through
+    the typed registry (:mod:`deppy_tpu_torch.config`).
+  * ``mesh_devices`` sizes the scheduler's serving mesh over the visible
+    cards, as the reference's does; clause sharding (ROADMAP A6b) is not
+    ported, so the ``BackendCapabilityError`` 400 has no source.
   * Locks are plain :class:`threading.Lock` (lockdep is A7.2).
   * The engine verdict behind ``deppy_auto_engine_usable`` is the one of
     the server's own device type (the port keeps one per type).
@@ -50,7 +51,6 @@ card is reached only through the scheduler and the driver.
 from __future__ import annotations
 
 import json
-import os
 import socket
 import sys
 import threading
@@ -58,20 +58,13 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional, Tuple
 
-from . import faults
+from . import config, faults
 from . import io as problem_io
 from . import profile as profiling
 from . import telemetry
 from .sat.errors import DuplicateIdentifier, InternalSolverError
 
 _OFF = ("off", "0", "false", "no")
-
-
-def _env_str(name: str) -> Optional[str]:
-    """The reference's ``config.env_str``: the raw value, or None when
-    unset or blank."""
-    raw = os.environ.get(name)
-    return raw if raw is not None and raw.strip() else None
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -326,10 +319,6 @@ class Server:
         session_max_per_tenant: Optional[int] = None,
         device="cuda",
     ):
-        if mesh_devices is not None:
-            raise NotImplementedError(
-                "Server(mesh_devices=...) is not ported yet: ROADMAP A6 "
-                "(mesh serving)")
         from .sat.solver import check_backend
 
         self.backend = check_backend(backend)
@@ -345,7 +334,7 @@ class Server:
         # REPLICA; unset (single-process) keeps every surface byte-
         # identical to pre-fleet.
         if replica is None:
-            replica = _env_str("DEPPY_GPU_REPLICA")
+            replica = config.env_str("DEPPY_GPU_REPLICA")
         self.replica = profiling.sanitize_replica(replica)
         # Per-tenant SLO accounting: tenant identity from
         # X-Deppy-Tenant, targets from the declarative SLO spec
@@ -371,9 +360,9 @@ class Server:
         # shutdown().  Unset (the default) arms nothing: the event
         # pipeline and /metrics stay byte-identical to pre-obs.
         if obs_stream is None:
-            obs_stream = _env_str("DEPPY_GPU_OBS_STREAM")
+            obs_stream = config.env_str("DEPPY_GPU_OBS_STREAM")
         if obs_baseline is None:
-            obs_baseline = _env_str("DEPPY_GPU_OBS_BASELINE")
+            obs_baseline = config.env_str("DEPPY_GPU_OBS_BASELINE")
         self._obs_armed = False
         if obs_stream or obs_baseline:
             from . import obs
@@ -395,9 +384,9 @@ class Server:
         # byte.  --fleet-advertise overrides the advertised host:port
         # (default 127.0.0.1:<api-port> — single-host fleets only).
         if fleet_router is None:
-            fleet_router = _env_str("DEPPY_GPU_FLEET_ROUTER")
+            fleet_router = config.env_str("DEPPY_GPU_FLEET_ROUTER")
         if fleet_advertise is None:
-            fleet_advertise = _env_str("DEPPY_GPU_FLEET_ADVERTISE")
+            fleet_advertise = config.env_str("DEPPY_GPU_FLEET_ADVERTISE")
         self.fleet_router = fleet_router
         self.fleet_advertise = fleet_advertise
         self._fleet_joined = False
@@ -415,7 +404,7 @@ class Server:
         # queue/cache metric families on this server's registry, so they
         # ride /metrics.
         if sched is None:
-            sched = os.environ.get("DEPPY_GPU_SCHED", "on")
+            sched = config.env_raw("DEPPY_GPU_SCHED", "on")
         self.scheduler = None
         if str(sched).strip().lower() not in _OFF:
             from .sched import Scheduler
@@ -425,6 +414,7 @@ class Server:
                 max_wait_ms=sched_max_wait_ms, max_fill=sched_max_fill,
                 cache_size=cache_size,
                 registry=self.metrics.registry,
+                mesh_devices=mesh_devices,
                 incremental=incremental,
                 incremental_max_delta=incremental_max_delta,
                 incremental_index_size=incremental_index_size,
@@ -442,7 +432,7 @@ class Server:
         # byte-identical to pre-tier.  The planner's counters register
         # on this server's registry so they ride /metrics.
         if opt is None:
-            opt = os.environ.get("DEPPY_GPU_OPT", "on")
+            opt = config.env_raw("DEPPY_GPU_OPT", "on")
         self.optimizer = None
         if self.scheduler is not None and str(opt).strip().lower() \
                 not in _OFF:
@@ -480,20 +470,17 @@ class Server:
         # 404 byte-identically to unknown paths, no session metric
         # family registers, and /v1/resolve is untouched.
         if sessions is None:
-            sessions = os.environ.get("DEPPY_GPU_SESSIONS", "on")
+            sessions = config.env_raw("DEPPY_GPU_SESSIONS", "on")
         self.sessions = None
         if self.scheduler is not None and str(sessions).strip().lower() \
                 not in _OFF:
             from .sessions import SessionStore
 
-            # The store's limits have no env knob until ROADMAP A7.2:
-            # an unset one keeps the store's default, the reference's.
-            limits = {k: v for k, v in (
-                ("lease_s", session_lease_s), ("max_sessions", session_max),
-                ("max_per_tenant", session_max_per_tenant)) if v is not None}
             self.sessions = SessionStore(
                 self.scheduler, metrics=self.metrics.registry,
-                replica=self.replica, **limits)
+                lease_s=session_lease_s, max_sessions=session_max,
+                max_per_tenant=session_max_per_tenant,
+                replica=self.replica)
         # Fault-domain knobs.  request_deadline_s: default
         # wall-clock budget per /v1/resolve (clients override per request
         # via the X-Deppy-Deadline-S header; None = unbounded).  drain_s
@@ -529,14 +516,14 @@ class Server:
             self.elector.on_change = self._on_leader_change
         try:
             self._reprobe_s = float(
-                os.environ.get("DEPPY_GPU_REPROBE", "600")
+                config.env_raw("DEPPY_GPU_REPROBE", "600")
             )
         except ValueError:
             # A typo'd env var must degrade to the default, not kill the
             # server at startup (matches DEPPY_BENCH_SELF_DESTRUCT's
             # defensive parsing).
             print("[service] ignoring non-numeric DEPPY_GPU_REPROBE="
-                  f"{os.environ.get('DEPPY_GPU_REPROBE')!r}; using 600",
+                  f"{config.env_raw('DEPPY_GPU_REPROBE')!r}; using 600",
                   file=sys.stderr, flush=True)
             self._reprobe_s = 600.0
         self._api = _make_http_server(

@@ -33,8 +33,9 @@ Metric families (on ``metrics``, default the default registry):
 ``deppy_session_expired_total`` and
 ``deppy_session_evictions_total{reason}``; span ``session.op``; fault
 point ``sessions.op``.  Locks are plain ``threading`` locks.  The limits
-are arguments whose defaults are the reference's; their env knobs and
-CLI flags come with ROADMAP A7.2.  The service
+are arguments; left None they read ``DEPPY_GPU_SESSION_LEASE_S``,
+``_MAX`` and ``_MAX_PER_TENANT`` (the reference's defaults; their CLI
+flags come with ROADMAP A7.2d).  The service
 (:mod:`deppy_tpu_torch.service`) switches the store on and off
 (``DEPPY_GPU_SESSIONS``) and passes its replica name, which
 ``session.op`` spans carry as in the reference.
@@ -48,7 +49,7 @@ import time
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
-from .. import faults, telemetry
+from .. import config, faults, telemetry
 from .. import io as problem_io
 from ..fleet.ring import affinity_key
 from ..fleet.snapshot import import_index_entry, index_entry_to_dict
@@ -62,10 +63,9 @@ from ..sat.solver import Solver
 # history size.
 SESSION_INDEX_CAPACITY = 4
 
-# The store's limits, the reference's defaults (store.py:121-132).  The
-# reference also reads them from DEPPY_TPU_SESSION_LEASE_S, _MAX and
-# _MAX_PER_TENANT, whose setters are its CLI and service; here they are
-# arguments only until those are ported (ROADMAP A7.2).
+# The store's limits, the reference's defaults (store.py:121-132); an
+# argument left None reads DEPPY_GPU_SESSION_LEASE_S, _MAX and
+# _MAX_PER_TENANT (a malformed value reads the default).
 DEFAULT_LEASE_S = 300.0
 DEFAULT_MAX_SESSIONS = 256
 DEFAULT_MAX_PER_TENANT = 64
@@ -128,15 +128,25 @@ class SessionStore:
     """Create/drive/expire sessions; export/import them for handoff."""
 
     def __init__(self, scheduler, metrics=None,
-                 lease_s: float = DEFAULT_LEASE_S,
-                 max_sessions: int = DEFAULT_MAX_SESSIONS,
-                 max_per_tenant: int = DEFAULT_MAX_PER_TENANT,
+                 lease_s: Optional[float] = None,
+                 max_sessions: Optional[int] = None,
+                 max_per_tenant: Optional[int] = None,
                  sweep_interval_s: Optional[float] = None,
                  replica: Optional[str] = None):
         self.scheduler = scheduler
         self.replica = replica
+        if lease_s is None:
+            lease_s = config.env_float("DEPPY_GPU_SESSION_LEASE_S",
+                                       DEFAULT_LEASE_S, strict=False)
         self.lease_s = max(float(lease_s), 0.05)
+        if max_sessions is None:
+            max_sessions = config.env_int("DEPPY_GPU_SESSION_MAX",
+                                          DEFAULT_MAX_SESSIONS, strict=False)
         self.max_sessions = max(int(max_sessions), 1)
+        if max_per_tenant is None:
+            max_per_tenant = config.env_int(
+                "DEPPY_GPU_SESSION_MAX_PER_TENANT", DEFAULT_MAX_PER_TENANT,
+                strict=False)
         self.max_per_tenant = max(int(max_per_tenant), 1)
         self._registry = metrics if metrics is not None \
             else telemetry.default_registry()

@@ -34,10 +34,11 @@ Left out until the analysis tooling is ported: the lock-order proxy of
 from __future__ import annotations
 
 import json
-import os
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from .. import config
 
 # Default histogram buckets for wall-clock seconds: sub-ms dispatch
 # overheads through minutes-long giant-catalog solves.
@@ -583,7 +584,7 @@ def default_registry() -> Registry:
         with _DEFAULT_LOCK:
             if _DEFAULT is None:
                 _DEFAULT = Registry(
-                    sink_path=os.environ.get("DEPPY_GPU_TELEMETRY_FILE")
+                    sink_path=config.env_raw("DEPPY_GPU_TELEMETRY_FILE")
                     or None
                 )
     return _DEFAULT

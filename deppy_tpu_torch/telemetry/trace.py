@@ -36,6 +36,8 @@ import time
 from contextlib import contextmanager
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
+from .. import config
+
 # ID formats follow the W3C trace-context wire format: 16-byte trace ids
 # and 8-byte span ids, lowercase hex.
 _HEX = frozenset("0123456789abcdef")
@@ -324,7 +326,7 @@ DEFAULT_ERROR_RING = 256
 
 def _env_cap(name: str, default: int) -> int:
     try:
-        return max(int(os.environ.get(name, "") or default), 1)
+        return max(int(config.env_raw(name, "") or default), 1)
     except ValueError:
         return default
 

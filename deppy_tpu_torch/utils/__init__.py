@@ -1,6 +1,6 @@
 """Shared utilities (counterpart: ``deppy_tpu/utils/__init__.py``).
 
-So far only :mod:`.lease`, the service's HA election.  The reference's
-``check_solution`` (``utils/verify.py``) and ``force_cpu_env``
-(``utils/platform_env.py``) come with ROADMAP A7.2.
+:mod:`.lease`, the service's HA election, and :mod:`.verify`, the
+independent solution checker.  The reference's ``force_cpu_env``
+(``utils/platform_env.py``) comes with ROADMAP A7.2c.
 """

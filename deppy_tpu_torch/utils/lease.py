@@ -46,6 +46,8 @@ from dataclasses import dataclass, field
 from datetime import datetime, timedelta, timezone
 from typing import Callable, Optional
 
+from .. import config
+
 _RFC3339_MICRO = "%Y-%m-%dT%H:%M:%S.%fZ"
 
 _SA_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
@@ -326,24 +328,24 @@ def elector_from_env() -> Optional[LeaseElector]:
     ``DEPPY_GPU_HA_NAMESPACE``       lease namespace override.
     ``DEPPY_GPU_HA_LEASE_SECONDS``   lease duration (default 15).
     """
-    name = os.environ.get("DEPPY_GPU_HA_LEASE", "").strip()
+    name = config.env_raw("DEPPY_GPU_HA_LEASE", "").strip()
     if not name:
         return None
     try:
-        seconds = int(os.environ.get("DEPPY_GPU_HA_LEASE_SECONDS", "15"))
+        seconds = int(config.env_raw("DEPPY_GPU_HA_LEASE_SECONDS", "15"))
     except ValueError:
         seconds = 15
     if seconds < 1:
         seconds = 15
-    api = os.environ.get("DEPPY_GPU_HA_API", "").strip()
+    api = config.env_raw("DEPPY_GPU_HA_API", "").strip()
     if api:
         cfg = LeaseConfig(name=name, api_base=api, lease_seconds=seconds)
-        ns = os.environ.get("DEPPY_GPU_HA_NAMESPACE", "").strip()
+        ns = config.env_raw("DEPPY_GPU_HA_NAMESPACE", "").strip()
         if ns:
             cfg.namespace = ns
     else:
         cfg = in_cluster_config(name, lease_seconds=seconds)
-        ns = os.environ.get("DEPPY_GPU_HA_NAMESPACE", "").strip()
+        ns = config.env_raw("DEPPY_GPU_HA_NAMESPACE", "").strip()
         if ns:
             cfg.namespace = ns
     return LeaseElector(cfg)

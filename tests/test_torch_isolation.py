@@ -128,11 +128,19 @@ def test_scan_covers_the_obs_modules():
 
 
 def test_scan_covers_the_service_and_lease():
-    """The service and its HA lease election are the port's own copies:
-    the AST scan reads both."""
+    """The service, its HA lease election and the independent solution
+    checker are the port's own copies: the AST scan reads each."""
     assert ROOT / "deppy_tpu_torch" / "service.py" in PORT_FILES
     names = {p.name for p in PORT_FILES if p.parent.name == "utils"}
-    assert names == {"__init__.py", "lease.py"}
+    assert names == {"__init__.py", "lease.py", "verify.py"}
+
+
+def test_scan_covers_the_config_and_the_mesh():
+    """The typed knob registry and the batch-axis mesh are the port's
+    own copies: the AST scan reads each of their modules."""
+    assert ROOT / "deppy_tpu_torch" / "config.py" in PORT_FILES
+    names = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
+    assert names == {"__init__.py", "mesh.py"}
 
 
 def test_fresh_process_service_loads_no_jax():

@@ -268,8 +268,19 @@ def test_specs_and_estimates():
             max(spec.cost_us.values())
     # The warm adapter is ported: no plans, no lanes.
     assert tregistry.solve_via("warm", [], device="cpu") == []
-    with pytest.raises(NotImplementedError, match="A6"):
-        tregistry.solve_via("device", [], mesh=object(), device="cpu")
+    # The device adapter shards over a mesh of two or more slots
+    # (registry.py:261-273) and answers as the unsharded dispatch.
+    from deppy_tpu_torch.parallel import default_mesh
+
+    problems = [tencode(trandom(length=10, seed=s)) for s in range(4)]
+    mesh = default_mesh([torch.device("cpu")] * 2)
+    try:
+        assert [r.key() for r in tregistry.solve_via(
+            "device", problems, mesh=mesh, device="cpu")] == \
+            [r.key() for r in tregistry.solve_via("device", problems,
+                                                  device="cpu")]
+    finally:
+        tfaults.reset_device_breakers()
 
 
 @within(30)

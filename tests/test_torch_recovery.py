@@ -895,9 +895,18 @@ def test_batch_resolver_checkpoint_wiring(tmp_path):
     want = [jio.result_to_dict(r) for r in ref]
     for out in (plain, ck, again):
         assert [tio.result_to_dict(r) for r in out] == want
-    with pytest.raises(NotImplementedError, match="A6"):
-        tcheckpoint.solve_problems_checkpointed([], str(tmp_path),
-                                                mesh=object())
+    # The checkpoint's mesh= places each group's lanes over the mesh's
+    # slots (checkpoint.py:170-171): the same results, resumed too.
+    from deppy_tpu_torch.parallel import default_mesh
+
+    mesh = default_mesh([torch.device("cpu")] * 2)
+    problems = [tencode(vs) for vs in tvars]
+    base = tdriver.solve_problems(problems, device="cpu")
+    for _ in range(2):
+        got = tcheckpoint.solve_problems_checkpointed(
+            problems, str(tmp_path / "mesh"), group=4, mesh=mesh)
+        assert [(r.outcome, r.steps) for r in got] == \
+            [(r.outcome, r.steps) for r in base]
 
 
 def test_host_backend_checkpoint_dir_warns(tmp_path, capsys):

@@ -644,13 +644,28 @@ def test_unported_backends_raise(backend):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A6"),
+    (dict(mesh=2), "A6"),
     (dict(mesh_devices=2), "A6"), (dict(lanes_per_device=64), "A6"),
 ], ids=lambda v: "-".join(v) if isinstance(v, dict) else v)
 @within(30)
 def test_unported_tiers_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TScheduler(device="cpu", **kw)
+    """The mesh parameters ``item`` brought (scheduler.py:627-642,
+    :816-823) no longer raise: a pinned mesh sizes a flush to slots ×
+    ``lanes_per_device`` at construction, ``mesh_devices`` resolves
+    lazily (one distinct CPU device: no mesh) and ``lanes_per_device``
+    alone changes nothing."""
+    from deppy_tpu_torch.parallel import default_mesh
+
+    if "mesh" in kw:
+        kw = dict(mesh=default_mesh([torch.device("cpu")] * kw["mesh"]),
+                  lanes_per_device=4)
+    sched = TScheduler(device="cpu", **kw)
+    want = {"mesh": 8, "mesh_devices": 256, "lanes_per_device": 256}
+    assert sched.max_fill == want[next(iter(kw))]
+    assert sched.lanes_per_device == kw.get("lanes_per_device", 256)
+    if "mesh_devices" in kw:
+        assert sched._resolve_mesh() is None
+        assert sched.max_fill == 256
 
 
 @pytest.mark.parametrize("kw,backlog", [

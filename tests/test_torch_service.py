@@ -600,10 +600,17 @@ def test_non_numeric_reprobe_env_falls_back(monkeypatch, capsys):
 
 
 def test_port_only_arguments():
-    """``mesh_devices`` waits for ROADMAP A6, and a backend name the port
-    does not serve (the reference's ``tpu`` too) raises."""
-    with pytest.raises(NotImplementedError, match="A6"):
-        _server("port", start=False, mesh_devices=2)
+    """``mesh_devices`` reaches the scheduler, which sizes its mesh lazily
+    over the distinct devices of the server's type (service.py:253, 369):
+    the CPU is one device, so it serves single-device, as the reference
+    does under two devices.  A backend name the port does not serve (the
+    reference's ``tpu`` too) raises."""
+    srv = _server("port", start=False, mesh_devices=2)
+    try:
+        assert srv.scheduler._mesh_devices == 2
+        assert srv.scheduler._resolve_mesh() is None
+    finally:
+        srv.shutdown()
     with pytest.raises(tsat.errors.InternalSolverError):
         tservice.Server(bind_address="127.0.0.1:0",
                         probe_address="127.0.0.1:0", backend="tpu",
