@@ -83,8 +83,8 @@ Phases, each fatal on failure:
    ...)``, the engine registry, the host worker pool and the grad_relax
    entrant) on the card, :func:`run_race_path`'s parts 1-7: the deep
    chains of ``deppy_tpu/benchmarks/hard.py`` raced top-3 (device, host,
-   grad_relax; under bits, then top-2 under blockwise), half the
-   ``sched`` burst raced top-2 beside it unraced, the ``auto`` mode with
+   grad_relax; under bits, then top-2 under blockwise), a quarter of
+   the ``sched`` burst raced top-2 beside it unraced, the ``auto`` mode with
    and without a measured row on its fleet requests, the host pool
    against the inline engine on 250 pinned-tenant states (and after a
    scripted worker crash),
@@ -103,7 +103,7 @@ Phases, each fatal on failure:
    ``Scheduler()`` from one thread with the tier on and off, 2 replays
    each, then once 8 requests a submit; the screen on the card against
    its CPU run over replay 1's warm plans and the same plans poisoned;
-   half the ``sched`` burst A+B with the tier on and off; the ``warm``
+   a quarter of the ``sched`` burst A+B with the tier on and off; the ``warm``
    backend's per-class cost (``incremental cost`` lines).  Answers must
    be equal lane for lane with the tier on and off (steps too on every
    churn lane, and every burst request, with no lane served warm), every
@@ -206,9 +206,9 @@ Phases, each fatal on failure:
 4k. the routes path: the route-health plane (``deppy_tpu_torch.routes``,
    the scheduler's shadow probes on the idle queue),
    :func:`run_routes_path`: (A) the reference's distribution-shift bench
-   at half its waves (``deppy_tpu/benchmarks/routes.py``, whose defaults
-   are 8 warm and 12 measured: :data:`ROUTES_BENCH`, 4 warm and 6
-   measured waves of 6 chains of depth 40, three in four with an UNSAT
+   at part of its waves (``deppy_tpu/benchmarks/routes.py``, whose
+   defaults are 8 warm and 12 measured: :data:`ROUTES_BENCH`, 4 warm and
+   5 measured waves of 6 chains of depth 40, three in four with an UNSAT
    lane, shadow rate 0.5, ``min_samples`` 2) on ``Scheduler(device=
    "cuda", backend="auto", portfolio="on", cache_size=0,
    incremental="off")``: a probe of the device, host and grad_relax
@@ -367,6 +367,28 @@ Phases, each fatal on failure:
    of kernels 1, 3, 4 and 5 is held against its plain version; the
    references (the unsharded solve and scheduler) run before the path's
    counts start;
+4p. the clause path: clause sharding and process groups
+   (``deppy_tpu_torch.parallel.clause_shard``, ``initialize_distributed``),
+   :func:`run_clause_path`: (a) the round kernel (``csrc/shard_round.cu``)
+   against its plain version on the same card tensors, on the shards (1,
+   2 and 4) of the giant catalog, one ``operatorhub_catalog(250, 8)`` and
+   32 ``gvk_conflict_catalog(20, 4, 10)`` states, in both plane spaces, at
+   entry and mid-search states with and without an extras bound (0
+   mismatches, every shard count's fold equal), timed on the giant's
+   reduced-space shard at 4 shards beside its bound; (b) the giant
+   clause-sharded over 4, 2 and 1 slots of the one card: each answer
+   (outcome, installed set, core, steps, backtracks) the bits path's,
+   every sharded round one launch a slot and no plain round; (c) the
+   803-constraint UNSAT problem over 4 slots, its host-routed core the
+   blockwise path's; (d) ``BackendCapabilityError`` under blockwise; (e)
+   ``python -m deppy_tpu_torch.parallel.dist_dryrun --device cuda`` with 2
+   processes x 2 slots, in batch mode on 1,000 ``gvk_conflict_catalog(20,
+   4, 10)`` states and in clause mode on ``operatorhub_catalog(250, 8)``
+   (both started first, in the background beside a-d, so b's walls are
+   taken beside them; a's timing waits for them): ``ok`` and ``agree``, kernels
+   1, 3 and 4 launched in every rank in batch mode, the round kernel once
+   a round and slot and no plain round in clause mode.  The path's
+   launches are parts b and c's;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -431,6 +453,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import multiprocessing
@@ -2079,7 +2102,7 @@ RACE_THREAD = "deppy-race-device"
 RACE_COMPARE_LANES = 8     # lanes of each race-thread launch held against plain
 RACE_STRAGGLERS = (4, 8)   # part 5: tight-deadline (and as many live) requests x states
 RACE_POOL_STATES = 250     # part 4: a quarter of the bits path's pinned_tenant states
-RACE_BURST = 0.5           # parts 2-3: the share of the sched phase's burst raced
+RACE_BURST = 0.25          # parts 2-3: the share of the sched phase's burst raced
 RACE_GRAD_CHAINS = 1000    # part 6: version_pinned_chains(20, 3)
 RACE_COST_DEPTHS = {"m": 192, "l": 768}   # part 7: chain depth per class
 RACE_COST_CALLS = 3        # part 7: timed calls per backend and class (median)
@@ -2096,6 +2119,10 @@ GRAD_ATOL = 1e-4
 GRAD_MARGIN = 1e-3
 # The race-thread launches compared with their plain versions: the
 # wrapper module and function of each kernel.
+# The kernels of the batched path (every kernel but the clause path's
+# round kernel).
+FUSED_KERNELS = ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
+                 "core")
 RACE_WRAPPERS = {"bcp_fixpoint": ("cuda_bcp", "bcp_fixpoint"),
                  "blockwise_fixpoint": ("cuda_blockwise", "bcp_fixpoint"),
                  "search": ("cuda_search", "batched_search_fused"),
@@ -2521,7 +2548,8 @@ def run_race_path(scale: float, plain: "PlainPool"):
         row.update(unraced_wall_s=wall_off)
         numbers[f"chains_{impl}"] = row
 
-    # Part 2: half the sched phase's burst, unraced then raced top-2.
+    # Part 2: a quarter of the sched phase's burst, unraced then raced
+    # top-2.
     jobs = burst_jobs(scale * RACE_BURST)
     fleet = [job for job in jobs if job[0] == "A"]
     wall_off, off = unraced("2 burst", jobs, SCHED_CLIENTS)
@@ -2743,7 +2771,7 @@ def run_race_path(scale: float, plain: "PlainPool"):
 
 
 INC_REPLAYS = 2      # part 1: churn replays with the tier on, and off
-INC_BURST = 0.5      # part 3: the share of the sched phase's burst
+INC_BURST = 0.25     # part 3: the share of the sched phase's burst
 INC_BATCH = 8        # part 1b: churn requests a submit
 INC_COST_CALLS = 5   # part 4: timed solve_via("warm") calls per class
 # The kernels of the incremental path's cold dispatches, whose first
@@ -3064,7 +3092,7 @@ def run_incremental_path(scale: float, plain: "PlainPool"):
                                         hits=run["hits"],
                                         fallbacks=run["fallbacks"], **row)
 
-        # Part 3: half the sched burst A+B, tier on and off.
+        # Part 3: a quarter of the sched burst A+B, tier on and off.
         jobs = burst_jobs(scale * INC_BURST)
         burst, burst_plans, burst_warm = {}, [], set()
         burst_cap = RaceCapture(INC_KERNELS, thread=SCHED_LOOP)
@@ -3948,7 +3976,7 @@ def run_faults_path(scale: float, plain: "PlainPool"):
             fail(f"faults {name}: {bad} of {len(want)} lanes differ from "
                  f"the baseline ({'answers and steps' if steps else 'answers'})")
 
-    cap = RaceCapture(engine.KERNELS, thread="MainThread")
+    cap = RaceCapture(FUSED_KERNELS, thread="MainThread")
     base = {}
     try:
         with cap, FaultLog() as log:
@@ -5458,9 +5486,10 @@ def run_speculate_path(scale: float, plain: "PlainPool"):
 
 
 # Depth, lanes, warm and measured waves: the reference bench's defaults
-# (40, 6, 8, 12) with half its waves, to keep the run inside its limit
-# (the plane adopts its row at wave 3 in every run so far).
-ROUTES_BENCH = (40, 6, 4, 6)
+# (40, 6, 8, 12) with 4 of its warm and 5 of its measured waves, to keep
+# the run inside its limit (the plane adopts its row at wave 3 in every
+# run so far).
+ROUTES_BENCH = (40, 6, 4, 5)
 ROUTES_SHADOW_RATE = 0.5        # the bench's shadow rate
 ROUTES_MIN_SAMPLES = 2          # the bench's min_samples
 ROUTES_STALE_TS = 1000.0        # a provenance stamp older than any max age
@@ -5631,7 +5660,7 @@ def _routes_stop(sched) -> None:
 
 def routes_bench(card: str, ref: dict) -> dict:
     """Part A: the reference bench (``deppy_tpu/benchmarks/routes.py:
-    173-300``) at half its waves (:data:`ROUTES_BENCH`) on the card: the
+    173-300``) at part of its waves (:data:`ROUTES_BENCH`) on the card: the
     probe, then the frozen
     (stale row, no plane), learned (stale row, ``mode="on"``), oracle
     (fresh best-first row) and observe (oracle row, an ``observe``
@@ -8284,6 +8313,353 @@ def run_mesh_path(scale: float, plain: "PlainPool"):
     return launches, numbers, scripted
 
 
+CLAUSE_SLOTS = (4, 2, 1)   # part b: slots of the one card the giant is cut over
+CLAUSE_SHARDS = (1, 2, 4)  # part a: shard counts the kernel is held at
+CLAUSE_GVK = 32            # part a: gvk_fleet lanes
+CLAUSE_MIDS = 3            # part a: mid-search states a problem and space
+CLAUSE_DIST_TIMEOUT_S = 420.0
+CLAUSE_DIST = (            # part e: the runner's two modes, 2 ranks x 2 slots
+    ("batch", ["--family", "gvk", "--problems", "1000"]),
+    ("clause", ["--family", "catalog", "--packages", "250", "--versions",
+                "8", "--problems", "1"]),
+)
+
+
+def clause_states(problem, d, red: bool, seed: int) -> list:
+    """Round inputs (t, f, min_bits, min_w) for one padded problem in one
+    plane space, int32 words on the host: the entry state (the anchors
+    true, in the full space the activation variables too, the padding
+    false), then :data:`CLAUSE_MIDS` mid-search partial states (a seeded
+    share of the open variables assigned each way; the last sets some
+    both ways, a conflict), with an extras row that binds, one that does
+    not, and none."""
+    import numpy as np
+    import torch
+
+    from deppy_tpu_torch.engine import core
+
+    V, W = (d.NV, d.Wr) if red else (d.V, d.Wv)
+    rng = np.random.default_rng(seed)
+    idx = np.arange(V)
+    live = problem.n_vars if red else problem.n_vars + problem.n_cons
+    t = np.isin(idx, problem.anchors) | (
+        (idx >= problem.n_vars) & (idx < live))
+    f = idx >= live
+    pv = idx < problem.n_vars
+
+    def pack(bits):
+        return core.pack_mask(torch.from_numpy(bits), W)
+
+    out = [(pack(t), pack(f), pack(np.zeros(V, bool)), 0)]
+    for k in range(CLAUSE_MIDS):
+        share = rng.random(V)
+        mt = t | ((share < 0.15) & ~f)
+        mf = f | ((share > 0.85) & ~mt)
+        if k == CLAUSE_MIDS - 1:
+            mf |= (share < 0.01) & pv
+        extras = (rng.random(V) < 0.2) & pv & (k < CLAUSE_MIDS - 1)
+        bound = int((extras & mt).sum()) + k
+        out.append((pack(mt), pack(mf), pack(extras), bound))
+    return out
+
+
+def clause_compare(name: str, problem, dev, rows: dict, timed,
+                   deep: bool = True) -> int:
+    """Part a for one problem: its shards at each of :data:`CLAUSE_SHARDS`
+    in the reduced space (every state of :func:`clause_states`) and the
+    full space (the entry state and the first mid-search one, AtMost
+    activity from ``t``), each slot's kernel output held against the
+    plain version on the same card tensors, and every shard count's fold
+    against the others'.  Not ``deep``: the reduced space only, at the
+    entry state, the binding bound's and the conflict's.  ``timed`` (a
+    dict, or None) takes a launcher of the widest shard count's first
+    slot on the reduced space's first mid-search state, for
+    :func:`clause_time`.  Returns the comparisons made; a mismatch
+    fails."""
+    import torch
+
+    from deppy_tpu_torch.engine import core, cuda_shard, driver
+    from deppy_tpu_torch.parallel import clause_mesh, clause_shard
+
+    d = clause_shard._ShardDims([problem], max(CLAUSE_SHARDS))
+    pts_np = driver.pad_stack([problem], d, 1)
+    n_cmp = 0
+    for red in (True, False) if deep else (True,):
+        states = clause_states(problem, d, red, seed=int(red))
+        if not red:
+            states = states[:2]
+        elif not deep:
+            states = [states[0], states[1], states[-1]]
+        folds = {}
+        for n in CLAUSE_SHARDS:
+            X = clause_shard._shards(pts_np, d, clause_mesh([dev] * n),
+                                     red=red)
+            for si, (t, f, mb, mw) in enumerate(states):
+                # The solve's own launchers (``X._launch``, one a slot),
+                # fed this state as a round feeds them.
+                X.begin(core._to_u(t))
+                for buf in X._state.values():
+                    buf.copy_(torch.stack([t, f, mb]))
+                buf = None
+                for s, launch in zip(X.slots, X._launch):
+                    got = launch(mw).clone()
+                    want = cuda_shard.shard_round_plain(*launch.args, mw)
+                    bad, err = _mismatch([got], [want])
+                    n_cmp += 1
+                    rows["max_abs_err"] = max(rows["max_abs_err"], err)
+                    if bad:
+                        fail(f"kernel shard_round on {name} ({n} shards, "
+                             f"{'reduced' if red else 'full'} space, state "
+                             f"{si}): {bad} words differ from the plain "
+                             f"version")
+                    buf = got if buf is None else buf | got
+                    if (timed is not None and red and si == 1
+                            and n == max(CLAUSE_SHARDS) and s is X.slots[0]):
+                        # A slot of its own, kept for the timing.
+                        state = X._state[dev].clone()
+                        timed.update(launch=cuda_shard.ShardRound(
+                            *launch.args[:5], state,
+                            torch.empty_like(launch.out)), min_w=mw,
+                            shards=n)
+                folds.setdefault(si, []).append(buf.cpu())
+        for si, bufs in folds.items():
+            if any(not torch.equal(b, bufs[0]) for b in bufs[1:]):
+                fail(f"kernel shard_round on {name}: the folds over "
+                     f"{CLAUSE_SHARDS} shards differ at state {si}")
+    return n_cmp
+
+
+def clause_time(timed: dict) -> dict:
+    """The kernel's ms (``_timed``) on the slot :func:`clause_compare`
+    kept, the plain version's on the same card tensors, and the bound:
+    the slot's planes, activity, bounds and state read once and its
+    buffer written once, against ~12 operations a clause word and ~7 an
+    AtMost word."""
+    from deppy_tpu_torch.engine import cuda_shard
+
+    launch, mw = timed.pop("launch"), timed.pop("min_w")
+    _, ms, wrapper_ms = _timed(lambda: launch(mw), "shard_round", TIMED_REPS)
+    _, plain_ms, _ = _timed_plain(
+        lambda: cuda_shard.shard_round_plain(*launch.args, mw))
+    C_s, NA_s, W = launch.dims
+    bound_ms, bound_by = _bound(_nbytes(*launch.args, launch.out),
+                                _ops_per_round(C_s, NA_s, W))
+    timed.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, rows=C_s,
+                 atmost_rows=NA_s, words=W)
+    return timed
+
+
+def run_dryrun(mode: str, extra) -> subprocess.Popen:
+    """The two-process runner on the card, in the background."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "deppy_tpu_torch.parallel.dist_dryrun",
+         "--device", "cuda", "--processes", "2", "--slots", "2", "--mode",
+         mode, "--timeout", str(CLAUSE_DIST_TIMEOUT_S), *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        start_new_session=True)
+
+
+def dryrun_verdict(mode: str, proc: subprocess.Popen) -> dict:
+    """Wait for a runner (killing its process group past its timeout) and
+    hold its verdict: ``ok`` and ``agree``, and launches in every rank:
+    kernels 1, 3 and 4 in batch mode, the round kernel once a round and
+    slot, and no plain round, in clause mode."""
+    try:
+        out, err = proc.communicate(timeout=CLAUSE_DIST_TIMEOUT_S + 60)
+    except subprocess.TimeoutExpired:
+        os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
+        out, err = proc.communicate(timeout=30)
+        fail(f"clause e: the {mode} runner outlived its timeout:\n"
+             f"{err[-3000:]}")
+    verdict = None
+    for line in out.splitlines():
+        if line.startswith("{") and '"dist-dryrun"' in line:
+            verdict = json.loads(line)
+    if proc.returncode != 0 or verdict is None or not verdict["ok"] \
+            or not verdict["agree"]:
+        fail(f"clause e: the {mode} runner failed (rc {proc.returncode}): "
+             f"{verdict}\n{err[-3000:]}")
+    for w in verdict["workers"]:
+        launches = w["launches"]
+        if mode == "batch":
+            missing = [k for k in ("bcp_fixpoint", "search", "minimize")
+                       if launches[k] <= 0]
+            if missing:
+                fail(f"clause e: rank {w['process']} of the batch runner "
+                     f"never launched {missing}: {launches}")
+        elif (launches["shard_round"] != 2 * w["sharded_rounds"]
+              or not w["sharded_rounds"] or w["plain_rounds"]):
+            fail(f"clause e: rank {w['process']} of the clause runner: "
+                 f"{launches['shard_round']} round-kernel launches for "
+                 f"{w['sharded_rounds']} rounds on 2 slots, plain rounds "
+                 f"{w['plain_rounds']}")
+    return verdict
+
+
+def run_clause_path(scale: float, refs: dict):
+    """Clause sharding and process groups on the card (the module
+    docstring's phase 4p): (a) the round kernel against its plain version
+    on the giant's, one ``operatorhub_catalog(250, 8)``'s and 32
+    ``gvk_fleet`` lanes' shards, timed on each family's once (e) is done;
+    (b) the giant clause-sharded over 4, 2 and 1 slots of the one card,
+    each answer the bits path's (``refs["giant_key"]``: outcome,
+    installed set, core, steps, backtracks), every sharded round one
+    launch a slot and no plain round; (c) the 803-constraint UNSAT
+    problem over 4 slots, its host-routed core the recorded one
+    (``refs["host_core"]``); (d) the capability error under blockwise;
+    (e) the two-process runner in both modes, started first and run in
+    the background beside a-d (so b's walls are taken beside six other
+    processes on the host and the card).  Returns the path's launches
+    (parts c and b's, in that order), the kernel's row and the phase's
+    numbers."""
+    import torch
+
+    from deppy_tpu_torch import engine
+    from deppy_tpu_torch.engine import core, cuda_shard
+    from deppy_tpu_torch.models import (gvk_conflict_catalog,
+                                        operatorhub_catalog)
+    from deppy_tpu_torch.parallel import (clause_mesh, solve_one_sharded,
+                                          solve_sharded)
+    from deppy_tpu_torch.sat import BackendCapabilityError, NotSatisfiable
+    from deppy_tpu_torch.sat.encode import encode
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"clause timings on {card}", flush=True)
+    cuda0 = torch.device("cuda", 0)
+    giant = encode(operatorhub_catalog(*GIANT, seed=0))
+    numbers, part_s = {}, {}
+    row = dict(families={}, max_abs_err=0)
+
+    # Part e starts: the runners, in the background beside a-d.
+    t_e = time.perf_counter()
+    runners = [(mode, run_dryrun(mode, extra)) for mode, extra in CLAUSE_DIST]
+
+    # Part a: the kernel against its plain version (timed after e).
+    t0 = time.perf_counter()
+    n_cmp = 0
+    work = [("giant", [giant]),
+            ("operatorhub_batch", [encode(operatorhub_catalog(*BATCH,
+                                                              seed=0))]),
+            ("gvk_fleet", [encode(gvk_conflict_catalog(20, 4, 10, seed=i))
+                           for i in range(CLAUSE_GVK)])]
+    for name, problems in work:
+        timed = {}
+        for i, p in enumerate(problems):
+            n_cmp += clause_compare(name, p, cuda0, row,
+                                    timed if not timed else None,
+                                    deep=i == 0)
+        row["families"][name] = timed
+        print(f"kernel shard_round on {name} ({len(problems)} problems, "
+              f"{CLAUSE_SHARDS} shards; the first in both spaces): "
+              f"mismatches 0", flush=True)
+    part_s["a"] = time.perf_counter() - t0
+    numbers["a"] = dict(comparisons=n_cmp)
+
+    # Part c: the host-routed core over 4 slots.
+    torch.cuda.synchronize()
+    engine.reset_launch_counts()
+    t0 = time.perf_counter()
+    unsat = giant_unsat()
+    mesh = clause_mesh([cuda0] * CLAUSE_SLOTS[0])
+    try:
+        got = solve_one_sharded(unsat, mesh=mesh)
+    except NotSatisfiable as e:
+        got = e
+    torch.cuda.synchronize()
+    if render(got) != render(refs["host_core"]):
+        fail(f"clause c: the clause-sharded core {got!r} differs from the "
+             f"recorded {refs['host_core']!r}")
+    part_s["c"] = time.perf_counter() - t0
+    print(f"clause c giant_unsat over {CLAUSE_SLOTS[0]} slots: core "
+          f"{sorted(str(c) for c in got.constraints)} (host-routed), "
+          f"{part_s['c']:.3f} s [{card}]", flush=True)
+
+    # Part d: the capability error under blockwise.
+    core.set_bcp_impl("blockwise")
+    try:
+        solve_sharded(giant, mesh=mesh)
+    except BackendCapabilityError as e:
+        print(f"clause d: under blockwise: {e}", flush=True)
+    else:
+        fail("clause d: solve_sharded under blockwise raised nothing")
+    finally:
+        core.set_bcp_impl("auto")
+
+    # Part b: the giant at full width over 4, 2 and 1 slots, beside the
+    # runners.
+    t0 = time.perf_counter()
+    rows_b = []
+    keys = {}
+    for slots in CLAUSE_SLOTS:
+        mesh = clause_mesh([cuda0] * slots)
+        r0, p0 = core.sharded_rounds, core.plain_rounds
+        c0, l0 = cuda_shard.plain_calls, engine.launch_counts()["shard_round"]
+        t1 = time.perf_counter()
+        res = solve_sharded(giant, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        rounds = core.sharded_rounds - r0
+        launched = engine.launch_counts()["shard_round"] - l0
+        if launched != rounds * slots or not rounds:
+            fail(f"clause b: {slots} slots: {launched} launches for "
+                 f"{rounds} sharded rounds")
+        if core.plain_rounds != p0 or cuda_shard.plain_calls != c0:
+            fail(f"clause b: {slots} slots: a plain round ran "
+                 f"({core.plain_rounds - p0} fixpoint rounds, "
+                 f"{cuda_shard.plain_calls - c0} shard parts)")
+        keys[slots] = solve_key(res)
+        rows_b.append(dict(slots=slots, wall_s=wall, rounds=rounds,
+                           launches=launched, steps=int(res.steps),
+                           ms_per_round=wall * 1e3 / rounds))
+        print(f"clause b giant over {slots} slots: outcome {res.outcome}, "
+              f"steps {res.steps}, backtracks {res.trace_n}, {rounds} "
+              f"rounds, {launched} launches, {wall:.3f} s "
+              f"({wall * 1e3 / rounds:.4f} ms a round) [{card}]", flush=True)
+    if any(k != refs["giant_key"] for k in keys.values()):
+        bad = [s for s, k in keys.items() if k != refs["giant_key"]]
+        fail(f"clause b: the giant over {bad} slots differs from the bits "
+             f"path's answer (outcome, installed, core, steps, backtracks)")
+    part_s["b"] = time.perf_counter() - t0
+    numbers["b"] = dict(rows=rows_b)
+    torch.cuda.synchronize()
+    launches = engine.launch_counts()
+    # Part e: the runners' verdicts.
+    numbers["e"] = {}
+    for mode, proc in runners:
+        v = dryrun_verdict(mode, proc)
+        numbers["e"][mode] = v
+        print(f"clause e {mode} runner: ok {v['ok']} agree {v['agree']}, "
+              f"{v['problems']} problems, outcomes "
+              f"{dict(collections.Counter(v['outcomes']))}, steps "
+              f"{v['steps']}, {v['seconds']:.1f} s; ranks " + "; ".join(
+                  f"{w['process']}: {w['seconds']:.2f} s, launches "
+                  + " ".join(f"{k}={n}" for k, n in w['launches'].items()
+                             if n)
+                  + f", sharded rounds {w['sharded_rounds']}"
+                  for w in v["workers"]) + f" [{card}]", flush=True)
+    part_s["e"] = time.perf_counter() - t_e
+
+    # Part a's timing, the runners done.
+    for name, timed in row["families"].items():
+        clause_time(timed)
+        print(f"kernel shard_round on {name} at {timed['shards']} shards "
+              f"({timed['rows']} clause rows, {timed['atmost_rows']} AtMost "
+              f"rows, {timed['words']} words): {timed['ms']:.6f} ms "
+              f"(wrapper {timed['wrapper_ms']:.6f}, plain "
+              f"{timed['plain_ms']:.6f}, bound {timed['bound_ms']:.6f} by "
+              f"{timed['bound_by']}) [{card}]", flush=True)
+
+    seconds = time.perf_counter() - t_phase
+    numbers.update(seconds=seconds, part_s=part_s)
+    print(f"clause path: {seconds:.1f} s (" + ", ".join(
+        f"{p} {v:.1f}" for p, v in part_s.items()) + f"); launches "
+          f"{launches} [{card}]", flush=True)
+    return launches, row, numbers
+
+
 def _stage1_budget(groups, max_share: float) -> int:
     """The smallest stage-1 budget (a step count of the baseline) that
     strands at most ``max_share`` of every group's lanes, and some lanes
@@ -8372,7 +8748,8 @@ KERNEL_SYMBOLS = {"bcp_fixpoint": ("bcp_kernel", "bcp_warp_kernel"),
                   "blockwise_fixpoint": ("blockwise_kernel",),
                   "search": ("search_kernel",),
                   "minimize": ("minimize_kernel", "minimize_warp_kernel"),
-                  "core": ("core_kernel", "core_warp_kernel")}
+                  "core": ("core_kernel", "core_warp_kernel"),
+                  "shard_round": ("shard_round_kernel",)}
 
 
 def _device_ms(prof, symbols):
@@ -9702,7 +10079,8 @@ def finish_impl_rows(rows: dict, pending: dict, plain: PlainPool) -> None:
 # core kernel (the only family where phase 3 carries the load).
 SUMMARY_FAMILY = {"bcp_fixpoint": "gvk_fleet",
                   "blockwise_fixpoint": "giant", "search": "gvk_fleet",
-                  "minimize": "gvk_fleet", "core": "pinned_tenant"}
+                  "minimize": "gvk_fleet", "core": "pinned_tenant",
+                  "shard_round": "giant"}
 SOURCES = {
     "bcp_fixpoint": ("deppy_tpu_torch/engine/csrc/bcp.cu",
                      "deppy_tpu/engine/pallas_bcp.py:92"),
@@ -9714,6 +10092,9 @@ SOURCES = {
                  "deppy_tpu/engine/pallas_search.py:616"),
     "core": ("deppy_tpu_torch/engine/csrc/core.cu",
              "deppy_tpu/engine/pallas_search.py:785"),
+    # No pallas_call site: the reference's XLA round under clause_axis.
+    "shard_round": ("deppy_tpu_torch/engine/csrc/shard_round.cu",
+                    "deppy_tpu/engine/core.py:361"),
 }
 
 
@@ -9744,6 +10125,7 @@ PATH_KERNELS = {
     "service": INC_KERNELS,
     "fleet": INC_KERNELS,
     "mesh": INC_KERNELS,
+    "clause": ("shard_round",),
 }
 
 
@@ -9788,10 +10170,12 @@ def main(argv=None) -> int:
         stamp("blockwise path")
         by_path["surface"], per_family["surface"] = run_surface_path(
             main_answers, bw_answers)
+        clause_refs = dict(host_core=bw_answers["host_core"][0])
         del main_answers, bw_answers
         stamp("surface path")
         by_impl, per_family["impls"] = run_impls_path(args.scale, bits_keys)
         by_path.update(by_impl)
+        clause_refs["giant_key"] = bits_keys["giant"][0]
         del bits_keys
         stamp("impls path")
         by_path["tracing"], per_family["tracing"] = run_tracing_path(
@@ -9836,6 +10220,9 @@ def main(argv=None) -> int:
             run_mesh_path(args.scale, plain)
         scripted = {k: v + mesh_scripted[k] for k, v in scripted.items()}
         stamp("mesh path")
+        by_path["clause"], clause_row, per_family["clause"] = \
+            run_clause_path(args.scale, clause_refs)
+        stamp("clause path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")
@@ -9848,6 +10235,7 @@ def main(argv=None) -> int:
             impl="blockwise")
         stamp("profiles")
         rows = compare_kernels(args.scale, by_path["bits"], plain)
+        rows["shard_round"] = clause_row
         stamp("bits kernels compared")
         (rows["blockwise_fixpoint"], search_big,
          per_family["choices"]) = compare_blockwise(
@@ -9922,6 +10310,9 @@ def main(argv=None) -> int:
             ms=m["ms"], wrapper_ms=m["wrapper_ms"], plain_ms=m["plain_ms"],
             bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None, family=fam,
+            **({"note": "no pallas_call site: the reference's XLA "
+                "round_planes under clause_axis"} if k == "shard_round"
+               else {}),
             by_family=rows[k]["families"],
             **({"teams": rows[k]["teams"]} if "teams" in rows[k] else {}),
             **({"trace_ms": trace_times} if k == "search" else {})))

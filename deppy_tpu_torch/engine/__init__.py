@@ -3,15 +3,17 @@
 :mod:`.core` holds the data model, the BCP impl selection and the plain
 versions of the kernels, :mod:`.clause_bank` the watched impl's clause
 bank and its plain fixpoint, :mod:`.cuda_bcp`, :mod:`.cuda_blockwise` and
-:mod:`.cuda_search` the kernel wrappers, :mod:`.counts` their launch
-counts, :mod:`.teams` the shape rule that picks the team of kernels 1, 4
-and 5, and :mod:`.driver` the batched resolve path.
+:mod:`.cuda_search` the kernel wrappers of the fused phases,
+:mod:`.cuda_shard` that of the clause-sharded round, :mod:`.counts`
+their launch counts, :mod:`.teams` the shape rule that picks the team of
+kernels 1, 4 and 5, and :mod:`.driver` the batched resolve path.
 """
 
-from . import counts, cuda_bcp, cuda_blockwise, cuda_search  # noqa: F401
+from . import (counts, cuda_bcp, cuda_blockwise, cuda_search,  # noqa: F401
+               cuda_shard)
 
 KERNELS = ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
-           "core")
+           "core", "shard_round")
 
 
 def launch_counts() -> dict:

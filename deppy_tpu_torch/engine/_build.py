@@ -24,7 +24,8 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("bcp.cu", "blockwise.cu", "search.cu", "minimize.cu", "core.cu")
+SOURCES = ("bcp.cu", "blockwise.cu", "search.cu", "minimize.cu", "core.cu",
+           "shard_round.cu")
 HEADERS = ("fixpoint.cuh", "watched.cuh", "blockwise.cuh", "dpll.cuh",
            "warp.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -81,6 +82,7 @@ _SIGNATURES = {
     "deppy_core": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 13 + [_P] * 2,
     "deppy_minimize_warp": [_P] * 14 + [_I] + [_P] * 4 + [_I] * 7 + [_P],
     "deppy_core_warp": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 9 + [_P],
+    "deppy_shard_round": [_P] * 8 + [_I] * 4 + [_P] * 2,
     "deppy_search_scratch_words": [_I] * 3,
     "deppy_minimize_scratch_words": [_I] * 2,
     "deppy_core_scratch_words": [_I] * 2,
@@ -138,7 +140,13 @@ def _compile(out_dir: Path) -> None:
         if link.returncode != 0:
             raise KernelBuildError(f"nvcc link failed:\n{link.stderr}")
         (tmp / "ptxas.log").write_text("\n".join(log))
-        os.replace(tmp, out_dir)
+        try:
+            os.replace(tmp, out_dir)
+        except OSError:
+            # Another process (a second rank on this machine) placed the
+            # same build first: its library is this one.
+            if not (out_dir / LIB_NAME).exists():
+                raise
     finally:
         if tmp.exists():
             shutil.rmtree(tmp, ignore_errors=True)

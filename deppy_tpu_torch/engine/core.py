@@ -19,6 +19,12 @@ Three layers, in the reference's order:
   :mod:`deppy_tpu_torch.engine.cuda_bcp`,
   :mod:`deppy_tpu_torch.engine.cuda_blockwise` and
   :mod:`deppy_tpu_torch.engine.cuda_search` launch the kernels there).
+* :class:`ClauseShards`, one problem's rows cut over the slots of a
+  clause mesh (``clause_axis``, ``core.py:320-358``): with it every
+  fixpoint of the phases runs its rounds' row work on the slots (the
+  round kernel ``csrc/shard_round.cu`` on a card) and the rest of the
+  round, and the control, here on the host
+  (:mod:`deppy_tpu_torch.parallel.clause_shard`);
 * :func:`warm_check_phase`, the incremental tier's warm-prefix screen
   (``core.py:1848-1882``): plain XLA in the reference, one elementwise
   pass with no Pallas kernel, so batched torch ops on the lanes' device
@@ -72,6 +78,9 @@ CORE_CHUNK = 8
 # kernel's work too).
 plain_rounds = 0
 plain_sweeps = 0
+# Rounds run over clause shards (:class:`ClauseShards`); each launches the
+# round kernel once a card slot, or runs its plain version on a CPU slot.
+sharded_rounds = 0
 
 # BCP implementation (core.py:506-508).
 _BCP_IMPLS = ("auto", "gather", "bits", "pallas", "blockwise", "watched")
@@ -388,10 +397,15 @@ def with_planes(pts: ProblemTensors, *, Wv: int, Wr: int, red: bool,
 # propagation (plain versions of the fixpoint kernel, core.py:361-966)
 
 
-def _round_u(pos, neg, mem, card_active, card_n, min_bits, min_w, t, f):
-    """One propagation round on unsigned words held in int64 (the body of
-    :func:`round_planes`).  Returns (conflict, new_t, new_f, changed) with
-    the two flags as 0-d bool tensors."""
+def _round_partial_u(pos, neg, mem, card_active, card_n, min_bits, min_w,
+                     t, f):
+    """The row part of one propagation round on unsigned words held in
+    int64 (core.py:383-408): over the rows given, the forced-literal masks
+    ``wpos``/``wneg`` [W] (with the extras bound's ``min_bits & ~a`` when
+    ``mtrues == min_w``) and the row conflict (a dead clause row or an
+    over-full AtMost row) as a 0-d bool tensor.  Under clause sharding
+    this is one shard's part, the input of the OR exchange
+    (core.py:409-415); OR is idempotent on the replicated extras part."""
     a = t | f
     sat = (((pos & t) | (neg & f)) != 0).any(-1)
     upos = pos & ~a
@@ -412,14 +426,30 @@ def _round_u(pos, neg, mem, card_active, card_n, min_bits, min_w, t, f):
 
     # Dynamic "at most w of the extras" bound (phase 2's probes).
     mtrues = _popcount_u(min_bits & t).sum()
-    min_over = mtrues > min_w
     wneg = torch.where(mtrues == min_w, wneg | (min_bits & ~a), wneg)
+    return wpos, wneg, dead.any() | over.any()
 
-    conflict = dead.any() | over.any() | min_over | ((wpos & wneg) != 0).any()
+
+def _round_tail_u(wpos, wneg, row_conflict, min_bits, min_w, t, f):
+    """The replicated end of a round (core.py:416-421) from the combined
+    masks and row conflict: (conflict, new_t, new_f, changed), the flags
+    as 0-d bool tensors."""
+    a = t | f
+    min_over = _popcount_u(min_bits & t).sum() > min_w
+    conflict = row_conflict | min_over | ((wpos & wneg) != 0).any()
     new_t = t | (wpos & ~a)
     new_f = f | (wneg & ~a)
     changed = ((new_t != t).any() | (new_f != f).any()) & ~conflict
     return conflict, new_t, new_f, changed
+
+
+def _round_u(pos, neg, mem, card_active, card_n, min_bits, min_w, t, f):
+    """One propagation round on unsigned words held in int64 (the body of
+    :func:`round_planes`).  Returns (conflict, new_t, new_f, changed) with
+    the two flags as 0-d bool tensors."""
+    wpos, wneg, row_conflict = _round_partial_u(
+        pos, neg, mem, card_active, card_n, min_bits, min_w, t, f)
+    return _round_tail_u(wpos, wneg, row_conflict, min_bits, min_w, t, f)
 
 
 def round_planes(pos, neg, mem, card_active, card_n2, min_bits, min_w, t, f):
@@ -460,7 +490,10 @@ class _Space(NamedTuple):
     (core.py:900-902); the reduced space uses the static ``card_valid``.
     The fixpoint: ``arm`` when set (:class:`Arm`), else blockwise sweeps
     over blocks of ``block_rows`` clause rows when that is positive
-    (:func:`_fixpoint_blockwise_u`), else the dense rounds."""
+    (:func:`_fixpoint_blockwise_u`), else the dense rounds: over
+    ``shards`` when set (:class:`ClauseShards`, the clause rows cut over
+    the slots of a clause mesh; ``pos``/``neg``/``mem`` are then unread
+    placeholders), else over the planes here."""
 
     pos: torch.Tensor
     neg: torch.Tensor
@@ -470,6 +503,7 @@ class _Space(NamedTuple):
     card_act_bits: Optional[torch.Tensor]
     block_rows: int = 0
     arm: Optional[Arm] = None
+    shards: Optional["ClauseShards"] = None
 
 
 def _arm(pt: ProblemTensors, red: bool, impl: str) -> Optional[Arm]:
@@ -494,7 +528,12 @@ def _arm(pt: ProblemTensors, red: bool, impl: str) -> Optional[Arm]:
 
 
 def _space(pt: ProblemTensors, red: bool, block_rows: int = 0,
-           impl: str = "bits") -> _Space:
+           impl: str = "bits",
+           shards: Optional["ClauseShards"] = None) -> _Space:
+    if shards is not None:
+        return _Space(pt.pos_bits_r, pt.neg_bits_r, pt.card_member_bits_r,
+                      pt.card_n.to(_I64), pt.card_valid != 0, None,
+                      shards=shards)
     arm = _arm(pt, red, impl)
     if red:
         return _Space(_to_u(pt.pos_bits_r), _to_u(pt.neg_bits_r),
@@ -504,6 +543,112 @@ def _space(pt: ProblemTensors, red: bool, block_rows: int = 0,
                   _to_u(pt.card_member_bits), pt.card_n.to(_I64),
                   pt.card_valid != 0, _to_u(pt.card_act_bits), block_rows,
                   arm)
+
+
+class ShardSlot(NamedTuple):
+    """One slot's clause shard, resident on the slot's device: int32
+    planes ``pos``/``neg`` [C_s, W] and ``mem`` [NA_s, W], the AtMost
+    bounds ``card_n`` [NA_s] and the static row activity ``card_valid``
+    [NA_s]; ``rows`` is the slot's range of the problem's AtMost rows, a
+    (start, stop) pair."""
+
+    device: torch.device
+    pos: torch.Tensor
+    neg: torch.Tensor
+    mem: torch.Tensor
+    card_n: torch.Tensor
+    card_valid: torch.Tensor
+    rows: Tuple[int, int]
+
+
+class ClauseShards:
+    """One problem's clause and AtMost rows cut over the slots of a clause
+    mesh, in one plane space: the port's ``clause_axis``
+    (core.py:320-358), passed in the open instead of a thread-local.
+    ``slots`` are this process's shards in shard order.  ``card_act``
+    (int64 [NA], -1 padded; the full space only) makes AtMost-row
+    activity follow each fixpoint's entry state (core.py:900-902): it is
+    computed here on the host and uploaded once a fixpoint; without it
+    the rows' activity is their static ``card_valid``.  ``group`` is the
+    ``torch.distributed`` group whose ranks hold the other shards (None
+    in one process).
+
+    :meth:`round` runs one round's row part on every slot
+    (``cuda_shard.ShardRound``, bound once a solve to the slot's shard:
+    the kernel on a card, its plain version on the CPU), folds the slots'
+    buffers in slot order and the ranks' folded buffers in rank order
+    (``_axis_or_fused``, core.py:343-358), and returns the combined masks
+    and row conflict.  A round uploads its state (t, f, min_bits) once a
+    device into a resident buffer the device's slots read, and the slots
+    of a device write rows of one buffer, so it copies one buffer a
+    device back."""
+
+    def __init__(self, slots, card_act: Optional[torch.Tensor] = None,
+                 group=None):
+        from . import cuda_shard
+
+        self.slots = tuple(slots)
+        self.card_act = card_act
+        self.group = group
+        W = self.slots[0].pos.shape[1]
+        NA = card_act.shape[0] if card_act is not None else 0
+        rows: dict = {}
+        for s in self.slots:
+            rows[s.device] = rows.get(s.device, 0) + 1
+        self._state = {d: torch.zeros((3, W), dtype=_I32, device=d)
+                       for d in rows}
+        self._act = {d: torch.zeros(NA, dtype=_I32, device=d) for d in rows}
+        self._out = {d: torch.zeros((n, 2 * W + 1), dtype=_I32, device=d)
+                     for d, n in rows.items()}
+        # Slot i writes row self._row[i] of its device's buffer.
+        self._row, seen = [], {}
+        self._launch = []
+        for s in self.slots:
+            r = seen.get(s.device, 0)
+            seen[s.device] = r + 1
+            self._row.append(r)
+            act = s.card_valid if card_act is None else \
+                self._act[s.device][s.rows[0]:s.rows[1]]
+            self._launch.append(cuda_shard.ShardRound(
+                s.pos, s.neg, s.mem, act, s.card_n, self._state[s.device],
+                self._out[s.device][r]))
+
+    def begin(self, t: torch.Tensor) -> None:
+        """Row activity for a fixpoint from ``t`` (unsigned words), one
+        upload a device; a no-op in the reduced space."""
+        if self.card_act is None:
+            return
+        ca = self.card_act
+        idx = ca.clamp(min=0)
+        bit = (t[idx >> 5] >> (idx & 31)) & 1
+        act = ((ca >= 0) & (bit != 0)).to(_I32)
+        for buf in self._act.values():
+            buf.copy_(act)
+
+    def round(self, t, f, min_bits, min_w: int):
+        """(wpos, wneg, row_conflict) of one round over every shard:
+        unsigned-word masks [W] and a bool."""
+        W = t.shape[0]
+        state = _to_i32(torch.stack([t, f, min_bits]))
+        for buf in self._state.values():
+            buf.copy_(state)
+        for launch in self._launch:
+            launch(min_w)
+        host = {d: b.cpu() for d, b in self._out.items()}
+        buf = None
+        for s, r in zip(self.slots, self._row):
+            row = host[s.device][r]
+            buf = row.clone() if buf is None else buf | row
+        if self.group is not None:
+            import torch.distributed as dist
+
+            parts = [torch.empty_like(buf)
+                     for _ in range(dist.get_world_size(self.group))]
+            dist.all_gather(parts, buf, group=self.group)
+            buf = parts[0]
+            for p in parts[1:]:
+                buf = buf | p
+        return _to_u(buf[:W]), _to_u(buf[W:2 * W]), bool(buf[2 * W])
 
 
 def _row_activity(S: _Space, t) -> torch.Tensor:
@@ -538,12 +683,32 @@ def _fixpoint_u(S: _Space, t, f, min_bits, min_w: int, run: bool,
     if S.block_rows:
         return _fixpoint_blockwise_u(S, t, f, min_bits, min_w, True,
                                      S.block_rows)
+    if S.shards is not None:
+        return _fixpoint_sharded_u(S.shards, t, f, min_bits, min_w)
     global plain_rounds
     active = _row_activity(S, t)
     while True:
         plain_rounds += 1
         c, t, f, ch = _round_u(S.pos, S.neg, S.mem, active, S.card_n,
                                min_bits, min_w, t, f)
+        c, ch = torch.stack([c, ch]).tolist()
+        if c:
+            return True, t, f
+        if not ch:
+            return False, t, f
+
+
+def _fixpoint_sharded_u(X: ClauseShards, t, f, min_bits, min_w: int):
+    """The dense rounds over clause shards (core.py:938-966 under
+    ``clause_axis``): each round's row part on every shard, the OR
+    exchange, then the replicated tail.  Returns (conflict: bool, t, f)."""
+    global sharded_rounds
+    X.begin(t)
+    while True:
+        sharded_rounds += 1
+        wpos, wneg, row_conflict = X.round(t, f, min_bits, min_w)
+        c, t, f, ch = _round_tail_u(wpos, wneg, row_conflict, min_bits,
+                                    min_w, t, f)
         c, ch = torch.stack([c, ch]).tolist()
         if c:
             return True, t, f
@@ -935,20 +1100,23 @@ def _phase_base(pt: ProblemTensors, red: bool, V: int,
 
 def search_phase(pt: ProblemTensors, budget: int, en: bool = True, *,
                  red: bool = True, NCON: Optional[int] = None,
-                 block_rows: int = 0, impl: str = "bits", T: int = 0):
+                 block_rows: int = 0, impl: str = "bits", T: int = 0,
+                 shards: Optional[ClauseShards] = None):
     """Phase 1 (core.py:1398-1444): the baseline Test under the anchors,
     then the guess search when it is undetermined.  ``red`` selects the
     reduced space (``V = NV``) or the full one (``V = NV + NCON``, the
     activation variables set true), ``block_rows`` and ``impl`` the
     fixpoint (see :class:`_Space`), ``T`` the trace capacity (see
-    :func:`search`).  Returns (result, guessed bool[NV], model int32[NV],
-    steps, trace_stack int32[T, NC + 1], backtracks): the full space's
+    :func:`search`), ``shards`` the space's clause shards (every
+    fixpoint then the dense rounds over them).  Returns (result, guessed
+    bool[NV], model int32[NV], steps, trace_stack int32[T, NC + 1],
+    backtracks): the full space's
     outputs cut to the first NV variables.  A padding lane (``en``
     false) reports RUNNING; a lane that does not search keeps an all -1
     trace and 0 backtracks."""
     NV = pt.var_choices.shape[0]
     V, W = _phase_space(pt, red, NCON)
-    S = _space(pt, red, block_rows, impl)
+    S = _space(pt, red, block_rows, impl, shards)
     pv_mask = torch.arange(V, device=pt.n_vars.device) < pt.n_vars
     pvb = _to_u(pack_mask(pv_mask, W))
     anchors = _anchor_mask(pt, V)
@@ -986,17 +1154,18 @@ def minimize_phase(pt: ProblemTensors, model: torch.Tensor,
                    guessed: torch.Tensor, budget: int, steps: int,
                    en: bool = True, *, red: bool = True,
                    NCON: Optional[int] = None, block_rows: int = 0,
-                   impl: str = "bits"):
+                   impl: str = "bits",
+                   shards: Optional[ClauseShards] = None):
     """Phase 2 (core.py:1447-1535): the least w such that at most w
     extras (installed, not guessed) stay installed, by binary search over
     [0, n_extras] with one DPLL per probe, then one more probe at the
     minimal w when the last SAT probe was elsewhere.  ``red``, ``NCON``,
-    ``block_rows`` and ``impl`` as in :func:`search_phase`; ``model`` and
-    ``guessed`` are its [NV] outputs.  Returns (installed bool[NV], found,
-    steps)."""
+    ``block_rows``, ``impl`` and ``shards`` as in :func:`search_phase`;
+    ``model`` and ``guessed`` are its [NV] outputs.  Returns (installed
+    bool[NV], found, steps)."""
     NV = pt.var_choices.shape[0]
     V, W = _phase_space(pt, red, NCON)
-    S = _space(pt, red, block_rows, impl)
+    S = _space(pt, red, block_rows, impl, shards)
     model = _to_space(model, V)
     guessed = _to_space(guessed, V)
     pv_mask = torch.arange(V, device=model.device) < pt.n_vars
@@ -1038,17 +1207,17 @@ def minimize_phase(pt: ProblemTensors, model: torch.Tensor,
 
 def core_phase(pt: ProblemTensors, budget: int, steps: int,
                en: bool = True, *, NCON: int, block_rows: int = 0,
-               impl: str = "bits"):
+               impl: str = "bits", shards: Optional[ClauseShards] = None):
     """Phase 3 (core.py:1548-1621, full space): the deletion unsat core.
     Starting from every applied constraint active, drop each whose removal
     keeps the rest UNSAT; chunks of :data:`CORE_CHUNK` are probed whole
     first and member by member only when the chunk probe is SAT.  Returns
     (core bool[NCON], steps).  ``NCON`` is the batch's padded constraint
-    count: the full space is ``V = NV + NCON`` variables; ``block_rows``
-    and ``impl`` as in :class:`_Space`."""
+    count: the full space is ``V = NV + NCON`` variables; ``block_rows``,
+    ``impl`` and ``shards`` (full-space ones) as in :class:`_Space`."""
     NV = pt.var_choices.shape[0]
     V, W = _phase_space(pt, False, NCON)
-    S = _space(pt, False, block_rows, impl)
+    S = _space(pt, False, block_rows, impl, shards)
     n_cons = int(pt.n_cons)
     dev = pt.n_vars.device
     idx = torch.arange(NCON, device=dev)

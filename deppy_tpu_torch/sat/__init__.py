@@ -24,6 +24,7 @@ from .constraints import (
 )
 from .encode import Problem, encode
 from .errors import (
+    BackendCapabilityError,
     DuplicateIdentifier,
     Incomplete,
     InternalSolverError,
@@ -37,6 +38,7 @@ from .tracer import (DefaultTracer, LoggingTracer, SearchPosition,
 __all__ = [
     "AppliedConstraint",
     "AtMost",
+    "BackendCapabilityError",
     "Conflict",
     "Constraint",
     "DefaultTracer",

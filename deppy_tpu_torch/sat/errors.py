@@ -64,3 +64,22 @@ class InternalSolverError(Exception):
         super().__init__(
             f"{len(self.errors)} errors encountered: {', '.join(self.errors)}"
         )
+
+
+class BackendCapabilityError(Exception):
+    """A requested solve path needs an engine capability the currently
+    selected backend/impl does not provide (e.g. clause sharding, which
+    carries its per-round OR collective only in the ``bits`` BCP round
+    kernel).  Distinct from :class:`InternalSolverError` — the input is
+    fine; it is the *configuration* that cannot serve it — so callers
+    (the facade, the service) can render it as a clean client-actionable
+    error instead of an internal failure."""
+
+    def __init__(self, capability: str, selected: str, hint: str = ""):
+        self.capability = capability
+        self.selected = selected
+        msg = (f"backend capability {capability!r} unavailable "
+               f"(selected: {selected!r})")
+        if hint:
+            msg += f": {hint}"
+        super().__init__(msg)

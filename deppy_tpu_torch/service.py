@@ -38,8 +38,7 @@ Deliberate differences from the reference:
     ``FLEET_ADVERTISE``, each with the reference's parse, read through
     the typed registry (:mod:`deppy_tpu_torch.config`).
   * ``mesh_devices`` sizes the scheduler's serving mesh over the visible
-    cards, as the reference's does; clause sharding (ROADMAP A6b) is not
-    ported, so the ``BackendCapabilityError`` 400 has no source.
+    cards, as the reference's does.
   * Locks are plain :class:`threading.Lock` (lockdep is A7.2).
   * The engine verdict behind ``deppy_auto_engine_usable`` is the one of
     the server's own device type (the port keeps one per type).
@@ -62,7 +61,8 @@ from . import config, faults
 from . import io as problem_io
 from . import profile as profiling
 from . import telemetry
-from .sat.errors import DuplicateIdentifier, InternalSolverError
+from .sat.errors import (BackendCapabilityError, DuplicateIdentifier,
+                         InternalSolverError)
 
 _OFF = ("off", "0", "false", "no")
 
@@ -642,6 +642,11 @@ class Server:
                 if timings is not None:
                     timings["solve_s"] = time.perf_counter() - t0
         except (DuplicateIdentifier, InternalSolverError) as e:
+            self.metrics.observe_error()
+            return 400, {"error": str(e)}
+        except BackendCapabilityError as e:
+            # The selected backend/impl cannot serve this solve path: a
+            # clean capability verdict, not an internal 500.
             self.metrics.observe_error()
             return 400, {"error": str(e)}
 

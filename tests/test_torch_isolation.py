@@ -136,11 +136,49 @@ def test_scan_covers_the_service_and_lease():
 
 
 def test_scan_covers_the_config_and_the_mesh():
-    """The typed knob registry and the batch-axis mesh are the port's
-    own copies: the AST scan reads each of their modules."""
+    """The typed knob registry, the mesh (batch and clause axes, process
+    groups and the two-process runner) and the round kernel's wrapper
+    are the port's own copies: the AST scan reads each of their
+    modules."""
     assert ROOT / "deppy_tpu_torch" / "config.py" in PORT_FILES
     names = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
-    assert names == {"__init__.py", "mesh.py"}
+    assert names == {"__init__.py", "mesh.py", "clause_shard.py",
+                     "dist_dryrun.py"}
+    assert ROOT / "deppy_tpu_torch" / "engine" / "cuda_shard.py" in \
+        PORT_FILES
+
+
+def test_fresh_process_clause_shard_loads_no_jax():
+    """A clause-sharded solve over CPU slots, the runner's worker path
+    (a spanning mesh, ``shard_batch``, ``replicate``) on one rank, and
+    the runner's module import nothing of JAX or deppy_tpu; the runner's
+    own workers report what they loaded (tests/test_torch_distributed.py
+    holds them to none)."""
+    code = textwrap.dedent("""
+        import sys
+        before = set(sys.modules)
+        import torch
+        from deppy_tpu_torch.models import operatorhub_catalog
+        from deppy_tpu_torch.parallel import (clause_mesh, default_mesh,
+                                              dist_dryrun, replicate,
+                                              shard_batch, solve_sharded)
+        from deppy_tpu_torch.sat.encode import encode
+        cpu = torch.device("cpu")
+        res = solve_sharded(encode(operatorhub_catalog(6, 2)),
+                            mesh=clause_mesh([cpu] * 4))
+        assert res.outcome == 1
+        mesh = default_mesh([cpu] * 2)
+        parts = shard_batch(mesh, torch.arange(4))
+        assert replicate(mesh, [p.tolist() for p in parts]) == [[0, 1], [2, 3]]
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new
+                     if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))
+        print("BAD", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_fresh_process_service_loads_no_jax():
@@ -504,6 +542,7 @@ def test_build_happens_at_first_use_only():
 
     assert _build._LIB is None or torch.cuda.is_available()
     assert set(_build.SOURCES) == {"bcp.cu", "blockwise.cu", "search.cu",
-                                   "minimize.cu", "core.cu"}
+                                   "minimize.cu", "core.cu",
+                                   "shard_round.cu"}
     for name in _build.SOURCES + _build.HEADERS:
         assert (_build.CSRC / name).is_file()

@@ -222,9 +222,20 @@ class TestServingMesh:
         with pytest.raises(ValueError):
             tmesh.shard_batch(_cpu_mesh(3), arr)
 
-    def test_initialize_distributed_waits_for_a6b(self):
-        with pytest.raises(NotImplementedError, match="A6b"):
-            tmesh.initialize_distributed()
+    def test_initialize_distributed_is_a_noop_on_one_host(self,
+                                                          monkeypatch):
+        """With no arguments and no torchrun environment it joins no
+        group, and a mesh stays this process's slots, as the reference's
+        single-host no-op (``tests/test_parallel.py``)."""
+        import torch.distributed as dist
+
+        for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(k, raising=False)
+        tmesh.initialize_distributed()
+        assert not dist.is_initialized()
+        m = _cpu_mesh(4)
+        assert (m.ranks, m.rank, m.shards, m.first_shard) == (1, 0, 4, 0)
+        assert tmesh.replicate(m, ["a", "b"]) == ["a", "b"]
 
     def test_scheduler_sizes_micro_batches_to_mesh(self):
         """``tests/test_shard.py::TestServingMesh::
