@@ -6,10 +6,15 @@ Run from the repository root, with the other tree unpacked in a git-ignored
 directory (for example ``git archive HEAD~1 | tar -x -C checkout/parent``)::
 
     python3 chip_ab.py checkout/parent
+    python3 chip_ab.py --clause checkout/parent
 
 Each of the four turns (other, this, this, other) is a fresh process that
 builds that tree's kernels and prints one ``ab <tree>: ...`` line per
-measurement:
+measurement.  With ``--clause``: the giant catalog
+(``operatorhub_catalog(1000, 8)``) clause-sharded over 4, 2 and 1 slots
+of the card (``parallel.solve_sharded``, after a 200-step warm-up solve),
+each solve's wall, rounds, steps, launches of the clause kernel and ms a
+round.  Without it:
 
 * kernel 3 (the search kernel) on the 32 ``gvk_fleet`` lanes that
   ``chip_smoke.py`` compares it on, at T 0: the median of three profiled
@@ -101,13 +106,46 @@ def turn(tree: str) -> None:
               f"{[round(w, 4) for w in walls]} s", flush=True)
 
 
+def clause_turn(tree: str) -> None:
+    """One tree's clause-path measurements, in this process."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from deppy_tpu_torch import engine
+    from deppy_tpu_torch.engine import _build, core
+    from deppy_tpu_torch.models import operatorhub_catalog
+    from deppy_tpu_torch.parallel import clause_mesh, solve_sharded
+    from deppy_tpu_torch.sat.encode import encode
+
+    _build.load()
+    giant = encode(operatorhub_catalog(1000, 8, seed=0))
+    dev = torch.device("cuda", 0)
+    solve_sharded(giant, mesh=clause_mesh([dev]), max_steps=200)
+    for slots in (4, 2, 1):
+        engine.reset_launch_counts()
+        r0 = core.sharded_rounds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve_sharded(giant, mesh=clause_mesh([dev] * slots))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rounds = core.sharded_rounds - r0
+        print(f"ab {tree}: giant over {slots} slots, wall {wall:.4f} s, "
+              f"{rounds} rounds, steps {int(res.steps)}, launches "
+              f"{engine.launch_counts()['shard_round']}, "
+              f"{wall * 1e3 / rounds:.4f} ms a round", flush=True)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) == 2 and argv[0] == "--turn":
-        turn(argv[1])
+    if len(argv) == 3 and argv[0] == "--turn":
+        (clause_turn if argv[1] == "clause" else turn)(argv[2])
         return 0
+    what = "clause" if argv[:1] == ["--clause"] else "kernels"
+    argv = argv[1:] if what == "clause" else argv
     if len(argv) != 1:
-        print("usage: python3 chip_ab.py OTHER_TREE", file=sys.stderr)
+        print("usage: python3 chip_ab.py [--clause] OTHER_TREE",
+              file=sys.stderr)
         return 2
     import torch
 
@@ -123,7 +161,7 @@ def main(argv=None) -> int:
     other = argv[0]
     for tree in (other, ".", ".", other):
         subprocess.run([sys.executable, os.path.abspath(__file__), "--turn",
-                        tree], check=True)
+                        what, tree], check=True)
     return 0
 
 

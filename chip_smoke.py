@@ -367,28 +367,37 @@ Phases, each fatal on failure:
    of kernels 1, 3, 4 and 5 is held against its plain version; the
    references (the unsharded solve and scheduler) run before the path's
    counts start;
-4p. the clause path: clause sharding and process groups
+4p. the clause path, run last (after 7c, the pool's workers idle):
+   clause sharding and process groups
    (``deppy_tpu_torch.parallel.clause_shard``, ``initialize_distributed``),
-   :func:`run_clause_path`: (a) the round kernel (``csrc/shard_round.cu``)
-   against its plain version on the same card tensors, on the shards (1,
-   2 and 4) of the giant catalog, one ``operatorhub_catalog(250, 8)`` and
-   32 ``gvk_conflict_catalog(20, 4, 10)`` states, in both plane spaces, at
-   entry and mid-search states with and without an extras bound (0
-   mismatches, every shard count's fold equal), timed on the giant's
-   reduced-space shard at 4 shards beside its bound; (b) the giant
+   :func:`run_clause_path`: (a) the clause kernels (``csrc/shard_round.cu``,
+   ``csrc/grid_fixpoint.cuh``) against their plain versions on the same
+   card tensors in both modes (the fixpoint kernel's conflict, rounds, t
+   and f; the round kernel's buffer), on the shards over 1, 2 and 4 slots
+   of one card of the giant catalog, one ``operatorhub_catalog(250, 8)``,
+   32 ``gvk_conflict_catalog(20, 4, 10)`` states and one
+   ``operatorhub_catalog(12, 3)`` (2- and 4-word planes; also over 20
+   slots, past the 16 a card's kernels once took), in both plane
+   spaces, at entry and mid-search states with and without an extras
+   bound (0 mismatches, every slot count's results equal), the fixpoint
+   launch timed warm and cold (after an L2 flush) on the giant's
+   reduced-space shards over 4 slots beside its bound; (b) the giant
    clause-sharded over 4, 2 and 1 slots of the one card: each answer
    (outcome, installed set, core, steps, backtracks) the bits path's,
-   every sharded round one launch a slot and no plain round; (c) the
+   every sharded fixpoint one launch and no plain round; (c) the
    803-constraint UNSAT problem over 4 slots, its host-routed core the
    blockwise path's; (d) ``BackendCapabilityError`` under blockwise; (e)
    ``python -m deppy_tpu_torch.parallel.dist_dryrun --device cuda`` with 2
    processes x 2 slots, in batch mode on 1,000 ``gvk_conflict_catalog(20,
    4, 10)`` states and in clause mode on ``operatorhub_catalog(250, 8)``
    (both started first, in the background beside a-d, so b's walls are
-   taken beside them; a's timing waits for them): ``ok`` and ``agree``, kernels
-   1, 3 and 4 launched in every rank in batch mode, the round kernel once
-   a round and slot and no plain round in clause mode.  The path's
-   launches are parts b and c's;
+   taken beside them; a's timing waits for them): ``ok`` and ``agree``,
+   kernels 1, 3 and 4 launched in every rank in batch mode, the round
+   kernel once a round in each rank and no plain round in clause mode.
+   Besides, after b and beside e: the host's time by op
+   (``torch.profiler``, :func:`clause_profile`) over the giant's first
+   500 steps over 4 slots, forced to one launch a round and in the
+   fixpoint mode.  The path's launches are parts b and c's;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -8315,8 +8324,14 @@ def run_mesh_path(scale: float, plain: "PlainPool"):
 
 CLAUSE_SLOTS = (4, 2, 1)   # part b: slots of the one card the giant is cut over
 CLAUSE_SHARDS = (1, 2, 4)  # part a: shard counts the kernel is held at
+CLAUSE_MANY = 20           # part a: and the small catalog at as many slots
 CLAUSE_GVK = 32            # part a: gvk_fleet lanes
+CLAUSE_SMALL = (12, 3)     # part a: a catalog whose planes are 2 and 4 words
 CLAUSE_MIDS = 3            # part a: mid-search states a problem and space
+CLAUSE_COLD_REPS = 20      # part a: fixpoint launches timed after an L2 flush
+L2_FLUSH_BYTES = 256 << 20  # written between cold launches (L2 is 50 MB)
+CLAUSE_PROFILE_STEPS = 500  # the profiles: the giant's steps (~a round each)
+CLAUSE_PROFILE_TOP = 12     # the profiles: ops printed, by self CPU time
 CLAUSE_DIST_TIMEOUT_S = 420.0
 CLAUSE_DIST = (            # part e: the runner's two modes, 2 ranks x 2 slots
     ("batch", ["--family", "gvk", "--problems", "1000"]),
@@ -8364,90 +8379,247 @@ def clause_states(problem, d, red: bool, seed: int) -> list:
 
 
 def clause_compare(name: str, problem, dev, rows: dict, timed,
-                   deep: bool = True) -> int:
-    """Part a for one problem: its shards at each of :data:`CLAUSE_SHARDS`
-    in the reduced space (every state of :func:`clause_states`) and the
-    full space (the entry state and the first mid-search one, AtMost
-    activity from ``t``), each slot's kernel output held against the
-    plain version on the same card tensors, and every shard count's fold
-    against the others'.  Not ``deep``: the reduced space only, at the
-    entry state, the binding bound's and the conflict's.  ``timed`` (a
-    dict, or None) takes a launcher of the widest shard count's first
-    slot on the reduced space's first mid-search state, for
-    :func:`clause_time`.  Returns the comparisons made; a mismatch
-    fails."""
+                   deep: bool = True, counts=CLAUSE_SHARDS) -> int:
+    """Part a for one problem: its shards at each shard count of
+    ``counts`` on one card in the reduced space (every state of
+    :func:`clause_states`) and the full space (the entry state and the
+    first mid-search one, AtMost activity from the entry ``t``), the
+    card's kernels held against their plain versions on the same card
+    tensors in both modes: the round kernel's buffer
+    (``card_round_plain``) and the fixpoint kernel's conflict, rounds, t
+    and f (``fixpoint_plain``); and every shard count's results against
+    the others'.  Not ``deep``: the reduced space only, at the entry
+    state, the binding bound's and the conflict's.  ``timed`` (a dict, or
+    None) takes the widest shard count's card on the reduced space's
+    first mid-search state, for :func:`clause_time`.  Returns the
+    comparisons made; a mismatch fails."""
     import torch
 
-    from deppy_tpu_torch.engine import core, cuda_shard, driver
+    from deppy_tpu_torch.engine import cuda_shard, driver
     from deppy_tpu_torch.parallel import clause_mesh, clause_shard
 
-    d = clause_shard._ShardDims([problem], max(CLAUSE_SHARDS))
+    d = clause_shard._ShardDims([problem], max(counts))
     pts_np = driver.pad_stack([problem], d, 1)
     n_cmp = 0
+
+    def hold(kind, where, got, want):
+        bad, err = _mismatch(got, want)
+        rows["max_abs_err"] = max(rows["max_abs_err"], err)
+        if bad:
+            fail(f"kernel shard_round ({kind}) on {where}: {bad} words "
+                 f"differ from the plain version")
+
     for red in (True, False) if deep else (True,):
+        space = "reduced" if red else "full"
         states = clause_states(problem, d, red, seed=int(red))
         if not red:
             states = states[:2]
         elif not deep:
             states = [states[0], states[1], states[-1]]
-        folds = {}
-        for n in CLAUSE_SHARDS:
+        results = {}
+        for n in counts:
             X = clause_shard._shards(pts_np, d, clause_mesh([dev] * n),
                                      red=red)
+            if X.mode != "fixpoint" or len(X.cards) != 1:
+                fail(f"clause a: {n} slots of one card run in mode "
+                     f"{X.mode} over {len(X.cards)} cards")
+            card = X.cards[0]
+            plain = cuda_shard.card_rows(card.shards)
             for si, (t, f, mb, mw) in enumerate(states):
-                # The solve's own launchers (``X._launch``, one a slot),
-                # fed this state as a round feeds them.
-                X.begin(core._to_u(t))
-                for buf in X._state.values():
-                    buf.copy_(torch.stack([t, f, mb]))
-                buf = None
-                for s, launch in zip(X.slots, X._launch):
-                    got = launch(mw).clone()
-                    want = cuda_shard.shard_round_plain(*launch.args, mw)
-                    bad, err = _mismatch([got], [want])
-                    n_cmp += 1
-                    rows["max_abs_err"] = max(rows["max_abs_err"], err)
-                    if bad:
-                        fail(f"kernel shard_round on {name} ({n} shards, "
-                             f"{'reduced' if red else 'full'} space, state "
-                             f"{si}): {bad} words differ from the plain "
-                             f"version")
-                    buf = got if buf is None else buf | got
-                    if (timed is not None and red and si == 1
-                            and n == max(CLAUSE_SHARDS) and s is X.slots[0]):
-                        # A slot of its own, kept for the timing.
-                        state = X._state[dev].clone()
-                        timed.update(launch=cuda_shard.ShardRound(
-                            *launch.args[:5], state,
-                            torch.empty_like(launch.out)), min_w=mw,
-                            shards=n)
-                folds.setdefault(si, []).append(buf.cpu())
-        for si, bufs in folds.items():
-            if any(not torch.equal(b, bufs[0]) for b in bufs[1:]):
-                fail(f"kernel shard_round on {name}: the folds over "
-                     f"{CLAUSE_SHARDS} shards differ at state {si}")
+                where = f"{name} ({n} shards, {space} space, state {si})"
+                card.state.copy_(torch.stack([t, f, mb, t]))
+                got = card.round(mw).clone()
+                hold("round", where, [got], [cuda_shard.card_round_plain(
+                    plain, card.state, mw)])
+                card.state[:3].copy_(torch.stack([t, f, mb]))
+                c, r, nt, nf = card.fixpoint(mw)
+                pc, pr, pt_, pf = cuda_shard.fixpoint_plain(
+                    plain, card.state[:3], mw)
+                hold("fixpoint", where, [torch.tensor([c, r]), nt, nf],
+                     [torch.tensor([pc, pr]), pt_, pf])
+                n_cmp += 2
+                results.setdefault(si, []).append(
+                    torch.cat([got.cpu(), torch.tensor([c, r]), nt, nf]))
+                if (timed is not None and red and si == 1
+                        and n == max(CLAUSE_SHARDS)):
+                    timed.update(card=card, state=card.state[:3].clone(),
+                                 min_w=mw, shards=n, rounds=r)
+        for si, got in results.items():
+            if any(not torch.equal(g, got[0]) for g in got[1:]):
+                fail(f"kernel shard_round on {name}: the results over "
+                     f"{counts} shards differ at {space} state {si}")
     return n_cmp
 
 
+def _timed_cold(fn, symbols, reps: int):
+    """The kernel's device ms a launch (``torch.profiler``) over ``reps``
+    calls of ``fn``, each after :data:`L2_FLUSH_BYTES` written on the
+    card, so every launch finds the L2 cache holding none of its inputs;
+    a session in which the profiler kept no launch is run again, up to
+    :data:`TIMED_SESSIONS` in all.  None if every session kept none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda")
+    fn()
+    for _ in range(TIMED_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.fill_(1)
+                fn()
+            torch.cuda.synchronize()
+        total, seen = _device_ms(prof, symbols)
+        if seen:
+            return total / seen
+    return None
+
+
 def clause_time(timed: dict) -> dict:
-    """The kernel's ms (``_timed``) on the slot :func:`clause_compare`
-    kept, the plain version's on the same card tensors, and the bound:
-    the slot's planes, activity, bounds and state read once and its
-    buffer written once, against ~12 operations a clause word and ~7 an
-    AtMost word."""
+    """The kept card's kernels on the kept state: the fixpoint launch's
+    ms warm (``_timed``, the planes left in L2 by the launch before, as
+    the path runs it) and cold (:func:`_timed_cold`), its wrapper's ms
+    (the launch and the read of its output), the round kernel's ms, the
+    plain fixpoint's on the same card tensors, and the bounds: the card's
+    planes, bounds, activity and state read once and the output written
+    once, against ~12 operations a clause word, ~7 an AtMost word and ~8
+    an assignment word a round, times the fixpoint's rounds."""
     from deppy_tpu_torch.engine import cuda_shard
 
-    launch, mw = timed.pop("launch"), timed.pop("min_w")
-    _, ms, wrapper_ms = _timed(lambda: launch(mw), "shard_round", TIMED_REPS)
+    card, mw = timed.pop("card"), timed.pop("min_w")
+    card.state.zero_()
+    card.state[:3].copy_(timed.pop("state"))
+    _, ms, wrapper_ms = _timed(lambda: card.fixpoint(mw), "shard_round",
+                               TIMED_REPS, symbols=("grid_fixpoint",))
+    cold_ms = _timed_cold(lambda: card.fixpoint(mw), ("grid_fixpoint",),
+                          CLAUSE_COLD_REPS)
+    plain = cuda_shard.card_rows(card.shards)
     _, plain_ms, _ = _timed_plain(
-        lambda: cuda_shard.shard_round_plain(*launch.args, mw))
-    C_s, NA_s, W = launch.dims
-    bound_ms, bound_by = _bound(_nbytes(*launch.args, launch.out),
-                                _ops_per_round(C_s, NA_s, W))
-    timed.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by, rows=C_s,
-                 atmost_rows=NA_s, words=W)
+        lambda: cuda_shard.fixpoint_plain(plain, card.state[:3], mw))
+    card.state[3].copy_(card.state[0])
+    _, round_ms, round_wrapper_ms = _timed(
+        lambda: card.round(mw), "shard_round", TIMED_REPS,
+        symbols=("card_round",))
+    C = sum(s.pos.shape[0] for s in card.shards)
+    NA = sum(s.mem.shape[0] for s in card.shards)
+    W = card.W
+    inputs = [x for s in card.shards for x in (
+        s.pos, s.neg, s.mem, s.card_n,
+        s.card_valid if s.card_act is None else s.card_act)]
+    nbytes = _nbytes(*inputs, card.state[:3], card.out)
+    bound_ms, bound_by = _bound(nbytes, _ops_per_round(C, NA, W)
+                                * timed["rounds"])
+    round_bound_ms, _ = _bound(_nbytes(*inputs, card.state,
+                                       card.xbuf[0]),
+                               _ops_per_round(C, NA, W))
+    timed.update(ms=cold_ms if cold_ms is not None else ms, warm_ms=ms,
+                 cold_ms=cold_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                 round_ms=round_ms, round_wrapper_ms=round_wrapper_ms,
+                 round_bound_ms=round_bound_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, rows=C, atmost_rows=NA, words=W,
+                 blocks=card.blocks(True), vec=card.vec)
     return timed
+
+
+def _ops_by_self_time(prof) -> list:
+    """[op, calls, self CPU ms, device ms] of every name in a finished
+    profile, from its raw events: an op's self time is its span less its
+    children's on its thread, and a kernel's or copy's device time is
+    under its own name.  (Building the profile's ``FunctionEvent``s for
+    ``key_averages`` costs seconds at the 10^5 events of the per-round
+    mode's window.)"""
+    from torch.autograd import DeviceType
+
+    ops, spans = {}, collections.defaultdict(list)
+
+    def op(name):
+        return ops.setdefault(name, [name, 0, 0, 0])
+
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            spans[e.start_thread_id()].append(
+                (e.start_ns(), -e.end_ns(), e.name()))
+        else:
+            o = op(e.name())
+            o[1] += 1
+            o[3] += e.duration_ns()
+    for evs in spans.values():
+        evs.sort()
+        stack = []  # [end, name, span, children's span]
+
+        def close(top):
+            o = op(top[1])
+            o[1] += 1
+            o[2] += max(0, top[2] - top[3])
+
+        for start, neg_end, name in evs:
+            while stack and stack[-1][0] <= start:
+                close(stack.pop())
+            span = -neg_end - start
+            if stack:
+                stack[-1][3] += span
+            stack.append([-neg_end, name, span, 0])
+        for top in stack:
+            close(top)
+    return [[n, c, cpu / 1e6, dev / 1e6] for n, c, cpu, dev in ops.values()]
+
+
+def _short(kernel: str) -> str:
+    """A device event's name without its namespace and arguments."""
+    return kernel.replace("void (anonymous namespace)::", "").split(
+        "(deppy")[0]
+
+
+def clause_profile(problem, dev, mode) -> dict:
+    """The host's time by op over the phases of the giant's first
+    :data:`CLAUSE_PROFILE_STEPS` steps, clause-sharded over 4 slots of
+    one card (``torch.profiler``, CPU and CUDA activities; the shards
+    built before the window): in the fixpoint mode (``mode`` None) or
+    forced to one launch a round (``"rounds"``).  Returns the wall, the
+    rounds and fixpoints, the time inside and outside every op (outside:
+    the Python of the phases and the wrappers), the ops by self CPU time
+    and the device's time by kernel and copy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deppy_tpu_torch.engine import core, driver
+    from deppy_tpu_torch.parallel import clause_mesh, clause_shard
+
+    mesh = clause_mesh([dev] * CLAUSE_SLOTS[0])
+    d = clause_shard._ShardDims([problem], mesh.shards)
+    pts_np = driver.pad_stack([problem], d, 1)
+    pt = core.lane(core.ProblemTensors(*[torch.from_numpy(a)
+                                         for a in pts_np]), 0)
+    budget = driver._budget(CLAUSE_PROFILE_STEPS)
+    X = clause_shard._shards(pts_np, d, mesh, red=True, _mode=mode)
+    torch.cuda.synchronize()
+    r0, f0 = core.sharded_rounds, core.sharded_fixpoints
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result, guessed, model, steps, _, _ = core.search_phase(
+            pt, budget, True, red=True, NCON=d.NCON, shards=X)
+        core.minimize_phase(pt, model, guessed, budget, steps,
+                            result == core.SAT, red=True, NCON=d.NCON,
+                            shards=X)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rounds = core.sharded_rounds - r0
+    table = _ops_by_self_time(prof)
+    in_ops = sum(o[2] for o in table)
+    keys = ("op", "count", "self_cpu_ms", "device_ms")
+    ops = [dict(zip(keys, o)) for o in sorted(
+        (o for o in table if o[2]), key=lambda o: -o[2])]
+    device = [dict(zip(keys, o)) for o in sorted(
+        (o for o in table if o[3]), key=lambda o: -o[3])]
+    return dict(mode=mode or "fixpoint", wall_ms=wall_ms, rounds=rounds,
+                fixpoints=core.sharded_fixpoints - f0,
+                ms_per_round=wall_ms / rounds, in_ops_ms=in_ops,
+                outside_ops_ms=wall_ms - in_ops,
+                device_ms=sum(o["device_ms"] for o in device),
+                ops=ops[:CLAUSE_PROFILE_TOP],
+                device=device[:CLAUSE_PROFILE_TOP])
 
 
 def run_dryrun(mode: str, extra) -> subprocess.Popen:
@@ -8464,8 +8636,9 @@ def run_dryrun(mode: str, extra) -> subprocess.Popen:
 def dryrun_verdict(mode: str, proc: subprocess.Popen) -> dict:
     """Wait for a runner (killing its process group past its timeout) and
     hold its verdict: ``ok`` and ``agree``, and launches in every rank:
-    kernels 1, 3 and 4 in batch mode, the round kernel once a round and
-    slot, and no plain round, in clause mode."""
+    kernels 1, 3 and 4 in batch mode, the round kernel once a round (one
+    launch for the rank's two slots of the card), and no plain round, in
+    clause mode."""
     try:
         out, err = proc.communicate(timeout=CLAUSE_DIST_TIMEOUT_S + 60)
     except subprocess.TimeoutExpired:
@@ -8489,31 +8662,36 @@ def dryrun_verdict(mode: str, proc: subprocess.Popen) -> dict:
             if missing:
                 fail(f"clause e: rank {w['process']} of the batch runner "
                      f"never launched {missing}: {launches}")
-        elif (launches["shard_round"] != 2 * w["sharded_rounds"]
+        elif (launches["shard_round"] != w["sharded_rounds"]
               or not w["sharded_rounds"] or w["plain_rounds"]):
             fail(f"clause e: rank {w['process']} of the clause runner: "
                  f"{launches['shard_round']} round-kernel launches for "
-                 f"{w['sharded_rounds']} rounds on 2 slots, plain rounds "
+                 f"{w['sharded_rounds']} rounds on one card, plain rounds "
                  f"{w['plain_rounds']}")
     return verdict
 
 
 def run_clause_path(scale: float, refs: dict):
     """Clause sharding and process groups on the card (the module
-    docstring's phase 4p): (a) the round kernel against its plain version
-    on the giant's, one ``operatorhub_catalog(250, 8)``'s and 32
-    ``gvk_fleet`` lanes' shards, timed on each family's once (e) is done;
-    (b) the giant clause-sharded over 4, 2 and 1 slots of the one card,
-    each answer the bits path's (``refs["giant_key"]``: outcome,
-    installed set, core, steps, backtracks), every sharded round one
-    launch a slot and no plain round; (c) the 803-constraint UNSAT
-    problem over 4 slots, its host-routed core the recorded one
-    (``refs["host_core"]``); (d) the capability error under blockwise;
-    (e) the two-process runner in both modes, started first and run in
-    the background beside a-d (so b's walls are taken beside six other
-    processes on the host and the card).  Returns the path's launches
-    (parts c and b's, in that order), the kernel's row and the phase's
-    numbers."""
+    docstring's phase 4p): (a) the clause kernels against their plain
+    versions in both modes (the fixpoint kernel: conflict, rounds, t, f;
+    the round kernel: the card's buffer) on the giant's, one
+    ``operatorhub_catalog(250, 8)``'s, 32 ``gvk_fleet`` lanes' and one
+    ``operatorhub_catalog(12, 3)``'s shards over 1, 2 and 4 slots of the
+    card (the last also over :data:`CLAUSE_MANY`), timed (the fixpoint
+    launch warm and cold) on each family's once (e) is done; (b) the giant
+    clause-sharded over 4, 2 and 1 slots of the one card, each answer the
+    bits path's (``refs["giant_key"]``: outcome, installed set, core,
+    steps, backtracks), every sharded fixpoint one launch and no plain
+    round; (c) the 803-constraint UNSAT problem over 4 slots, its
+    host-routed core the recorded one (``refs["host_core"]``); (d) the
+    capability error under blockwise; (e) the two-process runner in both
+    modes, started first and run in the background beside a-d and the
+    profiles (so b's walls are taken beside six other processes on the
+    host and the card), each clause rank one launch a round; and after b
+    the host's time by op (:func:`clause_profile`) in both modes.
+    Returns the path's launches (parts c and b's, in that order), the
+    kernel's row and the phase's numbers."""
     import torch
 
     from deppy_tpu_torch import engine
@@ -8537,24 +8715,31 @@ def run_clause_path(scale: float, refs: dict):
     t_e = time.perf_counter()
     runners = [(mode, run_dryrun(mode, extra)) for mode, extra in CLAUSE_DIST]
 
-    # Part a: the kernel against its plain version (timed after e).
+    # Part a: the kernels against their plain versions (timed after e).
     t0 = time.perf_counter()
     n_cmp = 0
     work = [("giant", [giant]),
             ("operatorhub_batch", [encode(operatorhub_catalog(*BATCH,
                                                               seed=0))]),
             ("gvk_fleet", [encode(gvk_conflict_catalog(20, 4, 10, seed=i))
-                           for i in range(CLAUSE_GVK)])]
+                           for i in range(CLAUSE_GVK)]),
+            # 2 and 4 words: the 4-byte loads' instantiation.
+            ("small_catalog", [encode(operatorhub_catalog(*CLAUSE_SMALL,
+                                                          seed=0))])]
     for name, problems in work:
         timed = {}
+        # The small catalog also over more slots than a card's kernels
+        # once took (16).
+        counts = CLAUSE_SHARDS + ((CLAUSE_MANY,) if name == "small_catalog"
+                                  else ())
         for i, p in enumerate(problems):
             n_cmp += clause_compare(name, p, cuda0, row,
                                     timed if not timed else None,
-                                    deep=i == 0)
+                                    deep=i == 0, counts=counts)
         row["families"][name] = timed
         print(f"kernel shard_round on {name} ({len(problems)} problems, "
-              f"{CLAUSE_SHARDS} shards; the first in both spaces): "
-              f"mismatches 0", flush=True)
+              f"{counts} slots of one card, fixpoint and round kernels; "
+              f"the first in both spaces): mismatches 0", flush=True)
     part_s["a"] = time.perf_counter() - t0
     numbers["a"] = dict(comparisons=n_cmp)
 
@@ -8596,28 +8781,33 @@ def run_clause_path(scale: float, refs: dict):
     for slots in CLAUSE_SLOTS:
         mesh = clause_mesh([cuda0] * slots)
         r0, p0 = core.sharded_rounds, core.plain_rounds
+        f0 = core.sharded_fixpoints
         c0, l0 = cuda_shard.plain_calls, engine.launch_counts()["shard_round"]
         t1 = time.perf_counter()
         res = solve_sharded(giant, mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         rounds = core.sharded_rounds - r0
+        fixpoints = core.sharded_fixpoints - f0
         launched = engine.launch_counts()["shard_round"] - l0
-        if launched != rounds * slots or not rounds:
+        if launched != fixpoints or not fixpoints:
             fail(f"clause b: {slots} slots: {launched} launches for "
-                 f"{rounds} sharded rounds")
+                 f"{fixpoints} sharded fixpoints")
         if core.plain_rounds != p0 or cuda_shard.plain_calls != c0:
             fail(f"clause b: {slots} slots: a plain round ran "
                  f"({core.plain_rounds - p0} fixpoint rounds, "
                  f"{cuda_shard.plain_calls - c0} shard parts)")
         keys[slots] = solve_key(res)
-        rows_b.append(dict(slots=slots, wall_s=wall, rounds=rounds,
-                           launches=launched, steps=int(res.steps),
-                           ms_per_round=wall * 1e3 / rounds))
+        rows_b.append(dict(slots=slots, wall_s=wall, fixpoints=fixpoints,
+                           rounds=rounds, launches=launched,
+                           steps=int(res.steps),
+                           ms_per_round=wall * 1e3 / rounds,
+                           ms_per_fixpoint=wall * 1e3 / fixpoints))
         print(f"clause b giant over {slots} slots: outcome {res.outcome}, "
-              f"steps {res.steps}, backtracks {res.trace_n}, {rounds} "
-              f"rounds, {launched} launches, {wall:.3f} s "
-              f"({wall * 1e3 / rounds:.4f} ms a round) [{card}]", flush=True)
+              f"steps {res.steps}, backtracks {res.trace_n}, {fixpoints} "
+              f"fixpoints, {rounds} rounds, {launched} launches, "
+              f"{wall:.3f} s ({wall * 1e3 / rounds:.4f} ms a round) "
+              f"[{card}]", flush=True)
     if any(k != refs["giant_key"] for k in keys.values()):
         bad = [s for s, k in keys.items() if k != refs["giant_key"]]
         fail(f"clause b: the giant over {bad} slots differs from the bits "
@@ -8626,6 +8816,27 @@ def run_clause_path(scale: float, refs: dict):
     numbers["b"] = dict(rows=rows_b)
     torch.cuda.synchronize()
     launches = engine.launch_counts()
+
+    # The host's time by op, a launch a round and a launch a fixpoint,
+    # beside the runners.
+    t0 = time.perf_counter()
+    numbers["profiles"] = []
+    for mode in ("rounds", None):
+        prof = clause_profile(giant, cuda0, mode)
+        numbers["profiles"].append(prof)
+        print(f"clause profile ({prof['mode']} mode) giant over "
+              f"{CLAUSE_SLOTS[0]} slots, {prof['fixpoints']} fixpoints, "
+              f"{prof['rounds']} rounds: {prof['wall_ms']:.1f} ms "
+              f"({prof['ms_per_round']:.4f} a round), in ops "
+              f"{prof['in_ops_ms']:.1f}, outside {prof['outside_ops_ms']:.1f}"
+              f", device {prof['device_ms']:.1f}; by self CPU ms (calls): "
+              + ", ".join(f"{o['op']} {o['self_cpu_ms']:.2f} ({o['count']})"
+                          for o in prof["ops"])
+              + "; device ms (calls): "
+              + ", ".join(f"{_short(o['op'])} {o['device_ms']:.2f} "
+                          f"({o['count']})" for o in prof["device"])
+              + f" [{card}]", flush=True)
+    part_s["profile"] = time.perf_counter() - t0
     # Part e: the runners' verdicts.
     numbers["e"] = {}
     for mode, proc in runners:
@@ -8638,19 +8849,33 @@ def run_clause_path(scale: float, refs: dict):
                   f"{w['process']}: {w['seconds']:.2f} s, launches "
                   + " ".join(f"{k}={n}" for k, n in w['launches'].items()
                              if n)
-                  + f", sharded rounds {w['sharded_rounds']}"
+                  + f", sharded fixpoints {w['sharded_fixpoints']}, "
+                  f"rounds {w['sharded_rounds']}"
                   for w in v["workers"]) + f" [{card}]", flush=True)
     part_s["e"] = time.perf_counter() - t_e
 
     # Part a's timing, the runners done.
+    t0 = time.perf_counter()
     for name, timed in row["families"].items():
+        t1 = time.perf_counter()
         clause_time(timed)
-        print(f"kernel shard_round on {name} at {timed['shards']} shards "
+        timed["seconds"] = time.perf_counter() - t1
+        cold = ("not measured (the profiler kept no launch)"
+                if timed["cold_ms"] is None else f"{timed['cold_ms']:.6f}")
+        print(f"kernel shard_round on {name} at {timed['shards']} slots "
               f"({timed['rows']} clause rows, {timed['atmost_rows']} AtMost "
-              f"rows, {timed['words']} words): {timed['ms']:.6f} ms "
-              f"(wrapper {timed['wrapper_ms']:.6f}, plain "
-              f"{timed['plain_ms']:.6f}, bound {timed['bound_ms']:.6f} by "
-              f"{timed['bound_by']}) [{card}]", flush=True)
+              f"rows, {timed['words']} words; {timed['blocks']} blocks, "
+              f"{4 * timed['vec']}-byte loads): fixpoint of "
+              f"{timed['rounds']} rounds cold {cold} ms, warm "
+              f"{timed['warm_ms']:.6f} (wrapper {timed['wrapper_ms']:.6f}, "
+              f"plain {timed['plain_ms']:.6f}, bound "
+              f"{timed['bound_ms']:.6f} by {timed['bound_by']}); round "
+              f"kernel {timed['round_ms']:.6f} (wrapper "
+              f"{timed['round_wrapper_ms']:.6f}, bound "
+              f"{timed['round_bound_ms']:.6f}); timed in "
+              f"{timed['seconds']:.1f} s [{card}]", flush=True)
+
+    part_s["timing"] = time.perf_counter() - t0
 
     seconds = time.perf_counter() - t_phase
     numbers.update(seconds=seconds, part_s=part_s)
@@ -8749,7 +8974,8 @@ KERNEL_SYMBOLS = {"bcp_fixpoint": ("bcp_kernel", "bcp_warp_kernel"),
                   "search": ("search_kernel",),
                   "minimize": ("minimize_kernel", "minimize_warp_kernel"),
                   "core": ("core_kernel", "core_warp_kernel"),
-                  "shard_round": ("shard_round_kernel",)}
+                  "shard_round": ("grid_fixpoint_kernel",
+                                  "card_round_kernel")}
 
 
 def _device_ms(prof, symbols):
@@ -8760,9 +8986,10 @@ def _device_ms(prof, symbols):
             sum(e.count for e in rows))
 
 
-def _timed(fn, kernel: str, reps: int):
+def _timed(fn, kernel: str, reps: int, symbols=None):
     """(result, kernel ms, wrapper ms) per call: the kernel's own device
-    time from ``torch.profiler`` per launch it recorded, over one profiled
+    time (of ``symbols``, default the kernel's :data:`KERNEL_SYMBOLS`)
+    from ``torch.profiler`` per launch it recorded, over one profiled
     session of ``reps`` calls (the profiler now and then drops a
     session's launches, often the first session's after other card work,
     so the time is over the launches it kept, and a session that kept
@@ -8790,7 +9017,7 @@ def _timed(fn, kernel: str, reps: int):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total, seen = _device_ms(prof, KERNEL_SYMBOLS[kernel])
+        total, seen = _device_ms(prof, symbols or KERNEL_SYMBOLS[kernel])
         kept.append(seen)
         if seen:
             ms = total / seen
@@ -10220,9 +10447,6 @@ def main(argv=None) -> int:
             run_mesh_path(args.scale, plain)
         scripted = {k: v + mesh_scripted[k] for k, v in scripted.items()}
         stamp("mesh path")
-        by_path["clause"], clause_row, per_family["clause"] = \
-            run_clause_path(args.scale, clause_refs)
-        stamp("clause path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")
@@ -10235,7 +10459,6 @@ def main(argv=None) -> int:
             impl="blockwise")
         stamp("profiles")
         rows = compare_kernels(args.scale, by_path["bits"], plain)
-        rows["shard_round"] = clause_row
         stamp("bits kernels compared")
         (rows["blockwise_fixpoint"], search_big,
          per_family["choices"]) = compare_blockwise(
@@ -10253,6 +10476,12 @@ def main(argv=None) -> int:
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
         finish_impl_rows(arm_rows, pending, plain)
         stamp("pool comparisons")
+        # Last, with the pool's workers idle: the clause path's runners
+        # rendezvous every round over gloo, and a host whose cores the
+        # pool's last tasks hold stretches each rendezvous.
+        by_path["clause"], rows["shard_round"], per_family["clause"] = \
+            run_clause_path(args.scale, clause_refs)
+        stamp("clause path")
     finally:
         plain.close()
         from deppy_tpu_torch import hostpool

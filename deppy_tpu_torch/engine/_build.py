@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bcp.cu", "blockwise.cu", "search.cu", "minimize.cu", "core.cu",
            "shard_round.cu")
 HEADERS = ("fixpoint.cuh", "watched.cuh", "blockwise.cuh", "dpll.cuh",
-           "warp.cuh")
+           "warp.cuh", "grid_fixpoint.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libdeppy_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,11 +58,14 @@ class KernelLaunchError(RuntimeError):
 # and every try: invalid value (1, the launch functions' own shape
 # refusal), invalid configuration (9), invalid device function (98),
 # invalid kernel image (200), no kernel image for the device (209),
-# invalid PTX (218), unsupported PTX version (222) and launch out of
-# resources (701).  Every other code (an illegal address, a launch
+# invalid PTX (218), unsupported PTX version (222), launch out of
+# resources (701), a cooperative grid larger than the card holds at once
+# (720) and a card without cooperative launches (801, the clause path's
+# fixpoint kernel).  Every other code (an illegal address, a launch
 # failure, a timeout, an allocation failure, a lost or sticky context)
 # is a fault of the card.
-LAUNCH_DEFECT_CODES = frozenset((1, 9, 98, 200, 209, 218, 222, 701))
+LAUNCH_DEFECT_CODES = frozenset((1, 9, 98, 200, 209, 218, 222, 701, 720,
+                                 801))
 
 
 _LOCK = threading.Lock()
@@ -82,7 +85,11 @@ _SIGNATURES = {
     "deppy_core": [_P] * 14 + [_I] + [_P] * 3 + [_I] * 13 + [_P] * 2,
     "deppy_minimize_warp": [_P] * 14 + [_I] + [_P] * 4 + [_I] * 7 + [_P],
     "deppy_core_warp": [_P] * 12 + [_I] + [_P] * 3 + [_I] * 9 + [_P],
-    "deppy_shard_round": [_P] * 8 + [_I] * 4 + [_P] * 2,
+    "deppy_card_plan": [_I] * 3 + [_P],
+    "deppy_card_table_bytes": [_I],
+    "deppy_card_table": [_P, _P, _I, _P],
+    "deppy_card_round": [_P] + [_I] * 3 + [_P, _I, _P, _I, _I, _P],
+    "deppy_grid_fixpoint": [_P] + [_I] * 3 + [_P, _I, _P, _I, _P, _I, _P],
     "deppy_search_scratch_words": [_I] * 3,
     "deppy_minimize_scratch_words": [_I] * 2,
     "deppy_core_scratch_words": [_I] * 2,

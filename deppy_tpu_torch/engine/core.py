@@ -21,9 +21,10 @@ Three layers, in the reference's order:
   :mod:`deppy_tpu_torch.engine.cuda_search` launch the kernels there).
 * :class:`ClauseShards`, one problem's rows cut over the slots of a
   clause mesh (``clause_axis``, ``core.py:320-358``): with it every
-  fixpoint of the phases runs its rounds' row work on the slots (the
-  round kernel ``csrc/shard_round.cu`` on a card) and the rest of the
-  round, and the control, here on the host
+  fixpoint of the phases runs on the slots — on one card, the whole
+  fixpoint in one cooperative launch (``csrc/shard_round.cu``); over
+  cards or ranks, each round's row work a launch a card and the rest of
+  the round here on the host — while the control stays on the host
   (:mod:`deppy_tpu_torch.parallel.clause_shard`);
 * :func:`warm_check_phase`, the incremental tier's warm-prefix screen
   (``core.py:1848-1882``): plain XLA in the reference, one elementwise
@@ -78,8 +79,10 @@ CORE_CHUNK = 8
 # kernel's work too).
 plain_rounds = 0
 plain_sweeps = 0
-# Rounds run over clause shards (:class:`ClauseShards`); each launches the
-# round kernel once a card slot, or runs its plain version on a CPU slot.
+# Fixpoints run over clause shards (:class:`ClauseShards`), and their
+# rounds: on one card a fixpoint is one launch and its rounds the kernel's
+# count; over cards or ranks each round is one launch a card.
+sharded_fixpoints = 0
 sharded_rounds = 0
 
 # BCP implementation (core.py:506-508).
@@ -548,9 +551,10 @@ def _space(pt: ProblemTensors, red: bool, block_rows: int = 0,
 class ShardSlot(NamedTuple):
     """One slot's clause shard, resident on the slot's device: int32
     planes ``pos``/``neg`` [C_s, W] and ``mem`` [NA_s, W], the AtMost
-    bounds ``card_n`` [NA_s] and the static row activity ``card_valid``
-    [NA_s]; ``rows`` is the slot's range of the problem's AtMost rows, a
-    (start, stop) pair."""
+    bounds ``card_n`` [NA_s] and the rows' static activity ``card_valid``
+    [NA_s]; in the full space ``card_act`` [NA_s] (int32, -1 padded), the
+    rows' activation variables, makes activity follow each fixpoint's
+    entry state (core.py:900-902)."""
 
     device: torch.device
     pos: torch.Tensor
@@ -558,87 +562,85 @@ class ShardSlot(NamedTuple):
     mem: torch.Tensor
     card_n: torch.Tensor
     card_valid: torch.Tensor
-    rows: Tuple[int, int]
+    card_act: Optional[torch.Tensor] = None
+
+
+def shard_mode(devices, group=None) -> str:
+    """How a :class:`ClauseShards` over slots on ``devices`` runs its
+    fixpoints: ``"fixpoint"`` (a whole fixpoint a call of the card's
+    fixpoint, one cooperative launch) when every slot is on one device and
+    there is no process ``group``; else ``"rounds"`` (each round one call
+    of a card's round, one launch a card, folded across cards and ranks
+    on the host).  A CPU card runs its plain version in either mode."""
+    if len({torch.device(d) for d in devices}) == 1 and group is None:
+        return "fixpoint"
+    return "rounds"
 
 
 class ClauseShards:
     """One problem's clause and AtMost rows cut over the slots of a clause
     mesh, in one plane space: the port's ``clause_axis``
     (core.py:320-358), passed in the open instead of a thread-local.
-    ``slots`` are this process's shards in shard order.  ``card_act``
-    (int64 [NA], -1 padded; the full space only) makes AtMost-row
-    activity follow each fixpoint's entry state (core.py:900-902): it is
-    computed here on the host and uploaded once a fixpoint; without it
-    the rows' activity is their static ``card_valid``.  ``group`` is the
-    ``torch.distributed`` group whose ranks hold the other shards (None
-    in one process).
+    ``slots`` are this process's shards in shard order, grouped by device
+    into one ``cuda_shard.CardShards`` a device (bound once a solve);
+    ``group`` is the ``torch.distributed`` group whose ranks hold the
+    other shards (None in one process).
 
-    :meth:`round` runs one round's row part on every slot
-    (``cuda_shard.ShardRound``, bound once a solve to the slot's shard:
-    the kernel on a card, its plain version on the CPU), folds the slots'
-    buffers in slot order and the ranks' folded buffers in rank order
-    (``_axis_or_fused``, core.py:343-358), and returns the combined masks
-    and row conflict.  A round uploads its state (t, f, min_bits) once a
-    device into a resident buffer the device's slots read, and the slots
-    of a device write rows of one buffer, so it copies one buffer a
-    device back."""
+    :meth:`fixpoint` runs by :attr:`mode` (:func:`shard_mode`): in
+    ``"fixpoint"`` mode the card's fixpoint kernel does the whole
+    fixpoint, rounds, exchange and tail, in one launch; in ``"rounds"``
+    mode each round is :meth:`round` — the state's upload a device, one
+    round a card (the round kernel), one copy back a device, the fold in
+    device order and the ranks' in rank order (``_axis_or_fused``,
+    core.py:343-358) — and the replicated tail here.  On the CPU either
+    mode runs the kernels' plain versions.  ``_mode="rounds"`` forces the
+    per-round mode on one device, for a measurement."""
 
-    def __init__(self, slots, card_act: Optional[torch.Tensor] = None,
-                 group=None):
+    def __init__(self, slots, group=None, _mode: Optional[str] = None):
         from . import cuda_shard
 
         self.slots = tuple(slots)
-        self.card_act = card_act
         self.group = group
+        self.mode = shard_mode([s.device for s in self.slots], group)
+        if _mode is not None:
+            if (_mode, self.mode) != ("rounds", "fixpoint"):
+                raise ValueError(f"mode {_mode!r} cannot replace "
+                                 f"{self.mode!r}")
+            self.mode = _mode
         W = self.slots[0].pos.shape[1]
-        NA = card_act.shape[0] if card_act is not None else 0
-        rows: dict = {}
+        by_dev: dict = {}
         for s in self.slots:
-            rows[s.device] = rows.get(s.device, 0) + 1
-        self._state = {d: torch.zeros((3, W), dtype=_I32, device=d)
-                       for d in rows}
-        self._act = {d: torch.zeros(NA, dtype=_I32, device=d) for d in rows}
-        self._out = {d: torch.zeros((n, 2 * W + 1), dtype=_I32, device=d)
-                     for d, n in rows.items()}
-        # Slot i writes row self._row[i] of its device's buffer.
-        self._row, seen = [], {}
-        self._launch = []
-        for s in self.slots:
-            r = seen.get(s.device, 0)
-            seen[s.device] = r + 1
-            self._row.append(r)
-            act = s.card_valid if card_act is None else \
-                self._act[s.device][s.rows[0]:s.rows[1]]
-            self._launch.append(cuda_shard.ShardRound(
-                s.pos, s.neg, s.mem, act, s.card_n, self._state[s.device],
-                self._out[s.device][r]))
+            by_dev.setdefault(s.device, []).append(s)
+        self.cards = [cuda_shard.CardShards(shards, W)
+                      for shards in by_dev.values()]
 
-    def begin(self, t: torch.Tensor) -> None:
-        """Row activity for a fixpoint from ``t`` (unsigned words), one
-        upload a device; a no-op in the reduced space."""
-        if self.card_act is None:
-            return
-        ca = self.card_act
-        idx = ca.clamp(min=0)
-        bit = (t[idx >> 5] >> (idx & 31)) & 1
-        act = ((ca >= 0) & (bit != 0)).to(_I32)
-        for buf in self._act.values():
-            buf.copy_(act)
+    def fixpoint(self, t, f, min_bits, min_w: int):
+        """A fixpoint over every shard from (t, f) (unsigned words on the
+        host): (conflict: bool, t, f, rounds)."""
+        if self.mode == "fixpoint":
+            card = self.cards[0]
+            card.state[:3].copy_(_to_i32(torch.stack([t, f, min_bits])))
+            c, rounds, nt, nf = card.fixpoint(min_w)
+            return c, _to_u(nt), _to_u(nf), rounds
+        t_entry = _to_i32(t)
+        return _round_loop(
+            lambda t, f: self.round(t, f, min_bits, min_w, t_entry),
+            t, f, min_bits, min_w)
 
-    def round(self, t, f, min_bits, min_w: int):
+    def round(self, t, f, min_bits, min_w: int, t_entry):
         """(wpos, wneg, row_conflict) of one round over every shard:
-        unsigned-word masks [W] and a bool."""
+        unsigned-word masks [W] and a bool.  ``t_entry`` (int32 words) is
+        the fixpoint's entry t, the AtMost rows' activity."""
         W = t.shape[0]
-        state = _to_i32(torch.stack([t, f, min_bits]))
-        for buf in self._state.values():
-            buf.copy_(state)
-        for launch in self._launch:
-            launch(min_w)
-        host = {d: b.cpu() for d, b in self._out.items()}
+        state = torch.stack([_to_i32(t), _to_i32(f), _to_i32(min_bits),
+                             t_entry])
+        for card in self.cards:
+            card.state.copy_(state)
+        parts = [card.round(min_w) for card in self.cards]
         buf = None
-        for s, r in zip(self.slots, self._row):
-            row = host[s.device][r]
-            buf = row.clone() if buf is None else buf | row
+        for part in parts:
+            part = part.cpu()
+            buf = part.clone() if buf is None else buf | part
         if self.group is not None:
             import torch.distributed as dist
 
@@ -685,35 +687,43 @@ def _fixpoint_u(S: _Space, t, f, min_bits, min_w: int, run: bool,
                                      S.block_rows)
     if S.shards is not None:
         return _fixpoint_sharded_u(S.shards, t, f, min_bits, min_w)
-    global plain_rounds
     active = _row_activity(S, t)
-    while True:
+
+    def part(t, f):
+        global plain_rounds
         plain_rounds += 1
-        c, t, f, ch = _round_u(S.pos, S.neg, S.mem, active, S.card_n,
-                               min_bits, min_w, t, f)
+        return _round_partial_u(S.pos, S.neg, S.mem, active, S.card_n,
+                                min_bits, min_w, t, f)
+
+    c, t, f, _ = _round_loop(part, t, f, min_bits, min_w)
+    return c, t, f
+
+
+def _round_loop(part, t, f, min_bits, min_w: int):
+    """Rounds to a fixpoint from (t, f), unsigned words: ``part(t, f)``
+    gives a round's combined row part (wpos, wneg, row_conflict), then the
+    replicated tail, until a conflict or no change (core.py:938-966).
+    Returns (conflict: bool, t, f, rounds)."""
+    rounds = 0
+    while True:
+        rounds += 1
+        wpos, wneg, row_conflict = part(t, f)
+        c, t, f, ch = _round_tail_u(wpos, wneg, row_conflict, min_bits,
+                                    min_w, t, f)
         c, ch = torch.stack([c, ch]).tolist()
-        if c:
-            return True, t, f
-        if not ch:
-            return False, t, f
+        if c or not ch:
+            return bool(c), t, f, rounds
 
 
 def _fixpoint_sharded_u(X: ClauseShards, t, f, min_bits, min_w: int):
     """The dense rounds over clause shards (core.py:938-966 under
-    ``clause_axis``): each round's row part on every shard, the OR
-    exchange, then the replicated tail.  Returns (conflict: bool, t, f)."""
-    global sharded_rounds
-    X.begin(t)
-    while True:
-        sharded_rounds += 1
-        wpos, wneg, row_conflict = X.round(t, f, min_bits, min_w)
-        c, t, f, ch = _round_tail_u(wpos, wneg, row_conflict, min_bits,
-                                    min_w, t, f)
-        c, ch = torch.stack([c, ch]).tolist()
-        if c:
-            return True, t, f
-        if not ch:
-            return False, t, f
+    ``clause_axis``), by :meth:`ClauseShards.fixpoint`.  Returns
+    (conflict: bool, t, f)."""
+    global sharded_fixpoints, sharded_rounds
+    c, t, f, rounds = X.fixpoint(t, f, min_bits, min_w)
+    sharded_fixpoints += 1
+    sharded_rounds += rounds
+    return c, t, f
 
 
 def bcp_round(clauses, card_ids, card_n, active, assign, min_mask,

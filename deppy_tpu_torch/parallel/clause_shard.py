@@ -13,12 +13,15 @@ on every device under ``shard_map``, BCP's rows sharded.  The port keeps
 that control on the host, once a process: the phase code of
 :mod:`deppy_tpu_torch.engine.core` (``search_phase``, ``minimize_phase``,
 ``core_phase``), which equals the reference's XLA phases bit for bit,
-over the replicated ``[W]``-word assignment planes.  Only the rounds'
-row work runs on the slots: each slot's shard is uploaded once a solve
-to the slot's device, and each round every slot runs the round kernel
-(``cuda_shard.shard_round``; its plain version on a CPU slot) and
-:class:`core.ClauseShards` folds the buffers, in slot order and then,
-over a process group, across ranks by a gloo all-gather.
+over the replicated ``[W]``-word assignment planes.  The fixpoints run
+on the slots: each slot's shard is uploaded once a solve to the slot's
+device, and :class:`core.ClauseShards` groups the slots by device.  When
+every slot is on one card and there is one process, a fixpoint is one
+cooperative launch over all of them (``CardShards.fixpoint``: the
+rounds, the exchange and the tail on the card).  Otherwise each round is
+one launch a card (``CardShards.round``; the plain version on the CPU)
+and the host folds the cards' buffers and then, over a process group,
+the ranks' by a gloo all-gather, and runs the round's tail.
 
 After :func:`~.mesh.initialize_distributed` the clause mesh spans every
 rank: the shard count is ranks x slots, rank *r* owns shards
@@ -94,12 +97,15 @@ def _shard_rows(pts_np: core.ProblemTensors, g: int,
 
 
 def _shards(pts_np: core.ProblemTensors, d: _ShardDims, mesh: Mesh,
-            red: bool) -> core.ClauseShards:
+            red: bool, _mode: Optional[str] = None) -> core.ClauseShards:
     """This rank's shards of the padded problem ``pts_np`` (one lane,
     host arrays) in the reduced (``red``) or the full plane space: each
     slot's compact rows cross to its device once and its planes are
-    derived there."""
-    NAs = d.NA // mesh.shards
+    derived there.  In the full space each slot keeps its rows'
+    activation variables, so AtMost-row activity follows each fixpoint's
+    entry state on the slot's device.  ``_mode="rounds"`` forces one
+    launch a round on one card (``core.ClauseShards``), for a
+    measurement."""
     slots = []
     for i, dev in enumerate(mesh.devices):
         g = mesh.first_shard + i
@@ -114,15 +120,13 @@ def _shards(pts_np: core.ProblemTensors, d: _ShardDims, mesh: Mesh,
         slots.append(core.ShardSlot(
             dev, pos[0].contiguous(), neg[0].contiguous(),
             mem[0].contiguous(), rows["card_n"][0], rows["card_valid"][0],
-            (g * NAs, (g + 1) * NAs)))
+            None if red else rows["card_act"][0].contiguous()))
     group = None
     if mesh.ranks > 1:
         import torch.distributed as dist
 
         group = dist.group.WORLD
-    card_act = None if red else torch.from_numpy(
-        pts_np.card_act[0].astype(np.int64))
-    return core.ClauseShards(slots, card_act=card_act, group=group)
+    return core.ClauseShards(slots, group=group, _mode=_mode)
 
 
 def solve_sharded(
@@ -134,7 +138,8 @@ def solve_sharded(
     mesh (clause_shard.py:102-154).  Use for problems too large for one
     device; for fleets of normal-sized problems use the batched driver.
     Every rank of a mesh that spans a process group must call it with
-    the same problem, and every rank gets the same result."""
+    the same problem, and every rank gets the same result.  A mesh on
+    one card runs each fixpoint as one launch (``core.shard_mode``)."""
     if problem.errors:
         raise InternalSolverError(problem.errors)
     impl = core.resolved_impl()

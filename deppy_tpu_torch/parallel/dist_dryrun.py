@@ -22,13 +22,15 @@ process_id=i)`` (gloo), then:
   with ``replicate``, so that each rank holds the global outcome vector;
 * ``--mode clause``: solves each problem clause-sharded over ranks x
   slots (``solve_sharded`` on ``clause_mesh``): every round's OR
-  exchange crosses the processes.
+  exchange crosses the processes, each round one launch of the round
+  kernel a rank (its slots share one card).
 
 Each worker writes its lanes (outcome, installed set, core, steps,
-backtracks), its kernel launch counts, its rounds and the names of any
-``jax`` or ``deppy_tpu`` module it loaded.  The parent solves the same
-problems in one process (the unsharded batch, or the one-slot clause
-solve) while the workers run, and prints one JSON verdict line:
+backtracks), its kernel launch counts, its sharded fixpoints and rounds
+and the names of any ``jax`` or ``deppy_tpu`` module it loaded.  The
+parent solves the same problems in one process (the unsharded batch, or
+the one-slot clause solve) while the workers run, and prints one JSON
+verdict line:
 ``{"stage": "dist-dryrun", "ok", "agree", "outcomes", "reference",
 ...}``; ``agree`` holds when every rank's lanes equal each other and the
 reference's, ``ok`` when besides every worker exited 0 and loaded
@@ -107,6 +109,7 @@ def worker(args) -> None:
     problems = _problems(args)
     engine.reset_launch_counts()
     rounds0, plain0 = core.sharded_rounds, core.plain_rounds
+    fixpoints0 = core.sharded_fixpoints
     if args.mode == "batch":
         mesh = default_mesh([dev] * args.slots)
         idx = shard_batch(mesh, torch.arange(len(problems)))
@@ -124,6 +127,7 @@ def worker(args) -> None:
         "shards": mesh.shards,
         "lanes": lanes,
         "launches": engine.launch_counts(),
+        "sharded_fixpoints": core.sharded_fixpoints - fixpoints0,
         "sharded_rounds": core.sharded_rounds - rounds0,
         "plain_rounds": core.plain_rounds - plain0,
         "seconds": time.perf_counter() - t0,
@@ -242,8 +246,9 @@ def parent(args) -> int:
         "reference": [lane[0] for lane in reference],
         "steps": sum(lane[3] for lane in reference),
         "workers": [{k: r[k] for k in ("process", "ranks", "shards",
-                                       "launches", "sharded_rounds",
-                                       "plain_rounds", "seconds",
+                                       "launches", "sharded_fixpoints",
+                                       "sharded_rounds", "plain_rounds",
+                                       "seconds",
                                        "forbidden")} for r in records],
         "seconds": time.perf_counter() - t0,
     }

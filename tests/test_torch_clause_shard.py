@@ -282,48 +282,58 @@ def test_shard_fold_over_three_equals_unsharded_round():
 
 
 def test_shard_round_checks_its_inputs():
+    """A card's shards are checked once, where ``CardShards`` binds them:
+    int32, contiguous, of the planes' width, on one device; a bound
+    card's round equals the plain version of the shard's round."""
     x = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
          for k, v in _round_inputs(0).items()}
-    args = [x[k] for k in ("pos", "neg", "mem", "act", "card_n",
-                           "min_bits", "t", "f")]
-    out = torch.zeros(2 * 3 + 1, dtype=torch.int32)
-    got = cuda_shard.shard_round(*args, x["min_w"], out=out)
-    assert got is out
-    assert out.tolist() == cuda_shard.shard_round_plain(
-        *args, x["min_w"]).tolist()
+    W = x["t"].shape[0]
+    slot = core.ShardSlot(CPU, x["pos"], x["neg"], x["mem"], x["card_n"],
+                          x["act"])
+    card = cuda_shard.CardShards([slot], W)
+    card.state.copy_(torch.stack([x["t"], x["f"], x["min_bits"], x["t"]]))
+    assert card.round(x["min_w"]).tolist() == cuda_shard.shard_round_plain(
+        x["pos"], x["neg"], x["mem"], x["act"], x["card_n"], x["min_bits"],
+        x["t"], x["f"], x["min_w"]).tolist()
     with pytest.raises(TypeError):
-        cuda_shard.shard_round(args[0].to(torch.int64), *args[1:], 0)
+        cuda_shard.CardShards([slot._replace(pos=x["pos"].to(torch.int64))],
+                              W)
     with pytest.raises(ValueError):
-        cuda_shard.shard_round(*args[:6], args[6][:2], args[7], 0)
+        cuda_shard.CardShards([slot._replace(mem=x["mem"][:, :2])], W)
+    with pytest.raises(ValueError):
+        cuda_shard.CardShards(
+            [slot._replace(pos=x["pos"].t().contiguous().t())], W)
+    with pytest.raises(ValueError):
+        cuda_shard.CardShards([slot, slot._replace(
+            card_act=torch.zeros_like(x["act"]))], W)
 
 
 def test_bound_launcher_reads_its_refilled_state():
-    """``ShardRound`` (a slot's launcher for the rounds of a solve) reads
-    its state and activity at every call: refilled in place, each call
-    equals ``shard_round`` on the new inputs."""
+    """``CardShards`` (a card's shards bound for the rounds of a solve)
+    reads its state and activity at every call: refilled in place, each
+    round equals the plain version of the shard's round on the new
+    inputs."""
     x0 = _round_inputs(0)
     W = x0["t"].shape[0]
-    state = torch.zeros((3, W), dtype=torch.int32)
     act = torch.from_numpy(x0["act"].copy())
-    out = torch.zeros(2 * W + 1, dtype=torch.int32)
-    launch = cuda_shard.ShardRound(
-        torch.from_numpy(x0["pos"]), torch.from_numpy(x0["neg"]),
-        torch.from_numpy(x0["mem"]), act, torch.from_numpy(x0["card_n"]),
-        state, out)
+    planes = [torch.from_numpy(x0[k]) for k in ("pos", "neg", "mem")]
+    card_n = torch.from_numpy(x0["card_n"])
+    card = cuda_shard.CardShards(
+        [core.ShardSlot(CPU, *planes, card_n, act)], W)
     for seed in range(4):
         x = _round_inputs(seed)
-        state.copy_(torch.from_numpy(np.stack([x["t"], x["f"],
-                                               x["min_bits"]])))
+        card.state.copy_(torch.from_numpy(np.stack([
+            x["t"], x["f"], x["min_bits"], x["t"]])))
         act.copy_(torch.from_numpy(x["act"]))
-        want = cuda_shard.shard_round(
-            torch.from_numpy(x0["pos"]), torch.from_numpy(x0["neg"]),
-            torch.from_numpy(x0["mem"]), act, torch.from_numpy(x0["card_n"]),
-            torch.from_numpy(x["min_bits"]), torch.from_numpy(x["t"]),
-            torch.from_numpy(x["f"]), x["min_w"])
-        assert launch(x["min_w"]) is out
-        assert out.tolist() == want.tolist(), f"seed {seed}"
+        want = cuda_shard.shard_round_plain(
+            *planes, act, card_n, torch.from_numpy(x["min_bits"]),
+            torch.from_numpy(x["t"]), torch.from_numpy(x["f"]), x["min_w"])
+        assert card.round(x["min_w"]).tolist() == want.tolist(), \
+            f"seed {seed}"
     with pytest.raises(ValueError):
-        cuda_shard.ShardRound(*launch.args[:5], state[:, :2], out)
+        cuda_shard.CardShards(
+            [core.ShardSlot(CPU, planes[0], planes[1], planes[2][:, :2],
+                           card_n, act)], W)
 
 
 # -- slot counts, capability, devices ----------------------------------------

@@ -148,6 +148,28 @@ def test_scan_covers_the_config_and_the_mesh():
         PORT_FILES
 
 
+def test_scan_covers_the_grid_fixpoint_header():
+    """The clause path's grid fixpoint (``csrc/grid_fixpoint.cuh``) is a
+    header of the kernel build: listed in ``_build.HEADERS``, hashed into
+    the library's key, included by the clause kernels' source and free of
+    PyTorch's headers (the build is plain nvcc)."""
+    from deppy_tpu_torch.engine import _build
+
+    assert "grid_fixpoint.cuh" in _build.HEADERS
+    header = _build.CSRC / "grid_fixpoint.cuh"
+    source = (_build.CSRC / "shard_round.cu").read_text(encoding="utf-8")
+    assert '#include "grid_fixpoint.cuh"' in source
+    for text in (header.read_text(encoding="utf-8"), source):
+        assert "torch/" not in text and "ATen" not in text
+    h0 = _build.source_hash()
+    real = _build.HEADERS
+    try:
+        _build.HEADERS = tuple(h for h in real if h != "grid_fixpoint.cuh")
+        assert _build.source_hash() != h0
+    finally:
+        _build.HEADERS = real
+
+
 def test_fresh_process_clause_shard_loads_no_jax():
     """A clause-sharded solve over CPU slots, the runner's worker path
     (a spanning mesh, ``shard_batch``, ``replicate``) on one rank, and

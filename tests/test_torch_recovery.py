@@ -618,9 +618,10 @@ def test_kernel_build_error_is_a_runtime_error(monkeypatch, tmp_path):
 # CUDA error codes: a launch the kernel cannot take (invalid value,
 # invalid configuration, invalid device function, invalid kernel image,
 # no kernel image for the device, invalid PTX, unsupported PTX version,
-# out of resources), then faults of the card (allocation, illegal
-# address, launch timeout, launch failure).
-LAUNCH_DEFECT_CODES = (1, 9, 98, 200, 209, 218, 222, 701)
+# out of resources, a cooperative grid too large, no cooperative
+# launches), then faults of the card (allocation, illegal address,
+# launch timeout, launch failure).
+LAUNCH_DEFECT_CODES = (1, 9, 98, 200, 209, 218, 222, 701, 720, 801)
 CARD_FAULT_CODES = (2, 700, 702, 719)
 
 
