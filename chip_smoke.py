@@ -398,6 +398,27 @@ Phases, each fatal on failure:
    (``torch.profiler``, :func:`clause_profile`) over the giant's first
    500 steps over 4 slots, forced to one launch a round and in the
    fixpoint mode.  The path's launches are parts b and c's;
+4q. the CLI path, after the mesh path (``deppy_tpu_torch/cli.py``),
+   :func:`run_cli_path`: (1) ``cli.main(["resolve", FILE, "--output",
+   "json", "--telemetry-file", SINK])`` in this process with the
+   defaults, FILE one batch document the port's codec wrote (64
+   ``gvk_conflict_catalog(20, 4, 10)`` and 16 ``pinned_tenant_catalog``
+   states and one ``operatorhub_catalog(40, 5)``): exit 1, the answers
+   the in-process ``BatchResolver(device="cuda")``'s and ``--backend
+   host``'s, the first main-thread launch of kernels 1, 3, 4 and 5 held
+   against its plain version; (2) the same file under ``--fault-plan``
+   scripting one ``driver.dispatch`` error: the answers unchanged, one
+   failure and one retry, counted into the faults gate; (3) a child
+   ``python -m deppy_tpu_torch serve --config CFG.json --bcp blockwise``
+   (started with the phase): its banner, ``/readyz``, ``/metrics``, one
+   ``operatorhub_catalog(250, 8)`` (kernel 2) answered as on the bits
+   path, 16 of part 1's states answered as in part 1, the kernels' build
+   reused, the child's first launch of kernel 2 (the catalog's, saved at
+   its exit) held against the plain version; (4) ``top --once`` and ``fleet policy`` against a port
+   ``Router`` in front of the child, the child's exit 0 on SIGTERM, then
+   ``stats``, ``trace <request id>``, ``profile`` and ``routes`` over
+   the sinks, each exit 0.  The path's launches are parts 1-2's and the
+   child's;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -8322,6 +8343,309 @@ def run_mesh_path(scale: float, plain: "PlainPool"):
     return launches, numbers, scripted
 
 
+CLI_GVK = 64       # cli 1: gvk_conflict_catalog(20, 4, 10) states (BASELINE.json config 5)
+CLI_TENANTS = 16   # cli 1: pinned_tenant_catalog states
+CLI_SERVED = 16    # cli 3: the first of cli 1's gvk states, sent to the child
+CLI_REQUEST = "cli-3"   # cli 3: the X-Deppy-Request-Id that cli 4 traces
+CLI_THREAD = "MainThread"
+
+
+def cli_main(argv) -> tuple:
+    """``deppy_tpu_torch.cli.main(argv)`` in this process: (exit code,
+    stdout)."""
+    import io as _io
+
+    from deppy_tpu_torch import cli
+
+    out = _io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def cli_child(tmp: str, config: str, sink: str) -> dict:
+    """``python -m deppy_tpu_torch serve --config CFG --bcp blockwise`` in
+    a subprocess (run as ``-m`` runs it), started now; at exit it prints
+    its kernels' build seconds and its launch counts, and saves the first
+    launch of kernel 2 it made (a :class:`RaceCapture` on any thread) to
+    ``<tmp>/cli-k2.pt`` for the parent to hold against the plain version.
+    Its output goes to ``<tmp>/cli.out``."""
+    capture = os.path.join(tmp, "cli-k2.pt")
+    code = (
+        "import atexit, json, runpy, sys\n"
+        "import torch\n"
+        "import chip_smoke\n"
+        "from deppy_tpu_torch import engine\n"
+        "from deppy_tpu_torch.engine import _build\n"
+        "cap = chip_smoke.RaceCapture(['blockwise_fixpoint'], thread='', "
+        "prefix=True).__enter__()\n"
+        f"atexit.register(lambda: torch.save(cap.calls, {capture!r}))\n"
+        "atexit.register(lambda: print('build_seconds', "
+        "_build.build_seconds, 'launches', "
+        "json.dumps(engine.launch_counts()), flush=True))\n"
+        "sys.argv = ['deppy_tpu_torch', 'serve', '--config', "
+        f"{config!r}, '--bcp', 'blockwise', '--telemetry-file', {sink!r}, "
+        "'--bind-address', '127.0.0.1:0', "
+        "'--health-probe-bind-address', '127.0.0.1:0']\n"
+        "runpy.run_module('deppy_tpu_torch', run_name='__main__')\n")
+    out = open(os.path.join(tmp, "cli.out"), "w+")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code], cwd=root, stdout=out,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, DEPPY_GPU_HOST_WORKERS="0"))
+    return dict(name="cli serve", out=out, t0=time.perf_counter(), proc=proc,
+                capture=capture)
+
+
+def run_cli_path(scale: float, plain: "PlainPool"):
+    """The CLI on the card (the module docstring's phase 4q): (1)
+    ``cli.main(["resolve", FILE, "--output", "json", "--telemetry-file",
+    SINK])`` in this process with the defaults; (2) the same file under
+    ``--fault-plan``, one scripted ``driver.dispatch`` error; (3) a
+    ``python -m deppy_tpu_torch serve --config CFG.json --bcp blockwise``
+    child, started with the phase; (4) ``stats``, ``trace``, ``profile``
+    and ``routes`` over the sinks, and ``top --once`` and ``fleet policy``
+    against a port ``Router`` in front of the child.  The references (the
+    in-process card solve, ``--backend host``, the bits answer of the
+    class-l catalog) run before the path's counts start.  Returns the
+    path's launches (the child's included), its numbers and the driver
+    failures and host-routed lanes it scripted (part 2's)."""
+    import tempfile
+
+    import torch
+
+    from deppy_tpu_torch import engine, faults, io, telemetry
+    from deppy_tpu_torch.fleet import Router
+    from deppy_tpu_torch.models import (gvk_conflict_catalog,
+                                        operatorhub_catalog,
+                                        pinned_tenant_catalog)
+    from deppy_tpu_torch.resolution import BatchResolver
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"cli timings on {card}", flush=True)
+    os.makedirs(os.path.join("build", "telemetry"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli-", dir=os.path.join("build",
+                                                           "telemetry"))
+    sink, sink3 = os.path.join(tmp, "resolve.jsonl"), os.path.join(
+        tmp, "serve.jsonl")
+    cfg = os.path.join(tmp, "cfg.json")
+    with open(cfg, "w") as fh:
+        json.dump({"backend": "device", "cacheSize": 0, "portfolio": "off",
+                   "incremental": "off", "speculate": "off",
+                   "replica": "cli3", "profile": "on",
+                   "profileSample": 1.0}, fh)
+    child = cli_child(tmp, cfg, sink3)
+    n_gvk = max(CLI_SERVED, int(CLI_GVK * scale))
+    n_ten = max(2, int(CLI_TENANTS * scale))
+    states = ([gvk_conflict_catalog(20, 4, 10, seed=i) for i in range(n_gvk)]
+              + [pinned_tenant_catalog(seed=i) for i in range(n_ten)]
+              + [operatorhub_catalog(40, 5)])
+    doc = {"problems": [{"variables": [io.variable_to_dict(v) for v in vs]}
+                        for vs in states]}
+    path = os.path.join(tmp, "batch.json")
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+    big = operatorhub_catalog(250, 8)
+    numbers, part_s = {}, {}
+    reg = telemetry.default_registry()
+    prev_sink = reg.sink_path
+    env_keys = ("DEPPY_GPU_FAULT_BACKOFF_S",)
+    env0 = {k: os.environ.get(k) for k in env_keys}
+    prev_breaker = faults.set_default_breaker(faults.CircuitBreaker())
+    router = None
+    try:
+        # The references, before the path's counts start.
+        t0 = time.perf_counter()
+        want = [io.result_to_dict(r)
+                for r in BatchResolver(device="cuda").solve(states)]
+        big_want = io.result_to_dict(
+            BatchResolver(device="cuda").solve([big])[0])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc, out = cli_main(["resolve", path, "--backend", "host",
+                            "--output", "json"])
+        host_s = time.perf_counter() - t0
+        if rc != 1 or json.loads(out)["results"] != want:
+            fail(f"cli: --backend host exited {rc}, or its answers differ "
+                 f"from the in-process card solve's")
+        numbers["references"] = dict(card_s=card_s, host_s=host_s)
+
+        f0 = _fault_snapshot()
+        torch.cuda.synchronize()
+        engine.reset_launch_counts()
+        scripted = dict(failures=0, host_routed=0)
+        with ThreadLaunches() as tl:
+            # Part 1: resolve through the CLI, the defaults.
+            t0 = time.perf_counter()
+            cap = RaceCapture(INC_KERNELS, thread=CLI_THREAD)
+            with cap:
+                rc, out = cli_main(["resolve", path, "--output", "json",
+                                    "--telemetry-file", sink])
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            reg.configure_sink(prev_sink)
+            got = json.loads(out)
+            if rc != 1 or list(got) != ["results"] or got["results"] != want:
+                fail(f"cli 1: exit {rc}; the answers differ from the "
+                     f"in-process card solve's and --backend host's")
+            cap.submit(plain, "cli 1", need=list(INC_KERNELS))
+            statuses = collections.Counter(r["status"] for r in want)
+            numbers["1"] = dict(problems=len(states), wall_s=wall,
+                                statuses=dict(statuses))
+            part_s["1"] = wall
+            print(f"cli 1 resolve: {len(states)} problems ({n_gvk} "
+                  f"gvk_fleet, {n_ten} pinned_tenant, 1 operatorhub_catalog"
+                  f"(40, 5)), exit {rc}, {dict(statuses)} in {wall:.3f} s "
+                  f"(in-process card {card_s:.3f} s, --backend host "
+                  f"{host_s:.3f} s), answers equal both [{card}]",
+                  flush=True)
+
+            # Part 2: a scripted dispatch error, retried on the card.
+            t0 = time.perf_counter()
+            os.environ["DEPPY_GPU_FAULT_BACKOFF_S"] = "0.001"
+            before = _fault_snapshot()
+            try:
+                rc, out = cli_main([
+                    "resolve", path, "--output", "json", "--fault-plan",
+                    '[{"point": "driver.dispatch", "times": 1}]'])
+                torch.cuda.synchronize()
+            finally:
+                faults.configure_plan(None)
+            d = _delta(before, _fault_snapshot())
+            if rc != 1 or json.loads(out)["results"] != want:
+                fail(f"cli 2: exit {rc}, or the answers under the fault "
+                     f"plan differ")
+            if d["fault_failures"] != 1 or d["fault_retries"] != 1:
+                fail(f"cli 2: failures {d['fault_failures']}, retries "
+                     f"{d['fault_retries']}; want one each")
+            scripted = dict(failures=d["fault_failures"],
+                            host_routed=d["fault_host_routed"])
+            part_s["2"] = time.perf_counter() - t0
+            numbers["2"] = dict(wall_s=part_s["2"], **scripted)
+            print(f"cli 2 --fault-plan driver.dispatch x1: answers equal, "
+                  f"{scripted} ({part_s['2']:.3f} s) [{card}]", flush=True)
+
+            # Part 3: the serve child, started with the phase.
+            t0 = time.perf_counter()
+            api = svc_banner(child)
+            with open(child["out"].name) as fh:
+                probes = int(fh.read().split("probes on :")[1].split(")")[0])
+            ready = svc_request(probes, "GET", "/readyz")[0]
+            # The class-l catalog first: its first fixpoint is the launch
+            # of kernel 2 the child saves.
+            status_b, _, body_b = svc_request(
+                api, "POST", "/v1/resolve",
+                {"variables": [io.variable_to_dict(v) for v in big]})
+            status, _, body = svc_request(
+                api, "POST", "/v1/resolve",
+                {"problems": doc["problems"][:CLI_SERVED]},
+                {"X-Deppy-Request-Id": CLI_REQUEST})
+            served = json.loads(body)["results"] if status == 200 else None
+            metrics = svc_request(api, "GET", "/metrics")
+            if ready != 200 or status != 200 or served != want[:CLI_SERVED]:
+                fail(f"cli 3: /readyz {ready}, /v1/resolve {status}; the "
+                     f"child's answers differ from cli 1's")
+            if status_b != 200 or \
+                    json.loads(body_b)["results"] != [big_want]:
+                fail(f"cli 3: operatorhub_catalog(250, 8) answered "
+                     f"{status_b}, or differs from the bits path's")
+            if metrics[0] != 200 or b"deppy_resolutions_total" not in \
+                    metrics[2]:
+                fail(f"cli 3: /metrics answered {metrics[0]}")
+            part_s["3"] = time.perf_counter() - t0
+
+            # Part 4: top and fleet policy through a router in front of
+            # the child; the child's SIGTERM; the sink verbs over cli 1's
+            # sink and the child's (complete once it exited).
+            t0 = time.perf_counter()
+            router = Router(bind_address="127.0.0.1:0",
+                            replicas=[f"127.0.0.1:{api}"],
+                            probe_interval_s=0)
+            router.start()
+            addr = f"127.0.0.1:{router.api_port}"
+            runs = {"top": cli_main(["top", "--once", "--router", addr]),
+                    "fleet policy": cli_main(["fleet", "policy", "--router",
+                                              addr])}
+            router.shutdown()
+            router = None
+            exit_code = svc_stop(child)
+            runs.update({
+                "stats": cli_main(["stats", sink]),
+                "trace": cli_main(["trace", CLI_REQUEST, "--file", sink3]),
+                "profile": cli_main(["profile", sink3]),
+                "routes": cli_main(["routes", sink])})
+            bad = {v: rc for v, (rc, _) in runs.items() if rc != 0}
+            if bad or exit_code != 0:
+                fail(f"cli 4: verbs exited {bad}; the serve child exited "
+                     f"{exit_code} on SIGTERM")
+            if f"127.0.0.1:{api}" not in runs["top"][1] or \
+                    "driver.solve" not in runs["stats"][1] or \
+                    f"request {CLI_REQUEST}" not in runs["trace"][1] or \
+                    "us/trip" not in runs["profile"][1]:
+                fail("cli 4: top, stats, trace or profile printed no "
+                     "request")
+            part_s["4"] = time.perf_counter() - t0
+            print("cli 4: " + ", ".join(
+                f"{v} exit {rc} ({len(o.splitlines())} lines)"
+                for v, (rc, o) in runs.items()) + f" ({part_s['4']:.3f} s)",
+                flush=True)
+        torch.cuda.synchronize()
+    finally:
+        faults.configure_plan(None)
+        faults.set_default_breaker(prev_breaker)
+        reg.configure_sink(prev_sink)
+        _restore_env(env0, env_keys)
+        if router is not None:
+            router.shutdown()
+        if child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait(10)
+    with open(child["out"].name) as fh:
+        tail = fh.read()
+    child["out"].close()
+    if "build_seconds 0.0 " not in tail:
+        fail(f"cli 3: the serve child rebuilt the kernels: {tail[-1500:]}")
+    child_launches = json.loads(tail.rsplit("launches ", 1)[1].splitlines()[0])
+    launches = engine.launch_counts()
+    off = {t: v for (t, _), v in tl.by_thread.items() if t != CLI_THREAD}
+    if off:
+        fail(f"cli: launches off the main thread: {off}")
+    if child_launches["blockwise_fixpoint"] <= 0 or \
+            child_launches["bcp_fixpoint"] != 0:
+        fail(f"cli 3: the child's launches {child_launches}: want kernel 2 "
+             f"under --bcp blockwise, and no bits fixpoint")
+    # The child's first launch of kernel 2 (the class-l catalog's), held
+    # against the plain version with the others of the pool.
+    k2 = RaceCapture(["blockwise_fixpoint"], thread="cli 3 serve child")
+    k2.calls = torch.load(child["capture"], map_location="cpu",
+                          weights_only=False)
+    k2.submit(plain, "cli 3", need=["blockwise_fixpoint"])
+    print(f"cli 3 serve child (--config, --bcp blockwise): banner after "
+          f"{child['banner_s']:.1f} s, /readyz 200, {CLI_SERVED} gvk_fleet "
+          f"states equal cli 1's, operatorhub_catalog(250, 8) equal the "
+          f"bits path's, build reused, launches {child_launches}, SIGTERM "
+          f"exit 0 in part 4 ({part_s['3']:.3f} s) [{card}]", flush=True)
+    d = _delta(f0, _fault_snapshot())
+    seen = dict(failures=d["fault_failures"],
+                host_routed=d["fault_host_routed"])
+    if seen != scripted:
+        fail(f"cli: the phase counted {seen}, it scripted {scripted}")
+    for k, v in child_launches.items():
+        launches[k] += v
+    seconds = time.perf_counter() - t_phase
+    numbers.update(seconds=seconds, part_s=part_s, scripted=scripted,
+                   child_launches=child_launches,
+                   launches_by_thread=tl.threads())
+    print(f"cli path: {seconds:.1f} s (" + ", ".join(
+        f"{p} {v:.1f}" for p, v in part_s.items()) + f"); launches "
+          f"{launches} (the child's {child_launches}); scripted "
+          f"{scripted} [{card}]", flush=True)
+    return launches, numbers, scripted
+
+
 CLAUSE_SLOTS = (4, 2, 1)   # part b: slots of the one card the giant is cut over
 CLAUSE_SHARDS = (1, 2, 4)  # part a: shard counts the kernel is held at
 CLAUSE_MANY = 20           # part a: and the small catalog at as many slots
@@ -10352,6 +10676,7 @@ PATH_KERNELS = {
     "service": INC_KERNELS,
     "fleet": INC_KERNELS,
     "mesh": INC_KERNELS,
+    "cli": FUSED_KERNELS,
     "clause": ("shard_round",),
 }
 
@@ -10447,6 +10772,10 @@ def main(argv=None) -> int:
             run_mesh_path(args.scale, plain)
         scripted = {k: v + mesh_scripted[k] for k, v in scripted.items()}
         stamp("mesh path")
+        by_path["cli"], per_family["cli"], cli_scripted = run_cli_path(
+            args.scale, plain)
+        scripted = {k: v + cli_scripted[k] for k, v in scripted.items()}
+        stamp("cli path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")
@@ -10492,7 +10821,7 @@ def main(argv=None) -> int:
 
     # The faults gate at the end of the run: the driver failures and
     # host-routed lanes of the whole run are exactly those the faults,
-    # optimize, service and mesh phases scripted (a real launch failure
+    # optimize, service, mesh and cli phases scripted (a real launch failure
     # anywhere fails the run, even though the envelope answered it).
     snap = _fault_snapshot()
     seen = dict(failures=snap["deppy_fault_failures_total"],
@@ -10502,7 +10831,7 @@ def main(argv=None) -> int:
           flush=True)
     if seen != scripted:
         fail(f"faults gate: the run counted {seen}, the faults, optimize, "
-             f"service and mesh phases scripted {scripted}")
+             f"service, mesh and cli phases scripted {scripted}")
 
     launches = {k: sum(p[k] for p in by_path.values())
                 for k in engine.KERNELS}

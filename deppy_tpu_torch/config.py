@@ -25,8 +25,8 @@ things hang off the declaration:
 
 The knobs are the reference's ``DEPPY_TPU_*`` ones renamed, where the
 port has them, plus the HA lease's ``DEPPY_GPU_HA_*`` (the reference's
-``DEPPY_HA_*``).  ``flag`` and ``config_key`` stay ``None`` until the
-port has its CLI (ROADMAP A7.2d).
+``DEPPY_HA_*``).  ``flag`` and ``config_key`` name the knob's mirrors in
+``deppy_tpu_torch/cli.py``, as the reference's declarations do.
 
 Import-light on purpose (stdlib ``os``/``dataclasses`` only): every
 module, the fault layer at the bottom of the import order included, can
@@ -49,8 +49,8 @@ class UndeclaredEnvVar(KeyError):
 @dataclass(frozen=True)
 class EnvVar:
     """One declared environment knob.  ``flag`` / ``config_key`` declare
-    the knob's CLI-flag and config-file mirrors, once the port has a CLI
-    (ROADMAP A7.2d)."""
+    the knob's CLI-flag and ``serve --config`` key mirrors
+    (``deppy_tpu_torch/cli.py``)."""
 
     name: str
     type: str       # "int" | "float" | "str" | "bool" | "path"
@@ -77,7 +77,8 @@ _DECLARATIONS: List[EnvVar] = [
     # --- telemetry -------------------------------------------------------
     _v("DEPPY_GPU_TELEMETRY_FILE", "path", None, _P + "telemetry.registry",
        "JSONL event sink for spans, reports and fault events; summarize "
-       "with `profile.report.summarize`."),
+       "with `profile.report.summarize`.",
+       flag="--telemetry-file"),
     _v("DEPPY_GPU_TRACE_RING", "int", 64, _P + "telemetry.trace",
        "Flight-recorder capacity: recent completed request traces "
        "(malformed reads the default)."),
@@ -89,18 +90,22 @@ _DECLARATIONS: List[EnvVar] = [
        "Engine cost profiler: 'on' records the per-dispatch trip ledger "
        "(`profile` sink events, deppy_profile_* families, SolveReport "
        "ledger columns).  Disarmed is byte-identical to the "
-       "pre-profiler pipeline."),
+       "pre-profiler pipeline.",
+       flag="--profile", config_key="profile"),
     _v("DEPPY_GPU_PROFILE_SAMPLE", "float", 1.0, _P + "profile.ledger",
        "Fraction of dispatches the armed profiler samples, in (0, 1] "
-       "(deterministic 1-in-N; malformed reads the default)."),
+       "(deterministic 1-in-N; malformed reads the default).",
+       flag="--profile-sample", config_key="profileSample"),
     _v("DEPPY_GPU_SLO", "str", None, _P + "profile.slo",
        "Declarative per-tenant SLO config: inline JSON, @FILE, or a path "
        "mapping tenant -> {target_p99_s, error_budget}; burn rates "
-       "render on /metrics and /debug/slo."),
+       "render on /metrics and /debug/slo.",
+       flag="--slo", config_key="slo"),
     # --- faults ----------------------------------------------------------
     _v("DEPPY_GPU_FAULT_PLAN", "str", None, _P + "faults.inject",
        "Fault-injection plan: inline JSON, @FILE, or a file path; a "
-       "malformed plan raises."),
+       "malformed plan raises.",
+       flag="--fault-plan"),
     _v("DEPPY_GPU_FAULT_RETRIES", "int", 2, _P + "faults.policy",
        "Total attempts per device dispatch group (2 = one retry)."),
     _v("DEPPY_GPU_FAULT_BACKOFF_S", "float", 0.05, _P + "faults.policy",
@@ -113,7 +118,8 @@ _DECLARATIONS: List[EnvVar] = [
     _v("DEPPY_GPU_BATCH_DEADLINE_S", "float", None, _P + "faults.policy",
        "Ambient wall-clock budget for a whole resolve batch; expiry "
        "degrades undispatched lanes to Incomplete (<= 0 or malformed: "
-       "none, with a warning when malformed)."),
+       "none, with a warning when malformed).",
+       flag="--deadline"),
     _v("DEPPY_GPU_BREAKER_THRESHOLD", "int", 3, _P + "faults.breaker",
        "Consecutive device failures that trip the circuit breaker open "
        "(host-only serving); the process breaker and every per-device "
@@ -123,14 +129,17 @@ _DECLARATIONS: List[EnvVar] = [
     # --- scheduler / cache ----------------------------------------------
     _v("DEPPY_GPU_SCHED", "str", "on", _P + "service",
        "Cross-request continuous-batching scheduler in front of the "
-       "service ('off' dispatches each request on its own)."),
+       "service ('off' dispatches each request on its own).",
+       flag="--sched", config_key="sched"),
     _v("DEPPY_GPU_SCHED_MAX_WAIT_MS", "float", 5.0,
        _P + "sched.scheduler",
        "Flush policy: max milliseconds the oldest queued problem waits "
-       "for batchmates."),
+       "for batchmates.",
+       flag="--sched-max-wait-ms", config_key="schedMaxWaitMs"),
     _v("DEPPY_GPU_SCHED_MAX_FILL", "int", 256, _P + "sched.scheduler",
        "Flush policy: dispatch once a size class has this many lanes "
-       "queued (under a mesh the default is slots x lanes per device)."),
+       "queued (under a mesh the default is slots x lanes per device).",
+       flag="--sched-max-fill", config_key="schedMaxFill"),
     _v("DEPPY_GPU_SCHED_MAX_DEPTH", "int", 4096, _P + "sched.scheduler",
        "Queue depth past which admission returns 503 + Retry-After "
        "(0 = unbounded)."),
@@ -139,13 +148,15 @@ _DECLARATIONS: List[EnvVar] = [
        "Mesh serving: a full flush targets n_slots x this many lanes so "
        "every slot gets a full shard."),
     _v("DEPPY_GPU_CACHE_SIZE", "int", 1024, _P + "sched.scheduler",
-       "Canonical-form result-cache capacity in entries (0 disables)."),
+       "Canonical-form result-cache capacity in entries (0 disables).",
+       flag="--cache-size", config_key="cacheSize"),
     # --- portfolio racing -------------------------------------------------
     _v("DEPPY_GPU_PORTFOLIO", "str", "auto", _P + "sched.scheduler",
        "Portfolio engine racing: 'on' races the top-K candidate backends "
        "per cold flush and serves the first definitive finisher; 'auto' "
        "races only size classes holding a measured `portfolio` row; "
-       "'off' restores the single-backend dispatch path."),
+       "'off' restores the single-backend dispatch path.",
+       flag="--portfolio", config_key="portfolio"),
     _v("DEPPY_GPU_PORTFOLIO_K", "int", 2, _P + "sched.scheduler",
        "Top-K candidate backends raced per coalesced flush (min 2)."),
     _v("DEPPY_GPU_PORTFOLIO_SAMPLE_CHECK", "float", 0.0625,
@@ -157,75 +168,95 @@ _DECLARATIONS: List[EnvVar] = [
     _v("DEPPY_GPU_SPECULATE", "str", "on", _P + "sched.scheduler",
        "Speculative pre-resolution: catalog publishes invalidate "
        "retracted cache entries and pre-solve affected cached families "
-       "at idle priority ('off' constructs no manager)."),
+       "at idle priority ('off' constructs no manager).",
+       flag="--speculate", config_key="speculate"),
     _v("DEPPY_GPU_SPECULATE_MAX_BACKLOG", "int", 2048,
        _P + "sched.scheduler",
        "Speculative pre-solve backlog cap in lanes; pre-solves past it "
-       "are dropped and counted."),
+       "are dropped and counted.",
+       flag="--speculate-max-backlog", config_key="speculateMaxBacklog"),
     # --- incremental tier ------------------------------------------------
     _v("DEPPY_GPU_INCREMENTAL", "str", "on", _P + "sched.scheduler",
        "Delta-aware incremental resolution: clause-set index + "
        "warm-start lane class in front of the exact result cache "
-       "('off' removes the tier)."),
+       "('off' removes the tier).",
+       flag="--incremental", config_key="incremental"),
     _v("DEPPY_GPU_INCREMENTAL_MAX_DELTA", "float", 0.25,
        _P + "sched.scheduler",
        "Warm-start cutoff: deltas whose touched cone covers more than "
-       "this fraction of the problem's variables cold-solve instead."),
+       "this fraction of the problem's variables cold-solve instead.",
+       flag="--incremental-max-delta", config_key="incrementalMaxDelta"),
     _v("DEPPY_GPU_INCREMENTAL_INDEX_SIZE", "int", 512,
        _P + "sched.scheduler",
        "Clause-set index capacity in solved-problem entries (0 disables "
-       "the tier)."),
+       "the tier).",
+       flag="--incremental-index-size", config_key="incrementalIndexSize"),
     # --- optimization tier -----------------------------------------------
     _v("DEPPY_GPU_OPT", "str", "on", _P + "service",
        "Optimization tier: POST /v1/optimize ('off' 404s the "
-       "endpoint)."),
+       "endpoint).",
+       flag="--opt", config_key="opt"),
     _v("DEPPY_GPU_OPT_MAX_ITERATIONS", "int", 64, _P + "optimize.loop",
        "Bound-tightening iteration cap per optimize request; hitting it "
-       "returns the best model found so far flagged non-optimal."),
+       "returns the best model found so far flagged non-optimal.",
+       flag="--opt-max-iterations", config_key="optMaxIterations"),
     _v("DEPPY_GPU_OPT_ITER_BUDGET", "int", 1048576, _P + "optimize.loop",
        "Engine-step budget per tightening probe; an exhausted probe "
-       "degrades the request to best-so-far."),
+       "degrades the request to best-so-far.",
+       flag="--opt-iter-budget", config_key="optIterBudget"),
     _v("DEPPY_GPU_OPT_MAX_WEIGHT", "int", 64, _P + "optimize.loop",
        "Largest accepted soft-constraint weight; heavier requests are "
-       "rejected as malformed."),
+       "rejected as malformed.",
+       flag="--opt-max-weight", config_key="optMaxWeight"),
     # --- stateful sessions -----------------------------------------------
     _v("DEPPY_GPU_SESSIONS", "str", "on", _P + "service",
        "Stateful resolution sessions: POST /v1/session and "
-       "/v1/session/{id}/op ('off' constructs none of it)."),
+       "/v1/session/{id}/op ('off' constructs none of it).",
+       flag="--sessions", config_key="sessions"),
     _v("DEPPY_GPU_SESSION_LEASE_S", "float", 300.0, _P + "sessions",
        "Session lease in seconds: every op renews it; the sweeper "
-       "expires sessions whose lease lapsed."),
+       "expires sessions whose lease lapsed.",
+       flag="--session-lease-s", config_key="sessionLeaseS"),
     _v("DEPPY_GPU_SESSION_MAX", "int", 256, _P + "sessions",
        "Hard cap on live sessions per replica; at the cap, expired "
        "sessions are LRU-evicted first and creation sheds 503 once none "
-       "remain."),
+       "remain.",
+       flag="--session-max", config_key="sessionMax"),
     _v("DEPPY_GPU_SESSION_MAX_PER_TENANT", "int", 64, _P + "sessions",
        "Per-tenant session cap: a tenant at its cap sheds 503 even with "
-       "global headroom."),
+       "global headroom.",
+       flag="--session-max-per-tenant", config_key="sessionMaxPerTenant"),
     # --- fleet -----------------------------------------------------------
     _v("DEPPY_GPU_FLEET_REPLICAS", "str", None, _P + "fleet.router",
        "Replica addresses the affinity router fronts, comma-separated "
-       "host:port."),
+       "host:port.",
+       flag="--replicas"),
     _v("DEPPY_GPU_FLEET_VNODES", "int", 64, _P + "fleet.router",
-       "Virtual nodes per replica on the consistent-hash ring."),
+       "Virtual nodes per replica on the consistent-hash ring.",
+       flag="--vnodes"),
     _v("DEPPY_GPU_FLEET_PROBE_INTERVAL_S", "float", 2.0,
        _P + "fleet.router",
        "Seconds between router health probes per replica (0 disables "
-       "probing; forwards still charge the breaker)."),
+       "probing; forwards still charge the breaker).",
+       flag="--probe-interval"),
     _v("DEPPY_GPU_FLEET_PROBE_FAILURES", "int", 3, _P + "fleet.router",
        "Consecutive transport failures (probe or live forward) that "
-       "mark a replica dead and reassign its ring arcs."),
+       "mark a replica dead and reassign its ring arcs.",
+       flag="--probe-failures"),
     _v("DEPPY_GPU_REPLICA", "str", None, _P + "service",
        "This replica's serving identity in a fleet: labels the "
        "per-tenant SLO families, /debug/slo and the service.request "
-       "span."),
+       "span.",
+       flag="--replica", config_key="replica"),
     _v("DEPPY_GPU_FLEET", "str", "elastic", _P + "fleet.membership",
        "Fleet membership mode: 'elastic' arms runtime joins, "
        "drain-as-leave, peer gossip and GET /fleet/policy; 'static' "
-       "keeps an immutable ring."),
+       "keeps an immutable ring.",
+       flag="--membership"),
     _v("DEPPY_GPU_FLEET_PEERS", "str", None, _P + "fleet.router",
        "Peer router addresses for membership gossip, comma-separated "
-       "host:port."),
+       "host:port.",
+       flag="--peers"),
     _v("DEPPY_GPU_FLEET_SYNC_INTERVAL_S", "float", 2.0,
        _P + "fleet.router",
        "Seconds between membership gossip rounds with the peer list (0 "
@@ -241,10 +272,12 @@ _DECLARATIONS: List[EnvVar] = [
     _v("DEPPY_GPU_FLEET_ROUTER", "str", None, _P + "service",
        "Fleet router address this replica announces itself to: POST "
        "/fleet/join once serving starts, the drain handoff on graceful "
-       "shutdown."),
+       "shutdown.",
+       flag="--fleet-router", config_key="fleetRouter"),
     _v("DEPPY_GPU_FLEET_ADVERTISE", "str", None, _P + "service",
        "host:port this replica advertises when joining a fleet (default "
-       "127.0.0.1:<api-port>)."),
+       "127.0.0.1:<api-port>).",
+       flag="--fleet-advertise", config_key="fleetAdvertise"),
     _v("DEPPY_GPU_FLEET_BURN_UP", "float", 1.0, _P + "fleet.policy",
        "Per-tenant SLO burn-rate threshold above which the scale policy "
        "recommends scale_up or rebalance on GET /fleet/policy."),
@@ -254,20 +287,24 @@ _DECLARATIONS: List[EnvVar] = [
     # --- scheduler fairness ----------------------------------------------
     _v("DEPPY_GPU_SCHED_FAIR", "str", "on", _P + "sched.scheduler",
        "Weighted-fair per-tenant admission + priority lanes ('off' "
-       "restores the global-depth 503 and strict FIFO)."),
+       "restores the global-depth 503 and strict FIFO).",
+       flag="--sched-fair", config_key="schedFair"),
     _v("DEPPY_GPU_SCHED_TENANT_WEIGHTS", "str", None,
        _P + "sched.scheduler",
        "Declarative tenant weights/priorities for the fair gate: inline "
        "JSON, @FILE, or a path mapping tenant -> weight or {weight, "
-       "priority}."),
+       "priority}.",
+       flag="--sched-tenant-weights", config_key="schedTenantWeights"),
     # --- observability plane ---------------------------------------------
     _v("DEPPY_GPU_OBS_STREAM", "str", None, _P + "service",
        "Fleet telemetry streaming: aggregator address (host:port, "
        "normally the router) this replica batch-pushes its sink events "
-       "to via POST /fleet/telemetry."),
+       "to via POST /fleet/telemetry.",
+       flag="--obs-stream", config_key="obsStream"),
     _v("DEPPY_GPU_OBS_FLUSH_MS", "float", 200.0, _P + "obs.stream",
        "Max milliseconds a queued telemetry event waits before the "
-       "streamer flushes a batch (malformed reads the default)."),
+       "streamer flushes a batch (malformed reads the default).",
+       flag="--obs-flush-ms", config_key="obsFlushMs"),
     _v("DEPPY_GPU_OBS_QUEUE", "int", 4096, _P + "obs.stream",
        "Streamer queue capacity in events; past it events are dropped "
        "and counted."),
@@ -279,10 +316,12 @@ _DECLARATIONS: List[EnvVar] = [
     _v("DEPPY_GPU_OBS_SINK", "path", None, _P + "fleet.router",
        "Router-side merged fleet sink: JSONL path the telemetry "
        "aggregator appends replica-stamped events to; unset 404s POST "
-       "/fleet/telemetry."),
+       "/fleet/telemetry.",
+       flag="--obs-sink"),
     _v("DEPPY_GPU_OBS_BASELINE", "path", None, _P + "service",
        "Cost-model baseline for the drift watchdog (a `profile` report "
-       "or any JSON with a `costmodel` section); unset disarms it."),
+       "or any JSON with a `costmodel` section); unset disarms it.",
+       flag="--obs-baseline", config_key="obsBaseline"),
     _v("DEPPY_GPU_OBS_DRIFT_BAND", "float", 0.5, _P + "obs.drift",
        "Relative drift band for the cost-model watchdog."),
     _v("DEPPY_GPU_OBS_DRIFT_MIN", "int", 8, _P + "obs.drift",
@@ -292,11 +331,13 @@ _DECLARATIONS: List[EnvVar] = [
     _v("DEPPY_GPU_ROUTE_LEARN", "str", "off", _P + "routes",
        "Route-health plane: 'off' arms nothing; 'observe' runs the "
        "regret ledger, staleness watcher and shadow probing; 'on' adds "
-       "the online route registry's learned rows."),
+       "the online route registry's learned rows.",
+       flag="--route-learn", config_key="routeLearn"),
     _v("DEPPY_GPU_ROUTE_SHADOW_RATE", "float", 0.0625,
        _P + "routes.shadow",
        "Fraction of a stale class's flushes duplicated to one "
-       "non-serving backend at idle priority (0 disables)."),
+       "non-serving backend at idle priority (0 disables).",
+       flag="--route-shadow-rate", config_key="routeShadowRate"),
     _v("DEPPY_GPU_ROUTE_MAX_AGE_S", "float", 604800.0,
        _P + "routes.staleness",
        "Measured-defaults provenance age past which a live class's "
@@ -309,12 +350,14 @@ _DECLARATIONS: List[EnvVar] = [
        "wall estimates, in (0, 1]."),
     _v("DEPPY_GPU_ROUTE_REGISTRY", "path", None, _P + "routes.learn",
        "Optional path where live-learned routing rows persist; unset "
-       "keeps adoptions in memory."),
+       "keeps adoptions in memory.",
+       flag="--route-registry", config_key="routeRegistry"),
     # --- service ---------------------------------------------------------
     _v("DEPPY_GPU_REQUEST_DEADLINE_S", "float", None, _P + "service",
        "Default wall-clock budget per /v1/resolve request (clients "
        "override via X-Deppy-Deadline-S; malformed warns and reads "
-       "unset)."),
+       "unset).",
+       flag="--request-deadline", config_key="requestDeadlineSeconds"),
     _v("DEPPY_GPU_DRAIN_S", "float", None, _P + "service",
        "Graceful-shutdown bound on draining in-flight requests (default: "
        "the request deadline, else 10 s)."),
@@ -333,7 +376,8 @@ _DECLARATIONS: List[EnvVar] = [
     # --- hostpool --------------------------------------------------------
     _v("DEPPY_GPU_HOST_WORKERS", "int", None, _P + "hostpool.pool",
        "Host-engine worker pool size (default min(cpu_count, 8); 0 = "
-       "inline serial engine)."),
+       "inline serial engine).",
+       flag="--host-workers", config_key="hostWorkers"),
     _v("DEPPY_GPU_HOST_WORKER_RECYCLE", "int", 256, _P + "hostpool.pool",
        "Solves per worker before it is retired and replaced (0 = "
        "never)."),
@@ -344,7 +388,8 @@ _DECLARATIONS: List[EnvVar] = [
     _v("DEPPY_GPU_MESH_DEVICES", "int", None, _P + "parallel.mesh",
        "Shard each coalesced micro-batch across N CUDA devices "
        "('all'/-1 = every visible card; unset/0/1 = single-device "
-       "dispatch; malformed warns and reads unset)."),
+       "dispatch; malformed warns and reads unset).",
+       flag="--mesh-devices", config_key="meshDevices"),
     # --- engine ----------------------------------------------------------
     _v("DEPPY_GPU_HOST_CORE_NCONS", "int", 768, _P + "engine.driver",
        "Constraint count above which UNSAT-core extraction routes to "
@@ -355,7 +400,8 @@ _DECLARATIONS: List[EnvVar] = [
        "the dense rounds (0 = the size class's cap; read at import)."),
     _v("DEPPY_GPU_BCP", "str", "auto", _P + "engine.core",
        "BCP implementation: auto/bits/blockwise/watched/gather/pallas "
-       "('auto' is 'bits'; read at import)."),
+       "('auto' is 'bits'; read at import).",
+       flag="--bcp", config_key="bcp"),
     _v("DEPPY_GPU_MEASURED_DEFAULTS", "path", None, _P + "engine.defaults",
        "Override path of the measured-defaults registry JSON (default: "
        "the package-local engine/measured_defaults.json)."),
@@ -475,7 +521,7 @@ def render_markdown() -> str:
         "fails on any knob read in code but missing here, on any knob",
         "declared here that no code reads, and on a read that bypasses",
         "the registry.  The Mirrors column names the knob's CLI-flag and",
-        "config-key twins once the port has its CLI.",
+        "config-key twins in `deppy_tpu_torch/cli.py`.",
         "",
         "| Name | Type | Default | Consumer | Mirrors | Description |",
         "| --- | --- | --- | --- | --- | --- |",

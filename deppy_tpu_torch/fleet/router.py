@@ -97,7 +97,7 @@ def _parse_replicas(spec) -> List[str]:
     if not out:
         raise ValueError(
             "fleet router requires at least one replica address "
-            "(replicas=host:port[,host:port...] / "
+            "(--replicas host:port[,host:port...] / "
             "DEPPY_GPU_FLEET_REPLICAS)")
     return out
 

@@ -1,6 +1,6 @@
 """Offline route-health reconstruction (copy of
-``deppy_tpu/routes/report.py:1-185``, the library under the reference's
-``deppy routes`` CLI, which comes with ROADMAP A7.2).
+``deppy_tpu/routes/report.py:1-185``, the library under ``deppy
+routes``, ``deppy_tpu_torch/cli.py``).
 
 The live plane never needs to be scraped to audit routing: every input
 it folds — ``race`` events with censored-aware ``losers``, shadow

@@ -342,7 +342,7 @@ class Server:
         # Profiler arming is NOT a Server concern: like the host worker
         # pool, the profiler is process-global state, owned by the
         # process entry point (``profile.configure``, or
-        # ``DEPPY_GPU_PROFILE``; the CLI's ``--profile`` is ROADMAP A7.2)
+        # ``DEPPY_GPU_PROFILE``, or ``deppy serve --profile``)
         # — a Server installing it would leak arming across embedded
         # servers that come and go.
         self.slo = profiling.SLOAccountant(
@@ -1651,13 +1651,12 @@ def serve(
     session_max_per_tenant: Optional[int] = None,
     device="cuda",
 ) -> None:
-    """Blocking entry point (the reference's ``deppy serve``; the port's
-    CLI verb is ROADMAP A7.2), the analog of
-    mgr.Start, main.go:85).  Exits cleanly on SIGTERM (how Kubernetes
-    stops the shipped Deployment's pods) as well as Ctrl-C: readiness is
-    cleared, in-flight requests drain (bounded by the request-deadline
-    machinery), and both listeners close via ``shutdown()`` instead of
-    dying mid-request."""
+    """Blocking entry point of ``deppy serve`` (``deppy_tpu_torch/cli.py``),
+    the analog of mgr.Start (main.go:85).  Exits cleanly on SIGTERM (how
+    Kubernetes stops the shipped Deployment's pods) as well as Ctrl-C:
+    readiness is cleared, in-flight requests drain (bounded by the
+    request-deadline machinery), and both listeners close via
+    ``shutdown()`` instead of dying mid-request."""
     import signal
 
     srv = Server(bind_address, probe_address, backend, max_steps,

@@ -35,7 +35,8 @@ Metric families (on ``metrics``, default the default registry):
 point ``sessions.op``.  Locks are plain ``threading`` locks.  The limits
 are arguments; left None they read ``DEPPY_GPU_SESSION_LEASE_S``,
 ``_MAX`` and ``_MAX_PER_TENANT`` (the reference's defaults; their CLI
-flags come with ROADMAP A7.2d).  The service
+flags are ``serve``'s ``--session-lease-s``, ``--session-max`` and
+``--session-max-per-tenant``).  The service
 (:mod:`deppy_tpu_torch.service`) switches the store on and off
 (``DEPPY_GPU_SESSIONS``) and passes its replica name, which
 ``session.op`` spans carry as in the reference.

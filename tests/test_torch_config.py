@@ -85,20 +85,73 @@ class TestAccessorErrorPaths:
         assert config.env_bool("DEPPY_GPU_SPECULATE", True) is True
 
 
+def _reference_mirrors() -> dict:
+    """The reference's (flag, config_key) a knob, under the port's name."""
+    from deppy_tpu import config as ref
+
+    return {v.name.replace("DEPPY_TPU_", "DEPPY_GPU_"): (v.flag, v.config_key)
+            for v in ref.REGISTRY.values()}
+
+
 def test_declarations():
     """Every declaration has a type, a help text, a consumer that is a
-    module of the port, and no CLI mirror yet (ROADMAP A7.2d)."""
+    module of the port, and the CLI mirrors of the reference's knob of
+    the same name (none where the reference has none or no such knob)."""
     assert config.REGISTRY
+    mirrors = _reference_mirrors()
     for name, v in config.REGISTRY.items():
         assert name == v.name and name.startswith("DEPPY_GPU_")
         assert v.type in ("int", "float", "str", "bool", "path"), name
         assert v.help.strip(), name
-        assert v.flag is None and v.config_key is None, name
+        assert (v.flag, v.config_key) == mirrors.get(name, (None, None)), \
+            name
         parts = v.consumer.split(".")
         assert parts[0] == "deppy_tpu_torch", name
         base = PACKAGE.joinpath(*parts[1:])
         assert base.with_suffix(".py").exists() or \
             (base / "__init__.py").exists(), (name, v.consumer)
+
+
+def test_mirror_declarations_match_cli():
+    """Every declared flag and config-key mirror exists in the port's
+    ``cli.py`` (the port's ``tests/test_config.py:96-110``)."""
+    cli_text = (PACKAGE / "cli.py").read_text(encoding="utf-8")
+    mirrored = [v for v in config.REGISTRY.values()
+                if v.flag or v.config_key]
+    assert len(mirrored) == 46
+    for v in mirrored:
+        if v.flag:
+            assert f'"{v.flag}"' in cli_text, (v.name, v.flag)
+        if v.config_key:
+            assert f'"{v.config_key}"' in cli_text, (v.name, v.config_key)
+
+
+def test_every_reference_mirror_of_a_ported_knob_is_declared():
+    """A reference knob that the port has and that declares a mirror
+    declares the same mirror here, and the parser and the serve config
+    accept it."""
+    from deppy_tpu_torch import cli
+
+    keys = set(cli._CONFIG_KEYS)
+    flags = {a for act in _parser_actions(cli._build_parser())
+             for a in act.option_strings}
+    for name, (flag, key) in _reference_mirrors().items():
+        if (flag or key) and name in config.REGISTRY:
+            v = config.REGISTRY[name]
+            assert (v.flag, v.config_key) == (flag, key), name
+            assert flag is None or flag in flags, (name, flag)
+            assert key is None or key in keys, (name, key)
+
+
+def _parser_actions(parser):
+    """Every action of ``parser`` and of its subparsers, recursively."""
+    import argparse
+
+    for act in parser._actions:
+        yield act
+        if isinstance(act, argparse._SubParsersAction):
+            for sub in act.choices.values():
+                yield from _parser_actions(sub)
 
 
 # ------------------------------------------------------------ the AST scan

@@ -119,8 +119,11 @@ def _stub_nvcc(tmp: Path, delay: float) -> str:
 
 def test_build_race_between_two_ranks_counts_as_built(tmp_path, monkeypatch):
     """Two ranks building at once: the one whose ``os.replace`` loses to
-    a directory that already holds the library counts it as built."""
-    monkeypatch.setattr(_build, "_nvcc", lambda: _stub_nvcc(tmp_path, 0.3))
+    a directory that already holds the library counts it as built.  The
+    stub is written once, before the threads: one rewriting it while the
+    other runs it fails with ETXTBSY."""
+    nvcc = _stub_nvcc(tmp_path, 0.3)
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc)
     out_dir = tmp_path / "build" / "abc"
     out_dir.parent.mkdir()
     errors = []

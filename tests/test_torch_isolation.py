@@ -4,6 +4,7 @@ never runs on the CPU unasked, and a CPU solve launches no kernel."""
 from __future__ import annotations
 
 import ast
+import json
 import subprocess
 import sys
 import textwrap
@@ -135,6 +136,13 @@ def test_scan_covers_the_service_and_lease():
     assert names == {"__init__.py", "lease.py", "verify.py"}
 
 
+def test_scan_covers_the_cli():
+    """The CLI and its ``python -m`` entry point are the port's own
+    copies: the AST scan reads both."""
+    for name in ("cli.py", "__main__.py"):
+        assert ROOT / "deppy_tpu_torch" / name in PORT_FILES
+
+
 def test_scan_covers_the_config_and_the_mesh():
     """The typed knob registry, the mesh (batch and clause axes, process
     groups and the two-process runner) and the round kernel's wrapper
@@ -201,6 +209,39 @@ def test_fresh_process_clause_shard_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_fresh_process_cli_resolve_loads_no_jax(tmp_path):
+    """``python -m deppy_tpu_torch resolve --device cpu FILE`` (run as
+    ``-m`` runs it) answers and imports nothing of JAX or deppy_tpu."""
+    path = tmp_path / "batch.json"
+    path.write_text(json.dumps({"problems": [
+        {"variables": [{"id": "a", "constraints": [
+            {"type": "mandatory"}, {"type": "dependency", "ids": ["b"]}]},
+            {"id": "b"}]},
+        {"variables": [{"id": "c", "constraints": [
+            {"type": "mandatory"}, {"type": "prohibited"}]}]}]}))
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        before = set(sys.modules)
+        sys.argv = ["deppy_tpu_torch", "resolve", "--device", "cpu",
+                    {str(path)!r}, "--output", "json"]
+        try:
+            runpy.run_module("deppy_tpu_torch", run_name="__main__")
+        except SystemExit as e:
+            rc = e.code
+        new = set(sys.modules) - before
+        bad = sorted(m for m in new
+                     if m.split(".")[0] in ("jax", "jaxlib", "deppy_tpu"))
+        print("BAD", bad)
+        sys.exit(0 if rc == 1 and not bad and
+                 "deppy_tpu_torch.cli" in new else 3)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    answers = json.loads(proc.stdout[:proc.stdout.rindex("BAD")])
+    assert [r["status"] for r in answers["results"]] == ["sat", "unsat"]
 
 
 def test_fresh_process_service_loads_no_jax():
