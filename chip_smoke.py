@@ -9,8 +9,8 @@ Run from the repository root, with one card visible::
 
 Phases, each fatal on failure:
 
-1. the card's name and power limit, and the build of the five kernels
-   from ``deppy_tpu_torch/engine/csrc``;
+1. the card's name and power limit, and the build of the kernels from
+   ``deppy_tpu_torch/engine/csrc``;
 2. the bits path (``set_bcp_impl("auto")``) at the sizes users run (the
    BASELINE.json configs on one card): ``BatchResolver(device="cuda")
    .solve`` over 10,000 ``gvk_conflict_catalog(20, 4, 10)`` cluster
@@ -419,6 +419,25 @@ Phases, each fatal on failure:
    ``stats``, ``trace <request id>``, ``profile`` and ``routes`` over
    the sinks, each exit 0.  The path's launches are parts 1-2's and the
    child's;
+4r. the spec path, after the CLI path: the speculative core sweep
+   (``driver.SPEC_CORE``; kernels 7 and 8, ``csrc/probe.cu``),
+   :func:`run_spec_path`'s parts a-f: ``Solver(giant_pinned_conflict(250,
+   8), device="cuda").solve()`` with the sweep on, then off, twice each
+   in turns (the messages the host backend's; the sweep's wall by stage,
+   its lanes and launches, spec_steps and the host sweep's wall); the
+   803-constraint problem with the sweep on (its recorded core); the
+   disjoint cores under ``HOST_CORE_NCONS`` 0 (the sweep gives None and
+   the host sweep answers); ``solve_problems(..., split_phases=False)``
+   over the 803-constraint problem and ``giant_pinned_conflict(40, 4)``
+   on and off (the same cores); the A/B
+   (``deppy_tpu_torch.engine.spec_core_ab``) recording into a temporary
+   registry that ``auto`` reads back; ``giant_pinned_conflict(40, 4)``
+   under every other impl (the bits run's core and steps).  Every
+   kernel-8 launch of the 803-constraint sweep and of the (40, 4) sweep
+   of the monolith batch is held against its plain version in the pool
+   at its own budget (status and steps exact, every lane finished);
+   then kernel 7 on 32 lanes and kernel 8 on the giant's stage-2 and
+   verification lanes (at a cut budget) timed and held the same way;
 5. the answers: every solution satisfies every constraint of its
    problem, every unsat core is non-empty, no result is Incomplete; the
    first problems of each bits family give the same answers on
@@ -8646,6 +8665,574 @@ def run_cli_path(scale: float, plain: "PlainPool"):
     return launches, numbers, scripted
 
 
+SWEEP_GIANT = (250, 8)     # giant_pinned_conflict: BASELINE.md row 7's catalog
+SWEEP_SMALL = (40, 4)      # parts d, f: the 175-constraint pinned catalog
+SWEEP_REPS = 2             # part a: the sweep on, then off, twice each
+SWEEP_LANES = 32           # stage 1's comparison launch
+SWEEP_PLAIN_BUDGET = 256   # stage 2's timed launch on the giant: steps a lane
+SWEEP_IMPLS = ("blockwise", "watched", "gather", "pallas")  # part f
+
+
+class SweepLog:
+    """While on, the speculative core sweep as the driver runs it: each
+    sweep (``driver._speculative_core_mask``: its wall, core, steps and
+    the probe launches inside it), each probe launch (kernel, lanes, its
+    inputs and outputs, and ``ms``, the card's time between two CUDA
+    events recorded on the stream around the wrapper's call: its packing
+    and the kernel) and each host sweep (``HostEngine.unsat_core_mask``:
+    its wall).  Nothing here synchronizes the card: the launches go out
+    as the driver sends them, and the events are read once the sweep has
+    read its answers back."""
+
+    def __init__(self):
+        self.sweeps, self.launches, self.host = [], [], []
+
+    def __enter__(self):
+        import torch
+
+        from deppy_tpu_torch.engine import cuda_probe, driver
+        from deppy_tpu_torch.sat import host
+
+        self._saved = (driver._speculative_core_mask,
+                       cuda_probe.batched_probe_fixpoint,
+                       cuda_probe.batched_probe,
+                       host.HostEngine.unsat_core_mask)
+        sweep, fp, dpll, host_core = self._saved
+        log = self
+
+        def spec(problem, remaining, device="cuda"):
+            i0, t0 = len(log.launches), time.perf_counter()
+            mask, steps = sweep(problem, remaining, device)
+            wall = time.perf_counter() - t0
+            log.read_events()
+            log.sweeps.append(dict(wall_s=wall, mask=mask, steps=steps,
+                                   n_cons=problem.n_cons,
+                                   launches=log.launches[i0:]))
+            return mask, steps
+
+        def timed(kernel, fn, *args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            stop.record()
+            log.launches.append(dict(
+                kernel=kernel, lanes=args[1].shape[0], args=args, kw=kw,
+                out=out, events=(start, stop)))
+            return out
+
+        def unsat_core_mask(eng):
+            t0 = time.perf_counter()
+            out = host_core(eng)
+            log.host.append(time.perf_counter() - t0)
+            return out
+
+        driver._speculative_core_mask = spec
+        cuda_probe.batched_probe_fixpoint = (
+            lambda *a, **kw: timed("probe_fixpoint", fp, *a, **kw))
+        cuda_probe.batched_probe = (
+            lambda *a, **kw: timed("probe_dpll", dpll, *a, **kw))
+        host.HostEngine.unsat_core_mask = unsat_core_mask
+        return self
+
+    def __exit__(self, *exc):
+        from deppy_tpu_torch.engine import cuda_probe, driver
+        from deppy_tpu_torch.sat import host
+
+        (driver._speculative_core_mask, cuda_probe.batched_probe_fixpoint,
+         cuda_probe.batched_probe, host.HostEngine.unsat_core_mask) = \
+            self._saved
+        self.read_events()
+
+    def read_events(self) -> None:
+        """Each logged launch's ``ms`` from its events (waiting for them)."""
+        for x in self.launches:
+            if "events" in x:
+                start, stop = x.pop("events")
+                stop.synchronize()
+                x["ms"] = start.elapsed_time(stop)
+
+    def kernels(self) -> dict:
+        """Probe launches by kernel."""
+        return dict(collections.Counter(x["kernel"] for x in self.launches))
+
+
+def sweep_text(sw: dict) -> str:
+    """One sweep by stage: stage 1's launches, stage 2's and the
+    verification's, each with its lanes and its card time between
+    events (:class:`SweepLog`)."""
+    fp = [x for x in sw["launches"] if x["kernel"] == "probe_fixpoint"]
+    dp = [x for x in sw["launches"] if x["kernel"] == "probe_dpll"]
+    # The last search launch is the verification's when the sweep got
+    # that far (a certified core); a None may stop before it.
+    ver = dp[-1:] if sw["mask"] is not None else []
+    stages = [("stage 1", fp), ("stage 2", dp[:len(dp) - len(ver)]),
+              ("verification", ver)]
+    core = ("None" if sw["mask"] is None
+            else str(sw["mask"].nonzero()[0].tolist()))
+    return (f"sweep {sw['wall_s']:.3f} s, core {core}, spec_steps "
+            f"{sw['steps']} of {sw['n_cons']} constraints; " + "; ".join(
+                f"{name} {len(ls)} launches x {[x['lanes'] for x in ls]} "
+                f"lanes {sum(x['ms'] for x in ls):.3f} ms"
+                for name, ls in stages if ls))
+
+
+def _sweep_solve(variables, spec: str, stats=None):
+    """``Solver(variables, device="cuda").solve()`` with
+    ``driver.SPEC_CORE`` at ``spec``: (answer, wall s)."""
+    import torch
+
+    from deppy_tpu_torch.engine import driver
+
+    saved = driver.SPEC_CORE
+    driver.SPEC_CORE = spec
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve_one(variables, stats)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    finally:
+        driver.SPEC_CORE = saved
+
+
+def _host_answer(variables):
+    from deppy_tpu_torch.sat import NotSatisfiable, Solver
+
+    t0 = time.perf_counter()
+    try:
+        Solver(variables, backend="host").solve()
+        fail("spec: a host solve of an UNSAT catalog answered SAT")
+    except NotSatisfiable as e:
+        return e, time.perf_counter() - t0
+
+
+def disjoint_cores():
+    """Two disjoint cores (tests/test_host_core_routing.py:35-41): the
+    deletion order decides which survives, so the sweep's certifying
+    probe is SAT and it gives the core back to the host sweep."""
+    from deppy_tpu_torch.sat import (conflict, dependency, mandatory,
+                                     prohibited, variable)
+
+    return [variable("a", mandatory(), prohibited()),
+            variable("b", mandatory(), conflict("c")),
+            variable("c", mandatory()),
+            variable("d", dependency("c"))]
+
+
+def sweep_ab(card: str, tmp: str) -> dict:
+    """Part e: ``spec_core_ab.main(["--record", "--registry", PATH])`` in
+    this process at the full shape, then ``auto`` read back from PATH."""
+    import io
+
+    from deppy_tpu_torch.engine import defaults, driver, spec_core_ab
+
+    path = os.path.join(tmp, "measured_defaults.json")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = spec_core_ab.main(["--packages", str(SWEEP_GIANT[0]),
+                                "--versions", str(SWEEP_GIANT[1]),
+                                "--record", "--registry", path])
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    rec, written = lines[0], lines[1]["recorded"]
+    if rc != 0 or not rec["cores_agree"]:
+        fail(f"spec e: the A/B's cores diverged: {rec}")
+    want = (spec_core_ab.spec_core_row(rec)
+            if spec_core_ab.records(*SWEEP_GIANT, "cuda") else None)
+    row = defaults.read_rows(path).get("gpu", {}).get("spec_core")
+    if written != want or row != want:
+        fail(f"spec e: the A/B recorded {written!r} (registry {row!r}), "
+             f"its rule gives {want!r}")
+    env_keys = ("DEPPY_GPU_MEASURED_DEFAULTS",)
+    env0 = {k: os.environ.get(k) for k in env_keys}
+    spec0 = driver.SPEC_CORE
+    try:
+        os.environ["DEPPY_GPU_MEASURED_DEFAULTS"] = path
+        defaults.reload_measured_defaults()
+        driver.SPEC_CORE = "auto"
+        auto = driver._spec_core_enabled("cuda")
+    finally:
+        driver.SPEC_CORE = spec0
+        _restore_env(env0, env_keys)
+        defaults.reload_measured_defaults()
+    if auto != (want == "on"):
+        fail(f"spec e: auto reads {auto} from a {want!r} row")
+    print(f"spec e A/B at {SWEEP_GIANT}: verdict {rec['verdict']}, off "
+          f"{rec['off_s']:.4f} s, on {rec['on_s']:.4f} s; recorded "
+          f"{written!r}; auto reads it back: sweep "
+          f"{'on' if auto else 'off'} [{card}]", flush=True)
+    return dict(rec, recorded=written, auto=auto)
+
+
+def _sweep_pt(problem):
+    """The sweep's shared problem on the card: one problem's full-space
+    planes (the bits impl's dense rounds), as the driver derives them."""
+    import torch
+
+    from deppy_tpu_torch.engine import core, driver
+
+    d = driver._Dims([problem], 1)
+    pts = driver._upload(driver.pad_stack([problem], d, 1),
+                         driver.resolve_device("cuda"))
+    pts = core.with_planes(pts, Wv=d.Wv, Wr=d.Wr, red=False, full=True)
+    return d, core.lane(pts, 0)
+
+
+def _sweep_bytes(pt, *extra) -> int:
+    """Bytes a probe launch must move: the shared problem's planes and
+    rows read once, the lanes' inputs read and outputs written once."""
+    return _nbytes(pt.pos_bits, pt.neg_bits, pt.card_member_bits,
+                   pt.card_n, pt.card_act, pt.n_vars, pt.n_cons, *extra)
+
+
+def sweep_compare(card: str, problem, first: dict, plain: PlainPool):
+    """Kernels 7 and 8 against their plain versions in the pool, on the
+    giant's planes, each launch timed by the profiler: stage 1 on
+    :data:`SWEEP_LANES` lanes (the core's drops, one tail lane, the rest
+    spread over the catalog), whose flags must also equal the main path's
+    for the drops below ``n_cons``; stage 2 on the main path's stage-2
+    lanes and its verification lane at :data:`SWEEP_PLAIN_BUDGET` steps,
+    a timed extra (the plain DPLL of a giant's lane at the main path's
+    budget is minutes of CPU), each lane the main path's where it
+    finished within that budget, else RUNNING one step past it; the
+    exact holds at the main path's own budgets are :func:`sweep_hold`'s,
+    on parts b and d.  ``first`` is part a's first sweep, whose
+    launches stand beside these as the main path's.  Returns the rows
+    pending the pool (:func:`finish_sweep_rows`)."""
+    import torch
+
+    from deppy_tpu_torch.engine import core, cuda_probe
+
+    d, pt = _sweep_pt(problem)
+    dev = pt.n_vars.device
+    n = problem.n_cons
+    fp = [x for x in first["launches"] if x["kernel"] == "probe_fixpoint"]
+    dp = [x for x in first["launches"] if x["kernel"] == "probe_dpll"]
+    flags = torch.cat([x["out"] for x in fp]).cpu()
+    core_idx = first["mask"].nonzero()[0].tolist()
+    others = SWEEP_LANES - len(core_idx) - 1
+    drops = [j for j in range(0, n, max(1, n // others))
+             if j not in core_idx][:others] + core_idx + [n]
+    drops32 = torch.tensor(drops, dtype=torch.int32, device=dev)
+    got, ms, wrapper_ms = _timed(
+        lambda: cuda_probe.batched_probe_fixpoint(pt, drops32, NCON=d.NCON),
+        "probe_fixpoint", TIMED_REPS)
+    if not torch.equal(got.cpu()[:-1], flags[torch.tensor(drops[:-1])]):
+        fail("spec: kernel probe_fixpoint's comparison launch differs from "
+             "the main path's flags for the same drops")
+    label1 = ("probe_fixpoint", "giant_pinned", f"{SWEEP_LANES} lanes")
+    plain.submit(label1, [got], "core", "batched_probe_fixpoint",
+                 [_Whole.of(pt), drops32], dict(NCON=d.NCON),
+                 B=SWEEP_LANES, chunk=4)
+    C, NA, W = pt.pos_bits.shape[0], pt.card_member_bits.shape[0], d.Wv
+    main1 = [x["ms"] for x in fp]
+    row1 = dict(ms=ms, wrapper_ms=wrapper_ms, lanes=SWEEP_LANES,
+                main_lanes=fp[0]["lanes"], main_wall_ms=main1,
+                need=lambda w: (_sweep_bytes(pt, drops32, drops32),
+                                w["rounds"] * _ops_per_round(C, NA, W)))
+    print(f"kernel probe_fixpoint on giant_pinned: {SWEEP_LANES} lanes "
+          f"(drops {drops[-4:]} among them) {ms:.6f} ms (wrapper "
+          f"{wrapper_ms:.6f}); the main path's {fp[0]['lanes']}-lane "
+          f"launches {', '.join(f'{x:.3f}' for x in main1)} ms between "
+          f"events [{card}]", flush=True)
+
+    # Stage 2: the lanes of the main path's launch and the verification
+    # launch's one lane.
+    masks2, budget = dp[0]["args"][1:3]
+    live = masks2.shape[0]
+    masks = torch.cat([masks2, dp[-1]["args"][1]])
+    cut = SWEEP_PLAIN_BUDGET
+    got2, ms2, wrapper_ms2 = _timed(
+        lambda: cuda_probe.batched_probe(pt, masks, cut, NCON=d.NCON),
+        "probe_dpll", TIMED_REPS)
+    main_st = torch.cat([dp[0]["out"][0][:live], dp[-1]["out"][0][:1]])
+    main_sp = torch.cat([dp[0]["out"][1][:live], dp[-1]["out"][1][:1]])
+    done = main_sp <= cut
+    want_st = torch.where(done, main_st, core.RUNNING)
+    want_sp = torch.where(done, main_sp, cut + 1)
+    if not (torch.equal(got2[0], want_st) and torch.equal(got2[1], want_sp)):
+        fail(f"spec: kernel probe_dpll at {cut} steps gave status "
+             f"{got2[0].tolist()} steps {got2[1].tolist()}; the main path "
+             f"at {budget} steps {main_st.tolist()} {main_sp.tolist()}")
+    label2 = ("probe_dpll", "giant_pinned",
+              f"{live} live lanes and the verification lane, {cut} steps")
+    plain.submit(label2, list(got2), "core", "batched_probe",
+                 [_Whole.of(pt), masks, cut], dict(NCON=d.NCON),
+                 B=live + 1, chunk=1)
+    Q = masks.shape[0]
+    main2 = [x["ms"] for x in dp]
+    row2 = dict(ms=ms2, wrapper_ms=wrapper_ms2, lanes=Q, budget=cut,
+                steps=got2[1].tolist(), main_budget=budget,
+                main_steps=main_sp.tolist(), main_wall_ms=main2,
+                need=lambda w: (_sweep_bytes(pt, masks, got2[0], got2[1]),
+                                w["rounds"] * _ops_per_round(C, NA, W)))
+    print(f"kernel probe_dpll on giant_pinned: {Q} lanes ({live} live, 1 "
+          f"verification) at {cut} steps (steps {got2[1].tolist()}) "
+          f"{ms2:.6f} ms (wrapper {wrapper_ms2:.6f}); the main path's "
+          f"launches at {budget} steps (steps {main_sp.tolist()}) "
+          f"{', '.join(f'{x:.3f}' for x in main2)} ms between events "
+          f"[{card}]", flush=True)
+    return {label1: row1, label2: row2}
+
+
+def sweep_hold(card: str, family: str, sw: dict, plain: PlainPool) -> list:
+    """Every kernel-8 launch of the main path's sweep ``sw`` (stage 2's
+    and the verification's), held in the pool against its plain version
+    on the same inputs at the launch's own budget: status and steps exact
+    on every lane.  Each lane must have finished inside that budget, so
+    the comparison covers the DPLL's answer and its step count, not only
+    that a lane ran out.  Returns the pool labels."""
+    from deppy_tpu_torch.engine import core
+
+    labels = []
+    for i, x in enumerate(y for y in sw["launches"]
+                          if y["kernel"] == "probe_dpll"):
+        pt, masks, budget = x["args"][:3]
+        status, steps = x["out"]
+        if bool((status == core.RUNNING).any()):
+            fail(f"spec: the {family} sweep's kernel-8 launch {i} left a "
+                 f"lane RUNNING at {budget} steps: {steps.tolist()}")
+        label = ("probe_dpll", family,
+                 f"main-path launch {i}, {masks.shape[0]} lanes at "
+                 f"{budget} steps")
+        plain.submit(label, [status, steps], "core", "batched_probe",
+                     [_Whole.of(pt), masks, budget],
+                     {k: x["kw"][k] for k in ("NCON", "impl", "block_rows")},
+                     B=masks.shape[0], chunk=1)
+        labels.append(label)
+        print(f"kernel probe_dpll on {family}: main-path launch {i} held at "
+              f"its budget {budget}: {masks.shape[0]} lanes, status "
+              f"{status.tolist()} steps {steps.tolist()} [{card}]",
+              flush=True)
+    if not labels:
+        fail(f"spec: the {family} sweep made no kernel-8 launch")
+    return labels
+
+
+def finish_sweep_rows(rows: dict, pending: dict, plain: PlainPool,
+                      held=()) -> None:
+    """Kernels 7 and 8's rows, once the pool is checked: plain ms (CPU
+    seconds summed over the tasks), rounds and the bound; and the plain
+    seconds of the ``held`` launches (:func:`sweep_hold`)."""
+    for label in held:
+        st = plain.stats[label]
+        print(f"kernel {label[0]} ({label[2]}) on {label[1]}: held exact, "
+              f"plain_ms {st['plain_ms']:.1f} (cpu) rounds {st['rounds']}",
+              flush=True)
+    for (kernel, family, what), fam in pending.items():
+        st = plain.stats[(kernel, family, what)]
+        fam["bytes"], ops = fam.pop("need")(st)
+        fam.update(plain_ms=st["plain_ms"], plain_on="cpu",
+                   rounds=st["rounds"])
+        fam["bound_ms"], fam["bound_by"] = _bound(fam["bytes"], ops)
+        rows[kernel] = dict(families={family: fam}, max_abs_err=0)
+        print(f"kernel {kernel} ({what}) on {family}: ms {fam['ms']:.6f} "
+              f"wrapper_ms {fam['wrapper_ms']:.6f} plain_ms "
+              f"{fam['plain_ms']:.1f} (cpu) rounds {fam['rounds']} bytes "
+              f"{fam['bytes']} bound_ms {fam['bound_ms']:.8f} "
+              f"({fam['bound_by']})", flush=True)
+
+
+def run_spec_path(scale: float, refs: dict, plain: PlainPool):
+    """The speculative core sweep on the card (the module docstring's
+    phase 4r): (a) ``Solver(giant_pinned_conflict(250, 8),
+    device="cuda").solve()`` with ``driver.SPEC_CORE`` "1", then "0",
+    twice each in turns: every message the host backend's, the sweep's
+    core certified (no host sweep) when on, the host sweep's when off,
+    each run's wall, the sweep by stage and spec_steps printed; (b) the
+    803-constraint ``giant_unsat()`` with the sweep on, its core
+    ``refs["host_core"]``; (c) the disjoint cores under
+    ``HOST_CORE_NCONS`` 0: the sweep gives None after stage 1 (kernel 7;
+    propagation refutes every single drop), the host sweep answers; (d) ``solve_problems([giant_unsat, pinned(40,
+    4)], split_phases=False)`` with the sweep on and off, the same cores;
+    (e) :func:`sweep_ab`; (f) pinned(40, 4) under ``HOST_CORE_NCONS`` 0 with
+    the sweep on, under each other impl: the bits run's core and steps.
+    Every kernel-8 launch of (b)'s sweep and of (d)'s pinned(40, 4)
+    sweep goes to the pool at its own budget (:func:`sweep_hold`).
+    Counts are set to 0 before (a) and read after (f); then kernels 7 and
+    8 are timed and held against their plain versions
+    (:func:`sweep_compare`).  Returns the path's launches, (the rows
+    pending the pool, the held labels) and the phase's numbers."""
+    import tempfile
+
+    import torch
+
+    from deppy_tpu_torch import engine
+    from deppy_tpu_torch.engine import core, driver
+    from deppy_tpu_torch.models import giant_pinned_conflict
+    from deppy_tpu_torch.sat.encode import encode
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"spec timings on {card}", flush=True)
+    numbers, part_s = {}, {}
+    giant_vars = giant_pinned_conflict(*SWEEP_GIANT, seed=0)
+    host_ans, host_s = _host_answer(giant_vars)
+    torch.cuda.synchronize()
+    engine.reset_launch_counts()
+
+    # Part a: the giant pinned conflict, on and off in turns.
+    t0 = time.perf_counter()
+    arms, first = [], None
+    for rep in range(SWEEP_REPS):
+        for spec in ("1", "0"):
+            stats = {}
+            with SweepLog() as log:
+                ans, wall = _sweep_solve(giant_vars, spec, stats)
+            if str(ans) != str(host_ans) or render(ans) != render(host_ans):
+                fail(f"spec a: sweep {spec} answered {ans!r}, the host "
+                     f"backend {host_ans!r}")
+            on = spec == "1"
+            sw = log.sweeps[0] if log.sweeps else None
+            if on and (sw is None or sw["mask"] is None or log.host
+                       or log.kernels().keys() != {"probe_fixpoint",
+                                                   "probe_dpll"}):
+                fail(f"spec a: with the sweep on, the sweep gave "
+                     f"{sw and sw['mask']!r}, {len(log.host)} host sweeps, "
+                     f"launches {log.kernels()}")
+            if not on and (log.sweeps or len(log.host) != 1):
+                fail(f"spec a: with the sweep off, {len(log.sweeps)} sweeps "
+                     f"and {len(log.host)} host sweeps ran")
+            first = first or sw
+            arms.append(dict(
+                spec=spec, wall_s=wall, steps=stats["steps"],
+                sweep_s=sw and sw["wall_s"], spec_steps=sw and sw["steps"],
+                host_sweep_s=log.host[0] if log.host else None,
+                launches=log.kernels(),
+                lanes=[x["lanes"] for x in log.launches]))
+            print(f"spec a giant_pinned_conflict{SWEEP_GIANT} rep {rep} "
+                  f"sweep {'on' if on else 'off'}: {wall:.4f} s, steps "
+                  f"{stats['steps']}; "
+                  + (sweep_text(sw) + f"; launches {log.kernels()}" if on
+                     else f"host sweep {log.host[0]:.4f} s")
+                  + f" [{card}]", flush=True)
+    part_s["a"] = time.perf_counter() - t0
+    ons = [a["wall_s"] for a in arms if a["spec"] == "1"]
+    offs = [a["wall_s"] for a in arms if a["spec"] == "0"]
+    numbers["a"] = dict(arms=arms, host_backend_s=host_s,
+                        on_s=ons, off_s=offs)
+    print(f"spec a: on {_med(ons)}, off {_med(offs)}, the host backend "
+          f"{host_s:.4f} s; core {str(host_ans)!r} [{card}]", flush=True)
+
+    # Part b: the 803-constraint giant with the sweep on.
+    t0 = time.perf_counter()
+    with SweepLog() as log:
+        ans, wall = _sweep_solve(giant_unsat(), "1")
+    if (render(ans) != render(refs["host_core"]) or len(log.sweeps) != 1
+            or log.sweeps[0]["mask"] is None or log.host):
+        fail(f"spec b: giant_unsat with the sweep on answered {ans!r} "
+             f"(sweeps {len(log.sweeps)}, host sweeps {len(log.host)})")
+    held = sweep_hold(card, "giant_unsat", log.sweeps[0], plain)
+    part_s["b"] = time.perf_counter() - t0
+    numbers["b"] = dict(wall_s=wall, spec_steps=log.sweeps[0]["steps"])
+    print(f"spec b giant_unsat: {wall:.4f} s; {sweep_text(log.sweeps[0])} "
+          f"[{card}]", flush=True)
+
+    # Part c: the disjoint cores: the sweep proves nothing.
+    t0 = time.perf_counter()
+    ncons0 = driver.HOST_CORE_NCONS
+    driver.HOST_CORE_NCONS = 0
+    try:
+        with SweepLog() as log:
+            ans, wall = _sweep_solve(disjoint_cores(), "1")
+    finally:
+        driver.HOST_CORE_NCONS = ncons0
+    want, _ = _host_answer(disjoint_cores())
+    if (render(ans) != render(want) or len(log.sweeps) != 1
+            or log.sweeps[0]["mask"] is not None or len(log.host) != 1
+            or "probe_fixpoint" not in log.kernels()):
+        fail(f"spec c: the disjoint cores answered {ans!r} (the host "
+             f"backend {want!r}); sweeps {[s['mask'] for s in log.sweeps]}"
+             f", host sweeps {len(log.host)}, launches {log.kernels()}")
+    part_s["c"] = time.perf_counter() - t0
+    print(f"spec c disjoint cores under HOST_CORE_NCONS 0: "
+          f"{sweep_text(log.sweeps[0])}; the host sweep answered in "
+          f"{log.host[0] * 1e3:.3f} ms; launches {log.kernels()} "
+          f"[{card}]", flush=True)
+
+    # Part d: the monolith route over a batch.
+    t0 = time.perf_counter()
+    batch = [encode(giant_unsat()),
+             encode(giant_pinned_conflict(*SWEEP_SMALL, seed=0))]
+    cores = {}
+    for spec in ("1", "0"):
+        driver.SPEC_CORE = spec
+        try:
+            with SweepLog() as log:
+                res = driver.solve_problems(batch, split_phases=False,
+                                            device="cuda")
+        finally:
+            driver.SPEC_CORE = "auto"
+        cores[spec] = [tuple(r.core.nonzero()[:, 0].tolist()) for r in res]
+        n_sweeps = sum(s["mask"] is not None for s in log.sweeps)
+        if [r.outcome for r in res] != [core.UNSAT] * 2 or (
+                n_sweeps != (2 if spec == "1" else 0)):
+            fail(f"spec d: sweep {spec}: outcomes "
+                 f"{[r.outcome for r in res]}, {n_sweeps} sweeps")
+        if spec == "1":
+            held += sweep_hold(card, "pinned_40_4", next(
+                s for s in log.sweeps
+                if s["n_cons"] == batch[1].n_cons), plain)
+    if cores["1"] != cores["0"]:
+        fail(f"spec d: the monolith batch's cores differ with the sweep on "
+             f"({cores['1']}) and off ({cores['0']})")
+    part_s["d"] = time.perf_counter() - t0
+    print(f"spec d solve_problems([giant_unsat, giant_pinned_conflict"
+          f"{SWEEP_SMALL}], split_phases=False): cores {cores['1']} on and "
+          f"off, {part_s['d']:.3f} s [{card}]", flush=True)
+
+    # Part e: the A/B and its record.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        numbers["e"] = sweep_ab(card, tmp)
+    part_s["e"] = time.perf_counter() - t0
+
+    # Part f: the other impls on the small pinned catalog.
+    t0 = time.perf_counter()
+    small = giant_pinned_conflict(*SWEEP_SMALL, seed=0)
+    want, _ = _host_answer(small)
+    driver.HOST_CORE_NCONS = 0
+    keys = {}
+    try:
+        for impl in ("auto",) + SWEEP_IMPLS:
+            core.set_bcp_impl(impl)
+            stats = {}
+            with SweepLog() as log:
+                ans, wall = _sweep_solve(small, "1", stats)
+            keys[impl] = (render(ans), stats["steps"],
+                          log.sweeps[0]["steps"] if log.sweeps else None)
+            if render(ans) != render(want) or keys[impl] != keys["auto"]:
+                fail(f"spec f: under {impl} the sweep's answer and steps "
+                     f"{keys[impl][1:]} differ from bits' {keys['auto'][1:]}"
+                     f" or the host's core")
+    finally:
+        core.set_bcp_impl("auto")
+        driver.HOST_CORE_NCONS = ncons0
+    part_s["f"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = engine.launch_counts()
+    by_impl = {k: v for k, v in engine.impl_launch_counts().items()
+               if k.startswith("probe")}
+    if any(set(v) != {"bits"} | set(SWEEP_IMPLS) for v in by_impl.values()):
+        fail(f"spec f: the probe kernels did not launch under every impl: "
+             f"{by_impl}")
+    print(f"spec f giant_pinned_conflict{SWEEP_SMALL} under bits and "
+          f"{SWEEP_IMPLS}: steps {keys['auto'][1]} (spec_steps "
+          f"{keys['auto'][2]}) each; probe launches by impl {by_impl} "
+          f"[{card}]", flush=True)
+
+    # The kernels against their plain versions.
+    t0 = time.perf_counter()
+    pending = sweep_compare(card, encode(giant_vars), first, plain)
+    part_s["compare"] = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_phase
+    numbers.update(seconds=seconds, part_s=part_s)
+    print(f"spec path: {seconds:.1f} s (" + ", ".join(
+        f"{p} {v:.1f}" for p, v in part_s.items()) + f"); launches "
+          f"{launches} [{card}]", flush=True)
+    return launches, (pending, held), numbers
+
+
 CLAUSE_SLOTS = (4, 2, 1)   # part b: slots of the one card the giant is cut over
 CLAUSE_SHARDS = (1, 2, 4)  # part a: shard counts the kernel is held at
 CLAUSE_MANY = 20           # part a: and the small catalog at as many slots
@@ -9299,7 +9886,9 @@ KERNEL_SYMBOLS = {"bcp_fixpoint": ("bcp_kernel", "bcp_warp_kernel"),
                   "minimize": ("minimize_kernel", "minimize_warp_kernel"),
                   "core": ("core_kernel", "core_warp_kernel"),
                   "shard_round": ("grid_fixpoint_kernel",
-                                  "card_round_kernel")}
+                                  "card_round_kernel"),
+                  "probe_fixpoint": ("probe_fixpoint_kernel",),
+                  "probe_dpll": ("probe_dpll_kernel",)}
 
 
 def _device_ms(prof, symbols):
@@ -9821,7 +10410,10 @@ def _plain_task(module: str, fn: str, args, kwargs):
     kwargs = {k: _unwire(v) for k, v in kwargs.items()}
     w0 = _plain_work()
     t0 = time.perf_counter()
-    out = [x.numpy() for x in getattr(mod, fn)(*args, **kwargs)]
+    res = getattr(mod, fn)(*args, **kwargs)
+    if isinstance(res, torch.Tensor):
+        res = (res,)
+    out = [x.numpy() for x in res]
     return out, _work_since(w0), time.perf_counter() - t0
 
 
@@ -9832,6 +10424,17 @@ class _Wire(NamedTuple):
     one socket exchange with this process for each tensor."""
     array: object
     fields: object
+
+
+class _Whole(NamedTuple):
+    """One problem's ``ProblemTensors`` (no batch axis) that every lane of
+    a pool task shares, as numpy arrays: sent whole, never cut."""
+
+    fields: object
+
+    @classmethod
+    def of(cls, pt) -> "_Whole":
+        return cls([f.cpu().numpy() for f in pt])
 
 
 def _lanes(x, lo: int, hi: int):
@@ -9859,6 +10462,8 @@ def _unwire(x):
 
     from deppy_tpu_torch.engine import core
 
+    if isinstance(x, _Whole):
+        return core.ProblemTensors(*[torch.from_numpy(f) for f in x.fields])
     if not isinstance(x, _Wire):
         return x
     if x.fields is not None:
@@ -10626,12 +11231,14 @@ def finish_impl_rows(rows: dict, pending: dict, plain: PlainPool) -> None:
 
 
 # The family whose numbers stand in the summary line for each kernel: the
-# headline fleet for kernels 1, 3 and 4, and the UNSAT-heavy fleet for the
-# core kernel (the only family where phase 3 carries the load).
+# headline fleet for kernels 1, 3 and 4, the UNSAT-heavy fleet for the
+# core kernel (the only family where phase 3 carries the load), and
+# giant_pinned_conflict(250, 8) for the speculative sweep's probes.
 SUMMARY_FAMILY = {"bcp_fixpoint": "gvk_fleet",
                   "blockwise_fixpoint": "giant", "search": "gvk_fleet",
                   "minimize": "gvk_fleet", "core": "pinned_tenant",
-                  "shard_round": "giant"}
+                  "shard_round": "giant", "probe_fixpoint": "giant_pinned",
+                  "probe_dpll": "giant_pinned"}
 SOURCES = {
     "bcp_fixpoint": ("deppy_tpu_torch/engine/csrc/bcp.cu",
                      "deppy_tpu/engine/pallas_bcp.py:92"),
@@ -10646,6 +11253,20 @@ SOURCES = {
     # No pallas_call site: the reference's XLA round under clause_axis.
     "shard_round": ("deppy_tpu_torch/engine/csrc/shard_round.cu",
                     "deppy_tpu/engine/core.py:361"),
+    # No pallas_call site: the reference's vmapped XLA probes.
+    "probe_fixpoint": ("deppy_tpu_torch/engine/csrc/probe.cu",
+                       "deppy_tpu/engine/core.py:1754"),
+    "probe_dpll": ("deppy_tpu_torch/engine/csrc/probe.cu",
+                   "deppy_tpu/engine/core.py:1786"),
+}
+# The summary's note on each kernel with no pallas_call site.
+NOTES = {
+    "shard_round": "no pallas_call site: the reference's XLA round_planes "
+                   "under clause_axis",
+    "probe_fixpoint": "no pallas_call site: the reference's vmapped XLA "
+                      "probe_fixpoint_phase",
+    "probe_dpll": "no pallas_call site: the reference's vmapped XLA "
+                  "probe_phase",
 }
 
 
@@ -10677,6 +11298,8 @@ PATH_KERNELS = {
     "fleet": INC_KERNELS,
     "mesh": INC_KERNELS,
     "cli": FUSED_KERNELS,
+    "spec": ("bcp_fixpoint", "search", "minimize", "probe_fixpoint",
+             "probe_dpll"),
     "clause": ("shard_round",),
 }
 
@@ -10776,6 +11399,10 @@ def main(argv=None) -> int:
             args.scale, plain)
         scripted = {k: v + cli_scripted[k] for k, v in scripted.items()}
         stamp("cli path")
+        (by_path["spec"], (sweep_pending, sweep_held),
+         per_family["spec"]) = run_spec_path(
+            args.scale, clause_refs, plain)
+        stamp("spec path")
         per_family["profile"] = bits = profile_chunk(args.scale)
         per_family["profile_watched"] = watched = profile_chunk(
             args.scale, impl="watched")
@@ -10804,6 +11431,7 @@ def main(argv=None) -> int:
         print(f"{n} comparisons against plain versions in the pool checked "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
         finish_impl_rows(arm_rows, pending, plain)
+        finish_sweep_rows(rows, sweep_pending, plain, sweep_held)
         stamp("pool comparisons")
         # Last, with the pool's workers idle: the clause path's runners
         # rendezvous every round over gloo, and a host whose cores the
@@ -10868,9 +11496,7 @@ def main(argv=None) -> int:
             ms=m["ms"], wrapper_ms=m["wrapper_ms"], plain_ms=m["plain_ms"],
             bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None, family=fam,
-            **({"note": "no pallas_call site: the reference's XLA "
-                "round_planes under clause_axis"} if k == "shard_round"
-               else {}),
+            **({"note": NOTES[k]} if k in NOTES else {}),
             by_family=rows[k]["families"],
             **({"teams": rows[k]["teams"]} if "teams" in rows[k] else {}),
             **({"trace_ms": trace_times} if k == "search" else {})))

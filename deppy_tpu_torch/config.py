@@ -394,6 +394,19 @@ _DECLARATIONS: List[EnvVar] = [
     _v("DEPPY_GPU_HOST_CORE_NCONS", "int", 768, _P + "engine.driver",
        "Constraint count above which UNSAT-core extraction routes to "
        "the host engine (read at import; malformed raises)."),
+    _v("DEPPY_GPU_SPEC_CORE", "str", "auto", _P + "engine.driver",
+       "Speculative core sweep of a giant UNSAT core (the monolith route "
+       "without a mesh): '1' forces it on; 'auto' is on only when the "
+       "measured-defaults registry holds a spec_core row of 'on' for the "
+       "platform; any other value is off (read at import)."),
+    _v("DEPPY_GPU_SPEC_CORE_CAP", "int", 32768, _P + "engine.driver",
+       "Step budget of one stage-2 or verification launch of the "
+       "speculative sweep (min with the solve's remaining budget; a lane "
+       "capped out falls back to the host sweep; read at import)."),
+    _v("DEPPY_GPU_PROBE_LANES", "int", 512, _P + "engine.driver",
+       "Lane width of one stage-1 launch of the speculative sweep, and "
+       "the bound of a stage-2 launch (read at import; malformed "
+       "raises)."),
     _v("DEPPY_GPU_BANK_OCC_CAP", "int", 0, _P + "engine.driver",
        "Watched-bank occurrence-width cap: a bucket whose max "
        "per-literal clause count exceeds it keeps dummy banks and runs "

@@ -4,16 +4,17 @@
 versions of the kernels, :mod:`.clause_bank` the watched impl's clause
 bank and its plain fixpoint, :mod:`.cuda_bcp`, :mod:`.cuda_blockwise` and
 :mod:`.cuda_search` the kernel wrappers of the fused phases,
-:mod:`.cuda_shard` that of the clause-sharded round, :mod:`.counts`
+:mod:`.cuda_shard` that of the clause-sharded round, :mod:`.cuda_probe`
+those of the speculative core sweep's probes, :mod:`.counts`
 their launch counts, :mod:`.teams` the shape rule that picks the team of
 kernels 1, 4 and 5, and :mod:`.driver` the batched resolve path.
 """
 
-from . import (counts, cuda_bcp, cuda_blockwise, cuda_search,  # noqa: F401
-               cuda_shard)
+from . import (counts, cuda_bcp, cuda_blockwise, cuda_probe,  # noqa: F401
+               cuda_search, cuda_shard)
 
 KERNELS = ("bcp_fixpoint", "blockwise_fixpoint", "search", "minimize",
-           "core", "shard_round")
+           "core", "shard_round", "probe_fixpoint", "probe_dpll")
 
 
 def launch_counts() -> dict:

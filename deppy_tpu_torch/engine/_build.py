@@ -25,7 +25,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("bcp.cu", "blockwise.cu", "search.cu", "minimize.cu", "core.cu",
-           "shard_round.cu")
+           "shard_round.cu", "probe.cu")
 HEADERS = ("fixpoint.cuh", "watched.cuh", "blockwise.cuh", "dpll.cuh",
            "warp.cuh", "grid_fixpoint.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -90,9 +90,12 @@ _SIGNATURES = {
     "deppy_card_table": [_P, _P, _I, _P],
     "deppy_card_round": [_P] + [_I] * 3 + [_P, _I, _P, _I, _I, _P],
     "deppy_grid_fixpoint": [_P] + [_I] * 3 + [_P, _I, _P, _I, _P, _I, _P],
+    "deppy_probe_fixpoint": [_P] * 11 + [_I] * 11 + [_P] * 2,
+    "deppy_probe_dpll": [_P] * 10 + [_I] * 2 + [_P] * 3 + [_I] * 12 + [_P] * 2,
     "deppy_search_scratch_words": [_I] * 3,
     "deppy_minimize_scratch_words": [_I] * 2,
     "deppy_core_scratch_words": [_I] * 2,
+    "deppy_probe_scratch_words": [_I] * 2,
     "deppy_bcp_warp_smem_bytes": [_I] * 3,
     "deppy_minimize_warp_smem_bytes": [_I] * 5,
     "deppy_core_warp_smem_bytes": [_I] * 6,

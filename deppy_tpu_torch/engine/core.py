@@ -1260,6 +1260,127 @@ def core_phase(pt: ProblemTensors, budget: int, steps: int,
     return active, steps
 
 
+# --------------------------------------------------------------------------
+# speculative deletion probes (core.py:1740-1808; driver._speculative_core_mask)
+#
+# One giant problem's deletion sweep turned inside out: every single-drop
+# probe of ONE shared problem is a lane, and only the lane's drop index or
+# activation mask differs.  Stage 1 settles most probes with a search-free
+# fixpoint, stage 2 finishes the rest with full DPLL lanes.  On a CUDA
+# tensor the batched forms launch kernels 7 and 8 (``csrc/probe.cu``,
+# :mod:`.cuda_probe`); on the CPU they loop the one-lane probes here.
+
+
+def _probe_space(pt: ProblemTensors, NCON: int, block_rows: int, impl: str):
+    """(NV, V, W, space) of the probes: the full plane space, as in the
+    core phase."""
+    V, W = _phase_space(pt, False, NCON)
+    return pt.var_choices.shape[0], V, W, _space(pt, False, block_rows, impl)
+
+
+def _probe_entry(pt: ProblemTensors, act_enabled: torch.Tensor, V: int,
+                 W: int, NCON: int):
+    """Unsigned (t, f) of a probe's base assignment: the ``act_enabled``
+    activations true, the others unassigned, padding false, anchors NOT
+    assumed (host ``unsat_core_mask``'s probe convention)."""
+    init = _base_assignment(pt, V, NCON, act_enabled=act_enabled)
+    return (_to_u(pack_mask(init == TRUE, W)),
+            _to_u(pack_mask(init == FALSE, W)))
+
+
+def probe_fixpoint_phase(pt: ProblemTensors, drop_j: int, *, NCON: int,
+                         block_rows: int = 0, impl: str = "bits") -> bool:
+    """Stage-1 probe (core.py:1754-1773): the fixpoint of the single-drop
+    probe's base assignment, every applied constraint active but
+    ``drop_j``.  True proves the probe UNSAT outright; False leaves it
+    undetermined.  ``block_rows`` and ``impl`` as in :class:`_Space`."""
+    _, V, W, S = _probe_space(pt, NCON, block_rows, impl)
+    return _probe_fixpoint(pt, S, int(drop_j), V, W, NCON)
+
+
+def _probe_fixpoint(pt, S: _Space, drop_j: int, V: int, W: int,
+                    NCON: int) -> bool:
+    idx = torch.arange(NCON, device=pt.n_vars.device)
+    t, f = _probe_entry(pt, (idx < pt.n_cons) & (idx != drop_j), V, W, NCON)
+    zero = torch.zeros(W, dtype=_I64, device=t.device)
+    return _fixpoint_u(S, t, f, zero, 0, True)[0]
+
+
+def probe_phase(pt: ProblemTensors, act_enabled: torch.Tensor, budget: int,
+                *, NCON: int, block_rows: int = 0, impl: str = "bits"):
+    """Stage-2 probe (core.py:1786-1799): complete DPLL from 0 steps under
+    the activation subset ``act_enabled`` bool[NCON], the probe the core
+    phase runs per trial.  Returns (status, steps)."""
+    NV, V, W, S = _probe_space(pt, NCON, block_rows, impl)
+    return _probe_dpll(pt, S, act_enabled, int(budget), NV, V, W, NCON)
+
+
+def _probe_dpll(pt, S: _Space, act_enabled, budget: int, NV: int, V: int,
+                W: int, NCON: int):
+    dev = pt.n_vars.device
+    pvb = _to_u(pack_mask(torch.arange(V, device=dev) < pt.n_vars, W))
+    t, f = _probe_entry(pt, act_enabled, V, W, NCON)
+    zero = torch.zeros(W, dtype=_I64, device=dev)
+    status, _, _, steps = dpll(S, pvb, t, f, zero, 0, budget, 0, NV, True)
+    return status, steps
+
+
+def batched_probe_fixpoint(pt: ProblemTensors, drops: torch.Tensor, *,
+                           NCON: int, block_rows: int = 0,
+                           impl: str = "bits", rows=None) -> torch.Tensor:
+    """Stage 1 over lanes (core.py:1776-1783): ``pt`` is one problem
+    (no batch axis), shared by every lane, and ``drops`` int32[P] the
+    lanes' drop indices (a lane with ``j >= n_cons`` probes the full
+    set).  Returns conflict bool[P].  A CUDA ``drops`` launches kernel 7
+    (:func:`.cuda_probe.batched_probe_fixpoint`, which takes ``rows``);
+    a CPU one runs :func:`probe_fixpoint_lanes`."""
+    if drops.device.type != "cpu":
+        from . import cuda_probe
+
+        return cuda_probe.batched_probe_fixpoint(
+            pt, drops, NCON=NCON, block_rows=block_rows, impl=impl,
+            rows=rows)
+    return probe_fixpoint_lanes(pt, drops, NCON=NCON, block_rows=block_rows,
+                                impl=impl)
+
+
+def probe_fixpoint_lanes(pt: ProblemTensors, drops: torch.Tensor, *,
+                         NCON: int, block_rows: int = 0,
+                         impl: str = "bits") -> torch.Tensor:
+    """Kernel 7's plain version: :func:`probe_fixpoint_phase` a lane."""
+    _, V, W, S = _probe_space(pt, NCON, block_rows, impl)
+    return torch.tensor([_probe_fixpoint(pt, S, j, V, W, NCON)
+                         for j in drops.tolist()], dtype=torch.bool)
+
+
+def batched_probe(pt: ProblemTensors, masks: torch.Tensor, budget: int, *,
+                  NCON: int, block_rows: int = 0, impl: str = "bits",
+                  rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2 over lanes (core.py:1802-1808): ``pt`` one shared problem,
+    ``masks`` bool[Q, NCON] the lanes' activation subsets, one
+    ``budget`` for every lane.  Returns (status int32[Q], steps
+    int32[Q]).  A CUDA ``masks`` launches kernel 8
+    (:func:`.cuda_probe.batched_probe`); a CPU one runs
+    :func:`probe_lanes`."""
+    if masks.device.type != "cpu":
+        from . import cuda_probe
+
+        return cuda_probe.batched_probe(
+            pt, masks, budget, NCON=NCON, block_rows=block_rows, impl=impl,
+            rows=rows)
+    return probe_lanes(pt, masks, budget, NCON=NCON, block_rows=block_rows,
+                       impl=impl)
+
+
+def probe_lanes(pt: ProblemTensors, masks: torch.Tensor, budget: int, *,
+                NCON: int, block_rows: int = 0, impl: str = "bits"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 8's plain version: :func:`probe_phase` a lane."""
+    NV, V, W, S = _probe_space(pt, NCON, block_rows, impl)
+    out = [_probe_dpll(pt, S, m, int(budget), NV, V, W, NCON) for m in masks]
+    return (torch.tensor([s for s, _ in out], dtype=_I32),
+            torch.tensor([n for _, n in out], dtype=_I32))
+
 
 def warm_check_phase(clauses: torch.Tensor, card_ids: torch.Tensor,
                      card_n: torch.Tensor, card_valid: torch.Tensor,

@@ -20,7 +20,10 @@ without a mesh:
    (more than :data:`HOST_CORE_NCONS` applied constraints) from the host
    spec engine, the rest gathered into chunks of their own, their
    full-space planes derived, and phase 3 run on the device — routed
-   exactly as the reference routes them (:func:`_core_routes`);
+   exactly as the reference routes them (:func:`_core_routes`); on the
+   monolith route without a mesh a giant core first tries the
+   speculative sweep (:func:`_speculative_core_mask`, kernels 7 and 8)
+   when :data:`SPEC_CORE` turns it on;
 6. :func:`decode_results` maps lanes back to variables.
 
 The fault envelope (driver.py:1330-1516): every dispatch attempt passes
@@ -110,7 +113,8 @@ from ..sat.constraints import Variable
 from ..sat.encode import Problem, encode
 from ..sat.errors import Incomplete, InternalSolverError, NotSatisfiable
 from ..sat.host import HostEngine
-from . import _build, clause_bank, core, cuda_blockwise, cuda_search
+from . import _build, clause_bank, core, cuda_blockwise
+from . import cuda_search, defaults
 
 # Default step budget when the caller sets none (driver.py:55).
 DEFAULT_MAX_STEPS = 1 << 24
@@ -128,6 +132,19 @@ SPLIT_RATIO = _size_classes.SPLIT_RATIO
 # probes beat a device deletion loop on giant problems, and the answer is
 # the same core.
 HOST_CORE_NCONS = int(config.env_raw("DEPPY_GPU_HOST_CORE_NCONS", "768"))
+
+# The speculative core sweep (driver.py:626-669): the deletion sweep of
+# ONE giant problem as lanes of kernels 7 and 8 (csrc/probe.cu), tried
+# before the host sweep on the monolith route without a mesh.
+# PROBE_LANES is the lane width of one stage-1 launch.  SPEC_CORE "1"
+# forces it on; "auto" is on only where the measured-defaults registry
+# holds a ``spec_core`` row of "on" for the solve's platform (the A/B of
+# :mod:`.spec_core_ab` writes it); anything else is off.  SPEC_CORE_CAP is
+# the step budget of one stage-2 or verification launch: a lane capped
+# out reads RUNNING, and the host sweep answers with what is left.
+PROBE_LANES = int(config.env_raw("DEPPY_GPU_PROBE_LANES", "512"))
+SPEC_CORE = config.env_raw("DEPPY_GPU_SPEC_CORE", "auto")
+SPEC_CORE_CAP = int(config.env_raw("DEPPY_GPU_SPEC_CORE_CAP", str(1 << 15)))
 
 # Watched-bank occurrence-width cap (driver.py:425-430; 0 = the bucket's
 # size-class OCC cap): a bucket whose largest per-literal clause count
@@ -403,18 +420,132 @@ def _rows(pts: core.ProblemTensors, sel) -> core.ProblemTensors:
     return core.ProblemTensors(*[x.index_select(0, sel) for x in pts])
 
 
+def _spec_core_enabled(device="cuda") -> bool:
+    """Whether the speculative sweep is tried (driver.py:657-669):
+    :data:`SPEC_CORE` "1", or "auto" with a measured ``spec_core`` row of
+    "on" for ``device``'s platform."""
+    if SPEC_CORE == "1":
+        return True
+    if SPEC_CORE == "auto":
+        return defaults.measured_default("spec_core", device) == "on"
+    return False
+
+
+def _speculative_core_mask(problem: Problem, remaining: int,
+                           device="cuda") -> Tuple[Optional[np.ndarray], int]:
+    """The deletion sweep of ONE giant problem as lanes (driver.py:
+    672-762): every single-drop probe a lane of stage 1's fixpoint
+    (kernel 7), the probes propagation leaves open a lane of stage 2's
+    DPLL (kernel 8), then one certifying probe.  Returns (core
+    bool[n_cons] or None, steps spent); on None the caller runs the host
+    sweep with what is left of the budget.
+
+    Exactness (trust-but-verify): K = {j : SAT without j} over the full
+    active set is a subset of the spec sweep's core, whatever it dropped
+    before j; if the probe of K alone is UNSAT, the spec sweep drops
+    every j outside K, so its core is exactly K.  If K probes SAT
+    (disjoint cores: the order decides) the sweep proves nothing and
+    returns None.  The probes are the host's: the same base assignment,
+    anchors not assumed.
+
+    Steps: one per stage-1 probe, plus the DPLL steps of the live
+    stage-2 lanes and of the verification lane.  The problem's tensors
+    go to ``device`` once, its full-space planes (or compact rows, bank,
+    raw rows, as the impl reads them) are derived there, and every lane
+    of every launch reads that one copy.  The launches hold only the
+    lanes whose answer is read: the reference pads the last chunk of
+    each stage (tail lanes probing the full set, pad lanes the empty
+    set) so that XLA reuses one program, a launch needs no such reuse,
+    and a lane's answer depends on nothing but its own probe, so the
+    answers and steps are the reference's.  ``P`` and ``Q`` keep the
+    reference's chunking, and with it where the budget is checked."""
+    n = int(problem.n_cons)
+    if n == 0 or remaining <= 0:
+        return None, 0
+    dev = resolve_device(device)
+    d = _Dims([problem], 1)
+    impl = core.resolved_impl()
+    pts = _upload(pad_stack([problem], d, 1), dev)
+    banks = impl == "watched" and d.Ob <= _bank_cap(d)
+    if banks:
+        pts = _derive_banks(pts, d, red=False, full=True)
+    rows = None
+    if dev.type == "cuda" and (impl == "blockwise" or banks):
+        rows = cuda_blockwise.compact_rows(pts.clauses, pts.card_ids, d.Wv)
+    pts = core.with_planes(pts, Wv=d.Wv, Wr=d.Wr, red=False,
+                           full=cuda_search.reads_planes(impl, dev.type,
+                                                         banks))
+    pt = core.lane(pts, 0)
+    kw = dict(NCON=d.NCON, impl=impl, block_rows=cuda_blockwise.BLOCK_ROWS,
+              rows=rows)
+    steps = 0
+
+    # Stage 1: one fixpoint per single-drop probe; a conflict proves the
+    # probe UNSAT with no search.  Every launch goes out before the one
+    # read back.
+    P = min(PROBE_LANES, _bucket(n))
+    flags = [core.batched_probe_fixpoint(
+        pt, torch.arange(lo, min(lo + P, n), dtype=torch.int32, device=dev),
+        **kw) for lo in range(0, n, P)]
+    conflict = torch.cat(flags).cpu().numpy()
+    steps += n
+
+    # Stage 2: the probes propagation left open, as DPLL lanes.
+    pend = np.nonzero(~conflict)[0]
+    status = np.full(n, core.UNSAT, np.int32)
+    budget = min(remaining, SPEC_CORE_CAP)
+    if pend.size:
+        if pend.size > max(n // 2, PROBE_LANES):
+            return None, steps  # propagation settled little: wrong case
+        Q = min(_bucket(min(pend.size, PROBE_LANES)), PROBE_LANES)
+        idx32 = np.arange(d.NCON, dtype=np.int32)
+        for lo in range(0, pend.size, Q):
+            live = pend[lo: lo + Q]
+            trials = (idx32[None, :] < n) & (idx32[None, :] != live[:, None])
+            st, sp = core.batched_probe(
+                pt, torch.from_numpy(trials).to(dev), budget, **kw)
+            st, sp = st.cpu().numpy(), sp.cpu().numpy()
+            status[live] = st
+            steps += int(sp.sum())
+            if steps > remaining:
+                return None, steps
+        if (status[pend] == core.RUNNING).any():
+            return None, steps  # budget pressure: the host sweep decides
+
+    keep = status == core.SAT
+    if not keep.any():
+        return None, steps  # every single drop stays UNSAT: order decides
+
+    # Verification: K UNSAT implies the spec sweep's core is exactly K.
+    vt = np.zeros((1, d.NCON), bool)
+    vt[0, :n] = keep
+    st, sp = (x.cpu().numpy() for x in core.batched_probe(
+        pt, torch.from_numpy(vt).to(dev), budget, **kw))
+    steps += int(sp[0])
+    if int(st[0]) != core.UNSAT or steps > remaining:
+        return None, steps
+    return keep, steps
+
+
 def _host_core_rows(problems: Sequence[Problem], idx: np.ndarray,
-                    NCON: int, budget: int,
-                    spent: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Host-engine cores for the lanes ``idx`` (driver.py:765-826, without
-    the speculative stage, which the reference leaves off unmeasured).
+                    NCON: int, budget: int, spent: np.ndarray,
+                    allow_device: bool = False, device="cuda"
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-engine cores for the lanes ``idx`` (driver.py:765-826).
     Returns (cores bool[len(idx), NCON], steps int64[len(idx)]): steps to
     ADD to each lane's count.  Each lane's engine gets only the budget
     left after its device search (``spent``); a lane with nothing left
     takes one step, and an engine that runs out takes ``remaining + 1``,
     so the caller's ``steps > budget`` check turns the lane Incomplete
     exactly as the device core phase would.  Every lane routed here counts
-    (driver.py:793-799)."""
+    (driver.py:793-799), the speculative sweep's included.
+
+    ``allow_device`` (the monolith route without a mesh; the split path,
+    a mesh's slots and the clause path keep the host sweep) first tries
+    :func:`_speculative_core_mask` on ``device`` when
+    :func:`_spec_core_enabled`; its None falls back to the host sweep
+    with the sweep's steps charged.  A kernel defect raises through
+    here: it never turns into the host sweep."""
     telemetry.default_registry().counter(
         "deppy_host_fallback_rows_total",
         "UNSAT rows whose core extraction routed to the host spec engine.",
@@ -429,10 +560,21 @@ def _host_core_rows(problems: Sequence[Problem], idx: np.ndarray,
         if remaining <= 0:
             steps[r] = 1
             continue
-        eng = HostEngine(problems[i], max_steps=remaining)
+        spec_steps = 0
+        if allow_device and _spec_core_enabled(device):
+            mask, spec_steps = _speculative_core_mask(problems[i], remaining,
+                                                      device)
+            if mask is not None:
+                cores[r, : problems[i].n_cons] = mask
+                steps[r] = spec_steps
+                continue
+            if spec_steps >= remaining:
+                steps[r] = remaining + 1
+                continue
+        eng = HostEngine(problems[i], max_steps=remaining - spec_steps)
         try:
             cores[r, : problems[i].n_cons] = eng.unsat_core_mask()
-            steps[r] = eng.steps
+            steps[r] = spec_steps + eng.steps
         except Incomplete:
             steps[r] = remaining + 1
     return cores, steps
@@ -442,12 +584,13 @@ def _core_routes(problems: Sequence[Problem], unsat_idx: np.ndarray,
                  total: int, monolith: bool
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """(device lanes, host lanes) of the UNSAT lanes, as the reference
-    routes them.  A call with one problem takes its monolith path
-    (driver.py:897, :939-942): every UNSAT lane goes to the host when any
-    problem has more than :data:`HOST_CORE_NCONS` constraints.  A batch
-    takes its split path (driver.py:1076-1105): when UNSAT lanes are more
-    than half of the ``total`` chunk-padded lanes, every one stays on the
-    device; otherwise the lanes past the threshold go to the host."""
+    routes them.  The monolith route (driver.py:897, :939-942; a call
+    with one problem, or ``split_phases=False``): every UNSAT lane goes
+    to the host when any problem has more than :data:`HOST_CORE_NCONS`
+    constraints.  The split route (driver.py:1076-1105): when UNSAT
+    lanes are more than half of the ``total`` chunk-padded lanes, every
+    one stays on the device; otherwise the lanes past the threshold go
+    to the host."""
     if monolith:
         if any(p.n_cons > HOST_CORE_NCONS for p in problems):
             return unsat_idx[:0], unsat_idx
@@ -477,16 +620,21 @@ def _profile_dispatch(t0: float, problems: Sequence[Problem], d: _Dims,
 
 def _solve_split(problems: Sequence[Problem], budget: int,
                  dev: torch.device, monolith: bool,
-                 trace_cap: int = 0) -> List[core.SolveResult]:
+                 trace_cap: int = 0,
+                 allow_device: bool = False) -> List[core.SolveResult]:
     """The three-phase path over one bucket (driver.py:992-1191), with
     the core routing of :func:`_core_routes`; ``trace_cap`` is phase 1's
-    trace depth ``T``.  A call with one problem takes this path too: its
-    dims and chunk width are the reference's monolith's for one problem
-    (driver.py:894-896), so the trip ledger records the same dispatch."""
+    trace depth ``T``.  The monolith route (a call with one problem, or
+    ``split_phases=False``) takes this path too, with the reference's
+    monolith dims and one chunk of every lane (driver.py:894-896), so the
+    trip ledger records the same dispatch; ``allow_device`` (that route
+    without a mesh, driver.py:940-942) lets its host-routed cores try the
+    speculative sweep first (:func:`_host_core_rows`)."""
     prof_t0 = _profile.dispatch_t0()
     prof_steps = None  # the ledger's device-only steps, once host cores land
     n = len(problems)
-    d = _Dims(problems, min(max(n, 1), MAX_LANES))
+    d = _Dims(problems,
+              max(n, 1) if monolith else min(max(n, 1), MAX_LANES))
     CH = d.B
     n_chunks = max(1, -(-n // CH))
     total = n_chunks * CH
@@ -588,7 +736,7 @@ def _solve_split(problems: Sequence[Problem], budget: int,
         steps[idx] = s.cpu().numpy()
     if host_idx.size:
         hc, hs = _host_core_rows(problems, host_idx, d.NCON, budget,
-                                 steps[host_idx])
+                                 steps[host_idx], allow_device, dev)
         cores[host_idx] = hc
         if prof_t0 is not None:
             # The ledger's snapshot before the host engine's core steps
@@ -858,12 +1006,18 @@ def _solve_escalating(impl, problems: Sequence[Problem], budget: int,
 
 def solve_problems(problems: Sequence[Problem],
                    max_steps: Optional[int] = None,
-                   device="cuda", trace_cap: int = 0, mesh=None
-                   ) -> List[core.SolveResult]:
+                   device="cuda", trace_cap: int = 0, mesh=None,
+                   split_phases: Optional[bool] = None,
+                   bucketing: bool = True) -> List[core.SolveResult]:
     """Solve lowered problems as device batches; one
     :class:`core.SolveResult` per problem, on the host.  ``trace_cap`` >
     0 keeps a backtrack trace of that depth per problem
-    (``SolveResult.trace_stack``).
+    (``SolveResult.trace_stack``).  ``split_phases`` (default: on for a
+    batch of more than one problem, off for one; driver.py:1946-1949)
+    picks the split route over the monolith route, whose giant cores may
+    take the speculative sweep; ``bucketing`` (default on) partitions a
+    heterogeneous batch into size classes first, off keeps one dispatch
+    group.
 
     The call runs under the ambient batch deadline (the caller's
     ``deadline_scope``, else ``DEPPY_GPU_BATCH_DEADLINE_S``) and a
@@ -871,9 +1025,8 @@ def solve_problems(problems: Sequence[Problem],
     :class:`telemetry.SolveReport`, made here when none is active (a
     nested call merges into the enclosing one; driver.py:1883-1943);
     read it afterwards with :func:`telemetry.last_report`.  Whether the
-    core phase routes as one problem's (``monolith``) is decided once
-    per call, from its size: a split half or a straggler sub-group keeps
-    it.
+    core phase routes as the monolith's is decided once per call, from
+    ``split_phases``: a split half or a straggler sub-group keeps it.
 
     ``mesh`` (a :class:`deppy_tpu_torch.parallel.Mesh`; the reference's
     ``mesh=``, driver.py:1886-1894) places every dispatch group's lanes
@@ -883,6 +1036,9 @@ def solve_problems(problems: Sequence[Problem],
     for p in problems:
         if p.errors:
             raise InternalSolverError(p.errors)
+    # The speculative sweep runs on the monolith route without a mesh; a
+    # mesh of one slot is still a mesh (driver.py:940-942).
+    spec = mesh is None
     if mesh is not None:
         for d in mesh.distinct():
             resolve_device(d)
@@ -890,17 +1046,21 @@ def solve_problems(problems: Sequence[Problem],
             device, mesh = mesh.devices[0], None
     dev = resolve_device(device) if mesh is None else None
     budget = _budget(max_steps)
-    monolith = len(problems) == 1
+    if split_phases is None:
+        split_phases = len(problems) > 1
+    monolith = not split_phases
 
     def impl(group, group_budget, group_trace_cap):
         if mesh is not None:
             return _solve_placed(group, group_budget, mesh, monolith,
                                  group_trace_cap)
         return _solve_split(group, group_budget, dev, monolith,
-                            trace_cap=group_trace_cap)
+                            trace_cap=group_trace_cap,
+                            allow_device=monolith and spec)
 
     return _solve_entry(
-        problems, lambda: _bucketed(impl, problems, budget, trace_cap),
+        problems, lambda: _bucketed(impl, problems, budget, trace_cap,
+                                    bucketing=bucketing),
         **({"devices": mesh.size} if mesh is not None else {}))
 
 
@@ -937,13 +1097,17 @@ def _solve_entry(problems: Sequence[Problem], solve, **span):
 
 
 def _bucketed(impl, problems: Sequence[Problem], budget: int,
-              trace_cap: int, **fault_domain) -> List[core.SolveResult]:
-    """Each size-class bucket of ``problems`` through the escalation
-    ladder and the fault envelope (``fault_domain``: a mesh slot's
-    breaker, fault point and ``on_fault``; the process's by default)."""
+              trace_cap: int, bucketing: bool = True,
+              **fault_domain) -> List[core.SolveResult]:
+    """Each size-class bucket of ``problems`` (one group when not
+    ``bucketing``) through the escalation ladder and the fault envelope
+    (``fault_domain``: a mesh slot's breaker, fault point and
+    ``on_fault``; the process's by default)."""
     n = len(problems)
     out: List[Optional[core.SolveResult]] = [None] * n
-    for idxs in (partition_buckets(problems) if n > 1 else [list(range(n))]):
+    groups = (partition_buckets(problems) if bucketing and n > 1
+              else [list(range(n))])
+    for idxs in groups:
         sub = _solve_escalating(impl, [problems[i] for i in idxs], budget,
                                 trace_cap, **fault_domain)
         for i, r in zip(idxs, sub):

@@ -603,6 +603,15 @@ ROWS = [
         "deppy_tpu_torch.engine.driver"), "ValueError", None),
     ("DEPPY_GPU_BANK_OCC_CAP", "x1", lambda mp: _import_fails(
         "deppy_tpu_torch.engine.driver"), "ValueError", None),
+    ("DEPPY_GPU_PROBE_LANES", "x1", lambda mp: _import_fails(
+        "deppy_tpu_torch.engine.driver"), "ValueError", None),
+    ("DEPPY_GPU_SPEC_CORE_CAP", "x1", lambda mp: _import_fails(
+        "deppy_tpu_torch.engine.driver"), "ValueError", None),
+    # Only "1" and "auto" mean anything: another value reads as off.
+    ("DEPPY_GPU_SPEC_CORE", "maybe", lambda mp: _import_fails(
+        "deppy_tpu_torch.engine.driver as d; "
+        "assert d.SPEC_CORE == 'maybe' and not d._spec_core_enabled()"),
+     None, None),
     ("DEPPY_GPU_BLOCK_ROWS", "x1", lambda mp: _import_fails(
         "deppy_tpu_torch.engine.cuda_blockwise"), "ValueError", None),
     ("DEPPY_GPU_BCP", "maybe", lambda mp: _import_fails(

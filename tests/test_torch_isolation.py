@@ -606,6 +606,6 @@ def test_build_happens_at_first_use_only():
     assert _build._LIB is None or torch.cuda.is_available()
     assert set(_build.SOURCES) == {"bcp.cu", "blockwise.cu", "search.cu",
                                    "minimize.cu", "core.cu",
-                                   "shard_round.cu"}
+                                   "shard_round.cu", "probe.cu"}
     for name in _build.SOURCES + _build.HEADERS:
         assert (_build.CSRC / name).is_file()

@@ -736,10 +736,10 @@ def test_tracing_disables_escalation(esc_batch, monkeypatch):
         real = DRIVER[package]._solve_split
 
         if package == "port":
-            def spy(problems, budget, dev, monolith, trace_cap=0):
+            def spy(problems, budget, dev, monolith, trace_cap=0, **kw):
                 calls.append((len(problems), int(budget)))
                 return real(problems, budget, dev, monolith,
-                            trace_cap=trace_cap)
+                            trace_cap=trace_cap, **kw)
         else:
             def spy(problems, budget, mesh, trace_cap):
                 calls.append((len(problems), int(budget)))
